@@ -1,0 +1,534 @@
+"""Chip smoke test of the PyTorch port on one NVIDIA GPU.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero, and no result line is printed):
+
+1. build the hand-written kernels (``deeplearning4j_torch/kernels``);
+2. K1, flash-attention forward, against its plain PyTorch version at the
+   slice's shape (f32 causal with and without a key mask, bf16) and at
+   T=2048, d=128, timed beside the plain version and SDPA as a yardstick;
+3. K2, paged-attention read, against its plain gather version: decode (T=1)
+   and a 256-token prefill chunk, f32 and int8 pools, Tmax 512 and 2048,
+   with a row on a page boundary and a row whose block table is all page 0;
+4. the slice model (zoo TransformerLM defaults, numpy-seeded weights) on
+   the card: ``output()`` against a CPU run of the port's plain path;
+5. serving: 16 greedy requests (prompts of 8..300 tokens, 32 new tokens)
+   through ``GenerationServer`` with f32 and then int8 KV pages, each held
+   token for token against the same server with ``paged_attention="stock"``.
+
+The launch counters are zeroed just before phases 4-5 (the main path) and
+read just after; both kernels must have run there. The script prints the
+card's name and power limit, one ``{"kernels": [...]}`` line with each
+kernel's launches, error, times and bound, and, last, the result line
+``{"ok": true, "device": {...}}``. Matmuls run in full f32 (TF32 off).
+
+Options: ``--out DIR`` also writes everything measured to
+``DIR/chip_smoke.json``; ``--verbose-build`` prints the kernel build's
+compiler lines; ``--profile`` adds one f32 serve under ``torch.profiler``
+(device busy time against the wall clock, kernels by device time) after the
+main path, with its table in ``DIR/serve_profile.txt`` when ``--out`` is
+given.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 on
+# the CUDA cores (the kernels run their products there), bf16 tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS_S = {"f32": 67e12, "bf16": 989e12}
+
+SLICE = dict(num_labels=256, max_length=128, d_model=256, n_heads=8,
+             n_blocks=4, max_cache=512)
+SERVER = dict(slots=8, page_size=16, prefill_chunk=256, steps_per_dispatch=4)
+# phase-5 prompt lengths: 8..300 tokens, five past prefill_chunk
+SERVE_LENS = [8, 300, 270, 257, 12, 64, 129, 31, 200, 16, 99, 280, 45, 150,
+              9, 256]
+REPORT: dict = {}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def time_ms(fn, iters=50, warmup=5):
+    """Mean device time of one ``fn()`` from CUDA events around ``iters``
+    calls, after ``warmup`` calls (L2 warm)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes, flops, kind):
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check(ok, what):
+    if not ok:
+        raise AssertionError(what)
+
+
+# ----------------------------------------------------------------- phase 2
+def phase_flash(dev):
+    from deeplearning4j_torch.ops import flash_attention as fa
+
+    F = torch.nn.functional
+    g = torch.Generator(device="cpu").manual_seed(1)
+    results = {}
+
+    def qkv(B, H, T, d, dtype):
+        return [torch.randn(B, H, T, d, generator=g).to(dev, dtype)
+                for _ in range(3)]
+
+    def mask_for(B, T):
+        lens = torch.randint(1, T + 1, (B,), generator=g)
+        lens[0] = T
+        return (torch.arange(T)[None] < lens[:, None]).float().to(dev)
+
+    cases = [("slice_f32_causal", 8, 8, 128, 32, torch.float32, True, False,
+              1e-4),
+             ("slice_f32_causal_mask", 8, 8, 128, 32, torch.float32, True,
+              True, 1e-4),
+             ("slice_f32_full_mask", 8, 8, 128, 32, torch.float32, False,
+              True, 1e-4),
+             ("slice_bf16_causal", 8, 8, 128, 32, torch.bfloat16, True,
+              False, 2e-2),
+             ("long_f32_causal", 2, 8, 2048, 128, torch.float32, True, False,
+              1e-4),
+             # at T=2048 a row averages hundreds of keys and |O| is a few
+             # hundredths, so bf16 is held tighter than at the slice's shape
+             ("long_bf16_causal", 2, 8, 2048, 128, torch.bfloat16, True,
+              False, 8e-3)]
+    for name, B, H, T, d, dtype, causal, masked, atol in cases:
+        q, k, v = qkv(B, H, T, d, dtype)
+        m = mask_for(B, T) if masked else None
+        o, lse = fa.flash_attention_forward(q, k, v, causal=causal, mask=m)
+        po, plse = fa.flash_attention_plain(q, k, v, causal=causal, mask=m)
+        torch.cuda.synchronize()
+        err = (o.float() - po.float()).abs().max().item()
+        lerr = (lse - plse).abs().max().item()
+        check(o.dtype == dtype and torch.isfinite(o.float()).all().item(),
+              f"K1 {name}: dtype or non-finite output")
+        check(err <= atol and lerr <= max(atol, 1e-4),
+              f"K1 {name}: max |O err| {err:.3g}, |lse err| {lerr:.3g} > "
+              f"{atol}")
+        ms = time_ms(lambda: fa.flash_attention_forward(
+            q, k, v, causal=causal, mask=m))
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=causal, mask=m), iters=20)
+        if m is None:
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=causal)
+        else:
+            keep = (m != 0)[:, None, None, :]
+            if causal:
+                keep = keep & torch.ones(T, T, dtype=torch.bool,
+                                         device=dev).tril()
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=keep)
+        sdpa_ms = time_ms(sdpa)
+        isz = torch.tensor([], dtype=dtype).element_size()
+        nbytes = 4 * B * H * T * d * isz + B * H * T * 4 \
+            + (B * T * 4 if masked else 0)
+        pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+        flops = 4 * d * pairs
+        bms, by = bound_ms(nbytes, flops,
+                           "bf16" if dtype == torch.bfloat16 else "f32")
+        results[name] = dict(shape=[B, H, T, d], dtype=str(dtype),
+                             causal=causal, masked=masked, max_abs_err=err,
+                             lse_err=lerr, ms=ms, plain_ms=plain_ms,
+                             library_ms=sdpa_ms, bound_ms=bms, bound_by=by)
+        log(f"  K1 {name:22s} err {err:.2e} lse {lerr:.2e} (atol {atol})  "
+            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
+            f"{sdpa_ms:.4f} ms  bound {bms:.4f} ms ({by})")
+    return results
+
+
+# ----------------------------------------------------------------- phase 3
+def phase_paged(dev):
+    from deeplearning4j_torch.nn.conf.layers import paged_attention as ppa
+
+    g = torch.Generator(device="cpu").manual_seed(2)
+    results = {}
+    B, H, ps, d = 8, 8, 16, 32
+    for Tmax in (512, 2048):
+        NP = Tmax // ps
+        P = B * NP + 1
+        for quant in (False, True):
+            if quant:
+                kp = torch.randint(-127, 128, (P, H, ps, d), generator=g,
+                                   dtype=torch.int8).to(dev)
+                vp = torch.randint(-127, 128, (P, H, ps, d), generator=g,
+                                   dtype=torch.int8).to(dev)
+                ks = (torch.rand(P, H, ps, generator=g) * 0.05).to(dev)
+                vs = (torch.rand(P, H, ps, generator=g) * 0.05).to(dev)
+            else:
+                kp = torch.randn(P, H, ps, d, generator=g).to(dev)
+                vp = torch.randn(P, H, ps, d, generator=g).to(dev)
+                ks = vs = None
+            bt = (torch.randperm(P - 1, generator=g)[:B * NP] + 1).reshape(
+                B, NP).to(torch.int32)
+            bt[B - 1] = 0                      # a row read from page 0 only
+            bt = bt.to(dev)
+            for T in (1, 256):
+                pos = torch.randint(0, Tmax - T + 1, (B,), generator=g)
+                pos[1] = (pos[1] // ps) * ps       # exactly on a page boundary
+                pos = pos.to(torch.int32).to(dev)
+                key_valid = None
+                has_valid = torch.ones(B, H, T, 1, dtype=torch.bool,
+                                       device=dev)
+                if T > 1:
+                    mask = torch.ones(B, T)
+                    mask[2, 100:] = 0              # right padding
+                    mask[B - 1] = 0                # all masked, on page 0
+                    pos[B - 1] = 0
+                    mask = mask.to(dev)
+                    key_valid = ppa._key_valid_plane(mask, pos, T, Tmax)
+                    col = torch.arange(Tmax, device=dev)
+                    row = torch.arange(T, device=dev)
+                    vis = (col[None, None] <= pos.long()[:, None, None]
+                           + row[None, :, None]) & (key_valid[:, None] != 0)
+                    has_valid = vis.any(-1)[:, None, :, None].expand(
+                        B, H, T, 1)
+                q = torch.randn(B, H, T, d, generator=g).to(dev)
+                args = (q, kp, vp, bt, pos)
+                kw = dict(key_valid=key_valid, kscales=ks, vscales=vs)
+                o = ppa.paged_attention(*args, **kw)
+                po = ppa.paged_attention_plain(*args, **kw)
+                torch.cuda.synchronize()
+                check(torch.isfinite(o).all().item(),
+                      "K2: non-finite output (garbage page or masked row)")
+                diff = torch.where(has_valid, (o - po).abs(),
+                                   torch.zeros_like(o))
+                err = diff.max().item()
+                atol = 1e-3 if quant else 1e-4
+                name = (f"{'int8' if quant else 'f32'}_T{T}_Tmax{Tmax}")
+                check(err <= atol, f"K2 {name}: max |err| {err:.3g} > "
+                                   f"{atol}")
+                ms = time_ms(lambda: ppa.paged_attention(*args, **kw))
+                plain_ms = time_ms(lambda: ppa.paged_attention_plain(
+                    *args, **kw), iters=20)
+                # bytes this run's data needs: each distinct (page, offset)
+                # K/V slot the rows walk, read once (row B-1 walks page 0
+                # over and over: its ps slots count once), the walked
+                # block-table entries and plane columns, q, o and pos
+                lim = torch.clamp(pos.long() + T, max=Tmax).tolist()
+                btc = bt.long().cpu()
+                slots = torch.cat([btc[b, torch.arange(n) // ps] * ps
+                                   + torch.arange(n) % ps
+                                   for b, n in enumerate(lim)])
+                distinct = torch.unique(slots).numel()
+                kv_row = d * (1 if quant else 4) + (4 if quant else 0)
+                nbytes = 2 * distinct * H * kv_row + 2 * B * H * T * d * 4 \
+                    + sum(-(-n // ps) for n in lim) * 4 + B * 4 \
+                    + (sum(lim) * 4 if T > 1 else 0)
+                flops = 4 * d * H * sum(
+                    sum(min(p + r + 1, Tmax) for r in range(T))
+                    for p in pos.tolist())
+                bms, by = bound_ms(nbytes, flops, "f32")
+                results[name] = dict(B=B, H=H, T=T, d=d, ps=ps, Tmax=Tmax,
+                                     quant=quant, max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bms,
+                                     bound_by=by, library_ms=None)
+                log(f"  K2 {name:18s} err {err:.2e} (atol {atol})  kernel "
+                    f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+                    f"{bms:.4f} ms ({by})")
+    return results
+
+
+# --------------------------------------------------------------- the model
+def numpy_params(net, seed, gain=2.0):
+    """Seeded weights drawn with numpy, at a gain that keeps the greedy
+    streams varied."""
+    rs = np.random.RandomState(seed)
+    out = {}
+    for v, p in net.params.items():
+        out[v] = {}
+        for k, t in p.items():
+            shp = tuple(t.shape)
+            if k.startswith("W"):
+                a = rs.randn(*shp) * gain / np.sqrt(shp[0])
+            elif k == "gamma":
+                a = 1.0 + 0.1 * rs.randn(*shp)
+            else:
+                a = 0.1 * rs.randn(*shp)
+            out[v][k] = a.astype(np.float32)
+    return out
+
+
+def build_nets():
+    from deeplearning4j_torch.models.zoo import TransformerLM
+    from deeplearning4j_torch.utils.convert import params_from_jax
+
+    net = TransformerLM(**SLICE).init(device="cuda")
+    params = numpy_params(net, seed=0)
+    params_from_jax(params, net)
+    cpu = TransformerLM(**SLICE).init(device="cpu")
+    params_from_jax(params, cpu)
+    return net, cpu
+
+
+def phase_model(net, cpu):
+    from deeplearning4j_torch import kernels
+
+    rs = np.random.RandomState(3)
+    V, T = SLICE["num_labels"], SLICE["max_length"]
+    x = np.eye(V, dtype=np.float32)[rs.randint(0, V, (8, T))]
+    before = kernels.LAUNCHES["flash_fwd"]
+    out = net.output(x)
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["flash_fwd"] - before
+    ref = cpu.output(x)
+    err = (out.cpu() - ref).abs().max().item()
+    check(out.shape == (8, T, V) and torch.isfinite(out).all().item(),
+          "model: output shape or non-finite values")
+    check(err <= 1e-4, f"model: output() vs CPU plain path max |err| "
+                       f"{err:.3g} > 1e-4")
+    check(launches == SLICE["n_blocks"],
+          f"model: K1 launched {launches} times in one output(), expected "
+          f"{SLICE['n_blocks']}")
+    with torch.inference_mode():
+        ms = time_ms(lambda: net.output(x), iters=20)
+    log(f"  output() [8, {T}, {V}]: max |err| vs CPU {err:.2e}, K1 "
+        f"launches {launches}, {ms:.3f} ms")
+    return dict(max_abs_err=err, k1_launches=launches, output_ms=ms)
+
+
+def serve(net, reqs, **kw):
+    from deeplearning4j_torch.parallel.generation import GenerationServer
+
+    srv = GenerationServer(net, SLICE["num_labels"], device="cuda",
+                           **SERVER, **kw)
+    try:
+        t0 = time.perf_counter()
+        futs = [srv.submit(p, n) for p, n in reqs]
+        outs = [f.result(timeout=600).tolist() for f in futs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = srv.stats()
+    finally:
+        srv.close()
+    return outs, wall, stats
+
+
+def top2_gap(net, prompt, tokens):
+    """Log-probability gap between the two best tokens after ``prompt +
+    tokens`` (full-sequence forward), to show how close a divergence was."""
+    V = SLICE["num_labels"]
+    seq = np.concatenate([np.asarray(prompt), np.asarray(tokens, np.int64)])
+    x = np.eye(V, dtype=np.float32)[seq][None]
+    p = net.output(x)[0, -1].double()
+    top = torch.topk(p, 2).values
+    return (torch.log(top[0]) - torch.log(top[1])).item()
+
+
+def phase_serve(net, card):
+    from deeplearning4j_torch import kernels
+
+    rs = np.random.RandomState(4)
+    reqs = [(rs.randint(0, SLICE["num_labels"], n), 32) for n in SERVE_LENS]
+    serve(net, reqs[:2])                              # warm-up
+    results = {}
+    for kv in (None, "int8"):
+        tag = kv or "f32"
+        before = kernels.LAUNCHES["paged_attn"]
+        outs, wall, st = serve(net, reqs, kv_dtype=kv)
+        launches = kernels.LAUNCHES["paged_attn"] - before
+        expect = SLICE["n_blocks"] * (st["prefill_rounds"]
+                                      + SERVER["steps_per_dispatch"]
+                                      * st["decode_steps"])
+        check(launches == expect and launches > 0,
+              f"serve {tag}: K2 launched {launches} times, the schedule "
+              f"needs {expect}")
+        ref, ref_wall, _ = serve(net, reqs, kv_dtype=kv,
+                                 paged_attention="stock")
+        for i, (got, want) in enumerate(zip(outs, ref)):
+            if got != want:
+                k = next(j for j, (a, b) in enumerate(zip(got, want))
+                         if a != b)
+                gap = top2_gap(net, reqs[i][0], want[:k])
+                raise AssertionError(
+                    f"serve {tag}: request {i} diverges from the stock "
+                    f"server at token {k} ({got[k]} vs {want[k]}); top-2 "
+                    f"log-prob gap there {gap:.3g}")
+        ntok = sum(len(o) for o in outs)
+        check(all(len(o) == 32 for o in outs), f"serve {tag}: short output")
+        check(len({t for o in outs for t in o}) > 4,
+              f"serve {tag}: degenerate greedy streams")
+        results[tag] = dict(requests=len(reqs), tokens=ntok, wall_s=wall,
+                            tokens_per_s=ntok / wall, stock_wall_s=ref_wall,
+                            stock_tokens_per_s=ntok / ref_wall,
+                            k2_launches=launches,
+                            prefill_rounds=st["prefill_rounds"],
+                            decode_steps=st["decode_steps"])
+        log(f"  serve {tag}: {len(reqs)} requests, {ntok} tokens in "
+            f"{wall:.3f} s = {ntok / wall:.1f} tok/s (stock paged read: "
+            f"{ntok / ref_wall:.1f} tok/s); K2 launches {launches} "
+            f"({st['prefill_rounds']} prefill rounds, {st['decode_steps']} "
+            f"decode dispatches); tokens equal to stock; [{card}]")
+    return results
+
+
+def profile_serve(net, card, out_dir):
+    """One f32 serve of the phase-5 requests under ``torch.profiler``:
+    device busy time (sum of kernel self times; one stream, so kernels do
+    not overlap) against the wall clock, and the kernels by device time.
+    The table goes to ``out_dir/serve_profile.txt`` (if ``out_dir``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rs = np.random.RandomState(4)
+    reqs = [(rs.randint(0, SLICE["num_labels"], n), 32) for n in SERVE_LENS]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        outs, wall, st = serve(net, reqs)
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    busy_s = sum(dev_us(e) for e in events) / 1e6
+    kernels = sorted(((dev_us(e), e.count, e.key) for e in events
+                      if dev_us(e) > 0), reverse=True)
+    launches = sum(c for _, c, _ in kernels)
+    steps = st["prefill_rounds"] + SERVER["steps_per_dispatch"] \
+        * st["decode_steps"]
+    if out_dir:
+        key = ("self_device_time_total"
+               if hasattr(events[0], "self_device_time_total")
+               else "self_cuda_time_total")
+        with open(os.path.join(out_dir, "serve_profile.txt"), "w") as f:
+            f.write(f"{card}\nwall {wall:.6f} s, device busy {busy_s:.6f} "
+                    f"s\n")
+            f.write(events.table(sort_by=key, row_limit=40))
+    top = [dict(kernel=k[:80], device_ms=us / 1e3, count=c)
+           for us, c, k in kernels[:12]]
+    log(f"  profiled serve f32: wall {wall:.4f} s, device busy "
+        f"{busy_s:.4f} s (idle share {1 - busy_s / wall:.3f}), {launches} "
+        f"kernel launches over {steps} forwards; [{card}]")
+    for t in top[:6]:
+        log(f"    {t['device_ms']:9.3f} ms  x{t['count']:<6d} {t['kernel']}")
+    return dict(wall_s=wall, device_busy_s=busy_s,
+                idle_share=1 - busy_s / wall, kernel_launches=launches,
+                forwards=steps, tokens=sum(len(o) for o in outs), top=top)
+
+
+def kernel_line(flash, paged, launches):
+    k1 = flash["slice_f32_causal"]
+    k2 = paged["f32_T1_Tmax512"]
+    return {"kernels": [
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "deeplearning4j_torch/kernels/flash_fwd.cu",
+         "replaces": "deeplearning4j_tpu/ops/pallas_attention.py:135",
+         "launches": launches["flash_fwd"],
+         "max_abs_err": max(r["max_abs_err"] for n, r in flash.items()
+                            if n.startswith("slice_f32")),
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": k1["library_ms"]},
+        {"name": "paged_attn", "route": "cuda",
+         "source": "deeplearning4j_torch/kernels/paged_attn.cu",
+         "replaces": ("deeplearning4j_tpu/nn/conf/layers/"
+                      "paged_attention.py:226"),
+         "launches": launches["paged_attn"],
+         "max_abs_err": max(r["max_abs_err"] for n, r in paged.items()
+                            if n.startswith("f32") and "Tmax512" in n),
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": None}]}
+
+
+def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="directory for chip_smoke.json and the "
+                    "profile table")
+    ap.add_argument("--verbose-build", action="store_true")
+    ap.add_argument("--profile", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 2
+    from deeplearning4j_torch import kernels
+
+    card = card_line()
+    log(card)
+    dev = torch.device("cuda")
+    REPORT["card"] = card
+    REPORT["torch"] = torch.__version__
+
+    log("phase 1: build the kernels")
+    t0 = time.perf_counter()
+    kernels.load(verbose=args.verbose_build)
+    REPORT["build_s"] = time.perf_counter() - t0
+    log(f"  built in {REPORT['build_s']:.1f} s")
+
+    log("phase 2: K1 flash forward vs its plain version")
+    flash = REPORT["flash_fwd"] = phase_flash(dev)
+    log("phase 3: K2 paged attention vs its plain version")
+    paged = REPORT["paged_attn"] = phase_paged(dev)
+
+    net, cpu = build_nets()
+    kernels.reset_launch_counts()         # the main path starts here
+    log("phase 4: the slice model's output() on the card")
+    REPORT["model"] = phase_model(net, cpu)
+    log("phase 5: serving, f32 then int8 KV pages")
+    REPORT["serve"] = phase_serve(net, card)
+    launches = dict(kernels.LAUNCHES)     # ... and ends here
+    REPORT["main_path_launches"] = launches
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the main path never launched: {launches}")
+
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+    if args.profile:
+        log("profile: one f32 serve under torch.profiler")
+        REPORT["profile"] = profile_serve(net, card, args.out)
+
+    line = kernel_line(flash, paged, launches)
+    if args.out:
+        with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+            json.dump(dict(REPORT, kernels=line["kernels"]), f, indent=1)
+    log(json.dumps(line))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,124 @@
+// PyTorch bindings of the port's kernels: the only source that includes
+// PyTorch's headers (they dominate the build time). Each entry checks its
+// tensors, allocates the outputs, launches on PyTorch's current stream and
+// checks the launch with C10_CUDA_KERNEL_LAUNCH_CHECK().
+#include <ATen/cuda/CUDAContext.h>
+#include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <torch/extension.h>
+
+extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
+                              const float* mask, void* o, float* lse, int B,
+                              int H, int Tlen, int D, int is_bf16, int causal,
+                              cudaStream_t stream);
+extern "C" int dl4j_paged_attn(const float* q, const void* kp, const void* vp,
+                               const float* kscales, const float* vscales,
+                               const int* bt, const int* pos,
+                               const float* key_valid, float* o, int B, int H,
+                               int T, int D, int ps, int NP, int quant,
+                               cudaStream_t stream);
+
+namespace {
+
+void check_cuda(const torch::Tensor& t, const char* name) {
+  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+}
+
+const float* opt_f32(const c10::optional<torch::Tensor>& t, const char* name,
+                     at::IntArrayRef shape) {
+  if (!t.has_value()) return nullptr;
+  check_cuda(*t, name);
+  TORCH_CHECK(t->scalar_type() == torch::kFloat32, name, " must be float32");
+  TORCH_CHECK(t->sizes() == shape, name, " has shape ", t->sizes(),
+              ", expected ", shape);
+  return t->data_ptr<float>();
+}
+
+std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
+                                     torch::Tensor v,
+                                     c10::optional<torch::Tensor> mask,
+                                     bool causal) {
+  check_cuda(q, "q");
+  check_cuda(k, "k");
+  check_cuda(v, "v");
+  TORCH_CHECK(q.dim() == 4, "q must be [B, H, T, d]");
+  TORCH_CHECK(k.sizes() == q.sizes() && v.sizes() == q.sizes(),
+              "q, k, v shapes differ");
+  const auto dt = q.scalar_type();
+  TORCH_CHECK(dt == torch::kFloat32 || dt == torch::kBFloat16,
+              "flash_fwd takes float32 or bfloat16");
+  TORCH_CHECK(k.scalar_type() == dt && v.scalar_type() == dt,
+              "q, k, v dtypes differ");
+  const int B = q.size(0), H = q.size(1), T = q.size(2), D = q.size(3);
+  const float* m = opt_f32(mask, "mask", {B, T});
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto o = torch::empty_like(q);
+  auto lse = torch::empty({(int64_t)B * H, T, 1},
+                          q.options().dtype(torch::kFloat32));
+  const int err = dl4j_flash_fwd(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), m, o.data_ptr(),
+      lse.data_ptr<float>(), B, H, T, D, dt == torch::kBFloat16 ? 1 : 0,
+      causal ? 1 : 0, at::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == 0, "flash_fwd: unsupported configuration (B=", B,
+              ", H=", H, ", T=", T, ", d=", D, "), code ", err);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {o, lse};
+}
+
+torch::Tensor paged_attn(torch::Tensor q, torch::Tensor kp, torch::Tensor vp,
+                         c10::optional<torch::Tensor> kscales,
+                         c10::optional<torch::Tensor> vscales,
+                         torch::Tensor bt, torch::Tensor pos,
+                         c10::optional<torch::Tensor> key_valid) {
+  check_cuda(q, "q");
+  check_cuda(kp, "kpages");
+  check_cuda(vp, "vpages");
+  check_cuda(bt, "block_table");
+  check_cuda(pos, "cache_pos");
+  TORCH_CHECK(q.dim() == 4 && q.scalar_type() == torch::kFloat32,
+              "q must be float32 [B, H, T, d]");
+  TORCH_CHECK(kp.dim() == 4 && vp.sizes() == kp.sizes(),
+              "pools must be [P, H, ps, d] of one shape");
+  const bool quant = kp.scalar_type() == torch::kInt8;
+  TORCH_CHECK(quant || kp.scalar_type() == torch::kFloat32,
+              "pools must be float32 or int8");
+  TORCH_CHECK(vp.scalar_type() == kp.scalar_type(), "pool dtypes differ");
+  const int B = q.size(0), H = q.size(1), T = q.size(2), D = q.size(3);
+  const int P = kp.size(0), ps = kp.size(2);
+  TORCH_CHECK(kp.size(1) == H && kp.size(3) == D,
+              "pool heads/head dim differ from q");
+  TORCH_CHECK(bt.dim() == 2 && bt.size(0) == B &&
+                  bt.scalar_type() == torch::kInt32,
+              "block_table must be int32 [B, NP]");
+  TORCH_CHECK(pos.dim() == 1 && pos.size(0) == B &&
+                  pos.scalar_type() == torch::kInt32,
+              "cache_pos must be int32 [B]");
+  const int NP = bt.size(1);
+  const float* ks = nullptr;
+  const float* vs = nullptr;
+  if (quant) {
+    TORCH_CHECK(kscales.has_value() && vscales.has_value(),
+                "int8 pools need kscales and vscales");
+    ks = opt_f32(kscales, "kscales", {P, H, ps});
+    vs = opt_f32(vscales, "vscales", {P, H, ps});
+  }
+  const float* kv = opt_f32(key_valid, "key_valid", {B, (int64_t)NP * ps});
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto o = torch::empty_like(q);
+  const int err = dl4j_paged_attn(
+      q.data_ptr<float>(), kp.data_ptr(), vp.data_ptr(), ks, vs,
+      bt.data_ptr<int>(), pos.data_ptr<int>(), kv, o.data_ptr<float>(), B, H,
+      T, D, ps, NP, quant ? 1 : 0, at::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == 0, "paged_attn: unsupported configuration (B=", B,
+              ", H=", H, ", T=", T, ", d=", D, ", ps=", ps, "), code ", err);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return o;
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("flash_fwd", &flash_fwd, "K1: flash-attention forward (o, lse)");
+  m.def("paged_attn", &paged_attn, "K2: paged-KV attention read");
+}

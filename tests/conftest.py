@@ -148,6 +148,7 @@ def _output_recompile_guard(request):
 # >5s to tier-1.
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line("markers", "torch_port: PyTorch port parity tests (CPU, plain kernel versions vs the JAX reference)")
     config.addinivalue_line(
         "markers",
         "health: numerical-health guard / NaN-injection tests (CPU-fast; "

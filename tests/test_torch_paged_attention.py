@@ -1,0 +1,200 @@
+"""Port parity: the plain version of the paged-attention kernel K2
+(``deeplearning4j_torch/nn/conf/layers/paged_attention.py``) against the JAX
+package's ``XlaPagedAttention`` and ``PallasPagedAttention`` (interpret mode),
+over f32 and int8 pools and the geometries a block-table walk can get wrong:
+decode at T=1, a chunk straddling two pages, positions exactly on a page
+boundary, and an all-masked chunk routed to garbage page 0. Also the int8
+codes of ``_quantize_kv`` and the pool contents after ``_paged_forward``'s
+write.
+
+Tolerance: atol 1e-5 on the context (f32; sums reduce in another order on
+the two sides). Quantization codes and written pools must be equal exactly:
+the write test uses identity K/V projections, so both sides quantize the
+same f32 values. The CUDA kernel is held against this plain version on the
+card by ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from deeplearning4j_tpu.nn.conf.layers import (  # noqa: E402
+    paged_attention as jppa)
+from deeplearning4j_tpu.nn.conf.layers.attention import (  # noqa: E402
+    SelfAttentionLayer as JaxSelfAttention)
+from deeplearning4j_torch.nn.conf.layers import (  # noqa: E402
+    paged_attention as ppa)
+from deeplearning4j_torch.nn.conf.layers.attention import (  # noqa: E402
+    SelfAttentionLayer)
+
+pytestmark = pytest.mark.torch_port
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+H, D, PS, NP = 4, 8, 8, 4          # Tmax = 32
+CASES = ["decode", "straddle", "boundary", "masked_to_page0"]
+
+
+def _pool(rs, pages, quant):
+    if quant:
+        return {"kpages": rs.randint(-127, 128, (pages, H, PS, D)).astype(
+                    np.int8),
+                "vpages": rs.randint(-127, 128, (pages, H, PS, D)).astype(
+                    np.int8),
+                "kscales": (rs.rand(pages, H, PS) * 0.05).astype(np.float32),
+                "vscales": (rs.rand(pages, H, PS) * 0.05).astype(np.float32)}
+    return {"kpages": rs.randn(pages, H, PS, D).astype(np.float32),
+            "vpages": rs.randn(pages, H, PS, D).astype(np.float32)}
+
+
+def _case(name, quant):
+    """(q, pool, bt, pos, mask) numpy inputs for one edge geometry."""
+    rs = np.random.RandomState(CASES.index(name) * 2 + int(quant))
+    B = 3
+    pages = B * NP + 1
+    pool = _pool(rs, pages, quant)
+    bt = (rs.permutation(pages - 1)[:B * NP] + 1).reshape(B, NP).astype(
+        np.int32)
+    mask = None
+    if name == "decode":
+        T, pos = 1, rs.randint(0, NP * PS, B).astype(np.int32)
+    elif name == "straddle":
+        T, pos = 6, np.array([5, 13, 2], np.int32)     # crosses a boundary
+    elif name == "boundary":
+        T, pos = 1, np.array([0, PS, 2 * PS], np.int32)
+    else:                                              # "masked_to_page0"
+        T, pos = 8, np.array([3, 0, 9], np.int32)
+        mask = np.ones((B, T), np.float32)
+        mask[0, 5:] = 0                                # right padding
+        mask[1, :] = 0                                 # all masked ...
+        bt[1, :] = 0                                   # ... on page 0
+    q = rs.randn(B, H, T, D).astype(np.float32)
+    return q, pool, bt, pos, mask
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("name", CASES)
+def test_plain_matches_jax_backends(name, quant):
+    q, pool, bt, pos, mask = _case(name, quant)
+    ks = pool.get("kscales")
+    vs = pool.get("vscales")
+
+    def jx(helper):
+        return np.asarray(helper.attend(
+            jnp.asarray(q), jnp.asarray(pool["kpages"]),
+            jnp.asarray(pool["vpages"]), jnp.asarray(bt), jnp.asarray(pos),
+            mask=None if mask is None else jnp.asarray(mask),
+            kscales=None if ks is None else jnp.asarray(ks),
+            vscales=None if vs is None else jnp.asarray(vs)))
+
+    ref_xla = jx(jppa.XlaPagedAttention())
+    ref_pallas = jx(jppa.PallasPagedAttention(interpret=True))
+    t = {k: torch.from_numpy(v) for k, v in pool.items()}
+    got = ppa.paged_attend(
+        "xla", torch.from_numpy(q), t["kpages"], t["vpages"],
+        torch.from_numpy(bt), torch.from_numpy(pos),
+        mask=None if mask is None else torch.from_numpy(mask),
+        kscales=t.get("kscales"), vscales=t.get("vscales")).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref_xla, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got, ref_pallas, atol=1e-5, rtol=0)
+    # the kernel's wrapper on CPU tensors is the same plain version
+    wrapped = ppa.paged_attend(
+        "pallas", torch.from_numpy(q), t["kpages"], t["vpages"],
+        torch.from_numpy(bt), torch.from_numpy(pos),
+        mask=None if mask is None else torch.from_numpy(mask),
+        kscales=t.get("kscales"), vscales=t.get("vscales")).numpy()
+    np.testing.assert_array_equal(wrapped, got)
+
+
+def test_key_valid_plane_matches_jax():
+    rs = np.random.RandomState(3)
+    mask = (rs.rand(3, 6) > 0.3).astype(np.float32)
+    pos = np.array([0, 5, 26], np.int32)
+    ref = np.asarray(jppa._key_valid_plane(jnp.asarray(mask),
+                                           jnp.asarray(pos), 6, 32))
+    got = ppa._key_valid_plane(torch.from_numpy(mask), torch.from_numpy(pos),
+                               6, 32).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_quantize_kv_codes_equal_jax():
+    rs = np.random.RandomState(4)
+    t = (rs.randn(3, H, 7, D) * rs.rand(3, H, 7, 1) * 4).astype(np.float32)
+    t[0, 1, 2] = 0.0                               # all-zero row: scale 0
+    t[1, 0, 0, :2] = [127 * 0.5, -127 * 0.5]       # exact half-steps
+    jq, jsc = JaxSelfAttention._quantize_kv(jnp.asarray(t))
+    q, sc = SelfAttentionLayer._quantize_kv(torch.from_numpy(t))
+    assert q.dtype == torch.int8 and sc.dtype == torch.float32
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(sc.numpy(), np.asarray(jsc))
+    assert sc[0, 1, 2] == 0 and (q[0, 1, 2] == 0).all()
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+def test_paged_forward_output_and_pool_write(quant, masked):
+    """One ``_paged_forward`` chunk through both layers: the output within
+    atol 1e-5, the written pool (values and scale planes) equal exactly."""
+    rs = np.random.RandomState(10 + 2 * quant + masked)
+    B, T, F = 3, 6, H * D
+    kw = dict(n_in=F, n_out=F, n_heads=H, causal=True, max_cache=NP * PS,
+              bias_init=0.0)
+    jl = JaxSelfAttention(paged_attention="xla", **kw)
+    tl = SelfAttentionLayer(**kw)
+    tl.finalize()
+    params = {k: np.array(v) for k, v in
+              jl.init_params(jax.random.PRNGKey(0)).items()}
+    # identity K/V projections: both sides quantize the same f32 values
+    params["Wk"] = np.eye(F, dtype=np.float32)
+    params["Wv"] = np.eye(F, dtype=np.float32)
+    params["b"] = (0.1 * rs.randn(F)).astype(np.float32)
+    pages = B * NP + 1
+    pool = _pool(rs, pages, quant)
+    bt = (rs.permutation(pages - 1)[:B * NP] + 1).reshape(B, NP).astype(
+        np.int32)
+    pos = np.array([0, 7, 20], np.int32)
+    x = rs.randn(B, T, F).astype(np.float32)
+    mask = None
+    if masked:
+        mask = np.ones((B, T), np.float32)
+        mask[0, 4:] = 0
+        mask[2, 1:] = 0
+    jstate = {k: jnp.asarray(v) for k, v in pool.items()}
+    jstate.update(block_table=jnp.asarray(bt), cache_pos=jnp.asarray(pos))
+    jout, jst = jl.forward({k: jnp.asarray(v) for k, v in params.items()},
+                           jstate, jnp.asarray(x),
+                           mask=None if mask is None else jnp.asarray(mask))
+    tstate = {k: torch.from_numpy(v.copy()) for k, v in pool.items()}
+    tstate.update(block_table=torch.from_numpy(bt),
+                  cache_pos=torch.from_numpy(pos))
+    tout, tst = tl.forward({k: torch.from_numpy(v) for k, v in params.items()},
+                           tstate, torch.from_numpy(x),
+                           mask=None if mask is None else torch.from_numpy(
+                               mask))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=1e-5,
+                               rtol=0)
+    # page 0 is the garbage sink: colliding masked writes may land there in
+    # either order, so only the real pages must agree
+    for key in pool:
+        np.testing.assert_array_equal(tst[key].numpy()[1:],
+                                      np.asarray(jst[key])[1:], err_msg=key)
+    np.testing.assert_array_equal(tst["cache_pos"].numpy(),
+                                  np.asarray(jst["cache_pos"]))
+    # the write went into the pool tensors in place
+    assert tst["kpages"] is tstate["kpages"]
+
+
+def test_resolve_paged_backend():
+    assert ppa.resolve_paged_backend("auto", "cpu") == "xla"
+    assert ppa.resolve_paged_backend("auto", "cuda") == "pallas"
+    assert ppa.resolve_paged_backend("pallas", "cpu") == "pallas"
+    assert ppa.resolve_paged_backend("stock", "cuda") == "xla"
+    assert ppa.resolve_paged_backend("xla", "cuda") == "xla"
+    with pytest.raises(ValueError, match="unknown paged_attention"):
+        ppa.resolve_paged_backend("cudnn", "cuda")
