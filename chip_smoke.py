@@ -17,19 +17,32 @@ Phases (any failure exits non-zero, and no result line is printed):
    the card: ``output()`` against a CPU run of the port's plain path;
 5. serving: 16 greedy requests (prompts of 8..300 tokens, 32 new tokens)
    through ``GenerationServer`` with f32 and then int8 KV pages, each held
-   token for token against the same server with ``paged_attention="stock"``.
+   token for token against the same server with ``paged_attention="stock"``;
+6. K3 and K4, the flash backward (dQ and dK/dV), against their plain
+   PyTorch version at the training shape [16, 8, 128, 32] (f32 causal with
+   and without a key mask, bf16) and at [2, 8, 2048, 128] causal (f32,
+   bf16); two calls must be bitwise equal; timed beside the plain version
+   and the backward of SDPA as a yardstick;
+7. training: the full-width model trained with the conf's Adam through
+   ``do_step`` on a 16 x 128-token batch, on the card and on the CPU from
+   the same weights: first-step gradients and three steps' losses agree,
+   each step launches K1, K3 and K4 ``n_blocks`` times, the loss falls over
+   20 more steps on the batch, and the step time is reported.
 
-The launch counters are zeroed just before phases 4-5 (the main path) and
-read just after; both kernels must have run there. The script prints the
-card's name and power limit, one ``{"kernels": [...]}`` line with each
-kernel's launches, error, times and bound, and, last, the result line
+The main path is phases 4-5 (serving) and phase 7 (training). The launch
+counters are zeroed just before each of the two and read just after (phase
+6's comparison launches are not counted); every kernel must have run on the
+main path, and each path must have launched its own kernels. The script
+prints the card's name and power limit, one ``{"kernels": [...]}`` line with
+each kernel's launches, error, times and bound, and, last, the result line
 ``{"ok": true, "device": {...}}``. Matmuls run in full f32 (TF32 off).
 
 Options: ``--out DIR`` also writes everything measured to
 ``DIR/chip_smoke.json``; ``--verbose-build`` prints the kernel build's
-compiler lines; ``--profile`` adds one f32 serve under ``torch.profiler``
-(device busy time against the wall clock, kernels by device time) after the
-main path, with its table in ``DIR/serve_profile.txt`` when ``--out`` is
+compiler lines; ``--profile`` adds, after the main path, one f32 serve and
+five training steps under ``torch.profiler`` (device busy time against the
+wall clock, kernels by device time), with their tables in
+``DIR/serve_profile.txt`` and ``DIR/train_profile.txt`` when ``--out`` is
 given.
 """
 
@@ -58,6 +71,25 @@ SERVER = dict(slots=8, page_size=16, prefill_chunk=256, steps_per_dispatch=4)
 # phase-5 prompt lengths: 8..300 tokens, five past prefill_chunk
 SERVE_LENS = [8, 300, 270, 257, 12, 64, 129, 31, 200, 16, 99, 280, 45, 150,
               9, 256]
+# phase-7 training batch: 16 sequences of max_length tokens
+TRAIN_BATCH = 16
+TRAIN_STEPS = 20
+# phase-6 cases: (name, B, H, T, d, dtype, causal, masked); the first three
+# are the training shape
+BWD_CASES = [
+    ("slice_f32_causal", 16, 8, 128, 32, torch.float32, True, False),
+    ("slice_f32_causal_mask", 16, 8, 128, 32, torch.float32, True, True),
+    ("slice_bf16_causal", 16, 8, 128, 32, torch.bfloat16, True, False),
+    ("long_f32_causal", 2, 8, 2048, 128, torch.float32, True, False),
+    ("long_bf16_causal", 2, 8, 2048, 128, torch.bfloat16, True, False),
+]
+# phase-6 tolerances on max|err| / max|g|. Against the plain backward the
+# kernels measured 0 on an H100 (they accumulate each product in the order
+# cuBLAS does); the bounds leave room for another accumulation order, a few
+# f32 ulps, or one bf16 rounding step. Against the SDPA backward, an
+# independent implementation (bf16: its own bf16 roundings), looser.
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+SDPA_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 REPORT: dict = {}
 
 
@@ -100,6 +132,24 @@ def check(ok, what):
         raise AssertionError(what)
 
 
+def visible_pairs(B, H, T, causal, mask):
+    """(row, key) pairs the attention computes: keys at or before the row
+    when causal, and valid in the key mask."""
+    if mask is None:
+        return B * H * (T * (T + 1) // 2 if causal else T * T)
+    valid = (mask != 0).long().cpu()
+    per_row = valid.cumsum(1) if causal else valid.sum(1, keepdim=True)
+    return H * int(per_row.expand(B, T).sum())
+
+
+def mask_for(g, B, T, dev):
+    """A [B, T] key mask of right padding, row 0 unpadded; key 0 is valid
+    in every row, so no causal query row is fully masked."""
+    lens = torch.randint(1, T + 1, (B,), generator=g)
+    lens[0] = T
+    return (torch.arange(T)[None] < lens[:, None]).float().to(dev)
+
+
 # ----------------------------------------------------------------- phase 2
 def phase_flash(dev):
     from deeplearning4j_torch.ops import flash_attention as fa
@@ -111,11 +161,6 @@ def phase_flash(dev):
     def qkv(B, H, T, d, dtype):
         return [torch.randn(B, H, T, d, generator=g).to(dev, dtype)
                 for _ in range(3)]
-
-    def mask_for(B, T):
-        lens = torch.randint(1, T + 1, (B,), generator=g)
-        lens[0] = T
-        return (torch.arange(T)[None] < lens[:, None]).float().to(dev)
 
     cases = [("slice_f32_causal", 8, 8, 128, 32, torch.float32, True, False,
               1e-4),
@@ -133,7 +178,7 @@ def phase_flash(dev):
               False, 8e-3)]
     for name, B, H, T, d, dtype, causal, masked, atol in cases:
         q, k, v = qkv(B, H, T, d, dtype)
-        m = mask_for(B, T) if masked else None
+        m = mask_for(g, B, T, dev) if masked else None
         o, lse = fa.flash_attention_forward(q, k, v, causal=causal, mask=m)
         po, plse = fa.flash_attention_plain(q, k, v, causal=causal, mask=m)
         torch.cuda.synchronize()
@@ -162,8 +207,7 @@ def phase_flash(dev):
         isz = torch.tensor([], dtype=dtype).element_size()
         nbytes = 4 * B * H * T * d * isz + B * H * T * 4 \
             + (B * T * 4 if masked else 0)
-        pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
-        flops = 4 * d * pairs
+        flops = 4 * d * visible_pairs(B, H, T, causal, m)
         bms, by = bound_ms(nbytes, flops,
                            "bf16" if dtype == torch.bfloat16 else "f32")
         results[name] = dict(shape=[B, H, T, d], dtype=str(dtype),
@@ -173,6 +217,94 @@ def phase_flash(dev):
         log(f"  K1 {name:22s} err {err:.2e} lse {lerr:.2e} (atol {atol})  "
             f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
             f"{sdpa_ms:.4f} ms  bound {bms:.4f} ms ({by})")
+    return results
+
+
+# ----------------------------------------------------------------- phase 6
+def phase_flash_bwd(dev):
+    """K3 (dQ) and K4 (dK/dV) against the plain backward on the same
+    inputs, K1's own o and lse, and against the SDPA backward. Errors are
+    relative to the largest reference gradient. Returns {case:
+    measurements}."""
+    from deeplearning4j_torch import kernels
+    from deeplearning4j_torch.ops import flash_attention as fa
+
+    F = torch.nn.functional
+    ext = kernels.load()
+    g = torch.Generator(device="cpu").manual_seed(6)
+    results = {}
+
+    def rel_errs(got, refs):
+        return {n: ((a.float() - b.float()).abs().max()
+                    / b.float().abs().max()).item()
+                for n, a, b in zip(("dq", "dk", "dv"), got, refs)}
+
+    for name, B, H, T, d, dtype, causal, masked in BWD_CASES:
+        tol, sdpa_tol = BWD_TOL[dtype], SDPA_TOL[dtype]
+        q, k, v, do = [torch.randn(B, H, T, d, generator=g).to(dev, dtype)
+                       for _ in range(4)]
+        m = mask_for(g, B, T, dev) if masked else None
+        o, lse = fa.flash_attention_forward(q, k, v, causal=causal, mask=m)
+        grads = fa.flash_attention_backward(q, k, v, o, lse, do,
+                                            causal=causal, mask=m)
+        again = fa.flash_attention_backward(q, k, v, o, lse, do,
+                                            causal=causal, mask=m)
+        plain = fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                  causal=causal, mask=m)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        if m is None:
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        else:
+            keep = (m != 0)[:, None, None, :]
+            if causal:
+                keep = keep & torch.ones(T, T, dtype=torch.bool,
+                                         device=dev).tril()
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=keep)
+        sdpa = torch.autograd.grad(out, leaves, do, retain_graph=True)
+        torch.cuda.synchronize()
+        for gname, got in zip(("dq", "dk", "dv"), grads):
+            check(got.dtype == dtype and torch.isfinite(got.float()).all()
+                  .item(), f"flash bwd {name}: {gname} dtype or non-finite")
+        errs, sdpa_errs = rel_errs(grads, plain), rel_errs(grads, sdpa)
+        abs_errs = {n: (a.float() - b.float()).abs().max().item()
+                    for n, a, b in zip(("dq", "dk", "dv"), grads, plain)}
+        check(max(errs.values()) <= tol,
+              f"flash bwd {name}: max|err|/max|g| vs plain {errs} > {tol}")
+        check(max(sdpa_errs.values()) <= sdpa_tol,
+              f"flash bwd {name}: max|err|/max|g| vs SDPA {sdpa_errs} > "
+              f"{sdpa_tol}")
+        check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+              f"flash bwd {name}: two calls differ (not deterministic)")
+        args = (q, k, v, do, lse, fa.attention_delta(o, do), m, causal)
+        dq_ms = time_ms(lambda: ext.flash_bwd_dq(*args))
+        dkv_ms = time_ms(lambda: ext.flash_bwd_dkv(*args))
+        plain_ms = time_ms(lambda: fa.flash_attention_backward_plain(
+            q, k, v, o, lse, do, causal=causal, mask=m), iters=20)
+        sdpa_ms = time_ms(lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True))
+        # bytes: q, k, v, dO in, the kernel's outputs, lse and delta (and
+        # the mask); operations: 6d (K3) and 8d (K4) per visible pair
+        isz = torch.tensor([], dtype=dtype).element_size()
+        tensor = B * H * T * d * isz
+        rows = 2 * B * H * T * 4 + (B * T * 4 if masked else 0)
+        pairs = visible_pairs(B, H, T, causal, m)
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        dq_bound, dq_by = bound_ms(5 * tensor + rows, 6 * d * pairs, kind)
+        dkv_bound, dkv_by = bound_ms(6 * tensor + rows, 8 * d * pairs, kind)
+        results[name] = dict(
+            shape=[B, H, T, d], dtype=str(dtype), causal=causal,
+            masked=masked, rel_err=errs, max_abs_err=abs_errs,
+            tolerance=tol, sdpa_rel_err=sdpa_errs, sdpa_tolerance=sdpa_tol,
+            deterministic=True, pairs=pairs,
+            dq=dict(ms=dq_ms, bound_ms=dq_bound, bound_by=dq_by),
+            dkv=dict(ms=dkv_ms, bound_ms=dkv_bound, bound_by=dkv_by),
+            plain_ms=plain_ms, library_ms=sdpa_ms)
+        log(f"  K3/K4 {name:22s} rel err vs plain {max(errs.values()):.2e} "
+            f"(tol {tol}), vs SDPA {max(sdpa_errs.values()):.2e} (tol "
+            f"{sdpa_tol}), bitwise repeatable; dq {dq_ms:.4f} ms (bound "
+            f"{dq_bound:.4f}, {dq_by})  dkv {dkv_ms:.4f} ms (bound "
+            f"{dkv_bound:.4f}, {dkv_by})  plain {plain_ms:.4f} ms  sdpa bwd "
+            f"{sdpa_ms:.4f} ms")
     return results
 
 
@@ -403,9 +535,8 @@ def phase_serve(net, card):
 
 def profile_serve(net, card, out_dir):
     """One f32 serve of the phase-5 requests under ``torch.profiler``:
-    device busy time (sum of kernel self times; one stream, so kernels do
-    not overlap) against the wall clock, and the kernels by device time.
-    The table goes to ``out_dir/serve_profile.txt`` (if ``out_dir``)."""
+    device busy time against the wall clock, and the kernels by device
+    time (table in ``out_dir/serve_profile.txt``)."""
     from torch.profiler import ProfilerActivity, profile
 
     rs = np.random.RandomState(4)
@@ -413,28 +544,10 @@ def profile_serve(net, card, out_dir):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         outs, wall, st = serve(net, reqs)
-    events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
-
-    busy_s = sum(dev_us(e) for e in events) / 1e6
-    kernels = sorted(((dev_us(e), e.count, e.key) for e in events
-                      if dev_us(e) > 0), reverse=True)
-    launches = sum(c for _, c, _ in kernels)
+    busy_s, launches, top = profile_table(
+        prof, out_dir, "serve_profile.txt", f"{card}\nwall {wall:.6f} s\n")
     steps = st["prefill_rounds"] + SERVER["steps_per_dispatch"] \
         * st["decode_steps"]
-    if out_dir:
-        key = ("self_device_time_total"
-               if hasattr(events[0], "self_device_time_total")
-               else "self_cuda_time_total")
-        with open(os.path.join(out_dir, "serve_profile.txt"), "w") as f:
-            f.write(f"{card}\nwall {wall:.6f} s, device busy {busy_s:.6f} "
-                    f"s\n")
-            f.write(events.table(sort_by=key, row_limit=40))
-    top = [dict(kernel=k[:80], device_ms=us / 1e3, count=c)
-           for us, c, k in kernels[:12]]
     log(f"  profiled serve f32: wall {wall:.4f} s, device busy "
         f"{busy_s:.4f} s (idle share {1 - busy_s / wall:.3f}), {launches} "
         f"kernel launches over {steps} forwards; [{card}]")
@@ -445,10 +558,136 @@ def profile_serve(net, card, out_dir):
                 forwards=steps, tokens=sum(len(o) for o in outs), top=top)
 
 
-def kernel_line(flash, paged, launches):
+def train_batch(dev=None):
+    """The seeded phase-7 batch: one-hot tokens and next-token labels,
+    [16, 128, 256] each (on ``dev`` when given)."""
+    rs = np.random.RandomState(7)
+    V, T = SLICE["num_labels"], SLICE["max_length"]
+    tok = rs.randint(0, V, (TRAIN_BATCH, T + 1))
+    eye = np.eye(V, dtype=np.float32)
+    x, y = eye[tok[:, :-1]], eye[tok[:, 1:]]
+    if dev is None:
+        return x, y
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def phase_train(net, cpu, card):
+    """Adam training of the full-width model through ``do_step``, card
+    against the CPU plain path from the same weights."""
+    from deeplearning4j_torch import kernels
+    from deeplearning4j_torch.optimize.fused_fit import value_and_grad
+
+    x, y = train_batch()
+    xd, yd = train_batch(net.device)
+    loss_d, g_d = value_and_grad(net, net.params, net.state, [xd], [yd])
+    loss_c, g_c = value_and_grad(cpu, cpu.params, cpu.state,
+                                 [torch.from_numpy(x)], [torch.from_numpy(y)])
+    grad_err = max(((g_d[v][p].cpu() - g_c[v][p]).abs().max()
+                    / g_c[v][p].abs().max()).item()
+                   for v in g_c for p in g_c[v])
+    check(grad_err <= 1e-4, f"train: first-step gradients card vs CPU, "
+                            f"worst leaf max|err|/max|g| {grad_err:.3g}")
+    before = dict(kernels.LAUNCHES)
+    card_losses = [float(net.do_step(xd, yd)[0]) for _ in range(3)]
+    per_step = {k: (kernels.LAUNCHES[k] - before[k]) / 3
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    cpu_losses = [float(cpu.do_step(x, y)[0]) for _ in range(3)]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                        cpu_losses))
+    check(loss_err <= 1e-4, f"train: Adam losses card {card_losses} vs CPU "
+                            f"{cpu_losses} (rel {loss_err:.3g})")
+    check(all(n == SLICE["n_blocks"] for n in per_step.values()),
+          f"train: launches per step {per_step}, expected "
+          f"{SLICE['n_blocks']} each")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [net.do_step(xd, yd)[0] for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(l) for l in losses]
+    check(all(np.isfinite(losses)) and losses[-1] < 0.9 * losses[0],
+          f"train: the loss did not fall over {TRAIN_STEPS} steps: "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tokens = TRAIN_BATCH * SLICE["max_length"]
+    log(f"  train [{TRAIN_BATCH}, {SLICE['max_length']}] Adam: first-step "
+        f"grads vs CPU {grad_err:.2e}, losses vs CPU {loss_err:.2e} "
+        f"({card_losses[0]:.4f} -> {card_losses[-1]:.4f}); launches per "
+        f"step {per_step}; {TRAIN_STEPS} steps {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; {step_ms:.3f} ms/step = "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s; [{card}]")
+    return dict(grad_rel_err=grad_err, loss_rel_err=loss_err,
+                first_losses=card_losses, cpu_losses=cpu_losses,
+                launches_per_step=per_step, losses=losses,
+                step_ms=step_ms, tokens_per_step=tokens,
+                tokens_per_s=tokens / step_ms * 1e3)
+
+
+def profile_table(prof, out_dir, fname, header):
+    """Device busy seconds (sum of the device activities' self times; one
+    stream, so they do not overlap), the launch count and the kernels by
+    device time of one ``torch.profiler`` run; the table goes to
+    ``out_dir/fname`` (if ``out_dir``). Device activities are the rows with
+    device time and no CPU time: an operator row launched from the
+    profiled thread also carries its kernels' device time, and counting
+    it too would count that time twice."""
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    kernels = sorted(((dev_us(e), e.count, e.key) for e in events
+                      if dev_us(e) > 0 and e.self_cpu_time_total == 0),
+                     reverse=True)
+    busy_s = sum(us for us, _, _ in kernels) / 1e6
+    if out_dir:
+        key = ("self_device_time_total"
+               if hasattr(events[0], "self_device_time_total")
+               else "self_cuda_time_total")
+        with open(os.path.join(out_dir, fname), "w") as f:
+            f.write(header)
+            f.write(events.table(sort_by=key, row_limit=40))
+    top = [dict(kernel=k[:80], device_ms=us / 1e3, count=c)
+           for us, c, k in kernels[:12]]
+    return busy_s, sum(c for _, c, _ in kernels), top
+
+
+def profile_train(net, card, out_dir, steps=5):
+    """``steps`` training steps on the phase-7 batch under
+    ``torch.profiler``: device busy time against the wall clock and the
+    kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    xd, yd = train_batch(net.device)
+    net.do_step(xd, yd)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            net.do_step(xd, yd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_s, launches, top = profile_table(
+        prof, out_dir, "train_profile.txt",
+        f"{card}\n{steps} steps, wall {wall:.6f} s\n")
+    log(f"  profiled train: {steps} steps, wall {wall:.4f} s, device busy "
+        f"{busy_s:.4f} s (idle share {1 - busy_s / wall:.3f}), "
+        f"{launches / steps:.0f} kernel launches per step; [{card}]")
+    for t in top[:6]:
+        log(f"    {t['device_ms']:9.3f} ms  x{t['count']:<6d} {t['kernel']}")
+    return dict(steps=steps, wall_s=wall, device_busy_s=busy_s,
+                idle_share=1 - busy_s / wall,
+                kernel_launches_per_step=launches / steps, top=top)
+
+
+def kernel_line(flash, paged, bwd, launches):
     k1 = flash["slice_f32_causal"]
     k2 = paged["f32_T1_Tmax512"]
-    return {"kernels": [
+    kb = bwd["slice_f32_causal"]
+    slice_bwd = [r for n, r in bwd.items() if n.startswith("slice_f32")]
+    line = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "deeplearning4j_torch/kernels/flash_fwd.cu",
          "replaces": "deeplearning4j_tpu/ops/pallas_attention.py:135",
@@ -467,7 +706,25 @@ def kernel_line(flash, paged, launches):
                             if n.startswith("f32") and "Tmax512" in n),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": None}]}
+         "library_ms": None}]
+    # the plain time is the whole plain backward, the library time the
+    # whole SDPA backward (dq, dk and dv together), for both kernels
+    for name, part, grads, line_no in (("flash_bwd_dq", "dq", ("dq",), 289),
+                                       ("flash_bwd_dkv", "dkv", ("dk", "dv"),
+                                        305)):
+        line.append(
+            {"name": name, "route": "cuda",
+             "source": "deeplearning4j_torch/kernels/flash_bwd.cu",
+             "replaces": f"deeplearning4j_tpu/ops/pallas_attention.py:"
+                         f"{line_no}",
+             "launches": launches[name],
+             "max_abs_err": max(r["max_abs_err"][g] for r in slice_bwd
+                                for g in grads),
+             "ms": kb[part]["ms"], "plain_ms": kb["plain_ms"],
+             "bound_ms": kb[part]["bound_ms"],
+             "bound_by": kb[part]["bound_by"],
+             "library_ms": kb["library_ms"]})
+    return {"kernels": line}
 
 
 def main() -> int:
@@ -475,7 +732,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for chip_smoke.json and the "
-                    "profile table")
+                    "profile tables")
     ap.add_argument("--verbose-build", action="store_true")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
@@ -503,23 +760,40 @@ def main() -> int:
     paged = REPORT["paged_attn"] = phase_paged(dev)
 
     net, cpu = build_nets()
-    kernels.reset_launch_counts()         # the main path starts here
+    kernels.reset_launch_counts()         # the serving path starts here
     log("phase 4: the slice model's output() on the card")
     REPORT["model"] = phase_model(net, cpu)
     log("phase 5: serving, f32 then int8 KV pages")
     REPORT["serve"] = phase_serve(net, card)
-    launches = dict(kernels.LAUNCHES)     # ... and ends here
-    REPORT["main_path_launches"] = launches
+    serving = dict(kernels.LAUNCHES)      # ... and ends here
+    check(serving["flash_fwd"] > 0 and serving["paged_attn"] > 0,
+          f"a kernel of the serving path never launched: {serving}")
+
+    log("phase 6: K3/K4 flash backward vs its plain version")
+    bwd = REPORT["flash_bwd"] = phase_flash_bwd(dev)
+
+    kernels.reset_launch_counts()         # the training path starts here
+    log("phase 7: training the slice model with Adam on the card")
+    REPORT["train"] = phase_train(net, cpu, card)
+    training = dict(kernels.LAUNCHES)     # ... and ends here
+    check(all(training[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv")),
+          f"a kernel of the training path never launched: {training}")
+    launches = {k: serving[k] + training[k] for k in serving}
+    REPORT["main_path_launches"] = dict(serving=serving, training=training,
+                                        total=launches)
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the main path never launched: {launches}")
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
-        log("profile: one f32 serve under torch.profiler")
+        log("profile: one f32 serve and five training steps under "
+            "torch.profiler")
         REPORT["profile"] = profile_serve(net, card, args.out)
+        REPORT["train_profile"] = profile_train(net, card, args.out)
 
-    line = kernel_line(flash, paged, launches)
+    line = kernel_line(flash, paged, bwd, launches)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(REPORT, kernels=line["kernels"]), f, indent=1)

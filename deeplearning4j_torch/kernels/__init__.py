@@ -6,14 +6,17 @@ Sources (all in this directory):
   ``deeplearning4j_tpu/ops/pallas_attention.py::_attn_fwd_kernel``;
 - ``paged_attn.cu``: paged-KV attention read, the port of
   ``deeplearning4j_tpu/nn/conf/layers/paged_attention.py::_paged_attn_kernel``;
+- ``flash_bwd.cu``: flash-attention backward, dQ and dK/dV, the ports of
+  ``deeplearning4j_tpu/ops/pallas_attention.py::_attn_dq_kernel`` and
+  ``::_attn_dkv_kernel``;
 - ``bindings.cpp``: the one small file that includes PyTorch's headers. It
   checks each launch with ``C10_CUDA_KERNEL_LAUNCH_CHECK()``.
 
-``load()`` builds all three in one ``torch.utils.cpp_extension.load`` call for
-``sm_90a`` into ``kernels/build/`` (listed in ``.gitignore``) at first use;
-nothing is built at import. The wrappers in ``ops/flash_attention.py`` and
-``nn/conf/layers/paged_attention.py`` add one to ``LAUNCHES`` per launch, so a
-run can show which kernels its main path went through.
+``load()`` builds all of them in one ``torch.utils.cpp_extension.load`` call
+for ``sm_90a`` into ``kernels/build/`` (listed in ``.gitignore``) at first
+use; nothing is built at import. The wrappers in ``ops/flash_attention.py``
+and ``nn/conf/layers/paged_attention.py`` add one to ``LAUNCHES`` per launch,
+so a run can show which kernels its main path went through.
 """
 
 from __future__ import annotations
@@ -25,11 +28,12 @@ import torch
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "build")
-SOURCES = ("bindings.cpp", "flash_fwd.cu", "paged_attn.cu")
+SOURCES = ("bindings.cpp", "flash_fwd.cu", "paged_attn.cu", "flash_bwd.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-lineinfo")
 
 #: launches per kernel since the last ``reset_launch_counts()``
-LAUNCHES = {"flash_fwd": 0, "paged_attn": 0}
+LAUNCHES = {"flash_fwd": 0, "paged_attn": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
 
 _ext = None
 _lock = threading.Lock()

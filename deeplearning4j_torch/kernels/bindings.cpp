@@ -17,6 +17,17 @@ extern "C" int dl4j_paged_attn(const float* q, const void* kp, const void* vp,
                                const float* key_valid, float* o, int B, int H,
                                int T, int D, int ps, int NP, int quant,
                                cudaStream_t stream);
+extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                 const void* dout, const float* lse,
+                                 const float* delta, const float* mask,
+                                 void* dq, int B, int H, int Tlen, int D,
+                                 int is_bf16, int causal, cudaStream_t stream);
+extern "C" int dl4j_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                  const void* dout, const float* lse,
+                                  const float* delta, const float* mask,
+                                  void* dk, void* dv, int B, int H, int Tlen,
+                                  int D, int is_bf16, int causal,
+                                  cudaStream_t stream);
 
 namespace {
 
@@ -116,9 +127,80 @@ torch::Tensor paged_attn(torch::Tensor q, torch::Tensor kp, torch::Tensor vp,
   return o;
 }
 
+// Checks shared by the two backward kernels: q, k, v, dO of one shape and
+// type (f32 or bf16), lse and delta f32 [B·H, T, 1], an optional f32 [B, T]
+// key mask. Returns the mask pointer (or nullptr).
+const float* check_bwd(const torch::Tensor& q, const torch::Tensor& k,
+                       const torch::Tensor& v, const torch::Tensor& dout,
+                       const torch::Tensor& lse, const torch::Tensor& delta,
+                       const c10::optional<torch::Tensor>& mask) {
+  check_cuda(q, "q");
+  check_cuda(k, "k");
+  check_cuda(v, "v");
+  check_cuda(dout, "dout");
+  TORCH_CHECK(q.dim() == 4, "q must be [B, H, T, d]");
+  TORCH_CHECK(k.sizes() == q.sizes() && v.sizes() == q.sizes() &&
+                  dout.sizes() == q.sizes(),
+              "q, k, v, dout shapes differ");
+  const auto dt = q.scalar_type();
+  TORCH_CHECK(dt == torch::kFloat32 || dt == torch::kBFloat16,
+              "flash backward takes float32 or bfloat16");
+  TORCH_CHECK(k.scalar_type() == dt && v.scalar_type() == dt &&
+                  dout.scalar_type() == dt,
+              "q, k, v, dout dtypes differ");
+  const int B = q.size(0), H = q.size(1), T = q.size(2);
+  opt_f32(lse, "lse", {(int64_t)B * H, T, 1});
+  opt_f32(delta, "delta", {(int64_t)B * H, T, 1});
+  return opt_f32(mask, "mask", {B, T});
+}
+
+torch::Tensor flash_bwd_dq(torch::Tensor q, torch::Tensor k, torch::Tensor v,
+                           torch::Tensor dout, torch::Tensor lse,
+                           torch::Tensor delta,
+                           c10::optional<torch::Tensor> mask, bool causal) {
+  const float* m = check_bwd(q, k, v, dout, lse, delta, mask);
+  const int B = q.size(0), H = q.size(1), T = q.size(2), D = q.size(3);
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto dq = torch::empty_like(q);
+  const int err = dl4j_flash_bwd_dq(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), delta.data_ptr<float>(), m, dq.data_ptr(), B, H,
+      T, D, q.scalar_type() == torch::kBFloat16 ? 1 : 0, causal ? 1 : 0,
+      at::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == 0, "flash_bwd_dq: unsupported configuration (B=", B,
+              ", H=", H, ", T=", T, ", d=", D, "), code ", err);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return dq;
+}
+
+std::vector<torch::Tensor> flash_bwd_dkv(torch::Tensor q, torch::Tensor k,
+                                         torch::Tensor v, torch::Tensor dout,
+                                         torch::Tensor lse,
+                                         torch::Tensor delta,
+                                         c10::optional<torch::Tensor> mask,
+                                         bool causal) {
+  const float* m = check_bwd(q, k, v, dout, lse, delta, mask);
+  const int B = q.size(0), H = q.size(1), T = q.size(2), D = q.size(3);
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto dk = torch::empty_like(k);
+  auto dv = torch::empty_like(v);
+  const int err = dl4j_flash_bwd_dkv(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), delta.data_ptr<float>(), m, dk.data_ptr(),
+      dv.data_ptr(), B, H, T, D, q.scalar_type() == torch::kBFloat16 ? 1 : 0,
+      causal ? 1 : 0, at::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == 0, "flash_bwd_dkv: unsupported configuration (B=", B,
+              ", H=", H, ", T=", T, ", d=", D, "), code ", err);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {dk, dv};
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_fwd", &flash_fwd, "K1: flash-attention forward (o, lse)");
   m.def("paged_attn", &paged_attn, "K2: paged-KV attention read");
+  m.def("flash_bwd_dq", &flash_bwd_dq, "K3: flash-attention backward, dq");
+  m.def("flash_bwd_dkv", &flash_bwd_dkv,
+        "K4: flash-attention backward, (dk, dv)");
 }

@@ -12,6 +12,7 @@ from deeplearning4j_torch.nn.conf.layers.normalization import (
     LayerNormalization)
 from deeplearning4j_torch.nn.conf.layers.recurrent import RnnOutputLayer
 from deeplearning4j_torch.nn.graph import ComputationGraph
+from deeplearning4j_torch.nn.updater import Adam
 
 
 class TransformerLM:
@@ -19,7 +20,8 @@ class TransformerLM:
     same vertex names as the JAX zoo model: one-hot tokens -> Dense embed +
     sinusoidal positions -> n_blocks x [LN -> causal multi-head
     SelfAttention -> +residual -> LN -> Dense(4D, gelu) -> Dense(D) ->
-    +residual] -> LN -> RnnOutputLayer softmax per timestep."""
+    +residual] -> LN -> RnnOutputLayer softmax/mcxent per timestep; trained
+    with ``Adam(learning_rate=3e-4)``."""
 
     def __init__(self, num_labels: int = 256, max_length: int = 128,
                  d_model: int = 256, n_heads: int = 8, n_blocks: int = 4,
@@ -37,6 +39,7 @@ class TransformerLM:
     def conf(self):
         D = self.d_model
         g = (GraphBuilder(seed=self.seed, dtype=self.dtype)
+             .updater(Adam(learning_rate=3e-4))
              .add_inputs("tokens").set_input_sizes(self.num_labels))
         g.add_layer("embed", DenseLayer(n_out=D, activation="identity"),
                     "tokens")
@@ -64,7 +67,7 @@ class TransformerLM:
         g.add_layer("ln_f", LayerNormalization(), x)
         g.add_layer("output",
                     RnnOutputLayer(n_out=self.num_labels,
-                                   activation="softmax"),
+                                   activation="softmax", loss="mcxent"),
                     "ln_f")
         g.set_outputs("output")
         return g.build()
@@ -80,8 +83,8 @@ def lm_stream_forward(net):
     ``fwd(params, state, x, carry, mask=None) -> (out, new_carry)``."""
 
     def fwd(params, state, x, carry, mask=None):
-        outs, new_carry = net._forward(params, state, [x], [mask],
-                                       carry=carry)
+        outs, new_carry, _, _ = net._forward(params, state, [x], [mask],
+                                             carry=carry)
         return outs[0], new_carry
 
     return fwd

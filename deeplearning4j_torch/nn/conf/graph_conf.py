@@ -1,7 +1,7 @@
 """Graph configuration (port of the parts of
 ``deeplearning4j_tpu/nn/conf/graph_conf.py`` the TransformerLM needs): layer
-vertices, ``ElementWiseVertex(op="add")``, a builder and the topological
-order."""
+vertices, ``ElementWiseVertex(op="add")``, the updater, a builder and the
+topological order."""
 
 from __future__ import annotations
 
@@ -9,9 +9,13 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from deeplearning4j_torch.nn.conf.layers.base import Layer
+from deeplearning4j_torch.nn.updater import Sgd, Updater
 
 
 class GraphVertex:
+    def param_order(self) -> list:
+        return []
+
     def init_params(self, gen, dtype, device):
         return {}
 
@@ -34,6 +38,9 @@ class LayerVertex(GraphVertex):
     """A Layer inside the graph."""
 
     layer: Optional[Layer] = None
+
+    def param_order(self):
+        return self.layer.param_order()
 
     def init_params(self, gen, dtype, device):
         return self.layer.init_params(gen, dtype, device)
@@ -73,6 +80,7 @@ class ComputationGraphConfiguration:
     topo_order: list = field(default_factory=list)
     seed: int = 123
     dtype: str = "float32"
+    updater: Updater = field(default_factory=lambda: Sgd(learning_rate=0.1))
 
 
 class GraphBuilder:
@@ -81,6 +89,12 @@ class GraphBuilder:
 
     def __init__(self, seed: int = 123, dtype: str = "float32"):
         self._conf = ComputationGraphConfiguration(seed=seed, dtype=dtype)
+
+    def updater(self, u: Updater):
+        """The updater ``fit`` trains with (JAX: the builder's
+        ``.updater(...)``)."""
+        self._conf.updater = u
+        return self
 
     def add_inputs(self, *names):
         self._conf.network_inputs.extend(names)

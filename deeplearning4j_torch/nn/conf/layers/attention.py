@@ -72,6 +72,9 @@ class SelfAttentionLayer(BaseLayer):
     def output_size(self, n_in: int) -> int:
         return self.n_out
 
+    def param_order(self):
+        return ["Wq", "Wk", "Wv", "Wo", "b"]
+
     def init_params(self, gen, dtype=torch.float32, device="cpu"):
         D, O = self.n_in, self.n_out
         return {

@@ -40,6 +40,10 @@ class Layer:
     def output_size(self, n_in: int) -> int:
         return n_in
 
+    def param_order(self) -> list[str]:
+        """Parameter names in the flat-vector order (``params_flat``)."""
+        return []
+
     def init_params(self, gen: torch.Generator, dtype=torch.float32,
                     device="cpu") -> dict:
         return {}

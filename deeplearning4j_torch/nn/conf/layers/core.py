@@ -14,6 +14,9 @@ class DenseLayer(FeedForwardLayer):
     """Fully-connected layer: ``activation(x @ W + b)``, W
     ``[n_in, n_out]``."""
 
+    def param_order(self):
+        return ["W", "b"]
+
     def init_params(self, gen, dtype=torch.float32, device="cpu"):
         W = self._init_w(gen, (self.n_in, self.n_out), self.n_in, self.n_out,
                          dtype, device)

@@ -27,6 +27,9 @@ class LayerNormalization(BaseLayer):
         if self.n_out == 0:
             self.n_out = int(n_in)
 
+    def param_order(self):
+        return ["gamma", "beta"]
+
     def init_params(self, gen, dtype=torch.float32, device="cpu"):
         return {"gamma": torch.full((self.n_out,), self.gamma_init,
                                     dtype=dtype, device=device),

@@ -1,16 +1,27 @@
 """Recurrent-family layers (port of ``nn/conf/layers/recurrent.py``):
-RnnOutputLayer, forward only."""
+RnnOutputLayer."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 from deeplearning4j_torch.nn.conf.layers.core import DenseLayer
+from deeplearning4j_torch.ops.losses import get_loss
 
 
 @dataclass
 class RnnOutputLayer(DenseLayer):
-    """Per-timestep dense over ``[B, T, F]`` followed by softmax. The loss
-    head belongs to the training slice and is not ported yet."""
+    """Per-timestep dense + loss over ``[B, T, F]``. A ``[B, T]`` label mask
+    leaves masked steps out of the loss mean."""
+
+    loss: str = "mcxent"
 
     DEFAULT_ACTIVATION = "softmax"
+
+    def loss_fn(self):
+        return get_loss(self.loss)
+
+    def compute_loss_per_example(self, params, x, labels, weights=None):
+        """``[B, T]`` losses of the preactivations against ``labels``."""
+        pre = self.preactivate(params, x)
+        return self.loss_fn().per_example(labels, pre, self.act(), weights)

@@ -1,10 +1,17 @@
-"""ComputationGraph (port of the inference parts of
-``deeplearning4j_tpu/nn/graph.py``): parameters, the topological forward with
-an optional serving carry, ``output()`` and ``_stream_layers``.
+"""ComputationGraph (port of ``deeplearning4j_tpu/nn/graph.py``): parameters,
+the topological forward with an optional serving carry, ``output()``,
+``_stream_layers``, and training: ``_loss``, ``do_step``, ``fit``,
+``score`` and the flat-parameter plumbing.
 
 Params keep the JAX pytree shape, ``{vertex_name: {param: Tensor}}``, so the
-reference's weights load unchanged (``utils/convert.py``). Training (``fit``,
-the updater, the fused step) belongs to the training slice.
+reference's weights load unchanged (``utils/convert.py``); the updater state
+is a dict of such trees. One training step is ``build_step_core``
+(``optimize/fused_fit.py``): autograd of ``_loss``, the updater, then
+``params - steps``.
+
+``fit`` in this port is JAX's ``fit(..., fused_steps=1,
+health_guard=None)``: the fused K-step driver and the numerical-health
+guard are ROADMAP §A4, TBPTT and MultiDataSet are not ported.
 """
 
 from __future__ import annotations
@@ -36,14 +43,21 @@ class ComputationGraph:
         self.conf = conf
         self.params: dict = {}
         self.state: dict = {}
+        self.updater_state: dict = {}
+        self.iteration = 0
+        self.epoch = 0
+        # the last step's loss, a device tensor: reading it is the sync
+        self.score_value = float("nan")
         self.device: Optional[torch.device] = None
+        self._step = None
 
     def init(self, params: Optional[dict] = None, *,
              device=None) -> "ComputationGraph":
         """Draw the weights (xavier from a CPU ``torch.Generator`` seeded
         with ``conf.seed``, so the draw is the same on every device) or take
         ``params``, and home them on ``device`` (CUDA unless the caller
-        passes another device)."""
+        passes another device). The updater state starts from
+        ``conf.updater.init``."""
         self.device = resolve_device(device)
         dtype = getattr(torch, self.conf.dtype)
         if params is None:
@@ -54,20 +68,29 @@ class ComputationGraph:
                               for k, t in p.items()}
                        for name, p in params.items()}
         self.state = {name: {} for name in self.conf.topo_order}
+        self.updater_state = self.conf.updater.init(self.params)
         return self
 
-    def _forward(self, params, state, inputs, masks, *, carry=None):
-        """Traverse the DAG in topo order. Returns (outputs list,
-        new_carry)."""
+    def _forward(self, params, state, inputs, masks, *, carry=None,
+                 collect_loss_inputs=False):
+        """Traverse the DAG in topo order. Returns (outputs list, new_carry,
+        output masks list, loss_inputs), where ``loss_inputs[name]`` is the
+        input of each output vertex with a loss head (what its loss
+        consumes), filled when ``collect_loss_inputs``."""
         conf = self.conf
         acts = dict(zip(conf.network_inputs, inputs))
         act_masks = dict(zip(conf.network_inputs,
                              masks or [None] * len(inputs)))
         new_carry: dict = {}
+        loss_inputs: dict = {}
         for name in conf.topo_order:
             v = conf.vertices[name]
             v_in = [acts[k] for k in conf.vertex_inputs[name]]
             v_masks = [act_masks.get(k) for k in conf.vertex_inputs[name]]
+            if (collect_loss_inputs and name in conf.network_outputs
+                    and hasattr(getattr(v, "layer", None),
+                                "compute_loss_per_example")):
+                loss_inputs[name] = v_in[0]
             vertex_state = dict(state.get(name, {}))
             if carry is not None and name in carry:
                 vertex_state.update(carry[name])
@@ -78,11 +101,29 @@ class ComputationGraph:
                 new_carry[name] = c
             acts[name] = out
             act_masks[name] = v.feed_forward_mask(v_masks)
-        return [acts[o] for o in conf.network_outputs], new_carry
+        outs = [acts[o] for o in conf.network_outputs]
+        out_masks = [act_masks.get(o) for o in conf.network_outputs]
+        return outs, new_carry, out_masks, loss_inputs
 
     def _as_tensor(self, a, dtype=None):
         t = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a)
         return t.to(device=self.device, dtype=dtype or t.dtype)
+
+    def _batch(self, x, y, input_mask, label_mask):
+        """Inputs, labels and masks as lists of tensors on the net's device
+        (masks f32; a list of masks that are all None becomes None)."""
+        dtype = getattr(torch, self.conf.dtype)
+
+        def masks(ms):
+            ms = _as_list(ms)
+            if ms is None or all(m is None for m in ms):
+                return None
+            return [None if m is None else self._as_tensor(m, torch.float32)
+                    for m in ms]
+
+        return ([self._as_tensor(a, dtype) for a in _as_list(x)],
+                [self._as_tensor(a, dtype) for a in _as_list(y)],
+                masks(input_mask), masks(label_mask))
 
     @torch.inference_mode()
     def output(self, *inputs, masks=None):
@@ -94,8 +135,141 @@ class ComputationGraph:
         ms = ([None if m is None else self._as_tensor(m, torch.float32)
                for m in _as_list(masks)] if masks is not None
               else [None] * len(xs))
-        outs, _ = self._forward(self.params, self.state, xs, ms)
+        outs, _, _, _ = self._forward(self.params, self.state, xs, ms)
         return outs[0] if len(outs) == 1 else outs
+
+    # ------------------------------------------------------------- training
+    def _loss(self, params, state, x, y, input_mask, label_mask):
+        """The training loss (JAX ``_loss``): each output vertex's per-example
+        loss, averaged over its label mask (else the propagated output mask,
+        else a plain mean), summed over the outputs. Returns a 0-d tensor."""
+        conf = self.conf
+        xs, ys = _as_list(x), _as_list(y)
+        ims = _as_list(input_mask) or [None] * len(xs)
+        lms = _as_list(label_mask) or [None] * len(ys)
+        _, _, out_masks, loss_inputs = self._forward(
+            params, state, xs, ims, collect_loss_inputs=True)
+        total = 0.0
+        for j, name in enumerate(conf.network_outputs):
+            if name not in loss_inputs:
+                raise ValueError(f"Output vertex '{name}' has no loss head")
+            per_ex = conf.vertices[name].layer.compute_loss_per_example(
+                params[name], loss_inputs[name], ys[j])
+            lm = lms[j] if lms[j] is not None else out_masks[j]
+            if lm is not None:
+                lm = lm.reshape(per_ex.shape).to(per_ex.dtype)
+                total = total + (per_ex * lm).sum() / lm.sum().clamp_min(1.0)
+            else:
+                total = total + per_ex.mean()
+        return total
+
+    def _get_step(self):
+        if self._step is None:
+            from deeplearning4j_torch.optimize.fused_fit import (
+                build_step_core)
+
+            self._step = build_step_core(self)
+        return self._step
+
+    def do_step(self, xs, ys, input_masks=None, label_masks=None):
+        """One training iteration; returns ``(loss, new_carry)`` with the
+        loss a device tensor (no host sync) and no carry (``{}``)."""
+        xs, ys, ims, lms = self._batch(xs, ys, input_masks, label_masks)
+        (self.params, self.updater_state, self.state,
+         loss) = self._get_step()(self.params, self.updater_state,
+                                  self.state, self.iteration, xs, ys, ims,
+                                  lms)
+        self.iteration += 1
+        self.score_value = loss
+        return self.score_value, {}
+
+    def fit(self, data, labels=None, epochs: int = 1, *,
+            fused_steps: Optional[int] = None, health_guard=None):
+        """Train on a DataSet or an iterable of DataSets, one ``do_step``
+        per batch (JAX ``fit(..., fused_steps=1, health_guard=None)``). An
+        iterable counts ``epoch`` up once per pass. The fused K-step driver
+        and the health guard are not ported (ROADMAP §A4): any other
+        ``fused_steps`` or a health policy raises."""
+        from deeplearning4j_torch.datasets.dataset import DataSet
+
+        if fused_steps not in (None, 1):
+            raise NotImplementedError(
+                f"fused_steps={fused_steps}: the fused K-step driver is not "
+                "ported yet (ROADMAP §A4); use fused_steps=None or 1")
+        if health_guard not in (None, False):
+            raise NotImplementedError(
+                "health_guard: the numerical-health guard is not ported yet "
+                "(ROADMAP §A4); pass None or False")
+        if labels is not None:
+            data = DataSet(data, labels)
+        if isinstance(data, DataSet):
+            for _ in range(epochs):
+                self._fit_batch(data)
+            return self
+        for _ in range(epochs):
+            if hasattr(data, "reset"):
+                data.reset()
+            for ds in data:
+                self._fit_batch(ds)
+            self.epoch += 1
+        return self
+
+    def _fit_batch(self, ds):
+        self.do_step(ds.features, ds.labels, ds.features_mask,
+                     ds.labels_mask)
+
+    def score(self, ds=None, x=None, y=None) -> float:
+        """The last step's loss as a host float, or the loss of ``ds`` (or
+        ``x``, ``y``) at the current parameters."""
+        if ds is None and x is None:
+            return float(self.score_value)
+        if ds is not None:
+            x, y = ds.features, ds.labels
+            im, lm = ds.features_mask, ds.labels_mask
+        else:
+            im = lm = None
+        xs, ys, ims, lms = self._batch(x, y, im, lm)
+        with torch.no_grad():
+            return float(self._loss(self.params, self.state, xs, ys, ims,
+                                    lms))
+
+    # ------------------------------------------------------- params plumbing
+    def params_flat(self) -> np.ndarray:
+        """Contiguous parameter vector in (topo order, param_order) order,
+        as the JAX ``params_flat`` lays it out."""
+        chunks = [self.params[v][p].detach().cpu().numpy().ravel()
+                  for v, p in self._flat_slots()]
+        if not chunks:
+            return np.zeros((0,), np.float32)
+        return np.concatenate(chunks)
+
+    def _flat_slots(self):
+        """(vertex, param) pairs in the flat-vector order."""
+        return [(name, p) for name in self.conf.topo_order
+                for p in self.conf.vertices[name].param_order()
+                if p in self.params.get(name, {})]
+
+    def set_params_flat(self, flat) -> None:
+        flat = np.asarray(flat).ravel()
+        slots = self._flat_slots()
+        n_all = sum(self.params[v][p].numel() for v, p in slots)
+        if n_all != flat.size:
+            raise ValueError(f"Flat param size {flat.size} != expected "
+                             f"{n_all}")
+        out = {name: dict(p) for name, p in self.params.items()}
+        off = 0
+        for v, p in slots:
+            tmpl = self.params[v][p]
+            n = tmpl.numel()
+            out[v][p] = torch.from_numpy(np.array(
+                flat[off:off + n]).reshape(tuple(tmpl.shape))).to(
+                    device=tmpl.device, dtype=tmpl.dtype)
+            off += n
+        self.params = out
+
+    def num_params(self) -> int:
+        return int(sum(t.numel() for lp in self.params.values()
+                       for t in lp.values()))
 
     def _stream_layers(self):
         """(name, layer) pairs of the layers that carry serving state (KV

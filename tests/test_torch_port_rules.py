@@ -5,7 +5,10 @@
 - entry points called with ``device=None`` raise on a host without CUDA
   instead of quietly running on the CPU;
 - a kernel wrapper handed CUDA tensors on a host without CUDA raises, and
-  never computes the plain version on the CPU instead.
+  never computes the plain version on the CPU instead; so does a CUDA case
+  the kernels do not take (head dim 48, f16);
+- ``fit`` refuses what the port does not have yet (the fused K-step driver,
+  the health guard, regularization) instead of training without it.
 """
 
 import ast
@@ -59,6 +62,11 @@ def _imported_roots(path):
 def test_port_imports_no_jax():
     files = _port_files()
     assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
+    names = {str(p.relative_to(ROOT / "deeplearning4j_torch"))
+             for p in files if "deeplearning4j_torch" in p.parts}
+    # the training slice's modules are covered too
+    assert {"ops/losses.py", "nn/updater.py", "datasets/dataset.py",
+            "optimize/fused_fit.py", "utils/convert.py"} <= names
     bad = [(str(p.relative_to(ROOT)), mod) for p in files
            for mod in _imported_roots(p) if mod in FORBIDDEN]
     assert bad == []
@@ -94,6 +102,53 @@ def test_flash_wrapper_on_cuda_tensors_raises_without_cuda(no_cuda,
         q = torch.empty(1, 2, 16, 32, device="cuda")
         with pytest.raises(RuntimeError, match="CUDA device"):
             fa.flash_attention_forward(q, q, q, causal=True)
+
+
+def test_flash_backward_on_cuda_tensors_raises_without_cuda(no_cuda,
+                                                            monkeypatch):
+    monkeypatch.setattr(fa, "flash_attention_backward_plain", _no_plain)
+    with FakeTensorMode():
+        q = torch.empty(1, 2, 16, 32, device="cuda")
+        lse = torch.empty(2, 16, 1, device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            fa.flash_attention_backward(q, q, q, q, lse, q, causal=True)
+
+
+@pytest.mark.parametrize("case", ["d48", "f16"])
+def test_flash_backward_refuses_unsupported_cases(case, monkeypatch):
+    """The backward wrapper checks the case before any build: a CUDA
+    request the kernels cannot take raises instead of taking the plain
+    version."""
+    monkeypatch.setattr(fa, "flash_attention_backward_plain", _no_plain)
+    d, dtype, err, match = {"d48": (48, torch.float32, ValueError,
+                                    "head dims"),
+                            "f16": (32, torch.float16, TypeError,
+                                    "f32 or bf16")}[case]
+    with FakeTensorMode():
+        q = torch.empty(1, 2, 16, d, device="cuda", dtype=dtype)
+        lse = torch.empty(2, 16, 1, device="cuda")
+        with pytest.raises(err, match=match):
+            fa.flash_attention_backward(q, q, q, q, lse, q)
+
+
+@pytest.mark.parametrize("kw", [dict(fused_steps=2),
+                                dict(health_guard=True),
+                                dict(health_guard=object())],
+                         ids=["fused2", "guard_on", "guard_policy"])
+def test_fit_refuses_what_is_not_ported(kw):
+    net = TransformerLM(**TINY).init(device="cpu")
+    x = np.eye(11, dtype=np.float32)[np.arange(8) % 11][None]
+    with pytest.raises(NotImplementedError, match="ROADMAP §A4"):
+        net.fit(x, x, **kw)
+    assert net.iteration == 0
+
+
+def test_step_refuses_regularization():
+    net = TransformerLM(**TINY).init(device="cpu")
+    net.conf.vertices["ff0a"].layer.l2 = 1e-4
+    x = np.eye(11, dtype=np.float32)[np.arange(8) % 11][None]
+    with pytest.raises(NotImplementedError, match="ROADMAP §A2"):
+        net.do_step(x, x)
 
 
 def test_paged_wrapper_on_cuda_tensors_raises_without_cuda(no_cuda,
