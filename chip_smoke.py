@@ -8,11 +8,14 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 1. build the hand-written kernels (``deeplearning4j_torch/kernels``);
 2. K1, flash-attention forward, against its plain PyTorch version at the
-   slice's shape (f32 causal with and without a key mask, bf16) and at
-   T=2048, d=128, timed beside the plain version and SDPA as a yardstick;
-3. K2, paged-attention read, against its plain gather version: decode (T=1)
+   slice's shape (f32 causal with and without a key mask, bf16), at the
+   training shape [16, 8, 128, 32] and at T=2048, d=128; two calls must be
+   bitwise equal; timed beside the plain version and SDPA as a yardstick;
+3. K2, paged-attention read, against its plain gather version: decode
+   (T=1), T=4 and T=5 (the two sides of the decode/chunk route boundary)
    and a 256-token prefill chunk, f32 and int8 pools, Tmax 512 and 2048,
    with a row on a page boundary and a row whose block table is all page 0;
+   two calls must be bitwise equal;
 4. the slice model (zoo TransformerLM defaults, numpy-seeded weights) on
    the card: ``output()`` against a CPU run of the port's plain path;
 5. serving: 16 greedy requests (prompts of 8..300 tokens, 32 new tokens)
@@ -28,6 +31,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    the same weights: first-step gradients and three steps' losses agree,
    each step launches K1, K3 and K4 ``n_blocks`` times, the loss falls over
    20 more steps on the batch, and the step time is reported.
+
+Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
+calls (``ms``: the wrapper's host work included, which sets the pace once
+a kernel takes a few µs) and the kernel's own device time per launch from
+one short ``torch.profiler`` window (``device_ms``), with the plain
+version's and the yardstick's device time per call beside it.
 
 The main path is phases 4-5 (serving) and phase 7 (training). The launch
 counters are zeroed just before each of the two and read just after (phase
@@ -60,10 +69,12 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 on
-# the CUDA cores (the kernels run their products there), bf16 tensor cores.
+# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and the
+# bf16 tensor cores. "f32" is the least time f32-accurate work can take:
+# three TF32 tensor-core products per product (hi·hi + hi·lo + lo·hi, as K1
+# runs them) at 495 TFLOP/s, so 165 TFLOP/s, above the CUDA cores' 67.
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {"f32": 67e12, "bf16": 989e12}
+PEAK_FLOPS_S = {"f32": 495e12 / 3, "bf16": 989e12}
 
 SLICE = dict(num_labels=256, max_length=128, d_model=256, n_heads=8,
              n_blocks=4, max_cache=512)
@@ -121,6 +132,46 @@ def time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def dev_us(e):
+    """Self device time (µs) of one ``key_averages()`` row."""
+    return getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+
+
+def device_ms(fn, match=None, iters=20, windows=3):
+    """Device time of ``fn()`` from a short ``torch.profiler`` window over
+    ``iters`` calls (after 3 warm-up calls): with ``match``, the self device
+    time of the kernels whose name holds it per launch, else every device
+    activity's per call. Device activities are the rows with device time
+    and no CPU time. A window that recorded no such activity is taken
+    again, up to ``windows`` times. Returns ``(ms, launches per call)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = n = 0
+        seen = []
+        for e in prof.key_averages():
+            if dev_us(e) > 0 and e.self_cpu_time_total == 0:
+                seen.append(e.key[:60])
+                if match is None or match in e.key:
+                    us += dev_us(e)
+                    n += e.count
+        if n > 0:
+            return (us / 1e3 / (n if match else iters)), n / iters
+    raise AssertionError(f"profiler saw no device activity "
+                         f"({match or 'any'}) in {windows} windows; "
+                         f"device rows: {seen[:5]}")
+
+
 def bound_ms(nbytes, flops, kind):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS_S[kind] * 1e3
@@ -170,6 +221,9 @@ def phase_flash(dev):
               True, 1e-4),
              ("slice_bf16_causal", 8, 8, 128, 32, torch.bfloat16, True,
               False, 2e-2),
+             # the training step's shape (phase 7)
+             ("train_f32_causal", 16, 8, 128, 32, torch.float32, True, False,
+              1e-4),
              ("long_f32_causal", 2, 8, 2048, 128, torch.float32, True, False,
               1e-4),
              # at T=2048 a row averages hundreds of keys and |O| is a few
@@ -180,8 +234,11 @@ def phase_flash(dev):
         q, k, v = qkv(B, H, T, d, dtype)
         m = mask_for(g, B, T, dev) if masked else None
         o, lse = fa.flash_attention_forward(q, k, v, causal=causal, mask=m)
+        again = fa.flash_attention_forward(q, k, v, causal=causal, mask=m)
         po, plse = fa.flash_attention_plain(q, k, v, causal=causal, mask=m)
         torch.cuda.synchronize()
+        check(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
+              f"K1 {name}: two calls differ (not deterministic)")
         err = (o.float() - po.float()).abs().max().item()
         lerr = (lse - plse).abs().max().item()
         check(o.dtype == dtype and torch.isfinite(o.float()).all().item(),
@@ -189,10 +246,12 @@ def phase_flash(dev):
         check(err <= atol and lerr <= max(atol, 1e-4),
               f"K1 {name}: max |O err| {err:.3g}, |lse err| {lerr:.3g} > "
               f"{atol}")
-        ms = time_ms(lambda: fa.flash_attention_forward(
-            q, k, v, causal=causal, mask=m))
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(
-            q, k, v, causal=causal, mask=m), iters=20)
+        kernel = lambda: fa.flash_attention_forward(  # noqa: E731
+            q, k, v, causal=causal, mask=m)
+        plain = lambda: fa.flash_attention_plain(  # noqa: E731
+            q, k, v, causal=causal, mask=m)
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, iters=20)
         if m is None:
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, is_causal=causal)
@@ -204,6 +263,9 @@ def phase_flash(dev):
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, attn_mask=keep)
         sdpa_ms = time_ms(sdpa)
+        kdev, _ = device_ms(kernel, "flash_fwd_kernel")
+        plain_dev, _ = device_ms(plain, iters=5)
+        sdpa_dev, _ = device_ms(sdpa)
         isz = torch.tensor([], dtype=dtype).element_size()
         nbytes = 4 * B * H * T * d * isz + B * H * T * 4 \
             + (B * T * 4 if masked else 0)
@@ -212,11 +274,15 @@ def phase_flash(dev):
                            "bf16" if dtype == torch.bfloat16 else "f32")
         results[name] = dict(shape=[B, H, T, d], dtype=str(dtype),
                              causal=causal, masked=masked, max_abs_err=err,
-                             lse_err=lerr, ms=ms, plain_ms=plain_ms,
-                             library_ms=sdpa_ms, bound_ms=bms, bound_by=by)
-        log(f"  K1 {name:22s} err {err:.2e} lse {lerr:.2e} (atol {atol})  "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
-            f"{sdpa_ms:.4f} ms  bound {bms:.4f} ms ({by})")
+                             lse_err=lerr, deterministic=True, ms=ms,
+                             device_ms=kdev, plain_ms=plain_ms,
+                             plain_device_ms=plain_dev, library_ms=sdpa_ms,
+                             library_device_ms=sdpa_dev, bound_ms=bms,
+                             bound_by=by)
+        log(f"  K1 {name:22s} err {err:.2e} lse {lerr:.2e} (atol {atol}), "
+            f"bitwise repeatable; kernel {ms:.4f} ms (device {kdev:.4f})  "
+            f"plain {plain_ms:.4f} ({plain_dev:.4f})  sdpa {sdpa_ms:.4f} "
+            f"({sdpa_dev:.4f})  bound {bms:.4f} ms ({by})")
     return results
 
 
@@ -278,6 +344,10 @@ def phase_flash_bwd(dev):
         args = (q, k, v, do, lse, fa.attention_delta(o, do), m, causal)
         dq_ms = time_ms(lambda: ext.flash_bwd_dq(*args))
         dkv_ms = time_ms(lambda: ext.flash_bwd_dkv(*args))
+        dq_dev, _ = device_ms(lambda: ext.flash_bwd_dq(*args),
+                              "flash_bwd_dq_kernel")
+        dkv_dev, _ = device_ms(lambda: ext.flash_bwd_dkv(*args),
+                               "flash_bwd_dkv_kernel")
         plain_ms = time_ms(lambda: fa.flash_attention_backward_plain(
             q, k, v, o, lse, do, causal=causal, mask=m), iters=20)
         sdpa_ms = time_ms(lambda: torch.autograd.grad(
@@ -296,13 +366,16 @@ def phase_flash_bwd(dev):
             masked=masked, rel_err=errs, max_abs_err=abs_errs,
             tolerance=tol, sdpa_rel_err=sdpa_errs, sdpa_tolerance=sdpa_tol,
             deterministic=True, pairs=pairs,
-            dq=dict(ms=dq_ms, bound_ms=dq_bound, bound_by=dq_by),
-            dkv=dict(ms=dkv_ms, bound_ms=dkv_bound, bound_by=dkv_by),
+            dq=dict(ms=dq_ms, device_ms=dq_dev, bound_ms=dq_bound,
+                    bound_by=dq_by),
+            dkv=dict(ms=dkv_ms, device_ms=dkv_dev, bound_ms=dkv_bound,
+                     bound_by=dkv_by),
             plain_ms=plain_ms, library_ms=sdpa_ms)
         log(f"  K3/K4 {name:22s} rel err vs plain {max(errs.values()):.2e} "
             f"(tol {tol}), vs SDPA {max(sdpa_errs.values()):.2e} (tol "
-            f"{sdpa_tol}), bitwise repeatable; dq {dq_ms:.4f} ms (bound "
-            f"{dq_bound:.4f}, {dq_by})  dkv {dkv_ms:.4f} ms (bound "
+            f"{sdpa_tol}), bitwise repeatable; dq {dq_ms:.4f} ms (device "
+            f"{dq_dev:.4f}, bound {dq_bound:.4f}, {dq_by})  dkv {dkv_ms:.4f} "
+            f"ms (device {dkv_dev:.4f}, bound "
             f"{dkv_bound:.4f}, {dkv_by})  plain {plain_ms:.4f} ms  sdpa bwd "
             f"{sdpa_ms:.4f} ms")
     return results
@@ -334,7 +407,7 @@ def phase_paged(dev):
                 B, NP).to(torch.int32)
             bt[B - 1] = 0                      # a row read from page 0 only
             bt = bt.to(dev)
-            for T in (1, 256):
+            for T in (1, 4, 5, 256):
                 pos = torch.randint(0, Tmax - T + 1, (B,), generator=g)
                 pos[1] = (pos[1] // ps) * ps       # exactly on a page boundary
                 pos = pos.to(torch.int32).to(dev)
@@ -358,6 +431,7 @@ def phase_paged(dev):
                 args = (q, kp, vp, bt, pos)
                 kw = dict(key_valid=key_valid, kscales=ks, vscales=vs)
                 o = ppa.paged_attention(*args, **kw)
+                again = ppa.paged_attention(*args, **kw)
                 po = ppa.paged_attention_plain(*args, **kw)
                 torch.cuda.synchronize()
                 check(torch.isfinite(o).all().item(),
@@ -369,9 +443,17 @@ def phase_paged(dev):
                 name = (f"{'int8' if quant else 'f32'}_T{T}_Tmax{Tmax}")
                 check(err <= atol, f"K2 {name}: max |err| {err:.3g} > "
                                    f"{atol}")
-                ms = time_ms(lambda: ppa.paged_attention(*args, **kw))
-                plain_ms = time_ms(lambda: ppa.paged_attention_plain(
-                    *args, **kw), iters=20)
+                check(torch.equal(o, again),
+                      f"K2 {name}: two calls differ (not deterministic)")
+                # the route paged_attn.cu takes: T <= 4 decode, else chunk
+                route = "decode" if T <= 4 else "chunk"
+                kernel = lambda: ppa.paged_attention(*args, **kw)  # noqa
+                plain = lambda: ppa.paged_attention_plain(  # noqa: E731
+                    *args, **kw)
+                ms = time_ms(kernel)
+                plain_ms = time_ms(plain, iters=20)
+                kdev, _ = device_ms(kernel, "paged_")
+                plain_dev, _ = device_ms(plain, iters=5)
                 # bytes this run's data needs: each distinct (page, offset)
                 # K/V slot the rows walk, read once (row B-1 walks page 0
                 # over and over: its ps slots count once), the walked
@@ -391,12 +473,17 @@ def phase_paged(dev):
                     for p in pos.tolist())
                 bms, by = bound_ms(nbytes, flops, "f32")
                 results[name] = dict(B=B, H=H, T=T, d=d, ps=ps, Tmax=Tmax,
-                                     quant=quant, max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms, bound_ms=bms,
-                                     bound_by=by, library_ms=None)
-                log(f"  K2 {name:18s} err {err:.2e} (atol {atol})  kernel "
-                    f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
-                    f"{bms:.4f} ms ({by})")
+                                     quant=quant, route=route,
+                                     max_abs_err=err, deterministic=True,
+                                     ms=ms, device_ms=kdev,
+                                     plain_ms=plain_ms,
+                                     plain_device_ms=plain_dev,
+                                     bound_ms=bms, bound_by=by,
+                                     library_ms=None)
+                log(f"  K2 {name:18s} {route:6s} err {err:.2e} (atol "
+                    f"{atol}), bitwise repeatable; kernel {ms:.4f} ms "
+                    f"(device {kdev:.4f})  plain {plain_ms:.4f} "
+                    f"({plain_dev:.4f})  bound {bms:.4f} ms ({by})")
     return results
 
 
@@ -632,11 +719,6 @@ def profile_table(prof, out_dir, fname, header):
     profiled thread also carries its kernels' device time, and counting
     it too would count that time twice."""
     events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
-
     kernels = sorted(((dev_us(e), e.count, e.key) for e in events
                       if dev_us(e) > 0 and e.self_cpu_time_total == 0),
                      reverse=True)
@@ -694,7 +776,8 @@ def kernel_line(flash, paged, bwd, launches):
          "launches": launches["flash_fwd"],
          "max_abs_err": max(r["max_abs_err"] for n, r in flash.items()
                             if n.startswith("slice_f32")),
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "ms": k1["ms"], "device_ms": k1["device_ms"],
+         "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
          "library_ms": k1["library_ms"]},
         {"name": "paged_attn", "route": "cuda",
@@ -704,7 +787,8 @@ def kernel_line(flash, paged, bwd, launches):
          "launches": launches["paged_attn"],
          "max_abs_err": max(r["max_abs_err"] for n, r in paged.items()
                             if n.startswith("f32") and "Tmax512" in n),
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "ms": k2["ms"], "device_ms": k2["device_ms"],
+         "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None}]
     # the plain time is the whole plain backward, the library time the
@@ -720,7 +804,8 @@ def kernel_line(flash, paged, bwd, launches):
              "launches": launches[name],
              "max_abs_err": max(r["max_abs_err"][g] for r in slice_bwd
                                 for g in grads),
-             "ms": kb[part]["ms"], "plain_ms": kb["plain_ms"],
+             "ms": kb[part]["ms"], "device_ms": kb[part]["device_ms"],
+             "plain_ms": kb["plain_ms"],
              "bound_ms": kb[part]["bound_ms"],
              "bound_by": kb[part]["bound_by"],
              "library_ms": kb["library_ms"]})

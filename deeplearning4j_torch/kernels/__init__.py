@@ -10,7 +10,11 @@ Sources (all in this directory):
   ``deeplearning4j_tpu/ops/pallas_attention.py::_attn_dq_kernel`` and
   ``::_attn_dkv_kernel``;
 - ``bindings.cpp``: the one small file that includes PyTorch's headers. It
-  checks each launch with ``C10_CUDA_KERNEL_LAUNCH_CHECK()``.
+  checks each launch with ``C10_CUDA_KERNEL_LAUNCH_CHECK()``;
+- headers: ``common.cuh`` (tile geometry, conversions, warp reductions and
+  the CUDA-core tile helpers of the backward and the paged chunk route) and
+  ``mma.cuh`` (``mma.sync`` TF32/bf16, the TF32 hi/lo split, ``ldmatrix``,
+  ``cp.async``), which K1 builds on.
 
 ``load()`` builds all of them in one ``torch.utils.cpp_extension.load`` call
 for ``sm_90a`` into ``kernels/build/`` (listed in ``.gitignore``) at first
@@ -29,7 +33,8 @@ import torch
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "build")
 SOURCES = ("bindings.cpp", "flash_fwd.cu", "paged_attn.cu", "flash_bwd.cu")
-CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-lineinfo")
+CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+              "-lineinfo")
 
 #: launches per kernel since the last ``reset_launch_counts()``
 LAUNCHES = {"flash_fwd": 0, "paged_attn": 0, "flash_bwd_dq": 0,

@@ -12,7 +12,16 @@ the two sides). Quantization codes and written pools must be equal exactly:
 the write test uses identity K/V projections, so both sides quantize the
 same f32 values. The CUDA kernel is held against this plain version on the
 card by ``chip_smoke.py``.
+
+The kernel's decode-route design is rehearsed here in torch: the walked
+pages cut into 8 contiguous ranges (one per warp), a partial (m, l, acc)
+per range with m starting at -1e30, and the partials merged in fixed range
+order, as ``kernels/paged_attn.cu`` does. It must match the plain version
+and the JAX ``XlaPagedAttention`` on every row that sees a column, empty
+ranges and all.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -198,3 +207,112 @@ def test_resolve_paged_backend():
     assert ppa.resolve_paged_backend("xla", "cuda") == "xla"
     with pytest.raises(ValueError, match="unknown paged_attention"):
         ppa.resolve_paged_backend("cudnn", "cuda")
+
+
+# ------------------------------------------- K2's decode design, rehearsed
+def _k2_split_walk(q, kp, vp, bt, pos, *, key_valid=None, kscales=None,
+                   vscales=None, warps=8):
+    """K2's decode route in f32: the walked columns [0, min(Tmax, pos + T))
+    as ``warps`` contiguous page ranges, each folded into its own (m, l,
+    acc) (m from -1e30, masked columns -1e30), then merged in range order.
+    Returns (context, number of empty ranges)."""
+    B, H, T, d = q.shape
+    ps, NP = kp.shape[2], bt.shape[1]
+    Tmax = NP * ps
+    qs = q * (1.0 / math.sqrt(d))
+    out = torch.empty_like(q)
+    empty = 0
+    for b in range(B):
+        kend = min(Tmax, int(pos[b]) + T)
+        npages = -(-kend // ps)
+        per = -(-npages // warps)
+        parts = []
+        for w in range(warps):
+            pb = min(npages, w * per)
+            pe = min(npages, pb + per)
+            if pb == pe:
+                empty += 1
+                parts.append((torch.full((H, T, 1), -1e30),
+                              torch.zeros(H, T, 1), torch.zeros(H, T, d)))
+                continue
+            cols = torch.arange(pb * ps, min(kend, pe * ps))
+            pages, offs = bt[b, cols // ps].long(), cols % ps
+            kk = kp[pages, :, offs].float()             # [n, H, d]
+            vv = vp[pages, :, offs].float()
+            if kscales is not None:
+                kk = kk * kscales[pages, :, offs][..., None]
+                vv = vv * vscales[pages, :, offs][..., None]
+            s = qs[b] @ kk.permute(1, 2, 0)              # [H, T, n]
+            ok = cols[None, :] <= int(pos[b]) + torch.arange(T)[:, None]
+            if key_valid is not None:
+                ok = ok & (key_valid[b, cols] != 0)[None, :]
+            s = torch.where(ok, s, torch.full_like(s, -1e30))
+            m = s.amax(-1, keepdim=True).clamp_min(-1e30)
+            p = torch.exp(s - m)
+            parts.append((m, p.sum(-1, keepdim=True), p @ vv.permute(1, 0, 2)))
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        lsum = torch.zeros(H, T, 1)
+        acc = torch.zeros(H, T, d)
+        for m, l, a in parts:                            # fixed range order
+            e = torch.exp(m - mx)
+            lsum = lsum + l * e
+            acc = acc + a * e
+        out[b] = acc / lsum.clamp_min(1e-30)
+    return out, empty
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("name", CASES)
+def test_k2_split_walk_design_matches_plain_and_jax(name, quant):
+    """Every case geometry (decode, a chunk straddling a page, positions on
+    a page boundary, an all-masked row on garbage page 0) with at most 4
+    walked pages over 8 ranges, so empty ranges always occur."""
+    q, pool, bt, pos, mask = _case(name, quant)
+    T = q.shape[2]
+    t = {k: torch.from_numpy(v) for k, v in pool.items()}
+    tq, tbt, tpos = (torch.from_numpy(a) for a in (q, bt, pos))
+    key_valid = None
+    if mask is not None:
+        key_valid = ppa._key_valid_plane(torch.from_numpy(mask), tpos, T,
+                                         NP * PS)
+    kw = dict(kscales=t.get("kscales"), vscales=t.get("vscales"))
+    got, empty = _k2_split_walk(tq, t["kpages"], t["vpages"], tbt, tpos,
+                                key_valid=key_valid, **kw)
+    plain = ppa.paged_attention_plain(tq, t["kpages"], t["vpages"], tbt,
+                                      tpos, key_valid=key_valid, **kw)
+    jax_ref = np.asarray(jppa.XlaPagedAttention().attend(
+        jnp.asarray(q), jnp.asarray(pool["kpages"]),
+        jnp.asarray(pool["vpages"]), jnp.asarray(bt), jnp.asarray(pos),
+        mask=None if mask is None else jnp.asarray(mask),
+        kscales=None if "kscales" not in pool else jnp.asarray(
+            pool["kscales"]),
+        vscales=None if "vscales" not in pool else jnp.asarray(
+            pool["vscales"])))
+    assert empty > 0 and torch.isfinite(got).all()
+    # rows that see no column at all (the all-masked row) are uniform over
+    # the columns the walk covers, as in the kernel: finite, not compared
+    col = torch.arange(NP * PS)
+    vis = col[None, None] <= tpos.long()[:, None, None] + torch.arange(T)[
+        None, :, None]
+    if key_valid is not None:
+        vis = vis & (key_valid[:, None] != 0)
+    seen = vis.any(-1)[:, None, :, None].expand_as(got).numpy()
+    np.testing.assert_allclose(np.where(seen, got.numpy(), 0),
+                               np.where(seen, plain.numpy(), 0),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(np.where(seen, got.numpy(), 0),
+                               np.where(seen, jax_ref, 0), atol=1e-5, rtol=0)
+
+
+def test_k2_split_walk_is_order_fixed():
+    """Two runs of the split walk are bitwise equal, and an empty range
+    adds exactly nothing: the same row over 1 range and over 8 agrees."""
+    q, pool, bt, pos, _ = _case("decode", False)
+    t = {k: torch.from_numpy(v) for k, v in pool.items()}
+    args = (torch.from_numpy(q), t["kpages"], t["vpages"],
+            torch.from_numpy(bt), torch.from_numpy(pos))
+    a, _ = _k2_split_walk(*args)
+    b, _ = _k2_split_walk(*args)
+    one, empty_one = _k2_split_walk(*args, warps=1)
+    assert torch.equal(a, b) and empty_one == 0
+    np.testing.assert_allclose(a.numpy(), one.numpy(), atol=1e-6, rtol=0)

@@ -38,7 +38,7 @@ TINY = dict(num_labels=11, max_length=8, d_model=32, n_heads=1, n_blocks=1,
 
 def _port_files():
     files = sorted((ROOT / "deeplearning4j_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
     return files
 
 
