@@ -12,9 +12,11 @@ Sources (all in this directory):
 - ``bindings.cpp``: the one small file that includes PyTorch's headers. It
   checks each launch with ``C10_CUDA_KERNEL_LAUNCH_CHECK()``;
 - headers: ``common.cuh`` (tile geometry, conversions, warp reductions and
-  the CUDA-core tile helpers of the backward and the paged chunk route) and
-  ``mma.cuh`` (``mma.sync`` TF32/bf16, the TF32 hi/lo split, ``ldmatrix``,
-  ``cp.async``), which K1 builds on.
+  the CUDA-core tile helpers of the paged chunk route), ``mma.cuh``
+  (``mma.sync`` TF32/bf16, the TF32 hi/lo split, ``ldmatrix``,
+  ``cp.async``) and ``attn_tile.cuh`` (the tensor-core tile products,
+  A-fragment loads, ``cp.async`` ring staging and epilogue stores that K1,
+  K3 and K4 share).
 
 ``load()`` builds all of them in one ``torch.utils.cpp_extension.load`` call
 for ``sm_90a`` into ``kernels/build/`` (listed in ``.gitignore``) at first

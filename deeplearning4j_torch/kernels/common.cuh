@@ -1,9 +1,8 @@
-// Shared pieces of the port's attention kernels: tile geometry, type
-// conversions (intrinsics only: the extension builds with PyTorch's
-// -D__CUDA_NO_BFLOAT16_CONVERSIONS__) and warp reductions.
+// Shared pieces of the port's attention kernels: the masked score, and the
+// tile geometry, warp reductions and CUDA-core tile helpers of K2's chunk
+// route.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace dl4j {
@@ -25,24 +24,6 @@ constexpr int kThreads = kWarps * 32;
 // [kBlockK][D], key-validity row [kBlockK].
 __host__ __device__ constexpr int smem_words(int D, int R) {
   return kWarps * R * D + kBlockK * (D + 1) + kBlockK * D + kBlockK;
-}
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // -inf: the score of a key that does not exist, so exp() gives exactly 0

@@ -1,4 +1,5 @@
-// K3 and K4: flash-attention backward for Hopper (sm_90a), dQ and dK/dV.
+// K3 and K4: flash-attention backward for Hopper (sm_90a), dQ and dK/dV,
+// on the tensor cores.
 //
 // Replace deeplearning4j_tpu/ops/pallas_attention.py::_attn_dq_kernel (K3)
 // and ::_attn_dkv_kernel (K4), both launched by _flash_backward. Given the
@@ -9,157 +10,219 @@
 // reach device memory:
 //
 //   dP = dO·vᵀ,  dS = P ⊙ (dP − delta),
-//   dQ = (dS·k)/√d  (K3),   dV = Pᵀ·dO,  dK = dSᵀ·(q/√d)  (K4).
+//   dQ = (dS·k)/√d  (K3),   dV = Pᵀ·dO,  dK = (dSᵀ·q)/√d  (K4).
 //
 // Scores are masked exactly as K1 masks them, so P is built from the same
 // set of keys that lse counts: a key past the causal diagonal or refused by
-// the optional [B, T] key row (nonzero = valid) scores -1e30, and a key past
-// T, in the ragged last tile, gets P = 0 exactly. Both kernels accumulate in
-// f32 and write in the input type (f32 or bf16).
+// the optional [B, T] key row (nonzero = valid) scores -1e30, and a key or
+// row past T gets P = 0 exactly. Both kernels accumulate in f32 and write in
+// the input type (f32 or bf16).
 //
 // What bounds them on this card: at the training slice's T=128, d=32 both
 // are tiny, bound by launch latency and by bytes (K3 moves q, k, v, dO, dQ;
-// K4 q, k, v, dO, dK, dV; both lse and delta); at long T they are bound by
-// operations, 6d (K3) and 8d (K4) FLOPs per visible (row, key) pair. Like
-// K1, this first version runs its products on the f32 CUDA cores; wgmma,
-// TMA staging and a fused single-pass backward are later work.
+// K4 q, k, v, dO, dK, dV; both lse and delta); at long T by operations, 6d
+// (K3) and 8d (K4) FLOPs per visible (row, key) pair, on the tensor cores.
 //
-// Design: K3 is one CTA per (b·h, 32-row q tile), 4 warps of 8 rows; it
-// stages the tile's q (pre-scaled) and dO once and streams 32-key K/V tiles
-// through shared memory, one key per lane, and stops at the diagonal tile
-// when causal, as K1 does. dQ[r][c] = Σ_j dS[r][j]·k[j][c] is a reduction
-// over the lanes: each lane broadcasts its dS with a warp shuffle and every
-// lane accumulates the columns c = lane + 32·i it owns, in registers.
-// K4 is one CTA per (b·h, 32-key tile), 4 warps of 8 keys; it keeps its K/V
-// tile in shared memory and streams 32-row q/dO/lse/delta tiles, one row
-// per lane, starting at the tile that holds row k0 when causal (rows above
-// it see none of these keys). dV and dK are reductions over the rows, done
-// the same way by shuffle. Each output element is written by exactly one
-// thread after a loop in a fixed order, with no atomics, so two calls on
-// the same inputs give bitwise-equal results; that is why the backward is
-// two kernels, as in the JAX package.
+// Design (K1's, attn_tile.cuh): warp-level mma.sync with f32 accumulators,
+// f32 as m16n8k8 TF32 with three products of hi/lo splits (about 2^-21
+// relative, where one TF32 product keeps 1e-3), bf16 as m16n8k16 with P and
+// dS entering their products as two bf16 terms, as K1's P·V does.
+// - K3 is one CTA per (b·h, 64-row q tile), 4 warps of 16 rows, the
+//   heaviest causal tiles first. The warp's q and dO rows are A fragments;
+//   K/V tiles of 8 KB a tensor (64 keys; 32 for f32 at d=64 and bf16 at
+//   128, 16 for f32 at 128) stream through a two-stage shared-memory ring
+//   filled by 16-byte cp.async, with the key-mask row beside each tile, up
+//   to the diagonal tile when causal. S = q·Kᵀ and dP = dO·Vᵀ, dS is built
+//   on the accumulator, and dQ += dS·K takes dS as A from the accumulator
+//   (K1's key-reordered TF32 fragment; bf16 K by ldmatrix.trans).
+// - K4 is K3 with rows and keys swapped: one CTA per (b·h, 64-key tile),
+//   4 warps of 16 keys, the low key tiles (which walk the most q tiles
+//   under causal) first. The warp's K and V rows are A fragments; q/dO
+//   tiles stream through the ring with their lse and delta rows, from the
+//   tile holding row k0 when causal. Sᵀ = K·qᵀ and dPᵀ = V·dOᵀ; Pᵀ and dSᵀ
+//   are built on the accumulator; dV += Pᵀ·dO and dK += dSᵀ·q.
+// Where a row is at most 128 bytes the A fragments stay in registers for
+// the whole CTA; wider rows would not fit beside the d-wide accumulators
+// and are read again from a shared-memory copy for each tile. In f32 each
+// tile's dQ, dK and dV are summed in fresh accumulators and added by
+// round-to-nearest f32 adds (pv_f32_rn: the tensor core's accumulation
+// truncates; one accumulator over T=2048 rows read 2.6e-5 of max|dV| on an
+// H100). 1/√d scales the scores after the product and dQ/dK once in the
+// epilogue. Each output element is written by one thread after a loop in a
+// fixed order, with no atomics, so two calls on the same inputs give
+// bitwise-equal results; that is why the backward is two kernels, as in
+// the JAX package.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
 
+#include "attn_tile.cuh"
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace dl4j {
 
-constexpr int kTile = kWarps * kRows;  // 32 rows (K3) or 32 keys (K4)
-static_assert(kTile == kBlockK, "the backward tiles rows and keys alike");
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = kBwdWarps * 32;
+// a CTA's own rows (K3) or keys (K4): one m16 tile per warp
+constexpr int kBwdBlock = kBwdWarps * 16;
 
-// f32 words of dynamic shared memory of either kernel: two [32][D] tiles,
-// two [32][D+1] tiles (padded: a lane per row reads without bank
-// conflicts) and three 32-entry rows (key validity, lse, delta).
-__host__ __device__ constexpr int bwd_smem_words(int D) {
-  return 2 * kTile * D + 2 * kTile * (D + 1) + 3 * kTile;
-}
+template <typename T, int D>
+struct BwdTile {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  // rows of at most 128 bytes (f32 d=32, bf16 d<=64): the CTA's own rows
+  // stay in registers as A fragments. Wider rows would not fit beside the
+  // d-wide accumulators: they are re-read from a shared copy each tile.
+  static constexpr bool kARegs = D * (int)sizeof(T) <= 128;
+  // rows of a streamed tile (K3: keys, K4: q rows): 8 KB of each tensor, at
+  // most 64 rows; 16 rows for f32 at d=128, so that two CTAs fit on an SM
+  static constexpr int kRowBytes = D * (int)sizeof(T);
+  static constexpr int kBlockN = kRowBytes <= 128 ? 64 : 8192 / kRowBytes;
+  // row stride in elements: the 16-byte padding keeps the fragment loads
+  // free of bank conflicts and every row 16-byte aligned for cp.async
+  static constexpr int kStride = D + 16 / (int)sizeof(T);
+  static constexpr int kTile = kBlockN * kStride;
+  static constexpr int kOwn = kBwdBlock * kStride;
+  // two stages of two streamed tiles and of two f32 rows (K3: the key mask;
+  // K4: lse and delta), and the CTA's own two tiles when not in registers
+  static constexpr int kSmemBytes =
+      (2 * 2 * kTile + (kARegs ? 0 : 2 * kOwn)) * (int)sizeof(T) +
+      2 * 2 * kBlockN * (int)sizeof(float);
+  using AFrag = typename std::conditional<kF32, float[D / 8][4],
+                                          uint32_t[D / 16][4]>::type;
+};
 
 // ------------------------------------------------------------------ K3: dQ
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         const float* __restrict__ mask, T* __restrict__ dq,
                         int H, int Tlen, float scale, int causal) {
-  extern __shared__ float smem[];
-  float* qs = smem;                      // [kTile][D], pre-scaled
-  float* dos = qs + kTile * D;           // [kTile][D]
-  float* ks = dos + kTile * D;           // [kBlockK][D+1]
-  float* vs = ks + kBlockK * (D + 1);    // [kBlockK][D+1]
-  float* kvalid = vs + kBlockK * (D + 1);  // [kBlockK]
+  using C = BwdTile<T, D>;
+  constexpr int BN = C::kBlockN;
+  constexpr int STRIDE = C::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);  // [2][BN][STRIDE]
+  T* vs = ks + 2 * C::kTile;               // [2][BN][STRIDE]
+  T* qs = vs + 2 * C::kTile;               // [64][STRIDE] (wide rows)
+  T* dos = qs + C::kOwn;                   // [64][STRIDE] (wide rows)
+  float* kok = reinterpret_cast<float*>(qs + (C::kARegs ? 0 : 2 * C::kOwn));
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBwdBlock;  // heaviest first
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int row0 = (tid >> 5) * kRows;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = q0 + 16 * warp;  // the warp's first row
+  const int r0 = wrow + g, r1 = r0 + 8;
   const size_t base = (size_t)bh * Tlen * D;
+  const T* kb = k + base;
+  const T* vb = v + base;
+  const float* mrow = mask == nullptr ? nullptr : mask + (size_t)b * Tlen;
 
-  for (int i = tid; i < kTile * D; i += kThreads) {
-    const int t = q0 + i / D;
-    const size_t at = base + (size_t)t * D + i % D;
-    qs[i] = t < Tlen ? to_f32<T>(q[at]) * scale : 0.f;
-    dos[i] = t < Tlen ? to_f32<T>(dout[at]) : 0.f;
-  }
-  // rows past T have dO = 0 and lse = delta = 0, so their dS is exactly 0
-  float row_lse[kRows], row_delta[kRows], acc[kRows][D / 32];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qi = q0 + row0 + r;
-    row_lse[r] = qi < Tlen ? lse[(size_t)bh * Tlen + qi] : 0.f;
-    row_delta[r] = qi < Tlen ? delta[(size_t)bh * Tlen + qi] : 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc[r][c] = 0.f;
-  }
+  const int kend = causal ? min(Tlen, q0 + kBwdBlock) : Tlen;
+  const int ntiles = (kend + BN - 1) / BN;
 
-  const int kend = causal ? min(Tlen, q0 + kTile) : Tlen;
-  for (int k0 = 0; k0 < kend; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed (and q/dO are staged)
-    for (int i = tid; i < kBlockK * D; i += kThreads) {
-      const int j = i / D, c = i % D, t = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (t < Tlen) {
-        kv = to_f32<T>(k[base + (size_t)t * D + c]);
-        vv = to_f32<T>(v[base + (size_t)t * D + c]);
-      }
-      ks[j * (D + 1) + c] = kv;
-      vs[j * (D + 1) + c] = vv;
-    }
-    if (tid < kBlockK) {
-      const int t = k0 + tid;
-      kvalid[tid] = (t < Tlen && (mask == nullptr ||
-                                  mask[(size_t)b * Tlen + t] != 0.f))
-                        ? 1.f : 0.f;
-    }
+  // one K/V tile (and its mask row) into ring stage st, rows past T zeroed
+  auto stage = [&](int tile, int st) {
+    const int k0 = tile * BN;
+    stage_rows2<T, D, BN, STRIDE, kBwdThreads>(ks + st * C::kTile,
+                                               vs + st * C::kTile, kb, vb, k0,
+                                               Tlen, tid);
+    if (mrow != nullptr)
+      stage_vals<BN, kBwdThreads>(kok + st * BN, mrow, k0, Tlen, tid);
+  };
+
+  if constexpr (!C::kARegs)
+    stage_rows2<T, D, kBwdBlock, STRIDE, kBwdThreads>(
+        qs, dos, q + base, dout + base, q0, Tlen, tid);
+  stage(0, 0);
+  cp_async_commit();
+
+  typename C::AFrag qf, dof;
+  if constexpr (C::kARegs) {
+    load_a_rows<D>(q + base, r0, r1, Tlen, t, qf);
+    load_a_rows<D>(dout + base, r0, r1, Tlen, t, dof);
+  }
+  // rows past T: q = dO = 0 and lse = delta = 0, so their dS is exactly 0
+  const size_t rbase = (size_t)bh * Tlen;
+  const float lse_r[2] = {r0 < Tlen ? lse[rbase + r0] : 0.f,
+                          r1 < Tlen ? lse[rbase + r1] : 0.f};
+  const float delta_r[2] = {r0 < Tlen ? delta[rbase + r0] : 0.f,
+                            r1 < Tlen ? delta[rbase + r1] : 0.f};
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) stage(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile it has landed (tile it+1 may be in flight)
     __syncthreads();
+    const T* kt = ks + (it & 1) * C::kTile;
+    const T* vt = vs + (it & 1) * C::kTile;
+    const float* okt = kok + (it & 1) * BN;
+    const int k0 = it * BN;
 
-    float s[kRows], dp[kRows];
-    tile_scores<kRows, D>(qs, ks, row0, lane, s);    // q/√d · k_lane
-    tile_scores<kRows, D>(dos, vs, row0, lane, dp);  // dO · v_lane
-    const int key = k0 + lane;
-    const bool exists = key < Tlen;
-    const bool key_ok = kvalid[lane] != 0.f;
-    float ds[kRows];
+    float s[BN / 8][4], dp[BN / 8][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qi = q0 + row0 + r;
-      const bool ok = key_ok && (!causal || key <= qi);
-      const float p = exists ? expf((ok ? s[r] : kNegInf) - row_lse[r]) : 0.f;
-      ds[r] = p * (dp[r] - row_delta[r]);
-    }
-#pragma unroll 4
-    for (int j = 0; j < kBlockK; ++j) {
-      float kj[D / 32];
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-      for (int c = 0; c < D / 32; ++c) kj[c] = ks[j * (D + 1) + lane + 32 * c];
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    if constexpr (!C::kARegs) load_a_smem<D, STRIDE>(qs + 16 * warp * STRIDE,
+                                                     lane, qf);
+    tile_abt<D, BN, STRIDE>(qf, kt, s, lane);     // S = q·Kᵀ
+    if constexpr (!C::kARegs) load_a_smem<D, STRIDE>(dos + 16 * warp * STRIDE,
+                                                     lane, dof);
+    tile_abt<D, BN, STRIDE>(dof, vt, dp, lane);   // dP = dO·Vᵀ
+
+    // only tiles that reach past T, past the warp's first row (causal), or
+    // under a key mask need the per-element test
+    const bool edge = mrow != nullptr || k0 + BN > Tlen ||
+                      (causal && k0 + BN - 1 > wrow);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float dsj = __shfl_sync(0xffffffffu, ds[r], j);
+    for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-        for (int c = 0; c < D / 32; ++c) acc[r][c] += dsj * kj[c];
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (edge) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = e < 2 ? r0 : r1;
+          if (col >= Tlen)
+            x = neg_inf();
+          else if ((causal && col > row) ||
+                   (mrow != nullptr && okt[col - k0] == 0.f))
+            x = kNegInf;
+        }
+        const float p = expf(x - lse_r[e >> 1]);
+        s[j][e] = p * (dp[j][e] - delta_r[e >> 1]);   // dS
       }
     }
+    tile_pb<D, BN, STRIDE>(s, kt, acc, lane);       // dQ += dS·K
+    __syncthreads();  // stage it & 1 is consumed: the next stage() may fill it
   }
 
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qi = q0 + row0 + r;
-    if (qi >= Tlen) continue;
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c)
-      dq[base + (size_t)qi * D + lane + 32 * c] = from_f32<T>(acc[r][c] * scale);
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = hr ? r1 : r0;
+    if (row < Tlen)
+      store_acc_row<T, D>(dq + base + (size_t)row * D, acc, hr, t, scale);
   }
 }
 
 // --------------------------------------------------------------- K4: dK/dV
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
@@ -167,140 +230,145 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ mask, T* __restrict__ dk,
                          T* __restrict__ dv, int H, int Tlen, float scale,
                          int causal) {
-  extern __shared__ float smem[];
-  float* ks = smem;                      // [kTile][D]
-  float* vs = ks + kTile * D;            // [kTile][D]
-  float* qs = vs + kTile * D;            // [kTile][D+1], pre-scaled
-  float* dos = qs + kTile * (D + 1);     // [kTile][D+1]
-  float* kvalid = dos + kTile * (D + 1);  // [kTile]
-  float* lse_s = kvalid + kTile;         // [kTile]
-  float* delta_s = lse_s + kTile;        // [kTile]
+  using C = BwdTile<T, D>;
+  constexpr int BN = C::kBlockN;
+  constexpr int STRIDE = C::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [2][BN][STRIDE]
+  T* dos = qs + 2 * C::kTile;              // [2][BN][STRIDE]
+  T* ks = dos + 2 * C::kTile;              // [64][STRIDE] (wide rows)
+  T* vs = ks + C::kOwn;                    // [64][STRIDE] (wide rows)
+  // [2][lse BN, delta BN]
+  float* rowv = reinterpret_cast<float*>(ks + (C::kARegs ? 0 : 2 * C::kOwn));
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.y * kBwdBlock;  // low key tiles (most work) first
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int key0 = (tid >> 5) * kRows;   // this warp's 8 keys of the tile
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wkey = k0 + 16 * warp;  // the warp's first key
+  const int key0 = wkey + g, key1 = key0 + 8;
   const size_t base = (size_t)bh * Tlen * D;
+  const size_t rbase = (size_t)bh * Tlen;
+  const T* qb = q + base;
+  const T* db = dout + base;
+  // this thread's two keys against the key row (a key past T is never
+  // written, so its flag does not matter)
+  const float* mrow = mask == nullptr ? nullptr : mask + (size_t)b * Tlen;
+  const bool key_ok[2] = {
+      mrow == nullptr || (key0 < Tlen && mrow[key0] != 0.f),
+      mrow == nullptr || (key1 < Tlen && mrow[key1] != 0.f)};
 
-  for (int i = tid; i < kTile * D; i += kThreads) {
-    const int t = k0 + i / D;
-    const size_t at = base + (size_t)t * D + i % D;
-    ks[i] = t < Tlen ? to_f32<T>(k[at]) : 0.f;
-    vs[i] = t < Tlen ? to_f32<T>(v[at]) : 0.f;
-  }
-  if (tid < kTile) {
-    const int t = k0 + tid;
-    kvalid[tid] = (t < Tlen && (mask == nullptr ||
-                                mask[(size_t)b * Tlen + t] != 0.f))
-                      ? 1.f : 0.f;
+  // causal: rows before the tile holding row k0 see none of these keys
+  const int first = causal ? k0 / BN : 0;
+  const int ntiles = (Tlen + BN - 1) / BN - first;
+
+  // one q/dO tile and its lse and delta rows into ring stage st, rows past
+  // T zeroed
+  auto stage = [&](int tile, int st) {
+    const int r0 = tile * BN;
+    stage_rows2<T, D, BN, STRIDE, kBwdThreads>(qs + st * C::kTile,
+                                               dos + st * C::kTile, qb, db,
+                                               r0, Tlen, tid);
+    stage_vals<BN, kBwdThreads>(rowv + st * 2 * BN, lse + rbase, r0, Tlen,
+                                tid);
+    stage_vals<BN, kBwdThreads>(rowv + st * 2 * BN + BN, delta + rbase, r0,
+                                Tlen, tid);
+  };
+
+  if constexpr (!C::kARegs)
+    stage_rows2<T, D, kBwdBlock, STRIDE, kBwdThreads>(
+        ks, vs, k + base, v + base, k0, Tlen, tid);
+  stage(first, 0);
+  cp_async_commit();
+
+  typename C::AFrag kf, vf;
+  if constexpr (C::kARegs) {
+    load_a_rows<D>(k + base, key0, key1, Tlen, t, kf);
+    load_a_rows<D>(v + base, key0, key1, Tlen, t, vf);
   }
 
-  float dk_acc[kRows][D / 32], dv_acc[kRows][D / 32];
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
-  for (int j = 0; j < kRows; ++j) {
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) {
-      dk_acc[j][c] = 0.f;
-      dv_acc[j][c] = 0.f;
-    }
-  }
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
-  // causal: rows before k0 see none of this tile's keys
-  for (int q0 = causal ? k0 : 0; q0 < Tlen; q0 += kTile) {
-    __syncthreads();  // the previous q tile is consumed (and K/V are staged)
-    for (int i = tid; i < kTile * D; i += kThreads) {
-      const int r = i / D, c = i % D, t = q0 + r;
-      const size_t at = base + (size_t)t * D + c;
-      qs[r * (D + 1) + c] = t < Tlen ? to_f32<T>(q[at]) * scale : 0.f;
-      dos[r * (D + 1) + c] = t < Tlen ? to_f32<T>(dout[at]) : 0.f;
-    }
-    if (tid < kTile) {
-      const int t = q0 + tid;
-      lse_s[tid] = t < Tlen ? lse[(size_t)bh * Tlen + t] : 0.f;
-      delta_s[tid] = t < Tlen ? delta[(size_t)bh * Tlen + t] : 0.f;
-    }
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) stage(first + it + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile it has landed (tile it+1 may be in flight)
     __syncthreads();
+    const T* qt = qs + (it & 1) * C::kTile;
+    const T* dot = dos + (it & 1) * C::kTile;
+    const float* lse_t = rowv + (it & 1) * 2 * BN;
+    const float* delta_t = lse_t + BN;
+    const int q0 = (first + it) * BN;
 
-    // lane = query row qi of the tile; j = the warp's keys
-    const int qi = q0 + lane;
-    float s[kRows], dp[kRows];
+    // Sᵀ (16 keys x BN rows) and dPᵀ on the accumulators
+    float s[BN / 8][4], dp[BN / 8][4];
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      s[j] = 0.f;
-      dp[j] = 0.f;
-    }
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      const float qc = qs[lane * (D + 1) + c];
-      const float dc = dos[lane * (D + 1) + c];
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        s[j] += qc * ks[(key0 + j) * D + c];
-        dp[j] += dc * vs[(key0 + j) * D + c];
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    if constexpr (!C::kARegs) load_a_smem<D, STRIDE>(ks + 16 * warp * STRIDE,
+                                                     lane, kf);
+    tile_abt<D, BN, STRIDE>(kf, qt, s, lane);     // Sᵀ = K·qᵀ
+    if constexpr (!C::kARegs) load_a_smem<D, STRIDE>(vs + 16 * warp * STRIDE,
+                                                     lane, vf);
+    tile_abt<D, BN, STRIDE>(vf, dot, dp, lane);   // dPᵀ = V·dOᵀ
+
+    // only tiles that reach past T, before the warp's last key (causal),
+    // or under a key mask need the per-element test
+    const bool edge = mrow != nullptr || q0 + BN > Tlen ||
+                      (causal && q0 < wkey + 15);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);  // the row within the tile
+        float x = s[j][e] * scale;
+        if (edge && ((causal && (e < 2 ? key0 : key1) > q0 + c) ||
+                     !key_ok[e >> 1]))
+          x = kNegInf;
+        float p = expf(x - lse_t[c]);
+        if (edge && q0 + c >= Tlen) p = 0.f;
+        s[j][e] = p;                                 // Pᵀ
+        dp[j][e] = p * (dp[j][e] - delta_t[c]);      // dSᵀ
       }
     }
-    const float row_lse = lse_s[lane];
-    const float row_delta = delta_s[lane];
-    float p[kRows], ds[kRows];
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const int kj = k0 + key0 + j;
-      const bool ok = kvalid[key0 + j] != 0.f && (!causal || kj <= qi);
-      p[j] = (qi < Tlen && kj < Tlen)
-                 ? expf((ok ? s[j] : kNegInf) - row_lse) : 0.f;
-      ds[j] = p[j] * (dp[j] - row_delta);
-    }
-    // dV[j][c] += Σ_i P[i][j]·dO[i][c], dK[j][c] += Σ_i dS[i][j]·q[i][c]
-#pragma unroll 2
-    for (int i = 0; i < kTile; ++i) {
-      float pi[kRows], dsi[kRows];
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        pi[j] = __shfl_sync(0xffffffffu, p[j], i);
-        dsi[j] = __shfl_sync(0xffffffffu, ds[j], i);
-      }
-#pragma unroll
-      for (int c = 0; c < D / 32; ++c) {
-        const float doc = dos[i * (D + 1) + lane + 32 * c];
-        const float qc = qs[i * (D + 1) + lane + 32 * c];
-#pragma unroll
-        for (int j = 0; j < kRows; ++j) {
-          dv_acc[j][c] += pi[j] * doc;
-          dk_acc[j][c] += dsi[j] * qc;
-        }
-      }
-    }
+    tile_pb<D, BN, STRIDE>(s, dot, dv_acc, lane);   // dV += Pᵀ·dO
+    tile_pb<D, BN, STRIDE>(dp, qt, dk_acc, lane);   // dK += dSᵀ·q
+    __syncthreads();  // stage it & 1 is consumed: the next stage() may fill it
   }
 
 #pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    const int kj = k0 + key0 + j;
-    if (kj >= Tlen) continue;
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) {
-      const size_t at = base + (size_t)kj * D + lane + 32 * c;
-      dk[at] = from_f32<T>(dk_acc[j][c]);
-      dv[at] = from_f32<T>(dv_acc[j][c]);
-    }
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = hr ? key1 : key0;
+    if (key >= Tlen) continue;
+    store_acc_row<T, D>(dk + base + (size_t)key * D, dk_acc, hr, t, scale);
+    store_acc_row<T, D>(dv + base + (size_t)key * D, dv_acc, hr, t, 1.f);
   }
 }
 
 // ------------------------------------------------------------------ launch
+// The kernels' shared memory is opted in above 48 KB once per instantiation
+// (a function-local static).
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, const float* mask,
               void* dq, void* /*unused*/, int B, int H, int Tlen, int causal,
               cudaStream_t stream) {
-  const int smem = bwd_smem_words(D) * (int)sizeof(float);
-  // above 48 KB only as opted-in dynamic shared memory (D = 128)
-  cudaError_t e = cudaFuncSetAttribute(
+  constexpr int smem = BwdTile<T, D>::kSmemBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Tlen + kTile - 1) / kTile, B * H);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  if (attr != cudaSuccess) return (int)attr;
+  const int tiles = (Tlen + kBwdBlock - 1) / kBwdBlock;
+  if (tiles > 65535) return -1;
+  const dim3 grid(B * H, tiles);
+  flash_bwd_dq_kernel<T, D><<<grid, kBwdThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
       static_cast<T*>(dq), H, Tlen, (float)(1.0 / std::sqrt((double)D)),
@@ -313,13 +381,15 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, const float* mask,
                void* dk, void* dv, int B, int H, int Tlen, int causal,
                cudaStream_t stream) {
-  const int smem = bwd_smem_words(D) * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
+  constexpr int smem = BwdTile<T, D>::kSmemBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Tlen + kTile - 1) / kTile, B * H);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  if (attr != cudaSuccess) return (int)attr;
+  const int tiles = (Tlen + kBwdBlock - 1) / kBwdBlock;
+  if (tiles > 65535) return -1;
+  const dim3 grid(B * H, tiles);
+  flash_bwd_dkv_kernel<T, D><<<grid, kBwdThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
       static_cast<T*>(dk), static_cast<T*>(dv), H, Tlen,

@@ -32,7 +32,9 @@
 // and mask only the tiles that reach past a warp's first row. l is clamped
 // at 1e-30 before the divide, as _attn_fwd_kernel does, so a fully masked
 // row stays finite (uniform over the keys the kernel walks). Each output is
-// written by one thread in a fixed order: two calls are bitwise equal.
+// written by one thread in a fixed order: two calls are bitwise equal. The
+// tile products, fragment loads and ring staging live in attn_tile.cuh,
+// shared with K3/K4.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,6 +42,7 @@
 #include <cmath>
 #include <type_traits>
 
+#include "attn_tile.cuh"
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -62,139 +65,6 @@ struct FwdTile {
   static constexpr int kSmemBytes =
       2 * 2 * kTile * (int)sizeof(T) + 2 * kBlockN * (int)sizeof(float);
 };
-
-// S (16 x BN) = Q (16 x D) · Kᵀ, TF32 x3. qf holds this thread's raw f32 A
-// fragments (k-step kk: columns 8kk + t, 8kk + t + 4 of rows g, g + 8).
-template <int D, int BN, int STRIDE>
-__device__ __forceinline__ void scores_f32(const float (&qf)[D / 8][4],
-                                           const float* __restrict__ kt,
-                                           float (&s)[BN / 8][4], int g,
-                                           int t) {
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    uint32_t ah[4], al[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) tf32_split(qf[kk][i], ah[i], al[i]);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const float* kr = kt + (8 * j + g) * STRIDE + 8 * kk + t;
-      uint32_t bh[2], bl[2];
-      tf32_split(kr[0], bh[0], bl[0]);
-      tf32_split(kr[4], bh[1], bl[1]);
-      mma_tf32x3(s[j], ah, al, bh, bl);
-    }
-  }
-}
-
-// O (16 x D) += P (16 x BN) · V, TF32 x3. The accumulator holds P[row][2t],
-// P[row][2t+1] of each 8-key n-tile, so the k index t of the A fragment
-// stands for key 2t and t + 4 for key 2t + 1; the B fragment reads V's rows
-// in the same order.
-template <int D, int BN, int STRIDE>
-__device__ __forceinline__ void pv_f32(const float (&p)[BN / 8][4],
-                                       const float* __restrict__ vt,
-                                       float (&acc)[D / 8][4], int g, int t) {
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    uint32_t ah[4], al[4];
-    tf32_split(p[j][0], ah[0], al[0]);
-    tf32_split(p[j][2], ah[1], al[1]);
-    tf32_split(p[j][1], ah[2], al[2]);
-    tf32_split(p[j][3], ah[3], al[3]);
-    const float* vr = vt + (8 * j + 2 * t) * STRIDE + g;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      uint32_t bh[2], bl[2];
-      tf32_split(vr[8 * n], bh[0], bl[0]);
-      tf32_split(vr[STRIDE + 8 * n], bh[1], bl[1]);
-      mma_tf32x3(acc[n], ah, al, bh, bl);
-    }
-  }
-}
-
-// S = Q · Kᵀ in bf16 m16n8k16; K fragments of two n-tiles per ldmatrix.x4.
-template <int D, int BN, int STRIDE>
-__device__ __forceinline__ void scores_bf16(
-    const uint32_t (&qa)[D / 16][4], const __nv_bfloat16* __restrict__ kt,
-    float (&s)[BN / 8][4], int lane) {
-  const int key = (lane & 7) + ((lane >> 4) << 3);
-  const int col = ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int jj = 0; jj < BN / 16; ++jj) {
-      uint32_t r[4];
-      ldmatrix_x4(r, kt + (16 * jj + key) * STRIDE + 16 * kk + col);
-      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-      mma_bf16(s[2 * jj], qa[kk], b0);
-      mma_bf16(s[2 * jj + 1], qa[kk], b1);
-    }
-  }
-}
-
-// O += P · V in bf16 m16n8k16. P's accumulator pairs are the A fragment as
-// they stand; P goes in as two bf16 terms (hi + lo), since one bf16
-// rounding of P (2^-9) moves O by a bf16 step where |O| is large. V
-// fragments of two n-tiles per ldmatrix.x4.trans.
-template <int D, int BN, int STRIDE>
-__device__ __forceinline__ void pv_bf16(const float (&p)[BN / 8][4],
-                                        const __nv_bfloat16* __restrict__ vt,
-                                        float (&acc)[D / 8][4], int lane) {
-  const int key = lane & 15;
-  const int col = (lane >> 4) * 8;
-#pragma unroll
-  for (int ks = 0; ks < BN / 16; ++ks) {
-    uint32_t ah[4], al[4];
-    split_bf16x2(p[2 * ks][0], p[2 * ks][1], ah[0], al[0]);
-    split_bf16x2(p[2 * ks][2], p[2 * ks][3], ah[1], al[1]);
-    split_bf16x2(p[2 * ks + 1][0], p[2 * ks + 1][1], ah[2], al[2]);
-    split_bf16x2(p[2 * ks + 1][2], p[2 * ks + 1][3], ah[3], al[3]);
-#pragma unroll
-    for (int nn = 0; nn < D / 16; ++nn) {
-      uint32_t r[4];
-      ldmatrix_x4_trans(r, vt + (16 * ks + key) * STRIDE + 16 * nn + col);
-      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-      mma_bf16(acc[2 * nn], al, b0);
-      mma_bf16(acc[2 * nn], ah, b0);
-      mma_bf16(acc[2 * nn + 1], al, b1);
-      mma_bf16(acc[2 * nn + 1], ah, b1);
-    }
-  }
-}
-
-// Q's A fragments straight from device memory (rows past T are zero).
-template <int D>
-__device__ __forceinline__ void load_q(const float* __restrict__ q, int r0,
-                                       int r1, int Tlen, int t,
-                                       float (&qf)[D / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    const int c = 8 * kk + t;
-    qf[kk][0] = r0 < Tlen ? q[(size_t)r0 * D + c] : 0.f;
-    qf[kk][1] = r1 < Tlen ? q[(size_t)r1 * D + c] : 0.f;
-    qf[kk][2] = r0 < Tlen ? q[(size_t)r0 * D + c + 4] : 0.f;
-    qf[kk][3] = r1 < Tlen ? q[(size_t)r1 * D + c + 4] : 0.f;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_q(const __nv_bfloat16* __restrict__ q,
-                                       int r0, int r1, int Tlen, int t,
-                                       uint32_t (&qa)[D / 16][4]) {
-  auto word = [&](int row, int c) -> uint32_t {
-    return row < Tlen ? *reinterpret_cast<const uint32_t*>(
-                            q + (size_t)row * D + c)
-                      : 0u;
-  };
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = 16 * kk + 2 * t;
-    qa[kk][0] = word(r0, c);
-    qa[kk][1] = word(r1, c);
-    qa[kk][2] = word(r0, c + 8);
-    qa[kk][3] = word(r1, c + 8);
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kFwdThreads)
@@ -228,25 +98,12 @@ __global__ void __launch_bounds__(kFwdThreads)
 
   // one K/V tile (and its mask row) into ring stage st, rows past T zeroed
   auto stage = [&](int tile, int st) {
-    constexpr int kPerCopy = 16 / (int)sizeof(T);
-    constexpr int kPerRow = D / kPerCopy;
     const int k0 = tile * BN;
-    T* kd = ks + st * C::kTile;
-    T* vd = vs + st * C::kTile;
-#pragma unroll
-    for (int i = tid; i < BN * kPerRow; i += kFwdThreads) {
-      const int j = i / kPerRow, c = (i % kPerRow) * kPerCopy;
-      const bool ok = k0 + j < Tlen;
-      const size_t src = (size_t)(ok ? k0 + j : 0) * D + c;
-      cp_async16(kd + j * STRIDE + c, kb + src, ok);
-      cp_async16(vd + j * STRIDE + c, vb + src, ok);
-    }
-    if (mrow != nullptr) {
-      for (int i = tid; i < BN; i += kFwdThreads) {
-        const bool ok = k0 + i < Tlen;
-        cp_async4(kok + st * BN + i, mrow + (ok ? k0 + i : 0), ok);
-      }
-    }
+    stage_rows2<T, D, BN, STRIDE, kFwdThreads>(ks + st * C::kTile,
+                                               vs + st * C::kTile, kb, vb, k0,
+                                               Tlen, tid);
+    if (mrow != nullptr)
+      stage_vals<BN, kFwdThreads>(kok + st * BN, mrow, k0, Tlen, tid);
   };
 
   stage(0, 0);
@@ -255,7 +112,7 @@ __global__ void __launch_bounds__(kFwdThreads)
   using QFrag = typename std::conditional<C::kF32, float[D / 8][4],
                                           uint32_t[D / 16][4]>::type;
   QFrag qfrag;
-  load_q<D>(q + base, r0, r1, Tlen, t, qfrag);
+  load_a_rows<D>(q + base, r0, r1, Tlen, t, qfrag);
 
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};

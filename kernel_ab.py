@@ -1,5 +1,6 @@
-"""Same-call A/B of the port's K1 (flash forward) and K2 (paged read)
-between two checkouts, on one CUDA card.
+"""Same-call A/B of the port's K1 (flash forward), K2 (paged read) and
+K3/K4 (flash backward, dQ and dK/dV) between two checkouts, on one CUDA
+card.
 
     python3 kernel_ab.py OTHER_DIR [--out DIR]
 
@@ -10,10 +11,12 @@ so that drift of the card over the call shows as a difference between the
 two runs of one tree. Each run builds its own tree's kernels from its own
 sources (into that tree's ``kernels/build/``) and reports:
 
-- the device time per launch of K1 and K2 at the shapes the main path
-  gives them (and K1 at [2, 8, 2048, 128]), from one short
-  ``torch.profiler`` window per case, read as ``chip_smoke.py`` reads it
-  (its ``device_ms``);
+- the device time per launch of K1, K2, K3 and K4 at the shapes the main
+  path gives them (and K1, K3 and K4 at [2, 8, 2048, 128], f32 and bf16),
+  from one short ``torch.profiler`` window per case, read as
+  ``chip_smoke.py`` reads it (its ``device_ms``);
+- a digest of K1's outputs (o and lse) per case, so that two trees whose
+  K1 should agree bit for bit can be seen to;
 - one profiled f32 serve of the ``chip_smoke.py`` phase-5 requests and
   five profiled training steps: wall time, device busy time, idle share
   and the attention kernels' device time (``chip_smoke.profile_serve`` and
@@ -44,6 +47,11 @@ K1_CASES = [("slice_f32_causal", 8, 8, 128, 32, "float32"),
 # (name, T, quant): K2 at B=8, H=8, d=32, ps=16, Tmax=512, as in phase 3
 K2_CASES = [("f32_T1_Tmax512", 1, False), ("int8_T1_Tmax512", 1, True),
             ("f32_T256_Tmax512", 256, False)]
+# (name, B, H, T, d, dtype): K3 and K4 on the training step, causal, and
+# the long yardstick shape
+BWD_CASES = [("train_f32_causal", 16, 8, 128, 32, "float32"),
+             ("long_f32_causal", 2, 8, 2048, 128, "float32"),
+             ("long_bf16_causal", 2, 8, 2048, 128, "bfloat16")]
 
 
 def measure(tree: str) -> dict:
@@ -55,6 +63,8 @@ def measure(tree: str) -> dict:
         "chip_smoke_ab", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    import hashlib
+
     import torch
 
     from deeplearning4j_torch import kernels
@@ -63,17 +73,21 @@ def measure(tree: str) -> dict:
 
     cs.check(os.path.abspath(kernels.__file__).startswith(tree + os.sep),
              f"kernels imported from {kernels.__file__}, not {tree}")
-    kernels.load()
+    ext = kernels.load()
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(11)
-    out = {"tree": tree, "k1": {}, "k2": {}}
+    out = {"tree": tree, "k1": {}, "k2": {}, "k3": {}, "k4": {}}
     for name, B, H, T, d, dt in K1_CASES:
         dtype = getattr(torch, dt)
         q, k, v = [torch.randn(B, H, T, d, generator=g).to(dev, dtype)
                    for _ in range(3)]
+        o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+        digest = hashlib.sha256(o.float().cpu().numpy().tobytes()
+                                + lse.cpu().numpy().tobytes()).hexdigest()
         ms, n = cs.device_ms(lambda: fa.flash_attention_forward(
             q, k, v, causal=True), "flash_fwd_kernel")
-        out["k1"][name] = dict(device_ms=ms, launches_per_call=n)
+        out["k1"][name] = dict(device_ms=ms, launches_per_call=n,
+                               digest=digest[:16])
     B, H, ps, d, Tmax = 8, 8, 16, 32, 512
     NP = Tmax // ps
     P = B * NP + 1
@@ -96,6 +110,16 @@ def measure(tree: str) -> dict:
         ms, n = cs.device_ms(lambda: ppa.paged_attention(
             q, kp, vp, bt, pos, kscales=ks, vscales=vs), "paged_")
         out["k2"][name] = dict(device_ms=ms, launches_per_call=n)
+    for name, B, H, T, d, dt in BWD_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v, do = [torch.randn(B, H, T, d, generator=g).to(dev, dtype)
+                       for _ in range(4)]
+        o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+        args = (q, k, v, do, lse, fa.attention_delta(o, do), None, True)
+        for part, kernel in (("k3", "flash_bwd_dq"), ("k4", "flash_bwd_dkv")):
+            fn = getattr(ext, kernel)
+            ms, n = cs.device_ms(lambda: fn(*args), kernel)
+            out[part][name] = dict(device_ms=ms, launches_per_call=n)
     card = cs.card_line()
     net, _cpu = cs.build_nets()
     rs = cs.np.random.RandomState(4)
@@ -139,10 +163,13 @@ def main() -> int:
         runs.append(run)
         k1 = " ".join(f"{n} {r['device_ms']:.5f}"
                       for n, r in run["k1"].items())
-        k2 = " ".join(f"{n} {r['device_ms']:.5f}"
-                      for n, r in run["k2"].items())
         print(f"{label}: K1 ms/launch {k1}", flush=True)
-        print(f"{label}: K2 ms/launch {k2}", flush=True)
+        print(f"{label}: K1 digests " + " ".join(
+            f"{n} {r['digest']}" for n, r in run["k1"].items()), flush=True)
+        for part in ("k2", "k3", "k4"):
+            ms = " ".join(f"{n} {r['device_ms']:.5f}"
+                          for n, r in run[part].items())
+            print(f"{label}: {part.upper()} ms/launch {ms}", flush=True)
         for part in ("serve", "train"):
             r = run[part]
             print(f"{label}: {part} wall {r['wall_s']:.4f} s, device busy "

@@ -30,6 +30,7 @@ from deeplearning4j_tpu.nn.conf.layers.attention import (  # noqa: E402
 from deeplearning4j_tpu.ops.pallas_attention import (  # noqa: E402
     _flash_forward)
 from deeplearning4j_torch.ops import flash_attention as fa  # noqa: E402
+from tf32_emulation import _mm_tf32, _mm_tf32x3, _tf32  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
@@ -107,25 +108,6 @@ def test_supports():
 
 
 # ------------------------------------------------- K1's f32 design, rehearsed
-def _tf32(x):
-    """f32 rounded to TF32 (10 mantissa bits), to nearest with ties away
-    from zero, as ``cvt.rna.tf32.f32``: add half of the dropped 13 bits to
-    the magnitude, then clear them."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _mm_tf32x3(a, b):
-    """a @ b as the kernel's three TF32 products: lo·hi + hi·lo + hi·hi."""
-    ah, bh = _tf32(a), _tf32(b)
-    al, bl = _tf32(a - ah), _tf32(b - bh)
-    return (al @ bh + ah @ bl) + ah @ bh
-
-
-def _mm_tf32(a, b):
-    return _tf32(a) @ _tf32(b)
-
-
 def _k1_emulated(q, k, v, *, causal, mask, mm, block=64):
     """K1's tile walk in f32: 64-row q tiles, 64-key tiles up to the causal
     limit, scores scaled after the product, masked keys -1e30 and keys past
