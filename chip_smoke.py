@@ -15,7 +15,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    (T=1), T=4 and T=5 (the two sides of the decode/chunk route boundary)
    and a 256-token prefill chunk, f32 and int8 pools, Tmax 512 and 2048,
    with a row on a page boundary and a row whose block table is all page 0;
-   two calls must be bitwise equal;
+   then chunk-route cases at Tmax 512: T=48 (the serve's second prefill
+   round), T=64, a ragged T=100, d=64 and d=128 at T=256, and page size 8;
+   two calls must be bitwise equal, and each chunk case also runs its other
+   walk (unsplit where the kernel's rule splits the walk, four ranges where
+   it does not) within the same tolerance;
 4. the slice model (zoo TransformerLM defaults, numpy-seeded weights) on
    the card: ``output()`` against a CPU run of the port's plain path;
 5. serving: 16 greedy requests (prompts of 8..300 tokens, 32 new tokens)
@@ -36,13 +40,15 @@ Phases (any failure exits non-zero, and no result line is printed):
 Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
 calls (``ms``: the wrapper's host work included, which sets the pace once
 a kernel takes a few µs) and the kernel's own device time per launch from
-one short ``torch.profiler`` window (``device_ms``), with the plain
+one short ``torch.profiler`` window (``device_ms``; for K2 per wrapper
+call, the split chunk walk's merge pass included), with the plain
 version's and the yardstick's device time per call beside it.
 
 The main path is phases 4-5 (serving) and phase 7 (training). The launch
 counters are zeroed just before each of the two and read just after (phase
 6's comparison launches are not counted); every kernel must have run on the
-main path, and each path must have launched its own kernels. The script
+main path, K2's chunk route and its merge pass included, and each path must
+have launched its own kernels. The script
 prints the card's name and power limit, one ``{"kernels": [...]}`` line with
 each kernel's launches, error, times and bound, and, last, the result line
 ``{"ok": true, "device": {...}}``. Matmuls run in full f32 (TF32 off).
@@ -396,108 +402,197 @@ def phase_flash_bwd(dev):
 
 
 # ----------------------------------------------------------------- phase 3
-def phase_paged(dev):
+def device_ms_beside(fn, plain, match, expect, iters, plain_iters,
+                     windows=3):
+    """Device time per call of ``fn`` (its kernels whose name holds
+    ``match``) and of ``plain`` (every other device activity) from one
+    ``torch.profiler`` window over ``iters`` calls of ``fn`` and
+    ``plain_iters`` of ``plain``, after warm-up calls. A window that did not
+    see ``expect`` matching launches per call is taken again, up to
+    ``windows`` times. Returns ``(ms, launches per call, plain ms)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+        plain()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            for _ in range(plain_iters):
+                plain()
+            torch.cuda.synchronize()
+        us = n = other = 0
+        for e in prof.key_averages():
+            if dev_us(e) > 0 and e.self_cpu_time_total == 0:
+                if match in e.key:
+                    us += dev_us(e)
+                    n += e.count
+                else:
+                    other += dev_us(e)
+        if n > 0 and round(n / iters) == expect:
+            break
+    check(n > 0, f"profiler saw no device activity ({match}) in {windows} "
+                 f"windows")
+    return us / 1e3 / iters, n / iters, other / 1e3 / plain_iters
+
+
+def paged_pool(g, B, H, ps, d, Tmax, quant, dev):
+    """A seeded pool of B·NP + 1 pages (f32, or int8 codes with scales) and
+    a block table over its pages 1.., row B-1 read from page 0 only."""
+    NP = Tmax // ps
+    P = B * NP + 1
+    if quant:
+        kp = torch.randint(-127, 128, (P, H, ps, d), generator=g,
+                           dtype=torch.int8).to(dev)
+        vp = torch.randint(-127, 128, (P, H, ps, d), generator=g,
+                           dtype=torch.int8).to(dev)
+        ks = (torch.rand(P, H, ps, generator=g) * 0.05).to(dev)
+        vs = (torch.rand(P, H, ps, generator=g) * 0.05).to(dev)
+    else:
+        kp = torch.randn(P, H, ps, d, generator=g).to(dev)
+        vp = torch.randn(P, H, ps, d, generator=g).to(dev)
+        ks = vs = None
+    bt = (torch.randperm(P - 1, generator=g)[:B * NP] + 1).reshape(
+        B, NP).to(torch.int32)
+    bt[B - 1] = 0                      # a row read from page 0 only
+    return kp, vp, ks, vs, bt.to(dev)
+
+
+def paged_case(g, T, pool, dev, lean=False):
+    """One K2 case on ``pool``: against the plain version (rows that see no
+    column are checked finite only), two calls bitwise equal, on the chunk
+    route also the other walk (unsplit where the rule splits, four ranges
+    where it does not), then timed (``lean``: fewer calls). Returns (name,
+    measurements)."""
+    from deeplearning4j_torch import kernels
     from deeplearning4j_torch.nn.conf.layers import paged_attention as ppa
 
+    kp, vp, ks, vs, bt = pool
+    quant = ks is not None
+    B, NP = bt.shape
+    _P, H, ps, d = kp.shape
+    Tmax = NP * ps
+    pos = torch.randint(0, Tmax - T + 1, (B,), generator=g)
+    pos[1] = (pos[1] // ps) * ps       # exactly on a page boundary
+    pos = pos.to(torch.int32).to(dev)
+    key_valid = None
+    has_valid = torch.ones(B, H, T, 1, dtype=torch.bool, device=dev)
+    if T > 1:
+        mask = torch.ones(B, T)
+        mask[2, 100:] = 0              # right padding
+        mask[B - 1] = 0                # all masked, on page 0
+        pos[B - 1] = 0
+        mask = mask.to(dev)
+        key_valid = ppa._key_valid_plane(mask, pos, T, Tmax).float()
+        col = torch.arange(Tmax, device=dev)
+        row = torch.arange(T, device=dev)
+        vis = (col[None, None] <= pos.long()[:, None, None]
+               + row[None, :, None]) & (key_valid[:, None] != 0)
+        has_valid = vis.any(-1)[:, None, :, None].expand(B, H, T, 1)
+    q = torch.randn(B, H, T, d, generator=g).to(dev)
+    args = (q, kp, vp, bt, pos)
+    kw = dict(key_valid=key_valid, kscales=ks, vscales=vs)
+    o = ppa.paged_attention(*args, **kw)
+    again = ppa.paged_attention(*args, **kw)
+    po = ppa.paged_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+
+    def err_of(x):
+        return torch.where(has_valid, (x - po).abs(),
+                           torch.zeros_like(x)).max().item()
+
+    name = (f"{'int8' if quant else 'f32'}_T{T}_Tmax{Tmax}"
+            + (f"_d{d}" if d != 32 else "") + (f"_ps{ps}" if ps != 16 else ""))
+    check(torch.isfinite(o).all().item(),
+          f"K2 {name}: non-finite output (garbage page or masked row)")
+    err = err_of(o)
+    atol = 1e-3 if quant else 1e-4
+    check(err <= atol, f"K2 {name}: max |err| {err:.3g} > {atol}")
+    check(torch.equal(o, again),
+          f"K2 {name}: two calls differ (not deterministic)")
+    # the route paged_attn.cu takes: T <= 4 decode, else chunk
+    route = "decode" if T <= ppa.DECODE_MAX_T else "chunk"
+    splits, other, smem = 1, None, None
+    if route == "chunk":
+        ext = kernels.load()
+        splits = ext.paged_attn_splits(B, H, T, d, ps, NP)
+        smem = ext.paged_chunk_smem(d, int(quant), NP)
+        forced = 1 if splits > 1 else 4
+        ow = ext.paged_attn(q, kp, vp, ks, vs, bt, pos, key_valid, forced)
+        torch.cuda.synchronize()
+        other = dict(splits=forced, max_abs_err=err_of(ow))
+        check(torch.isfinite(ow).all().item() and other["max_abs_err"]
+              <= atol, f"K2 {name} with {forced} split(s): max |err| "
+                       f"{other['max_abs_err']:.3g} > {atol} or non-finite")
+    kernel = lambda: ppa.paged_attention(*args, **kw)  # noqa: E731
+    plain = lambda: ppa.paged_attention_plain(*args, **kw)  # noqa: E731
+    ms = time_ms(kernel, iters=20 if lean else 50)
+    plain_ms = time_ms(plain, iters=5 if lean else 20)
+    # per call: the chunk route's split walk is two launches (walk, merge)
+    kdev, per_call, plain_dev = device_ms_beside(
+        kernel, plain, "paged_", 2 if splits > 1 else 1,
+        iters=10 if lean else 20, plain_iters=3 if lean else 5)
+    # bytes this run's data needs: each distinct (page, offset) K/V slot
+    # the rows walk, read once (row B-1 walks page 0 over and over: its ps
+    # slots count once), the walked block-table entries and plane columns,
+    # q, o and pos
+    lim = torch.clamp(pos.long() + T, max=Tmax).tolist()
+    btc = bt.long().cpu()
+    slots = torch.cat([btc[b, torch.arange(n) // ps] * ps
+                       + torch.arange(n) % ps for b, n in enumerate(lim)])
+    distinct = torch.unique(slots).numel()
+    kv_row = d * (1 if quant else 4) + (4 if quant else 0)
+    nbytes = 2 * distinct * H * kv_row + 2 * B * H * T * d * 4 \
+        + sum(-(-n // ps) for n in lim) * 4 + B * 4 \
+        + (sum(lim) * 4 if T > 1 else 0)
+    flops = 4 * d * H * sum(sum(min(p + r + 1, Tmax) for r in range(T))
+                            for p in pos.tolist())
+    bms, by = bound_ms(nbytes, flops, "f32")
+    res = dict(B=B, H=H, T=T, d=d, ps=ps, Tmax=Tmax, quant=quant,
+               route=route, splits=splits, smem_bytes=smem, max_abs_err=err,
+               deterministic=True, other_walk=other, ms=ms, device_ms=kdev,
+               device_launches_per_call=per_call, plain_ms=plain_ms,
+               plain_device_ms=plain_dev, bound_ms=bms, bound_by=by,
+               library_ms=None)
+    extra = "" if other is None else (
+        f" ({splits} split(s); {other['splits']}: err "
+        f"{other['max_abs_err']:.2e}; {smem} B smem per CTA)")
+    log(f"  K2 {name:22s} {route:6s} err {err:.2e} (atol {atol}), bitwise "
+        f"repeatable{extra}; kernel {ms:.4f} ms (device {kdev:.4f})  plain "
+        f"{plain_ms:.4f} ({plain_dev:.4f})  bound {bms:.4f} ms ({by})")
+    return name, res
+
+
+# phase-3 chunk-route cases added with its tensor-core design: (T, d, ps,
+# quant) at Tmax 512, beside the decode/chunk boundary and 256-row cases:
+# the serve's second-round bucket (48), one full q tile (64), two q tiles
+# with a ragged second (100), the wide heads (d = 64, 128) and a page size
+# other than 16
+PAGED_EXTRA = [(48, 32, 16, False), (48, 32, 16, True), (64, 32, 16, False),
+               (100, 32, 16, False), (100, 32, 16, True),
+               (256, 64, 16, False), (256, 64, 16, True),
+               (256, 128, 16, False), (256, 128, 16, True),
+               (100, 32, 8, False)]
+
+
+def phase_paged(dev):
     g = torch.Generator(device="cpu").manual_seed(2)
     results = {}
     B, H, ps, d = 8, 8, 16, 32
     for Tmax in (512, 2048):
-        NP = Tmax // ps
-        P = B * NP + 1
         for quant in (False, True):
-            if quant:
-                kp = torch.randint(-127, 128, (P, H, ps, d), generator=g,
-                                   dtype=torch.int8).to(dev)
-                vp = torch.randint(-127, 128, (P, H, ps, d), generator=g,
-                                   dtype=torch.int8).to(dev)
-                ks = (torch.rand(P, H, ps, generator=g) * 0.05).to(dev)
-                vs = (torch.rand(P, H, ps, generator=g) * 0.05).to(dev)
-            else:
-                kp = torch.randn(P, H, ps, d, generator=g).to(dev)
-                vp = torch.randn(P, H, ps, d, generator=g).to(dev)
-                ks = vs = None
-            bt = (torch.randperm(P - 1, generator=g)[:B * NP] + 1).reshape(
-                B, NP).to(torch.int32)
-            bt[B - 1] = 0                      # a row read from page 0 only
-            bt = bt.to(dev)
+            pool = paged_pool(g, B, H, ps, d, Tmax, quant, dev)
             for T in (1, 4, 5, 256):
-                pos = torch.randint(0, Tmax - T + 1, (B,), generator=g)
-                pos[1] = (pos[1] // ps) * ps       # exactly on a page boundary
-                pos = pos.to(torch.int32).to(dev)
-                key_valid = None
-                has_valid = torch.ones(B, H, T, 1, dtype=torch.bool,
-                                       device=dev)
-                if T > 1:
-                    mask = torch.ones(B, T)
-                    mask[2, 100:] = 0              # right padding
-                    mask[B - 1] = 0                # all masked, on page 0
-                    pos[B - 1] = 0
-                    mask = mask.to(dev)
-                    key_valid = ppa._key_valid_plane(mask, pos, T, Tmax)
-                    col = torch.arange(Tmax, device=dev)
-                    row = torch.arange(T, device=dev)
-                    vis = (col[None, None] <= pos.long()[:, None, None]
-                           + row[None, :, None]) & (key_valid[:, None] != 0)
-                    has_valid = vis.any(-1)[:, None, :, None].expand(
-                        B, H, T, 1)
-                q = torch.randn(B, H, T, d, generator=g).to(dev)
-                args = (q, kp, vp, bt, pos)
-                kw = dict(key_valid=key_valid, kscales=ks, vscales=vs)
-                o = ppa.paged_attention(*args, **kw)
-                again = ppa.paged_attention(*args, **kw)
-                po = ppa.paged_attention_plain(*args, **kw)
-                torch.cuda.synchronize()
-                check(torch.isfinite(o).all().item(),
-                      "K2: non-finite output (garbage page or masked row)")
-                diff = torch.where(has_valid, (o - po).abs(),
-                                   torch.zeros_like(o))
-                err = diff.max().item()
-                atol = 1e-3 if quant else 1e-4
-                name = (f"{'int8' if quant else 'f32'}_T{T}_Tmax{Tmax}")
-                check(err <= atol, f"K2 {name}: max |err| {err:.3g} > "
-                                   f"{atol}")
-                check(torch.equal(o, again),
-                      f"K2 {name}: two calls differ (not deterministic)")
-                # the route paged_attn.cu takes: T <= 4 decode, else chunk
-                route = "decode" if T <= 4 else "chunk"
-                kernel = lambda: ppa.paged_attention(*args, **kw)  # noqa
-                plain = lambda: ppa.paged_attention_plain(  # noqa: E731
-                    *args, **kw)
-                ms = time_ms(kernel)
-                plain_ms = time_ms(plain, iters=20)
-                kdev, _ = device_ms(kernel, "paged_")
-                plain_dev, _ = device_ms(plain, iters=5)
-                # bytes this run's data needs: each distinct (page, offset)
-                # K/V slot the rows walk, read once (row B-1 walks page 0
-                # over and over: its ps slots count once), the walked
-                # block-table entries and plane columns, q, o and pos
-                lim = torch.clamp(pos.long() + T, max=Tmax).tolist()
-                btc = bt.long().cpu()
-                slots = torch.cat([btc[b, torch.arange(n) // ps] * ps
-                                   + torch.arange(n) % ps
-                                   for b, n in enumerate(lim)])
-                distinct = torch.unique(slots).numel()
-                kv_row = d * (1 if quant else 4) + (4 if quant else 0)
-                nbytes = 2 * distinct * H * kv_row + 2 * B * H * T * d * 4 \
-                    + sum(-(-n // ps) for n in lim) * 4 + B * 4 \
-                    + (sum(lim) * 4 if T > 1 else 0)
-                flops = 4 * d * H * sum(
-                    sum(min(p + r + 1, Tmax) for r in range(T))
-                    for p in pos.tolist())
-                bms, by = bound_ms(nbytes, flops, "f32")
-                results[name] = dict(B=B, H=H, T=T, d=d, ps=ps, Tmax=Tmax,
-                                     quant=quant, route=route,
-                                     max_abs_err=err, deterministic=True,
-                                     ms=ms, device_ms=kdev,
-                                     plain_ms=plain_ms,
-                                     plain_device_ms=plain_dev,
-                                     bound_ms=bms, bound_by=by,
-                                     library_ms=None)
-                log(f"  K2 {name:18s} {route:6s} err {err:.2e} (atol "
-                    f"{atol}), bitwise repeatable; kernel {ms:.4f} ms "
-                    f"(device {kdev:.4f})  plain {plain_ms:.4f} "
-                    f"({plain_dev:.4f})  bound {bms:.4f} ms ({by})")
+                name, res = paged_case(g, T, pool, dev)
+                results[name] = res
+    g = torch.Generator(device="cpu").manual_seed(5)
+    for T, d, ps, quant in PAGED_EXTRA:
+        pool = paged_pool(g, B, H, ps, d, 512, quant, dev)
+        name, res = paged_case(g, T, pool, dev, lean=True)
+        results[name] = res
     return results
 
 
@@ -597,14 +692,19 @@ def phase_serve(net, card):
     for kv in (None, "int8"):
         tag = kv or "f32"
         before = kernels.LAUNCHES["paged_attn"]
+        before_chunk = kernels.LAUNCHES["paged_attn_chunk"]
         outs, wall, st = serve(net, reqs, kv_dtype=kv)
         launches = kernels.LAUNCHES["paged_attn"] - before
+        chunk = kernels.LAUNCHES["paged_attn_chunk"] - before_chunk
         expect = SLICE["n_blocks"] * (st["prefill_rounds"]
                                       + SERVER["steps_per_dispatch"]
                                       * st["decode_steps"])
         check(launches == expect and launches > 0,
               f"serve {tag}: K2 launched {launches} times, the schedule "
               f"needs {expect}")
+        check(chunk == SLICE["n_blocks"] * st["prefill_rounds"],
+              f"serve {tag}: K2's chunk route launched {chunk} times for "
+              f"{st['prefill_rounds']} prefill rounds")
         ref, ref_wall, _ = serve(net, reqs, kv_dtype=kv,
                                  paged_attention="stock")
         for i, (got, want) in enumerate(zip(outs, ref)):
@@ -623,7 +723,7 @@ def phase_serve(net, card):
         results[tag] = dict(requests=len(reqs), tokens=ntok, wall_s=wall,
                             tokens_per_s=ntok / wall, stock_wall_s=ref_wall,
                             stock_tokens_per_s=ntok / ref_wall,
-                            k2_launches=launches,
+                            k2_launches=launches, k2_chunk_launches=chunk,
                             prefill_rounds=st["prefill_rounds"],
                             decode_steps=st["decode_steps"])
         log(f"  serve {tag}: {len(reqs)} requests, {ntok} tokens in "
@@ -649,14 +749,25 @@ def profile_serve(net, card, out_dir):
         prof, out_dir, "serve_profile.txt", f"{card}\nwall {wall:.6f} s\n")
     steps = st["prefill_rounds"] + SERVER["steps_per_dispatch"] \
         * st["decode_steps"]
+    # K2's chunk route: its kernels (the walk and, when split, the merge)
+    # are the paged kernels other than the decode route's
+    chunk = [(dev_us(e), e.count, e.key) for e in prof.key_averages()
+             if dev_us(e) > 0 and e.self_cpu_time_total == 0
+             and "paged_" in e.key and "paged_decode" not in e.key]
+    chunk_ms = sum(us for us, _, _ in chunk) / 1e3
+    chunk_calls = SLICE["n_blocks"] * st["prefill_rounds"]
     log(f"  profiled serve f32: wall {wall:.4f} s, device busy "
         f"{busy_s:.4f} s (idle share {1 - busy_s / wall:.3f}), {launches} "
-        f"kernel launches over {steps} forwards; [{card}]")
+        f"kernel launches over {steps} forwards; K2 chunk route "
+        f"{chunk_ms:.4f} ms over {chunk_calls} calls; [{card}]")
     for t in top[:6]:
         log(f"    {t['device_ms']:9.3f} ms  x{t['count']:<6d} {t['kernel']}")
     return dict(wall_s=wall, device_busy_s=busy_s,
                 idle_share=1 - busy_s / wall, kernel_launches=launches,
-                forwards=steps, tokens=sum(len(o) for o in outs), top=top)
+                forwards=steps, tokens=sum(len(o) for o in outs), top=top,
+                k2_chunk_device_ms=chunk_ms, k2_chunk_calls=chunk_calls,
+                k2_chunk_kernels=[dict(kernel=k[:80], device_ms=us / 1e3,
+                                       count=c) for us, c, k in chunk])
 
 
 def train_batch(dev=None):
@@ -781,6 +892,8 @@ def profile_train(net, card, out_dir, steps=5):
 def kernel_line(flash, paged, bwd, launches):
     k1 = flash["slice_f32_causal"]
     k2 = paged["f32_T1_Tmax512"]
+    k2c = paged["f32_T256_Tmax512"]          # the serve's first prefill round
+    k2s = paged["f32_T48_Tmax512"]           # ... and a second, split
     kb = bwd["slice_f32_causal"]
     slice_bwd = [r for n, r in bwd.items() if n.startswith("slice_f32")]
     line = [
@@ -807,7 +920,24 @@ def kernel_line(flash, paged, bwd, launches):
          "plain_ms": k2["plain_ms"],
          "plain_device_ms": k2["plain_device_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": None, "library_device_ms": None}]
+         "library_ms": None, "library_device_ms": None,
+         # the chunk route (T > 4), at the serve's T=256 and T=48 rounds
+         "chunk_launches": launches["paged_attn_chunk"],
+         "chunk_merge_launches": launches["paged_attn_merge"],
+         "chunk_max_abs_err": max(r["max_abs_err"] for r in paged.values()
+                                  if r["route"] == "chunk"
+                                  and not r["quant"]),
+         "chunk_int8_max_abs_err": max(r["max_abs_err"]
+                                       for r in paged.values()
+                                       if r["route"] == "chunk"
+                                       and r["quant"]),
+         "chunk_ms": k2c["ms"], "chunk_device_ms": k2c["device_ms"],
+         "chunk_plain_ms": k2c["plain_ms"],
+         "chunk_plain_device_ms": k2c["plain_device_ms"],
+         "chunk_bound_ms": k2c["bound_ms"], "chunk_bound_by": k2c["bound_by"],
+         "chunk_T48_device_ms": k2s["device_ms"],
+         "chunk_T48_splits": k2s["splits"],
+         "chunk_T48_bound_ms": k2s["bound_ms"]}]
     # the plain time is the whole plain backward, the library time the
     # whole SDPA backward (dq, dk and dv together), for both kernels
     for name, part, grads, line_no in (("flash_bwd_dq", "dq", ("dq",), 289),
@@ -870,7 +1000,9 @@ def main() -> int:
     log("phase 5: serving, f32 then int8 KV pages")
     REPORT["serve"] = phase_serve(net, card)
     serving = dict(kernels.LAUNCHES)      # ... and ends here
-    check(serving["flash_fwd"] > 0 and serving["paged_attn"] > 0,
+    check(all(serving[k] > 0 for k in ("flash_fwd", "paged_attn",
+                                       "paged_attn_chunk",
+                                       "paged_attn_merge")),
           f"a kernel of the serving path never launched: {serving}")
 
     log("phase 6: K3/K4 flash backward vs its plain version")

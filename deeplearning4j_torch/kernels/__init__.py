@@ -11,18 +11,18 @@ Sources (all in this directory):
   ``::_attn_dkv_kernel``;
 - ``bindings.cpp``: the one small file that includes PyTorch's headers. It
   checks each launch with ``C10_CUDA_KERNEL_LAUNCH_CHECK()``;
-- headers: ``common.cuh`` (tile geometry, conversions, warp reductions and
-  the CUDA-core tile helpers of the paged chunk route), ``mma.cuh``
+- headers: ``common.cuh`` (the masked-score constants), ``mma.cuh``
   (``mma.sync`` TF32/bf16, the TF32 hi/lo split, ``ldmatrix``,
   ``cp.async``) and ``attn_tile.cuh`` (the tensor-core tile products,
   A-fragment loads, ``cp.async`` ring staging and epilogue stores that K1,
-  K3 and K4 share).
+  K3, K4 and K2's chunk route share).
 
 ``load()`` builds all of them in one ``torch.utils.cpp_extension.load`` call
 for ``sm_90a`` into ``kernels/build/`` (listed in ``.gitignore``) at first
 use; nothing is built at import. The wrappers in ``ops/flash_attention.py``
 and ``nn/conf/layers/paged_attention.py`` add one to ``LAUNCHES`` per launch,
-so a run can show which kernels its main path went through.
+so a run can show which kernels its main path went through (K2's chunk
+route and its merge pass also count under their own names).
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-lineinfo")
 
 #: launches per kernel since the last ``reset_launch_counts()``
-LAUNCHES = {"flash_fwd": 0, "paged_attn": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
+LAUNCHES = {"flash_fwd": 0, "paged_attn": 0, "paged_attn_chunk": 0,
+            "paged_attn_merge": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _ext = None
 _lock = threading.Lock()

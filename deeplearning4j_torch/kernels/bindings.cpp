@@ -11,12 +11,15 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
                               const float* mask, void* o, float* lse, int B,
                               int H, int Tlen, int D, int is_bf16, int causal,
                               cudaStream_t stream);
+extern "C" int dl4j_paged_attn_splits(int B, int H, int T, int D, int ps,
+                                      int NP);
+extern "C" int dl4j_paged_chunk_smem(int D, int quant, int NP);
 extern "C" int dl4j_paged_attn(const float* q, const void* kp, const void* vp,
                                const float* kscales, const float* vscales,
                                const int* bt, const int* pos,
-                               const float* key_valid, float* o, int B, int H,
-                               int T, int D, int ps, int NP, int quant,
-                               cudaStream_t stream);
+                               const float* key_valid, float* o, float* part,
+                               int splits, int B, int H, int T, int D, int ps,
+                               int NP, int quant, cudaStream_t stream);
 extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, const float* mask,
@@ -81,7 +84,8 @@ torch::Tensor paged_attn(torch::Tensor q, torch::Tensor kp, torch::Tensor vp,
                          c10::optional<torch::Tensor> kscales,
                          c10::optional<torch::Tensor> vscales,
                          torch::Tensor bt, torch::Tensor pos,
-                         c10::optional<torch::Tensor> key_valid) {
+                         c10::optional<torch::Tensor> key_valid,
+                         int64_t splits) {
   check_cuda(q, "q");
   check_cuda(kp, "kpages");
   check_cuda(vp, "vpages");
@@ -95,6 +99,10 @@ torch::Tensor paged_attn(torch::Tensor q, torch::Tensor kp, torch::Tensor vp,
   TORCH_CHECK(quant || kp.scalar_type() == torch::kFloat32,
               "pools must be float32 or int8");
   TORCH_CHECK(vp.scalar_type() == kp.scalar_type(), "pool dtypes differ");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(kp.data_ptr()) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(vp.data_ptr()) % 16 == 0,
+              "pools must be 16-byte aligned (the kernel copies 16 bytes at "
+              "a time)");
   const int B = q.size(0), H = q.size(1), T = q.size(2), D = q.size(3);
   const int P = kp.size(0), ps = kp.size(2);
   TORCH_CHECK(kp.size(1) == H && kp.size(3) == D,
@@ -116,13 +124,25 @@ torch::Tensor paged_attn(torch::Tensor q, torch::Tensor kp, torch::Tensor vp,
   }
   const float* kv = opt_f32(key_valid, "key_valid", {B, (int64_t)NP * ps});
   const c10::cuda::CUDAGuard guard(q.device());
+  // 0 lets the kernel's rule pick the chunk route's split count; a caller
+  // may force one (1: no split) to compare the two walks
+  if (splits <= 0) splits = dl4j_paged_attn_splits(B, H, T, D, ps, NP);
+  TORCH_CHECK(splits == 1 || (T > 4 && splits <= 1024),
+              "paged_attn: splits must be 1 for T <= 4 and at most 1024");
   auto o = torch::empty_like(q);
+  // the split route's workspace: per split, each row's accumulators, m, l
+  torch::Tensor part;
+  if (splits > 1)
+    part = torch::empty({splits * B * H * T * (int64_t)(D + 2)},
+                        q.options());
   const int err = dl4j_paged_attn(
       q.data_ptr<float>(), kp.data_ptr(), vp.data_ptr(), ks, vs,
-      bt.data_ptr<int>(), pos.data_ptr<int>(), kv, o.data_ptr<float>(), B, H,
-      T, D, ps, NP, quant ? 1 : 0, at::cuda::getCurrentCUDAStream().stream());
+      bt.data_ptr<int>(), pos.data_ptr<int>(), kv, o.data_ptr<float>(),
+      splits > 1 ? part.data_ptr<float>() : nullptr, (int)splits, B, H, T, D,
+      ps, NP, quant ? 1 : 0, at::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == 0, "paged_attn: unsupported configuration (B=", B,
-              ", H=", H, ", T=", T, ", d=", D, ", ps=", ps, "), code ", err);
+              ", H=", H, ", T=", T, ", d=", D, ", ps=", ps, ", NP=", NP,
+              ", splits=", splits, "), code ", err);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return o;
 }
@@ -199,7 +219,16 @@ std::vector<torch::Tensor> flash_bwd_dkv(torch::Tensor q, torch::Tensor k,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_fwd", &flash_fwd, "K1: flash-attention forward (o, lse)");
-  m.def("paged_attn", &paged_attn, "K2: paged-KV attention read");
+  m.def("paged_attn", &paged_attn, "K2: paged-KV attention read",
+        py::arg("q"), py::arg("kp"), py::arg("vp"), py::arg("kscales"),
+        py::arg("vscales"), py::arg("bt"), py::arg("pos"),
+        py::arg("key_valid"), py::arg("splits") = 0);
+  m.def("paged_attn_splits", &dl4j_paged_attn_splits,
+        "K2: the chunk route's split count for (B, H, T, d, ps, NP); 1 "
+        "means one pass, no merge");
+  m.def("paged_chunk_smem", &dl4j_paged_chunk_smem,
+        "K2: dynamic shared memory of one chunk-route CTA for (d, quant, "
+        "NP), in bytes");
   m.def("flash_bwd_dq", &flash_bwd_dq, "K3: flash-attention backward, dq");
   m.def("flash_bwd_dkv", &flash_bwd_dkv,
         "K4: flash-attention backward, (dk, dv)");

@@ -4,27 +4,29 @@
 // _paged_attn_kernel (launched by _pallas_paged_attention). Attends a query
 // chunk q [B, H, T, d] (T = 1 for decode, up to the prefill chunk) over the
 // pool pages that row b's block table bt [B, NP] names, read in place from
-// kp, vp [P, H, ps, d] (f32, or int8 dequantized on load against the f32
-// per-token-per-head scales kscales, vscales [P, H, ps]). Key column c of
-// row b is pool page bt[b, c / ps] at offset c % ps. Query row r sees
-// columns c <= pos[b] + r, and with a [B, NP·ps] key-valid plane only the
-// columns it marks nonzero. Output: the pre-projection context [B, H, T, d].
+// kp, vp [P, H, ps, d] (f32, or int8 codes with the f32 per-token-per-head
+// scales kscales, vscales [P, H, ps]). Key column c of row b is pool page
+// bt[b, c / ps] at offset c % ps. Query row r sees columns c <= pos[b] + r,
+// and with a [B, NP·ps] key-valid plane only the columns it marks nonzero.
+// Output: the pre-projection context [B, H, T, d].
 //
 // What bounds it on this card: bytes. A decode step reads every resident
 // K/V byte of every row once and does 4·d FLOPs per key (< 1 FLOP/byte in
 // f32); prefill chunks raise the ratio to about T FLOPs per byte, still far
 // under the ridge at the slice's widths.
 //
-// Two routes, one launch per call either way. Both read bt[b, i] themselves
-// (Hopper has no scalar prefetch) and walk columns only up to their causal
-// limit min(NP·ps, pos[b] + last row + 1): the JAX kernel walks all NP
-// pages. Both fold keys in with an online softmax in f32, so the gathered
+// Two routes. Both read bt[b, i] themselves (Hopper has no scalar
+// prefetch) and walk columns only up to their causal limit
+// min(NP·ps, pos[b] + last row + 1): the JAX kernel walks all NP pages.
+// Both fold keys in with an online softmax in f32, so the gathered
 // [B, H, NP·ps, d] view the plain version builds never exists. The JAX
 // kernel instead runs one max-subtract softmax at its last page (to stay
 // bitwise equal to its gather path); this port's contract is allclose on
 // the context plus exact greedy tokens through the server. Masked columns
 // score -1e30 and l is clamped before the divide, so a row whose columns
 // are all masked (a padded row routed to garbage page 0) comes out finite.
+// Each output is written by one thread in a fixed order and no route uses
+// atomics: two calls are bitwise equal.
 //
 // Decode route (T <= 4: decode and speculative verify): one CTA of 8 warps
 // per (b, h). The walked pages are cut into 8 contiguous ranges, one per
@@ -36,141 +38,61 @@
 // before any arithmetic. The q rows sit in registers and each loaded key
 // serves all of them. Each lane group keeps its own (m, l, acc); the groups
 // merge by shuffle, then the 8 warps' partials merge in shared memory in
-// fixed warp order, so two calls are bitwise equal. A warp with an empty
-// range keeps m = -1e30, l = 0 and adds nothing.
+// fixed warp order. A warp with an empty range keeps m = -1e30, l = 0 and
+// adds nothing.
 //
-// Chunk route (T > 4: prefill): one CTA per (b, h, 32-row q tile), 4 warps
-// of 8 rows; 32-column K/V tiles are staged through shared memory,
-// dequantized to f32 as they land.
+// Chunk route (T > 4: prefill): K1's tensor-core design (flash_fwd.cu) with
+// a block-table loader. One CTA per (b, h, 64-row q tile), 4 warps of 16
+// rows, one mma m-tile each; q is pre-scaled by log2(e)/√d and held as mma
+// A fragments, so the softmax runs in base 2 (one ex2.approx per score);
+// rows past T are zeros and are not stored. The CTA first copies the
+// block-table entries of the pages it walks into shared memory, then
+// streams 64-key K/V tiles (32 at d=128, for registers) through a cp.async
+// ring of three stages (two for f32 at d=128, so that two CTAs fit on an
+// SM): each key row resolves its pool row from one shared read,
+// ((bt[c / ps]·H + h)·ps + c % ps), so a tile may cross pages and any ps
+// works, and lands as 16-byte copies (int8 as codes, 16 a copy); its
+// key-valid column and, for int8, its two scales land in the same stage by
+// 4-byte copies. Columns at or past the walk's end are zero-filled (0·NaN
+// would poison P·V) and score -inf. The products are warp-level mma.sync
+// m16n8k8 TF32 with f32 accumulators. f32 pools run three products of TF32
+// hi/lo splits (about 2^-21 relative error where one TF32 product keeps
+// 1e-3), as K1 does, but each landed K/V tile is split once by the whole
+// CTA into a hi plane (in place) and a lo plane, not once per warp. int8
+// pools use that a code in [-127, 127] is exact in TF32: the codes stay as
+// staged, q and P ⊙ vscale are split in three TF32 parts (about 2^-33
+// relative error), so S = kscale[c]·(q·code) and O += (P ⊙ vscale[c])·code
+// are the exact products up to f32 adds, three products each, every 8-key
+// group summed in fresh accumulators. (Two-part splits, with the codes or
+// with code·scale dequantized in shared memory, moved a greedy token of
+// the int8 serve at a near-tie: the later layers quantize the K/V that
+// this read feeds, and any rounding pattern of the read shows there.)
+// P·V is summed per tile in fresh
+// accumulators added by f32 adds (as attn_tile.cuh::pv_f32_rn), since the
+// tensor core's accumulation truncates and a walk reaches thousands of
+// keys. The online softmax runs on the accumulator fragments. Masks run
+// only where needed: the key-valid test on tiles holding a masked column
+// (found by one __syncthreads_and), the causal and walk-end tests on tiles
+// that reach past a warp's first row; a warp whose 16 rows all precede a
+// tile causally skips it (it would add exactly 0). Where the grid would
+// hold fewer CTAs than the card has SMs (the prefill rounds of a few short
+// prompts), the walk of each q tile is cut into `splits` contiguous ranges
+// of whole tiles, one CTA each, that write their unnormalised (m, l, acc)
+// to a workspace; paged_merge_kernel then merges each row's partials in
+// fixed split order. An empty range writes m = -1e30, l = 0, acc = 0 and
+// adds nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <cmath>
 #include <type_traits>
 
-#include <cmath>
-
+#include "attn_tile.cuh"
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace dl4j {
-
-template <bool QUANT, int D, int R>
-__global__ void __launch_bounds__(kThreads)
-    paged_attn_kernel(const float* __restrict__ q, const void* __restrict__ kp_,
-                      const void* __restrict__ vp_,
-                      const float* __restrict__ kscales,
-                      const float* __restrict__ vscales,
-                      const int* __restrict__ bt, const int* __restrict__ pos,
-                      const float* __restrict__ key_valid,
-                      float* __restrict__ o, int H, int T, int ps, int NP,
-                      float scale) {
-  using KV = typename std::conditional<QUANT, int8_t, float>::type;
-  const KV* kp = static_cast<const KV*>(kp_);
-  const KV* vp = static_cast<const KV*>(vp_);
-
-  extern __shared__ float smem[];
-  constexpr int kBlockQ = kWarps * R;
-  float* qs = smem;                      // [kBlockQ][D]
-  float* ks = qs + kBlockQ * D;          // [kBlockK][D+1]
-  float* vs = ks + kBlockK * (D + 1);    // [kBlockK][D]
-  float* kvalid = vs + kBlockK * D;      // [kBlockK]
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int row0 = (tid >> 5) * R;
-  const bool has_rows = q0 + row0 < T;   // warp-uniform
-  const int Tmax = NP * ps;
-  const size_t qbase = ((size_t)b * H + h) * T * D;
-
-  for (int i = tid; i < kBlockQ * D; i += kThreads) {
-    const int t = q0 + i / D;
-    qs[i] = t < T ? q[qbase + (size_t)t * D + i % D] * scale : 0.f;
-  }
-
-  float m[R], l[R], acc[R][D / 32];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc[r][c] = 0.f;
-  }
-
-  // causal walk: the tile's last row sees columns up to pos[b] + that row
-  const int p0 = pos[b];
-  const int last_row = min(q0 + kBlockQ, T) - 1;
-  const int kend = min(Tmax, p0 + last_row + 1);
-  const int* btb = bt + (size_t)b * NP;
-  for (int k0 = 0; k0 < kend; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed (and qs is staged)
-    for (int i = tid; i < kBlockK * D; i += kThreads) {
-      const int j = i / D, c = i % D, col = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (col < kend) {
-        const size_t row = ((size_t)btb[col / ps] * H + h) * ps + col % ps;
-        kv = (float)kp[row * D + c];
-        vv = (float)vp[row * D + c];
-        if (QUANT) {
-          kv *= kscales[row];
-          vv *= vscales[row];
-        }
-      }
-      ks[j * (D + 1) + c] = kv;
-      vs[j * D + c] = vv;
-    }
-    if (tid < kBlockK) {
-      const int col = k0 + tid;
-      kvalid[tid] = (col < kend && (key_valid == nullptr ||
-                                    key_valid[(size_t)b * Tmax + col] != 0.f))
-                        ? 1.f : 0.f;
-    }
-    __syncthreads();
-    if (!has_rows) continue;
-
-    float s[R];
-    tile_scores<R, D>(qs, ks, row0, lane, s);
-    const int col = k0 + lane;
-    const bool walked = col < kend;
-    const bool col_ok = kvalid[lane] != 0.f;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const bool ok = col_ok && col <= p0 + q0 + row0 + r;
-      s[r] = walked ? (ok ? s[r] : kNegInf) : neg_inf();
-    }
-    online_softmax_tile<R, D>(s, vs, m, l, acc, lane);
-  }
-
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int qi = q0 + row0 + r;
-    if (qi >= T) continue;
-    const float lc = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c)
-      o[qbase + (size_t)qi * D + lane + 32 * c] = acc[r][c] / lc;
-  }
-}
-
-template <bool QUANT, int D, int R>
-int launch_rows(const float* q, const void* kp, const void* vp,
-                const float* kscales, const float* vscales, const int* bt,
-                const int* pos, const float* key_valid, float* o, int B,
-                int H, int T, int ps, int NP, cudaStream_t stream) {
-  constexpr int smem = smem_words(D, R) * (int)sizeof(float);
-  // above 48 KB (d = 128) only as opted-in dynamic shared memory; asked
-  // once per instantiation
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_attn_kernel<QUANT, D, R>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((T + kWarps * R - 1) / (kWarps * R), H, B);
-  paged_attn_kernel<QUANT, D, R><<<grid, kThreads, smem, stream>>>(
-      q, kp, vp, kscales, vscales, bt, pos, key_valid, o, H, T, ps, NP,
-      (float)(1.0 / std::sqrt((double)D)));
-  return 0;
-}
 
 constexpr int kDecodeWarps = 8;
 constexpr int kDecodeThreads = kDecodeWarps * 32;
@@ -398,12 +320,566 @@ int launch_decode(const float* q, const void* kp, const void* vp,
   return 0;
 }
 
+constexpr int kChunkWarps = 4;
+constexpr int kChunkThreads = kChunkWarps * 32;
+constexpr int kChunkRows = kChunkWarps * 16;  // q rows of a CTA
+
+template <bool QUANT, int D>
+struct ChunkTile {
+  using KV = typename std::conditional<QUANT, int8_t, float>::type;
+  // keys per tile: 32 at d=128 keeps S and O in registers, as in K1
+  static constexpr int kBlockN = D == 128 ? 32 : 64;
+  // row stride in elements: 16 bytes of padding keep the fragment reads
+  // free of bank conflicts and every row 16-byte aligned for cp.async
+  static constexpr int kStride = D + 16 / (int)sizeof(KV);
+  static constexpr int kTileBytes = kBlockN * kStride * (int)sizeof(KV);
+  // f32 rows of a stage beside K and V: key-valid, and for int8 the K and
+  // V scales
+  static constexpr int kVals = QUANT ? 3 : 1;
+  static constexpr int kStageBytes =
+      2 * kTileBytes + kVals * kBlockN * (int)sizeof(float);
+  // ring stages: three keep two tiles in flight; f32 at d=128 keeps two,
+  // so that two CTAs fit on an SM
+  static constexpr int kStages = (!QUANT && D == 128) ? 2 : 3;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  // f32: the TF32 lo planes of the current K and V tiles ([BN][kStride],
+  // written once per tile; their hi parts replace the raw values in the
+  // ring stage); int8 reads its codes from the ring as they are
+  static constexpr int kLoBytes = QUANT ? 0 : 2 * kTileBytes;
+  // 16-byte copies of K (and as many of V) per thread per tile
+  static constexpr int kCopies = kBlockN * D / (16 / (int)sizeof(KV));
+  static_assert(kCopies % kChunkThreads == 0, "copies must split evenly");
+};
+
+// 2^x as one MUFU.EX2 (ex2.approx.ftz: about 2^-22 relative error; a
+// result under 2^-126 flushes to 0, which adds nothing a softmax sum could
+// show)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x = a + b + c + O(2^-33 |x|), all three TF32: three rounding splits.
+__device__ __forceinline__ void tf32_split3(float x, uint32_t& a, uint32_t& b,
+                                            uint32_t& c) {
+  a = tf32_rna(x);
+  const float r = x - __uint_as_float(a);  // exact
+  b = tf32_rna(r);
+  c = tf32_rna(r - __uint_as_float(b));
+}
+
+// TF32 bits of an int8 code: |code| <= 127 needs 7 significant bits, so
+// the f32 value is already a TF32 value.
+__device__ __forceinline__ uint32_t code_tf32(int8_t c) {
+  return __float_as_uint((float)c);
+}
+
+// d (16 x 8) += (a1 + a2 + a3)·b for exact TF32 b, the three products summed
+// smallest first in a fresh accumulator and added to d by f32 adds that
+// round to nearest: the tensor core's accumulation truncates.
+__device__ __forceinline__ void mma_split3_rn(float (&d)[4],
+                                              const uint32_t (&a1)[4],
+                                              const uint32_t (&a2)[4],
+                                              const uint32_t (&a3)[4],
+                                              const uint32_t (&b)[2]) {
+  float f[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(f, a3, b);
+  mma_tf32(f, a2, b);
+  mma_tf32(f, a1, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += f[e];
+}
+
+// S (16 x BN) += A (16 x D) · Cᵀ, C a [BN][STRIDE] tile of int8 codes in
+// shared memory: A (raw f32 fragments, as scores_f32 takes them) split in
+// three TF32 parts at use, the codes exact, so the sum is the exact dot
+// product up to f32 adds.
+template <int D, int BN, int STRIDE>
+__device__ __forceinline__ void scores_codes(const float (&qf)[D / 8][4],
+                                             const int8_t* __restrict__ ct,
+                                             float (&s)[BN / 8][4], int g,
+                                             int t) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t a1[4], a2[4], a3[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tf32_split3(qf[kk][i], a1[i], a2[i], a3[i]);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int8_t* cr = ct + (8 * j + g) * STRIDE + 8 * kk + t;
+      const uint32_t b[2] = {code_tf32(cr[0]), code_tf32(cr[4])};
+      mma_split3_rn(s[j], a1, a2, a3, b);
+    }
+  }
+}
+
+// acc (16 x D) += (P ⊙ sc) (16 x BN) · C, C a [BN][STRIDE] int8 code tile
+// and sc its BN per-key scales, in pv_f32_rn's fragment order: the scaled
+// P split in three TF32 parts, the codes exact, each 8-key group summed in
+// fresh accumulators and added by f32 adds.
+template <int D, int BN, int STRIDE>
+__device__ __forceinline__ void pv_codes_rn(const float (&p)[BN / 8][4],
+                                            const float* __restrict__ sc,
+                                            const int8_t* __restrict__ ct,
+                                            float (&acc)[D / 8][4], int g,
+                                            int t) {
+  constexpr int NC = D / 8 < 4 ? D / 8 : 4;  // n-tiles per chunk
+#pragma unroll
+  for (int n0 = 0; n0 < D / 8; n0 += NC) {
+    float part[NC][4];
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float s0 = sc[8 * j + 2 * t], s1 = sc[8 * j + 2 * t + 1];
+      uint32_t a1[4], a2[4], a3[4];
+      tf32_split3(p[j][0] * s0, a1[0], a2[0], a3[0]);
+      tf32_split3(p[j][2] * s0, a1[1], a2[1], a3[1]);
+      tf32_split3(p[j][1] * s1, a1[2], a2[2], a3[2]);
+      tf32_split3(p[j][3] * s1, a1[3], a2[3], a3[3]);
+      const int8_t* cr = ct + (8 * j + 2 * t) * STRIDE + g + 8 * n0;
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        const uint32_t b[2] = {code_tf32(cr[8 * n]),
+                               code_tf32(cr[STRIDE + 8 * n])};
+        mma_split3_rn(part[n], a1, a2, a3, b);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + n][e] += part[n][e];
+  }
+}
+
+// S (16 x BN) += A (16 x D) · Bᵀ as scores_f32 computes it, with B
+// already split: kh holds its TF32 hi parts (as f32 bit patterns) and kl its
+// lo parts, both [BN][STRIDE].
+template <int D, int BN, int STRIDE>
+__device__ __forceinline__ void scores_planes(const float (&qf)[D / 8][4],
+                                              const float* __restrict__ kh,
+                                              const float* __restrict__ kl,
+                                              float (&s)[BN / 8][4], int g,
+                                              int t) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tf32_split(qf[kk][i], ah[i], al[i]);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int off = (8 * j + g) * STRIDE + 8 * kk + t;
+      const uint32_t bh[2] = {__float_as_uint(kh[off]),
+                              __float_as_uint(kh[off + 4])};
+      const uint32_t bl[2] = {__float_as_uint(kl[off]),
+                              __float_as_uint(kl[off + 4])};
+      mma_tf32x3(s[j], ah, al, bh, bl);
+    }
+  }
+}
+
+// acc (16 x D) += P (16 x BN) · V as pv_f32_rn computes it (fresh
+// accumulators per tile, added by f32 adds), with V already split into its
+// hi plane vh and lo plane vl.
+template <int D, int BN, int STRIDE>
+__device__ __forceinline__ void pv_planes_rn(const float (&p)[BN / 8][4],
+                                             const float* __restrict__ vh,
+                                             const float* __restrict__ vl,
+                                             float (&acc)[D / 8][4], int g,
+                                             int t) {
+  constexpr int NC = D / 8 < 4 ? D / 8 : 4;  // n-tiles per chunk
+#pragma unroll
+  for (int n0 = 0; n0 < D / 8; n0 += NC) {
+    float part[NC][4];
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      uint32_t ah[4], al[4];
+      tf32_split(p[j][0], ah[0], al[0]);
+      tf32_split(p[j][2], ah[1], al[1]);
+      tf32_split(p[j][1], ah[2], al[2]);
+      tf32_split(p[j][3], ah[3], al[3]);
+      const int off = (8 * j + 2 * t) * STRIDE + g + 8 * n0;
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        const uint32_t bh[2] = {__float_as_uint(vh[off + 8 * n]),
+                                __float_as_uint(vh[off + STRIDE + 8 * n])};
+        const uint32_t bl[2] = {__float_as_uint(vl[off + 8 * n]),
+                                __float_as_uint(vl[off + STRIDE + 8 * n])};
+        mma_tf32x3(part[n], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + n][e] += part[n][e];
+  }
+}
+
+// The rows of a [BN][STRIDE] f32 tile split in place into TF32 hi (left in
+// the tile) and lo (written to lo at the same offsets), 4 values a thread
+// at a time: each K/V value is split once per CTA, not once per warp.
+template <int D, int BN, int STRIDE>
+__device__ __forceinline__ void split_tile(float* __restrict__ x,
+                                           float* __restrict__ lo, int tid) {
+  constexpr int kVec = BN * D / 4;
+  static_assert(kVec % kChunkThreads == 0, "vectors must split evenly");
+#pragma unroll
+  for (int n = 0; n < kVec / kChunkThreads; ++n) {
+    const int i = tid + n * kChunkThreads;
+    const int off = (i / (D / 4)) * STRIDE + (i % (D / 4)) * 4;
+    float4 v = *reinterpret_cast<const float4*>(x + off);
+    uint32_t h[4], l[4];
+    tf32_split(v.x, h[0], l[0]);
+    tf32_split(v.y, h[1], l[1]);
+    tf32_split(v.z, h[2], l[2]);
+    tf32_split(v.w, h[3], l[3]);
+    *reinterpret_cast<float4*>(x + off) =
+        make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                    __uint_as_float(h[2]), __uint_as_float(h[3]));
+    *reinterpret_cast<float4*>(lo + off) =
+        make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                    __uint_as_float(l[2]), __uint_as_float(l[3]));
+  }
+}
+
+// Chunk route: see the header. part is the split workspace (unused when
+// splits == 1): [splits][B·H·T][D] accumulators, then [splits][B·H·T][2]
+// (m, l).
+template <bool QUANT, int D>
+__global__ void __launch_bounds__(kChunkThreads)
+    paged_chunk_kernel(const float* __restrict__ q,
+                       const void* __restrict__ kp_,
+                       const void* __restrict__ vp_,
+                       const float* __restrict__ kscales,
+                       const float* __restrict__ vscales,
+                       const int* __restrict__ bt, const int* __restrict__ pos,
+                       const float* __restrict__ key_valid,
+                       float* __restrict__ o, float* __restrict__ part, int H,
+                       int T, int ps, int NP, int splits, float scale) {
+  using C = ChunkTile<QUANT, D>;
+  using KV = typename C::KV;
+  constexpr int BN = C::kBlockN;
+  constexpr int STRIDE = C::kStride;
+  constexpr int kPerCopy = 16 / (int)sizeof(KV);
+  constexpr int kPerRow = D / kPerCopy;
+  const KV* kp = static_cast<const KV*>(kp_);
+  const KV* vp = static_cast<const KV*>(vp_);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // after the ring: the lo planes (f32), then the block-table entries of
+  // the walked pages
+  float* klo = reinterpret_cast<float*>(smem_raw + C::kRingBytes);
+  float* vlo = klo + C::kTileBytes / (int)sizeof(float);
+  int* bts = reinterpret_cast<int*>(smem_raw + C::kRingBytes + C::kLoBytes);
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x % splits;
+  const int qtiles = gridDim.x / splits;
+  const int q0 = (qtiles - 1 - blockIdx.x / splits) * kChunkRows;  // longest walks first
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = q0 + 16 * warp;  // the warp's first row
+  const int r0 = wrow + g, r1 = r0 + 8;
+  const int Tmax = NP * ps;
+  const size_t qbase = ((size_t)b * H + h) * T * D;
+  const float* kvrow =
+      key_valid == nullptr ? nullptr : key_valid + (size_t)b * Tmax;
+
+  // causal walk: the tile's last row sees columns up to pos[b] + that row;
+  // this CTA takes its split's contiguous range of whole key tiles
+  const int p0 = pos[b];
+  const int kend = min(Tmax, p0 + min(q0 + kChunkRows, T));
+  const int ntiles = (kend + BN - 1) / BN;
+  const int per = (ntiles + splits - 1) / splits;
+  const int it0 = min(ntiles, split * per);
+  const int it1 = min(ntiles, it0 + per);
+
+  const int pg0 = it0 * BN / ps;
+  const int npg = it1 > it0 ? (min(kend, it1 * BN) - 1) / ps - pg0 + 1 : 0;
+  for (int i = tid; i < npg; i += kChunkThreads)
+    bts[i] = bt[(size_t)b * NP + pg0 + i];
+  __syncthreads();
+
+  // pool row of walked column col (shifts for a power-of-two page size)
+  const int psh = (ps & (ps - 1)) == 0 ? __ffs(ps) - 1 : -1;
+  auto pool_row = [&](int col) -> size_t {
+    const int pg = psh >= 0 ? col >> psh : col / ps;
+    const int off = psh >= 0 ? col & (ps - 1) : col % ps;
+    return ((size_t)bts[pg - pg0] * H + h) * ps + off;
+  };
+  // one K/V tile into ring stage st: key rows by 16-byte copies, then the
+  // tile's key-valid columns and (int8) scales by 4-byte copies; columns at
+  // or past kend zero-filled
+  auto stage = [&](int tile, int st) {
+    unsigned char* base = smem_raw + st * C::kStageBytes;
+    KV* ks = reinterpret_cast<KV*>(base);
+    KV* vs = reinterpret_cast<KV*>(base + C::kTileBytes);
+    float* vals = reinterpret_cast<float*>(base + 2 * C::kTileBytes);
+    const int k0 = tile * BN;
+#pragma unroll
+    for (int n = 0; n < C::kCopies / kChunkThreads; ++n) {
+      const int i = tid + n * kChunkThreads;
+      const int j = i / kPerRow, c = (i % kPerRow) * kPerCopy;
+      const bool ok = k0 + j < kend;
+      const size_t src = (ok ? pool_row(k0 + j) : 0) * D + c;
+      cp_async16(ks + j * STRIDE + c, kp + src, ok);
+      cp_async16(vs + j * STRIDE + c, vp + src, ok);
+    }
+    for (int j = tid; j < BN; j += kChunkThreads) {
+      const bool ok = k0 + j < kend;
+      if (kvrow != nullptr) cp_async4(vals + j, kvrow + (ok ? k0 + j : 0), ok);
+      if constexpr (QUANT) {
+        const size_t row = ok ? pool_row(k0 + j) : 0;
+        cp_async4(vals + BN + j, kscales + row, ok);
+        cp_async4(vals + 2 * BN + j, vscales + row, ok);
+      }
+    }
+  };
+
+  // the first kStages - 1 tiles in flight, one commit group each
+#pragma unroll
+  for (int i = 0; i < C::kStages - 1; ++i) {
+    if (it0 + i < it1) stage(it0 + i, i);
+    cp_async_commit();
+  }
+
+  // q pre-scaled by log2(e)/√d: the softmax runs in base 2
+  float qf[D / 8][4];
+  load_a_rows<D>(q + qbase, r0, r1, T, t, qf);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qf[kk][i] *= scale;
+
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const bool has_rows = wrow < T;  // warp-uniform: a warp past T only stages
+
+  for (int it = it0; it < it1; ++it) {
+    const int st = (it - it0) % C::kStages;
+    cp_async_wait<C::kStages - 2>();  // this thread's copies of tile it
+    unsigned char* base = smem_raw + st * C::kStageBytes;
+    const KV* kt = reinterpret_cast<const KV*>(base);
+    const KV* vt = reinterpret_cast<const KV*>(base + C::kTileBytes);
+    const float* vals =
+        reinterpret_cast<const float*>(base + 2 * C::kTileBytes);
+    const int k0 = it * BN;
+    // kv_full: the key-valid plane masks no walked column of the tile
+    // (thread j < BN reads the column it copied itself). The barrier also
+    // marks tile it landed for every thread and tile it - 1 consumed by
+    // every warp, so its stage may take the next tile.
+    const bool kv_full = __syncthreads_and(kvrow == nullptr || tid >= BN ||
+                                           k0 + tid >= kend ||
+                                           vals[tid] != 0.f);
+    if (it + C::kStages - 1 < it1)
+      stage(it + C::kStages - 1, (st + C::kStages - 1) % C::kStages);
+    cp_async_commit();
+    if constexpr (!QUANT) {
+      // f32: each K/V value split once per CTA into TF32 hi (in place) and
+      // lo (the lo planes)
+      split_tile<D, BN, STRIDE>(reinterpret_cast<float*>(base), klo, tid);
+      split_tile<D, BN, STRIDE>(
+          reinterpret_cast<float*>(base + C::kTileBytes), vlo, tid);
+      __syncthreads();  // the planes are complete
+    }
+    // A warp whose 16 rows all lie causally before the tile skips it: its
+    // columns would score -1e30 and add exactly 0 to a row that has seen a
+    // column (alpha = 1, p = 0).
+    if (has_rows && k0 <= p0 + wrow + 15) {
+      float s[BN / 8][4];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      if constexpr (QUANT) {
+        // int8: the exact code products, then each column's key scale
+        scores_codes<D, BN, STRIDE>(qf, kt, s, g, t);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] *= vals[BN + 8 * j + 2 * t + (e & 1)];
+      } else {
+        scores_planes<D, BN, STRIDE>(qf, kt, klo, s, g, t);
+      }
+
+      // masks, each only on the tiles that need it: this thread's columns
+      // are 8j + 2t + (e & 1) of the tile
+      if (!kv_full) {  // masked columns
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (vals[8 * j + 2 * t + (e & 1)] == 0.f) s[j][e] = kNegInf;
+      }
+      if (k0 + BN > kend || k0 + BN - 1 > p0 + wrow) {
+        // the causal limit col <= pos + row, then columns past the walk
+        const int kl = kend - k0 - 2 * t;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int lim = p0 + (e < 2 ? r0 : r1) - k0 - 2 * t;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int c = 8 * j + (e & 1);
+            if (c > lim) s[j][e] = kNegInf;
+            if (c >= kl) s[j][e] = neg_inf();
+          }
+        }
+      }
+
+      // online softmax on the fragment: rows g (e = 0, 1) and g + 8 (e = 2,
+      // 3); the row sum stays a per-thread partial until the end
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = m[hr];
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float alpha = fast_exp2(m[hr] - mx);
+        m[hr] = mx;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          s[j][2 * hr] = fast_exp2(s[j][2 * hr] - mx);
+          s[j][2 * hr + 1] = fast_exp2(s[j][2 * hr + 1] - mx);
+          sum0 += s[j][2 * hr];
+          sum1 += s[j][2 * hr + 1];
+        }
+        l[hr] = l[hr] * alpha + (sum0 + sum1);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[n][2 * hr] *= alpha;
+          acc[n][2 * hr + 1] *= alpha;
+        }
+      }
+
+      if constexpr (QUANT)
+        pv_codes_rn<D, BN, STRIDE>(s, vals + 2 * BN, vt, acc, g, t);
+      else
+        pv_planes_rn<D, BN, STRIDE>(s, vt, vlo, acc, g, t);
+    }
+  }
+
+  const size_t rows = (size_t)gridDim.z * H * T;  // B·H·T
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float lr = l[hr];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int row = hr ? r1 : r0;
+    if (row >= T) continue;
+    if (splits == 1) {
+      const float lc = fmaxf(lr, 1e-30f);
+      float* orow = o + qbase + (size_t)row * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(orow + 8 * n) =
+            make_float2(acc[n][2 * hr] / lc, acc[n][2 * hr + 1] / lc);
+    } else {
+      // this split's partial of the row, unnormalised
+      const size_t pr = (size_t)split * rows + qbase / D + row;
+      store_acc_row<float, D>(part + pr * D, acc, hr, t, 1.f);
+      if (t == 0) {
+        float* ml = part + (size_t)splits * rows * D + pr * 2;
+        ml[0] = m[hr];
+        ml[1] = lr;
+      }
+    }
+  }
+}
+
+// The split chunk route's second pass: each output element merges its
+// row's `splits` partials in fixed split order (max, then the rescaled sums
+// of l and acc, in base 2 as the walk's m is), as the decode route merges
+// its warps.
+__global__ void __launch_bounds__(256)
+    paged_merge_kernel(const float* __restrict__ part, float* __restrict__ o,
+                       int rows, int D, int splits) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)rows * D) return;
+  const size_t r = i / D, c = i % D;
+  const float* ml = part + (size_t)splits * rows * D;
+  float mx = kNegInf;
+  for (int sp = 0; sp < splits; ++sp)
+    mx = fmaxf(mx, ml[((size_t)sp * rows + r) * 2]);
+  float lsum = 0.f, out = 0.f;
+  for (int sp = 0; sp < splits; ++sp) {
+    const size_t pr = (size_t)sp * rows + r;
+    const float e = exp2f(ml[pr * 2] - mx);
+    lsum += ml[pr * 2 + 1] * e;
+    out += part[pr * D + c] * e;
+  }
+  o[i] = out / fmaxf(lsum, 1e-30f);
+}
+
+// Dynamic shared memory of a chunk CTA: the ring, the lo planes, and NP
+// block-table entries (the most a walk can stage).
+template <bool QUANT, int D>
+int chunk_smem_bytes(int NP) {
+  return ChunkTile<QUANT, D>::kRingBytes + ChunkTile<QUANT, D>::kLoBytes +
+         4 * NP;
+}
+
+template <bool QUANT, int D>
+int launch_chunk(const float* q, const void* kp, const void* vp,
+                 const float* kscales, const float* vscales, const int* bt,
+                 const int* pos, const float* key_valid, float* o, float* part,
+                 int splits, int B, int H, int T, int ps, int NP,
+                 cudaStream_t stream) {
+  // the opt-in limit, asked once per instantiation: the block-table slice
+  // makes the size depend on NP
+  static int limit = 0;
+  static const cudaError_t attr = [] {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(paged_chunk_kernel<QUANT, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               limit);
+    return e;
+  }();
+  if (attr != cudaSuccess) return (int)attr;
+  const int smem = chunk_smem_bytes<QUANT, D>(NP);
+  if (smem > limit) return -3;
+  const long long qtiles = (T + kChunkRows - 1) / kChunkRows;
+  if (qtiles * splits > 0x7fffffffLL) return -1;
+  const dim3 grid((unsigned)(qtiles * splits), H, B);
+  paged_chunk_kernel<QUANT, D><<<grid, kChunkThreads, smem, stream>>>(
+      q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, H, T, ps, NP,
+      splits, (float)(1.4426950408889634 / std::sqrt((double)D)));
+  if (splits > 1) {
+    const long long n = (long long)B * H * T * D;
+    paged_merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        part, o, B * H * T, D, splits);
+  }
+  return 0;
+}
+
 // decode-sized chunks (T <= 4) or prefill-sized ones
 template <bool QUANT, int D>
 int launch_paged(const float* q, const void* kp, const void* vp,
                  const float* kscales, const float* vscales, const int* bt,
-                 const int* pos, const float* key_valid, float* o, int B,
-                 int H, int T, int ps, int NP, cudaStream_t stream) {
+                 const int* pos, const float* key_valid, float* o, float* part,
+                 int splits, int B, int H, int T, int ps, int NP,
+                 cudaStream_t stream) {
   if (T == 1)
     return launch_decode<QUANT, D, 1>(q, kp, vp, kscales, vscales, bt, pos,
                                       key_valid, o, B, H, T, ps, NP, stream);
@@ -411,34 +887,75 @@ int launch_paged(const float* q, const void* kp, const void* vp,
     return launch_decode<QUANT, D, kDecodeMaxT>(
         q, kp, vp, kscales, vscales, bt, pos, key_valid, o, B, H, T, ps, NP,
         stream);
-  return launch_rows<QUANT, D, kRows>(q, kp, vp, kscales, vscales, bt, pos,
-                                      key_valid, o, B, H, T, ps, NP, stream);
+  return launch_chunk<QUANT, D>(q, kp, vp, kscales, vscales, bt, pos,
+                                key_valid, o, part, splits, B, H, T, ps, NP,
+                                stream);
 }
 
 }  // namespace dl4j
 
+// How many ranges the chunk route cuts each q tile's walk into: 1 (no
+// workspace) for the decode route and wherever the grid has at least one
+// CTA per SM; else enough for about two CTAs per SM, at most one range per
+// two key tiles of a full walk.
+extern "C" int dl4j_paged_attn_splits(int B, int H, int T, int D, int ps,
+                                      int NP) {
+  if (T <= dl4j::kDecodeMaxT || B < 1 || H < 1 || ps < 1 || NP < 1) return 1;
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 1;
+    return n;
+  }();
+  const long long ctas = (long long)B * H *
+                         ((T + dl4j::kChunkRows - 1) / dl4j::kChunkRows);
+  if (ctas >= sms) return 1;
+  const int bn = D == 128 ? 32 : 64;
+  const long long most = std::max(1LL, ((long long)NP * ps) / (2 * bn));
+  return (int)std::min(most, (2LL * sms + ctas - 1) / ctas);
+}
+
+// Dynamic shared memory of one chunk-route CTA in bytes (for reports).
+extern "C" int dl4j_paged_chunk_smem(int D, int quant, int NP) {
+  switch (D) {
+    case 32:
+      return quant ? dl4j::chunk_smem_bytes<true, 32>(NP) : dl4j::chunk_smem_bytes<false, 32>(NP);
+    case 64:
+      return quant ? dl4j::chunk_smem_bytes<true, 64>(NP) : dl4j::chunk_smem_bytes<false, 64>(NP);
+    case 128:
+      return quant ? dl4j::chunk_smem_bytes<true, 128>(NP) : dl4j::chunk_smem_bytes<false, 128>(NP);
+    default:
+      return -2;
+  }
+}
+
 // Launches K2 on `stream`; returns 0 after a launch (the caller checks it
 // with cudaGetLastError), or a nonzero code for an unsupported
 // configuration, which launches nothing. kscales/vscales are read only when
-// quant is set; key_valid may be null.
+// quant is set; key_valid may be null. With splits > 1 (chunk route only),
+// part is a workspace of splits·B·H·T·(D + 2) floats.
 extern "C" int dl4j_paged_attn(const float* q, const void* kp, const void* vp,
                                const float* kscales, const float* vscales,
                                const int* bt, const int* pos,
-                               const float* key_valid, float* o, int B, int H,
-                               int T, int D, int ps, int NP, int quant,
-                               cudaStream_t stream) {
+                               const float* key_valid, float* o, float* part,
+                               int splits, int B, int H, int T, int D, int ps,
+                               int NP, int quant, cudaStream_t stream) {
   if (T < 1 || B < 1 || H < 1 || ps < 1 || NP < 1 || B > 65535 || H > 65535)
     return -1;
+  if (splits < 1 || (splits > 1 && (part == nullptr || T <= dl4j::kDecodeMaxT)))
+    return -4;
   switch (D) {
     case 32:
-      return quant ? dl4j::launch_paged<true, 32>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, B, H, T, ps, NP, stream)
-                   : dl4j::launch_paged<false, 32>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, B, H, T, ps, NP, stream);
+      return quant ? dl4j::launch_paged<true, 32>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream)
+                   : dl4j::launch_paged<false, 32>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream);
     case 64:
-      return quant ? dl4j::launch_paged<true, 64>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, B, H, T, ps, NP, stream)
-                   : dl4j::launch_paged<false, 64>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, B, H, T, ps, NP, stream);
+      return quant ? dl4j::launch_paged<true, 64>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream)
+                   : dl4j::launch_paged<false, 64>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream);
     case 128:
-      return quant ? dl4j::launch_paged<true, 128>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, B, H, T, ps, NP, stream)
-                   : dl4j::launch_paged<false, 128>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, B, H, T, ps, NP, stream);
+      return quant ? dl4j::launch_paged<true, 128>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream)
+                   : dl4j::launch_paged<false, 128>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream);
     default:
       return -2;
   }

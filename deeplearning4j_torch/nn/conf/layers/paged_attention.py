@@ -28,6 +28,9 @@ BACKENDS = ("xla", "pallas")
 CHOICES = ("auto", "stock") + BACKENDS
 
 KERNEL_HEAD_DIMS = (32, 64, 128)
+#: query chunks of up to this many rows take K2's decode route, longer ones
+#: its chunk route (``kDecodeMaxT`` in ``kernels/paged_attn.cu``)
+DECODE_MAX_T = 4
 
 
 def _key_valid_plane(mask, pos, T, Tmax):
@@ -72,7 +75,10 @@ def paged_attention_plain(q, kp, vp, bt, pos, *, key_valid=None,
 def paged_attention(q, kp, vp, bt, pos, *, key_valid=None, kscales=None,
                     vscales=None):
     """K2's wrapper. CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise — there is no fallback."""
+    the kernel or raise — there is no fallback. Counts every launch under
+    ``paged_attn``, chunk-route launches also under ``paged_attn_chunk``,
+    and the chunk route's merge pass (when it splits the walk) under
+    ``paged_attn_merge``."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, kp, vp, bt, pos, key_valid=key_valid,
                                      kscales=kscales, vscales=vscales)
@@ -94,6 +100,11 @@ def paged_attention(q, kp, vp, bt, pos, *, key_valid=None, kscales=None,
         bt.to(torch.int32).contiguous(), pos.to(torch.int32).contiguous(),
         key_valid)
     kernels.LAUNCHES["paged_attn"] += 1
+    B, H, T, d = q.shape
+    if T > DECODE_MAX_T:
+        kernels.LAUNCHES["paged_attn_chunk"] += 1
+        if ext.paged_attn_splits(B, H, T, d, kp.shape[2], bt.shape[1]) > 1:
+            kernels.LAUNCHES["paged_attn_merge"] += 1
     return o
 
 

@@ -14,13 +14,21 @@ sources (into that tree's ``kernels/build/``) and reports:
 - the device time per launch of K1, K2, K3 and K4 at the shapes the main
   path gives them (and K1, K3 and K4 at [2, 8, 2048, 128], f32 and bf16),
   from one short ``torch.profiler`` window per case, read as
-  ``chip_smoke.py`` reads it (its ``device_ms``);
-- a digest of K1's outputs (o and lse) per case, so that two trees whose
-  K1 should agree bit for bit can be seen to;
+  ``chip_smoke.py`` reads it (its ``device_ms``); K2's per wrapper call,
+  which on its split chunk walk is two launches (walk and merge);
+- a digest of K1's outputs (o and lse) and of K2's decode-route outputs
+  per case, so that two trees whose kernels should agree bit for bit can
+  be seen to;
 - one profiled f32 serve of the ``chip_smoke.py`` phase-5 requests and
   five profiled training steps: wall time, device busy time, idle share
-  and the attention kernels' device time (``chip_smoke.profile_serve`` and
-  ``profile_train``).
+  and the attention kernels' device time, K2's chunk route summed
+  (``chip_smoke.profile_serve`` and ``profile_train``).
+
+Before the runs it compiles each tree's ``paged_attn.cu`` once more with
+``nvcc -Xptxas -v -cubin`` and reads ``cuobjdump -sass``: registers and
+spills of each K2 kernel and its counts of ``HMMA`` (tensor-core
+products), ``LDGSTS`` (``cp.async`` copies) and ``ATOM``/``RED``
+(atomics).
 
 The last line of its output is one JSON object with every run;
 ``--out DIR`` also writes it to ``DIR/kernel_ab.json``. The measurement
@@ -44,9 +52,13 @@ K1_CASES = [("slice_f32_causal", 8, 8, 128, 32, "float32"),
             ("train_f32_causal", 16, 8, 128, 32, "float32"),
             ("long_f32_causal", 2, 8, 2048, 128, "float32"),
             ("long_bf16_causal", 2, 8, 2048, 128, "bfloat16")]
-# (name, T, quant): K2 at B=8, H=8, d=32, ps=16, Tmax=512, as in phase 3
+# (name, T, quant): K2 at B=8, H=8, d=32, ps=16, Tmax=512, as in phase 3:
+# the decode route (T=1) and the chunk route at the serve's first (256) and
+# second (48) prefill rounds and at the route boundary (5)
 K2_CASES = [("f32_T1_Tmax512", 1, False), ("int8_T1_Tmax512", 1, True),
-            ("f32_T256_Tmax512", 256, False)]
+            ("f32_T256_Tmax512", 256, False),
+            ("int8_T256_Tmax512", 256, True), ("f32_T5_Tmax512", 5, False),
+            ("f32_T48_Tmax512", 48, False)]
 # (name, B, H, T, d, dtype): K3 and K4 on the training step, causal, and
 # the long yardstick shape
 BWD_CASES = [("train_f32_causal", 16, 8, 128, 32, "float32"),
@@ -107,9 +119,12 @@ def measure(tree: str) -> dict:
         pos = torch.randint(0, Tmax - T + 1, (B,), generator=g).to(
             torch.int32).to(dev)
         q = torch.randn(B, H, T, d, generator=g).to(dev)
+        o = ppa.paged_attention(q, kp, vp, bt, pos, kscales=ks, vscales=vs)
+        digest = hashlib.sha256(o.cpu().numpy().tobytes()).hexdigest()
         ms, n = cs.device_ms(lambda: ppa.paged_attention(
             q, kp, vp, bt, pos, kscales=ks, vscales=vs), "paged_")
-        out["k2"][name] = dict(device_ms=ms, launches_per_call=n)
+        out["k2"][name] = dict(device_ms=ms * n, launches_per_call=n,
+                               digest=digest[:16])
     for name, B, H, T, d, dt in BWD_CASES:
         dtype = getattr(torch, dt)
         q, k, v, do = [torch.randn(B, H, T, d, generator=g).to(dev, dtype)
@@ -131,6 +146,52 @@ def measure(tree: str) -> dict:
     return out
 
 
+def sass_report(tree: str) -> dict:
+    """Registers and spills (``nvcc -Xptxas -v``) and the ``HMMA``,
+    ``LDGSTS`` and ``ATOM``/``RED`` counts (``cuobjdump -sass``) of each
+    kernel in ``tree``'s ``paged_attn.cu``, by mangled name."""
+    import re
+    import tempfile
+
+    src = os.path.join(tree, "deeplearning4j_torch", "kernels",
+                       "paged_attn.cu")
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "paged_attn.cubin")
+        build = subprocess.run(
+            ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-Xptxas", "-v", "-cubin", "-o", cubin,
+             src], capture_output=True, text=True, timeout=600)
+        if build.returncode != 0:
+            raise SystemExit(f"kernel_ab: nvcc failed on {src}:\n"
+                             f"{build.stderr[-2000:]}")
+        sass = subprocess.run(["cuobjdump", "-sass", cubin],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+    report, fn = {}, None
+    for line in build.stderr.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            report[fn] = dict(registers=None, spill_stores=0, spill_loads=0,
+                              hmma=0, ldgsts=0, atom=0)
+        elif fn and "Used" in line:
+            report[fn]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                    line).group(1))
+        elif fn and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill", line)
+            report[fn]["spill_stores"], report[fn]["spill_loads"] = map(
+                int, nums)
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn in report:
+            for key, pat in (("hmma", "HMMA"), ("ldgsts", "LDGSTS"),
+                             ("atom", "ATOM")):
+                report[fn][key] += pat in line
+            report[fn]["atom"] += " RED." in line
+    return report
+
+
 def main() -> int:
     import argparse
 
@@ -149,6 +210,14 @@ def main() -> int:
         print("kernel_ab: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 2
+    sass = {label: sass_report(tree) for label, tree in
+            (("other", args.other), ("this", HERE))}
+    for label, rep in sass.items():
+        for fn, r in rep.items():
+            print(f"{label}: {fn[9:60]} regs {r['registers']} spill "
+                  f"{r['spill_stores']}/{r['spill_loads']} B, HMMA "
+                  f"{r['hmma']}, LDGSTS {r['ldgsts']}, ATOM/RED {r['atom']}",
+                  flush=True)
     runs = []
     for label, tree in (("other", args.other), ("this", HERE),
                         ("this", HERE), ("other", args.other)):
@@ -166,17 +235,24 @@ def main() -> int:
         print(f"{label}: K1 ms/launch {k1}", flush=True)
         print(f"{label}: K1 digests " + " ".join(
             f"{n} {r['digest']}" for n, r in run["k1"].items()), flush=True)
+        print(f"{label}: K2 decode digests " + " ".join(
+            f"{n} {r['digest']}" for n, r in run["k2"].items()
+            if "_T1_" in n), flush=True)
         for part in ("k2", "k3", "k4"):
             ms = " ".join(f"{n} {r['device_ms']:.5f}"
                           for n, r in run[part].items())
-            print(f"{label}: {part.upper()} ms/launch {ms}", flush=True)
+            per = "call" if part == "k2" else "launch"
+            print(f"{label}: {part.upper()} ms/{per} {ms}", flush=True)
         for part in ("serve", "train"):
             r = run[part]
             print(f"{label}: {part} wall {r['wall_s']:.4f} s, device busy "
                   f"{r['device_busy_s']:.4f} s, idle share "
                   f"{r['idle_share']:.3f}", flush=True)
+        r = run["serve"]
+        print(f"{label}: serve K2 chunk route {r['k2_chunk_device_ms']:.4f} "
+              f"ms over {r['k2_chunk_calls']} calls", flush=True)
     print(runs[0]["card"])
-    line = {"kernel_ab": runs}
+    line = {"kernel_ab": runs, "sass": sass}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "kernel_ab.json"), "w") as f:

@@ -19,6 +19,17 @@ per range with m starting at -1e30, and the partials merged in fixed range
 order, as ``kernels/paged_attn.cu`` does. It must match the plain version
 and the JAX ``XlaPagedAttention`` on every row that sees a column, empty
 ranges and all.
+
+So is its chunk-route design (T > 4): 64-row q tiles of 16-row warps over
+64-key tiles whose rows resolve through the block table (a tile crosses
+pages), q pre-scaled by log2(e)/√d and the softmax in base 2, f32 products
+as three TF32 products of hi/lo splits (``tf32_emulation.py``), int8 as the
+exact products with the codes (the kernel splits q and P·vscale in three
+TF32 parts) and the scales applied outside, P·V summed per tile, and the
+walk cut into contiguous ranges merged in fixed order (the small-T split). It must match the plain version, the JAX
+``XlaPagedAttention`` and ``PallasPagedAttention`` (interpret mode) within
+atol 1e-5 on every row that sees a column, at the small geometries above
+and at two ragged q tiles (T=100, d=32).
 """
 
 import math
@@ -39,6 +50,7 @@ from deeplearning4j_torch.nn.conf.layers import (  # noqa: E402
     paged_attention as ppa)
 from deeplearning4j_torch.nn.conf.layers.attention import (  # noqa: E402
     SelfAttentionLayer)
+from tf32_emulation import _mm_tf32x3  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
@@ -49,16 +61,16 @@ H, D, PS, NP = 4, 8, 8, 4          # Tmax = 32
 CASES = ["decode", "straddle", "boundary", "masked_to_page0"]
 
 
-def _pool(rs, pages, quant):
+def _pool(rs, pages, quant, h=H, ps=PS, d=D):
     if quant:
-        return {"kpages": rs.randint(-127, 128, (pages, H, PS, D)).astype(
+        return {"kpages": rs.randint(-127, 128, (pages, h, ps, d)).astype(
                     np.int8),
-                "vpages": rs.randint(-127, 128, (pages, H, PS, D)).astype(
+                "vpages": rs.randint(-127, 128, (pages, h, ps, d)).astype(
                     np.int8),
-                "kscales": (rs.rand(pages, H, PS) * 0.05).astype(np.float32),
-                "vscales": (rs.rand(pages, H, PS) * 0.05).astype(np.float32)}
-    return {"kpages": rs.randn(pages, H, PS, D).astype(np.float32),
-            "vpages": rs.randn(pages, H, PS, D).astype(np.float32)}
+                "kscales": (rs.rand(pages, h, ps) * 0.05).astype(np.float32),
+                "vscales": (rs.rand(pages, h, ps) * 0.05).astype(np.float32)}
+    return {"kpages": rs.randn(pages, h, ps, d).astype(np.float32),
+            "vpages": rs.randn(pages, h, ps, d).astype(np.float32)}
 
 
 def _case(name, quant):
@@ -316,3 +328,187 @@ def test_k2_split_walk_is_order_fixed():
     one, empty_one = _k2_split_walk(*args, warps=1)
     assert torch.equal(a, b) and empty_one == 0
     np.testing.assert_allclose(a.numpy(), one.numpy(), atol=1e-6, rtol=0)
+
+
+# -------------------------------------------- K2's chunk design, rehearsed
+LOG2E = 1.4426950408889634
+
+
+def _k2_chunk_walk(q, kp, vp, bt, pos, *, key_valid=None, kscales=None,
+                   vscales=None, splits=1):
+    """K2's chunk route in f32 arithmetic. Per 64-row q tile the causal
+    walk [0, kend), kend = min(Tmax, pos + the tile's last row + 1), in
+    64-key tiles (32 at d=128) cut into ``splits`` contiguous ranges of
+    whole tiles. Per 16-row warp and range: an online softmax in base 2
+    from m = -1e30 over the range's tiles (a tile wholly past the warp's
+    rows causally is skipped), with key-valid and causal masks at -1e30
+    and columns past the walk at -inf; the ranges' (m, l, acc) merged in
+    range order. int8 takes the exact products with the codes (f32 here;
+    the kernel's three-part TF32 splits of q and P·vscale are exact to
+    2^-33), times the key scale after S and the value scale before P·V."""
+    B, H, T, d = q.shape
+    ps, NP = kp.shape[2], bt.shape[1]
+    Tmax = NP * ps
+    BN = 32 if d == 128 else 64
+    quant = kscales is not None
+    qs = q * torch.tensor(LOG2E / math.sqrt(d), dtype=torch.float32)
+    out = torch.empty_like(q)
+    for b in range(B):
+        p0 = int(pos[b])
+        for q0 in range(0, T, 64):
+            kend = min(Tmax, p0 + min(q0 + 64, T))
+            ntiles = -(-kend // BN)
+            per = -(-ntiles // splits)
+            for w0 in range(q0, min(q0 + 64, T), 16):
+                rows = torch.arange(w0, min(w0 + 16, T))
+                qr = qs[b][:, rows]                              # [H, R, d]
+                parts = []
+                for sp in range(splits):
+                    m = torch.full((H, len(rows), 1), -1e30)
+                    l = torch.zeros(H, len(rows), 1)
+                    acc = torch.zeros(H, len(rows), d)
+                    for it in range(min(ntiles, sp * per),
+                                    min(ntiles, sp * per + per)):
+                        k0 = it * BN
+                        if k0 > p0 + w0 + 15:        # causally past the warp
+                            continue
+                        cols = torch.arange(k0, k0 + BN)
+                        walked = cols < kend
+                        cw = cols.clamp(max=kend - 1)
+                        pages, offs = bt[b, cw // ps].long(), cw % ps
+                        keep = walked[None, :, None]
+                        kk = torch.where(keep, kp[pages, :, offs].float()
+                                         .transpose(0, 1), 0.0)  # [H, BN, d]
+                        vv = torch.where(keep, vp[pages, :, offs].float()
+                                         .transpose(0, 1), 0.0)
+                        if quant:
+                            ksc = torch.where(walked, kscales[pages, :, offs]
+                                              .T, 0.0)[:, None, :]
+                            vsc = torch.where(walked, vscales[pages, :, offs]
+                                              .T, 0.0)[:, None, :]
+                            s = (qr @ kk.transpose(-1, -2)) * ksc
+                        else:
+                            s = _mm_tf32x3(qr, kk.transpose(-1, -2))
+                        if key_valid is not None:
+                            ok = key_valid[b, cw] != 0
+                            s = torch.where(ok, s, torch.full_like(s, -1e30))
+                        s = torch.where(cols[None, :] > p0 + rows[:, None],
+                                        torch.full_like(s, -1e30), s)
+                        s = torch.where(walked, s,
+                                        torch.full_like(s, -math.inf))
+                        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+                        alpha, p = torch.exp2(m - mx), torch.exp2(s - mx)
+                        l = l * alpha + p.sum(-1, keepdim=True)
+                        pv = (p * vsc) @ vv if quant else _mm_tf32x3(p, vv)
+                        acc = acc * alpha + pv
+                        m = mx
+                    parts.append((m, l, acc))
+                mx = torch.stack([pm for pm, _, _ in parts]).amax(0)
+                lsum = torch.zeros(H, len(rows), 1)
+                o = torch.zeros(H, len(rows), d)
+                for pm, pl_, pa in parts:                # fixed range order
+                    e = torch.exp2(pm - mx)
+                    lsum = lsum + pl_ * e
+                    o = o + pa * e
+                out[b][:, rows] = o / lsum.clamp_min(1e-30)
+    return out
+
+
+def _long_case(quant):
+    """Two q tiles, the second ragged (T=100), d=32, page size 16 over a
+    256-column cache: row 0 from position 0, row 1 from a page boundary
+    with right padding, row 2 all masked on garbage page 0."""
+    rs = np.random.RandomState(40 + int(quant))
+    B, H2, T, d, ps, NP2 = 3, 2, 100, 32, 16, 16
+    pages = B * NP2 + 1
+    pool = _pool(rs, pages, quant, h=H2, ps=ps, d=d)
+    bt = (rs.permutation(pages - 1)[:B * NP2] + 1).reshape(B, NP2).astype(
+        np.int32)
+    pos = np.array([0, 2 * ps, 0], np.int32)
+    mask = np.ones((B, T), np.float32)
+    mask[1, 90:] = 0
+    mask[2, :] = 0
+    bt[2, :] = 0
+    q = rs.randn(B, H2, T, d).astype(np.float32)
+    return q, pool, bt, pos, mask
+
+
+def _chunk_check(q, pool, bt, pos, mask, splits):
+    """The chunk walk against the plain version and both JAX backends on
+    every row that sees a column (atol 1e-5); rows that see none finite."""
+    B, _, T, _ = q.shape
+    Tmax = bt.shape[1] * pool["kpages"].shape[2]
+    t = {k: torch.from_numpy(v) for k, v in pool.items()}
+    tq, tbt, tpos = (torch.from_numpy(a) for a in (q, bt, pos))
+    key_valid = None
+    if mask is not None:
+        key_valid = ppa._key_valid_plane(torch.from_numpy(mask), tpos, T,
+                                         Tmax)
+    kw = dict(kscales=t.get("kscales"), vscales=t.get("vscales"))
+    got = _k2_chunk_walk(tq, t["kpages"], t["vpages"], tbt, tpos,
+                         key_valid=key_valid, splits=splits, **kw)
+    plain = ppa.paged_attention_plain(tq, t["kpages"], t["vpages"], tbt,
+                                      tpos, key_valid=key_valid, **kw)
+
+    def jx(helper):
+        return np.asarray(helper.attend(
+            jnp.asarray(q), jnp.asarray(pool["kpages"]),
+            jnp.asarray(pool["vpages"]), jnp.asarray(bt), jnp.asarray(pos),
+            mask=None if mask is None else jnp.asarray(mask),
+            kscales=None if "kscales" not in pool else jnp.asarray(
+                pool["kscales"]),
+            vscales=None if "vscales" not in pool else jnp.asarray(
+                pool["vscales"])))
+
+    assert torch.isfinite(got).all()
+    col = torch.arange(Tmax)
+    vis = col[None, None] <= tpos.long()[:, None, None] + torch.arange(T)[
+        None, :, None]
+    if key_valid is not None:
+        vis = vis & (key_valid[:, None] != 0)
+    seen = vis.any(-1)[:, None, :, None].expand_as(got).numpy()
+    for ref in (plain.numpy(), jx(jppa.XlaPagedAttention()),
+                jx(jppa.PallasPagedAttention(interpret=True))):
+        np.testing.assert_allclose(np.where(seen, got.numpy(), 0),
+                                   np.where(seen, ref, 0), atol=1e-5, rtol=0)
+    return got, seen
+
+
+@pytest.mark.parametrize("splits", [1, 3], ids=["unsplit", "split3"])
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("name", CASES)
+def test_k2_chunk_walk_design_matches_plain_and_jax(name, quant, splits):
+    """The file's geometries (one 64-key tile spanning all four pages of a
+    32-column cache, so three splits leave empty ranges) through the chunk
+    design, unsplit and split."""
+    _chunk_check(*_case(name, quant), splits=splits)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_k2_chunk_walk_two_ragged_q_tiles(quant):
+    """T=100 at d=32: two q tiles, the second ragged, walks of up to three
+    64-key tiles crossing pages, a row on garbage page 0, split three ways
+    (the kernel's rule splits a grid this small)."""
+    _chunk_check(*_long_case(quant), splits=3)
+
+
+def test_k2_chunk_split_and_unsplit_walks_are_order_fixed():
+    """Unsplit and split walks each run twice are bitwise equal (fixed
+    merge order, no atomics), and agree with each other on every row that
+    sees a column."""
+    q, pool, bt, pos, mask = _long_case(False)
+    t = {k: torch.from_numpy(v) for k, v in pool.items()}
+    tpos = torch.from_numpy(pos)
+    key_valid = ppa._key_valid_plane(torch.from_numpy(mask), tpos,
+                                     q.shape[2], bt.shape[1] * 16)
+    args = (torch.from_numpy(q), t["kpages"], t["vpages"],
+            torch.from_numpy(bt), tpos)
+    one = [_k2_chunk_walk(*args, key_valid=key_valid) for _ in range(2)]
+    split = [_k2_chunk_walk(*args, key_valid=key_valid, splits=3)
+             for _ in range(2)]
+    assert torch.equal(one[0], one[1]) and torch.equal(split[0], split[1])
+    seen = np.ones(q.shape, bool)
+    seen[2] = False                              # the all-masked row
+    np.testing.assert_allclose(np.where(seen, split[0].numpy(), 0),
+                               np.where(seen, one[0].numpy(), 0), atol=1e-6,
+                               rtol=0)
