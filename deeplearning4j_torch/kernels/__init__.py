@@ -12,7 +12,7 @@ Sources (all in this directory):
 - ``bindings.cpp``: the one small file that includes PyTorch's headers. It
   checks each launch with ``C10_CUDA_KERNEL_LAUNCH_CHECK()``;
 - headers: ``common.cuh`` (the masked-score constants), ``mma.cuh``
-  (``mma.sync`` TF32/bf16, the TF32 hi/lo split, ``ldmatrix``,
+  (``mma.sync`` TF32/bf16/f16, the TF32 hi/lo split, ``ldmatrix``,
   ``cp.async``) and ``attn_tile.cuh`` (the tensor-core tile products,
   A-fragment loads, ``cp.async`` ring staging and epilogue stores that K1,
   K3, K4 and K2's chunk route share).

@@ -112,11 +112,12 @@ __device__ __forceinline__ void pv_f32_rn(const float (&p)[BN / 8][4],
   }
 }
 
-// S += Q · Kᵀ in bf16 m16n8k16; K fragments of two n-tiles per ldmatrix.x4.
-template <int D, int BN, int STRIDE>
-__device__ __forceinline__ void scores_bf16(
-    const uint32_t (&qa)[D / 16][4], const __nv_bfloat16* __restrict__ kt,
-    float (&s)[BN / 8][4], int lane) {
+// S += Q · Kᵀ in 16-bit m16n8k16 (T16 bf16 or f16); K fragments of two
+// n-tiles per ldmatrix.x4.
+template <int D, int BN, int STRIDE, typename T16>
+__device__ __forceinline__ void scores_16(const uint32_t (&qa)[D / 16][4],
+                                          const T16* __restrict__ kt,
+                                          float (&s)[BN / 8][4], int lane) {
   const int key = (lane & 7) + ((lane >> 4) << 3);
   const int col = ((lane >> 3) & 1) * 8;
 #pragma unroll
@@ -126,40 +127,54 @@ __device__ __forceinline__ void scores_bf16(
       uint32_t r[4];
       ldmatrix_x4(r, kt + (16 * jj + key) * STRIDE + 16 * kk + col);
       const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-      mma_bf16(s[2 * jj], qa[kk], b0);
-      mma_bf16(s[2 * jj + 1], qa[kk], b1);
+      Mma16<T16>::mma(s[2 * jj], qa[kk], b0);
+      Mma16<T16>::mma(s[2 * jj + 1], qa[kk], b1);
     }
   }
 }
 
-// O += P · V in bf16 m16n8k16. P's accumulator pairs are the A fragment as
-// they stand; P goes in as two bf16 terms (hi + lo), since one bf16
-// rounding of P (2^-9) moves O by a bf16 step where |O| is large. V
-// fragments of two n-tiles per ldmatrix.x4.trans.
 template <int D, int BN, int STRIDE>
-__device__ __forceinline__ void pv_bf16(const float (&p)[BN / 8][4],
-                                        const __nv_bfloat16* __restrict__ vt,
-                                        float (&acc)[D / 8][4], int lane) {
+__device__ __forceinline__ void scores_bf16(
+    const uint32_t (&qa)[D / 16][4], const __nv_bfloat16* __restrict__ kt,
+    float (&s)[BN / 8][4], int lane) {
+  scores_16<D, BN, STRIDE>(qa, kt, s, lane);
+}
+
+// O += P · V in 16-bit m16n8k16 (T16 bf16 or f16). P's accumulator pairs
+// are the A fragment as they stand; P goes in as two 16-bit terms (hi +
+// lo), since one bf16 rounding of P (2^-9) moves O by a bf16 step where |O|
+// is large. V fragments of two n-tiles per ldmatrix.x4.trans.
+template <int D, int BN, int STRIDE, typename T16>
+__device__ __forceinline__ void pv_16(const float (&p)[BN / 8][4],
+                                      const T16* __restrict__ vt,
+                                      float (&acc)[D / 8][4], int lane) {
   const int key = lane & 15;
   const int col = (lane >> 4) * 8;
 #pragma unroll
   for (int ks = 0; ks < BN / 16; ++ks) {
     uint32_t ah[4], al[4];
-    split_bf16x2(p[2 * ks][0], p[2 * ks][1], ah[0], al[0]);
-    split_bf16x2(p[2 * ks][2], p[2 * ks][3], ah[1], al[1]);
-    split_bf16x2(p[2 * ks + 1][0], p[2 * ks + 1][1], ah[2], al[2]);
-    split_bf16x2(p[2 * ks + 1][2], p[2 * ks + 1][3], ah[3], al[3]);
+    Mma16<T16>::split(p[2 * ks][0], p[2 * ks][1], ah[0], al[0]);
+    Mma16<T16>::split(p[2 * ks][2], p[2 * ks][3], ah[1], al[1]);
+    Mma16<T16>::split(p[2 * ks + 1][0], p[2 * ks + 1][1], ah[2], al[2]);
+    Mma16<T16>::split(p[2 * ks + 1][2], p[2 * ks + 1][3], ah[3], al[3]);
 #pragma unroll
     for (int nn = 0; nn < D / 16; ++nn) {
       uint32_t r[4];
       ldmatrix_x4_trans(r, vt + (16 * ks + key) * STRIDE + 16 * nn + col);
       const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-      mma_bf16(acc[2 * nn], al, b0);
-      mma_bf16(acc[2 * nn], ah, b0);
-      mma_bf16(acc[2 * nn + 1], al, b1);
-      mma_bf16(acc[2 * nn + 1], ah, b1);
+      Mma16<T16>::mma(acc[2 * nn], al, b0);
+      Mma16<T16>::mma(acc[2 * nn], ah, b0);
+      Mma16<T16>::mma(acc[2 * nn + 1], al, b1);
+      Mma16<T16>::mma(acc[2 * nn + 1], ah, b1);
     }
   }
+}
+
+template <int D, int BN, int STRIDE>
+__device__ __forceinline__ void pv_bf16(const float (&p)[BN / 8][4],
+                                        const __nv_bfloat16* __restrict__ vt,
+                                        float (&acc)[D / 8][4], int lane) {
+  pv_16<D, BN, STRIDE>(p, vt, acc, lane);
 }
 
 // The same products by operand type, for kernels written once for both.
@@ -193,7 +208,7 @@ __device__ __forceinline__ void tile_pb(const float (&p)[BN / 8][4],
 
 // A fragments of rows r0 = row g and r1 = row g + 8 of a [Tlen][D] tensor,
 // straight from device memory (rows past Tlen are zero): f32 raw (split at
-// use), bf16 as packed pairs.
+// use), bf16 or f16 as packed pairs.
 template <int D>
 __device__ __forceinline__ void load_a_rows(const float* __restrict__ q,
                                             int r0, int r1, int Tlen, int t,
@@ -208,10 +223,11 @@ __device__ __forceinline__ void load_a_rows(const float* __restrict__ q,
   }
 }
 
-template <int D>
-__device__ __forceinline__ void load_a_rows(
-    const __nv_bfloat16* __restrict__ q, int r0, int r1, int Tlen, int t,
-    uint32_t (&qa)[D / 16][4]) {
+template <int D, typename T16>
+__device__ __forceinline__ void load_a_rows(const T16* __restrict__ q, int r0,
+                                            int r1, int Tlen, int t,
+                                            uint32_t (&qa)[D / 16][4]) {
+  static_assert(sizeof(T16) == 2, "16-bit A fragments");
   auto word = [&](int row, int c) -> uint32_t {
     return row < Tlen ? *reinterpret_cast<const uint32_t*>(
                             q + (size_t)row * D + c)

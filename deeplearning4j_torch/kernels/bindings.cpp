@@ -12,14 +12,15 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
                               int H, int Tlen, int D, int is_bf16, int causal,
                               cudaStream_t stream);
 extern "C" int dl4j_paged_attn_splits(int B, int H, int T, int D, int ps,
-                                      int NP);
-extern "C" int dl4j_paged_chunk_smem(int D, int quant, int NP);
-extern "C" int dl4j_paged_attn(const float* q, const void* kp, const void* vp,
+                                      int NP, int kind);
+extern "C" int dl4j_paged_chunk_smem(int D, int kind, int NP);
+extern "C" int dl4j_paged_attn(const void* q, const void* kp, const void* vp,
                                const float* kscales, const float* vscales,
                                const int* bt, const int* pos,
-                               const float* key_valid, float* o, float* part,
+                               const float* key_valid, void* o, float* part,
                                int splits, int B, int H, int T, int D, int ps,
-                               int NP, int quant, cudaStream_t stream);
+                               int NP, int qtype, int quant,
+                               cudaStream_t stream);
 extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, const float* mask,
@@ -91,13 +92,15 @@ torch::Tensor paged_attn(torch::Tensor q, torch::Tensor kp, torch::Tensor vp,
   check_cuda(vp, "vpages");
   check_cuda(bt, "block_table");
   check_cuda(pos, "cache_pos");
-  TORCH_CHECK(q.dim() == 4 && q.scalar_type() == torch::kFloat32,
-              "q must be float32 [B, H, T, d]");
+  const auto qt = q.scalar_type();
+  TORCH_CHECK(q.dim() == 4 && (qt == torch::kFloat32 ||
+                               qt == torch::kBFloat16 || qt == torch::kHalf),
+              "q must be float32, bfloat16 or float16 [B, H, T, d]");
   TORCH_CHECK(kp.dim() == 4 && vp.sizes() == kp.sizes(),
               "pools must be [P, H, ps, d] of one shape");
   const bool quant = kp.scalar_type() == torch::kInt8;
-  TORCH_CHECK(quant || kp.scalar_type() == torch::kFloat32,
-              "pools must be float32 or int8");
+  TORCH_CHECK(quant || kp.scalar_type() == qt,
+              "pools must be of q's dtype or int8");
   TORCH_CHECK(vp.scalar_type() == kp.scalar_type(), "pool dtypes differ");
   TORCH_CHECK(reinterpret_cast<uintptr_t>(kp.data_ptr()) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(vp.data_ptr()) % 16 == 0,
@@ -126,20 +129,23 @@ torch::Tensor paged_attn(torch::Tensor q, torch::Tensor kp, torch::Tensor vp,
   const c10::cuda::CUDAGuard guard(q.device());
   // 0 lets the kernel's rule pick the chunk route's split count; a caller
   // may force one (1: no split) to compare the two walks
-  if (splits <= 0) splits = dl4j_paged_attn_splits(B, H, T, D, ps, NP);
+  const int kind = quant ? 1 : (qt == torch::kFloat32 ? 0 : 2);
+  if (splits <= 0) splits = dl4j_paged_attn_splits(B, H, T, D, ps, NP, kind);
   TORCH_CHECK(splits == 1 || (T > 4 && splits <= 1024),
               "paged_attn: splits must be 1 for T <= 4 and at most 1024");
   auto o = torch::empty_like(q);
-  // the split route's workspace: per split, each row's accumulators, m, l
+  // the split route's workspace: per split, each row's f32 accumulators,
+  // m, l
   torch::Tensor part;
   if (splits > 1)
     part = torch::empty({splits * B * H * T * (int64_t)(D + 2)},
-                        q.options());
+                        q.options().dtype(torch::kFloat32));
   const int err = dl4j_paged_attn(
-      q.data_ptr<float>(), kp.data_ptr(), vp.data_ptr(), ks, vs,
-      bt.data_ptr<int>(), pos.data_ptr<int>(), kv, o.data_ptr<float>(),
+      q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks, vs, bt.data_ptr<int>(),
+      pos.data_ptr<int>(), kv, o.data_ptr(),
       splits > 1 ? part.data_ptr<float>() : nullptr, (int)splits, B, H, T, D,
-      ps, NP, quant ? 1 : 0, at::cuda::getCurrentCUDAStream().stream());
+      ps, NP, qt == torch::kFloat32 ? 0 : (qt == torch::kBFloat16 ? 1 : 2),
+      quant ? 1 : 0, at::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == 0, "paged_attn: unsupported configuration (B=", B,
               ", H=", H, ", T=", T, ", d=", D, ", ps=", ps, ", NP=", NP,
               ", splits=", splits, "), code ", err);
@@ -224,11 +230,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         py::arg("vscales"), py::arg("bt"), py::arg("pos"),
         py::arg("key_valid"), py::arg("splits") = 0);
   m.def("paged_attn_splits", &dl4j_paged_attn_splits,
-        "K2: the chunk route's split count for (B, H, T, d, ps, NP); 1 "
-        "means one pass, no merge");
+        "K2: the chunk route's split count for (B, H, T, d, ps, NP, kind), "
+        "kind the pools' element (0 f32, 1 int8, 2 bf16/f16); 1 means one "
+        "pass, no merge");
   m.def("paged_chunk_smem", &dl4j_paged_chunk_smem,
-        "K2: dynamic shared memory of one chunk-route CTA for (d, quant, "
-        "NP), in bytes");
+        "K2: dynamic shared memory of one chunk-route CTA for (d, kind, NP), "
+        "in bytes (kind as for paged_attn_splits)");
   m.def("flash_bwd_dq", &flash_bwd_dq, "K3: flash-attention backward, dq");
   m.def("flash_bwd_dkv", &flash_bwd_dkv,
         "K4: flash-attention backward, (dk, dv)");

@@ -1,19 +1,20 @@
 // Tensor-core and asynchronous-copy helpers of the port's Hopper kernels:
-// warp-level mma.sync (TF32 m16n8k8 and bf16 m16n8k16, f32 accumulators),
-// the TF32 hi/lo split that keeps f32 accuracy through three TF32 products
-// and the two-term bf16 split,
+// warp-level mma.sync (TF32 m16n8k8, and bf16 or f16 m16n8k16, f32
+// accumulators), the TF32 hi/lo split that keeps f32 accuracy through three
+// TF32 products and the two-term 16-bit splits,
 // ldmatrix fragment loads for 16-bit tiles, and cp.async 16- and 4-byte
 // copies with zero-fill. Fragment layouts (PTX ISA, "Matrix fragments for
 // mma.m16n8k8 / m16n8k16"), with g = lane / 4 and t = lane % 4:
 //   tf32 A (16x8):  a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
 //   tf32 B (8x8):   b0 (k=t, n=g), b1 (k=t+4, n=g)
-//   bf16 A (16x16): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
-//                   a3 (g+8, 2t+8..)
-//   bf16 B (16x8):  b0 (k=2t..2t+1, n=g), b1 (k=2t+8.., n=g)
+//   16-bit A (16x16): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
+//                     a3 (g+8, 2t+8..)
+//   16-bit B (16x8):  b0 (k=2t..2t+1, n=g), b1 (k=2t+8.., n=g)
 //   C/D (16x8):     c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,6 +83,55 @@ __device__ __forceinline__ void split_bf16x2(float lo, float hi,
   first = *reinterpret_cast<uint32_t*>(&h);
   second = *reinterpret_cast<uint32_t*>(&r);
 }
+
+// d += a·b, m16n8k16, f16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// split_bf16x2's f16 twin: x = first + second + O(2^-22 |x|) for normal
+// f16 values (terms under 2^-14 keep fewer bits as f16 subnormals).
+__device__ __forceinline__ void split_f16x2(float lo, float hi,
+                                            uint32_t& first,
+                                            uint32_t& second) {
+  __half2 h = __floats2half2_rn(lo, hi);
+  const float2 back = __half22float2(h);
+  __half2 r = __floats2half2_rn(lo - back.x, hi - back.y);
+  first = *reinterpret_cast<uint32_t*>(&h);
+  second = *reinterpret_cast<uint32_t*>(&r);
+}
+
+// The m16n8k16 product and the two-term split by 16-bit element type, for
+// tile code written once for bf16 and f16.
+template <typename T16>
+struct Mma16;
+template <>
+struct Mma16<__nv_bfloat16> {
+  __device__ static void mma(float (&d)[4], const uint32_t (&a)[4],
+                             const uint32_t (&b)[2]) {
+    mma_bf16(d, a, b);
+  }
+  __device__ static void split(float lo, float hi, uint32_t& first,
+                               uint32_t& second) {
+    split_bf16x2(lo, hi, first, second);
+  }
+};
+template <>
+struct Mma16<__half> {
+  __device__ static void mma(float (&d)[4], const uint32_t (&a)[4],
+                             const uint32_t (&b)[2]) {
+    mma_f16(d, a, b);
+  }
+  __device__ static void split(float lo, float hi, uint32_t& first,
+                               uint32_t& second) {
+    split_f16x2(lo, hi, first, second);
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -2,18 +2,21 @@
 //
 // Replaces deeplearning4j_tpu/nn/conf/layers/paged_attention.py::
 // _paged_attn_kernel (launched by _pallas_paged_attention). Attends a query
-// chunk q [B, H, T, d] (T = 1 for decode, up to the prefill chunk) over the
-// pool pages that row b's block table bt [B, NP] names, read in place from
-// kp, vp [P, H, ps, d] (f32, or int8 codes with the f32 per-token-per-head
-// scales kscales, vscales [P, H, ps]). Key column c of row b is pool page
-// bt[b, c / ps] at offset c % ps. Query row r sees columns c <= pos[b] + r,
-// and with a [B, NP·ps] key-valid plane only the columns it marks nonzero.
-// Output: the pre-projection context [B, H, T, d].
+// chunk q [B, H, T, d] (T = 1 for decode, up to the prefill chunk; f32,
+// bf16 or f16) over the pool pages that row b's block table bt [B, NP]
+// names, read in place from kp, vp [P, H, ps, d] (of q's type, or int8
+// codes with the f32 per-token-per-head scales kscales, vscales
+// [P, H, ps]). Key column c of row b is pool page bt[b, c / ps] at offset
+// c % ps. Query row r sees columns c <= pos[b] + r, and with a [B, NP·ps]
+// key-valid plane only the columns it marks nonzero. Output: the
+// pre-projection context [B, H, T, d] in q's type. As in the Pallas
+// kernel, every value is widened to f32 as it lands, the softmax and w·V
+// accumulate in f32, and o is rounded to q's type once at the end.
 //
 // What bounds it on this card: bytes. A decode step reads every resident
 // K/V byte of every row once and does 4·d FLOPs per key (< 1 FLOP/byte in
-// f32); prefill chunks raise the ratio to about T FLOPs per byte, still far
-// under the ridge at the slice's widths.
+// f32, < 2 in 16 bits); prefill chunks raise the ratio to about T FLOPs
+// per byte, still far under the ridge at the slice's widths.
 //
 // Two routes. Both read bt[b, i] themselves (Hopper has no scalar
 // prefetch) and walk columns only up to their causal limit
@@ -33,9 +36,9 @@
 // warp, so each warp pays the memory latency of its own range once and not
 // that of every tile of the row. A warp loads its slice of the block-table
 // row once (a lane per page, handed out by shuffle), then reads its keys as
-// 16-byte (f32) or 8-byte (int8) vectors, a few lanes per key row (a head's
-// page is contiguous, [ps, d]), with a batch of key rows in flight per lane
-// before any arithmetic. The q rows sit in registers and each loaded key
+// 16-byte (4 f32 or 8 bf16/f16) or 8-byte (8 int8) vectors widened to f32,
+// a few lanes per key row (a head's page is contiguous, [ps, d]), with a
+// batch of key rows in flight per lane before any arithmetic. The q rows sit in registers and each loaded key
 // serves all of them. Each lane group keeps its own (m, l, acc); the groups
 // merge by shuffle, then the 8 warps' partials merge in shared memory in
 // fixed warp order. A warp with an empty range keeps m = -1e30, l = 0 and
@@ -51,7 +54,8 @@
 // ring of three stages (two for f32 at d=128, so that two CTAs fit on an
 // SM): each key row resolves its pool row from one shared read,
 // ((bt[c / ps]·H + h)·ps + c % ps), so a tile may cross pages and any ps
-// works, and lands as 16-byte copies (int8 as codes, 16 a copy); its
+// works, and lands as 16-byte copies (int8 as codes, 16 a copy; bf16/f16
+// 8 a copy); its
 // key-valid column and, for int8, its two scales land in the same stage by
 // 4-byte copies. Columns at or past the walk's end are zero-filled (0·NaN
 // would poison P·V) and score -inf. The products are warp-level mma.sync
@@ -70,7 +74,13 @@
 // P·V is summed per tile in fresh
 // accumulators added by f32 adds (as attn_tile.cuh::pv_f32_rn), since the
 // tensor core's accumulation truncates and a walk reaches thousands of
-// keys. The online softmax runs on the accumulator fragments. Masks run
+// keys. 16-bit pools take K1's 16-bit path (attn_tile.cuh::scores_16,
+// pv_16): q as m16n8k16 A fragments of its own type, K and V fragments by
+// ldmatrix straight from the ring (no split planes, so a CTA needs less
+// than half the f32 shared memory), the scores scaled after the product,
+// and P in two 16-bit terms; an int8 pool under a 16-bit q runs the int8
+// path above on q widened to f32. The online softmax runs on the
+// accumulator fragments. Masks run
 // only where needed: the key-valid test on tiles holding a masked column
 // (found by one __syncthreads_and), the causal and walk-end tests on tiles
 // that reach past a warp's first row; a warp whose 16 rows all precede a
@@ -81,6 +91,8 @@
 // to a workspace; paged_merge_kernel then merges each row's partials in
 // fixed split order. An empty range writes m = -1e30, l = 0, acc = 0 and
 // adds nothing.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,12 +110,43 @@ constexpr int kDecodeWarps = 8;
 constexpr int kDecodeThreads = kDecodeWarps * 32;
 constexpr int kDecodeMaxT = 4;  // chunks of up to 4 rows take the decode route
 
-// One vector load of a key row's slice: 4 f32 (16 bytes) or 8 int8 codes
-// (8 bytes), widened to f32.
-template <bool QUANT>
+// q and o elements widened to f32 and rounded back (round to nearest even)
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
+// two adjacent outputs (the element pair of an accumulator fragment)
+__device__ __forceinline__ void store2(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+__device__ __forceinline__ void store2(__half* p, float x0, float x1) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x0, x1);
+}
+
+// One vector load of a key row's slice, widened to f32: 4 f32 (16 bytes),
+// 8 int8 codes (8 bytes) or 8 bf16/f16 values (16 bytes).
+template <typename KV>
 struct KvVec;
 template <>
-struct KvVec<false> {
+struct KvVec<float> {
   using type = float4;
   static constexpr int kN = 4;
   __device__ static void widen(const float4& x, float (&f)[4]) {
@@ -114,7 +157,7 @@ struct KvVec<false> {
   }
 };
 template <>
-struct KvVec<true> {
+struct KvVec<int8_t> {
   using type = int2;
   static constexpr int kN = 8;
   __device__ static void widen(const int2& x, float (&f)[8]) {
@@ -125,22 +168,50 @@ struct KvVec<true> {
     }
   }
 };
+template <>
+struct KvVec<__nv_bfloat16> {
+  using type = uint4;
+  static constexpr int kN = 8;
+  // a bf16 value is the high half of its f32: the widening is exact
+  __device__ static void widen(const uint4& x, float (&f)[8]) {
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+template <>
+struct KvVec<__half> {
+  using type = uint4;
+  static constexpr int kN = 8;
+  __device__ static void widen(const uint4& x, float (&f)[8]) {
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __half2float(__ushort_as_half((unsigned short)(w[i] & 0xffffu)));
+      f[2 * i + 1] = __half2float(__ushort_as_half((unsigned short)(w[i] >> 16)));
+    }
+  }
+};
 
 // Decode route: see the header. R = 1 (T = 1) or kDecodeMaxT (T <= 4; rows
-// past T are computed on zeros and not stored).
-template <bool QUANT, int D, int R>
+// past T are computed on zeros and not stored). QT is q's and o's type, KV
+// the pools' (QT itself, or int8 codes).
+template <typename QT, typename KV, int D, int R>
 __global__ void __launch_bounds__(kDecodeThreads)
-    paged_decode_kernel(const float* __restrict__ q,
+    paged_decode_kernel(const QT* __restrict__ q,
                         const void* __restrict__ kp_,
                         const void* __restrict__ vp_,
                         const float* __restrict__ kscales,
                         const float* __restrict__ vscales,
                         const int* __restrict__ bt, const int* __restrict__ pos,
                         const float* __restrict__ key_valid,
-                        float* __restrict__ o, int H, int T, int ps, int NP,
+                        QT* __restrict__ o, int H, int T, int ps, int NP,
                         float scale) {
-  using KV = typename std::conditional<QUANT, int8_t, float>::type;
-  using Vec = KvVec<QUANT>;
+  constexpr bool QUANT = std::is_same<KV, int8_t>::value;
+  using Vec = KvVec<KV>;
   constexpr int kN = Vec::kN;           // elements per lane per key row
   constexpr int kLanes = D / kN;        // lanes per key row (power of 2)
   constexpr int kKeys = 32 / kLanes;    // key rows per warp step
@@ -164,7 +235,8 @@ __global__ void __launch_bounds__(kDecodeThreads)
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int e = 0; e < kN; ++e)
-      qr[r][e] = r < T ? q[qbase + (size_t)r * D + sub * kN + e] * scale : 0.f;
+      qr[r][e] =
+          r < T ? to_f32(q[qbase + (size_t)r * D + sub * kN + e]) * scale : 0.f;
 
   float m[R], l[R], acc[R][kN];
 #pragma unroll
@@ -304,17 +376,17 @@ __global__ void __launch_bounds__(kDecodeThreads)
       lsum += red_l[w][r] * e;
       out += red_acc[w][r][c] * e;
     }
-    o[qbase + (size_t)r * D + c] = out / fmaxf(lsum, 1e-30f);
+    o[qbase + (size_t)r * D + c] = from_f32<QT>(out / fmaxf(lsum, 1e-30f));
   }
 }
 
-template <bool QUANT, int D, int R>
-int launch_decode(const float* q, const void* kp, const void* vp,
+template <typename QT, typename KV, int D, int R>
+int launch_decode(const QT* q, const void* kp, const void* vp,
                   const float* kscales, const float* vscales, const int* bt,
-                  const int* pos, const float* key_valid, float* o, int B,
+                  const int* pos, const float* key_valid, QT* o, int B,
                   int H, int T, int ps, int NP, cudaStream_t stream) {
   const dim3 grid(H, B);
-  paged_decode_kernel<QUANT, D, R><<<grid, kDecodeThreads, 0, stream>>>(
+  paged_decode_kernel<QT, KV, D, R><<<grid, kDecodeThreads, 0, stream>>>(
       q, kp, vp, kscales, vscales, bt, pos, key_valid, o, H, T, ps, NP,
       (float)(1.0 / std::sqrt((double)D)));
   return 0;
@@ -324,28 +396,31 @@ constexpr int kChunkWarps = 4;
 constexpr int kChunkThreads = kChunkWarps * 32;
 constexpr int kChunkRows = kChunkWarps * 16;  // q rows of a CTA
 
-template <bool QUANT, int D>
+template <typename KV_, int D>
 struct ChunkTile {
-  using KV = typename std::conditional<QUANT, int8_t, float>::type;
-  // keys per tile: 32 at d=128 keeps S and O in registers, as in K1
-  static constexpr int kBlockN = D == 128 ? 32 : 64;
+  using KV = KV_;
+  static constexpr bool kCodes = std::is_same<KV, int8_t>::value;
+  static constexpr bool kF32 = std::is_same<KV, float>::value;
+  // keys per tile: 32 at d=128 keeps S and O in registers for f32 and int8
+  // (their q fragments are f32), as in K1; 16-bit pools keep 64
+  static constexpr int kBlockN = (D == 128 && sizeof(KV) != 2) ? 32 : 64;
   // row stride in elements: 16 bytes of padding keep the fragment reads
   // free of bank conflicts and every row 16-byte aligned for cp.async
   static constexpr int kStride = D + 16 / (int)sizeof(KV);
   static constexpr int kTileBytes = kBlockN * kStride * (int)sizeof(KV);
   // f32 rows of a stage beside K and V: key-valid, and for int8 the K and
   // V scales
-  static constexpr int kVals = QUANT ? 3 : 1;
+  static constexpr int kVals = kCodes ? 3 : 1;
   static constexpr int kStageBytes =
       2 * kTileBytes + kVals * kBlockN * (int)sizeof(float);
   // ring stages: three keep two tiles in flight; f32 at d=128 keeps two,
   // so that two CTAs fit on an SM
-  static constexpr int kStages = (!QUANT && D == 128) ? 2 : 3;
+  static constexpr int kStages = (kF32 && D == 128) ? 2 : 3;
   static constexpr int kRingBytes = kStages * kStageBytes;
   // f32: the TF32 lo planes of the current K and V tiles ([BN][kStride],
   // written once per tile; their hi parts replace the raw values in the
-  // ring stage); int8 reads its codes from the ring as they are
-  static constexpr int kLoBytes = QUANT ? 0 : 2 * kTileBytes;
+  // ring stage); int8 and 16-bit pools are read from the ring as they are
+  static constexpr int kLoBytes = kF32 ? 2 * kTileBytes : 0;
   // 16-byte copies of K (and as many of V) per thread per tile
   static constexpr int kCopies = kBlockN * D / (16 / (int)sizeof(KV));
   static_assert(kCopies % kChunkThreads == 0, "copies must split evenly");
@@ -549,22 +624,46 @@ __device__ __forceinline__ void split_tile(float* __restrict__ x,
   }
 }
 
-// Chunk route: see the header. part is the split workspace (unused when
-// splits == 1): [splits][B·H·T][D] accumulators, then [splits][B·H·T][2]
-// (m, l).
-template <bool QUANT, int D>
+// q rows r0 and r1 as f32 A fragments (as load_a_rows reads f32), widened
+// from q's type: the f32 and int8 pools' products split them at use.
+template <int D, typename QT>
+__device__ __forceinline__ void load_q_f32(const QT* __restrict__ q, int r0,
+                                           int r1, int T, int t,
+                                           float (&qf)[D / 8][4]) {
+  if constexpr (std::is_same<QT, float>::value) {
+    load_a_rows<D>(q, r0, r1, T, t, qf);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int c = 8 * kk + t;
+      qf[kk][0] = r0 < T ? to_f32(q[(size_t)r0 * D + c]) : 0.f;
+      qf[kk][1] = r1 < T ? to_f32(q[(size_t)r1 * D + c]) : 0.f;
+      qf[kk][2] = r0 < T ? to_f32(q[(size_t)r0 * D + c + 4]) : 0.f;
+      qf[kk][3] = r1 < T ? to_f32(q[(size_t)r1 * D + c + 4]) : 0.f;
+    }
+  }
+}
+
+// Chunk route: see the header. QT is q's and o's type, KV the pools' (f32,
+// int8 codes, or q's 16-bit type). part is the split workspace (unused when
+// splits == 1): [splits][B·H·T][D] f32 accumulators, then
+// [splits][B·H·T][2] (m, l).
+template <typename QT, typename KV, int D>
 __global__ void __launch_bounds__(kChunkThreads)
-    paged_chunk_kernel(const float* __restrict__ q,
+    paged_chunk_kernel(const QT* __restrict__ q,
                        const void* __restrict__ kp_,
                        const void* __restrict__ vp_,
                        const float* __restrict__ kscales,
                        const float* __restrict__ vscales,
                        const int* __restrict__ bt, const int* __restrict__ pos,
                        const float* __restrict__ key_valid,
-                       float* __restrict__ o, float* __restrict__ part, int H,
+                       QT* __restrict__ o, float* __restrict__ part, int H,
                        int T, int ps, int NP, int splits, float scale) {
-  using C = ChunkTile<QUANT, D>;
-  using KV = typename C::KV;
+  using C = ChunkTile<KV, D>;
+  constexpr bool QUANT = C::kCodes;
+  constexpr bool k16 = sizeof(KV) == 2;
+  static_assert(!k16 || std::is_same<QT, KV>::value,
+                "16-bit pools are read with a query of their own type");
   constexpr int BN = C::kBlockN;
   constexpr int STRIDE = C::kStride;
   constexpr int kPerCopy = 16 / (int)sizeof(KV);
@@ -651,13 +750,22 @@ __global__ void __launch_bounds__(kChunkThreads)
     cp_async_commit();
   }
 
-  // q pre-scaled by log2(e)/√d: the softmax runs in base 2
-  float qf[D / 8][4];
-  load_a_rows<D>(q + qbase, r0, r1, T, t, qf);
+  // f32 and int8 pools: q widened to f32 and pre-scaled by log2(e)/√d (the
+  // softmax runs in base 2); 16-bit pools: q as 16-bit A fragments, the
+  // scores scaled after the product (the tensor core forms each product of
+  // two 16-bit values exactly and sums in f32)
+  using QFrag = typename std::conditional<k16, uint32_t[D / 16][4],
+                                          float[D / 8][4]>::type;
+  QFrag qf;
+  if constexpr (k16) {
+    load_a_rows<D>(q + qbase, r0, r1, T, t, qf);
+  } else {
+    load_q_f32<D>(q + qbase, r0, r1, T, t, qf);
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk)
+    for (int kk = 0; kk < D / 8; ++kk)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) qf[kk][i] *= scale;
+      for (int i = 0; i < 4; ++i) qf[kk][i] *= scale;
+  }
 
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
@@ -687,7 +795,7 @@ __global__ void __launch_bounds__(kChunkThreads)
     if (it + C::kStages - 1 < it1)
       stage(it + C::kStages - 1, (st + C::kStages - 1) % C::kStages);
     cp_async_commit();
-    if constexpr (!QUANT) {
+    if constexpr (C::kF32) {
       // f32: each K/V value split once per CTA into TF32 hi (in place) and
       // lo (the lo planes)
       split_tile<D, BN, STRIDE>(reinterpret_cast<float*>(base), klo, tid);
@@ -712,6 +820,12 @@ __global__ void __launch_bounds__(kChunkThreads)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             s[j][e] *= vals[BN + 8 * j + 2 * t + (e & 1)];
+      } else if constexpr (k16) {
+        scores_16<D, BN, STRIDE>(qf, kt, s, lane);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= scale;
       } else {
         scores_planes<D, BN, STRIDE>(qf, kt, klo, s, g, t);
       }
@@ -770,6 +884,8 @@ __global__ void __launch_bounds__(kChunkThreads)
 
       if constexpr (QUANT)
         pv_codes_rn<D, BN, STRIDE>(s, vals + 2 * BN, vt, acc, g, t);
+      else if constexpr (k16)
+        pv_16<D, BN, STRIDE>(s, vt, acc, lane);
       else
         pv_planes_rn<D, BN, STRIDE>(s, vt, vlo, acc, g, t);
     }
@@ -785,11 +901,10 @@ __global__ void __launch_bounds__(kChunkThreads)
     if (row >= T) continue;
     if (splits == 1) {
       const float lc = fmaxf(lr, 1e-30f);
-      float* orow = o + qbase + (size_t)row * D + 2 * t;
+      QT* orow = o + qbase + (size_t)row * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(orow + 8 * n) =
-            make_float2(acc[n][2 * hr] / lc, acc[n][2 * hr + 1] / lc);
+        store2(orow + 8 * n, acc[n][2 * hr] / lc, acc[n][2 * hr + 1] / lc);
     } else {
       // this split's partial of the row, unnormalised
       const size_t pr = (size_t)split * rows + qbase / D + row;
@@ -806,9 +921,10 @@ __global__ void __launch_bounds__(kChunkThreads)
 // The split chunk route's second pass: each output element merges its
 // row's `splits` partials in fixed split order (max, then the rescaled sums
 // of l and acc, in base 2 as the walk's m is), as the decode route merges
-// its warps.
+// its warps. o is written in q's type OT.
+template <typename OT>
 __global__ void __launch_bounds__(256)
-    paged_merge_kernel(const float* __restrict__ part, float* __restrict__ o,
+    paged_merge_kernel(const float* __restrict__ part, OT* __restrict__ o,
                        int rows, int D, int splits) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)rows * D) return;
@@ -824,21 +940,20 @@ __global__ void __launch_bounds__(256)
     lsum += ml[pr * 2 + 1] * e;
     out += part[pr * D + c] * e;
   }
-  o[i] = out / fmaxf(lsum, 1e-30f);
+  o[i] = from_f32<OT>(out / fmaxf(lsum, 1e-30f));
 }
 
 // Dynamic shared memory of a chunk CTA: the ring, the lo planes, and NP
 // block-table entries (the most a walk can stage).
-template <bool QUANT, int D>
+template <typename KV, int D>
 int chunk_smem_bytes(int NP) {
-  return ChunkTile<QUANT, D>::kRingBytes + ChunkTile<QUANT, D>::kLoBytes +
-         4 * NP;
+  return ChunkTile<KV, D>::kRingBytes + ChunkTile<KV, D>::kLoBytes + 4 * NP;
 }
 
-template <bool QUANT, int D>
-int launch_chunk(const float* q, const void* kp, const void* vp,
+template <typename QT, typename KV, int D>
+int launch_chunk(const QT* q, const void* kp, const void* vp,
                  const float* kscales, const float* vscales, const int* bt,
-                 const int* pos, const float* key_valid, float* o, float* part,
+                 const int* pos, const float* key_valid, QT* o, float* part,
                  int splits, int B, int H, int T, int ps, int NP,
                  cudaStream_t stream) {
   // the opt-in limit, asked once per instantiation: the block-table slice
@@ -851,45 +966,77 @@ int launch_chunk(const float* q, const void* kp, const void* vp,
       e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                  dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(paged_chunk_kernel<QUANT, D>,
+      e = cudaFuncSetAttribute(paged_chunk_kernel<QT, KV, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                limit);
     return e;
   }();
   if (attr != cudaSuccess) return (int)attr;
-  const int smem = chunk_smem_bytes<QUANT, D>(NP);
+  const int smem = chunk_smem_bytes<KV, D>(NP);
   if (smem > limit) return -3;
   const long long qtiles = (T + kChunkRows - 1) / kChunkRows;
   if (qtiles * splits > 0x7fffffffLL) return -1;
   const dim3 grid((unsigned)(qtiles * splits), H, B);
-  paged_chunk_kernel<QUANT, D><<<grid, kChunkThreads, smem, stream>>>(
+  paged_chunk_kernel<QT, KV, D><<<grid, kChunkThreads, smem, stream>>>(
       q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, H, T, ps, NP,
       splits, (float)(1.4426950408889634 / std::sqrt((double)D)));
   if (splits > 1) {
     const long long n = (long long)B * H * T * D;
-    paged_merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+    paged_merge_kernel<QT><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
         part, o, B * H * T, D, splits);
   }
   return 0;
 }
 
 // decode-sized chunks (T <= 4) or prefill-sized ones
-template <bool QUANT, int D>
-int launch_paged(const float* q, const void* kp, const void* vp,
+template <typename QT, typename KV, int D>
+int launch_paged(const void* q_, const void* kp, const void* vp,
                  const float* kscales, const float* vscales, const int* bt,
-                 const int* pos, const float* key_valid, float* o, float* part,
+                 const int* pos, const float* key_valid, void* o_, float* part,
                  int splits, int B, int H, int T, int ps, int NP,
                  cudaStream_t stream) {
+  const QT* q = static_cast<const QT*>(q_);
+  QT* o = static_cast<QT*>(o_);
   if (T == 1)
-    return launch_decode<QUANT, D, 1>(q, kp, vp, kscales, vscales, bt, pos,
-                                      key_valid, o, B, H, T, ps, NP, stream);
+    return launch_decode<QT, KV, D, 1>(q, kp, vp, kscales, vscales, bt, pos,
+                                       key_valid, o, B, H, T, ps, NP, stream);
   if (T <= kDecodeMaxT)
-    return launch_decode<QUANT, D, kDecodeMaxT>(
+    return launch_decode<QT, KV, D, kDecodeMaxT>(
         q, kp, vp, kscales, vscales, bt, pos, key_valid, o, B, H, T, ps, NP,
         stream);
-  return launch_chunk<QUANT, D>(q, kp, vp, kscales, vscales, bt, pos,
-                                key_valid, o, part, splits, B, H, T, ps, NP,
-                                stream);
+  return launch_chunk<QT, KV, D>(q, kp, vp, kscales, vscales, bt, pos,
+                                 key_valid, o, part, splits, B, H, T, ps, NP,
+                                 stream);
+}
+
+// the head-dim switch for one (q type, pool type) pair
+template <typename QT, typename KV>
+int launch_paged_d(const void* q, const void* kp, const void* vp,
+                   const float* kscales, const float* vscales, const int* bt,
+                   const int* pos, const float* key_valid, void* o,
+                   float* part, int splits, int B, int H, int T, int D,
+                   int ps, int NP, cudaStream_t stream) {
+  switch (D) {
+    case 32:
+      return launch_paged<QT, KV, 32>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream);
+    case 64:
+      return launch_paged<QT, KV, 64>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream);
+    case 128:
+      return launch_paged<QT, KV, 128>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream);
+    default:
+      return -2;
+  }
+}
+
+// pools of q's own type, or int8 codes
+template <typename QT>
+int launch_paged_kv(const void* q, const void* kp, const void* vp,
+                    const float* kscales, const float* vscales, const int* bt,
+                    const int* pos, const float* key_valid, void* o,
+                    float* part, int splits, int B, int H, int T, int D,
+                    int ps, int NP, int quant, cudaStream_t stream) {
+  return quant ? launch_paged_d<QT, int8_t>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, D, ps, NP, stream)
+               : launch_paged_d<QT, QT>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, D, ps, NP, stream);
 }
 
 }  // namespace dl4j
@@ -897,9 +1044,10 @@ int launch_paged(const float* q, const void* kp, const void* vp,
 // How many ranges the chunk route cuts each q tile's walk into: 1 (no
 // workspace) for the decode route and wherever the grid has at least one
 // CTA per SM; else enough for about two CTAs per SM, at most one range per
-// two key tiles of a full walk.
+// two key tiles of a full walk. kind: the pools' element, 0 f32, 1 int8
+// codes, 2 bf16/f16 (it sets the key tile).
 extern "C" int dl4j_paged_attn_splits(int B, int H, int T, int D, int ps,
-                                      int NP) {
+                                      int NP, int kind) {
   if (T <= dl4j::kDecodeMaxT || B < 1 || H < 1 || ps < 1 || NP < 1) return 1;
   static const int sms = [] {
     int dev = 0, n = 0;
@@ -912,20 +1060,37 @@ extern "C" int dl4j_paged_attn_splits(int B, int H, int T, int D, int ps,
   const long long ctas = (long long)B * H *
                          ((T + dl4j::kChunkRows - 1) / dl4j::kChunkRows);
   if (ctas >= sms) return 1;
-  const int bn = D == 128 ? 32 : 64;
+  const int bn = (D == 128 && kind != 2) ? 32 : 64;
   const long long most = std::max(1LL, ((long long)NP * ps) / (2 * bn));
   return (int)std::min(most, (2LL * sms + ctas - 1) / ctas);
 }
 
-// Dynamic shared memory of one chunk-route CTA in bytes (for reports).
-extern "C" int dl4j_paged_chunk_smem(int D, int quant, int NP) {
+namespace dl4j {
+template <int D>
+int chunk_smem_kind(int kind, int NP) {
+  switch (kind) {
+    case 0:
+      return chunk_smem_bytes<float, D>(NP);
+    case 1:
+      return chunk_smem_bytes<int8_t, D>(NP);
+    case 2:
+      return chunk_smem_bytes<__nv_bfloat16, D>(NP);
+    default:
+      return -2;
+  }
+}
+}  // namespace dl4j
+
+// Dynamic shared memory of one chunk-route CTA in bytes (for reports); kind
+// as for dl4j_paged_attn_splits.
+extern "C" int dl4j_paged_chunk_smem(int D, int kind, int NP) {
   switch (D) {
     case 32:
-      return quant ? dl4j::chunk_smem_bytes<true, 32>(NP) : dl4j::chunk_smem_bytes<false, 32>(NP);
+      return dl4j::chunk_smem_kind<32>(kind, NP);
     case 64:
-      return quant ? dl4j::chunk_smem_bytes<true, 64>(NP) : dl4j::chunk_smem_bytes<false, 64>(NP);
+      return dl4j::chunk_smem_kind<64>(kind, NP);
     case 128:
-      return quant ? dl4j::chunk_smem_bytes<true, 128>(NP) : dl4j::chunk_smem_bytes<false, 128>(NP);
+      return dl4j::chunk_smem_kind<128>(kind, NP);
     default:
       return -2;
   }
@@ -933,30 +1098,29 @@ extern "C" int dl4j_paged_chunk_smem(int D, int quant, int NP) {
 
 // Launches K2 on `stream`; returns 0 after a launch (the caller checks it
 // with cudaGetLastError), or a nonzero code for an unsupported
-// configuration, which launches nothing. kscales/vscales are read only when
-// quant is set; key_valid may be null. With splits > 1 (chunk route only),
-// part is a workspace of splits·B·H·T·(D + 2) floats.
-extern "C" int dl4j_paged_attn(const float* q, const void* kp, const void* vp,
+// configuration, which launches nothing. qtype: q's and o's type, 0 f32, 1
+// bf16, 2 f16; the pools are of that type, or int8 codes when quant is set
+// (then kscales/vscales are read). key_valid may be null. With splits > 1
+// (chunk route only), part is a workspace of splits·B·H·T·(D + 2) floats.
+extern "C" int dl4j_paged_attn(const void* q, const void* kp, const void* vp,
                                const float* kscales, const float* vscales,
                                const int* bt, const int* pos,
-                               const float* key_valid, float* o, float* part,
+                               const float* key_valid, void* o, float* part,
                                int splits, int B, int H, int T, int D, int ps,
-                               int NP, int quant, cudaStream_t stream) {
+                               int NP, int qtype, int quant,
+                               cudaStream_t stream) {
   if (T < 1 || B < 1 || H < 1 || ps < 1 || NP < 1 || B > 65535 || H > 65535)
     return -1;
   if (splits < 1 || (splits > 1 && (part == nullptr || T <= dl4j::kDecodeMaxT)))
     return -4;
-  switch (D) {
-    case 32:
-      return quant ? dl4j::launch_paged<true, 32>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream)
-                   : dl4j::launch_paged<false, 32>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream);
-    case 64:
-      return quant ? dl4j::launch_paged<true, 64>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream)
-                   : dl4j::launch_paged<false, 64>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream);
-    case 128:
-      return quant ? dl4j::launch_paged<true, 128>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream)
-                   : dl4j::launch_paged<false, 128>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream);
+  switch (qtype) {
+    case 0:
+      return dl4j::launch_paged_kv<float>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, D, ps, NP, quant, stream);
+    case 1:
+      return dl4j::launch_paged_kv<__nv_bfloat16>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, D, ps, NP, quant, stream);
+    case 2:
+      return dl4j::launch_paged_kv<__half>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, D, ps, NP, quant, stream);
     default:
-      return -2;
+      return -5;
   }
 }

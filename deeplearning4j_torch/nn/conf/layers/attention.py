@@ -1,10 +1,11 @@
 """Attention layers (port of
 ``deeplearning4j_tpu/nn/conf/layers/attention.py``): ``scaled_dot_attention``,
-``SelfAttentionLayer`` (full-sequence forward and the paged-KV serving
-forward) and ``PositionalEncodingLayer``.
+``SelfAttentionLayer`` (the full-sequence forward, the dense KV-cache
+streaming forward behind ``rnn_time_step`` and the generate loops, and the
+paged-KV serving forward) and ``PositionalEncodingLayer``.
 
-The dense streaming cache (``init_streaming_carry``/``_streaming_forward``)
-and the tensor-parallel paged path are not ported yet.
+The tensor-parallel paged path and dense streaming with per-row positions
+(the JAX package's slot-pooled stock decode) are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from deeplearning4j_torch.nn.conf.layers import paged_attention as ppa
 from deeplearning4j_torch.nn.conf.layers.base import BaseLayer, Layer
 from deeplearning4j_torch.ops import flash_attention as fa
+from deeplearning4j_torch.utils.serde import register_serializable
 
 NEG_INF = -1e30
 
@@ -40,6 +42,7 @@ def scaled_dot_attention(q, k, v, *, causal: bool = False, mask=None):
     return torch.matmul(torch.softmax(logits, dim=-1), v)
 
 
+@register_serializable
 @dataclass
 class SelfAttentionLayer(BaseLayer):
     """Multi-head self-attention over [B, T, F] with projection output Wo
@@ -49,6 +52,9 @@ class SelfAttentionLayer(BaseLayer):
     n_out: int = 0
     n_heads: int = 1
     causal: bool = False
+    # kept for the JAX package's JSON; its layer projects q, k and v
+    # whatever the value, and so does the port's
+    project_input: bool = True
     max_cache: int = 512
     # "auto" and "pallas" route to the flash kernel wrapper (K1), "stock"
     # forces the plain softmax(QKᵀ)V path
@@ -115,6 +121,8 @@ class SelfAttentionLayer(BaseLayer):
     def forward(self, params, state, x, *, mask=None):
         if "kpages" in state:
             return self._paged_forward(params, state, x, mask=mask)
+        if "kcache" in state:
+            return self._streaming_forward(params, state, x, mask=mask)
         q = self._split_heads(self._proj(params, x, "Wq"))
         k = self._split_heads(self._proj(params, x, "Wk"))
         v = self._split_heads(self._proj(params, x, "Wv"))
@@ -153,6 +161,99 @@ class SelfAttentionLayer(BaseLayer):
             "vpages": torch.zeros(pages, H, page_size, d, dtype=dtype,
                                   device=device),
         }
+
+    def init_streaming_carry(self, batch: int, dtype=torch.float32,
+                             kv_dtype=None, device="cpu") -> dict:
+        """Dense KV cache for incremental decode: ``[batch, H, max_cache,
+        d]`` keys and values (int8 with f32 ``kscale``/``vscale`` strips
+        under ``kv_dtype="int8"``) and the stream position. Non-causal
+        layers return no carry."""
+        if not self.causal:
+            return {}
+        H = self.n_heads
+        d = self.n_out // H
+        shape = (batch, H, self.max_cache, d)
+        pos = torch.zeros((), dtype=torch.int32, device=device)
+        if kv_dtype == "int8":
+            return {
+                "kcache": torch.zeros(shape, dtype=torch.int8, device=device),
+                "vcache": torch.zeros(shape, dtype=torch.int8, device=device),
+                "kscale": torch.zeros(shape[:3], dtype=torch.float32,
+                                      device=device),
+                "vscale": torch.zeros(shape[:3], dtype=torch.float32,
+                                      device=device),
+                "cache_pos": pos,
+            }
+        if kv_dtype is not None:
+            raise ValueError(f"unsupported kv_dtype {kv_dtype!r} "
+                             "(None or 'int8')")
+        return {"kcache": torch.zeros(shape, dtype=dtype, device=device),
+                "vcache": torch.zeros(shape, dtype=dtype, device=device),
+                "cache_pos": pos}
+
+    def _streaming_forward(self, params, state, x, mask=None):
+        """Incremental decode over the dense KV cache: the chunk's keys and
+        values land at the stream position (IN PLACE: the returned state
+        holds the same cache tensors), and each query row attends over
+        every cached column up to its own position, as one masked softmax
+        over the whole ``max_cache`` strip (the JAX layer's expressions).
+        A chunk that would run past ``max_cache`` raises. ``mask`` is an
+        optional ``[B, T]`` validity of the chunk's positions: masked
+        columns attend nowhere and their outputs are zeroed, but they still
+        take cache columns."""
+        B, T, _ = x.shape
+        kc, vc, pos = state["kcache"], state["vcache"], state["cache_pos"]
+        Tmax = kc.shape[2]
+        if pos.dim() != 0:
+            raise NotImplementedError(
+                "dense streaming with per-row positions is not ported; the "
+                "port's server pages its KV (init_paged_carry)")
+        p = int(pos)
+        if p + T > Tmax:
+            raise ValueError(
+                f"KV cache overflow: position {p} + {T} new tokens > "
+                f"max_cache {Tmax}; raise SelfAttentionLayer.max_cache or "
+                "rnn_clear_previous_state() to start a new stream")
+        if mask is not None and tuple(mask.shape) != (B, T):
+            raise ValueError(
+                f"streaming attention mask must be [batch, chunk] = "
+                f"({B}, {T}), got {tuple(mask.shape)}")
+        q = self._split_heads(self._proj(params, x, "Wq"))
+        k = self._split_heads(self._proj(params, x, "Wk"))
+        v = self._split_heads(self._proj(params, x, "Wv"))
+        quant = "kscale" in state
+        if quant:
+            ks, vs = state["kscale"], state["vscale"]
+            k, ksc = self._quantize_kv(k)
+            v, vsc = self._quantize_kv(v)
+            ks[:, :, p:p + T] = ksc
+            vs[:, :, p:p + T] = vsc
+        kc[:, :, p:p + T] = k.to(kc.dtype)
+        vc[:, :, p:p + T] = v.to(vc.dtype)
+        if quant:
+            kd = kc.to(q.dtype) * ks[..., None].to(q.dtype)
+            vd = vc.to(q.dtype) * vs[..., None].to(q.dtype)
+        else:
+            kd, vd = kc, vc
+        d = q.shape[-1]
+        logits = torch.matmul(q, kd.transpose(-1, -2)) / math.sqrt(d)
+        col = torch.arange(Tmax, device=x.device)[None, :]
+        row = torch.arange(T, device=x.device)[:, None]
+        neg = float(torch.tensor(NEG_INF).to(logits.dtype))  # f16: -inf
+        logits = torch.where(col <= p + row, logits, neg)
+        if mask is not None:
+            # columns of this chunk take the chunk mask, older ones stay
+            # valid
+            rel = torch.arange(Tmax, device=x.device) - p
+            inside = (rel >= 0) & (rel < T)
+            chunk_valid = (mask != 0)[:, rel.clamp(0, T - 1)]
+            key_valid = torch.where(inside[None], chunk_valid,
+                                    torch.ones_like(chunk_valid))
+            logits = torch.where(key_valid[:, None, None, :], logits, neg)
+        o = torch.matmul(torch.softmax(logits, dim=-1), vd)
+        new_state = dict(state)
+        new_state["cache_pos"] = pos + T
+        return self._merge(params, o, mask), new_state
 
     @staticmethod
     def _quantize_kv(t):
@@ -227,6 +328,7 @@ class SelfAttentionLayer(BaseLayer):
         return self._merge(params, o, mask), new_state
 
 
+@register_serializable
 @dataclass
 class PositionalEncodingLayer(Layer):
     """Add the fixed sinusoidal position table to a [B, T, F] sequence: sin
@@ -236,6 +338,13 @@ class PositionalEncodingLayer(Layer):
     max_wavelength: float = 10000.0
 
     STREAMS = True
+
+    def init_streaming_carry(self, batch: int, dtype=torch.float32,
+                             device="cpu") -> dict:
+        """Streaming decode: chunk t must get the encoding of its absolute
+        position, so the consumed-token count is carried."""
+        return {"cache_pos": torch.zeros((), dtype=torch.int32,
+                                         device=device)}
 
     def forward(self, params, state, x, *, mask=None):
         T, F = x.shape[-2], x.shape[-1]

@@ -7,8 +7,10 @@ from dataclasses import dataclass
 import torch
 
 from deeplearning4j_torch.nn.conf.layers.base import FeedForwardLayer
+from deeplearning4j_torch.utils.serde import register_serializable
 
 
+@register_serializable
 @dataclass
 class DenseLayer(FeedForwardLayer):
     """Fully-connected layer: ``activation(x @ W + b)``, W

@@ -8,8 +8,10 @@ from dataclasses import dataclass
 import torch
 
 from deeplearning4j_torch.nn.conf.layers.base import BaseLayer
+from deeplearning4j_torch.utils.serde import register_serializable
 
 
+@register_serializable
 @dataclass
 class LayerNormalization(BaseLayer):
     """Per-example normalization over the feature (last) axis with learned

@@ -7,7 +7,9 @@ gather-then-attend version and the hand-written Hopper kernel K2.
   attends: the twin of the JAX gather path, and the plain version of K2.
 - :class:`CudaPagedAttention` reads the pages in place through the block
   table with K2 (``kernels/paged_attn.cu``). It never builds the gathered
-  view.
+  view. K2 takes f32, bf16 and f16 queries over pages of the query's
+  dtype or int8, and computes in f32 as the Pallas kernel does; the plain
+  version computes in the query's dtype, as the JAX gather does.
 
 The knob keeps the JAX values so a JAX ``configuration.json`` stays readable:
 ``"pallas"`` names the Hopper kernel; ``"xla"`` and ``"stock"`` the plain
@@ -28,6 +30,8 @@ BACKENDS = ("xla", "pallas")
 CHOICES = ("auto", "stock") + BACKENDS
 
 KERNEL_HEAD_DIMS = (32, 64, 128)
+#: query dtypes K2 takes; its pools are of the query's dtype or int8
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: query chunks of up to this many rows take K2's decode route, longer ones
 #: its chunk route (``kDecodeMaxT`` in ``kernels/paged_attn.cu``)
 DECODE_MAX_T = 4
@@ -48,7 +52,9 @@ def _key_valid_plane(mask, pos, T, Tmax):
 def paged_attention_plain(q, kp, vp, bt, pos, *, key_valid=None,
                           kscales=None, vscales=None):
     """The plain version of K2: gather the pages named by ``bt`` into a
-    dense ``[B, H, Tmax, d]`` view, then one masked softmax over it."""
+    dense ``[B, H, Tmax, d]`` view, then one masked softmax over it, all in
+    q's dtype (int8 pages dequantized in q's dtype), as the JAX package's
+    ``XlaPagedAttention`` computes it."""
     B, _H, T, d = q.shape
     ps = kp.shape[2]
     NP = bt.shape[1]
@@ -68,7 +74,10 @@ def paged_attention_plain(q, kp, vp, bt, pos, *, key_valid=None,
     keep = col <= pos.long().reshape(-1, 1, 1, 1) + row
     if key_valid is not None:
         keep = keep & (key_valid != 0)[:, None, None, :]
-    logits = torch.where(keep, logits, torch.full_like(logits, NEG_INF))
+    # -1e30 cast to the logits' dtype, as JAX casts the Python scalar (f16:
+    # -inf)
+    neg = float(torch.tensor(NEG_INF).to(logits.dtype))
+    logits = torch.where(keep, logits, neg)
     return torch.matmul(torch.softmax(logits, dim=-1), vc)
 
 
@@ -85,8 +94,9 @@ def paged_attention(q, kp, vp, bt, pos, *, key_valid=None, kscales=None,
     if q.device.type != "cuda":
         raise RuntimeError(f"paged attention has no path for device "
                            f"{q.device}")
-    if q.dtype != torch.float32:
-        raise TypeError(f"paged kernel takes a float32 query, got {q.dtype}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"paged kernel takes a query of {KERNEL_DTYPES}, "
+                        f"got {q.dtype}")
     if q.shape[3] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"paged kernel is built for head dims "
                          f"{KERNEL_HEAD_DIMS}, got {q.shape[3]}")
@@ -103,9 +113,18 @@ def paged_attention(q, kp, vp, bt, pos, *, key_valid=None, kscales=None,
     B, H, T, d = q.shape
     if T > DECODE_MAX_T:
         kernels.LAUNCHES["paged_attn_chunk"] += 1
-        if ext.paged_attn_splits(B, H, T, d, kp.shape[2], bt.shape[1]) > 1:
+        if ext.paged_attn_splits(B, H, T, d, kp.shape[2], bt.shape[1],
+                                 pool_kind(kp)) > 1:
             kernels.LAUNCHES["paged_attn_merge"] += 1
     return o
+
+
+def pool_kind(kp) -> int:
+    """The pools' element as ``paged_attn.cu`` names it: 0 f32, 1 int8
+    codes, 2 bf16/f16 (it sets the chunk route's key tile)."""
+    if kp.dtype == torch.int8:
+        return 1
+    return 0 if kp.dtype == torch.float32 else 2
 
 
 class PagedAttentionHelper:

@@ -7,8 +7,10 @@ from dataclasses import dataclass
 
 from deeplearning4j_torch.nn.conf.layers.core import DenseLayer
 from deeplearning4j_torch.ops.losses import get_loss
+from deeplearning4j_torch.utils.serde import register_serializable
 
 
+@register_serializable
 @dataclass
 class RnnOutputLayer(DenseLayer):
     """Per-timestep dense + loss over ``[B, T, F]``. A ``[B, T]`` label mask

@@ -1,7 +1,8 @@
 """ComputationGraph (port of ``deeplearning4j_tpu/nn/graph.py``): parameters,
 the topological forward with an optional serving carry, ``output()``,
-``_stream_layers``, and training: ``_loss``, ``do_step``, ``fit``,
-``score`` and the flat-parameter plumbing.
+streaming inference (``rnn_time_step`` over the attention layers' dense KV
+caches), ``_stream_layers``, and training: ``_loss``, ``do_step``,
+``fit``, ``score`` and the flat-parameter plumbing.
 
 Params keep the JAX pytree shape, ``{vertex_name: {param: Tensor}}``, so the
 reference's weights load unchanged (``utils/convert.py``); the updater state
@@ -11,7 +12,8 @@ is a dict of such trees. One training step is ``build_step_core``
 
 ``fit`` in this port is JAX's ``fit(..., fused_steps=1,
 health_guard=None)``: the fused K-step driver and the numerical-health
-guard are ROADMAP §A4, TBPTT and MultiDataSet are not ported.
+guard are ROADMAP §A5, TBPTT, layer-wise pretraining, ``compute_dtype`` and
+MultiDataSet are not ported (ROADMAP §A6) and raise.
 """
 
 from __future__ import annotations
@@ -24,10 +26,13 @@ import torch
 from deeplearning4j_torch import resolve_device
 from deeplearning4j_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration)
+from deeplearning4j_torch.utils.pytree import (flatten_params,
+                                               unflatten_params)
 
-#: state keys that belong to the serving carry rather than the layer state
-_CARRY_KEYS = ("cache_pos", "kpages", "vpages", "block_table", "kscales",
-               "vscales")
+#: state keys that belong to the streaming or serving carry rather than the
+#: layer state: dense KV caches (``rnn_time_step``) and paged pools
+_CARRY_KEYS = ("cache_pos", "kcache", "vcache", "kscale", "vscale", "kpages",
+               "vpages", "block_table", "kscales", "vscales")
 
 
 def _as_list(x):
@@ -50,6 +55,9 @@ class ComputationGraph:
         self.score_value = float("nan")
         self.device: Optional[torch.device] = None
         self._step = None
+        self._rnn_state: Optional[dict] = None
+        self._stream_pos = 0              # tokens consumed this stream
+        self._stream_capacity = None      # min attention max_cache, if any
 
     def init(self, params: Optional[dict] = None, *,
              device=None) -> "ComputationGraph":
@@ -78,6 +86,10 @@ class ComputationGraph:
         input of each output vertex with a loss head (what its loss
         consumes), filled when ``collect_loss_inputs``."""
         conf = self.conf
+        if conf.compute_dtype is not None:
+            raise NotImplementedError(
+                f"compute_dtype={conf.compute_dtype!r}: mixed precision is "
+                "not ported yet (ROADMAP §A6)")
         acts = dict(zip(conf.network_inputs, inputs))
         act_masks = dict(zip(conf.network_inputs,
                              masks or [None] * len(inputs)))
@@ -188,18 +200,23 @@ class ComputationGraph:
         """Train on a DataSet or an iterable of DataSets, one ``do_step``
         per batch (JAX ``fit(..., fused_steps=1, health_guard=None)``). An
         iterable counts ``epoch`` up once per pass. The fused K-step driver
-        and the health guard are not ported (ROADMAP §A4): any other
+        and the health guard are not ported (ROADMAP §A5): any other
         ``fused_steps`` or a health policy raises."""
         from deeplearning4j_torch.datasets.dataset import DataSet
 
         if fused_steps not in (None, 1):
             raise NotImplementedError(
                 f"fused_steps={fused_steps}: the fused K-step driver is not "
-                "ported yet (ROADMAP §A4); use fused_steps=None or 1")
+                "ported yet (ROADMAP §A5); use fused_steps=None or 1")
         if health_guard not in (None, False):
             raise NotImplementedError(
                 "health_guard: the numerical-health guard is not ported yet "
-                "(ROADMAP §A4); pass None or False")
+                "(ROADMAP §A5); pass None or False")
+        if self.conf.backprop_type != "standard" or self.conf.pretrain:
+            raise NotImplementedError(
+                f"backprop_type={self.conf.backprop_type!r}, pretrain="
+                f"{self.conf.pretrain}: TBPTT and layer-wise pretraining are "
+                "not ported yet (ROADMAP §A6)")
         if labels is not None:
             data = DataSet(data, labels)
         if isinstance(data, DataSet):
@@ -236,36 +253,11 @@ class ComputationGraph:
     # ------------------------------------------------------- params plumbing
     def params_flat(self) -> np.ndarray:
         """Contiguous parameter vector in (topo order, param_order) order,
-        as the JAX ``params_flat`` lays it out."""
-        chunks = [self.params[v][p].detach().cpu().numpy().ravel()
-                  for v, p in self._flat_slots()]
-        if not chunks:
-            return np.zeros((0,), np.float32)
-        return np.concatenate(chunks)
-
-    def _flat_slots(self):
-        """(vertex, param) pairs in the flat-vector order."""
-        return [(name, p) for name in self.conf.topo_order
-                for p in self.conf.vertices[name].param_order()
-                if p in self.params.get(name, {})]
+        as the JAX ``params_flat`` lays it out (``utils/pytree.py``)."""
+        return flatten_params(self.params, self.conf)
 
     def set_params_flat(self, flat) -> None:
-        flat = np.asarray(flat).ravel()
-        slots = self._flat_slots()
-        n_all = sum(self.params[v][p].numel() for v, p in slots)
-        if n_all != flat.size:
-            raise ValueError(f"Flat param size {flat.size} != expected "
-                             f"{n_all}")
-        out = {name: dict(p) for name, p in self.params.items()}
-        off = 0
-        for v, p in slots:
-            tmpl = self.params[v][p]
-            n = tmpl.numel()
-            out[v][p] = torch.from_numpy(np.array(
-                flat[off:off + n]).reshape(tuple(tmpl.shape))).to(
-                    device=tmpl.device, dtype=tmpl.dtype)
-            off += n
-        self.params = out
+        self.params = unflatten_params(flat, self.params, self.conf)
 
     def num_params(self) -> int:
         return int(sum(t.numel() for lp in self.params.values()
@@ -278,3 +270,58 @@ class ComputationGraph:
             layer = getattr(v, "layer", None)
             if layer is not None and layer.STREAMS:
                 yield name, layer
+
+    # -------------------------------------------------------- rnn streaming
+    def rnn_clear_previous_state(self):
+        self._rnn_state = None
+        self._stream_pos = 0
+        self._stream_capacity = None
+
+    def _seed_streaming_carry(self, batch: int) -> dict:
+        """Initial streaming carry (attention KV caches, position counters),
+        keyed as ``_stream_layers``; resets the overflow accounting."""
+        dtype = getattr(torch, self.conf.dtype)
+        seed = {}
+        caps = []
+        for name, layer in self._stream_layers():
+            c = layer.init_streaming_carry(batch, dtype, device=self.device)
+            if c:
+                seed[name] = c
+                if hasattr(layer, "max_cache"):
+                    caps.append(layer.max_cache)
+        self._stream_pos = 0
+        self._stream_capacity = min(caps) if caps else None
+        return seed
+
+    @torch.inference_mode()
+    def rnn_time_step(self, *inputs):
+        """Streaming inference with persistent state (JAX
+        ``ComputationGraph.rnn_time_step``): each call consumes the next
+        chunk of time steps (a 2-D input is one step) and returns the
+        output for it; ``rnn_clear_previous_state`` starts a new stream."""
+        dtype = getattr(torch, self.conf.dtype)
+        xs = []
+        squeeze = False
+        for x in inputs:
+            x = self._as_tensor(x, dtype)
+            if x.dim() == 2:
+                x = x[:, None, :]
+                squeeze = True
+            xs.append(x)
+        if self._rnn_state is None:
+            self._rnn_state = self._seed_streaming_carry(xs[0].shape[0])
+        T_in = xs[0].shape[1]
+        if self._stream_capacity is not None and \
+                self._stream_pos + T_in > self._stream_capacity:
+            raise ValueError(
+                f"KV cache overflow: stream position {self._stream_pos} + "
+                f"{T_in} new tokens > max_cache {self._stream_capacity}; "
+                "raise SelfAttentionLayer.max_cache or "
+                "rnn_clear_previous_state()")
+        self._stream_pos += T_in
+        outs, new_carry, _, _ = self._forward(
+            self.params, self.state, xs, [None] * len(xs),
+            carry=self._rnn_state)
+        self._rnn_state = new_carry
+        outs = [o[:, 0] if squeeze and o.dim() == 3 else o for o in outs]
+        return outs[0] if len(outs) == 1 else outs

@@ -22,6 +22,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deeplearning4j_torch.utils.serde import register_serializable
+
 _f32 = np.float32
 
 
@@ -36,6 +38,7 @@ def _tree_zeros(params):
     return _tmap(torch.zeros_like, params)
 
 
+@register_serializable
 @dataclass
 class LearningRateSchedule:
     """lr(iteration). policy: none|exponential|inverse|poly|sigmoid|step|
@@ -111,6 +114,7 @@ class Updater:
         raise NotImplementedError
 
 
+@register_serializable
 @dataclass
 class Sgd(Updater):
     def step(self, grads, state, iteration, lr_mult=1.0):
@@ -118,12 +122,14 @@ class Sgd(Updater):
         return _tmap(lambda g, lr: lr * g, grads, lrs), state
 
 
+@register_serializable
 @dataclass
 class NoOp(Updater):
     def step(self, grads, state, iteration, lr_mult=1.0):
         return _tmap(torch.zeros_like, grads), state
 
 
+@register_serializable
 @dataclass
 class Nesterovs(Updater):
     momentum: float = 0.9
@@ -146,6 +152,7 @@ def _t(iteration):
     return _f32(iteration) + _f32(1.0)
 
 
+@register_serializable
 @dataclass
 class Adam(Updater):
     learning_rate: float = 1e-3
@@ -170,6 +177,7 @@ class Adam(Updater):
         return steps, {"m": m, "v": v}
 
 
+@register_serializable
 @dataclass
 class AdaMax(Updater):
     learning_rate: float = 1e-3
@@ -193,6 +201,7 @@ class AdaMax(Updater):
         return steps, {"m": m, "u": u}
 
 
+@register_serializable
 @dataclass
 class Nadam(Updater):
     learning_rate: float = 1e-3
@@ -219,6 +228,7 @@ class Nadam(Updater):
         return steps, {"m": m, "v": v}
 
 
+@register_serializable
 @dataclass
 class AdaGrad(Updater):
     epsilon: float = 1e-6
@@ -234,6 +244,7 @@ class AdaGrad(Updater):
         return steps, {"h": h}
 
 
+@register_serializable
 @dataclass
 class RmsProp(Updater):
     rms_decay: float = 0.95
@@ -251,6 +262,7 @@ class RmsProp(Updater):
         return steps, {"h": h}
 
 
+@register_serializable
 @dataclass
 class AdaDelta(Updater):
     rho: float = 0.95

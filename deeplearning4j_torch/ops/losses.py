@@ -7,7 +7,7 @@ fused forms can be used (softmax + cross entropy as one log-softmax).
 
 Only the loss the TransformerLM slice trains with is ported: ``mcxent``.
 ``get_loss`` raises on any other name; the rest of the JAX registry is
-ROADMAP §A2.
+ROADMAP §A6.
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ def get_loss(name) -> LossFunction:
     if key not in _REGISTRY:
         raise ValueError(f"loss '{name}' is not ported (ported: "
                          f"{sorted(_REGISTRY)}; the rest of the JAX "
-                         "registry is ROADMAP §A2)")
+                         "registry is ROADMAP §A6)")
     return _REGISTRY[key]
 
 

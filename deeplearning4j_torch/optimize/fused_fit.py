@@ -8,27 +8,33 @@ leaves them: the step marks detached copies of the leaves ``requires_grad``,
 and builds the new parameters under ``torch.no_grad()``.
 
 Not ported yet: the fused K-step driver, the numerical-health guard (both
-ROADMAP §A4), regularization and gradient normalization (ROADMAP §A2). A
-configuration that asks for either of the last two raises.
+ROADMAP §A5), regularization, gradient normalization, dropout and per-layer
+learning rates (ROADMAP §A6). A configuration that asks for any of the last
+four raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-#: layer fields that would need regularization or gradient normalization
+#: layer fields that act in training and are not ported: regularization,
+#: gradient normalization, input dropout and per-layer learning rates. Each
+#: is refused when set away from its default (None, 0 or "none").
 _UNPORTED_FIELDS = ("l1", "l2", "l1_bias", "l2_bias", "weight_decay",
-                    "gradient_normalization")
+                    "gradient_normalization", "dropout", "learning_rate",
+                    "bias_learning_rate")
 
 
 def _check_conf(net):
     for name, v in net.conf.vertices.items():
         layer = getattr(v, "layer", None)
         for f in _UNPORTED_FIELDS:
-            if getattr(layer, f, None):
+            value = getattr(layer, f, None)
+            if value not in (None, 0, 0.0, "none"):
                 raise NotImplementedError(
-                    f"vertex '{name}' sets {f}: regularization and gradient "
-                    "normalization are not ported yet (ROADMAP §A2)")
+                    f"vertex '{name}' sets {f}={value!r}: regularization, "
+                    "gradient normalization, dropout and per-layer learning "
+                    "rates are not ported yet (ROADMAP §A6)")
 
 
 def value_and_grad(net, params, state, x, y, input_mask=None,

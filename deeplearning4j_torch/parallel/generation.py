@@ -21,11 +21,18 @@ fixed-size pages behind a block table:
   at capacity: a row at ``NP * page_size`` freezes and its block-table row
   swaps to the garbage page.
 
-The decode loop runs on one plain thread the server owns. Only greedy
-decoding is ported: sampled decoding needs the threefry PRNG port. Prefix
-sharing with copy-on-write, preemption, speculative decode, snapshots and
-handoff, tensor-parallel meshes, deadlines, retries, the circuit breaker,
-chaos injection, the metrics registry and serving roles are not ported yet.
+Requests are greedy or sampled (``temperature``, ``top_k``, ``seed``). A
+request's token i is selected with ``fold_in(PRNGKey(seed), i)`` (the
+threefry keys of ``ops/random.py``), the JAX server's serial key schedule,
+so its stream equals ``sample_generate``'s and the JAX server's for the same
+probabilities. A dispatch whose active rows are all greedy takes the plain
+argmax, as the JAX server's ``lax.cond`` does.
+
+The decode loop runs on one plain thread the server owns. Prefix sharing
+with copy-on-write, preemption, speculative decode, snapshots and handoff,
+tensor-parallel meshes, deadlines, retries, the circuit breaker, chaos
+injection, the metrics registry and serving roles are not ported yet
+(ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -41,10 +48,12 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_torch import resolve_device
-from deeplearning4j_torch.models.zoo import lm_stream_forward
+from deeplearning4j_torch.models.zoo import (lm_stream_forward,
+                                             sampled_next_token)
 from deeplearning4j_torch.nn.conf.layers.attention import (
     PositionalEncodingLayer, SelfAttentionLayer)
 from deeplearning4j_torch.nn.conf.layers.paged_attention import CHOICES
+from deeplearning4j_torch.ops import random
 from deeplearning4j_torch.optimize.bucketing import bucket_pages
 from deeplearning4j_torch.parallel.resilience import (AdmissionController,
                                                       ServerOverloaded)
@@ -57,11 +66,15 @@ GARBAGE_PAGE = 0
 
 
 class _Request:
-    __slots__ = ("prompt", "max_tokens", "eos_id", "future", "tokens")
+    __slots__ = ("prompt", "max_tokens", "temperature", "top_k", "seed",
+                 "eos_id", "future", "tokens")
 
-    def __init__(self, prompt, max_tokens, eos_id):
+    def __init__(self, prompt, max_tokens, temperature, top_k, seed, eos_id):
         self.prompt = prompt
         self.max_tokens = max_tokens
+        self.temperature = temperature
+        self.top_k = top_k
+        self.seed = seed
         self.eos_id = eos_id
         self.future = Future()
         self.tokens: list = []
@@ -97,7 +110,8 @@ class _PagePool:
 
 
 class GenerationServer:
-    """Paged continuous-batching greedy decode server for a causal LM.
+    """Paged continuous-batching decode server for a causal LM, greedy or
+    sampled per request.
 
     ``net`` is a port ``ComputationGraph`` whose attention layers page their
     KV (TransformerLM). ``submit`` returns a ``concurrent.futures.Future``
@@ -176,6 +190,12 @@ class GenerationServer:
         # host mirrors of the per-slot decode state (loop-thread-owned)
         self._last = np.zeros(self.slots, np.int64)
         self._pos = np.zeros(self.slots, np.int32)
+        # per-slot sampling: the index of the slot's next token, its
+        # temperature and top_k, and its base key PRNGKey(seed)
+        self._counts = np.zeros(self.slots, np.int64)
+        self._temp = np.zeros(self.slots, np.float32)
+        self._topk = np.zeros(self.slots, np.int64)
+        self._keys = np.zeros((self.slots, 2), np.int64)
         self._bt = np.zeros((self.slots, self._np), np.int32)
         self._slot_pages: list = [[] for _ in range(self.slots)]
         self._page_pool = _PagePool(self.pages_total)
@@ -242,12 +262,17 @@ class GenerationServer:
 
     # ------------------------------------------------------------- submit
     def submit(self, prompt_ids, max_tokens: int, *,
-               temperature: float = 0.0, eos_id=_UNSET) -> Future:
-        """Queue one greedy generation request; returns a Future resolving
-        to the generated ids (<= max_tokens, shorter when ``eos_id`` — the
+               temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+               eos_id=_UNSET) -> Future:
+        """Queue one generation request; returns a Future resolving to the
+        generated ids (<= max_tokens, shorter when ``eos_id`` — the
         per-request one or the server default — is produced, which is
-        included). Raises ``ServerOverloaded`` when the request can never
-        fit the page budget or the admission watermark is reached."""
+        included). ``temperature`` 0 is greedy; otherwise tokens are
+        sampled from the softmax sharpened by 1/temperature, among the
+        ``top_k`` most likely when ``top_k > 0``, with token i keyed by
+        ``fold_in(PRNGKey(seed), i)``. Raises ``ServerOverloaded`` when the
+        request can never fit the page budget or the admission watermark
+        is reached."""
         prompt = np.asarray(prompt_ids)
         if prompt.ndim != 1 or prompt.shape[0] < 1:
             raise ValueError(f"prompt_ids must be a non-empty 1-D id "
@@ -260,11 +285,9 @@ class GenerationServer:
             raise ValueError(f"max_tokens must be >= 1, got {max_tokens}")
         if temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
-        if temperature > 0:
-            raise NotImplementedError(
-                "sampled decoding (temperature > 0) is not ported yet: it "
-                "waits for the threefry PRNG port (ROADMAP.md, 'Next, in "
-                "order', item 1: sampled decoding)")
+        if top_k < 0 or top_k > self.vocab:
+            raise ValueError(f"top_k must be in [0, {self.vocab}], "
+                             f"got {top_k}")
         plen = int(prompt.shape[0])
         need_tokens = plen + int(max_tokens) - 1
         if need_tokens > self._cap_tokens:
@@ -282,7 +305,9 @@ class GenerationServer:
             if self._closing:
                 raise RuntimeError("GenerationServer is closed")
         req = _Request(prompt.astype(np.int64), int(max_tokens),
+                       float(temperature), int(top_k), int(seed),
                        self.eos_id if eos_id is _UNSET else eos_id)
+        random.seed_words(req.seed)     # an out-of-range seed fails here
         self.admission.acquire()  # raises ServerOverloaded at watermark
         req.future.add_done_callback(lambda _f: self.admission.release())
         with self._cond:
@@ -413,6 +438,9 @@ class GenerationServer:
         S = self.slots
         cur = {s: 0 for s, _, _ in group}
         first = {}
+        keys = np.zeros((S, 2), np.int64)
+        for s, req, _ in group:
+            keys[s] = random.seed_words(req.seed)
         cap_pages = max(1, self._chunk_cap // self._ps)
         while True:
             live = [(s, req, plen) for s, req, plen in group
@@ -429,6 +457,8 @@ class GenerationServer:
             admit = np.zeros((S,), bool)
             positions = np.zeros((S,), np.int32)
             sufflen = np.ones((S,), np.int64)
+            temp = np.zeros((S,), np.float32)
+            topk = np.zeros((S,), np.int64)
             for s, req, _ in live:
                 n = chunk[s]
                 ids[s, :n] = req.prompt[cur[s]:cur[s] + n]
@@ -436,17 +466,41 @@ class GenerationServer:
                 admit[s] = True
                 positions[s] = cur[s]
                 sufflen[s] = n
-            toks = self._prefill_round(ids, mask, admit, positions, sufflen)
+                temp[s] = req.temperature
+                topk[s] = req.top_k
+            toks = self._prefill_round(ids, mask, admit, positions, sufflen,
+                                       temp, topk, keys)
             for s, _, plen in live:
                 cur[s] += chunk[s]
                 if cur[s] >= plen:
                     first[s] = toks[s]
         for s, req, plen in group:
-            self._commit_slot(s, req, plen, first[s])
+            self._commit_slot(s, req, plen, first[s], keys[s])
 
-    def _prefill_round(self, ids, mask, admit, positions, sufflen):
+    def _sampling(self, temp, topk, keys):
+        """The per-row sampling values on the device, or None when every
+        row is greedy (host arrays ``[S]``, ``[S]``, ``[S, 2]``)."""
+        if not (temp > 0).any():
+            return None
+        return self._to_dev(temp), self._to_dev(topk), self._to_dev(keys)
+
+    @staticmethod
+    def _select(probs, sampling, counts):
+        """Each row's next token from its ``[S, V]`` probabilities: the
+        argmax when every row is greedy (``sampling`` None), else
+        ``sampled_next_token`` with row s keyed by ``fold_in(keys[s],
+        counts[s])``."""
+        if sampling is None:
+            return probs.argmax(dim=-1)
+        temp, topk, keys = sampling
+        return sampled_next_token(probs, random.fold_in(keys, counts), temp,
+                                  topk)
+
+    def _prefill_round(self, ids, mask, admit, positions, sufflen, temp,
+                       topk, keys):
         """One paged forward over the wave's chunk; returns each row's
-        greedy token at its last true position (ONE host copy)."""
+        first token, selected at its last true position with key
+        ``fold_in(keys[s], 0)`` (ONE host copy)."""
         dtype = getattr(torch, self.net.conf.dtype)
         bt = self._to_dev(self._bt)
         # rows not in this round write the garbage page: an active decode
@@ -461,14 +515,22 @@ class GenerationServer:
         rows = out[torch.arange(self.slots, device=self.device),
                    self._to_dev(sufflen) - 1]
         self._counters["prefill_rounds"] += 1
-        return rows.argmax(dim=-1).cpu().tolist()
+        sampling = self._sampling(temp, topk, keys)
+        first = None if sampling is None else torch.zeros(
+            self.slots, dtype=torch.int64, device=self.device)
+        return self._select(rows, sampling, first).cpu().tolist()
 
-    def _commit_slot(self, slot: int, req: _Request, plen: int, tok):
+    def _commit_slot(self, slot: int, req: _Request, plen: int, tok, key):
         """Publish one prefilled slot: trim the bucket over-allocation, seed
-        the decode mirrors, and mark the slot active."""
+        the decode mirrors (its next token is token 1 of its key
+        schedule), and mark the slot active."""
         self._trim_slot_pages(slot, plen)
         self._last[slot] = tok
         self._pos[slot] = plen
+        self._counts[slot] = 1
+        self._temp[slot] = req.temperature
+        self._topk[slot] = req.top_k
+        self._keys[slot] = key
         req.tokens.append(tok)
         with self._cond:
             self._slot_req[slot] = req
@@ -483,12 +545,18 @@ class GenerationServer:
     def _active_mask(self):
         return np.array([r is not None for r in self._slot_req])
 
-    def _paged_step(self, bt, positions, last, active):
-        """``steps_per_dispatch`` greedy micro-steps, each one paged forward
-        over all S rows. Returns the ``[S, M]`` tokens on the device."""
+    def _paged_step(self, bt, positions, last, active, temp, topk, keys,
+                    counts):
+        """``steps_per_dispatch`` micro-steps, each one paged forward over
+        all S rows and one token select (``temp``, ``topk``, ``keys`` and
+        ``counts`` are host arrays: the active slots' sampling values,
+        others zeroed, and each slot's next token index). Returns the
+        ``[S, M]`` tokens on the device."""
         dtype = getattr(torch, self.net.conf.dtype)
         cap = bt.shape[1] * self._ps
         pos, cur = positions, last
+        sampling = self._sampling(temp, topk, keys)
+        cnt = None if sampling is None else self._to_dev(counts)
         seq = []
         for _ in range(self.steps_per_dispatch):
             # write-clamp: rows at capacity freeze, and their WHOLE
@@ -500,9 +568,11 @@ class GenerationServer:
             x = F.one_hot(cur, self.vocab).to(dtype)[:, None, :]
             out, _ = self._fwd(self.net.params, self.net.state, x,
                                self._carry(bt_eff, posw))
-            nxt = out[:, 0].argmax(dim=-1)
+            nxt = self._select(out[:, 0], sampling, cnt)
             cur = torch.where(act, nxt, cur)
             pos = torch.where(act, pos + 1, pos)
+            if cnt is not None:
+                cnt = torch.where(act, cnt + 1, cnt)
             seq.append(cur)
         return torch.stack(seq, dim=1)
 
@@ -511,7 +581,10 @@ class GenerationServer:
         active = self._active_mask()
         seq = self._paged_step(self._to_dev(self._bt), self._to_dev(self._pos),
                                self._to_dev(self._last),
-                               self._to_dev(active))
+                               self._to_dev(active),
+                               np.where(active, self._temp, 0).astype(
+                                   np.float32),
+                               self._topk, self._keys, self._counts)
         toks = seq.cpu().numpy()       # ONE [S, M] copy per dispatch
         m_steps = self.steps_per_dispatch
         ntok = 0
@@ -528,7 +601,9 @@ class GenerationServer:
                     break
             # the device advanced the full window (write-clamped at the
             # capacity) regardless of where the request finished
-            self._pos[s] += min(m_steps, self._cap_tokens - self._pos[s])
+            adv = min(m_steps, self._cap_tokens - self._pos[s])
+            self._pos[s] += adv
+            self._counts[s] += adv
             self._last[s] = toks[s, m_steps - 1]
             if done:
                 self._retire(s, req)

@@ -16,9 +16,9 @@ sources (into that tree's ``kernels/build/``) and reports:
   from one short ``torch.profiler`` window per case, read as
   ``chip_smoke.py`` reads it (its ``device_ms``); K2's per wrapper call,
   which on its split chunk walk is two launches (walk and merge);
-- a digest of K1's outputs (o and lse) and of K2's decode-route outputs
-  per case, so that two trees whose kernels should agree bit for bit can
-  be seen to;
+- a digest of K1's outputs (o and lse) and of K2's outputs per case (both
+  routes; f32, int8, bf16 and int8 pools under a bf16 query), so that two
+  trees whose kernels should agree bit for bit can be seen to;
 - one profiled f32 serve of the ``chip_smoke.py`` phase-5 requests and
   five profiled training steps: wall time, device busy time, idle share
   and the attention kernels' device time, K2's chunk route summed
@@ -52,13 +52,23 @@ K1_CASES = [("slice_f32_causal", 8, 8, 128, 32, "float32"),
             ("train_f32_causal", 16, 8, 128, 32, "float32"),
             ("long_f32_causal", 2, 8, 2048, 128, "float32"),
             ("long_bf16_causal", 2, 8, 2048, 128, "bfloat16")]
-# (name, T, quant): K2 at B=8, H=8, d=32, ps=16, Tmax=512, as in phase 3:
-# the decode route (T=1) and the chunk route at the serve's first (256) and
-# second (48) prefill rounds and at the route boundary (5)
-K2_CASES = [("f32_T1_Tmax512", 1, False), ("int8_T1_Tmax512", 1, True),
-            ("f32_T256_Tmax512", 256, False),
-            ("int8_T256_Tmax512", 256, True), ("f32_T5_Tmax512", 5, False),
-            ("f32_T48_Tmax512", 48, False)]
+# (name, T, query dtype, int8 pools): K2 at B=8, H=8, d=32, ps=16,
+# Tmax=512, as in phase 3: the decode route (T=1) and the chunk route at the
+# serve's first (256) and second (48) prefill rounds and at the route
+# boundary (5); f32 and int8 pools, then bf16 pools and int8 pools under a
+# bf16 query (a tree whose K2 refuses 16-bit queries records them as
+# unsupported)
+K2_CASES = [("f32_T1_Tmax512", 1, "float32", False),
+            ("int8_T1_Tmax512", 1, "float32", True),
+            ("f32_T256_Tmax512", 256, "float32", False),
+            ("int8_T256_Tmax512", 256, "float32", True),
+            ("f32_T5_Tmax512", 5, "float32", False),
+            ("f32_T48_Tmax512", 48, "float32", False),
+            ("bf16_T1_Tmax512", 1, "bfloat16", False),
+            ("bf16_T256_Tmax512", 256, "bfloat16", False),
+            ("bf16_T48_Tmax512", 48, "bfloat16", False),
+            ("int8bf16_T1_Tmax512", 1, "bfloat16", True),
+            ("int8bf16_T256_Tmax512", 256, "bfloat16", True)]
 # (name, B, H, T, d, dtype): K3 and K4 on the training step, causal, and
 # the long yardstick shape
 BWD_CASES = [("train_f32_causal", 16, 8, 128, 32, "float32"),
@@ -103,7 +113,8 @@ def measure(tree: str) -> dict:
     B, H, ps, d, Tmax = 8, 8, 16, 32, 512
     NP = Tmax // ps
     P = B * NP + 1
-    for name, T, quant in K2_CASES:
+    for name, T, dt, quant in K2_CASES:
+        dtype = getattr(torch, dt)
         if quant:
             kp, vp = [torch.randint(-127, 128, (P, H, ps, d), generator=g,
                                     dtype=torch.int8).to(dev)
@@ -111,16 +122,22 @@ def measure(tree: str) -> dict:
             ks, vs = [(torch.rand(P, H, ps, generator=g) * 0.05).to(dev)
                       for _ in range(2)]
         else:
-            kp, vp = [torch.randn(P, H, ps, d, generator=g).to(dev)
+            kp, vp = [torch.randn(P, H, ps, d, generator=g).to(dev, dtype)
                       for _ in range(2)]
             ks = vs = None
         bt = (torch.randperm(P - 1, generator=g)[:B * NP] + 1).reshape(
             B, NP).to(torch.int32).to(dev)
         pos = torch.randint(0, Tmax - T + 1, (B,), generator=g).to(
             torch.int32).to(dev)
-        q = torch.randn(B, H, T, d, generator=g).to(dev)
-        o = ppa.paged_attention(q, kp, vp, bt, pos, kscales=ks, vscales=vs)
-        digest = hashlib.sha256(o.cpu().numpy().tobytes()).hexdigest()
+        q = torch.randn(B, H, T, d, generator=g).to(dev, dtype)
+        try:
+            o = ppa.paged_attention(q, kp, vp, bt, pos, kscales=ks,
+                                    vscales=vs)
+        except TypeError:
+            out["k2"][name] = dict(unsupported=True)
+            continue
+        digest = hashlib.sha256(o.float().cpu().numpy().tobytes()
+                                ).hexdigest()
         ms, n = cs.device_ms(lambda: ppa.paged_attention(
             q, kp, vp, bt, pos, kscales=ks, vscales=vs), "paged_")
         out["k2"][name] = dict(device_ms=ms * n, launches_per_call=n,
@@ -235,12 +252,12 @@ def main() -> int:
         print(f"{label}: K1 ms/launch {k1}", flush=True)
         print(f"{label}: K1 digests " + " ".join(
             f"{n} {r['digest']}" for n, r in run["k1"].items()), flush=True)
-        print(f"{label}: K2 decode digests " + " ".join(
-            f"{n} {r['digest']}" for n, r in run["k2"].items()
-            if "_T1_" in n), flush=True)
+        print(f"{label}: K2 digests " + " ".join(
+            f"{n} {r.get('digest', 'unsupported')}"
+            for n, r in run["k2"].items()), flush=True)
         for part in ("k2", "k3", "k4"):
             ms = " ".join(f"{n} {r['device_ms']:.5f}"
-                          for n, r in run[part].items())
+                          for n, r in run[part].items() if "device_ms" in r)
             per = "call" if part == "k2" else "launch"
             print(f"{label}: {part.upper()} ms/{per} {ms}", flush=True)
         for part in ("serve", "train"):

@@ -155,13 +155,40 @@ def test_unfittable_request_raises_overloaded(nets):
 
 
 def test_sampled_decoding_is_not_ported_yet(nets):
+    """Sampled decoding is ported now (``tests/test_torch_sampling.py``
+    holds its streams against JAX's): a sampled request serves to its
+    ``max_tokens``, and the same seed gives the same stream."""
     _, tnet = nets
     srv = GenerationServer(tnet, V, device="cpu", **SERVER)
     try:
-        with pytest.raises(NotImplementedError, match="threefry"):
-            srv.submit(np.arange(4), 3, temperature=0.7)
+        a, b = [srv.submit(np.arange(4), 3, temperature=0.7, seed=9)
+                for _ in range(2)]
+        assert a.result(timeout=60).tolist() == b.result(timeout=60).tolist()
+        assert a.result().size == 3
     finally:
         srv.close()
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["bf16", "int8"])
+def test_bf16_model_serves(kv_dtype):
+    """A bf16 TransformerLM serves (ROADMAP C1): bf16 pages, or int8 pages
+    under bf16 activations, greedy and sampled, every request to its
+    length."""
+    kw = dict(num_labels=V, max_length=16, d_model=32, n_heads=4, n_blocks=2)
+    net = TransformerLM(max_cache=CAP, dtype="bfloat16", **kw).init(
+        device="cpu")
+    params_from_jax(_np_params(net, 7), net)
+    assert net.params["attn0"]["Wq"].dtype == torch.bfloat16
+    rs = np.random.RandomState(1)
+    srv = GenerationServer(net, V, device="cpu", kv_dtype=kv_dtype, **SERVER)
+    try:
+        futs = [srv.submit(rs.randint(0, V, n), m, temperature=t, seed=n)
+                for n, m, t in ((3, 6, 0.0), (20, 8, 0.9), (9, 5, 0.0))]
+        outs = [f.result(timeout=120) for f in futs]
+    finally:
+        srv.close()
+    assert [o.size for o in outs] == [6, 8, 5]
+    assert all(((o >= 0) & (o < V)).all() for o in outs)
 
 
 @pytest.mark.parametrize("prompt", [[3, V], [-1, 2], [0.5, 1.0], []])

@@ -512,3 +512,66 @@ def test_k2_chunk_split_and_unsplit_walks_are_order_fixed():
     np.testing.assert_allclose(np.where(seen, split[0].numpy(), 0),
                                np.where(seen, one[0].numpy(), 0), atol=1e-6,
                                rtol=0)
+
+
+def _bf16_case(name, quant):
+    """``_case``'s geometry with a bf16 query and bf16 pools (int8 pools
+    keep their f32 scales)."""
+    q, pool, bt, pos, mask = _case(name, quant)
+    if not quant:
+        pool = {k: jnp.asarray(v).astype(jnp.bfloat16) for k, v in
+                pool.items()}
+    return jnp.asarray(q).astype(jnp.bfloat16), pool, bt, pos, mask
+
+
+def _t(a):
+    """A JAX or numpy array as a torch tensor of the same dtype (bf16 by
+    way of f32, exactly)."""
+    a = jnp.asarray(a)
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("name", CASES)
+def test_plain_matches_jax_at_bf16(name, quant):
+    """A bf16 query (bf16 pools, or int8 pools under it): the port's plain
+    version, computed in bf16 as JAX's ``XlaPagedAttention`` computes it,
+    within 2^-6·max|o| of it (each side rounds the scores, weights and
+    products to bf16 at its own places: a few bf16 ulps); and on the
+    f32-widened inputs, rounded once to bf16, within one bf16 ulp of
+    max|o| of the Pallas kernel (interpret mode), whose arithmetic that
+    is and K2's 16-bit path follows."""
+    q, pool, bt, pos, mask = _bf16_case(name, quant)
+    ks, vs = pool.get("kscales"), pool.get("vscales")
+    kw = dict(mask=None if mask is None else jnp.asarray(mask),
+              kscales=None if ks is None else jnp.asarray(ks),
+              vscales=None if vs is None else jnp.asarray(vs))
+    args = (q, jnp.asarray(pool["kpages"]), jnp.asarray(pool["vpages"]),
+            jnp.asarray(bt), jnp.asarray(pos))
+    ref_xla = np.asarray(jppa.XlaPagedAttention().attend(*args, **kw)
+                         .astype(jnp.float32))
+    ref_pallas = np.asarray(jppa.PallasPagedAttention(interpret=True)
+                            .attend(*args, **kw).astype(jnp.float32))
+    targs = [_t(a) for a in args]
+    tkw = dict(mask=None if mask is None else torch.from_numpy(mask),
+               kscales=None if ks is None else _t(ks),
+               vscales=None if vs is None else _t(vs))
+    got = ppa.paged_attend("xla", *targs, **tkw)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    wide = [targs[0].float(), targs[1] if quant else targs[1].float(),
+            targs[2] if quant else targs[2].float(), targs[3], targs[4]]
+    widened = ppa.paged_attend("xla", *wide, **tkw).to(
+        torch.bfloat16).float().numpy()
+    # rows that see no column (the all-masked one) differ by design
+    seen = np.isfinite(ref_xla).all(-1) & (np.abs(ref_xla).sum(-1) > 0)
+    if mask is not None:
+        seen &= (mask != 0)[:, None, :]
+    top = np.abs(ref_pallas[seen]).max()
+    np.testing.assert_allclose(got[seen], ref_xla[seen], atol=2 ** -6 * top,
+                               rtol=0)
+    np.testing.assert_allclose(widened[seen], ref_pallas[seen],
+                               atol=2 ** -7 * top, rtol=0)

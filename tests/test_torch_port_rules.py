@@ -6,7 +6,8 @@
   instead of quietly running on the CPU;
 - a kernel wrapper handed CUDA tensors on a host without CUDA raises, and
   never computes the plain version on the CPU instead; so does a CUDA case
-  the kernels do not take (head dim 48, f16);
+  the kernels do not take (head dim 48, f16 flash, f64 paged); a bf16 or
+  f16 paged query (K2 takes them) reaches the kernel's build;
 - ``fit`` refuses what the port does not have yet (the fused K-step driver,
   the health guard, regularization) instead of training without it.
 """
@@ -25,6 +26,7 @@ from deeplearning4j_torch.models.zoo import TransformerLM  # noqa: E402
 from deeplearning4j_torch.nn.conf.layers import (  # noqa: E402
     attention as patt, paged_attention as ppa)
 from deeplearning4j_torch.ops import flash_attention as fa  # noqa: E402
+from deeplearning4j_torch.ops import random as prandom  # noqa: E402
 from deeplearning4j_torch.parallel.generation import (  # noqa: E402
     GenerationServer)
 
@@ -85,6 +87,14 @@ def test_default_device_raises_without_cuda(no_cuda):
         GenerationServer(net, 11)
 
 
+def test_prng_key_lands_on_the_card(no_cuda):
+    """``PRNGKey`` is an entry point: its key is made on the card, so with
+    no CUDA device it raises unless the caller asks for the host."""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prandom.PRNGKey(0)
+    assert prandom.PRNGKey(0, device="cpu").device.type == "cpu"
+
+
 def test_server_refuses_a_net_on_another_device():
     net = TransformerLM(**TINY).init(device="cpu")
     with pytest.raises(ValueError, match="lives on"):
@@ -138,7 +148,7 @@ def test_flash_backward_refuses_unsupported_cases(case, monkeypatch):
 def test_fit_refuses_what_is_not_ported(kw):
     net = TransformerLM(**TINY).init(device="cpu")
     x = np.eye(11, dtype=np.float32)[np.arange(8) % 11][None]
-    with pytest.raises(NotImplementedError, match="ROADMAP §A4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §A5"):
         net.fit(x, x, **kw)
     assert net.iteration == 0
 
@@ -147,7 +157,7 @@ def test_step_refuses_regularization():
     net = TransformerLM(**TINY).init(device="cpu")
     net.conf.vertices["ff0a"].layer.l2 = 1e-4
     x = np.eye(11, dtype=np.float32)[np.arange(8) % 11][None]
-    with pytest.raises(NotImplementedError, match="ROADMAP §A2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §A6"):
         net.do_step(x, x)
 
 
@@ -173,9 +183,34 @@ def test_cuda_wrappers_refuse_unsupported_shapes():
         q64 = torch.empty(1, 2, 16, 32, device="cuda", dtype=torch.float64)
         with pytest.raises(TypeError, match="f32 or bf16"):
             fa.flash_attention_forward(q64, q64, q64)
-        qh = torch.empty(1, 2, 1, 32, device="cuda", dtype=torch.float16)
-        with pytest.raises(TypeError, match="float32 query"):
-            ppa.paged_attention(qh, qh, qh, qh, qh)
+        qd = torch.empty(1, 2, 1, 32, device="cuda", dtype=torch.float64)
+        with pytest.raises(TypeError, match="paged kernel takes a query"):
+            ppa.paged_attention(qd, qd, qd, qd, qd)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_16bit_paged_query_on_cuda_reaches_the_kernel(dtype, no_cuda,
+                                                      monkeypatch):
+    """A bf16 (or f16) model's paged read on CUDA tensors goes to K2's
+    build, through the backend the layer's ``auto`` knob resolves to as
+    through the wrapper, and never to the plain version: on a host
+    without CUDA the build raises."""
+    monkeypatch.setattr(ppa, "paged_attention_plain", _no_plain)
+    layer = patt.SelfAttentionLayer(n_in=64, n_out=64, n_heads=2,
+                                    causal=True)
+    assert ppa.resolve_paged_backend(layer.paged_attention,
+                                     "cuda") == "pallas"
+    with FakeTensorMode():
+        q = torch.empty(2, 2, 1, 32, device="cuda", dtype=dtype)
+        pool = torch.empty(5, 2, 8, 32, device="cuda", dtype=dtype)
+        bt = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
+        pos = torch.zeros(2, dtype=torch.int32, device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            ppa.paged_attention(q, pool, pool, bt, pos)
+        backend = ppa.resolve_paged_backend(layer.paged_attention, q.device)
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            ppa.paged_attend(backend, q, pool, pool, bt, pos)
 
 
 @pytest.mark.parametrize("helper", ["auto", "pallas"])

@@ -218,7 +218,7 @@ def test_mcxent_per_example_matches_jax(masked):
 def test_unported_loss_raises():
     from deeplearning4j_torch.ops.losses import get_loss
 
-    with pytest.raises(ValueError, match="ROADMAP §A2"):
+    with pytest.raises(ValueError, match="ROADMAP §A6"):
         get_loss("mse")
 
 
