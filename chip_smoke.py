@@ -9,8 +9,10 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. build the hand-written kernels (``deeplearning4j_torch/kernels``);
 2. K1, flash-attention forward, against its plain PyTorch version at the
    slice's shape (f32 causal with and without a key mask, bf16), at the
-   training shape [16, 8, 128, 32] and at T=2048, d=128; two calls must be
-   bitwise equal; timed beside the plain version and SDPA as a yardstick;
+   training shape [16, 8, 128, 32] and at T=2048, d=128, then head dims 8
+   and 16 (f32, bf16, f16) and f16 at d = 32, 64, 128 (``FLASH_CASES``;
+   f16 within ``F16_REL`` of max|o|); two calls must be bitwise equal;
+   timed beside the plain version and SDPA as a yardstick;
 3. K2, paged-attention read, against its plain gather version: decode
    (T=1), T=4 and T=5 (the two sides of the decode/chunk route boundary)
    and a 256-token prefill chunk, f32 and int8 pools, Tmax 512 and 2048,
@@ -21,7 +23,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    pools under a bf16 query at T = 1, 4, 5, 48 and 256, d = 64 and 128,
    page size 8, each against the plain version on f32-widened inputs
    (one rounding of o: one ulp of max|o|) and at its own dtype (looser,
-   ``PAGED16_TOL``); two calls must be bitwise equal, and each chunk case
+   ``PAGED16_TOL``); then head dims 8 and 16 (``PAGED_SMALL_CASES``):
+   f32, bf16 and f16 queries over pages of their dtype and over int8
+   pages, T = 1, 4, 5, 48, 256 at page size 16 and T = 1, 48 at page size
+   8, under the same rule; two calls must be bitwise equal, and each chunk
+   case
    also runs its other walk (unsplit where the kernel's rule splits the
    walk, four ranges where it does not) within the same tolerance;
 4. the slice model (zoo TransformerLM defaults, numpy-seeded weights) on
@@ -43,10 +49,30 @@ Phases (any failure exits non-zero, and no result line is printed):
    within the gap spread of two right reads of the model (``gap_spread``,
    measured in the phase, at most ``NEAR_TIE_CAP``); identical requests and
    divergences reported;
+4c. the JAX package's committed fixture
+   (``tests/fixtures/regression_transformer_r5.zip``: d_model 16, 2 heads
+   of d=8) loaded with ``load_model(..., device="cuda")``: ``output()`` on
+   the npz's probe within atol 1e-5 of its ``output`` through K1, a greedy
+   serve token for token the plain-read server's through K2 at d=8, and
+   three Adam ``do_step``s against the CPU plain path (first-step
+   gradients within 1e-4 of max|g|, losses within rtol 1e-4) through K3
+   and K4;
+5d. prefix sharing at full width: 16 requests sharing a 192-token system
+   prompt with distinct 1-64-token suffixes (half sampled), the first
+   served alone, with ``prefix_cache`` on, off, and through the plain read,
+   f32 and int8 KV: token for token equal, at least 15 prefix hits, 192
+   tokens reused per hit, a copy-on-write page, and every page free or
+   cached after the drain; the same requests on a 40-page pool (at least
+   one preemption, tokens unchanged); four live requests exported after at
+   least 16 tokens, round-tripped through their bytes and adopted by a
+   second server, f32 and int8 KV (completions equal to the uninterrupted
+   streams, 4 resumes, no fallback);
 6. K3 and K4, the flash backward (dQ and dK/dV), against their plain
    PyTorch version at the training shape [16, 8, 128, 32] (f32 causal with
-   and without a key mask, bf16) and at [2, 8, 2048, 128] causal (f32,
-   bf16); two calls must be bitwise equal; timed beside the plain version
+   and without a key mask, bf16), at [2, 8, 2048, 128] causal (f32,
+   bf16), at head dims 8 and 16 (f32, bf16, f16) and in f16 at d = 32, 64,
+   128 (``BWD_TOL``); two calls must be bitwise equal; timed beside the
+   plain version
    and the backward of SDPA as a yardstick (its device time per call and
    the SDPA backend that ran);
 7. training: the full-width model trained with the conf's Adam through
@@ -63,11 +89,12 @@ call, the split chunk walk's merge pass included), with the plain
 version's and the yardstick's device time per call beside it.
 
 The main path is phases 4-5 (serving), phases 4b-5c (loading a zip,
-sampled and bf16 serving) and phase 7 (training). The launch counters are
-zeroed just before each of the three and read just after (phase 6's
-comparison launches are not counted); every kernel must have run on the
-main path, K2's chunk route and its merge pass included, and each path must
-have launched its own kernels. The script
+sampled and bf16 serving), phase 4c (the d=8 fixture), phase 5d (prefix
+sharing, preemption, handoff) and phase 7 (training). The launch counters
+are zeroed just before each of the five and read just after (phase 6's and
+the reference servers' launches are not counted); every kernel must have
+run on the main path, K2's chunk route and its merge pass included, and
+each path must have launched its own kernels. The script
 prints the card's name and power limit, one ``{"kernels": [...]}`` line with
 each kernel's launches, error, times and bound, and, last, the result line
 ``{"ok": true, "device": {...}}``. Matmuls run in full f32 (TF32 off).
@@ -112,6 +139,8 @@ SERVE_LENS = [8, 300, 270, 257, 12, 64, 129, 31, 200, 16, 99, 280, 45, 150,
 # phase-7 training batch: 16 sequences of max_length tokens
 TRAIN_BATCH = 16
 TRAIN_STEPS = 20
+DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16",
+             torch.float16: "f16"}
 # phase-6 cases: (name, B, H, T, d, dtype, causal, masked); the first three
 # are the training shape
 BWD_CASES = [
@@ -120,7 +149,19 @@ BWD_CASES = [
     ("slice_bf16_causal", 16, 8, 128, 32, torch.bfloat16, True, False),
     ("long_f32_causal", 2, 8, 2048, 128, torch.float32, True, False),
     ("long_bf16_causal", 2, 8, 2048, 128, torch.bfloat16, True, False),
-]
+] + [
+    # head dims 8 and 16 (the JAX package's small models: the committed
+    # fixture has 2 heads of d=8) in f32, bf16 and f16 at the training
+    # batch, and f16 at d = 32, 64 and 128
+    (f"d{d}_{DTYPE_TAG[dt]}_causal{'_mask' if m else ''}", 16, 8, 128, d, dt,
+     True, m)
+    for d in (8, 16) for dt, m in ((torch.float32, False),
+                                   (torch.float32, True),
+                                   (torch.bfloat16, False),
+                                   (torch.float16, False))
+] + [("slice_f16_causal", 16, 8, 128, 32, torch.float16, True, False),
+     ("mid_f16_causal", 2, 8, 1024, 64, torch.float16, True, False),
+     ("long_f16_causal", 2, 8, 2048, 128, torch.float16, True, False)]
 # phase-6 tolerances on max|err| / max|g|. Against the plain backward: f32
 # runs each product on the tensor cores as three TF32 products (about 2^-21
 # relative per product; one TF32 product would read ~1e-3) and sums each
@@ -129,10 +170,14 @@ BWD_CASES = [
 # 2.6e-5 of max|dV| (H100). The kernels measured at most 4.4e-6 at T=2048
 # and 2.5e-6 at the training shape; the CPU rehearsal of the design
 # (tests/test_torch_flash_backward.py) reads 1.3e-6. bf16: one bf16
-# rounding step of the output. Against the SDPA backward, an independent
-# implementation (bf16: its own bf16 roundings), looser.
-BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-SDPA_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# rounding step of the output; f16: 2^-8 (its outputs round once, at the
+# end, to 2^-11 of the value). Against the SDPA backward, an independent
+# implementation (bf16, f16: its own 16-bit roundings), looser.
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2.0 ** -8}
+SDPA_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2, torch.float16: 2e-2}
+#: K1's f16 tolerance on max|err| / max|o|: its output rounds once to f16
+#: (2^-11 of the value), so 2^-8 holds a few roundings either way
+F16_REL = 2.0 ** -8
 REPORT: dict = {}
 
 
@@ -204,6 +249,12 @@ def device_ms(fn, match=None, iters=20, windows=3):
                          f"device rows: {seen[:5]}")
 
 
+def peak_kind(dtype):
+    """The ``PEAK_FLOPS_S`` row of work in ``dtype``: f32 work runs three
+    TF32 products, bf16 and f16 the 16-bit tensor cores."""
+    return "f32" if dtype in (torch.float32, torch.int8) else "bf16"
+
+
 def bound_ms(nbytes, flops, kind):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS_S[kind] * 1e3
@@ -234,6 +285,32 @@ def mask_for(g, B, T, dev):
 
 
 # ----------------------------------------------------------------- phase 2
+# phase-2 cases: (name, B, H, T, d, dtype, causal, masked, atol); atol None
+# is F16_REL of max|o|
+FLASH_CASES = [
+    ("slice_f32_causal", 8, 8, 128, 32, torch.float32, True, False, 1e-4),
+    ("slice_f32_causal_mask", 8, 8, 128, 32, torch.float32, True, True, 1e-4),
+    ("slice_f32_full_mask", 8, 8, 128, 32, torch.float32, False, True, 1e-4),
+    ("slice_bf16_causal", 8, 8, 128, 32, torch.bfloat16, True, False, 2e-2),
+    # the training step's shape (phase 7)
+    ("train_f32_causal", 16, 8, 128, 32, torch.float32, True, False, 1e-4),
+    ("long_f32_causal", 2, 8, 2048, 128, torch.float32, True, False, 1e-4),
+    # at T=2048 a row averages hundreds of keys and |O| is a few
+    # hundredths, so bf16 is held tighter than at the slice's shape
+    ("long_bf16_causal", 2, 8, 2048, 128, torch.bfloat16, True, False, 8e-3),
+] + [
+    # head dims 8 and 16 in f32, bf16 and f16, and f16 at d = 32, 64, 128
+    (f"d{d}_{DTYPE_TAG[dt]}_{'causal' if c else 'full'}"
+     f"{'_mask' if m else ''}", 8, 8, 128, d, dt, c, m, tol)
+    for d in (8, 16) for dt, c, m, tol in (
+        (torch.float32, True, False, 1e-4), (torch.float32, True, True, 1e-4),
+        (torch.float32, False, True, 1e-4), (torch.bfloat16, True, False, 2e-2),
+        (torch.float16, True, False, None), (torch.float16, False, True, None))
+] + [("slice_f16_causal", 8, 8, 128, 32, torch.float16, True, False, None),
+     ("mid_f16_causal", 2, 8, 1024, 64, torch.float16, True, False, None),
+     ("long_f16_causal", 2, 8, 2048, 128, torch.float16, True, False, None)]
+
+
 def phase_flash(dev):
     from deeplearning4j_torch.ops import flash_attention as fa
 
@@ -245,30 +322,15 @@ def phase_flash(dev):
         return [torch.randn(B, H, T, d, generator=g).to(dev, dtype)
                 for _ in range(3)]
 
-    cases = [("slice_f32_causal", 8, 8, 128, 32, torch.float32, True, False,
-              1e-4),
-             ("slice_f32_causal_mask", 8, 8, 128, 32, torch.float32, True,
-              True, 1e-4),
-             ("slice_f32_full_mask", 8, 8, 128, 32, torch.float32, False,
-              True, 1e-4),
-             ("slice_bf16_causal", 8, 8, 128, 32, torch.bfloat16, True,
-              False, 2e-2),
-             # the training step's shape (phase 7)
-             ("train_f32_causal", 16, 8, 128, 32, torch.float32, True, False,
-              1e-4),
-             ("long_f32_causal", 2, 8, 2048, 128, torch.float32, True, False,
-              1e-4),
-             # at T=2048 a row averages hundreds of keys and |O| is a few
-             # hundredths, so bf16 is held tighter than at the slice's shape
-             ("long_bf16_causal", 2, 8, 2048, 128, torch.bfloat16, True,
-              False, 8e-3)]
-    for name, B, H, T, d, dtype, causal, masked, atol in cases:
+    for name, B, H, T, d, dtype, causal, masked, atol in FLASH_CASES:
         q, k, v = qkv(B, H, T, d, dtype)
         m = mask_for(g, B, T, dev) if masked else None
         o, lse = fa.flash_attention_forward(q, k, v, causal=causal, mask=m)
         again = fa.flash_attention_forward(q, k, v, causal=causal, mask=m)
         po, plse = fa.flash_attention_plain(q, k, v, causal=causal, mask=m)
         torch.cuda.synchronize()
+        if atol is None:                  # f16: relative to max|o|
+            atol = F16_REL * po.float().abs().max().item()
         check(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
               f"K1 {name}: two calls differ (not deterministic)")
         err = (o.float() - po.float()).abs().max().item()
@@ -302,8 +364,7 @@ def phase_flash(dev):
         nbytes = 4 * B * H * T * d * isz + B * H * T * 4 \
             + (B * T * 4 if masked else 0)
         flops = 4 * d * visible_pairs(B, H, T, causal, m)
-        bms, by = bound_ms(nbytes, flops,
-                           "bf16" if dtype == torch.bfloat16 else "f32")
+        bms, by = bound_ms(nbytes, flops, peak_kind(dtype))
         results[name] = dict(shape=[B, H, T, d], dtype=str(dtype),
                              causal=causal, masked=masked, max_abs_err=err,
                              lse_err=lerr, deterministic=True, ms=ms,
@@ -395,7 +456,7 @@ def phase_flash_bwd(dev):
         tensor = B * H * T * d * isz
         rows = 2 * B * H * T * 4 + (B * T * 4 if masked else 0)
         pairs = visible_pairs(B, H, T, causal, m)
-        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        kind = peak_kind(dtype)
         dq_bound, dq_by = bound_ms(5 * tensor + rows, 6 * d * pairs, kind)
         dkv_bound, dkv_by = bound_ms(6 * tensor + rows, 8 * d * pairs, kind)
         results[name] = dict(
@@ -472,10 +533,12 @@ def device_ms_beside(fn, plain, match, expect, iters, plain_iters,
 #: with bf16 pools; f16 up to 0.0011).
 PAGED16_TOL = {torch.bfloat16: (2.0 ** -7, 2.0 ** -4),
                torch.float16: (2.0 ** -10, 2.0 ** -8)}
-DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16",
-             torch.float16: "f16"}
-
-
+#: the same rule at head dims 8 and 16, where the plain f16 version strays
+#: further from its f32-widened run: up to 0.0050 of max|o| on
+#: PAGED_SMALL_CASES (int8 pages, T=48, page size 8; each case reports it as
+#: ``plain_stray``), so its native f16 bound is 2^-6, about three times
+#: that (bf16 keeps 2^-4: its stray is at most 0.040 there)
+PAGED16_NATIVE_SMALL_D = {torch.bfloat16: 2.0 ** -4, torch.float16: 2.0 ** -6}
 def paged_pool(g, B, H, ps, d, Tmax, quant, dev, dtype=torch.float32):
     """A seeded pool of B·NP + 1 pages (of ``dtype``, or int8 codes with
     scales) and a block table over its pages 1.., row B-1 read from page 0
@@ -565,17 +628,20 @@ def paged_case(g, T, pool, dev, lean=False, qdtype=torch.float32):
           f"row)")
     if wide:
         rtol_w, rtol_n = PAGED16_TOL[qdtype]
+        if d < 32:
+            rtol_n = PAGED16_NATIVE_SMALL_D[qdtype]
         ref = pw
         atol = rtol_w * top(pw)
         native_err = err_of(o, po)
         native_atol = rtol_n * top(po)
+        plain_stray = err_of(po, pw) / max(top(pw), 1e-30)
         check(native_err <= native_atol,
               f"K2 {name}: max |err| vs the plain version at "
               f"{DTYPE_TAG[qdtype]} {native_err:.3g} > {native_atol:.3g}")
     else:
         ref = po
         atol = 1e-3 if quant else 1e-4
-        native_err = native_atol = None
+        native_err = native_atol = plain_stray = None
     err = err_of(o, ref)
     check(err <= atol, f"K2 {name}: max |err| {err:.3g} > {atol:.3g}")
     check(torch.equal(o, again),
@@ -626,7 +692,8 @@ def paged_case(g, T, pool, dev, lean=False, qdtype=torch.float32):
                dtype=DTYPE_TAG[qdtype], pool_dtype=kvtag, route=route,
                splits=splits, smem_bytes=smem, max_abs_err=err,
                max_rel_err=err / max(top(ref), 1e-30), tolerance=atol, native_max_abs_err=native_err,
-               native_tolerance=native_atol, deterministic=True,
+               native_tolerance=native_atol, plain_stray=plain_stray,
+               deterministic=True,
                other_walk=other, ms=ms, device_ms=kdev,
                device_launches_per_call=per_call, plain_ms=plain_ms,
                plain_device_ms=plain_dev, bound_ms=bms, bound_by=by,
@@ -665,6 +732,16 @@ PAGED16_CASES = (
        for d in (64, 128) for T in (1, 256)]
     + [(torch.bfloat16, True, 256, 128, 16), (torch.bfloat16, False, 100, 32, 8),
        (torch.float16, False, 48, 32, 8)])
+# phase-3 head dims 8 and 16 (the JAX package's small models): every query
+# dtype over pages of its own dtype and over int8 pages, at T = 1, 4
+# (decode route), 5, 48, 256 (chunk route) with page size 16, and T = 1, 48
+# with page size 8: (q dtype, int8 pools, T, d, ps) at Tmax 512
+PAGED_SMALL_CASES = [
+    (dt, quant, T, d, ps) for d in (8, 16)
+    for dt in (torch.float32, torch.bfloat16, torch.float16)
+    for quant in (False, True)
+    for T, ps in ((1, 16), (4, 16), (5, 16), (48, 16), (256, 16), (1, 8),
+                  (48, 8))]
 
 
 def phase_paged(dev):
@@ -684,6 +761,11 @@ def phase_paged(dev):
         results[name] = res
     g = torch.Generator(device="cpu").manual_seed(12)
     for qdtype, quant, T, d, ps in PAGED16_CASES:
+        pool = paged_pool(g, B, H, ps, d, 512, quant, dev, dtype=qdtype)
+        name, res = paged_case(g, T, pool, dev, lean=True, qdtype=qdtype)
+        results[name] = res
+    g = torch.Generator(device="cpu").manual_seed(13)
+    for qdtype, quant, T, d, ps in PAGED_SMALL_CASES:
         pool = paged_pool(g, B, H, ps, d, 512, quant, dev, dtype=qdtype)
         name, res = paged_case(g, T, pool, dev, lean=True, qdtype=qdtype)
         results[name] = res
@@ -748,14 +830,13 @@ def phase_model(net, cpu):
     return dict(max_abs_err=err, k1_launches=launches, output_ms=ms)
 
 
-def serve(net, reqs, **kw):
+def serve(net, reqs, vocab=SLICE["num_labels"], **kw):
     """Serve ``reqs``, each ``(prompt, max_tokens)`` or ``(prompt,
     max_tokens, sampling options)``, through one ``GenerationServer`` on
     the card. Returns (token lists, wall seconds, stats)."""
     from deeplearning4j_torch.parallel.generation import GenerationServer
 
-    srv = GenerationServer(net, SLICE["num_labels"], device="cuda",
-                           **SERVER, **kw)
+    srv = GenerationServer(net, vocab, device="cuda", **dict(SERVER, **kw))
     try:
         t0 = time.perf_counter()
         futs = [srv.submit(r[0], r[1], **(r[2] if len(r) > 2 else {}))
@@ -975,14 +1056,15 @@ def top2_gap(net, prompt, tokens):
     return (top[0] - top[1]).item()
 
 
-def uncounted(fn, *args):
-    """``fn(*args)`` with the kernels' launch counters left as they were:
-    the comparison forwards of a check are not the main path's launches."""
+def uncounted(fn, *args, **kw):
+    """``fn(*args, **kw)`` with the kernels' launch counters left as they
+    were: the comparison runs of a check are not the main path's
+    launches."""
     from deeplearning4j_torch import kernels
 
     before = dict(kernels.LAUNCHES)
     try:
-        return fn(*args)
+        return fn(*args, **kw)
     finally:
         kernels.LAUNCHES.update(before)
 
@@ -1073,6 +1155,308 @@ def phase_bf16(params, card):
             f"divergences (request, token, top-2 logit gap there): "
             f"{[(d['request'], d['position'], round(d['gap'], 5)) for d in divergences]}; "
             f"[{card}]")
+    return results
+
+
+# ---------------------------------------------------------------- phase 4c
+FIXTURE = os.path.join("tests", "fixtures", "regression_transformer_r5.zip")
+FIXTURE_EXPECTED = os.path.join("tests", "fixtures",
+                                "regression_transformer_r5_expected.npz")
+#: phase-4c serve: prompt lengths on both K2 routes' sides (decode after a
+#: short prefill, chunked prefill of 40 and 70 tokens), 12 new tokens each
+FIXTURE_SERVE_LENS = [3, 9, 20, 40, 70]
+FIXTURE_TRAIN_STEPS = 3
+
+
+def fixture_batch(V, T, dev=None):
+    """The seeded phase-4c training batch: 4 sequences of T one-hot tokens
+    and their next-token labels."""
+    rs = np.random.RandomState(10)
+    tok = rs.randint(0, V, (4, T + 1))
+    eye = np.eye(V, dtype=np.float32)
+    x, y = eye[tok[:, :-1]], eye[tok[:, 1:]]
+    if dev is None:
+        return torch.from_numpy(x), torch.from_numpy(y)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def phase_fixture(card):
+    """Phase 4c: the JAX package's committed d=8 fixture (TransformerLM,
+    d_model 16, 2 heads of d=8, one block) loaded onto the card with
+    ``load_model(..., device="cuda")``: ``output()`` on the npz's probe
+    within atol 1e-5 of its ``output`` (``tests/test_format_regression.py``'s
+    own tolerance) through K1; a greedy serve token for token the plain-read
+    server's through K2 at d=8 (both routes); three Adam ``do_step``s
+    against the CPU plain path from the same zip (first-step gradients
+    within 1e-4 of max|g|, losses within rtol 1e-4) through K3 and K4."""
+    from deeplearning4j_torch import kernels
+    from deeplearning4j_torch.optimize.fused_fit import value_and_grad
+    from deeplearning4j_torch.utils.model_serializer import load_model
+
+    exp = np.load(FIXTURE_EXPECTED)
+    net = load_model(FIXTURE, device="cuda")
+    layer = net.conf.vertices["attn0"].layer
+    d = layer.n_out // layer.n_heads
+    check(d == 8, f"fixture: head dim {d}, expected 8")
+    before = dict(kernels.LAUNCHES)
+    out = net.output(exp["probe"])
+    torch.cuda.synchronize()
+    k1 = kernels.LAUNCHES["flash_fwd"] - before["flash_fwd"]
+    err = float(np.abs(out.cpu().numpy() - exp["output"]).max())
+    check(err <= 1e-5, f"fixture: output() vs the committed output max "
+                       f"|err| {err:.3g} > 1e-5")
+    check(k1 >= 1, "fixture: output() did not launch K1")
+
+    V = exp["probe"].shape[-1]
+    rs = np.random.RandomState(9)
+    reqs = [(rs.randint(0, V, n), 12) for n in FIXTURE_SERVE_LENS]
+    before = dict(kernels.LAUNCHES)
+    outs, wall, st = serve(net, reqs, vocab=V)
+    k2 = {k: kernels.LAUNCHES[k] - before[k]
+          for k in ("paged_attn", "paged_attn_chunk")}
+    ref, ref_wall, _ = uncounted(serve, net, reqs, V,
+                                 paged_attention="stock")
+    for i, (got, want) in enumerate(zip(outs, ref)):
+        check(got == want, f"fixture serve: request {i} diverges from the "
+                           f"plain-read server at token "
+                           f"{first_divergence(got, want)}")
+    check(all(len(o) == 12 for o in outs), "fixture serve: short output")
+    check(k2["paged_attn"] > k2["paged_attn_chunk"] > 0,
+          f"fixture serve: K2 launches {k2} miss a route")
+
+    cpu = load_model(FIXTURE, device="cpu")
+    T = exp["probe"].shape[1]
+    x, y = fixture_batch(V, T)
+    xd, yd = fixture_batch(V, T, net.device)
+    loss_d, g_d = value_and_grad(net, net.params, net.state, [xd], [yd])
+    loss_c, g_c = value_and_grad(cpu, cpu.params, cpu.state, [x], [y])
+    grad_err = max(((g_d[v][p].cpu() - g_c[v][p]).abs().max()
+                    / g_c[v][p].abs().max()).item()
+                   for v in g_c for p in g_c[v])
+    check(grad_err <= 1e-4, f"fixture train: first-step gradients card vs "
+                            f"CPU, worst leaf max|err|/max|g| "
+                            f"{grad_err:.3g}")
+    before = dict(kernels.LAUNCHES)
+    card_losses = [float(net.do_step(xd, yd)[0])
+                   for _ in range(FIXTURE_TRAIN_STEPS)]
+    bwd = {k: kernels.LAUNCHES[k] - before[k]
+           for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    cpu_losses = [float(cpu.do_step(x, y)[0])
+                  for _ in range(FIXTURE_TRAIN_STEPS)]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                        cpu_losses))
+    check(loss_err <= 1e-4, f"fixture train: losses card {card_losses} vs "
+                            f"CPU {cpu_losses} (rel {loss_err:.3g})")
+    check(all(n == FIXTURE_TRAIN_STEPS for n in bwd.values()),
+          f"fixture train: launches over {FIXTURE_TRAIN_STEPS} steps {bwd}")
+    ntok = sum(len(o) for o in outs)
+    log(f"  fixture (d_model 16, 2 heads of d=8) on the card: output() max "
+        f"|err| vs the committed output {err:.2e} (atol 1e-5), K1 "
+        f"launches {k1}; [{card}]")
+    log(f"  fixture serve: {len(reqs)} greedy requests, {ntok} tokens equal "
+        f"to the plain-read server's, K2 launches {k2}, {ntok / wall:.1f} "
+        f"tok/s (plain read {ntok / ref_wall:.1f}); [{card}]")
+    log(f"  fixture train: first-step grads vs CPU {grad_err:.2e}, "
+        f"{FIXTURE_TRAIN_STEPS} Adam steps' losses vs CPU {loss_err:.2e} "
+        f"({card_losses[0]:.5f} -> {card_losses[-1]:.5f}), launches {bwd}; "
+        f"[{card}]")
+    return dict(head_dim=d, output_max_abs_err=err, k1_launches=k1,
+                serve_tokens=ntok, serve_tokens_per_s=ntok / wall,
+                plain_tokens_per_s=ntok / ref_wall, k2_launches=k2,
+                grad_rel_err=grad_err, loss_rel_err=loss_err,
+                losses=card_losses, cpu_losses=cpu_losses,
+                train_launches=bwd, streams=outs)
+
+
+# ---------------------------------------------------------------- phase 5d
+#: phase-5d shared-prefix traffic: a 192-token system prompt (12 pages)
+#: followed by a distinct 1-64-token suffix per request, 32 new tokens,
+#: the odd requests sampled (``SAMPLED``)
+PREFIX_TOKENS = 192
+#: phase-5d preemption: a pool of 40 pages (39 usable) holds the 12 shared
+#: prefix pages and a few slots' private pages, not eight slots' growth
+#: (a pool much smaller makes each admission preempt a running slot)
+PREEMPT_PAGES = 40
+#: phase-5d handoff: requests exported after at least this many tokens,
+#: out of HANDOFF_TOKENS
+HANDOFF_AFTER = 16
+HANDOFF_TOKENS = 64
+
+
+def prefix_requests(new_tokens=32):
+    """The phase-5d requests: the shared system prompt plus 16 distinct
+    suffixes of 1..64 tokens (distinct lengths, so no two share a tail)."""
+    rs = np.random.RandomState(8)
+    V = SLICE["num_labels"]
+    system = rs.randint(0, V, PREFIX_TOKENS)
+    lens = rs.choice(np.arange(1, 65), 16, replace=False)
+    return [(np.concatenate([system, rs.randint(0, V, n)]), new_tokens,
+             dict(SAMPLED, seed=3000 + i) if i % 2 else {})
+            for i, n in enumerate(lens)]
+
+
+def serve_after_first(net, reqs, **kw):
+    """``serve`` with the first request served alone before the rest are
+    submitted together, so its prefix is registered when they arrive.
+    Returns (token lists, wall seconds, stats after the drain)."""
+    from deeplearning4j_torch.parallel.generation import GenerationServer
+
+    srv = GenerationServer(net, SLICE["num_labels"], device="cuda",
+                           **dict(SERVER, **kw))
+    try:
+        t0 = time.perf_counter()
+        sub = [lambda r=r: srv.submit(r[0], r[1], **r[2]) for r in reqs]
+        outs = [sub[0]().result(timeout=600).tolist()]
+        futs = [f() for f in sub[1:]]
+        outs += [f.result(timeout=600).tolist() for f in futs]
+        check(srv.drain(timeout=60), "prefix serve: drain timed out")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = srv.stats()
+    finally:
+        srv.close()
+    return outs, wall, stats
+
+
+def check_streams(tag, outs, ref, what):
+    for i, (got, want) in enumerate(zip(outs, ref)):
+        check(got == want, f"{tag}: request {i} diverges from {what} at "
+                           f"token {first_divergence(got, want)}")
+
+
+def check_pages_returned(tag, st):
+    pg = st["pages"]
+    check(pg["pages_refcounted"] == 0
+          and pg["pages_free"] + pg["pages_cached"] == pg["pages_total"] - 1,
+          f"{tag}: pages not returned after the drain: {pg}")
+
+
+def handoff_round(net, reqs, kv):
+    """Export ``reqs`` live from one server after at least HANDOFF_AFTER
+    tokens (the periodic snapshot marks the moment), round-trip each
+    snapshot through its bytes, adopt them into a second server, and hold
+    each completion against the first server's uninterrupted stream."""
+    from deeplearning4j_torch.parallel.generation import GenerationServer
+    from deeplearning4j_torch.parallel.handoff import KVSnapshot
+
+    V = SLICE["num_labels"]
+    src = GenerationServer(net, V, device="cuda", kv_dtype=kv,
+                           snapshot_every=HANDOFF_AFTER, **SERVER)
+    try:
+        futs = [src.submit(p, HANDOFF_TOKENS, **o) for p, _, o in reqs]
+        snaps = []
+        for f in futs:
+            t_end = time.monotonic() + 120
+            while getattr(f, "_kv_snapshot", None) is None:
+                check(not f.done() and time.monotonic() < t_end,
+                      "handoff: no periodic snapshot before the end")
+                time.sleep(0.0005)
+            snaps.append(src.export_request(f, timeout=60))
+        full = [f.result(timeout=600).tolist() for f in futs]
+        src_stats = src.stats()
+    finally:
+        src.close()
+    wires = []
+    for snap in snaps:
+        check(HANDOFF_AFTER <= snap.count < HANDOFF_TOKENS,
+              f"handoff: exported at token {snap.count}")
+        blob = snap.to_bytes()
+        back = KVSnapshot.from_bytes(blob)
+        check(back.to_bytes() == blob, "handoff: to_bytes/from_bytes is "
+                                       "not a byte-for-byte round trip")
+        wires.append(back)
+    dst = GenerationServer(net, V, device="cuda", kv_dtype=kv, **SERVER)
+    try:
+        t0 = time.perf_counter()
+        outs = [f.result(timeout=600).tolist()
+                for f in [dst.adopt_request(w) for w in wires]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = dst.stats()
+    finally:
+        dst.close()
+    check_streams(f"handoff {kv or 'f32'}", outs, full,
+                  "its uninterrupted stream")
+    ho = st["handoff"]
+    check(ho["resumes"] == len(reqs) and ho["fallbacks"] == 0,
+          f"handoff: adopter stats {ho}")
+    return dict(exported_at=[s.count for s in snaps],
+                wire_bytes=[len(w.to_bytes()) for w in wires],
+                resumes=ho["resumes"], fallbacks=ho["fallbacks"],
+                tokens_saved=ho["tokens_saved"], adopt_wall_s=wall,
+                source_snapshots=src_stats["handoff"]["snapshots"])
+
+
+def phase_prefix(net, card):
+    """Phase 5d at full width: the shared-prefix serve (prefix cache on,
+    off, and the plain read) in f32 and int8 KV, a preemption serve on a
+    small pool, and a live handoff of 4 requests between two servers in f32
+    and int8 KV."""
+    reqs = prefix_requests()
+    results = {}
+    for kv in (None, "int8"):
+        tag = kv or "f32"
+        outs, wall, st = serve_after_first(net, reqs, kv_dtype=kv)
+        off, off_wall, off_st = uncounted(serve_after_first, net, reqs,
+                                          kv_dtype=kv, prefix_cache=False)
+        plain, plain_wall, _ = uncounted(
+            serve_after_first, net, reqs, kv_dtype=kv, prefix_cache=False,
+            paged_attention="stock")
+        check_streams(f"prefix {tag}", outs, off, "the unshared server")
+        check_streams(f"prefix {tag}", outs, plain, "the plain-read server")
+        pg = st["pages"]
+        check(pg["prefix_hits"] >= 15, f"prefix {tag}: {pg['prefix_hits']} "
+                                       f"prefix hits")
+        check(pg["prefix_tokens_reused"] == PREFIX_TOKENS * pg["prefix_hits"],
+              f"prefix {tag}: {pg['prefix_tokens_reused']} tokens reused "
+              f"over {pg['prefix_hits']} hits")
+        check(pg["cow_copies"] >= 1, f"prefix {tag}: no copy-on-write")
+        check_pages_returned(f"prefix {tag}", st)
+        check(any(len(set(o)) > 4 for o in outs), f"prefix {tag}: "
+                                                  f"degenerate streams")
+        ntok = sum(len(o) for o in outs)
+        results[tag] = dict(
+            tokens=ntok, wall_s=wall, tokens_per_s=ntok / wall,
+            unshared_wall_s=off_wall, unshared_tokens_per_s=ntok / off_wall,
+            plain_tokens_per_s=ntok / plain_wall,
+            prefill_rounds=st["prefill_rounds"],
+            unshared_prefill_rounds=off_st["prefill_rounds"],
+            pages={k: pg[k] for k in ("prefix_hits", "prefix_tokens_reused",
+                                      "cow_copies", "pages_cached",
+                                      "evictions", "peak_in_use")},
+            unshared_peak_in_use=off_st["pages"]["peak_in_use"])
+        log(f"  prefix {tag}: 16 requests over a {PREFIX_TOKENS}-token shared "
+            f"prompt, {ntok} tokens equal to the unshared and plain-read "
+            f"servers'; {pg['prefix_hits']} prefix hits, "
+            f"{pg['prefix_tokens_reused']} tokens reused, {pg['cow_copies']} "
+            f"copy-on-write pages; peak pages {pg['peak_in_use']} (unshared "
+            f"{off_st['pages']['peak_in_use']}); {ntok / wall:.1f} tok/s "
+            f"(unshared {ntok / off_wall:.1f}, plain read "
+            f"{ntok / plain_wall:.1f}); [{card}]")
+    roomy = uncounted(serve_after_first, net, reqs)[0]
+    outs, wall, st = serve_after_first(net, reqs, pages=PREEMPT_PAGES)
+    check_streams("preemption", outs, roomy, "the roomy server")
+    pg = st["pages"]
+    check(pg["preempted"] >= 1, f"preemption: no slot preempted on a "
+                                f"{PREEMPT_PAGES}-page pool")
+    check_pages_returned("preemption", st)
+    results["preemption"] = dict(
+        pages=PREEMPT_PAGES, preempted=pg["preempted"],
+        preempt_resumes=st["handoff"]["preempt_resumes"],
+        evictions=pg["evictions"], wall_s=wall,
+        tokens_per_s=sum(len(o) for o in outs) / wall)
+    log(f"  preemption: {PREEMPT_PAGES}-page pool, {pg['preempted']} "
+        f"preemptions ({st['handoff']['preempt_resumes']} resumed from a "
+        f"snapshot), {pg['evictions']} cached pages evicted; tokens equal to "
+        f"the roomy server's; [{card}]")
+    for kv in (None, "int8"):
+        tag = kv or "f32"
+        r = results[f"handoff_{tag}"] = handoff_round(net, reqs[1:5], kv)
+        log(f"  handoff {tag}: 4 requests exported at tokens "
+            f"{r['exported_at']} ({r['wire_bytes']} wire bytes, byte-for-byte "
+            f"round trips), adopted by a second server: {r['resumes']} "
+            f"resumes, {r['fallbacks']} fallbacks, completions equal to the "
+            f"uninterrupted streams; [{card}]")
     return results
 
 
@@ -1254,7 +1638,10 @@ def kernel_line(flash, paged, bwd, launches):
          "plain_device_ms": k1["plain_device_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
          "library_ms": k1["library_ms"],
-         "library_device_ms": k1["library_device_ms"]},
+         "library_device_ms": k1["library_device_ms"],
+         # head dims 8 and 16 (f32, bf16, f16) and f16 at 32/64/128
+         **small_d_fields(flash, "d8_f32_causal", "d16_f32_causal",
+                          "slice_f16_causal")},
         {"name": "paged_attn", "route": "cuda",
          "source": "deeplearning4j_torch/kernels/paged_attn.cu",
          "replaces": ("deeplearning4j_tpu/nn/conf/layers/"
@@ -1297,7 +1684,12 @@ def kernel_line(flash, paged, bwd, launches):
          "bf16_chunk_device_ms": kb16c["device_ms"],
          "bf16_chunk_plain_ms": kb16c["plain_ms"],
          "bf16_chunk_bound_ms": kb16c["bound_ms"],
-         "bf16_chunk_bound_by": kb16c["bound_by"]}]
+         "bf16_chunk_bound_by": kb16c["bound_by"],
+         **small_d_fields(paged, "f32_T1_Tmax512_d8", "f32_T1_Tmax512_d16",
+                          "f16_T1_Tmax512", "decode_"),
+         **small_d_fields(paged, "f32_T256_Tmax512_d8",
+                          "f32_T256_Tmax512_d16", "f16_T256_Tmax512",
+                          "chunk_")}]
     # the plain time is the whole plain backward, the library time the
     # whole SDPA backward (dq, dk and dv together), for both kernels
     for name, part, grads, line_no in (("flash_bwd_dq", "dq", ("dq",), 289),
@@ -1317,8 +1709,31 @@ def kernel_line(flash, paged, bwd, launches):
              "bound_ms": kb[part]["bound_ms"],
              "bound_by": kb[part]["bound_by"],
              "library_ms": kb["library_ms"],
-             "library_device_ms": kb["library_device_ms"]})
+             "library_device_ms": kb["library_device_ms"],
+             **{f"{tag}_{k}": (bwd[case][part][k] if k != "max_abs_err" else
+                               max(bwd[case]["max_abs_err"][g]
+                                   for g in grads))
+                for tag, case in (("d8", "d8_f32_causal"),
+                                  ("d16", "d16_f32_causal"),
+                                  ("f16", "slice_f16_causal"))
+                for k in ("device_ms", "bound_ms", "max_abs_err")}})
     return {"kernels": line}
+
+
+def small_d_fields(cases, d8, d16, f16, prefix=""):
+    """Kernels-line fields of the head-dim-8/16 and f16 instantiations:
+    each named case's device time, bound and error, and the worst error
+    over every case at those head dims."""
+    out = {}
+    for tag, name in (("d8", d8), ("d16", d16), ("f16", f16)):
+        r = cases[name]
+        out.update({f"{prefix}{tag}_device_ms": r["device_ms"],
+                    f"{prefix}{tag}_bound_ms": r["bound_ms"],
+                    f"{prefix}{tag}_max_abs_err": r["max_abs_err"]})
+    small = [r["max_abs_err"] for r in cases.values()
+             if r.get("d", (r.get("shape") or [0] * 4)[3]) in (8, 16)]
+    out[f"{prefix}small_d_max_abs_err"] = max(small)
+    return out
 
 
 def main() -> int:
@@ -1381,6 +1796,23 @@ def main() -> int:
                                        "paged_attn_merge")),
           f"a kernel of the zip-and-sample path never launched: {loading}")
 
+    kernels.reset_launch_counts()         # the fixture path starts here
+    log("phase 4c: the committed d=8 fixture on the card")
+    REPORT["fixture"] = phase_fixture(card)
+    fixture = dict(kernels.LAUNCHES)      # ... and ends here
+    check(all(fixture[k] > 0 for k in ("flash_fwd", "paged_attn",
+                                       "paged_attn_chunk", "flash_bwd_dq",
+                                       "flash_bwd_dkv")),
+          f"a kernel of the fixture path never launched: {fixture}")
+
+    kernels.reset_launch_counts()         # the prefix-sharing path starts
+    log("phase 5d: shared-prefix, preemption and handoff serves at full "
+        "width")
+    REPORT["prefix"] = phase_prefix(net, card)
+    prefix = dict(kernels.LAUNCHES)       # ... and ends here
+    check(all(prefix[k] > 0 for k in ("paged_attn", "paged_attn_chunk")),
+          f"a kernel of the prefix-sharing path never launched: {prefix}")
+
     log("phase 6: K3/K4 flash backward vs its plain version")
     bwd = REPORT["flash_bwd"] = phase_flash_bwd(dev)
 
@@ -1391,9 +1823,10 @@ def main() -> int:
     check(all(training[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
                                         "flash_bwd_dkv")),
           f"a kernel of the training path never launched: {training}")
-    launches = {k: serving[k] + loading[k] + training[k] for k in serving}
-    REPORT["main_path_launches"] = dict(serving=serving, loading=loading,
-                                        training=training, total=launches)
+    windows = dict(serving=serving, loading=loading, fixture=fixture,
+                   prefix=prefix, training=training)
+    launches = {k: sum(w[k] for w in windows.values()) for k in serving}
+    REPORT["main_path_launches"] = dict(windows, total=launches)
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the main path never launched: {launches}")
 

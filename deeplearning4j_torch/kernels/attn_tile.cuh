@@ -5,20 +5,40 @@
 // stage, and the epilogue store of an accumulator row.
 //
 // Every product keeps f32 accumulators. f32 runs m16n8k8 TF32 with each
-// operand split into hi + lo and three products (mma_tf32x3); bf16 runs
-// m16n8k16, with an accumulator operand (P, dS) in two bf16 terms.
+// operand split into hi + lo and three products (mma_tf32x3); bf16 and f16
+// run m16n8k16, with an accumulator operand (P, dS) in two 16-bit terms.
+// A head dim of 8 is half a k-step of m16n8k16: its score products run
+// m16n8k8, its 16-bit A fragments hold two registers ([0][0..1]) in the
+// one-entry Frag16 array, and its 16-byte rows are read four (or two
+// k-steps') 8x8 matrices per ldmatrix. Head dims 8 and 16 in f32 are one
+// and two TF32 k-steps and need nothing of their own.
 // Fragment layouts are listed in mma.cuh; g = lane / 4, t = lane % 4.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "mma.cuh"
 
 namespace dl4j {
+
+// 16-bit A fragments of a 16 x D tile: one m16n8k16 k-step per 16 columns,
+// one (half used) for D = 8.
+template <int D>
+using Frag16 = uint32_t[(D + 15) / 16][4];
+
+// Row stride in elements of a [rows][D] tile of T in shared memory: 16
+// bytes of padding keep the fragment loads free of bank conflicts and every
+// row 16-byte aligned for cp.async, except for 16-byte rows (16-bit D = 8),
+// which stay unpadded: an ldmatrix phase then reads 8 consecutive rows, 128
+// contiguous bytes, while 32-byte rows would put rows r and r + 4 on one
+// bank.
+template <typename T, int D>
+constexpr int tile_stride() {
+  return D * (int)sizeof(T) == 16 ? D : D + 16 / (int)sizeof(T);
+}
 
 // S (16 x BN) += A (16 x D) · Bᵀ, B a [BN][STRIDE] f32 tile in shared
 // memory, TF32 x3. qf holds this thread's raw f32 A fragments (k-step kk:
@@ -113,11 +133,23 @@ __device__ __forceinline__ void pv_f32_rn(const float (&p)[BN / 8][4],
 }
 
 // S += Q · Kᵀ in 16-bit m16n8k16 (T16 bf16 or f16); K fragments of two
-// n-tiles per ldmatrix.x4.
+// n-tiles per ldmatrix.x4. D = 8: one m16n8k8 per n-tile, K fragments of
+// four n-tiles (lane l addresses key row l of 32) per ldmatrix.x4.
 template <int D, int BN, int STRIDE, typename T16>
-__device__ __forceinline__ void scores_16(const uint32_t (&qa)[D / 16][4],
+__device__ __forceinline__ void scores_16(const Frag16<D>& qa,
                                           const T16* __restrict__ kt,
                                           float (&s)[BN / 8][4], int lane) {
+  if constexpr (D == 8) {
+    static_assert(BN % 32 == 0, "d=8 loads 32 keys per ldmatrix.x4");
+#pragma unroll
+    for (int jj = 0; jj < BN / 32; ++jj) {
+      uint32_t r[4];
+      ldmatrix_x4(r, kt + (32 * jj + lane) * STRIDE);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) Mma16<T16>::mma_k8(s[4 * jj + i], qa[0], r[i]);
+    }
+    return;
+  }
   const int key = (lane & 7) + ((lane >> 4) << 3);
   const int col = ((lane >> 3) & 1) * 8;
 #pragma unroll
@@ -133,21 +165,37 @@ __device__ __forceinline__ void scores_16(const uint32_t (&qa)[D / 16][4],
   }
 }
 
-template <int D, int BN, int STRIDE>
-__device__ __forceinline__ void scores_bf16(
-    const uint32_t (&qa)[D / 16][4], const __nv_bfloat16* __restrict__ kt,
-    float (&s)[BN / 8][4], int lane) {
-  scores_16<D, BN, STRIDE>(qa, kt, s, lane);
-}
-
 // O += P · V in 16-bit m16n8k16 (T16 bf16 or f16). P's accumulator pairs
 // are the A fragment as they stand; P goes in as two 16-bit terms (hi +
 // lo), since one bf16 rounding of P (2^-9) moves O by a bf16 step where |O|
-// is large. V fragments of two n-tiles per ldmatrix.x4.trans.
+// is large. V fragments of two n-tiles per ldmatrix.x4.trans; D = 8 (one
+// n-tile) takes the V fragments of two k-steps (lane l addresses key row l
+// of 32) per ldmatrix.x4.trans.
 template <int D, int BN, int STRIDE, typename T16>
 __device__ __forceinline__ void pv_16(const float (&p)[BN / 8][4],
                                       const T16* __restrict__ vt,
                                       float (&acc)[D / 8][4], int lane) {
+  if constexpr (D == 8) {
+    static_assert(BN % 32 == 0, "d=8 loads 32 keys per ldmatrix.x4");
+#pragma unroll
+    for (int k2 = 0; k2 < BN / 32; ++k2) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, vt + (32 * k2 + lane) * STRIDE);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ks = 2 * k2 + h;
+        uint32_t ah[4], al[4];
+        Mma16<T16>::split(p[2 * ks][0], p[2 * ks][1], ah[0], al[0]);
+        Mma16<T16>::split(p[2 * ks][2], p[2 * ks][3], ah[1], al[1]);
+        Mma16<T16>::split(p[2 * ks + 1][0], p[2 * ks + 1][1], ah[2], al[2]);
+        Mma16<T16>::split(p[2 * ks + 1][2], p[2 * ks + 1][3], ah[3], al[3]);
+        const uint32_t b[2] = {r[2 * h], r[2 * h + 1]};
+        Mma16<T16>::mma(acc[0], al, b);
+        Mma16<T16>::mma(acc[0], ah, b);
+      }
+    }
+    return;
+  }
   const int key = lane & 15;
   const int col = (lane >> 4) * 8;
 #pragma unroll
@@ -170,13 +218,6 @@ __device__ __forceinline__ void pv_16(const float (&p)[BN / 8][4],
   }
 }
 
-template <int D, int BN, int STRIDE>
-__device__ __forceinline__ void pv_bf16(const float (&p)[BN / 8][4],
-                                        const __nv_bfloat16* __restrict__ vt,
-                                        float (&acc)[D / 8][4], int lane) {
-  pv_16<D, BN, STRIDE>(p, vt, acc, lane);
-}
-
 // The same products by operand type, for kernels written once for both.
 // S (16 x BN) += A · Bᵀ, B a [BN][STRIDE] tile:
 template <int D, int BN, int STRIDE>
@@ -185,11 +226,11 @@ __device__ __forceinline__ void tile_abt(const float (&a)[D / 8][4],
                                          float (&s)[BN / 8][4], int lane) {
   scores_f32<D, BN, STRIDE>(a, b, s, lane >> 2, lane & 3);
 }
-template <int D, int BN, int STRIDE>
-__device__ __forceinline__ void tile_abt(const uint32_t (&a)[D / 16][4],
-                                         const __nv_bfloat16* __restrict__ b,
+template <int D, int BN, int STRIDE, typename T16>
+__device__ __forceinline__ void tile_abt(const Frag16<D>& a,
+                                         const T16* __restrict__ b,
                                          float (&s)[BN / 8][4], int lane) {
-  scores_bf16<D, BN, STRIDE>(a, b, s, lane);
+  scores_16<D, BN, STRIDE>(a, b, s, lane);
 }
 // acc (16 x D) += P · B, P an accumulator fragment (16 x BN), B a [BN][STRIDE]
 // tile, f32 summed per tile:
@@ -199,11 +240,12 @@ __device__ __forceinline__ void tile_pb(const float (&p)[BN / 8][4],
                                         float (&acc)[D / 8][4], int lane) {
   pv_f32_rn<D, BN, STRIDE>(p, b, acc, lane >> 2, lane & 3);
 }
-template <int D, int BN, int STRIDE>
+template <int D, int BN, int STRIDE, typename T16>
 __device__ __forceinline__ void tile_pb(const float (&p)[BN / 8][4],
-                                        const __nv_bfloat16* __restrict__ b,
+                                        const T16* __restrict__ b,
                                         float (&acc)[D / 8][4], int lane) {
-  pv_bf16<D, BN, STRIDE>(p, b, acc, lane);
+  static_assert(sizeof(T16) == 2, "16-bit B tile");
+  pv_16<D, BN, STRIDE>(p, b, acc, lane);
 }
 
 // A fragments of rows r0 = row g and r1 = row g + 8 of a [Tlen][D] tensor,
@@ -226,13 +268,19 @@ __device__ __forceinline__ void load_a_rows(const float* __restrict__ q,
 template <int D, typename T16>
 __device__ __forceinline__ void load_a_rows(const T16* __restrict__ q, int r0,
                                             int r1, int Tlen, int t,
-                                            uint32_t (&qa)[D / 16][4]) {
+                                            Frag16<D>& qa) {
   static_assert(sizeof(T16) == 2, "16-bit A fragments");
   auto word = [&](int row, int c) -> uint32_t {
     return row < Tlen ? *reinterpret_cast<const uint32_t*>(
                             q + (size_t)row * D + c)
                       : 0u;
   };
+  if constexpr (D == 8) {  // the m16n8k8 A fragment: a0, a1
+    qa[0][0] = word(r0, 2 * t);
+    qa[0][1] = word(r1, 2 * t);
+    qa[0][2] = qa[0][3] = 0u;
+    return;
+  }
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int c = 16 * kk + 2 * t;
@@ -257,11 +305,11 @@ __device__ __forceinline__ void load_a_smem(const float* __restrict__ rows,
   }
 }
 
-template <int D, int STRIDE>
-__device__ __forceinline__ void load_a_smem(
-    const __nv_bfloat16* __restrict__ rows, int lane,
-    uint32_t (&f)[D / 16][4]) {
-  const __nv_bfloat16* r = rows + (lane & 15) * STRIDE + (lane >> 4) * 8;
+template <int D, int STRIDE, typename T16>
+__device__ __forceinline__ void load_a_smem(const T16* __restrict__ rows,
+                                            int lane, Frag16<D>& f) {
+  static_assert(sizeof(T16) == 2 && D >= 16, "16-bit rows of 16+ columns");
+  const T16* r = rows + (lane & 15) * STRIDE + (lane >> 4) * 8;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(f[kk], r + 16 * kk);
 }
@@ -300,6 +348,18 @@ __device__ __forceinline__ void stage_vals(float* __restrict__ d,
   }
 }
 
+// Two adjacent outputs (the element pair of an accumulator fragment) in
+// the output type, rounded to nearest even once.
+__device__ __forceinline__ void store2(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+__device__ __forceinline__ void store2(__half* p, float x0, float x1) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x0, x1);
+}
+
 // Row g (hr = 0) or g + 8 (hr = 1) of an accumulator tile (16 x D), times
 // mul, to dst (the row's first element): this thread's columns 8n + 2t and
 // 8n + 2t + 1.
@@ -310,11 +370,7 @@ __device__ __forceinline__ void store_acc_row(T* __restrict__ dst,
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const float x0 = acc[n][2 * hr] * mul, x1 = acc[n][2 * hr + 1] * mul;
-    if constexpr (std::is_same<T, float>::value)
-      *reinterpret_cast<float2*>(dst + 8 * n + 2 * t) = make_float2(x0, x1);
-    else
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(x0, x1);
+    store2(dst + 8 * n + 2 * t, x0, x1);
   }
 }
 

@@ -9,7 +9,7 @@
 
 extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
                               const float* mask, void* o, float* lse, int B,
-                              int H, int Tlen, int D, int is_bf16, int causal,
+                              int H, int Tlen, int D, int dtype, int causal,
                               cudaStream_t stream);
 extern "C" int dl4j_paged_attn_splits(int B, int H, int T, int D, int ps,
                                       int NP, int kind);
@@ -25,15 +25,23 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, const float* mask,
                                  void* dq, int B, int H, int Tlen, int D,
-                                 int is_bf16, int causal, cudaStream_t stream);
+                                 int dtype, int causal, cudaStream_t stream);
 extern "C" int dl4j_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse,
                                   const float* delta, const float* mask,
                                   void* dk, void* dv, int B, int H, int Tlen,
-                                  int D, int is_bf16, int causal,
+                                  int D, int dtype, int causal,
                                   cudaStream_t stream);
 
 namespace {
+
+// The flash kernels' type code: 0 f32, 1 bf16, 2 f16 (-1: none of them).
+int flash_dtype(torch::ScalarType dt) {
+  if (dt == torch::kFloat32) return 0;
+  if (dt == torch::kBFloat16) return 1;
+  if (dt == torch::kHalf) return 2;
+  return -1;
+}
 
 void check_cuda(const torch::Tensor& t, const char* name) {
   TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
@@ -61,8 +69,8 @@ std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
   TORCH_CHECK(k.sizes() == q.sizes() && v.sizes() == q.sizes(),
               "q, k, v shapes differ");
   const auto dt = q.scalar_type();
-  TORCH_CHECK(dt == torch::kFloat32 || dt == torch::kBFloat16,
-              "flash_fwd takes float32 or bfloat16");
+  TORCH_CHECK(flash_dtype(dt) >= 0,
+              "flash_fwd takes float32, bfloat16 or float16");
   TORCH_CHECK(k.scalar_type() == dt && v.scalar_type() == dt,
               "q, k, v dtypes differ");
   const int B = q.size(0), H = q.size(1), T = q.size(2), D = q.size(3);
@@ -73,8 +81,8 @@ std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
                           q.options().dtype(torch::kFloat32));
   const int err = dl4j_flash_fwd(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), m, o.data_ptr(),
-      lse.data_ptr<float>(), B, H, T, D, dt == torch::kBFloat16 ? 1 : 0,
-      causal ? 1 : 0, at::cuda::getCurrentCUDAStream().stream());
+      lse.data_ptr<float>(), B, H, T, D, flash_dtype(dt), causal ? 1 : 0,
+      at::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == 0, "flash_fwd: unsupported configuration (B=", B,
               ", H=", H, ", T=", T, ", d=", D, "), code ", err);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
@@ -154,7 +162,7 @@ torch::Tensor paged_attn(torch::Tensor q, torch::Tensor kp, torch::Tensor vp,
 }
 
 // Checks shared by the two backward kernels: q, k, v, dO of one shape and
-// type (f32 or bf16), lse and delta f32 [B·H, T, 1], an optional f32 [B, T]
+// type (f32, bf16 or f16), lse and delta f32 [B·H, T, 1], an optional f32 [B, T]
 // key mask. Returns the mask pointer (or nullptr).
 const float* check_bwd(const torch::Tensor& q, const torch::Tensor& k,
                        const torch::Tensor& v, const torch::Tensor& dout,
@@ -169,8 +177,8 @@ const float* check_bwd(const torch::Tensor& q, const torch::Tensor& k,
                   dout.sizes() == q.sizes(),
               "q, k, v, dout shapes differ");
   const auto dt = q.scalar_type();
-  TORCH_CHECK(dt == torch::kFloat32 || dt == torch::kBFloat16,
-              "flash backward takes float32 or bfloat16");
+  TORCH_CHECK(flash_dtype(dt) >= 0,
+              "flash backward takes float32, bfloat16 or float16");
   TORCH_CHECK(k.scalar_type() == dt && v.scalar_type() == dt &&
                   dout.scalar_type() == dt,
               "q, k, v, dout dtypes differ");
@@ -191,7 +199,7 @@ torch::Tensor flash_bwd_dq(torch::Tensor q, torch::Tensor k, torch::Tensor v,
   const int err = dl4j_flash_bwd_dq(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
       lse.data_ptr<float>(), delta.data_ptr<float>(), m, dq.data_ptr(), B, H,
-      T, D, q.scalar_type() == torch::kBFloat16 ? 1 : 0, causal ? 1 : 0,
+      T, D, flash_dtype(q.scalar_type()), causal ? 1 : 0,
       at::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == 0, "flash_bwd_dq: unsupported configuration (B=", B,
               ", H=", H, ", T=", T, ", d=", D, "), code ", err);
@@ -213,7 +221,7 @@ std::vector<torch::Tensor> flash_bwd_dkv(torch::Tensor q, torch::Tensor k,
   const int err = dl4j_flash_bwd_dkv(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
       lse.data_ptr<float>(), delta.data_ptr<float>(), m, dk.data_ptr(),
-      dv.data_ptr(), B, H, T, D, q.scalar_type() == torch::kBFloat16 ? 1 : 0,
+      dv.data_ptr(), B, H, T, D, flash_dtype(q.scalar_type()),
       causal ? 1 : 0, at::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == 0, "flash_bwd_dkv: unsupported configuration (B=", B,
               ", H=", H, ", T=", T, ", d=", D, "), code ", err);

@@ -16,7 +16,8 @@
 // set of keys that lse counts: a key past the causal diagonal or refused by
 // the optional [B, T] key row (nonzero = valid) scores -1e30, and a key or
 // row past T gets P = 0 exactly. Both kernels accumulate in f32 and write in
-// the input type (f32 or bf16).
+// the input type (f32, bf16 or f16, rounded once at the end), at head dims
+// 8, 16, 32, 64 and 128.
 //
 // What bounds them on this card: at the training slice's T=128, d=32 both
 // are tiny, bound by launch latency and by bytes (K3 moves q, k, v, dO, dQ;
@@ -25,8 +26,9 @@
 //
 // Design (K1's, attn_tile.cuh): warp-level mma.sync with f32 accumulators,
 // f32 as m16n8k8 TF32 with three products of hi/lo splits (about 2^-21
-// relative, where one TF32 product keeps 1e-3), bf16 as m16n8k16 with P and
-// dS entering their products as two bf16 terms, as K1's P·V does.
+// relative, where one TF32 product keeps 1e-3), bf16 and f16 as m16n8k16
+// with P and dS entering their products as two 16-bit terms, as K1's P·V
+// does (at d=8 the A·Bᵀ products run m16n8k8 on unpadded 16-byte rows).
 // - K3 is one CTA per (b·h, 64-row q tile), 4 warps of 16 rows, the
 //   heaviest causal tiles first. The warp's q and dO rows are A fragments;
 //   K/V tiles of 8 KB a tensor (64 keys; 32 for f32 at d=64 and bf16 at
@@ -53,6 +55,7 @@
 // bitwise-equal results; that is why the backward is two kernels, as in
 // the JAX package.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,9 +84,8 @@ struct BwdTile {
   // most 64 rows; 16 rows for f32 at d=128, so that two CTAs fit on an SM
   static constexpr int kRowBytes = D * (int)sizeof(T);
   static constexpr int kBlockN = kRowBytes <= 128 ? 64 : 8192 / kRowBytes;
-  // row stride in elements: the 16-byte padding keeps the fragment loads
-  // free of bank conflicts and every row 16-byte aligned for cp.async
-  static constexpr int kStride = D + 16 / (int)sizeof(T);
+  // row stride in elements (attn_tile.cuh::tile_stride)
+  static constexpr int kStride = tile_stride<T, D>();
   static constexpr int kTile = kBlockN * kStride;
   static constexpr int kOwn = kBwdBlock * kStride;
   // two stages of two streamed tiles and of two f32 rows (K3: the key mask;
@@ -91,8 +93,8 @@ struct BwdTile {
   static constexpr int kSmemBytes =
       (2 * 2 * kTile + (kARegs ? 0 : 2 * kOwn)) * (int)sizeof(T) +
       2 * 2 * kBlockN * (int)sizeof(float);
-  using AFrag = typename std::conditional<kF32, float[D / 8][4],
-                                          uint32_t[D / 16][4]>::type;
+  using AFrag =
+      typename std::conditional<kF32, float[D / 8][4], Frag16<D>>::type;
 };
 
 // ------------------------------------------------------------------ K3: dQ
@@ -399,30 +401,42 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace dl4j
 
-// One case of the (head dim, type) switch below.
-#define DL4J_BWD_CASE(DIM, LAUNCH)                                           \
-  case DIM:                                                                  \
-    return is_bf16                                                           \
-               ? dl4j::LAUNCH<__nv_bfloat16, DIM>(q, k, v, dout, lse, delta, \
-                                                   mask, out0, out1, B, H,   \
-                                                   Tlen, causal, stream)     \
-               : dl4j::LAUNCH<float, DIM>(q, k, v, dout, lse, delta, mask,   \
-                                          out0, out1, B, H, Tlen, causal,    \
-                                          stream);
+// One case of the head-dim switch below, by the tensors' type (0 f32, 1
+// bf16, 2 f16).
+#define DL4J_BWD_CASE(DIM, LAUNCH)                                          \
+  case DIM:                                                                 \
+    switch (dtype) {                                                        \
+      case 0:                                                               \
+        return dl4j::LAUNCH<float, DIM>(q, k, v, dout, lse, delta, mask,    \
+                                        out0, out1, B, H, Tlen, causal,     \
+                                        stream);                            \
+      case 1:                                                               \
+        return dl4j::LAUNCH<__nv_bfloat16, DIM>(q, k, v, dout, lse, delta,  \
+                                                mask, out0, out1, B, H,     \
+                                                Tlen, causal, stream);      \
+      case 2:                                                               \
+        return dl4j::LAUNCH<__half, DIM>(q, k, v, dout, lse, delta, mask,   \
+                                         out0, out1, B, H, Tlen, causal,    \
+                                         stream);                           \
+      default:                                                              \
+        return -5;                                                          \
+    }
 
 // Launch K3 (dq into out0) on `stream`; 0 after a launch (the caller checks
 // it with cudaGetLastError), nonzero for an unsupported configuration,
-// which launches nothing.
+// which launches nothing. dtype as for DL4J_BWD_CASE.
 extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, const float* mask,
                                  void* dq, int B, int H, int Tlen, int D,
-                                 int is_bf16, int causal,
+                                 int dtype, int causal,
                                  cudaStream_t stream) {
   if (Tlen < 1 || B * H < 1 || B * H > 65535) return -1;
   void* out0 = dq;
   void* out1 = nullptr;
   switch (D) {
+    DL4J_BWD_CASE(8, launch_dq)
+    DL4J_BWD_CASE(16, launch_dq)
     DL4J_BWD_CASE(32, launch_dq)
     DL4J_BWD_CASE(64, launch_dq)
     DL4J_BWD_CASE(128, launch_dq)
@@ -436,12 +450,14 @@ extern "C" int dl4j_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse,
                                   const float* delta, const float* mask,
                                   void* dk, void* dv, int B, int H, int Tlen,
-                                  int D, int is_bf16, int causal,
+                                  int D, int dtype, int causal,
                                   cudaStream_t stream) {
   if (Tlen < 1 || B * H < 1 || B * H > 65535) return -1;
   void* out0 = dk;
   void* out1 = dv;
   switch (D) {
+    DL4J_BWD_CASE(8, launch_dkv)
+    DL4J_BWD_CASE(16, launch_dkv)
     DL4J_BWD_CASE(32, launch_dkv)
     DL4J_BWD_CASE(64, launch_dkv)
     DL4J_BWD_CASE(128, launch_dkv)

@@ -4,7 +4,8 @@
 // (launched by _flash_forward). Computes O = softmax(q kᵀ/√d) v over
 // [B, H, T, d] with the online-softmax recurrence in f32, an optional causal
 // mask and an optional [B, T] key-validity row (nonzero = valid), and writes
-// O in the input type plus the row logsumexp lse [B·H, T, 1] in f32.
+// O in the input type (f32, bf16 or f16, rounded once at the end) plus the
+// row logsumexp lse [B·H, T, 1] in f32. Head dims 8, 16, 32, 64 and 128.
 //
 // What bounds it on this card: at the slice's T=128 the work is tiny and
 // the kernel is bound by launch latency and by bytes (q, k, v, o: 4·B·H·T·d
@@ -19,9 +20,11 @@
 // 16-byte copies, so tile j+1 is in flight while tile j is computed; keys
 // past T are zero-filled, never left stale (0·NaN would poison P·V).
 // S = Q·Kᵀ and O += P·V are warp-level mma.sync with f32 accumulators:
-// bf16 as m16n8k16 (K and V fragments by ldmatrix; P enters P·V as two
-// bf16 terms, hi + lo, since one rounding of P, as FlashAttention-2 does it,
-// moves large outputs by a bf16 step); f32 as m16n8k8 TF32 with every operand
+// bf16 and f16 as m16n8k16 (K and V fragments by ldmatrix; P enters P·V as
+// two 16-bit terms, hi + lo, since one rounding of P, as FlashAttention-2
+// does it, moves large outputs by a 16-bit step; at d=8 the scores run
+// m16n8k8 and a 16-byte K/V row is read unpadded); f32 as m16n8k8 TF32
+// with every operand
 // split into TF32 hi + lo and three products (hi·hi + hi·lo + lo·hi), which
 // keeps about 2^-21 relative error where one TF32 product keeps 1e-3. The
 // online softmax runs on the accumulator fragment: each thread holds two
@@ -36,6 +39,7 @@
 // tile products, fragment loads and ring staging live in attn_tile.cuh,
 // shared with K3/K4.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,9 +61,8 @@ struct FwdTile {
   static constexpr bool kF32 = std::is_same<T, float>::value;
   // keys per K/V tile: f32 at d=128 halves it to keep S and O in registers
   static constexpr int kBlockN = (kF32 && D == 128) ? 32 : 64;
-  // row stride in elements: the padding (16 bytes) keeps the fragment loads
-  // free of bank conflicts and every row 16-byte aligned for cp.async
-  static constexpr int kStride = D + 16 / (int)sizeof(T);
+  // row stride in elements (attn_tile.cuh::tile_stride)
+  static constexpr int kStride = tile_stride<T, D>();
   static constexpr int kTile = kBlockN * kStride;
   // two stages of K and V, plus two stages of the key-mask row
   static constexpr int kSmemBytes =
@@ -109,8 +112,8 @@ __global__ void __launch_bounds__(kFwdThreads)
   stage(0, 0);
   cp_async_commit();
 
-  using QFrag = typename std::conditional<C::kF32, float[D / 8][4],
-                                          uint32_t[D / 16][4]>::type;
+  using QFrag =
+      typename std::conditional<C::kF32, float[D / 8][4], Frag16<D>>::type;
   QFrag qfrag;
   load_a_rows<D>(q + base, r0, r1, Tlen, t, qfrag);
 
@@ -140,7 +143,7 @@ __global__ void __launch_bounds__(kFwdThreads)
     if constexpr (C::kF32)
       scores_f32<D, BN, STRIDE>(qfrag, kt, s, g, t);
     else
-      scores_bf16<D, BN, STRIDE>(qfrag, kt, s, lane);
+      scores_16<D, BN, STRIDE>(qfrag, kt, s, lane);
 
     // scale, then mask: only tiles that reach past T, past the warp's first
     // row (causal), or under a key mask need the per-element test
@@ -195,7 +198,7 @@ __global__ void __launch_bounds__(kFwdThreads)
     if constexpr (C::kF32)
       pv_f32<D, BN, STRIDE>(s, vt, acc, g, t);
     else
-      pv_bf16<D, BN, STRIDE>(s, vt, acc, lane);
+      pv_16<D, BN, STRIDE>(s, vt, acc, lane);
     __syncthreads();  // stage it & 1 is consumed: the next stage() may fill it
   }
 
@@ -211,11 +214,7 @@ __global__ void __launch_bounds__(kFwdThreads)
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const float x0 = acc[n][2 * hr] / lc, x1 = acc[n][2 * hr + 1] / lc;
-      if constexpr (C::kF32)
-        *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(x0, x1);
-      else
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
-            __floats2bfloat162_rn(x0, x1);
+      store2(orow + 8 * n, x0, x1);
     }
     if (t == 0) lse[(size_t)bh * Tlen + row] = m[hr] + logf(lc);
   }
@@ -244,26 +243,41 @@ int launch_flash(const void* q, const void* k, const void* v, const float* mask,
 
 }  // namespace dl4j
 
+// One case of the head-dim switch below, by q's type (0 f32, 1 bf16, 2 f16).
+#define DL4J_FWD_CASE(DIM)                                                  \
+  case DIM:                                                                 \
+    switch (dtype) {                                                        \
+      case 0:                                                               \
+        return dl4j::launch_flash<float, DIM>(q, k, v, mask, o, lse, B, H,  \
+                                              Tlen, causal, stream);        \
+      case 1:                                                               \
+        return dl4j::launch_flash<__nv_bfloat16, DIM>(                      \
+            q, k, v, mask, o, lse, B, H, Tlen, causal, stream);             \
+      case 2:                                                               \
+        return dl4j::launch_flash<__half, DIM>(q, k, v, mask, o, lse, B, H, \
+                                               Tlen, causal, stream);       \
+      default:                                                              \
+        return -5;                                                          \
+    }
+
 // Launches K1 on `stream`; returns 0 after a launch (the caller checks it
 // with cudaGetLastError), or a nonzero code for an unsupported
-// configuration, which launches nothing.
+// configuration, which launches nothing. dtype: q's, k's, v's and o's type,
+// 0 f32, 1 bf16, 2 f16.
 extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
                               const float* mask, void* o, float* lse, int B,
-                              int H, int Tlen, int D, int is_bf16, int causal,
+                              int H, int Tlen, int D, int dtype, int causal,
                               cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
   if (Tlen < 1 || B * H < 1 || B * H > 65535) return -1;
   switch (D) {
-    case 32:
-      return is_bf16 ? dl4j::launch_flash<bf16, 32>(q, k, v, mask, o, lse, B, H, Tlen, causal, stream)
-                     : dl4j::launch_flash<float, 32>(q, k, v, mask, o, lse, B, H, Tlen, causal, stream);
-    case 64:
-      return is_bf16 ? dl4j::launch_flash<bf16, 64>(q, k, v, mask, o, lse, B, H, Tlen, causal, stream)
-                     : dl4j::launch_flash<float, 64>(q, k, v, mask, o, lse, B, H, Tlen, causal, stream);
-    case 128:
-      return is_bf16 ? dl4j::launch_flash<bf16, 128>(q, k, v, mask, o, lse, B, H, Tlen, causal, stream)
-                     : dl4j::launch_flash<float, 128>(q, k, v, mask, o, lse, B, H, Tlen, causal, stream);
+    DL4J_FWD_CASE(8)
+    DL4J_FWD_CASE(16)
+    DL4J_FWD_CASE(32)
+    DL4J_FWD_CASE(64)
+    DL4J_FWD_CASE(128)
     default:
       return -2;
   }
 }
+
+#undef DL4J_FWD_CASE

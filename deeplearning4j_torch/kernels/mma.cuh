@@ -1,8 +1,8 @@
 // Tensor-core and asynchronous-copy helpers of the port's Hopper kernels:
-// warp-level mma.sync (TF32 m16n8k8, and bf16 or f16 m16n8k16, f32
-// accumulators), the TF32 hi/lo split that keeps f32 accuracy through three
-// TF32 products and the two-term 16-bit splits,
-// ldmatrix fragment loads for 16-bit tiles, and cp.async 16- and 4-byte
+// warp-level mma.sync (TF32 m16n8k8, and bf16 or f16 m16n8k16 and m16n8k8,
+// f32 accumulators), the TF32 hi/lo split that keeps f32 accuracy through
+// three TF32 products and the two-term 16-bit splits,
+// ldmatrix fragment loads for 16-bit tiles, and cp.async 16-, 8- and 4-byte
 // copies with zero-fill. Fragment layouts (PTX ISA, "Matrix fragments for
 // mma.m16n8k8 / m16n8k16"), with g = lane / 4 and t = lane % 4:
 //   tf32 A (16x8):  a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
@@ -10,6 +10,7 @@
 //   16-bit A (16x16): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
 //                     a3 (g+8, 2t+8..)
 //   16-bit B (16x8):  b0 (k=2t..2t+1, n=g), b1 (k=2t+8.., n=g)
+//   16-bit k=8: A (16x8) is a0, a1 of the 16x16 layout; B (8x8) is b0
 //   C/D (16x8):     c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
 #pragma once
 
@@ -94,6 +95,29 @@ __device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// d += a·b, m16n8k8 (k = 8, a head dim of 8), bf16 operands, f32
+// accumulators: A is a[0], a[1] (a[2], a[3] unused), B is b.
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// The same in f16.
+__device__ __forceinline__ void mma_f16_k8(float (&d)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
 // split_bf16x2's f16 twin: x = first + second + O(2^-22 |x|) for normal
 // f16 values (terms under 2^-14 keep fewer bits as f16 subnormals).
 __device__ __forceinline__ void split_f16x2(float lo, float hi,
@@ -106,8 +130,8 @@ __device__ __forceinline__ void split_f16x2(float lo, float hi,
   second = *reinterpret_cast<uint32_t*>(&r);
 }
 
-// The m16n8k16 product and the two-term split by 16-bit element type, for
-// tile code written once for bf16 and f16.
+// The m16n8k16 and m16n8k8 products and the two-term split by 16-bit
+// element type, for tile code written once for bf16 and f16.
 template <typename T16>
 struct Mma16;
 template <>
@@ -115,6 +139,10 @@ struct Mma16<__nv_bfloat16> {
   __device__ static void mma(float (&d)[4], const uint32_t (&a)[4],
                              const uint32_t (&b)[2]) {
     mma_bf16(d, a, b);
+  }
+  __device__ static void mma_k8(float (&d)[4], const uint32_t (&a)[4],
+                                uint32_t b) {
+    mma_bf16_k8(d, a, b);
   }
   __device__ static void split(float lo, float hi, uint32_t& first,
                                uint32_t& second) {
@@ -126,6 +154,10 @@ struct Mma16<__half> {
   __device__ static void mma(float (&d)[4], const uint32_t (&a)[4],
                              const uint32_t (&b)[2]) {
     mma_f16(d, a, b);
+  }
+  __device__ static void mma_k8(float (&d)[4], const uint32_t (&a)[4],
+                                uint32_t b) {
+    mma_f16_k8(d, a, b);
   }
   __device__ static void split(float lo, float hi, uint32_t& first,
                                uint32_t& second) {
@@ -165,6 +197,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+// 8 bytes (an int8 key row of a head dim of 8), zero-filled when `pred` is
+// false; dst and src 8-byte aligned.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 8 : 0)
                : "memory");
 }
 

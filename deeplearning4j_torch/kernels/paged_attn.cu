@@ -31,14 +31,19 @@
 // Each output is written by one thread in a fixed order and no route uses
 // atomics: two calls are bitwise equal.
 //
+// Head dims 8, 16, 32, 64 and 128.
+//
 // Decode route (T <= 4: decode and speculative verify): one CTA of 8 warps
 // per (b, h). The walked pages are cut into 8 contiguous ranges, one per
 // warp, so each warp pays the memory latency of its own range once and not
 // that of every tile of the row. A warp loads its slice of the block-table
 // row once (a lane per page, handed out by shuffle), then reads its keys as
 // 16-byte (4 f32 or 8 bf16/f16) or 8-byte (8 int8) vectors widened to f32,
-// a few lanes per key row (a head's page is contiguous, [ps, d]), with a
-// batch of key rows in flight per lane before any arithmetic. The q rows sit in registers and each loaded key
+// d / (vector width) lanes per key row (a head's page is contiguous, [ps,
+// d]): at d=8 one lane holds a whole bf16/f16 or int8 row and two lanes an
+// f32 one, at d=16 two or four, every lane on a full vector; each warp step
+// covers 32 / (lanes per row) key rows, and a batch of steps (64 key rows
+// a warp) is in flight per lane before any arithmetic. The q rows sit in registers and each loaded key
 // serves all of them. Each lane group keeps its own (m, l, acc); the groups
 // merge by shuffle, then the 8 warps' partials merge in shared memory in
 // fixed warp order. A warp with an empty range keeps m = -1e30, l = 0 and
@@ -55,7 +60,7 @@
 // SM): each key row resolves its pool row from one shared read,
 // ((bt[c / ps]·H + h)·ps + c % ps), so a tile may cross pages and any ps
 // works, and lands as 16-byte copies (int8 as codes, 16 a copy; bf16/f16
-// 8 a copy); its
+// 8 a copy; an int8 row of d=8 as one 8-byte copy); its
 // key-valid column and, for int8, its two scales land in the same stage by
 // 4-byte copies. Columns at or past the walk's end are zero-filled (0·NaN
 // would poison P·V) and score -inf. The products are warp-level mma.sync
@@ -129,16 +134,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <>
 __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half_rn(x);
-}
-// two adjacent outputs (the element pair of an accumulator fragment)
-__device__ __forceinline__ void store2(float* p, float x0, float x1) {
-  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x0, float x1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
-}
-__device__ __forceinline__ void store2(__half* p, float x0, float x1) {
-  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x0, x1);
 }
 
 // One vector load of a key row's slice, widened to f32: 4 f32 (16 bytes),
@@ -404,9 +399,12 @@ struct ChunkTile {
   // keys per tile: 32 at d=128 keeps S and O in registers for f32 and int8
   // (their q fragments are f32), as in K1; 16-bit pools keep 64
   static constexpr int kBlockN = (D == 128 && sizeof(KV) != 2) ? 32 : 64;
-  // row stride in elements: 16 bytes of padding keep the fragment reads
-  // free of bank conflicts and every row 16-byte aligned for cp.async
-  static constexpr int kStride = D + 16 / (int)sizeof(KV);
+  // row stride in elements (attn_tile.cuh::tile_stride), but int8 rows of
+  // d=16 take 32 bytes of padding: a 32-byte stride would put rows g and
+  // g + 4 of a fragment read on one bank, 48 bytes spread the 8 rows over
+  // all 32
+  static constexpr int kStride =
+      (kCodes && D == 16) ? D + 32 : tile_stride<KV, D>();
   static constexpr int kTileBytes = kBlockN * kStride * (int)sizeof(KV);
   // f32 rows of a stage beside K and V: key-valid, and for int8 the K and
   // V scales
@@ -421,9 +419,15 @@ struct ChunkTile {
   // written once per tile; their hi parts replace the raw values in the
   // ring stage); int8 and 16-bit pools are read from the ring as they are
   static constexpr int kLoBytes = kF32 ? 2 * kTileBytes : 0;
-  // 16-byte copies of K (and as many of V) per thread per tile
-  static constexpr int kCopies = kBlockN * D / (16 / (int)sizeof(KV));
-  static_assert(kCopies % kChunkThreads == 0, "copies must split evenly");
+  // bytes of one key-row copy: 16, or the whole row where it is shorter
+  // (int8 at d=8: 8 bytes)
+  static constexpr int kCopyBytes =
+      D * (int)sizeof(KV) < 16 ? D * (int)sizeof(KV) : 16;
+  // copies of K (and as many of V) per tile: a whole number per thread, or
+  // (d <= 16) fewer than one per thread
+  static constexpr int kCopies = kBlockN * D * (int)sizeof(KV) / kCopyBytes;
+  static_assert(kCopies % kChunkThreads == 0 || kCopies < kChunkThreads,
+                "copies must split evenly");
 };
 
 // 2^x as one MUFU.EX2 (ex2.approx.ftz: about 2^-22 relative error; a
@@ -666,7 +670,7 @@ __global__ void __launch_bounds__(kChunkThreads)
                 "16-bit pools are read with a query of their own type");
   constexpr int BN = C::kBlockN;
   constexpr int STRIDE = C::kStride;
-  constexpr int kPerCopy = 16 / (int)sizeof(KV);
+  constexpr int kPerCopy = C::kCopyBytes / (int)sizeof(KV);
   constexpr int kPerRow = D / kPerCopy;
   const KV* kp = static_cast<const KV*>(kp_);
   const KV* vp = static_cast<const KV*>(vp_);
@@ -714,23 +718,36 @@ __global__ void __launch_bounds__(kChunkThreads)
     const int off = psh >= 0 ? col & (ps - 1) : col % ps;
     return ((size_t)bts[pg - pg0] * H + h) * ps + off;
   };
-  // one K/V tile into ring stage st: key rows by 16-byte copies, then the
-  // tile's key-valid columns and (int8) scales by 4-byte copies; columns at
-  // or past kend zero-filled
+  // one K/V tile into ring stage st: key rows by 16-byte copies (8-byte
+  // for an int8 row of d=8), then the tile's key-valid columns and (int8)
+  // scales by 4-byte copies; columns at or past kend zero-filled
   auto stage = [&](int tile, int st) {
     unsigned char* base = smem_raw + st * C::kStageBytes;
     KV* ks = reinterpret_cast<KV*>(base);
     KV* vs = reinterpret_cast<KV*>(base + C::kTileBytes);
     float* vals = reinterpret_cast<float*>(base + 2 * C::kTileBytes);
     const int k0 = tile * BN;
+    if constexpr (C::kCopies % kChunkThreads == 0) {
 #pragma unroll
-    for (int n = 0; n < C::kCopies / kChunkThreads; ++n) {
-      const int i = tid + n * kChunkThreads;
-      const int j = i / kPerRow, c = (i % kPerRow) * kPerCopy;
+      for (int n = 0; n < C::kCopies / kChunkThreads; ++n) {
+        const int i = tid + n * kChunkThreads;
+        const int j = i / kPerRow, c = (i % kPerRow) * kPerCopy;
+        const bool ok = k0 + j < kend;
+        const size_t src = (ok ? pool_row(k0 + j) : 0) * D + c;
+        cp_async16(ks + j * STRIDE + c, kp + src, ok);
+        cp_async16(vs + j * STRIDE + c, vp + src, ok);
+      }
+    } else if (tid < C::kCopies) {
+      const int j = tid / kPerRow, c = (tid % kPerRow) * kPerCopy;
       const bool ok = k0 + j < kend;
       const size_t src = (ok ? pool_row(k0 + j) : 0) * D + c;
-      cp_async16(ks + j * STRIDE + c, kp + src, ok);
-      cp_async16(vs + j * STRIDE + c, vp + src, ok);
+      if constexpr (C::kCopyBytes == 16) {
+        cp_async16(ks + j * STRIDE + c, kp + src, ok);
+        cp_async16(vs + j * STRIDE + c, vp + src, ok);
+      } else {
+        cp_async8(ks + j * STRIDE + c, kp + src, ok);
+        cp_async8(vs + j * STRIDE + c, vp + src, ok);
+      }
     }
     for (int j = tid; j < BN; j += kChunkThreads) {
       const bool ok = k0 + j < kend;
@@ -754,8 +771,8 @@ __global__ void __launch_bounds__(kChunkThreads)
   // softmax runs in base 2); 16-bit pools: q as 16-bit A fragments, the
   // scores scaled after the product (the tensor core forms each product of
   // two 16-bit values exactly and sums in f32)
-  using QFrag = typename std::conditional<k16, uint32_t[D / 16][4],
-                                          float[D / 8][4]>::type;
+  using QFrag =
+      typename std::conditional<k16, Frag16<D>, float[D / 8][4]>::type;
   QFrag qf;
   if constexpr (k16) {
     load_a_rows<D>(q + qbase, r0, r1, T, t, qf);
@@ -1017,6 +1034,10 @@ int launch_paged_d(const void* q, const void* kp, const void* vp,
                    float* part, int splits, int B, int H, int T, int D,
                    int ps, int NP, cudaStream_t stream) {
   switch (D) {
+    case 8:
+      return launch_paged<QT, KV, 8>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream);
+    case 16:
+      return launch_paged<QT, KV, 16>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream);
     case 32:
       return launch_paged<QT, KV, 32>(q, kp, vp, kscales, vscales, bt, pos, key_valid, o, part, splits, B, H, T, ps, NP, stream);
     case 64:
@@ -1085,6 +1106,10 @@ int chunk_smem_kind(int kind, int NP) {
 // as for dl4j_paged_attn_splits.
 extern "C" int dl4j_paged_chunk_smem(int D, int kind, int NP) {
   switch (D) {
+    case 8:
+      return dl4j::chunk_smem_kind<8>(kind, NP);
+    case 16:
+      return dl4j::chunk_smem_kind<16>(kind, NP);
     case 32:
       return dl4j::chunk_smem_kind<32>(kind, NP);
     case 64:

@@ -29,7 +29,7 @@ NEG_INF = -1e30
 BACKENDS = ("xla", "pallas")
 CHOICES = ("auto", "stock") + BACKENDS
 
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 #: query dtypes K2 takes; its pools are of the query's dtype or int8
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: query chunks of up to this many rows take K2's decode route, longer ones

@@ -25,8 +25,8 @@ import torch
 NEG_INF = -1e30
 
 #: head dims the CUDA kernels are instantiated for
-KERNEL_HEAD_DIMS = (32, 64, 128)
-KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _scores(q, k, *, causal, mask):
@@ -85,8 +85,8 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, *,
 
 def supports(q_shape, *, mask, dtype=torch.float32) -> bool:
     """Whether the CUDA kernels take this case: a 4-D query, no mask or a
-    ``[B, T]`` key-validity row, f32 or bf16, and a head dim the kernels are
-    built for. Any T works: the kernels mask their ragged edge. A caller may
+    ``[B, T]`` key-validity row, f32, bf16 or f16, and a head dim the
+    kernels are built for. Any T works: the kernels mask their ragged edge. A caller may
     ask before it hands CUDA tensors to the wrappers, which raise on a case
     the kernels do not take."""
     if len(q_shape) != 4:
@@ -110,7 +110,7 @@ def _cuda_case(q, k, v, mask):
         raise ValueError(f"q/k/v shapes differ: {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"flash kernel takes f32 or bf16 q/k/v, got "
+        raise TypeError(f"flash kernel takes f32, bf16 or f16 q/k/v, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel is built for head dims "

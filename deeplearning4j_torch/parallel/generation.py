@@ -10,8 +10,23 @@ fixed-size pages behind a block table:
   ``kv_dtype="int8"``). A host-owned ``[S, max_pages]`` int32 block table
   maps each slot to its pages and rides into every forward as data. Page 0
   is the garbage page that inactive rows and padded columns write into.
+- PREFIX SHARING (``prefix_cache=True``): prompts are hashed per page-aligned
+  chunk under a chained SHA-1 digest; a prompt whose leading chunks match
+  pages already resident shares them, refcounted and read-only, and
+  prefills only its suffix (from ``pos = matched``, so the paged read walks
+  the shared pages). Shared and prefix-cache-registered pages are
+  copy-on-write: the first write into one (a request's own first decode
+  token landing in its registered tail page included) copies the page, every
+  leaf of every layer with the int8 scale planes, into a fresh page and
+  repoints the block table. Released cached pages stay resident for future
+  matches until the pool runs dry and evicts them, oldest first.
 - Admission is page accounting: ``submit()`` rejects a request whose prompt
   + max_tokens can never fit with a typed ``ServerOverloaded`` up front.
+  Under transient pressure the newest admitted slot is PREEMPTED: its pages
+  are freed and its request goes back to the front of the queue. A victim
+  with at least a page of decoded tokens snapshots first and resumes by
+  adoption; otherwise it recomputes from token 0. The key schedule makes
+  either path give the same tokens.
 - A wave of admitted prompts is prefilled together, Sarathi-style: rounds of
   at most ``prefill_chunk`` tokens per row, one batched paged forward per
   round, rows not in the wave routed to the garbage page.
@@ -20,6 +35,15 @@ fixed-size pages behind a block table:
   with ONE ``[S, M]`` token copy to the host per dispatch. Rows write-clamp
   at capacity: a row at ``NP * page_size`` freezes and its block-table row
   swaps to the garbage page.
+- Deadlines (``submit(..., deadline_s=)`` or the server-wide
+  ``request_deadline_s``) fail queued and resident requests alike with a
+  typed ``DeadlineExceeded``, checked between dispatches.
+- Snapshots and handoff (``parallel/handoff.py``): ``snapshot_every`` N
+  tokens a slot's state is exported as a ``KVSnapshot`` and attached to its
+  future (``future._kv_snapshot``); ``export_request`` snapshots a live
+  request between dispatches; ``adopt_request`` resumes a snapshot (either
+  package's) at position N, sharing pages whose digest is resident and
+  storing the rest in one scatter.
 
 Requests are greedy or sampled (``temperature``, ``top_k``, ``seed``). A
 request's token i is selected with ``fold_in(PRNGKey(seed), i)`` (the
@@ -28,19 +52,23 @@ so its stream equals ``sample_generate``'s and the JAX server's for the same
 probabilities. A dispatch whose active rows are all greedy takes the plain
 argmax, as the JAX server's ``lax.cond`` does.
 
-The decode loop runs on one plain thread the server owns. Prefix sharing
-with copy-on-write, preemption, speculative decode, snapshots and handoff,
-tensor-parallel meshes, deadlines, retries, the circuit breaker, chaos
-injection, the metrics registry and serving roles are not ported yet
-(ROADMAP A3).
+The decode loop runs on one plain thread the server owns. Speculative
+decode, ``export_kv`` and serving roles, ``drain(migrate=True)``, retries,
+the circuit breaker, chaos injection, the metrics registry and
+tensor-parallel meshes are not ported yet (ROADMAP A3b): their constructor
+arguments raise ``NotImplementedError`` when given. Snapshots of bf16 pools
+carry their pages as raw 16-bit words labelled ``bfloat16``, as the JAX
+package's do.
 """
 
 from __future__ import annotations
 
+import hashlib
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutureTimeout
 from typing import Optional
 
 import numpy as np
@@ -55,7 +83,15 @@ from deeplearning4j_torch.nn.conf.layers.attention import (
 from deeplearning4j_torch.nn.conf.layers.paged_attention import CHOICES
 from deeplearning4j_torch.ops import random
 from deeplearning4j_torch.optimize.bucketing import bucket_pages
+from deeplearning4j_torch.parallel.handoff import (BF16_WIRE, WIRE_VERSION,
+                                                   KVSnapshot,
+                                                   SnapshotInvalid,
+                                                   SnapshotUnavailable,
+                                                   SnapshotUnsupported,
+                                                   pack_snapshot)
 from deeplearning4j_torch.parallel.resilience import (AdmissionController,
+                                                      Deadline,
+                                                      DeadlineExceeded,
                                                       ServerOverloaded)
 
 _UNSET = object()
@@ -64,38 +100,79 @@ _UNSET = object()
 #: are all zeros, so their masked garbage writes land here
 GARBAGE_PAGE = 0
 
+#: JAX constructor arguments the port does not take yet (ROADMAP A3b), with
+#: the value that means "off" (None also does)
+_NOT_PORTED = dict(mesh=None, tp=1, draft_net=None, spec_k=4,
+                   role="unified", retry=None, breaker=None, chaos=None,
+                   registry=None)
+
+
+def _to_wire(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as a KVSnapshot payload leaf: bf16 as its raw words
+    under ``BF16_WIRE``."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_WIRE)
+    return t.numpy()
+
+
+def _from_wire(a: np.ndarray) -> torch.Tensor:
+    """A KVSnapshot payload leaf as a host tensor (``_to_wire``'s
+    inverse)."""
+    a = np.ascontiguousarray(a)
+    if (a.dtype.metadata or {}).get("wire") == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
 
 class _Request:
     __slots__ = ("prompt", "max_tokens", "temperature", "top_k", "seed",
-                 "eos_id", "future", "tokens")
+                 "eos_id", "deadline", "future", "tokens", "snapshot")
 
-    def __init__(self, prompt, max_tokens, temperature, top_k, seed, eos_id):
+    def __init__(self, prompt, max_tokens, temperature, top_k, seed, eos_id,
+                 deadline=None):
         self.prompt = prompt
         self.max_tokens = max_tokens
         self.temperature = temperature
         self.top_k = top_k
         self.seed = seed
         self.eos_id = eos_id
+        self.deadline = deadline
         self.future = Future()
         self.tokens: list = []
+        # a KVSnapshot to resume from instead of prefilling from token 0
+        # (set by adopt_request and by a preemption that saved its state)
+        self.snapshot = None
 
 
 class _PagePool:
-    """Host-side accounting for the device page pool: a free stack and
-    per-page refcounts. Page 0 is the reserved garbage page. Owned by the
-    serving loop thread."""
+    """Host-side accounting for the device page pool: a free stack,
+    per-page refcounts, and an LRU prefix cache mapping chained content
+    digests to resident pages. Page 0 is the reserved garbage page. Owned
+    by the serving loop thread."""
 
     def __init__(self, pages: int):
         self.total = int(pages)
         self.free = list(range(self.total - 1, 0, -1))  # pop() -> page 1
         self.ref = [0] * self.total
+        self.cache: OrderedDict = OrderedDict()  # digest -> page (LRU)
+        self.tag: dict = {}                      # page -> digest
+        self.evictions = 0
         self.peak = 0
 
     def in_use(self) -> int:
+        """Pages holding live data: refcounted by a slot or retained by the
+        prefix cache (reclaimable, but resident)."""
         return self.total - 1 - len(self.free)
 
     def alloc(self) -> Optional[int]:
-        """One page at refcount 1; None when the pool is exhausted."""
+        """One page at refcount 1, evicting the oldest reclaimable cached
+        page when the free list is dry; None when exhausted."""
+        if not self.free:
+            for digest, page in list(self.cache.items()):  # oldest first
+                if self.ref[page] == 0:
+                    self._uncache(digest, page)
+                    self.evictions += 1
+                    break
         if not self.free:
             return None
         page = self.free.pop()
@@ -103,10 +180,45 @@ class _PagePool:
         self.peak = max(self.peak, self.in_use())
         return page
 
-    def release(self, page: int) -> None:
-        self.ref[page] -= 1
+    def _uncache(self, digest: bytes, page: int) -> None:
+        del self.cache[digest]
+        del self.tag[page]
         if self.ref[page] == 0:
             self.free.append(page)
+
+    def share(self, page: int) -> None:
+        self.ref[page] += 1
+
+    def release(self, page: int) -> None:
+        self.ref[page] -= 1
+        if self.ref[page] == 0 and page not in self.tag:
+            self.free.append(page)
+
+    def protected(self, page: int) -> bool:
+        """True when a write to ``page`` must copy first: another slot or
+        the prefix cache depends on its current content."""
+        return self.ref[page] > 1 or page in self.tag
+
+    def lookup(self, digest: bytes) -> Optional[int]:
+        page = self.cache.get(digest)
+        if page is not None:
+            self.cache.move_to_end(digest)
+        return page
+
+    def register(self, digest: bytes, page: int) -> None:
+        """Publish ``page`` for future prefix matches. No-op when the digest
+        is already cached (the pristine original wins) or the page is
+        already tagged."""
+        if digest in self.cache or page in self.tag:
+            return
+        self.cache[digest] = page
+        self.tag[page] = digest
+
+    def shared_count(self) -> int:
+        return sum(1 for r in self.ref if r > 1)
+
+    def refcounted(self) -> int:
+        return sum(1 for r in self.ref if r > 0)
 
 
 class GenerationServer:
@@ -120,21 +232,36 @@ class GenerationServer:
 
     ``page_size`` must divide the attention ``max_cache``; ``pages`` defaults
     to ``slots * max_cache / page_size + 1`` (every slot at full capacity
-    plus the garbage page). ``paged_attention`` (None keeps each layer's
-    knob) is pushed onto every paged layer and restored on close.
+    plus the garbage page; set lower to serve in less memory, with
+    preemption under pressure). ``prefix_cache`` toggles chunk-hash prefix
+    sharing. ``paged_attention`` (None keeps each layer's knob) is pushed
+    onto every paged layer and restored on close. ``request_deadline_s`` is
+    the default budget of a request; ``snapshot_every`` N > 0 attaches a
+    ``KVSnapshot`` to a slot's future every N generated tokens.
     """
 
     def __init__(self, net, vocab: int, *, slots: int = 8,
                  eos_id: Optional[int] = None,
                  max_pending: int = 64,
+                 request_deadline_s: Optional[float] = None,
                  min_prefill_bucket: int = 8,
                  prefill_chunk: int = 256,
                  page_size: int = 16,
                  pages: Optional[int] = None,
+                 prefix_cache: bool = True,
                  steps_per_dispatch: int = 4,
                  kv_dtype: Optional[str] = None,
                  paged_attention: Optional[str] = None,
-                 device=None):
+                 snapshot_every: int = 0,
+                 device=None, **not_ported):
+        for name, value in not_ported.items():
+            if name not in _NOT_PORTED:
+                raise TypeError(f"GenerationServer got an unexpected "
+                                f"keyword argument {name!r}")
+            if value is not None and value != _NOT_PORTED[name]:
+                raise NotImplementedError(
+                    f"GenerationServer({name}=...) is not ported yet "
+                    "(ROADMAP A3b)")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if page_size < 1:
@@ -161,11 +288,14 @@ class GenerationServer:
         self.vocab = int(vocab)
         self.slots = int(slots)
         self.eos_id = eos_id
+        self.request_deadline_s = request_deadline_s
         self.min_prefill_bucket = int(min_prefill_bucket)
         self.prefill_chunk = int(prefill_chunk)
+        self.prefix_cache = bool(prefix_cache)
         self.steps_per_dispatch = int(steps_per_dispatch)
         self.kv_dtype = kv_dtype
         self.paged_attention = paged_attention
+        self.snapshot_every = max(0, int(snapshot_every))
         self.admission = AdmissionController(max_pending)
         self._ps = int(page_size)
         # prefill rounds advance at most this many (page-aligned) tokens
@@ -198,10 +328,23 @@ class GenerationServer:
         self._keys = np.zeros((self.slots, 2), np.int64)
         self._bt = np.zeros((self.slots, self._np), np.int32)
         self._slot_pages: list = [[] for _ in range(self.slots)]
+        # admission order of the resident slots (the newest is the
+        # preemption victim) and each slot's token count at its last
+        # snapshot
+        self._slot_seq = [0] * self.slots
+        self._admit_seq = 0
+        self._snap_counts = [0] * self.slots
+        # export_request handshakes: (request future, out future) pairs the
+        # loop services between dispatches
+        self._export_q: deque = deque()
         self._page_pool = _PagePool(self.pages_total)
-        self._counters = dict(admitted=0, completed=0, failed=0, prefills=0,
-                              prefill_rounds=0, decode_steps=0,
-                              tokens_generated=0, busy_s=0.0)
+        self._counters = dict(admitted=0, completed=0, failed=0, expired=0,
+                              prefills=0, prefill_rounds=0, decode_steps=0,
+                              tokens_generated=0, busy_s=0.0, cow_copies=0,
+                              prefix_hits=0, prefix_tokens_reused=0,
+                              preempted=0, snapshots=0, snapshot_bytes=0,
+                              resumes=0, tokens_saved=0, fallbacks=0,
+                              preempt_resumes=0)
 
         self._fwd = lm_stream_forward(net)
         self._pool = self._fresh_pool()
@@ -214,17 +357,27 @@ class GenerationServer:
     def _probe_net(self):
         """Classify the net's streaming layers: which hold pageable KV, which
         only carry positions; derive the block-table geometry from the KV
-        capacity."""
+        capacity and the bytes one token takes in the pool (the snapshot
+        header's ``page_token_bytes``, as the JAX server counts it)."""
         self._paged_names: list = []
         self._pos_names: list = []
         self._layer_by_name: dict = {}
         self._pa_prev: dict = {}
+        if self.kv_dtype == "int8":
+            kv_itemsize, scale_bytes = 1, 4
+        else:
+            kv_itemsize = getattr(torch, self.net.conf.dtype).itemsize
+            scale_bytes = 0
+        self._page_token_bytes = 0
         caps = []
         for name, layer in self.net._stream_layers():
             if isinstance(layer, SelfAttentionLayer) and layer.causal:
                 self._layer_by_name[name] = layer
                 self._paged_names.append(name)
                 caps.append(layer.max_cache)
+                h = layer.n_heads
+                self._page_token_bytes += 2 * h * (
+                    (layer.n_out // h) * kv_itemsize + scale_bytes)
                 if self.paged_attention is not None:
                     self._pa_prev[name] = layer.paged_attention
                     layer.paged_attention = self.paged_attention
@@ -261,18 +414,53 @@ class GenerationServer:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # ------------------------------------------------------------- submit
+    def _check_fits(self, plen: int, max_tokens: int, what: str):
+        """Page-budget feasibility, up front: prompt + generated positions
+        must fit the block table and the pool less the garbage page."""
+        need_tokens = plen + int(max_tokens) - 1
+        if need_tokens > self._cap_tokens:
+            raise ServerOverloaded(
+                f"infeasible {what}: prompt {plen} + max_tokens "
+                f"{max_tokens} exceeds the per-slot KV capacity "
+                f"{self._cap_tokens} ({self._np} pages x {self._ps})")
+        need_pages = -(-need_tokens // self._ps)
+        if need_pages > self.pages_total - 1:
+            raise ServerOverloaded(
+                f"infeasible {what}: needs {need_pages} pages but the "
+                f"pool capacity is {self.pages_total - 1} usable pages "
+                f"of {self._ps} tokens")
+
+    def _enqueue(self, req: _Request) -> Future:
+        self.admission.acquire()  # raises ServerOverloaded at watermark
+        req.future.add_done_callback(lambda _f: self.admission.release())
+        # export_request clamps its wait to the request's own budget
+        req.future._deadline = req.deadline
+        with self._cond:
+            if self._closing:
+                self._fail(req, RuntimeError("GenerationServer is closed"))
+                return req.future
+            self._queue.append(req)
+            self._cond.notify_all()
+        return req.future
+
     def submit(self, prompt_ids, max_tokens: int, *,
                temperature: float = 0.0, top_k: int = 0, seed: int = 0,
-               eos_id=_UNSET) -> Future:
+               eos_id=_UNSET, deadline_s: Optional[float] = None,
+               export_kv: Optional[bool] = None) -> Future:
         """Queue one generation request; returns a Future resolving to the
         generated ids (<= max_tokens, shorter when ``eos_id`` — the
         per-request one or the server default — is produced, which is
         included). ``temperature`` 0 is greedy; otherwise tokens are
         sampled from the softmax sharpened by 1/temperature, among the
         ``top_k`` most likely when ``top_k > 0``, with token i keyed by
-        ``fold_in(PRNGKey(seed), i)``. Raises ``ServerOverloaded`` when the
-        request can never fit the page budget or the admission watermark
-        is reached."""
+        ``fold_in(PRNGKey(seed), i)``. ``deadline_s`` (default: the
+        server's ``request_deadline_s``) bounds the request's time: past it
+        the future fails ``DeadlineExceeded``. Raises ``ServerOverloaded``
+        when the request can never fit the page budget or the admission
+        watermark is reached."""
+        if export_kv:
+            raise NotImplementedError("submit(export_kv=True) is not "
+                                      "ported yet (ROADMAP A3b)")
         prompt = np.asarray(prompt_ids)
         if prompt.ndim != 1 or prompt.shape[0] < 1:
             raise ValueError(f"prompt_ids must be a non-empty 1-D id "
@@ -288,35 +476,18 @@ class GenerationServer:
         if top_k < 0 or top_k > self.vocab:
             raise ValueError(f"top_k must be in [0, {self.vocab}], "
                              f"got {top_k}")
-        plen = int(prompt.shape[0])
-        need_tokens = plen + int(max_tokens) - 1
-        if need_tokens > self._cap_tokens:
-            raise ServerOverloaded(
-                f"infeasible request: prompt {plen} + max_tokens "
-                f"{max_tokens} exceeds the per-slot KV capacity "
-                f"{self._cap_tokens} ({self._np} pages x {self._ps})")
-        need_pages = -(-need_tokens // self._ps)
-        if need_pages > self.pages_total - 1:
-            raise ServerOverloaded(
-                f"infeasible request: needs {need_pages} pages but the "
-                f"pool capacity is {self.pages_total - 1} usable pages "
-                f"of {self._ps} tokens")
+        self._check_fits(int(prompt.shape[0]), max_tokens, "request")
         with self._cond:
             if self._closing:
                 raise RuntimeError("GenerationServer is closed")
+        budget = deadline_s if deadline_s is not None \
+            else self.request_deadline_s
         req = _Request(prompt.astype(np.int64), int(max_tokens),
                        float(temperature), int(top_k), int(seed),
-                       self.eos_id if eos_id is _UNSET else eos_id)
+                       self.eos_id if eos_id is _UNSET else eos_id,
+                       None if budget is None else Deadline(budget))
         random.seed_words(req.seed)     # an out-of-range seed fails here
-        self.admission.acquire()  # raises ServerOverloaded at watermark
-        req.future.add_done_callback(lambda _f: self.admission.release())
-        with self._cond:
-            if self._closing:
-                self._fail(req, RuntimeError("GenerationServer is closed"))
-                return req.future
-            self._queue.append(req)
-            self._cond.notify_all()
-        return req.future
+        return self._enqueue(req)
 
     # ---------------------------------------------------------- the loop
     def _run(self):
@@ -325,12 +496,14 @@ class GenerationServer:
                 pass
 
     def _tick_once(self) -> bool:
-        """One scheduling round: admit and prefill a wave, then one decode
-        dispatch. Returns False only on a clean stop."""
+        """One scheduling round: admit and prefill a wave, one decode
+        dispatch, then deadlines, exports and periodic snapshots between
+        dispatches. Returns False only on a clean stop."""
         with self._cond:
             if self._stop:
                 return False
-            if not self._queue and self._n_active == 0:
+            if not self._queue and self._n_active == 0 \
+                    and not self._export_q:
                 self._cond.wait(timeout=0.5)
                 return True
         try:
@@ -341,25 +514,49 @@ class GenerationServer:
                 t0 = time.monotonic()
                 self._decode_once()
                 self._counters["busy_s"] += time.monotonic() - t0
+            self._expire_active()
+            # explicit exports first (a caller is blocked on them), then at
+            # most one periodic snapshot per round
+            self._service_exports()
+            self._maybe_snapshot_slots()
         except Exception as e:  # noqa: BLE001 — a loop death would hang
             # every outstanding future; fail them typed instead
             self._fail_all(e)
         return True
 
+    def _pop_admittable(self):
+        """The next queued request still worth prefilling (expired ones
+        fail typed on the way)."""
+        while True:
+            with self._cond:
+                if not self._queue:
+                    return None
+                req = self._queue.popleft()
+            if req.deadline is not None and req.deadline.expired():
+                self._counters["expired"] += 1
+                self._fail(req, DeadlineExceeded(
+                    "request budget exhausted while queued "
+                    f"({-req.deadline.remaining() * 1e3:.1f} ms over)"))
+                continue
+            return req
+
     def _admit_free_slots(self):
         """Admit every queued request a free slot and the page pool can
-        take, then prefill the whole wave together."""
-        staged = []                                 # (slot, req, plen)
+        take (adopting snapshots, sharing resident prefixes), then prefill
+        the whole wave together."""
+        staged = []                                 # (slot, req, pos0, plen)
         for s in range(self.slots):
             if self._slot_req[s] is not None:
                 continue
-            with self._cond:
-                if not self._queue:
-                    break
-                req = self._queue.popleft()
+            req = self._pop_admittable()
+            if req is None:
+                break
+            if req.snapshot is not None and self._adopt_into_slot(s, req):
+                continue
+            # no snapshot (or adoption fell back): token-0 prefill
             plen = req.prompt.shape[0]
             try:
-                self._ensure_slot_pages(s, plen)
+                pos0 = self._stage_prompt_pages(s, req.prompt, plen)
             except RuntimeError as e:  # pool exhausted during staging
                 self._release_slot_pages(s)
                 if staged:
@@ -370,7 +567,7 @@ class GenerationServer:
                 self._counters["failed"] += 1
                 self._fail(req, e)
                 continue
-            staged.append((s, req, plen))
+            staged.append((s, req, pos0, plen))
         if staged:
             t0 = time.monotonic()
             self._prefill_wave(staged)
@@ -385,18 +582,81 @@ class GenerationServer:
         self._bt[slot, :] = GARBAGE_PAGE
         self._pos[slot] = 0
 
-    def _alloc_page(self) -> int:
-        page = self._page_pool.alloc()
-        if page is None:
-            raise RuntimeError(
-                "page pool exhausted (preemption is not ported): raise "
-                "`pages` or lower `slots`")
-        return page
+    def _pick_victim(self, keep_slot: int):
+        """The most recently admitted resident slot other than
+        ``keep_slot`` (None when there is none)."""
+        best, best_seq = None, -1
+        for s in range(self.slots):
+            if s == keep_slot or self._slot_req[s] is None:
+                continue
+            if self._slot_seq[s] > best_seq:
+                best, best_seq = s, self._slot_seq[s]
+        return best
 
-    def _ensure_slot_pages(self, slot: int, upto: int):
-        """Slot ``slot`` is about to write positions below ``upto``:
-        allocate any missing pages (no page is shared, so none needs a
-        copy before the write)."""
+    def _preempt(self, slot: int):
+        """Free a slot's pages under pool pressure; its request goes back
+        to the FRONT of the queue. A victim with at least a page of decoded
+        tokens snapshots before its pages are freed and resumes by
+        adoption at position N; otherwise it recomputes from token 0."""
+        req = self._slot_req[slot]
+        if req.snapshot is None and len(req.tokens) >= self._ps:
+            try:
+                req.snapshot = self._snapshot_slot(slot)
+                self._counters["preempt_resumes"] += 1
+            except Exception:  # noqa: BLE001 — best effort: a failed
+                # snapshot degrades to the recompute, never fails the
+                # request
+                req.snapshot = None
+        if req.snapshot is None:
+            req.tokens.clear()
+        self._release_slot_pages(slot)
+        self._counters["preempted"] += 1
+        with self._cond:
+            self._slot_req[slot] = None
+            self._n_active -= 1
+            self._queue.appendleft(req)
+            self._cond.notify_all()
+
+    def _alloc_page(self, for_slot: int) -> int:
+        """One fresh page, evicting cached pages and then preempting the
+        newest other slot while the pool is dry."""
+        while True:
+            page = self._page_pool.alloc()
+            if page is not None:
+                return page
+            victim = self._pick_victim(for_slot)
+            if victim is None:
+                raise RuntimeError(
+                    "page pool exhausted with nothing left to preempt — "
+                    "admission should have rejected this request")
+            self._preempt(victim)
+
+    def _copy_page(self, src: int, dst: int):
+        """Pool page ``src`` into page ``dst`` in every layer, every leaf
+        (K/V pages and the int8 scale planes)."""
+        for vn in self._paged_names:
+            for a in self._pool[vn].values():
+                a[dst] = a[src]
+
+    def _ensure_writable(self, slot: int, idx: int):
+        """Copy-on-write: the slot is about to write into its idx-th logical
+        page; if that page is shared (or kept pristine by the prefix cache)
+        copy it off and repoint the block table."""
+        sp = self._slot_pages[slot]
+        page = sp[idx]
+        if not self._page_pool.protected(page):
+            return
+        dst = self._alloc_page(slot)
+        self._copy_page(page, dst)
+        self._counters["cow_copies"] += 1
+        self._page_pool.release(page)
+        sp[idx] = dst
+        self._bt[slot, idx] = dst
+
+    def _ensure_slot_pages(self, slot: int, upto: int, write_from: int):
+        """Slot ``slot`` is about to write positions ``[write_from,
+        upto)``: allocate any missing pages and copy the shared ones in the
+        write range."""
         sp = self._slot_pages[slot]
         n = -(-upto // self._ps)
         if n > self._np:
@@ -404,21 +664,90 @@ class GenerationServer:
                 f"slot {slot} needs {n} pages > block table width "
                 f"{self._np} — admission should have rejected this")
         while len(sp) < n:
-            page = self._alloc_page()
+            page = self._alloc_page(slot)
             self._bt[slot, len(sp)] = page
             sp.append(page)
+        for idx in range(write_from // self._ps,
+                         (upto - 1) // self._ps + 1):
+            self._ensure_writable(slot, idx)
 
     def _reserve_decode_pages(self):
         """Pages for one decode dispatch: every active slot gets pages
-        covering its next ``steps_per_dispatch`` writes, up to the per-slot
-        capacity (the dispatch write-clamps there)."""
+        covering its next ``steps_per_dispatch`` writes (allocation and
+        copy-on-write), up to the per-slot capacity (the dispatch
+        write-clamps there), preempting the newest slots under pressure."""
         for s in range(self.slots):
             if self._slot_req[s] is None:
                 continue
             pos = int(self._pos[s])
             upto = min(pos + self.steps_per_dispatch, self._cap_tokens)
             if upto > pos:
-                self._ensure_slot_pages(s, upto)
+                self._ensure_slot_pages(s, upto, write_from=pos)
+
+    def _chunk_digests(self, prompt, n: int):
+        """The chained SHA-1 digests of the prompt's first ``n`` full
+        page-size chunks, in order: each one keys its chunk and every
+        token before it."""
+        ps = self._ps
+        digest = b""
+        for i in range(n):
+            digest = hashlib.sha1(
+                digest + prompt[i * ps:(i + 1) * ps].tobytes()).digest()
+            yield digest
+
+    @staticmethod
+    def _tail_digest(digest: bytes, rem) -> bytes:
+        return hashlib.sha1(digest + b"T" + rem.tobytes()).digest()
+
+    def _match_prefix(self, prompt, plen: int):
+        """Longest shared prefix already resident: full page-aligned chunks
+        under the chained digest, then the exact whole-prompt tail. Returns
+        (shared page list, matched token count) with the shares already
+        refcounted; at least one suffix token is always left to prefill
+        (the first token needs a true position)."""
+        if not self.prefix_cache:
+            return [], 0
+        pool = self._page_pool
+        ps = self._ps
+        digest = b""
+        pages: list = []
+        matched = 0
+        full = plen // ps
+        for digest in self._chunk_digests(prompt, full):
+            page = pool.lookup(digest)
+            if page is None:
+                break
+            pages.append(page)
+            matched += ps
+        else:
+            rem = prompt[full * ps:]
+            if rem.size:
+                page = pool.lookup(self._tail_digest(digest, rem))
+                if page is not None:
+                    pages.append(page)
+                    matched = plen
+        if matched >= plen:
+            # whole prompt resident: its last token is prefilled again into
+            # the shared page, which copies off the slot's own page
+            matched = plen - 1
+        for page in pages:
+            pool.share(page)
+        return pages, matched
+
+    def _stage_prompt_pages(self, slot: int, prompt, plen: int) -> int:
+        """Assemble the slot's block-table row for prefill: the shared
+        prefix pages, then private pages for the suffix tokens only (bucket
+        padding writes the garbage page). Returns the suffix offset."""
+        shared, matched = self._match_prefix(prompt, plen)
+        sp = self._slot_pages[slot]
+        sp.extend(shared)
+        for i, page in enumerate(shared):
+            self._bt[slot, i] = page
+        if matched:
+            self._counters["prefix_hits"] += 1
+            self._counters["prefix_tokens_reused"] += matched
+        self._ensure_slot_pages(slot, plen, write_from=matched)
+        return matched
 
     def _trim_slot_pages(self, slot: int, plen: int):
         """Drop pages wholly beyond the next write position."""
@@ -429,21 +758,41 @@ class GenerationServer:
             self._bt[slot, len(sp)] = GARBAGE_PAGE
             self._page_pool.release(page)
 
+    def _register_prefix(self, slot: int, prompt, plen: int):
+        """Publish the slot's prompt pages in the prefix cache: full chunks
+        under the chained digest, plus the whole-prompt partial tail. The
+        registered pages become copy-protected, so the first divergent
+        write (this slot's own next decode token included) copies off a
+        private page and the cached original stays pristine."""
+        if not self.prefix_cache:
+            return
+        sp = self._slot_pages[slot]
+        pool = self._page_pool
+        ps = self._ps
+        digest = b""
+        full = plen // ps
+        for i, digest in enumerate(self._chunk_digests(prompt, full)):
+            pool.register(digest, sp[i])
+        rem = prompt[full * ps:]
+        if rem.size and full < len(sp):
+            pool.register(self._tail_digest(digest, rem), sp[full])
+
     # ------------------------------------------------------ prefill path
     def _prefill_wave(self, group):
-        """Batched chunked prefill for one admission wave: every staged slot
-        advances through rounds of at most ``prefill_chunk`` tokens, ONE
-        paged forward per round for the rows with prompt left. A row takes
-        its first token in the round that consumes its final chunk."""
+        """Batched chunked prefill for one admission wave: every staged
+        slot advances from its shared-prefix offset through rounds of at
+        most ``prefill_chunk`` tokens, ONE paged forward per round for the
+        rows with suffix left. A row takes its first token in the round
+        that consumes its final chunk."""
         S = self.slots
-        cur = {s: 0 for s, _, _ in group}
+        cur = {s: pos0 for s, _, pos0, _ in group}
         first = {}
         keys = np.zeros((S, 2), np.int64)
-        for s, req, _ in group:
+        for s, req, _, _ in group:
             keys[s] = random.seed_words(req.seed)
         cap_pages = max(1, self._chunk_cap // self._ps)
         while True:
-            live = [(s, req, plen) for s, req, plen in group
+            live = [(s, req, plen) for s, req, _, plen in group
                     if cur[s] < plen]
             if not live:
                 break
@@ -474,7 +823,7 @@ class GenerationServer:
                 cur[s] += chunk[s]
                 if cur[s] >= plen:
                     first[s] = toks[s]
-        for s, req, plen in group:
+        for s, req, _, plen in group:
             self._commit_slot(s, req, plen, first[s], keys[s])
 
     def _sampling(self, temp, topk, keys):
@@ -520,23 +869,32 @@ class GenerationServer:
             self.slots, dtype=torch.int64, device=self.device)
         return self._select(rows, sampling, first).cpu().tolist()
 
+    def _activate(self, slot: int, req: _Request):
+        """Mark a seeded slot resident: the newest admission (the first
+        preemption victim)."""
+        self._admit_seq += 1
+        self._slot_seq[slot] = self._admit_seq
+        with self._cond:
+            self._slot_req[slot] = req
+            self._n_active += 1
+        self._counters["admitted"] += 1
+
     def _commit_slot(self, slot: int, req: _Request, plen: int, tok, key):
-        """Publish one prefilled slot: trim the bucket over-allocation, seed
-        the decode mirrors (its next token is token 1 of its key
-        schedule), and mark the slot active."""
+        """Publish one prefilled slot: trim the bucket over-allocation,
+        register its prefix pages, seed the decode mirrors (its next token
+        is token 1 of its key schedule), and mark the slot active."""
         self._trim_slot_pages(slot, plen)
+        self._register_prefix(slot, req.prompt, plen)
         self._last[slot] = tok
         self._pos[slot] = plen
         self._counts[slot] = 1
+        self._snap_counts[slot] = 0
         self._temp[slot] = req.temperature
         self._topk[slot] = req.top_k
         self._keys[slot] = key
         req.tokens.append(tok)
-        with self._cond:
-            self._slot_req[slot] = req
-            self._n_active += 1
+        self._activate(slot, req)
         self._counters["prefills"] += 1
-        self._counters["admitted"] += 1
         self._counters["tokens_generated"] += 1
         if self._finished(req, tok):
             self._retire(slot, req)
@@ -579,6 +937,8 @@ class GenerationServer:
     def _decode_once(self):
         self._reserve_decode_pages()
         active = self._active_mask()
+        if not active.any():          # every slot preempted by the reserve
+            return
         seq = self._paged_step(self._to_dev(self._bt), self._to_dev(self._pos),
                                self._to_dev(self._last),
                                self._to_dev(active),
@@ -615,17 +975,34 @@ class GenerationServer:
             return True
         return len(req.tokens) >= req.max_tokens
 
-    def _retire(self, slot: int, req: _Request):
+    def _vacate(self, slot: int):
+        """Free a slot's pages and mark it empty."""
         self._release_slot_pages(slot)
         with self._cond:
             self._slot_req[slot] = None
             self._n_active -= 1
             self._cond.notify_all()
+
+    def _retire(self, slot: int, req: _Request):
+        self._vacate(slot)
         self._counters["completed"] += 1
         try:
             req.future.set_result(np.asarray(req.tokens, np.int64))
         except Exception:  # future cancelled by the caller
             pass
+
+    def _expire_active(self):
+        """Fail every resident request whose deadline has passed."""
+        for s in range(self.slots):
+            req = self._slot_req[s]
+            if req is None or req.deadline is None \
+                    or not req.deadline.expired():
+                continue
+            self._vacate(s)
+            self._counters["expired"] += 1
+            self._fail(req, DeadlineExceeded(
+                "request budget exhausted mid-generation after "
+                f"{len(req.tokens)} tokens"))
 
     def _fail(self, req: _Request, exc: BaseException):
         try:
@@ -654,10 +1031,247 @@ class GenerationServer:
             self._slot_pages = [[] for _ in range(self.slots)]
             self._pool = self._fresh_pool()
 
+    # ------------------------------------------------- snapshot/handoff
+    def _snapshot_slot(self, slot: int) -> KVSnapshot:
+        """Slot ``slot``'s live state as a KVSnapshot: the pages holding KV
+        positions [0, pos) in ONE gather per pool leaf and one copy to the
+        host, the prefix-cache digests of still-pristine pages, and the
+        resume header from the host mirrors. Pages beyond the stream
+        position hold look-ahead garbage and are skipped."""
+        req = self._slot_req[slot]
+        pos = int(self._pos[slot])
+        n = -(-pos // self._ps)            # pages holding [0, pos)
+        sp = self._slot_pages[slot]
+        digests = [self._page_pool.tag.get(p) for p in sp[:n]]
+        idx = torch.tensor(sp[:n], dtype=torch.long, device=self.device)
+        fetched = {vn: {k: _to_wire(a.index_select(0, idx).cpu())
+                        for k, a in self._pool[vn].items()}
+                   for vn in self._paged_names}
+        return pack_snapshot(
+            req=req, pos=pos, count=int(self._counts[slot]),
+            last=int(self._last[slot]), key=self._keys[slot].copy(),
+            kv_dtype=self.kv_dtype, page_size=self._ps,
+            page_token_bytes=self._page_token_bytes, page_digests=digests,
+            fetched=fetched, n_pages=n)
+
+    def _publish_snapshot(self, req: _Request, snap: KVSnapshot):
+        """Count the export and attach the snapshot to the request's future
+        (``future._kv_snapshot``): whoever holds the future reads it when
+        the request fails mid-stream."""
+        self._counters["snapshots"] += 1
+        self._counters["snapshot_bytes"] += snap.wire_bytes()
+        req.future._kv_snapshot = snap
+
+    def _maybe_snapshot_slots(self):
+        """Periodic snapshots: at most ONE slot per round, the most overdue,
+        so exports never crowd out decode dispatches. Best effort: a
+        snapshot that cannot be taken leaves the slot as it was."""
+        if not self.snapshot_every:
+            return
+        best, best_lag = -1, 0
+        for s in range(self.slots):
+            if self._slot_req[s] is None:
+                continue
+            lag = int(self._counts[s]) - self._snap_counts[s]
+            if lag >= self.snapshot_every and lag > best_lag:
+                best, best_lag = s, lag
+        if best < 0:
+            return
+        req = self._slot_req[best]
+        try:
+            snap = self._snapshot_slot(best)
+        except Exception:  # noqa: BLE001 — best effort, as the docstring
+            return
+        self._snap_counts[best] = int(self._counts[best])
+        self._publish_snapshot(req, snap)
+
+    def _service_exports(self):
+        """Resolve queued ``export_request`` handshakes between dispatches
+        (the loop thread is the only one near the pool). A request no longer
+        resident in a slot is ``SnapshotUnavailable``."""
+        while True:
+            with self._cond:
+                if not self._export_q:
+                    return
+                fut_in, out = self._export_q.popleft()
+            slot = next((s for s in range(self.slots)
+                         if self._slot_req[s] is not None
+                         and self._slot_req[s].future is fut_in), -1)
+            if slot < 0:
+                self._fail_export(out, SnapshotUnavailable(
+                    "request is not resident in a decode slot (never "
+                    "admitted, already retired, or failed)"))
+                continue
+            try:
+                snap = self._snapshot_slot(slot)
+            except Exception as e:  # noqa: BLE001 — typed to the caller
+                self._fail_export(out, e)
+                continue
+            self._snap_counts[slot] = int(self._counts[slot])
+            self._publish_snapshot(self._slot_req[slot], snap)
+            try:
+                out.set_result(snap)
+            except Exception:  # caller gave up
+                pass
+
+    @staticmethod
+    def _fail_export(out: Future, exc: BaseException):
+        try:
+            out.set_exception(exc)
+        except Exception:  # caller gave up
+            pass
+
+    def export_request(self, future, timeout: Optional[float] = 30.0
+                       ) -> KVSnapshot:
+        """Snapshot the live request behind ``future`` (as ``submit``
+        returned it). Blocks until the serving loop services the export
+        between dispatches, never longer than the request's own remaining
+        deadline (expiry raises ``DeadlineExceeded``). Raises
+        ``SnapshotUnavailable`` when the request is not resident in a
+        slot."""
+        deadline = getattr(future, "_deadline", None)
+        eff = timeout
+        if deadline is not None:
+            rem = deadline.remaining()
+            if rem <= 0:
+                raise DeadlineExceeded(
+                    "request budget exhausted before the export "
+                    f"({-rem * 1e3:.1f} ms over)")
+            eff = rem if eff is None else min(eff, rem)
+        out: Future = Future()
+        with self._cond:
+            if self._closing:
+                raise RuntimeError("GenerationServer is closed")
+            self._export_q.append((future, out))
+            self._cond.notify_all()
+        try:
+            return out.result(timeout=eff)
+        except FutureTimeout:
+            if deadline is not None and deadline.expired():
+                raise DeadlineExceeded(
+                    "request budget exhausted waiting for the export "
+                    f"({-deadline.remaining() * 1e3:.1f} ms over)")
+            raise
+
+    def adopt_request(self, snapshot: KVSnapshot, *,
+                      deadline_s: Optional[float] = None) -> Future:
+        """Rebuild a snapshotted request into this server and resume
+        decoding at position N. Validation is typed and up front:
+        ``SnapshotInvalid`` (checksum, version or an inconsistent header),
+        ``SnapshotUnsupported`` (kv dtype or page geometry of another
+        server), ``ServerOverloaded`` (page budget or admission watermark).
+        The resumed completion equals the uninterrupted one: the serial
+        ``fold_in(key, token_index)`` schedule rides in the snapshot."""
+        if snapshot.version not in (WIRE_VERSION - 1, WIRE_VERSION):
+            raise SnapshotInvalid(
+                f"KVSnapshot wire version {snapshot.version} != "
+                f"supported {WIRE_VERSION}")
+        if not snapshot.verify():
+            raise SnapshotInvalid("KVSnapshot checksum mismatch")
+        if (snapshot.kv_dtype != self.kv_dtype
+                or snapshot.page_size != self._ps
+                or snapshot.page_token_bytes != self._page_token_bytes
+                or snapshot.head_layout != "canonical"):
+            raise SnapshotUnsupported(
+                f"snapshot geometry (kv_dtype={snapshot.kv_dtype!r}, "
+                f"page_size={snapshot.page_size}, "
+                f"{snapshot.page_token_bytes} B/token, "
+                f"head_layout={snapshot.head_layout!r}) does not match "
+                f"this server (kv_dtype={self.kv_dtype!r}, "
+                f"page_size={self._ps}, {self._page_token_bytes} "
+                "B/token, head_layout='canonical')")
+        plen = int(snapshot.prompt.shape[0])
+        if (snapshot.count != len(snapshot.tokens)
+                or snapshot.pos != plen + snapshot.count - 1
+                or snapshot.n_pages != -(-snapshot.pos // self._ps)):
+            raise SnapshotInvalid(
+                "inconsistent KVSnapshot header: position/count/page "
+                "stack disagree with the token history")
+        self._check_fits(plen, snapshot.max_tokens, "adoption")
+        budget = deadline_s
+        if budget is None:
+            budget = snapshot.deadline_remaining
+        if budget is None:
+            budget = self.request_deadline_s
+        req = _Request(snapshot.prompt.astype(np.int64), snapshot.max_tokens,
+                       snapshot.temperature, snapshot.top_k, snapshot.seed,
+                       snapshot.eos_id,
+                       None if budget is None else Deadline(budget))
+        req.tokens = list(snapshot.tokens)
+        req.snapshot = snapshot
+        return self._enqueue(req)
+
+    def _adopt_into_slot(self, slot: int, req: _Request) -> bool:
+        """Rebuild ``req.snapshot`` into slot ``slot``: pages whose chunk
+        digest is resident are shared out of the prefix cache, the rest are
+        stored in one scatter per pool leaf, the pristine prompt pages are
+        registered for future sharers, and the decode mirrors resume at
+        position N. Returns False after rolling back under pool pressure;
+        the caller then prefills from token 0."""
+        snap = req.snapshot
+        pool = self._page_pool
+        sp = self._slot_pages[slot]
+        n = snap.n_pages
+        stored = []                                # logical pages uploaded
+        try:
+            for i in range(n):
+                d = snap.page_digests[i]
+                page = pool.lookup(d) \
+                    if (d is not None and self.prefix_cache) else None
+                if page is not None:
+                    pool.share(page)
+                else:
+                    page = self._alloc_page(slot)
+                    stored.append(i)
+                self._bt[slot, i] = page
+                sp.append(page)
+        except RuntimeError:
+            # pool exhausted mid-adoption: roll back and prefill from
+            # token 0 instead (admission proved the request feasible)
+            self._release_slot_pages(slot)
+            req.snapshot = None
+            req.tokens.clear()
+            self._counters["fallbacks"] += 1
+            return False
+        if stored:
+            dst = torch.tensor([sp[i] for i in stored], dtype=torch.long,
+                               device=self.device)
+            rows = torch.tensor(stored, dtype=torch.long)
+            for vn in self._paged_names:
+                for k, a in self._pool[vn].items():
+                    data = _from_wire(snap.payload[vn][k])
+                    a.index_copy_(0, dst, data.index_select(0, rows).to(
+                        device=self.device, dtype=a.dtype))
+        # register the pristine prompt chunk pages (the tail page already
+        # holds decoded tokens and is not registered under the tail key)
+        plen = req.prompt.shape[0]
+        if self.prefix_cache:
+            for i, digest in enumerate(
+                    self._chunk_digests(req.prompt, min(plen // self._ps, n))):
+                pool.register(digest, sp[i])
+        self._last[slot] = snap.last
+        self._counts[slot] = snap.count
+        self._temp[slot] = req.temperature
+        self._topk[slot] = req.top_k
+        self._keys[slot] = snap.key.astype(np.int64)
+        self._pos[slot] = snap.pos
+        self._snap_counts[slot] = snap.count
+        req.snapshot = None
+        self._activate(slot, req)
+        self._counters["resumes"] += 1
+        self._counters["tokens_saved"] += len(req.tokens)
+        if req.tokens and self._finished(req, req.tokens[-1]):
+            self._retire(slot, req)
+        return True
+
     # --------------------------------------------------------- lifecycle
-    def drain(self, timeout: Optional[float] = None) -> bool:
+    def drain(self, timeout: Optional[float] = None, *,
+              migrate=False) -> bool:
         """Block until every queued and in-flight request has resolved.
         Returns False on timeout."""
+        if migrate:
+            raise NotImplementedError("drain(migrate=...) is not ported yet "
+                                      "(ROADMAP A3b)")
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cond:
             while self._queue or self._n_active:
@@ -671,8 +1285,8 @@ class GenerationServer:
 
     def close(self, timeout: float = 30.0) -> None:
         """Stop admitting, drain what is in flight, stop the loop thread.
-        Any request still unresolved past ``timeout`` fails typed.
-        Idempotent."""
+        Any request or export still unresolved past ``timeout`` fails
+        typed. Idempotent."""
         with self._cond:
             self._closing = True
         self.drain(timeout)
@@ -687,6 +1301,11 @@ class GenerationServer:
             self._queue.clear()
             self._slot_req = [None] * self.slots
             self._n_active = 0
+            exports = list(self._export_q)
+            self._export_q.clear()
+        for _fut, out in exports:  # never leave an exporter hung
+            self._fail_export(out, SnapshotUnavailable(
+                "GenerationServer closed before the export was serviced"))
         for req in victims:
             self._fail(req, RuntimeError("GenerationServer closed with the "
                                          "request still in flight"))
@@ -704,7 +1323,9 @@ class GenerationServer:
 
     # ------------------------------------------------------------- stats
     def stats(self) -> dict:
-        """Serving counters (racy-but-atomic reads of loop-owned state)."""
+        """Serving counters (racy-but-atomic reads of loop-owned state),
+        with the JAX server's ``pages`` and ``handoff`` blocks for the parts
+        ported (``spec_*`` read 0: speculative decode is not ported)."""
         c = dict(self._counters)
         busy = c["busy_s"]
         with self._cond:
@@ -712,9 +1333,25 @@ class GenerationServer:
                      queued=len(self._queue))
         c["tokens_per_busy_s"] = c["tokens_generated"] / busy if busy else 0.0
         pool = self._page_pool
-        c["pages"] = {"page_size": self._ps, "pages_total": pool.total,
-                      "pages_free": len(pool.free), "peak_in_use": pool.peak,
-                      "kv_cache_dtype": self.kv_dtype or self.net.conf.dtype}
+        c["pages"] = {
+            "page_size": self._ps, "pages_total": pool.total,
+            "pages_free": len(pool.free), "pages_cached": len(pool.cache),
+            "pages_shared": pool.shared_count(),
+            "pages_refcounted": pool.refcounted(), "peak_in_use": pool.peak,
+            "cow_copies": c.pop("cow_copies"),
+            "prefix_hits": c.pop("prefix_hits"),
+            "prefix_tokens_reused": c.pop("prefix_tokens_reused"),
+            "evictions": pool.evictions, "preempted": c.pop("preempted"),
+            "spec_k": 0, "spec_rounds": 0, "spec_proposed": 0,
+            "spec_accepted": 0, "spec_accept_rate": 0.0,
+            "kv_cache_dtype": self.kv_dtype or self.net.conf.dtype,
+            "bytes_per_token": self._page_token_bytes}
+        c["handoff"] = {
+            "snapshot_every": self.snapshot_every,
+            "snapshots": c.pop("snapshots"), "bytes": c.pop("snapshot_bytes"),
+            "resumes": c.pop("resumes"), "tokens_saved": c.pop("tokens_saved"),
+            "fallbacks": c.pop("fallbacks"),
+            "preempt_resumes": c.pop("preempt_resumes")}
         c.update(accepted=self.admission.accepted,
                  rejected=self.admission.rejected,
                  pending=self.admission.pending)

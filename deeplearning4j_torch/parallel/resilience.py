@@ -1,15 +1,23 @@
-"""Serving-side admission control (port of the parts of
+"""Serving-side admission control and deadlines (port of the parts of
 ``deeplearning4j_tpu/parallel/resilience.py`` the GenerationServer core
-uses): ``ServerOverloaded`` and ``AdmissionController``. Deadlines, retries,
-the circuit breaker and chaos injection are not ported yet."""
+uses): ``ServerOverloaded``, ``AdmissionController``, ``DeadlineExceeded``
+and ``Deadline``. Retries, the circuit breaker and chaos injection are not
+ported yet (ROADMAP A3b)."""
 
 from __future__ import annotations
 
 import threading
+import time
+from typing import Callable
 
 
 class ResilienceError(RuntimeError):
     """Base of the typed serving-failure taxonomy."""
+
+
+class DeadlineExceeded(ResilienceError):
+    """The request's time budget ran out before a result was produced.
+    HTTP mapping: 504."""
 
 
 class ServerOverloaded(ResilienceError):
@@ -44,3 +52,26 @@ class AdmissionController:
     def release(self) -> None:
         with self._lock:
             self.pending -= 1
+
+
+class Deadline:
+    """Per-request time budget with remaining-time propagation.
+
+    Created once at admission; every later stage asks ``remaining()``
+    instead of re-deriving its own budget, so the request's clock never
+    resets as it moves through the server and an expired request is
+    failed before a device dispatch is spent on it."""
+
+    __slots__ = ("expires_at", "_clock")
+
+    def __init__(self, budget_s: float, *,
+                 clock: Callable[[], float] = time.monotonic):
+        self._clock = clock
+        self.expires_at = clock() + float(budget_s)
+
+    def remaining(self) -> float:
+        """Seconds left in the budget (<= 0 once expired)."""
+        return self.expires_at - self._clock()
+
+    def expired(self) -> bool:
+        return self.remaining() <= 0

@@ -16,19 +16,22 @@ sources (into that tree's ``kernels/build/``) and reports:
   from one short ``torch.profiler`` window per case, read as
   ``chip_smoke.py`` reads it (its ``device_ms``); K2's per wrapper call,
   which on its split chunk walk is two launches (walk and merge);
-- a digest of K1's outputs (o and lse) and of K2's outputs per case (both
-  routes; f32, int8, bf16 and int8 pools under a bf16 query), so that two
-  trees whose kernels should agree bit for bit can be seen to;
+- a digest of K1's outputs (o and lse), of K2's outputs per case (both
+  routes; f32, int8, bf16, f16 and int8 pools under a bf16 query) and of
+  K3's and K4's outputs (dq; dk and dv), so that two trees whose kernels
+  should agree bit for bit can be seen to;
 - one profiled f32 serve of the ``chip_smoke.py`` phase-5 requests and
   five profiled training steps: wall time, device busy time, idle share
   and the attention kernels' device time, K2's chunk route summed
   (``chip_smoke.profile_serve`` and ``profile_train``).
 
-Before the runs it compiles each tree's ``paged_attn.cu`` once more with
-``nvcc -Xptxas -v -cubin`` and reads ``cuobjdump -sass``: registers and
-spills of each K2 kernel and its counts of ``HMMA`` (tensor-core
+Before the runs it compiles each tree's ``flash_fwd.cu``, ``flash_bwd.cu``
+and ``paged_attn.cu`` once more with ``nvcc -Xptxas -v -cubin`` (one
+``nvcc`` each, all started together) and reads ``cuobjdump -sass``:
+registers and spills of each kernel, its counts of ``HMMA`` (tensor-core
 products), ``LDGSTS`` (``cp.async`` copies) and ``ATOM``/``RED``
-(atomics).
+(atomics), and a digest of its instructions; it prints how many of the
+kernels both trees compile have equal instructions.
 
 The last line of its output is one JSON object with every run;
 ``--out DIR`` also writes it to ``DIR/kernel_ab.json``. The measurement
@@ -49,7 +52,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # (name, B, H, T, d, dtype, causal): K1 on the serve's output() and the
 # training step, and the long yardstick shape
 K1_CASES = [("slice_f32_causal", 8, 8, 128, 32, "float32"),
+            ("slice_bf16_causal", 8, 8, 128, 32, "bfloat16"),
             ("train_f32_causal", 16, 8, 128, 32, "float32"),
+            ("mid_f32_causal", 2, 8, 1024, 64, "float32"),
             ("long_f32_causal", 2, 8, 2048, 128, "float32"),
             ("long_bf16_causal", 2, 8, 2048, 128, "bfloat16")]
 # (name, T, query dtype, int8 pools): K2 at B=8, H=8, d=32, ps=16,
@@ -67,11 +72,15 @@ K2_CASES = [("f32_T1_Tmax512", 1, "float32", False),
             ("bf16_T1_Tmax512", 1, "bfloat16", False),
             ("bf16_T256_Tmax512", 256, "bfloat16", False),
             ("bf16_T48_Tmax512", 48, "bfloat16", False),
+            ("f16_T1_Tmax512", 1, "float16", False),
+            ("f16_T256_Tmax512", 256, "float16", False),
             ("int8bf16_T1_Tmax512", 1, "bfloat16", True),
             ("int8bf16_T256_Tmax512", 256, "bfloat16", True)]
 # (name, B, H, T, d, dtype): K3 and K4 on the training step, causal, and
 # the long yardstick shape
 BWD_CASES = [("train_f32_causal", 16, 8, 128, 32, "float32"),
+             ("train_bf16_causal", 16, 8, 128, 32, "bfloat16"),
+             ("mid_f32_causal", 2, 8, 1024, 64, "float32"),
              ("long_f32_causal", 2, 8, 2048, 128, "float32"),
              ("long_bf16_causal", 2, 8, 2048, 128, "bfloat16")]
 
@@ -150,8 +159,13 @@ def measure(tree: str) -> dict:
         args = (q, k, v, do, lse, fa.attention_delta(o, do), None, True)
         for part, kernel in (("k3", "flash_bwd_dq"), ("k4", "flash_bwd_dkv")):
             fn = getattr(ext, kernel)
+            res = fn(*args)
+            res = res if isinstance(res, (list, tuple)) else [res]
+            digest = hashlib.sha256(b"".join(
+                r.float().cpu().numpy().tobytes() for r in res)).hexdigest()
             ms, n = cs.device_ms(lambda: fn(*args), kernel)
-            out[part][name] = dict(device_ms=ms, launches_per_call=n)
+            out[part][name] = dict(device_ms=ms, launches_per_call=n,
+                                   digest=digest[:16])
     card = cs.card_line()
     net, _cpu = cs.build_nets()
     rs = cs.np.random.RandomState(4)
@@ -163,49 +177,68 @@ def measure(tree: str) -> dict:
     return out
 
 
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_attn.cu")
+
+
+def compile_one(tree: str, src: str, tmp: str):
+    """``nvcc -Xptxas -v -cubin`` of one kernel source of ``tree``; returns
+    (ptxas report, SASS text)."""
+    path = os.path.join(tree, "deeplearning4j_torch", "kernels", src)
+    cubin = os.path.join(tmp, src + ".cubin")
+    build = subprocess.run(
+        ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+         "-O3", "-Xptxas", "-v", "-cubin", "-o", cubin, path],
+        capture_output=True, text=True, timeout=900)
+    if build.returncode != 0:
+        raise SystemExit(f"kernel_ab: nvcc failed on {path}:\n"
+                         f"{build.stderr[-2000:]}")
+    sass = subprocess.run(["cuobjdump", "-sass", cubin], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return build.stderr, sass
+
+
 def sass_report(tree: str) -> dict:
-    """Registers and spills (``nvcc -Xptxas -v``) and the ``HMMA``,
-    ``LDGSTS`` and ``ATOM``/``RED`` counts (``cuobjdump -sass``) of each
-    kernel in ``tree``'s ``paged_attn.cu``, by mangled name."""
+    """Registers and spills (``nvcc -Xptxas -v``), the ``HMMA``,
+    ``LDGSTS`` and ``ATOM``/``RED`` counts and a digest of the instructions
+    (``cuobjdump -sass``) of each kernel in ``tree``'s kernel sources, by
+    mangled name. The sources compile in parallel."""
+    import hashlib
     import re
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
-    src = os.path.join(tree, "deeplearning4j_torch", "kernels",
-                       "paged_attn.cu")
     with tempfile.TemporaryDirectory() as tmp:
-        cubin = os.path.join(tmp, "paged_attn.cubin")
-        build = subprocess.run(
-            ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "-Xptxas", "-v", "-cubin", "-o", cubin,
-             src], capture_output=True, text=True, timeout=600)
-        if build.returncode != 0:
-            raise SystemExit(f"kernel_ab: nvcc failed on {src}:\n"
-                             f"{build.stderr[-2000:]}")
-        sass = subprocess.run(["cuobjdump", "-sass", cubin],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout
-    report, fn = {}, None
-    for line in build.stderr.splitlines():
-        if "Compiling entry function" in line:
-            fn = line.split("'")[1]
-            report[fn] = dict(registers=None, spill_stores=0, spill_loads=0,
-                              hmma=0, ldgsts=0, atom=0)
-        elif fn and "Used" in line:
-            report[fn]["registers"] = int(re.search(r"Used (\d+) registers",
-                                                    line).group(1))
-        elif fn and "spill stores" in line:
-            nums = re.findall(r"(\d+) bytes spill", line)
-            report[fn]["spill_stores"], report[fn]["spill_loads"] = map(
-                int, nums)
-    fn = None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-        elif fn in report:
-            for key, pat in (("hmma", "HMMA"), ("ldgsts", "LDGSTS"),
-                             ("atom", "ATOM")):
-                report[fn][key] += pat in line
-            report[fn]["atom"] += " RED." in line
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            outs = list(pool.map(lambda s: compile_one(tree, s, tmp),
+                                 SOURCES))
+    report = {}
+    for src, (ptxas, sass) in zip(SOURCES, outs):
+        fn = None
+        for line in ptxas.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+                report[fn] = dict(source=src, registers=None, spill_stores=0,
+                                  spill_loads=0, hmma=0, ldgsts=0, atom=0,
+                                  sass=hashlib.sha256())
+            elif fn and "Used" in line:
+                report[fn]["registers"] = int(
+                    re.search(r"Used (\d+) registers", line).group(1))
+            elif fn and "spill stores" in line:
+                nums = re.findall(r"(\d+) bytes spill", line)
+                report[fn]["spill_stores"], report[fn]["spill_loads"] = map(
+                    int, nums)
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+            elif fn in report:
+                for key, pat in (("hmma", "HMMA"), ("ldgsts", "LDGSTS"),
+                                 ("atom", "ATOM")):
+                    report[fn][key] += pat in line
+                report[fn]["atom"] += " RED." in line
+                report[fn]["sass"].update(line.encode())
+    for r in report.values():
+        r["sass"] = r["sass"].hexdigest()[:16]
     return report
 
 
@@ -229,12 +262,20 @@ def main() -> int:
         return 2
     sass = {label: sass_report(tree) for label, tree in
             (("other", args.other), ("this", HERE))}
-    for label, rep in sass.items():
-        for fn, r in rep.items():
-            print(f"{label}: {fn[9:60]} regs {r['registers']} spill "
-                  f"{r['spill_stores']}/{r['spill_loads']} B, HMMA "
-                  f"{r['hmma']}, LDGSTS {r['ldgsts']}, ATOM/RED {r['atom']}",
-                  flush=True)
+    for fn, r in sass["this"].items():
+        was = sass["other"].get(fn)
+        note = "new" if was is None else (
+            "same instructions" if was["sass"] == r["sass"] else "CHANGED")
+        print(f"this: {fn[:70]} regs {r['registers']} spill "
+              f"{r['spill_stores']}/{r['spill_loads']} B, HMMA {r['hmma']}, "
+              f"LDGSTS {r['ldgsts']}, ATOM/RED {r['atom']}; {note}",
+              flush=True)
+    both = [fn for fn in sass["this"] if fn in sass["other"]]
+    same = sum(sass["this"][fn]["sass"] == sass["other"][fn]["sass"]
+               for fn in both)
+    print(f"kernels in both trees: {len(both)}, equal instructions: {same}; "
+          f"only in this tree: {len(sass['this']) - len(both)}; only in the "
+          f"other: {len(sass['other']) - len(both)}", flush=True)
     runs = []
     for label, tree in (("other", args.other), ("this", HERE),
                         ("this", HERE), ("other", args.other)):
@@ -255,6 +296,10 @@ def main() -> int:
         print(f"{label}: K2 digests " + " ".join(
             f"{n} {r.get('digest', 'unsupported')}"
             for n, r in run["k2"].items()), flush=True)
+        for part in ("k3", "k4"):
+            print(f"{label}: {part.upper()} digests " + " ".join(
+                f"{n} {r['digest']}" for n, r in run[part].items()),
+                flush=True)
         for part in ("k2", "k3", "k4"):
             ms = " ".join(f"{n} {r['device_ms']:.5f}"
                           for n, r in run[part].items() if "device_ms" in r)
@@ -268,6 +313,12 @@ def main() -> int:
         r = run["serve"]
         print(f"{label}: serve K2 chunk route {r['k2_chunk_device_ms']:.4f} "
               f"ms over {r['k2_chunk_calls']} calls", flush=True)
+    for part in ("k1", "k2", "k3", "k4"):
+        names = [n for n, r in runs[0][part].items() if "digest" in r]
+        differ = [n for n in names
+                  if len({run[part][n].get("digest") for run in runs}) != 1]
+        print(f"{part.upper()} digests over the four runs: {len(names)} "
+              f"cases, differing: {differ or 'none'}", flush=True)
     print(runs[0]["card"])
     line = {"kernel_ab": runs, "sass": sass}
     if args.out:

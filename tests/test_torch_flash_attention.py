@@ -5,6 +5,9 @@ against the JAX ``scaled_dot_attention``.
 
 Tolerance: atol 1e-5 on O and lse, f32. The two sides reduce the same sums
 in different orders (XLA CPU vs PyTorch CPU matmuls); nothing else differs.
+f16 (head dims 8, 16 and 32): both sides compute in f32 and round O once to
+f16, so they may differ by one f16 step of max|O| (2^-10·max|O|); lse stays
+f32 (atol 1e-5).
 The CUDA kernel itself cannot run here: ``chip_smoke.py`` holds it against
 this plain version on the card.
 
@@ -13,7 +16,9 @@ three TF32 products of hi/lo splits (``cvt.rna.tf32.f32``: round to nearest,
 ties away, emulated on the int32 view), 64-row q tiles over 64-key tiles
 with the online softmax, as ``kernels/flash_fwd.cu`` runs them. It must meet
 ``chip_smoke.py`` phase 2's atol 1e-4 against the plain version and the JAX
-Pallas forward; one TF32 product per product must not.
+Pallas forward; one TF32 product per product must not. Its f16 path (exact
+f16 products summed in f32, P entering P·V as two f16 terms, O rounded once)
+must meet phase 2's 2^-8·max|O| at head dims 8 and 16.
 """
 
 import math
@@ -97,21 +102,51 @@ def test_bf16_plain_keeps_input_dtype():
     np.testing.assert_allclose(o.float().numpy(), ref.numpy(), atol=2e-2)
 
 
+@pytest.mark.parametrize("d", [8, 16, 32], ids=["d8", "d16", "d32"])
+@pytest.mark.parametrize("dtype", ["float32", "float16"], ids=["f32", "f16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_head_dims_and_f16_match_jax_flash(d, dtype, causal):
+    """Head dims 8, 16 and 32 in f32 and f16, masked, against the JAX
+    Pallas forward in interpret mode."""
+    rs = np.random.RandomState(40 + d + int(causal))
+    q, k, v = (rs.randn(B, H, T, d).astype(dtype) for _ in range(3))
+    mask = np.ones((B, T), np.float32)
+    mask[0, 11:] = 0
+    jo, jlse = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(mask), causal=causal, block_q=T,
+                              block_k=T, interpret=True)
+    o, lse = fa.flash_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, mask=torch.from_numpy(mask))
+    jo = np.asarray(jo).astype(np.float32)
+    assert o.dtype == getattr(torch, dtype) and lse.dtype == torch.float32
+    atol = 1e-5 if dtype == "float32" else 2.0 ** -10 * np.abs(jo).max()
+    np.testing.assert_allclose(o.float().numpy(), jo, atol=atol, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=1e-5,
+                               rtol=0)
+
+
 def test_supports():
     assert fa.supports((2, 8, 128, 32), mask=None)
     assert fa.supports((2, 8, 100, 64), mask=torch.ones(2, 100),
                        dtype=torch.bfloat16)
     assert not fa.supports((2, 8, 128, 48), mask=None)        # head dim
+    assert not fa.supports((2, 8, 128, 4), mask=None)
+    for d in (8, 16):
+        assert fa.supports((2, 8, 128, d), mask=None)
+        assert fa.supports((2, 8, 128, d), mask=None, dtype=torch.float16)
     assert not fa.supports((2, 8, 128, 32), mask=torch.ones(2, 8, 128))
     assert not fa.supports((2, 8, 128, 32), mask=None, dtype=torch.float64)
     assert not fa.supports((8, 128, 32), mask=None)
 
 
 # ------------------------------------------------- K1's f32 design, rehearsed
-def _k1_emulated(q, k, v, *, causal, mask, mm, block=64):
+def _k1_emulated(q, k, v, *, causal, mask, mm, block=64, mm_p=None):
     """K1's tile walk in f32: 64-row q tiles, 64-key tiles up to the causal
     limit, scores scaled after the product, masked keys -1e30 and keys past
-    T -inf, online softmax, l clamped at 1e-30. Returns (o, lse)."""
+    T -inf, online softmax, l clamped at 1e-30. ``mm`` runs q·kᵀ, ``mm_p``
+    (default ``mm``) P·V. Returns (o, lse)."""
+    mm_p = mm if mm_p is None else mm_p
     B, H, T, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(B, H, T, 1)
@@ -142,7 +177,7 @@ def _k1_emulated(q, k, v, *, causal, mask, mm, block=64):
             mx = torch.maximum(m, s.amax(-1, keepdim=True))
             alpha, p = torch.exp(m - mx), torch.exp(s - mx)
             l = l * alpha + p.sum(-1, keepdim=True)
-            acc = acc * alpha + mm(p, vt)
+            acc = acc * alpha + mm_p(p, vt)
             m = mx
         lc = l.clamp_min(1e-30)
         o[:, :, q0:q0 + block] = acc / lc
@@ -196,6 +231,36 @@ def test_k1_single_tf32_product_misses_phase2_tolerance():
     err_one = (one - po).abs().max().item()
     err_three = (three - po).abs().max().item()
     assert err_one > 1e-4 > 10 * err_three
+
+
+@pytest.mark.parametrize("d", [8, 16], ids=["d8", "d16"])
+def test_k1_design_at_small_head_dims(d):
+    """K1 at head dims 8 and 16: f32 as three TF32 products (one and two
+    k-steps) within phase 2's atol 1e-4 of the plain version and the JAX
+    Pallas forward; f16 with exact products summed in f32 and P in two f16
+    terms (the m16n8k8 score product and the two-k-step P·V of d=8) within
+    phase 2's 2^-8·max|O| of the plain f16 version."""
+    rs = np.random.RandomState(50 + d)
+    q, k, v = (rs.randn(2, 2, 128, d).astype(np.float32) for _ in range(3))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    o, _ = _k1_emulated(tq, tk, tv, causal=True, mask=None, mm=_mm_tf32x3)
+    po, _ = fa.flash_attention_plain(tq, tk, tv, causal=True)
+    jo, _ = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           None, causal=True, block_q=128, block_k=128,
+                           interpret=True)
+    np.testing.assert_allclose(o.numpy(), po.numpy(), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=1e-4, rtol=0)
+
+    def mm_f16_terms(a, b):                       # lo first, then hi
+        hi = a.half().float()
+        return (a - hi).half().float() @ b + hi @ b
+
+    hq, hk, hv = (t.half() for t in (tq, tk, tv))
+    o16, _ = _k1_emulated(hq.float(), hk.float(), hv.float(), causal=True,
+                          mask=None, mm=torch.matmul, mm_p=mm_f16_terms)
+    p16, _ = fa.flash_attention_plain(hq, hk, hv, causal=True)
+    err = (o16.half().float() - p16.float()).abs().max().item()
+    assert err <= 2.0 ** -8 * p16.float().abs().max().item()
 
 
 def test_tf32_rounding_is_nearest_ties_away():

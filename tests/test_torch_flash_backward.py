@@ -9,7 +9,10 @@ Tolerances: ``max|Δ| ≤ 1e-5·max|g|`` per gradient, f32. The sides reduce the
 same sums in other orders (XLA CPU vs PyTorch CPU matmuls) and the flash
 form rebuilds P from the saved logsumexp, so they differ by f32 rounding
 only. bf16: the plain backward on bf16 inputs keeps bf16 and stays within
-``2e-2·max|g|`` of the f32 computation on the same (rounded) inputs. The CUDA
+``2e-2·max|g|`` of the f32 computation on the same (rounded) inputs. f16
+(head dims 8, 16 and 32): both the plain backward and the JAX Pallas one
+compute in f32 and round each gradient once to f16, within two f16 steps of
+max|g| (``2^-9·max|g|``) of each other. The CUDA
 kernels cannot run here: ``chip_smoke.py`` holds them against this plain
 version on the card.
 
@@ -18,7 +21,9 @@ streamed K/V tiles and K4's 64-key tiles over streamed q/dO tiles (8 KB a
 tensor: 64, 32 or 16 rows by the row's width), every f32 product as three TF32
 products (``tf32_emulation.py``), bf16 with P and dS in two bf16 terms. It
 must meet ``chip_smoke.py`` phase 6's bounds against the plain backward and
-the JAX Pallas backward; one TF32 product per product must not.
+the JAX Pallas backward; one TF32 product per product must not. The f16
+design (exact f16 products, P and dS in two f16 terms, one rounding at the
+end) must meet phase 6's 2^-8·max|g| at head dims 8 and 16.
 """
 
 import math
@@ -86,6 +91,28 @@ def test_plain_backward_matches_jax_pallas_grad(causal, masked):
     for name, g, r in zip("qkv", got, ref):
         assert g.dtype == torch.float32 and g.shape == (B, H, T, D)
         assert _rel_err(g.numpy(), r) <= 1e-5, f"d{name}"
+
+
+@pytest.mark.parametrize("d", [8, 16, 32], ids=["d8", "d16", "d32"])
+@pytest.mark.parametrize("dtype", ["float32", "float16"], ids=["f32", "f16"])
+def test_head_dims_and_f16_backward_match_jax(d, dtype):
+    """Head dims 8, 16 and 32 in f32 and f16, causal and masked, against
+    ``jax.vjp`` through the Pallas kernels in interpret mode."""
+    rs = np.random.RandomState(60 + d)
+    q, k, v, do = (rs.randn(B, H, T, d).astype(dtype) for _ in range(4))
+    mask = np.ones((B, T), np.float32)
+    mask[1, 1 + rs.permutation(T - 1)[:5]] = 0
+    jm = jnp.asarray(mask)
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash(q, k, v, causal=True,
+                                               mask=jm, interpret=True),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = vjp(jnp.asarray(do))
+    got = _plain_grads(q, k, v, do, mask, True)
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -9
+    for name, g, r in zip("qkv", got, ref):
+        assert g.dtype == getattr(torch, dtype) and g.shape == (B, H, T, d)
+        assert _rel_err(g.float().numpy(), np.asarray(r).astype(
+            np.float32)) <= tol, f"d{name}"
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
@@ -269,14 +296,16 @@ def _design_case(masked, shape=(2, 2, 128, 32)):
     return q, k, v, do, mask
 
 
-def _design_run(q, k, v, do, mask, mm, **kw):
+def _design_run(q, k, v, do, mask, mm, mm_p=None, **kw):
     """The emulated kernels on the plain forward's o and lse (as phase 6
-    feeds them K1's), and the plain backward on the same inputs."""
+    feeds them K1's), and the plain backward on the same inputs. ``mm_p``
+    (default ``mm``) runs the products with P or dS on the left."""
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
     tm = None if mask is None else torch.from_numpy(mask)
     o, lse = fa.flash_attention_plain(tq, tk, tv, causal=True, mask=tm)
     got = _k3k4_emulated(tq, tk, tv, tdo, lse, fa.attention_delta(o, tdo),
-                         causal=True, mask=tm, mm=mm, mm_p=mm, **kw)
+                         causal=True, mask=tm, mm=mm,
+                         mm_p=mm if mm_p is None else mm_p, **kw)
     plain = fa.flash_attention_backward_plain(tq, tk, tv, o, lse, tdo,
                                               causal=True, mask=tm)
     return got, plain
@@ -382,3 +411,27 @@ def test_bf16_plain_backward_keeps_dtype():
                                             dob.float(), causal=True)
     for g, r in zip(got, ref):
         assert _rel_err(g.float().numpy(), r.numpy()) <= 2e-2
+
+
+@pytest.mark.parametrize("d", [8, 16], ids=["d8", "d16"])
+def test_k3k4_design_at_small_head_dims(d):
+    """K3/K4 at head dims 8 and 16: f32 as three TF32 products within
+    phase 6's 1e-5·max|g| of the plain backward; f16 with exact products
+    summed in f32, P and dS in two f16 terms and each gradient rounded once
+    to f16, within phase 6's 2^-8·max|g| of the plain f16 backward."""
+    q, k, v, do, mask = _design_case(True, shape=(2, 2, 128, d))
+    got, plain = _design_run(q, k, v, do, mask, _mm_tf32x3)
+    for name, g, p in zip("qkv", got, plain):
+        assert _rel_err(g.numpy(), p.numpy()) <= 1e-5, f"d{name} f32"
+
+    def mm_f16_terms(a, b):                       # lo first, then hi
+        hi = a.half().float()
+        return (a - hi).half().float() @ b + hi @ b
+
+    h = [a.astype(np.float16).astype(np.float32) for a in (q, k, v, do)]
+    got, _ = _design_run(*h, mask, torch.matmul, mm_p=mm_f16_terms)
+    ref = _plain_grads(*(a.astype(np.float16) for a in (q, k, v, do)), mask,
+                       True)
+    for name, g, r in zip("qkv", got, ref):
+        assert _rel_err(g.half().float().numpy(), r.float().numpy()) \
+            <= 2.0 ** -8, f"d{name} f16"

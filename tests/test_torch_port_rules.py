@@ -6,8 +6,10 @@
   instead of quietly running on the CPU;
 - a kernel wrapper handed CUDA tensors on a host without CUDA raises, and
   never computes the plain version on the CPU instead; so does a CUDA case
-  the kernels do not take (head dim 48, f16 flash, f64 paged); a bf16 or
-  f16 paged query (K2 takes them) reaches the kernel's build;
+  the kernels do not take (head dims 4 and 48, f64); the cases they take
+  (head dims 8, 16, 32, 64, 128; f32, bf16 and f16 for K1/K3/K4, and those
+  queries over pages of their dtype or int8 for K2) reach the kernels'
+  build;
 - ``fit`` refuses what the port does not have yet (the fused K-step driver,
   the health guard, regularization) instead of training without it.
 """
@@ -68,7 +70,8 @@ def test_port_imports_no_jax():
              for p in files if "deeplearning4j_torch" in p.parts}
     # the training slice's modules are covered too
     assert {"ops/losses.py", "nn/updater.py", "datasets/dataset.py",
-            "optimize/fused_fit.py", "utils/convert.py"} <= names
+            "optimize/fused_fit.py", "utils/convert.py",
+            "parallel/handoff.py", "parallel/resilience.py"} <= names
     bad = [(str(p.relative_to(ROOT)), mod) for p in files
            for mod in _imported_roots(p) if mod in FORBIDDEN]
     assert bad == []
@@ -124,7 +127,7 @@ def test_flash_backward_on_cuda_tensors_raises_without_cuda(no_cuda,
             fa.flash_attention_backward(q, q, q, q, lse, q, causal=True)
 
 
-@pytest.mark.parametrize("case", ["d48", "f16"])
+@pytest.mark.parametrize("case", ["d48", "d4", "f64"])
 def test_flash_backward_refuses_unsupported_cases(case, monkeypatch):
     """The backward wrapper checks the case before any build: a CUDA
     request the kernels cannot take raises instead of taking the plain
@@ -132,8 +135,10 @@ def test_flash_backward_refuses_unsupported_cases(case, monkeypatch):
     monkeypatch.setattr(fa, "flash_attention_backward_plain", _no_plain)
     d, dtype, err, match = {"d48": (48, torch.float32, ValueError,
                                     "head dims"),
-                            "f16": (32, torch.float16, TypeError,
-                                    "f32 or bf16")}[case]
+                            "d4": (4, torch.float32, ValueError,
+                                   "head dims"),
+                            "f64": (32, torch.float64, TypeError,
+                                    "f32, bf16 or f16")}[case]
     with FakeTensorMode():
         q = torch.empty(1, 2, 16, d, device="cuda", dtype=dtype)
         lse = torch.empty(2, 16, 1, device="cuda")
@@ -181,7 +186,7 @@ def test_cuda_wrappers_refuse_unsupported_shapes():
         with pytest.raises(ValueError, match="head dims"):
             fa.flash_attention_forward(q, q, q)
         q64 = torch.empty(1, 2, 16, 32, device="cuda", dtype=torch.float64)
-        with pytest.raises(TypeError, match="f32 or bf16"):
+        with pytest.raises(TypeError, match="f32, bf16 or f16"):
             fa.flash_attention_forward(q64, q64, q64)
         qd = torch.empty(1, 2, 1, 32, device="cuda", dtype=torch.float64)
         with pytest.raises(TypeError, match="paged kernel takes a query"):
@@ -216,21 +221,26 @@ def test_16bit_paged_query_on_cuda_reaches_the_kernel(dtype, no_cuda,
 @pytest.mark.parametrize("helper", ["auto", "pallas"])
 @pytest.mark.parametrize("case", ["d48", "f16", "mask3d"])
 def test_attention_layer_on_cuda_never_takes_the_plain_path(
-        case, helper, monkeypatch):
+        case, helper, no_cuda, monkeypatch):
     """The layer's kernel-routed helpers hand CUDA tensors to K1's wrapper
     whatever their shape or type, so a case the kernel cannot take raises
-    instead of computing ``scaled_dot_attention`` on the card."""
+    instead of computing ``scaled_dot_attention`` on the card, and one it
+    takes (f16) goes to the kernel's build, which raises on a host without
+    CUDA."""
     monkeypatch.setattr(patt, "scaled_dot_attention", _no_plain)
     monkeypatch.setattr(fa, "flash_attention_plain", _no_plain)
-    d, dtype, mask_shape = {"d48": (48, torch.float32, (1, 16)),
-                            "f16": (32, torch.float16, (1, 16)),
-                            "mask3d": (32, torch.float32, (1, 2, 16))}[case]
+    refused = dict(expected_exception=(ValueError, TypeError))
+    built = dict(expected_exception=RuntimeError, match="CUDA device")
+    d, dtype, mask_shape, raises = {
+        "d48": (48, torch.float32, (1, 16), refused),
+        "f16": (32, torch.float16, (1, 16), built),
+        "mask3d": (32, torch.float32, (1, 2, 16), refused)}[case]
     layer = patt.SelfAttentionLayer(n_in=2 * d, n_out=2 * d, n_heads=2,
                                     causal=True, helper=helper)
     with FakeTensorMode():
         q = torch.empty(1, 2, 16, d, device="cuda", dtype=dtype)
         mask = torch.ones(mask_shape, device="cuda")
-        with pytest.raises((ValueError, TypeError)):
+        with pytest.raises(**raises):
             layer._attend(q, q, q, mask)
 
 
@@ -239,3 +249,65 @@ def test_output_stays_on_the_requested_device():
     x = np.eye(11, dtype=np.float32)[np.arange(8) % 11][None]
     out = net.output(x)
     assert out.device.type == "cpu" and out.shape == (1, 8, 11)
+
+
+@pytest.mark.parametrize("d, dtype", [(8, torch.float32), (8, torch.bfloat16),
+                                      (8, torch.float16), (16, torch.float32),
+                                      (16, torch.float16), (32, torch.float16),
+                                      (128, torch.float16)],
+                         ids=["d8f32", "d8bf16", "d8f16", "d16f32", "d16f16",
+                              "d32f16", "d128f16"])
+def test_flash_case_table_takes_small_head_dims_and_f16(d, dtype, no_cuda,
+                                                        monkeypatch):
+    """K1/K3/K4's CUDA case table takes head dims 8 and 16 and f16: the
+    shape and type check passes (``supports`` agrees) and the wrappers go on
+    to the kernels' build, which raises on a host without CUDA, never to
+    the plain version."""
+    monkeypatch.setattr(fa, "flash_attention_plain", _no_plain)
+    monkeypatch.setattr(fa, "flash_attention_backward_plain", _no_plain)
+    assert fa.supports((2, 2, 16, d), mask=None, dtype=dtype)
+    with FakeTensorMode():
+        q = torch.empty(2, 2, 16, d, device="cuda", dtype=dtype)
+        m = torch.ones(2, 16, device="cuda")
+        assert fa._cuda_case(q, q, q, m).shape == (2, 16)
+        lse = torch.empty(4, 16, 1, device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            fa.flash_attention_forward(q, q, q, causal=True, mask=m)
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            fa.flash_attention_backward(q, q, q, q, lse, q, causal=True)
+
+
+@pytest.mark.parametrize("d", [4, 48, 96])
+def test_case_tables_refuse_other_head_dims(d):
+    """Head dims other than 8, 16, 32, 64 and 128 raise on CUDA tensors in
+    both case tables before any build (ROADMAP B)."""
+    assert not fa.supports((2, 2, 16, d), mask=None)
+    with FakeTensorMode():
+        q = torch.empty(2, 2, 16, d, device="cuda")
+        with pytest.raises(ValueError, match="head dims"):
+            fa._cuda_case(q, q, q, None)
+        qp = torch.empty(2, 2, 1, d, device="cuda")
+        pool = torch.empty(5, 2, 8, d, device="cuda")
+        bt = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
+        pos = torch.zeros(2, dtype=torch.int32, device="cuda")
+        with pytest.raises(ValueError, match="head dims"):
+            ppa.paged_attention(qp, pool, pool, bt, pos)
+
+
+@pytest.mark.parametrize("d", [8, 16])
+@pytest.mark.parametrize("quant", [False, True], ids=["own", "int8"])
+def test_paged_small_head_dims_reach_the_kernel(d, quant, no_cuda,
+                                                monkeypatch):
+    """K2 takes head dims 8 and 16 over pages of the query's dtype or int8:
+    the wrapper goes to the kernel's build (raising without CUDA)."""
+    monkeypatch.setattr(ppa, "paged_attention_plain", _no_plain)
+    with FakeTensorMode():
+        q = torch.empty(2, 2, 1, d, device="cuda", dtype=torch.float16)
+        pool = torch.empty(5, 2, 8, d, device="cuda",
+                           dtype=torch.int8 if quant else torch.float16)
+        sc = torch.empty(5, 2, 8, device="cuda") if quant else None
+        bt = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
+        pos = torch.zeros(2, dtype=torch.int32, device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            ppa.paged_attention(q, pool, pool, bt, pos, kscales=sc,
+                                vscales=sc)
