@@ -127,6 +127,26 @@ def sampled_next_token(probs, keys, temperature, top_k):
     return torch.where(temperature <= 0, greedy, sampled)
 
 
+def spec_verify_tokens(probs, base_keys, counts, temperature, top_k):
+    """The target's token selections at K consecutive positions per row,
+    the verification half of speculative decoding (JAX
+    ``zoo.spec_verify_tokens``): ``probs`` ``[B, K, V]`` softmax outputs of
+    one chunked forward over ``[last, draft_1, ..., draft_{K-1}]``,
+    ``base_keys`` ``[B, 2]``, ``counts`` ``[B]`` the index of the first
+    token selected, ``temperature``/``top_k`` ``[B]``. Position i of row b
+    selects with ``fold_in(base_keys[b], counts[b] + i)``, the key the
+    serial decode uses for that token, so every emitted token is the
+    target's selection under the serial schedule whatever the draft
+    proposed. One ``sampled_next_token`` over the ``[B·K, V]`` rows."""
+    B, K, V = probs.shape
+    idx = counts.long()[:, None] + torch.arange(K, device=probs.device)
+    keys = random.fold_in(base_keys[:, None, :], idx)           # [B, K, 2]
+    flat = sampled_next_token(probs.reshape(B * K, V), keys.reshape(B * K, 2),
+                              temperature.repeat_interleave(K),
+                              top_k.repeat_interleave(K))
+    return flat.reshape(B, K)
+
+
 def greedy_generate(net, prompt_ids, steps: int, vocab: int,
                     device_loop: bool = True):
     """Greedy decoding: ``sample_generate`` with temperature 0."""

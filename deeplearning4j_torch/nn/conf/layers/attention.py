@@ -4,8 +4,7 @@
 streaming forward behind ``rnn_time_step`` and the generate loops, and the
 paged-KV serving forward) and ``PositionalEncodingLayer``.
 
-The tensor-parallel paged path and dense streaming with per-row positions
-(the JAX package's slot-pooled stock decode) are not ported yet.
+The tensor-parallel paged path is not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -197,23 +196,31 @@ class SelfAttentionLayer(BaseLayer):
         holds the same cache tensors), and each query row attends over
         every cached column up to its own position, as one masked softmax
         over the whole ``max_cache`` strip (the JAX layer's expressions).
-        A chunk that would run past ``max_cache`` raises. ``mask`` is an
-        optional ``[B, T]`` validity of the chunk's positions: masked
-        columns attend nowhere and their outputs are zeroed, but they still
-        take cache columns."""
+
+        ``cache_pos`` is a scalar (one shared stream position, the
+        ``rnn_time_step`` path) or a ``[B]`` vector of per-row positions
+        (slot-pooled decode, the speculative draft: each row an independent
+        sequence at its own depth, masked by its own length, its chunk
+        written at its own offset by one indexed write). The write start
+        clamps to ``max_cache - T`` as JAX's ``dynamic_update_slice``
+        does. A chunk that would run past ``max_cache`` raises when the
+        positions live on the host; positions on the card are checked by
+        the caller against the positions it holds (``rnn_time_step`` and
+        the generate loops count them, the server holds every slot's), so
+        the forward never syncs on them. ``mask`` is an optional ``[B, T]``
+        validity of the chunk's positions: masked columns attend nowhere
+        and their outputs are zeroed, but they still take cache columns."""
         B, T, _ = x.shape
         kc, vc, pos = state["kcache"], state["vcache"], state["cache_pos"]
         Tmax = kc.shape[2]
-        if pos.dim() != 0:
-            raise NotImplementedError(
-                "dense streaming with per-row positions is not ported; the "
-                "port's server pages its KV (init_paged_carry)")
-        p = int(pos)
-        if p + T > Tmax:
-            raise ValueError(
-                f"KV cache overflow: position {p} + {T} new tokens > "
-                f"max_cache {Tmax}; raise SelfAttentionLayer.max_cache or "
-                "rnn_clear_previous_state() to start a new stream")
+        per_row = pos.dim() == 1
+        if pos.device.type == "cpu":
+            hi = int(pos.max()) if per_row else int(pos)
+            if hi + T > Tmax:
+                raise ValueError(
+                    f"KV cache overflow: position {hi} + {T} new tokens > "
+                    f"max_cache {Tmax}; raise SelfAttentionLayer.max_cache "
+                    "or rnn_clear_previous_state() to start a new stream")
         if mask is not None and tuple(mask.shape) != (B, T):
             raise ValueError(
                 f"streaming attention mask must be [batch, chunk] = "
@@ -226,10 +233,23 @@ class SelfAttentionLayer(BaseLayer):
             ks, vs = state["kscale"], state["vscale"]
             k, ksc = self._quantize_kv(k)
             v, vsc = self._quantize_kv(v)
-            ks[:, :, p:p + T] = ksc
-            vs[:, :, p:p + T] = vsc
-        kc[:, :, p:p + T] = k.to(kc.dtype)
-        vc[:, :, p:p + T] = v.to(vc.dtype)
+        steps = torch.arange(T, device=x.device)
+        cols = torch.clamp(pos.long(), 0, Tmax - T)[..., None] + steps
+        if per_row:
+            # rows [B, 1] and columns [B, T] straddle the head slice, so
+            # the written values carry the [B, T, H, ...] layout
+            rows = torch.arange(B, device=x.device)[:, None]
+            kc[rows, :, cols] = k.to(kc.dtype).transpose(1, 2)
+            vc[rows, :, cols] = v.to(vc.dtype).transpose(1, 2)
+            if quant:
+                ks[rows, :, cols] = ksc.transpose(1, 2)
+                vs[rows, :, cols] = vsc.transpose(1, 2)
+        else:
+            kc.index_copy_(2, cols, k.to(kc.dtype))
+            vc.index_copy_(2, cols, v.to(vc.dtype))
+            if quant:
+                ks.index_copy_(2, cols, ksc)
+                vs.index_copy_(2, cols, vsc)
         if quant:
             kd = kc.to(q.dtype) * ks[..., None].to(q.dtype)
             vd = vc.to(q.dtype) * vs[..., None].to(q.dtype)
@@ -237,17 +257,17 @@ class SelfAttentionLayer(BaseLayer):
             kd, vd = kc, vc
         d = q.shape[-1]
         logits = torch.matmul(q, kd.transpose(-1, -2)) / math.sqrt(d)
-        col = torch.arange(Tmax, device=x.device)[None, :]
-        row = torch.arange(T, device=x.device)[:, None]
+        col = torch.arange(Tmax, device=x.device)
+        p4 = pos.reshape(-1, 1, 1, 1) if per_row else pos
         neg = float(torch.tensor(NEG_INF).to(logits.dtype))  # f16: -inf
-        logits = torch.where(col <= p + row, logits, neg)
+        logits = torch.where(col <= p4 + steps[:, None], logits, neg)
         if mask is not None:
             # columns of this chunk take the chunk mask, older ones stay
             # valid
-            rel = torch.arange(Tmax, device=x.device) - p
-            inside = (rel >= 0) & (rel < T)
-            chunk_valid = (mask != 0)[:, rel.clamp(0, T - 1)]
-            key_valid = torch.where(inside[None], chunk_valid,
+            rel = col - (pos[:, None] if per_row else pos)
+            rel = rel.expand(B, Tmax)
+            chunk_valid = torch.gather(mask != 0, 1, rel.clamp(0, T - 1))
+            key_valid = torch.where((rel >= 0) & (rel < T), chunk_valid,
                                     torch.ones_like(chunk_valid))
             logits = torch.where(key_valid[:, None, None, :], logits, neg)
         o = torch.matmul(torch.softmax(logits, dim=-1), vd)

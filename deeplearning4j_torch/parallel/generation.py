@@ -1,5 +1,5 @@
 """Continuous-batching generation serving over a PAGED KV-cache pool (port of
-the core of ``deeplearning4j_tpu/parallel/generation.py``).
+``deeplearning4j_tpu/parallel/generation.py``).
 
 ``GenerationServer`` runs iteration-level (continuous) batching over a fixed
 pool of S decode slots and stores every slot's KV cache in a shared pool of
@@ -21,12 +21,12 @@ fixed-size pages behind a block table:
   repoints the block table. Released cached pages stay resident for future
   matches until the pool runs dry and evicts them, oldest first.
 - Admission is page accounting: ``submit()`` rejects a request whose prompt
-  + max_tokens can never fit with a typed ``ServerOverloaded`` up front.
-  Under transient pressure the newest admitted slot is PREEMPTED: its pages
-  are freed and its request goes back to the front of the queue. A victim
-  with at least a page of decoded tokens snapshots first and resumes by
-  adoption; otherwise it recomputes from token 0. The key schedule makes
-  either path give the same tokens.
+  + max_tokens (+ the speculative look-ahead) can never fit with a typed
+  ``ServerOverloaded`` up front. Under transient pressure the newest
+  admitted slot is PREEMPTED: its pages are freed and its request goes back
+  to the front of the queue. A victim with at least a page of decoded
+  tokens snapshots first and resumes by adoption; otherwise it recomputes
+  from token 0. The key schedule makes either path give the same tokens.
 - A wave of admitted prompts is prefilled together, Sarathi-style: rounds of
   at most ``prefill_chunk`` tokens per row, one batched paged forward per
   round, rows not in the wave routed to the garbage page.
@@ -35,6 +35,14 @@ fixed-size pages behind a block table:
   with ONE ``[S, M]`` token copy to the host per dispatch. Rows write-clamp
   at capacity: a row at ``NP * page_size`` freezes and its block-table row
   swaps to the garbage page.
+- SPECULATIVE DECODING (``draft_net`` + ``spec_k``): a small draft model
+  with a dense ``[S, H, cap, d]`` slot cache proposes ``spec_k - 1`` tokens
+  per slot under the same key schedule, and the target verifies all
+  ``spec_k`` positions in ONE chunked paged forward (the paged read at
+  ``T = spec_k``). Emitted tokens are always the target's selections under
+  the serial schedule, so outputs equal the non-speculative server's
+  whatever the draft proposes; the draft only buys throughput (the accept
+  rate is in ``stats()``).
 - Deadlines (``submit(..., deadline_s=)`` or the server-wide
   ``request_deadline_s``) fail queued and resident requests alike with a
   typed ``DeadlineExceeded``, checked between dispatches.
@@ -43,7 +51,12 @@ fixed-size pages behind a block table:
   future (``future._kv_snapshot``); ``export_request`` snapshots a live
   request between dispatches; ``adopt_request`` resumes a snapshot (either
   package's) at position N, sharing pages whose digest is resident and
-  storing the rest in one scatter.
+  storing the rest in one scatter. Serving ROLES split prefill from decode:
+  a ``role="prefill"`` server (or ``submit(..., export_kv=True)``) resolves
+  a request's future to the ``KVSnapshot`` holding its first token and
+  frees the slot, and a decode-role server adopts it. ``drain(migrate=
+  True)`` moves every live request off the server as a snapshot attached
+  to a ``RequestMigrated`` failure.
 
 Requests are greedy or sampled (``temperature``, ``top_k``, ``seed``). A
 request's token i is selected with ``fold_in(PRNGKey(seed), i)`` (the
@@ -52,13 +65,19 @@ so its stream equals ``sample_generate``'s and the JAX server's for the same
 probabilities. A dispatch whose active rows are all greedy takes the plain
 argmax, as the JAX server's ``lax.cond`` does.
 
-The decode loop runs on one plain thread the server owns. Speculative
-decode, ``export_kv`` and serving roles, ``drain(migrate=True)``, retries,
-the circuit breaker, chaos injection, the metrics registry and
-tensor-parallel meshes are not ported yet (ROADMAP A3b): their constructor
-arguments raise ``NotImplementedError`` when given. Snapshots of bf16 pools
-carry their pages as raw 16-bit words labelled ``bfloat16``, as the JAX
-package's do.
+The decode loop runs as a supervised ``ServingLoop`` (``parallel/
+runtime.py``): a loop thread that dies (a chaos kill, an untrappable fault)
+fails its in-flight futures typed, the device state is rebuilt and the
+loop restarts. Every dispatch (prefill round, decode dispatch, draft
+prefill, speculative round) runs under the ``ChaosPolicy`` injector when
+one is given, the ``CircuitBreaker``'s accounting and the ``RetryPolicy``;
+a retried dispatch re-runs on the same inputs and rewrites the same pool
+slots with the same values, since no host state advances before it
+returns. Counters live in a ``MetricsRegistry`` under the JAX server's
+metric names, and ``stats()`` has the JAX server's keys in its order.
+Tensor-parallel meshes (``mesh``, ``tp``) are not ported yet (ROADMAP A9).
+Snapshots of bf16 pools carry their pages as raw 16-bit words labelled
+``bfloat16``, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -76,8 +95,10 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_torch import resolve_device
+from deeplearning4j_torch.metrics.registry import MetricsRegistry
 from deeplearning4j_torch.models.zoo import (lm_stream_forward,
-                                             sampled_next_token)
+                                             sampled_next_token,
+                                             spec_verify_tokens)
 from deeplearning4j_torch.nn.conf.layers.attention import (
     PositionalEncodingLayer, SelfAttentionLayer)
 from deeplearning4j_torch.nn.conf.layers.paged_attention import CHOICES
@@ -85,27 +106,29 @@ from deeplearning4j_torch.ops import random
 from deeplearning4j_torch.optimize.bucketing import bucket_pages
 from deeplearning4j_torch.parallel.handoff import (BF16_WIRE, WIRE_VERSION,
                                                    KVSnapshot,
+                                                   RequestMigrated,
                                                    SnapshotInvalid,
                                                    SnapshotUnavailable,
                                                    SnapshotUnsupported,
-                                                   pack_snapshot)
+                                                   corrupt_snapshot,
+                                                   pack_snapshot,
+                                                   truncate_snapshot)
 from deeplearning4j_torch.parallel.resilience import (AdmissionController,
-                                                      Deadline,
+                                                      ChaosPolicy,
+                                                      CircuitBreaker,
+                                                      CircuitOpen, Deadline,
                                                       DeadlineExceeded,
+                                                      RetryPolicy,
                                                       ServerOverloaded)
+from deeplearning4j_torch.parallel.runtime import (CLOSED, DRAINING,
+                                                   LoopCrashed, ServingLoop,
+                                                   supervisor)
 
 _UNSET = object()
 
 #: pool page 0 never backs real tokens: inactive slots' block-table rows
 #: are all zeros, so their masked garbage writes land here
 GARBAGE_PAGE = 0
-
-#: JAX constructor arguments the port does not take yet (ROADMAP A3b), with
-#: the value that means "off" (None also does)
-_NOT_PORTED = dict(mesh=None, tp=1, draft_net=None, spec_k=4,
-                   role="unified", retry=None, breaker=None, chaos=None,
-                   registry=None)
-
 
 def _to_wire(t: torch.Tensor) -> np.ndarray:
     """A host tensor as a KVSnapshot payload leaf: bf16 as its raw words
@@ -126,7 +149,8 @@ def _from_wire(a: np.ndarray) -> torch.Tensor:
 
 class _Request:
     __slots__ = ("prompt", "max_tokens", "temperature", "top_k", "seed",
-                 "eos_id", "deadline", "future", "tokens", "snapshot")
+                 "eos_id", "deadline", "future", "tokens", "snapshot",
+                 "export_kv")
 
     def __init__(self, prompt, max_tokens, temperature, top_k, seed, eos_id,
                  deadline=None):
@@ -142,6 +166,9 @@ class _Request:
         # a KVSnapshot to resume from instead of prefilling from token 0
         # (set by adopt_request and by a preemption that saved its state)
         self.snapshot = None
+        # disaggregated prefill: after prefill, the future resolves to the
+        # slot's KVSnapshot instead of decoding here
+        self.export_kv = False
 
 
 class _PagePool:
@@ -238,6 +265,21 @@ class GenerationServer:
     onto every paged layer and restored on close. ``request_deadline_s`` is
     the default budget of a request; ``snapshot_every`` N > 0 attaches a
     ``KVSnapshot`` to a slot's future every N generated tokens.
+
+    Speculative decoding: pass a small ``draft_net`` (same vocab, on the
+    server's device, ``max_cache`` at least the target's) and ``spec_k >=
+    2``; each round the draft proposes ``spec_k - 1`` tokens and the target
+    verifies all ``spec_k`` positions in one chunked paged forward.
+
+    ``role`` is ``"unified"`` (prefill and decode here), ``"prefill"``
+    (submits default to ``export_kv=True``: the future resolves to the
+    prefilled request's ``KVSnapshot``), ``"decode"`` or ``"generate"``
+    (tier labels; both serve adoptions and plain submits). ``retry``,
+    ``breaker`` and ``chaos`` guard every dispatch (defaults: a
+    ``RetryPolicy()``, a ``CircuitBreaker()``, no chaos); ``registry``
+    receives the server's metrics (default: a registry of its own, at
+    ``self.metrics``). ``mesh`` and ``tp`` (tensor-parallel decode) raise
+    ``NotImplementedError`` when set (ROADMAP A9).
     """
 
     def __init__(self, net, vocab: int, *, slots: int = 8,
@@ -252,16 +294,22 @@ class GenerationServer:
                  steps_per_dispatch: int = 4,
                  kv_dtype: Optional[str] = None,
                  paged_attention: Optional[str] = None,
+                 mesh=None,
+                 tp: Optional[int] = None,
+                 draft_net=None,
+                 spec_k: int = 4,
                  snapshot_every: int = 0,
-                 device=None, **not_ported):
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"GenerationServer got an unexpected "
-                                f"keyword argument {name!r}")
-            if value is not None and value != _NOT_PORTED[name]:
-                raise NotImplementedError(
-                    f"GenerationServer({name}=...) is not ported yet "
-                    "(ROADMAP A3b)")
+                 role: str = "unified",
+                 retry: Optional[RetryPolicy] = None,
+                 breaker: Optional[CircuitBreaker] = None,
+                 chaos: Optional[ChaosPolicy] = None,
+                 registry: Optional[MetricsRegistry] = None,
+                 device=None):
+        if mesh is not None or (tp is not None and int(tp) != 1):
+            raise NotImplementedError(
+                "GenerationServer(mesh=..., tp=...) is not ported yet "
+                "(ROADMAP A9: tensor-parallel paged decode over "
+                "torch.distributed)")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if page_size < 1:
@@ -279,6 +327,21 @@ class GenerationServer:
             raise ValueError(f"unsupported paged_attention "
                              f"{paged_attention!r} (None or one of "
                              f"{CHOICES})")
+        # the draft's dense cache is not part of the KVSnapshot wire format,
+        # so a speculative server can neither snapshot nor export
+        if snapshot_every and draft_net is not None:
+            raise ValueError(
+                "snapshot_every is incompatible with draft_net: the "
+                "speculative draft's dense KV cache is not part of the "
+                "KVSnapshot wire format")
+        if role not in ("unified", "prefill", "decode", "generate"):
+            raise ValueError(f"role must be 'unified', 'prefill', "
+                             f"'decode' or 'generate', got {role!r}")
+        if role == "prefill" and draft_net is not None:
+            raise ValueError(
+                "role='prefill' is incompatible with draft_net: the "
+                "exported KVSnapshot cannot carry the draft's dense "
+                "KV cache")
         self.device = resolve_device(device)
         if net.device != self.device:
             raise ValueError(f"the net lives on {net.device}, the server on "
@@ -296,7 +359,12 @@ class GenerationServer:
         self.kv_dtype = kv_dtype
         self.paged_attention = paged_attention
         self.snapshot_every = max(0, int(snapshot_every))
+        self.spec_k = int(spec_k)
+        self.role = role
         self.admission = AdmissionController(max_pending)
+        self.retry = retry if retry is not None else RetryPolicy()
+        self.breaker = breaker if breaker is not None else CircuitBreaker()
+        self._chaos = chaos
         self._ps = int(page_size)
         # prefill rounds advance at most this many (page-aligned) tokens
         # per row and dispatch
@@ -309,13 +377,27 @@ class GenerationServer:
         if self.pages_total < 2:
             raise ValueError(f"pages={self.pages_total} must be >= 2 "
                              "(the reserved garbage page + one usable)")
+        self._page_bytes = self._page_token_bytes * self._ps
+        self._draft = draft_net
+        if draft_net is not None:
+            if self.spec_k < 2:
+                raise ValueError(f"spec_k must be >= 2 (one verified "
+                                 f"chunk needs at least one draft token), "
+                                 f"got {self.spec_k}")
+            self._probe_draft()
+        # decode-write look-ahead per dispatch: M fused micro-steps, or the
+        # K-token speculative chunk
+        self._lookahead = self.spec_k if draft_net is not None \
+            else self.steps_per_dispatch
 
         self._cond = threading.Condition()
         self._queue: deque = deque()
         self._slot_req: list = [None] * self.slots
         self._n_active = 0
-        self._closing = False
-        self._stop = False
+        self._active_cap = self.slots
+        # a deliberate close() (as opposed to a crash-forced CLOSED state):
+        # the supervisor restarts the loop only while this is False
+        self._user_close = False
 
         # host mirrors of the per-slot decode state (loop-thread-owned)
         self._last = np.zeros(self.slots, np.int64)
@@ -334,24 +416,174 @@ class GenerationServer:
         self._slot_seq = [0] * self.slots
         self._admit_seq = 0
         self._snap_counts = [0] * self.slots
-        # export_request handshakes: (request future, out future) pairs the
-        # loop services between dispatches
+        # export_request handshakes ((request future, out future) pairs the
+        # loop services between dispatches) and the drain-migrate flag
         self._export_q: deque = deque()
+        self._migrating = False
+        self._migrate_cb = None
         self._page_pool = _PagePool(self.pages_total)
-        self._counters = dict(admitted=0, completed=0, failed=0, expired=0,
-                              prefills=0, prefill_rounds=0, decode_steps=0,
-                              tokens_generated=0, busy_s=0.0, cow_copies=0,
-                              prefix_hits=0, prefix_tokens_reused=0,
-                              preempted=0, snapshots=0, snapshot_bytes=0,
-                              resumes=0, tokens_saved=0, fallbacks=0,
-                              preempt_resumes=0)
+        # prefill rounds dispatched (not a stats() key: the JAX server has
+        # none; chip_smoke.py holds K2's launch count to it)
+        self._prefill_rounds = 0
+        self._register_metrics(registry)
 
         self._fwd = lm_stream_forward(net)
         self._pool = self._fresh_pool()
-        self._thread = threading.Thread(target=self._run,
-                                        name="generation-server",
-                                        daemon=True)
-        self._thread.start()
+        if draft_net is not None:
+            self._dfwd = lm_stream_forward(draft_net)
+        self._dpool = None if draft_net is None else self._fresh_draft_pool()
+        self._runtime = ServingLoop("generation-server",
+                                    tick=self._tick_once,
+                                    wake=self._wake_loop, chaos=chaos)
+        self._runtime.start()
+        supervisor().watch(self._runtime, on_death=self._on_loop_death,
+                           restart=True)
+
+    def _register_metrics(self, registry):
+        """The serving counters and gauges, under the JAX server's metric
+        names and help strings. Counters live in the (leaf-locked)
+        registry, so the loop publishes without touching ``_cond`` and a
+        scrape never blocks admission."""
+        self.metrics = registry if registry is not None \
+            else MetricsRegistry()
+        m = self.metrics
+        self._m_admitted = m.counter(
+            "generation_admitted_total", "requests committed to a slot")
+        self._m_expired = m.counter(
+            "generation_expired_total", "requests failed on deadline")
+        self._m_retired = m.counter(
+            "generation_retired_total", "slots retired")
+        self._m_completed = m.counter(
+            "generation_completed_total", "requests completed")
+        self._m_failed = m.counter(
+            "generation_failed_total", "requests failed on error")
+        self._m_retried = m.counter(
+            "generation_retried_total", "dispatch retries")
+        self._m_pool_rebuilds = m.counter(
+            "generation_pool_rebuilds_total",
+            "device-state rebuilds after a hard dispatch fault")
+        self._m_prefills = m.counter(
+            "generation_prefills_total", "prompts prefilled")
+        self._m_decode_steps = m.counter(
+            "generation_decode_steps_total", "decode dispatches")
+        self._m_tokens = m.counter(
+            "generation_tokens_total", "tokens generated")
+        self._m_busy_s = m.counter(
+            "generation_busy_seconds_total",
+            "wall seconds spent in prefill/decode dispatches")
+        self._m_cow_copies = m.counter(
+            "generation_cow_copies_total", "copy-on-write page copies")
+        self._m_preempted = m.counter(
+            "generation_preempted_total",
+            "slots preempted under page-pool pressure")
+        self._m_prefix_hits = m.counter(
+            "generation_prefix_hits_total",
+            "prompts that reused a cached prefix")
+        self._m_prefix_reused = m.counter(
+            "generation_prefix_tokens_reused_total",
+            "prompt tokens served from the prefix cache")
+        self._m_spec_rounds = m.counter(
+            "generation_spec_rounds_total", "speculative decode rounds")
+        self._m_spec_proposed = m.counter(
+            "generation_spec_proposed_total", "draft tokens proposed")
+        self._m_spec_accepted = m.counter(
+            "generation_spec_accepted_total", "draft tokens accepted")
+        self._m_handoff_snapshots = m.counter(
+            "generation_handoff_snapshots_total",
+            "KV snapshots exported (periodic, explicit, and migrate)")
+        self._m_handoff_bytes = m.counter(
+            "generation_handoff_bytes_total",
+            "wire bytes of exported KV snapshots")
+        self._m_handoff_resumes = m.counter(
+            "generation_handoff_resumes_total",
+            "requests resumed from an adopted KV snapshot")
+        self._m_handoff_saved = m.counter(
+            "generation_handoff_tokens_saved_total",
+            "decoded tokens NOT regenerated thanks to snapshot resume")
+        self._m_handoff_fallbacks = m.counter(
+            "generation_handoff_fallbacks_total",
+            "adoptions that fell back to token-0 prefill")
+        self._m_preempt_resumes = m.counter(
+            "generation_handoff_preempt_resumes_total",
+            "preemptions that saved a snapshot instead of recomputing")
+        self._m_migrated = m.counter(
+            "generation_handoff_migrated_total",
+            "requests migrated off this server by drain(migrate=...)")
+        self._m_prefill_exports = m.counter(
+            "generation_prefill_exports_total",
+            "requests exported as KVSnapshots after prefill "
+            "(disaggregated prefill tier)")
+        m.gauge("generation_slots", "decode slot pool size",
+                fn=lambda: self.slots)
+        m.gauge("generation_active_slots", "slots currently decoding",
+                fn=lambda: self._n_active)
+        m.gauge("generation_active_slot_cap",
+                "autoscaler admission cap on concurrently active slots",
+                fn=lambda: self._active_cap)
+        m.gauge("generation_queue_depth", "requests waiting for a slot",
+                fn=lambda: len(self._queue))
+        m.gauge("generation_pending", "admitted-but-unresolved requests",
+                fn=lambda: self.admission.pending)
+        m.gauge("generation_accepted", "requests accepted by admission",
+                fn=lambda: self.admission.accepted)
+        m.gauge("generation_rejected", "requests rejected by admission",
+                fn=lambda: self.admission.rejected)
+        m.gauge("generation_breaker_open",
+                "circuit state (0 closed, 0.5 half-open, 1 open)",
+                fn=lambda: {"half_open": 0.5, "open": 1.0}.get(
+                    self.breaker.state, 0.0))
+        m.gauge("generation_pages_free", "unallocated KV pages",
+                fn=lambda: len(self._page_pool.free))
+        m.gauge("generation_pages_cached", "prefix-cache-pinned KV pages",
+                fn=lambda: len(self._page_pool.cache))
+        m.gauge("generation_resident_kv_bytes", "bytes of resident KV",
+                fn=lambda: self._page_pool.in_use() * self._page_bytes)
+        m.gauge("generation_pages_total", "KV page-pool size "
+                "(incl. the reserved garbage page)",
+                fn=lambda: self.pages_total)
+        m.gauge("generation_pages_in_use",
+                "pages holding live data (refcounted or prefix-cached)",
+                fn=lambda: self._page_pool.in_use())
+        m.gauge("generation_pages_shared",
+                "pages refcounted by more than one slot",
+                fn=lambda: self._page_pool.shared_count())
+        m.gauge("generation_peak_resident_kv_bytes",
+                "high-water resident KV bytes",
+                fn=lambda: self._page_pool.peak * self._page_bytes)
+        m.gauge("generation_kv_bytes_per_token",
+                "bytes per resident KV token (values + dequant scales)",
+                fn=lambda: self._page_token_bytes)
+        m.gauge("generation_kv_cache_int8",
+                "1 when pages store int8 (+f32 scales), 0 for conf dtype",
+                fn=lambda: 1.0 if self.kv_dtype == "int8" else 0.0)
+
+    # ------------------------------------------------- lifecycle state
+    @property
+    def _closing(self) -> bool:
+        """True once the loop left RUNNING (draining or closed)."""
+        return self._runtime.state in (DRAINING, CLOSED)
+
+    @property
+    def active_slot_cap(self) -> int:
+        """Admission cap on concurrently ACTIVE slots (the autoscaler's
+        lever): it bounds how many slots ``_admit_free_slots`` may fill,
+        never the pool."""
+        with self._cond:
+            return self._active_cap
+
+    def set_active_slots(self, n: int) -> int:
+        """Clamp and apply a new active-slot cap. Lowering it never evicts
+        a running request; it only stops admissions until occupancy falls
+        below the cap."""
+        n = max(1, min(int(n), self.slots))
+        with self._cond:
+            self._active_cap = n
+            self._cond.notify_all()
+        return n
+
+    def queue_depth(self) -> int:
+        with self._cond:
+            return len(self._queue)
 
     # ------------------------------------------------------ introspection
     def _probe_net(self):
@@ -396,11 +628,67 @@ class GenerationServer:
         self._cap_tokens = cap
         self._np = cap // self._ps
 
+    def _probe_draft(self):
+        """Classify the draft's streaming layers (dense KV caches and
+        position counters) and check that it reaches every position the
+        target can."""
+        draft = self._draft
+        if draft.device != self.device:
+            raise ValueError(f"draft_net lives on {draft.device}, the "
+                             f"server on {self.device}")
+        self._d_attn_names: list = []
+        self._d_pos_names: list = []
+        caps = []
+        for name, layer in draft._stream_layers():
+            if isinstance(layer, SelfAttentionLayer) and layer.causal:
+                self._d_attn_names.append(name)
+                caps.append(layer.max_cache)
+            elif isinstance(layer, PositionalEncodingLayer):
+                self._d_pos_names.append(name)
+        if not self._d_attn_names:
+            raise ValueError("draft_net has no causal attention layer — "
+                             "speculative decoding needs a KV-cache "
+                             "streaming draft model")
+        self._draft_cap = min(caps)
+        if self._draft_cap < self._cap_tokens:
+            raise ValueError(
+                f"draft_net max_cache {self._draft_cap} < target capacity "
+                f"{self._cap_tokens}: the draft must reach every "
+                "position the target can")
+
     def _fresh_pool(self):
         dtype = getattr(torch, self.net.conf.dtype)
-        return {name: self._layer_by_name[name].init_paged_carry(
+        pool = {name: self._layer_by_name[name].init_paged_carry(
             self.pages_total, self._ps, dtype, kv_dtype=self.kv_dtype,
             device=self.device) for name in self._paged_names}
+        # the admission ledger's bytes per page must be the bytes the pool
+        # really holds
+        nbytes = sum(a.numel() * a.element_size()
+                     for leaves in pool.values() for a in leaves.values())
+        if nbytes != self._page_bytes * self.pages_total:
+            raise AssertionError(
+                f"KV admission accounting diverged from the allocated "
+                f"pool: {self._page_bytes} bytes/page expected, "
+                f"{nbytes // self.pages_total} allocated")
+        return pool
+
+    def _fresh_draft_pool(self):
+        """Dense ``[S, H, cap, d]`` slot caches for the draft model (the
+        draft is small: paging it would buy little and cost a second block
+        table)."""
+        dtype = getattr(torch, self._draft.conf.dtype)
+        layers = dict(self._draft._stream_layers())
+        return {vn: {k: v for k, v in layers[vn].init_streaming_carry(
+            self.slots, dtype, device=self.device).items()
+            if k != "cache_pos"} for vn in self._d_attn_names}
+
+    def _dcarry(self, pos):
+        """The draft's carry: its dense caches (updated in place) and the
+        ``[S]`` per-row positions for every streaming layer."""
+        carry = {vn: {"cache_pos": pos} for vn in self._d_pos_names}
+        for vn in self._d_attn_names:
+            carry[vn] = dict(self._dpool[vn], cache_pos=pos)
+        return carry
 
     def _carry(self, bt, pos):
         """The forward's serving carry: the pools (updated in place), one
@@ -414,15 +702,18 @@ class GenerationServer:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # ------------------------------------------------------------- submit
-    def _check_fits(self, plen: int, max_tokens: int, what: str):
+    def _check_fits(self, plen: int, max_tokens: int, what: str,
+                    margin: int = 0):
         """Page-budget feasibility, up front: prompt + generated positions
+        (+ ``margin``, the look-ahead a speculative verify chunk writes)
         must fit the block table and the pool less the garbage page."""
-        need_tokens = plen + int(max_tokens) - 1
+        need_tokens = plen + int(max_tokens) + margin - 1
         if need_tokens > self._cap_tokens:
             raise ServerOverloaded(
                 f"infeasible {what}: prompt {plen} + max_tokens "
-                f"{max_tokens} exceeds the per-slot KV capacity "
-                f"{self._cap_tokens} ({self._np} pages x {self._ps})")
+                f"{max_tokens} (+{margin} look-ahead) exceeds the per-slot "
+                f"KV capacity {self._cap_tokens} ({self._np} pages x "
+                f"{self._ps})")
         need_pages = -(-need_tokens // self._ps)
         if need_pages > self.pages_total - 1:
             raise ServerOverloaded(
@@ -430,13 +721,19 @@ class GenerationServer:
                 f"pool capacity is {self.pages_total - 1} usable pages "
                 f"of {self._ps} tokens")
 
+    def _check_breaker(self):
+        if not self.breaker.allow():
+            raise CircuitOpen("circuit breaker is open: recent decode "
+                              "dispatches failed above threshold")
+
     def _enqueue(self, req: _Request) -> Future:
-        self.admission.acquire()  # raises ServerOverloaded at watermark
-        req.future.add_done_callback(lambda _f: self.admission.release())
         # export_request clamps its wait to the request's own budget
         req.future._deadline = req.deadline
+        self.admission.acquire()  # raises ServerOverloaded at watermark
+        req.future.add_done_callback(lambda _f: self.admission.release())
         with self._cond:
             if self._closing:
+                # lost the race with close(): fail typed, not hung
                 self._fail(req, RuntimeError("GenerationServer is closed"))
                 return req.future
             self._queue.append(req)
@@ -457,10 +754,13 @@ class GenerationServer:
         server's ``request_deadline_s``) bounds the request's time: past it
         the future fails ``DeadlineExceeded``. Raises ``ServerOverloaded``
         when the request can never fit the page budget or the admission
-        watermark is reached."""
-        if export_kv:
-            raise NotImplementedError("submit(export_kv=True) is not "
-                                      "ported yet (ROADMAP A3b)")
+        watermark is reached, and ``CircuitOpen`` while dispatches are
+        failing.
+
+        ``export_kv`` True resolves the future to a ``KVSnapshot`` right
+        after prefill (first token included) for a decode-role server to
+        adopt; False decodes to completion here; None follows the server's
+        ``role`` (True on a prefill-role server)."""
         prompt = np.asarray(prompt_ids)
         if prompt.ndim != 1 or prompt.shape[0] < 1:
             raise ValueError(f"prompt_ids must be a non-empty 1-D id "
@@ -476,44 +776,67 @@ class GenerationServer:
         if top_k < 0 or top_k > self.vocab:
             raise ValueError(f"top_k must be in [0, {self.vocab}], "
                              f"got {top_k}")
-        self._check_fits(int(prompt.shape[0]), max_tokens, "request")
+        self._check_fits(int(prompt.shape[0]), max_tokens, "request",
+                         self.spec_k - 1 if self._draft is not None else 0)
         with self._cond:
             if self._closing:
                 raise RuntimeError("GenerationServer is closed")
+        self._check_breaker()
         budget = deadline_s if deadline_s is not None \
             else self.request_deadline_s
         req = _Request(prompt.astype(np.int64), int(max_tokens),
                        float(temperature), int(top_k), int(seed),
                        self.eos_id if eos_id is _UNSET else eos_id,
                        None if budget is None else Deadline(budget))
+        req.export_kv = (self.role == "prefill") if export_kv is None \
+            else bool(export_kv)
+        if req.export_kv and self._draft is not None:
+            raise SnapshotUnsupported(
+                "speculative servers cannot export: the draft's dense "
+                "KV cache is not part of the KVSnapshot wire format")
         random.seed_words(req.seed)     # an out-of-range seed fails here
         return self._enqueue(req)
 
     # ---------------------------------------------------------- the loop
-    def _run(self):
-        with torch.inference_mode():
-            while self._tick_once():
-                pass
+    def _wake_loop(self):
+        """Runtime wake hook: nudge a tick blocked on ``_cond``."""
+        with self._cond:
+            self._cond.notify_all()
 
+    @torch.inference_mode()
     def _tick_once(self) -> bool:
-        """One scheduling round: admit and prefill a wave, one decode
-        dispatch, then deadlines, exports and periodic snapshots between
+        """One scheduling round of the ``ServingLoop`` tick thread: a
+        migrate-out sweep when ``drain(migrate=...)`` asked for one, admit
+        and prefill a wave, one decode dispatch (a speculative round with a
+        draft), then deadlines, exports and periodic snapshots between
         dispatches. Returns False only on a clean stop."""
         with self._cond:
-            if self._stop:
+            if self._runtime.state is CLOSED:
                 return False
-            if not self._queue and self._n_active == 0 \
-                    and not self._export_q:
+            migrating = self._migrating
+            if (not self._queue and self._n_active == 0
+                    and not self._export_q and not migrating):
                 self._cond.wait(timeout=0.5)
                 return True
         try:
+            if migrating:
+                if self._chaos is not None:
+                    # a migrate-out sweep is a drain phase: kill_during_drain
+                    # chaos attacks it too, and its LoopKilled (a
+                    # BaseException) escapes the except below into the
+                    # supervisor
+                    self._chaos.drain_fault()
+                self._migrate_out()
             self._admit_free_slots()
             with self._cond:
                 n_active = self._n_active
             if n_active:
                 t0 = time.monotonic()
-                self._decode_once()
-                self._counters["busy_s"] += time.monotonic() - t0
+                if self._draft is not None:
+                    self._spec_decode_once()
+                else:
+                    self._decode_once()
+                self._m_busy_s.inc(time.monotonic() - t0)
             self._expire_active()
             # explicit exports first (a caller is blocked on them), then at
             # most one periodic snapshot per round
@@ -524,6 +847,44 @@ class GenerationServer:
             self._fail_all(e)
         return True
 
+    def _on_loop_death(self, loop, exc) -> bool:
+        """Supervisor recovery hook: the tick thread died (a chaos kill, or
+        a fault that escaped ``_fail_all``). Fail every in-flight future and
+        pending export typed, release the dead slots' pages and, unless the
+        server was deliberately closed, rebuild the device state so the
+        restarted loop serves cleanly. Returns whether to restart."""
+        err = LoopCrashed("generation-server loop died with the request "
+                          f"in flight: {exc!r}")
+        with self._cond:
+            stragglers = [s for s in range(self.slots)
+                          if self._slot_req[s] is not None]
+            victims = [self._slot_req[s] for s in stragglers]
+            victims += list(self._queue)
+            self._queue.clear()
+            self._slot_req = [None] * self.slots
+            self._n_active = 0
+            exports = list(self._export_q)
+            self._export_q.clear()
+            # a kill mid-migration resolved every live future (below), so
+            # the migration is over: a latched flag would send the
+            # restarted tick into the drain path forever
+            self._migrating = False
+            self._migrate_cb = None
+            again = not self._user_close
+            self._cond.notify_all()
+        self._m_failed.inc(len(victims))
+        for req in victims:
+            self._fail(req, err)
+        for _fut, out in exports:  # never leave an exporter hung
+            self._fail_export(out, SnapshotUnavailable(
+                "generation loop died before the export was serviced"))
+        for s in stragglers:  # the tick thread is dead: safe to touch pages
+            self._release_slot_pages(s)
+        if again:
+            self._m_pool_rebuilds.inc()
+            self._reset_device_state()
+        return again
+
     def _pop_admittable(self):
         """The next queued request still worth prefilling (expired ones
         fail typed on the way)."""
@@ -533,7 +894,7 @@ class GenerationServer:
                     return None
                 req = self._queue.popleft()
             if req.deadline is not None and req.deadline.expired():
-                self._counters["expired"] += 1
+                self._m_expired.inc()
                 self._fail(req, DeadlineExceeded(
                     "request budget exhausted while queued "
                     f"({-req.deadline.remaining() * 1e3:.1f} ms over)"))
@@ -541,11 +902,15 @@ class GenerationServer:
             return req
 
     def _admit_free_slots(self):
-        """Admit every queued request a free slot and the page pool can
-        take (adopting snapshots, sharing resident prefixes), then prefill
-        the whole wave together."""
+        """Admit every queued request a free slot, the active-slot cap and
+        the page pool can take (adopting snapshots, sharing resident
+        prefixes), then prefill the whole wave together."""
         staged = []                                 # (slot, req, pos0, plen)
+        with self._cond:
+            budget = self._active_cap - self._n_active
         for s in range(self.slots):
+            if len(staged) >= budget:
+                break
             if self._slot_req[s] is not None:
                 continue
             req = self._pop_admittable()
@@ -564,14 +929,14 @@ class GenerationServer:
                     with self._cond:
                         self._queue.appendleft(req)
                     break
-                self._counters["failed"] += 1
+                self._m_failed.inc()
                 self._fail(req, e)
                 continue
             staged.append((s, req, pos0, plen))
         if staged:
             t0 = time.monotonic()
             self._prefill_wave(staged)
-            self._counters["busy_s"] += time.monotonic() - t0
+            self._m_busy_s.inc(time.monotonic() - t0)
 
     # -------------------------------------------------- page bookkeeping
     def _release_slot_pages(self, slot: int):
@@ -599,10 +964,13 @@ class GenerationServer:
         tokens snapshots before its pages are freed and resumes by
         adoption at position N; otherwise it recomputes from token 0."""
         req = self._slot_req[slot]
-        if req.snapshot is None and len(req.tokens) >= self._ps:
+        # a speculative server's draft cache cannot ride in a snapshot:
+        # its victims recompute
+        if (req.snapshot is None and self._draft is None
+                and len(req.tokens) >= self._ps):
             try:
                 req.snapshot = self._snapshot_slot(slot)
-                self._counters["preempt_resumes"] += 1
+                self._m_preempt_resumes.inc()
             except Exception:  # noqa: BLE001 — best effort: a failed
                 # snapshot degrades to the recompute, never fails the
                 # request
@@ -610,7 +978,7 @@ class GenerationServer:
         if req.snapshot is None:
             req.tokens.clear()
         self._release_slot_pages(slot)
-        self._counters["preempted"] += 1
+        self._m_preempted.inc()
         with self._cond:
             self._slot_req[slot] = None
             self._n_active -= 1
@@ -648,7 +1016,7 @@ class GenerationServer:
             return
         dst = self._alloc_page(slot)
         self._copy_page(page, dst)
-        self._counters["cow_copies"] += 1
+        self._m_cow_copies.inc()
         self._page_pool.release(page)
         sp[idx] = dst
         self._bt[slot, idx] = dst
@@ -673,14 +1041,15 @@ class GenerationServer:
 
     def _reserve_decode_pages(self):
         """Pages for one decode dispatch: every active slot gets pages
-        covering its next ``steps_per_dispatch`` writes (allocation and
-        copy-on-write), up to the per-slot capacity (the dispatch
-        write-clamps there), preempting the newest slots under pressure."""
+        covering its next ``lookahead`` writes (``steps_per_dispatch``, or
+        ``spec_k`` for a speculative round; allocation and copy-on-write),
+        up to the per-slot capacity (the dispatch write-clamps there),
+        preempting the newest slots under pressure."""
         for s in range(self.slots):
             if self._slot_req[s] is None:
                 continue
             pos = int(self._pos[s])
-            upto = min(pos + self.steps_per_dispatch, self._cap_tokens)
+            upto = min(pos + self._lookahead, self._cap_tokens)
             if upto > pos:
                 self._ensure_slot_pages(s, upto, write_from=pos)
 
@@ -744,8 +1113,8 @@ class GenerationServer:
         for i, page in enumerate(shared):
             self._bt[slot, i] = page
         if matched:
-            self._counters["prefix_hits"] += 1
-            self._counters["prefix_tokens_reused"] += matched
+            self._m_prefix_hits.inc()
+            self._m_prefix_reused.inc(matched)
         self._ensure_slot_pages(slot, plen, write_from=matched)
         return matched
 
@@ -777,19 +1146,53 @@ class GenerationServer:
         if rem.size and full < len(sp):
             pool.register(self._tail_digest(digest, rem), sp[full])
 
+    # ------------------------------------------------ guarded dispatch
+    def _guarded(self, fn, deadline=None):
+        """Run one dispatch ``fn()`` under the chaos injector (when one is
+        given), the breaker's per-attempt accounting and the retry policy
+        (transient faults are retried until the attempt budget or
+        ``deadline`` runs out). ``fn`` reads host state and writes only
+        the pools, each attempt the same values at the same slots, so a
+        retry after a fault that struck mid-forward yields the same
+        tokens."""
+        dispatch = fn if self._chaos is None else self._chaos.wrap(fn)
+
+        def attempt():
+            try:
+                out = dispatch()
+            except Exception:
+                self.breaker.record_failure()
+                raise
+            self.breaker.record_success()
+            return out
+
+        return self.retry.call(attempt, deadline=deadline,
+                               on_retry=self._count_retry)
+
+    def _count_retry(self, attempt, exc):
+        self._m_retried.inc()
+
     # ------------------------------------------------------ prefill path
     def _prefill_wave(self, group):
         """Batched chunked prefill for one admission wave: every staged
         slot advances from its shared-prefix offset through rounds of at
         most ``prefill_chunk`` tokens, ONE paged forward per round for the
         rows with suffix left. A row takes its first token in the round
-        that consumes its final chunk."""
+        that consumes its final chunk. A round that fails (its retries
+        spent) fails the wave's requests typed and frees their slots. A
+        speculative server then primes each slot's draft cache; the
+        wave's ``export_kv`` requests leave as snapshots."""
         S = self.slots
         cur = {s: pos0 for s, _, pos0, _ in group}
         first = {}
         keys = np.zeros((S, 2), np.int64)
+        deadline = None              # the wave retries within its tightest
         for s, req, _, _ in group:
             keys[s] = random.seed_words(req.seed)
+            if req.deadline is not None and (
+                    deadline is None or req.deadline.remaining()
+                    < deadline.remaining()):
+                deadline = req.deadline
         cap_pages = max(1, self._chunk_cap // self._ps)
         while True:
             live = [(s, req, plen) for s, req, _, plen in group
@@ -817,14 +1220,46 @@ class GenerationServer:
                 sufflen[s] = n
                 temp[s] = req.temperature
                 topk[s] = req.top_k
-            toks = self._prefill_round(ids, mask, admit, positions, sufflen,
-                                       temp, topk, keys)
+            try:
+                toks = self._guarded(
+                    lambda: self._prefill_round(ids, mask, admit, positions,
+                                                sufflen, temp, topk, keys),
+                    deadline)
+            except Exception as e:  # noqa: BLE001 — typed failure for the
+                # wave; every staged slot stays free for the next one
+                for s, req, *_ in group:
+                    self._release_slot_pages(s)
+                    self._count_failure(e)
+                    self._fail(req, e)
+                return
+            self._prefill_rounds += 1
             for s, _, plen in live:
                 cur[s] += chunk[s]
                 if cur[s] >= plen:
                     first[s] = toks[s]
         for s, req, _, plen in group:
+            if self._draft is not None:
+                try:
+                    self._draft_prefill(s, req)
+                except Exception as e:  # noqa: BLE001 — typed, this slot
+                    self._release_slot_pages(s)
+                    self._count_failure(e)
+                    self._fail(req, e)
+                    continue
             self._commit_slot(s, req, plen, first[s], keys[s])
+        # disaggregated prefill: export the wave's export_kv slots still
+        # live (one that finished on its first token already retired with
+        # its tokens)
+        exports = [(s, req) for s, req, *_ in group
+                   if req.export_kv and self._slot_req[s] is req]
+        if exports:
+            self._transfer_loop(exports)
+
+    def _count_failure(self, exc: BaseException):
+        if isinstance(exc, DeadlineExceeded):
+            self._m_expired.inc()
+        else:
+            self._m_failed.inc()
 
     def _sampling(self, temp, topk, keys):
         """The per-row sampling values on the device, or None when every
@@ -863,11 +1298,30 @@ class GenerationServer:
         out, _ = self._fwd(self.net.params, self.net.state, x, carry, mask_t)
         rows = out[torch.arange(self.slots, device=self.device),
                    self._to_dev(sufflen) - 1]
-        self._counters["prefill_rounds"] += 1
         sampling = self._sampling(temp, topk, keys)
         first = None if sampling is None else torch.zeros(
             self.slots, dtype=torch.int64, device=self.device)
         return self._select(rows, sampling, first).cpu().tolist()
+
+    def _draft_prefill(self, slot: int, req: _Request):
+        """Prime the draft's dense cache row for ``slot`` with the whole
+        prompt (the dense draft cache shares no pages): the row is zeroed
+        and the prompt streamed through it from position 0."""
+        dtype = getattr(torch, self._draft.conf.dtype)
+        x = F.one_hot(self._to_dev(req.prompt[None]), self.vocab).to(dtype)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+
+        def run():
+            carry = {vn: {"cache_pos": zero} for vn in self._d_pos_names}
+            for vn in self._d_attn_names:
+                row = {k: a[slot:slot + 1]
+                       for k, a in self._dpool[vn].items()}
+                for a in row.values():
+                    a.zero_()
+                carry[vn] = dict(row, cache_pos=zero)
+            self._dfwd(self._draft.params, self._draft.state, x, carry)
+
+        self._guarded(run, req.deadline)
 
     def _activate(self, slot: int, req: _Request):
         """Mark a seeded slot resident: the newest admission (the first
@@ -877,7 +1331,7 @@ class GenerationServer:
         with self._cond:
             self._slot_req[slot] = req
             self._n_active += 1
-        self._counters["admitted"] += 1
+        self._m_admitted.inc()
 
     def _commit_slot(self, slot: int, req: _Request, plen: int, tok, key):
         """Publish one prefilled slot: trim the bucket over-allocation,
@@ -894,8 +1348,8 @@ class GenerationServer:
         self._keys[slot] = key
         req.tokens.append(tok)
         self._activate(slot, req)
-        self._counters["prefills"] += 1
-        self._counters["tokens_generated"] += 1
+        self._m_prefills.inc()
+        self._m_tokens.inc()
         if self._finished(req, tok):
             self._retire(slot, req)
 
@@ -903,24 +1357,33 @@ class GenerationServer:
     def _active_mask(self):
         return np.array([r is not None for r in self._slot_req])
 
-    def _paged_step(self, bt, positions, last, active, temp, topk, keys,
-                    counts):
-        """``steps_per_dispatch`` micro-steps, each one paged forward over
-        all S rows and one token select (``temp``, ``topk``, ``keys`` and
-        ``counts`` are host arrays: the active slots' sampling values,
-        others zeroed, and each slot's next token index). Returns the
-        ``[S, M]`` tokens on the device."""
+    def _dispatch_inputs(self, active):
+        """A decode dispatch's inputs uploaded from the host mirrors:
+        positions, last tokens, the ``[S]`` active mask, the active rows'
+        sampling values (others zeroed; None when all are greedy) and, when
+        sampling, the per-row key counts."""
+        sampling = self._sampling(
+            np.where(active, self._temp, 0).astype(np.float32), self._topk,
+            self._keys)
+        counts = None if sampling is None else self._to_dev(self._counts)
+        return (self._to_dev(self._pos), self._to_dev(self._last),
+                self._to_dev(active), sampling, counts)
+
+    def _paged_step(self, active):
+        """``steps_per_dispatch`` micro-steps over all S rows, each one
+        paged forward and one token select, from the host mirrors (the
+        active slots' sampling values, others zeroed). Returns the
+        ``[S, M]`` tokens on the host (ONE copy)."""
         dtype = getattr(torch, self.net.conf.dtype)
+        bt = self._to_dev(self._bt)
         cap = bt.shape[1] * self._ps
-        pos, cur = positions, last
-        sampling = self._sampling(temp, topk, keys)
-        cnt = None if sampling is None else self._to_dev(counts)
+        pos, cur, act_t, sampling, cnt = self._dispatch_inputs(active)
         seq = []
         for _ in range(self.steps_per_dispatch):
             # write-clamp: rows at capacity freeze, and their WHOLE
             # block-table row swaps to the garbage page so the clamped
             # column write lands there instead of on real KV at cap-1
-            act = active & (pos < cap)
+            act = act_t & (pos < cap)
             posw = torch.clamp(pos, max=cap - 1)
             bt_eff = torch.where(act[:, None], bt, torch.zeros_like(bt))
             x = F.one_hot(cur, self.vocab).to(dtype)[:, None, :]
@@ -932,32 +1395,31 @@ class GenerationServer:
             if cnt is not None:
                 cnt = torch.where(act, cnt + 1, cnt)
             seq.append(cur)
-        return torch.stack(seq, dim=1)
+        return torch.stack(seq, dim=1).cpu().numpy()
 
     def _decode_once(self):
         self._reserve_decode_pages()
         active = self._active_mask()
         if not active.any():          # every slot preempted by the reserve
             return
-        seq = self._paged_step(self._to_dev(self._bt), self._to_dev(self._pos),
-                               self._to_dev(self._last),
-                               self._to_dev(active),
-                               np.where(active, self._temp, 0).astype(
-                                   np.float32),
-                               self._topk, self._keys, self._counts)
-        toks = seq.cpu().numpy()       # ONE [S, M] copy per dispatch
+        try:
+            toks = self._guarded(lambda: self._paged_step(active))
+        except Exception as e:  # noqa: BLE001 — the pool is suspect: fail
+            # the batch typed and serve later requests from a fresh pool
+            self._fail_all(e)
+            return
         m_steps = self.steps_per_dispatch
         ntok = 0
+        done = []
         for s in range(self.slots):
             req = self._slot_req[s]
             if req is None:
                 continue
-            done = False
             for tok in toks[s].tolist():
                 req.tokens.append(tok)
                 ntok += 1
                 if self._finished(req, tok):
-                    done = True
+                    done.append((s, req))
                     break
             # the device advanced the full window (write-clamped at the
             # capacity) regardless of where the request finished
@@ -965,10 +1427,96 @@ class GenerationServer:
             self._pos[s] += adv
             self._counts[s] += adv
             self._last[s] = toks[s, m_steps - 1]
-            if done:
-                self._retire(s, req)
-        self._counters["decode_steps"] += 1
-        self._counters["tokens_generated"] += ntok
+        self._m_decode_steps.inc()
+        self._m_tokens.inc(ntok)
+        # resolve after publishing: a caller woken by its result reads
+        # counters that include the dispatch that finished it
+        for s, req in done:
+            self._retire(s, req)
+
+    def _spec_step(self, active):
+        """One speculative round from the host mirrors: the draft proposes
+        ``spec_k - 1`` tokens over its dense cache (per-row positions, the
+        serial key schedule), the last proposal is fed too (a full accept
+        then leaves the draft cache hole-free), and the target verifies
+        ``[last, drafts]`` in ONE chunked paged forward. Returns the
+        target's ``[S, K]`` selections and, in a last column, each row's
+        count of leading draft matches (ONE host copy)."""
+        K = self.spec_k
+        dtype = getattr(torch, self.net.conf.dtype)
+        ddtype = getattr(torch, self._draft.conf.dtype)
+        positions, last, act, sampling, counts = self._dispatch_inputs(active)
+        dparams, dstate = self._draft.params, self._draft.state
+        pos, cur, cnt = positions, last, counts
+        props = []
+        for _ in range(K - 1):
+            x = F.one_hot(cur, self.vocab).to(ddtype)[:, None, :]
+            out, _ = self._dfwd(dparams, dstate, x, self._dcarry(pos))
+            cur = torch.where(act, self._select(out[:, 0], sampling, cnt),
+                              cur)
+            pos = torch.where(act, pos + 1, pos)
+            if cnt is not None:
+                cnt = torch.where(act, cnt + 1, cnt)
+            props.append(cur)
+        x = F.one_hot(cur, self.vocab).to(ddtype)[:, None, :]
+        self._dfwd(dparams, dstate, x, self._dcarry(pos))
+        drafts = torch.stack(props, dim=1)                       # [S, K-1]
+        x = F.one_hot(torch.cat([last[:, None], drafts], dim=1),
+                      self.vocab).to(dtype)                      # [S, K, V]
+        out, _ = self._fwd(self.net.params, self.net.state, x,
+                           self._carry(self._to_dev(self._bt), positions))
+        if sampling is None:
+            true = out.argmax(dim=-1)
+        else:
+            true = spec_verify_tokens(out, sampling[2], counts, sampling[0],
+                                      sampling[1])
+        acc = (drafts == true[:, :K - 1]).long().cumprod(dim=1).sum(dim=1)
+        return torch.cat([true, acc[:, None]], dim=1).cpu().numpy()
+
+    def _spec_decode_once(self):
+        self._reserve_decode_pages()
+        active = self._active_mask()
+        if not active.any():          # every slot preempted by the reserve
+            return
+        k_spec = self.spec_k
+        # the draft writes positions [pos, pos + K) of its dense cache;
+        # admission's look-ahead margin keeps them inside, checked here on
+        # the host mirrors (the forward never syncs on positions)
+        if (self._pos[active] + k_spec > self._draft_cap).any():
+            raise RuntimeError("a speculative round would run past the "
+                               "draft's KV capacity — admission should "
+                               "have rejected this request")
+        try:
+            res = self._guarded(lambda: self._spec_step(active))
+        except Exception as e:  # noqa: BLE001 — both pools are suspect
+            self._fail_all(e)
+            return
+        true, acc = res[:, :k_spec], res[:, k_spec]
+        ntok = proposed = accepted = 0
+        done = []
+        for s in range(self.slots):
+            req = self._slot_req[s]
+            if req is None:
+                continue
+            n = min(int(acc[s]) + 1, k_spec)
+            proposed += k_spec - 1
+            accepted += n - 1
+            for tok in true[s, :n].tolist():
+                req.tokens.append(tok)
+                ntok += 1
+                if self._finished(req, tok):
+                    done.append((s, req))
+                    break
+            self._counts[s] += n
+            self._pos[s] += n
+            self._last[s] = true[s, n - 1]
+        self._m_spec_rounds.inc()
+        self._m_spec_proposed.inc(proposed)
+        self._m_spec_accepted.inc(accepted)
+        self._m_decode_steps.inc()
+        self._m_tokens.inc(ntok)
+        for s, req in done:
+            self._retire(s, req)
 
     def _finished(self, req: _Request, tok) -> bool:
         if req.eos_id is not None and tok == req.eos_id:
@@ -985,7 +1533,8 @@ class GenerationServer:
 
     def _retire(self, slot: int, req: _Request):
         self._vacate(slot)
-        self._counters["completed"] += 1
+        self._m_retired.inc()
+        self._m_completed.inc()
         try:
             req.future.set_result(np.asarray(req.tokens, np.int64))
         except Exception:  # future cancelled by the caller
@@ -999,7 +1548,7 @@ class GenerationServer:
                     or not req.deadline.expired():
                 continue
             self._vacate(s)
-            self._counters["expired"] += 1
+            self._m_expired.inc()
             self._fail(req, DeadlineExceeded(
                 "request budget exhausted mid-generation after "
                 f"{len(req.tokens)} tokens"))
@@ -1012,7 +1561,9 @@ class GenerationServer:
 
     def _fail_all(self, exc: BaseException):
         """Hard dispatch fault: every in-flight request fails typed (never
-        hangs) and the page pool is rebuilt from zeros."""
+        hangs) and the device state is rebuilt from zeros. The rebuild
+        decision is taken under ``_cond``, so a fault racing ``close()``
+        never resurrects device state on a server shutting down."""
         with self._cond:
             victims = [r for r in self._slot_req if r is not None]
             victims += list(self._queue)
@@ -1021,15 +1572,22 @@ class GenerationServer:
             self._n_active = 0
             rebuild = not self._closing
             self._cond.notify_all()
-        self._counters["failed"] += len(victims)
+        self._m_failed.inc(len(victims))
+        if rebuild:
+            self._m_pool_rebuilds.inc()
         for req in victims:
             self._fail(req, exc)
         if rebuild:
-            self._page_pool = _PagePool(self.pages_total)
-            self._bt[:] = GARBAGE_PAGE
-            self._pos[:] = 0
-            self._slot_pages = [[] for _ in range(self.slots)]
-            self._pool = self._fresh_pool()
+            self._reset_device_state()
+
+    def _reset_device_state(self):
+        self._page_pool = _PagePool(self.pages_total)
+        self._bt[:] = GARBAGE_PAGE
+        self._pos[:] = 0
+        self._slot_pages = [[] for _ in range(self.slots)]
+        self._pool = self._fresh_pool()
+        if self._draft is not None:
+            self._dpool = self._fresh_draft_pool()
 
     # ------------------------------------------------- snapshot/handoff
     def _snapshot_slot(self, slot: int) -> KVSnapshot:
@@ -1054,13 +1612,61 @@ class GenerationServer:
             page_token_bytes=self._page_token_bytes, page_digests=digests,
             fetched=fetched, n_pages=n)
 
+    def _handoff_fault(self, snap: KVSnapshot):
+        """One chaos draw per snapshot shipped (none without a policy):
+        ``corrupt`` and ``truncate`` damage the wire content so the
+        adopter's checksum fails; returns the mode (``drop`` included)."""
+        mode = None if self._chaos is None \
+            else self._chaos.handoff_fault_mode()
+        if mode == "corrupt":
+            corrupt_snapshot(snap)
+        elif mode == "truncate":
+            truncate_snapshot(snap)
+        return mode
+
     def _publish_snapshot(self, req: _Request, snap: KVSnapshot):
         """Count the export and attach the snapshot to the request's future
         (``future._kv_snapshot``): whoever holds the future reads it when
-        the request fails mid-stream."""
-        self._counters["snapshots"] += 1
-        self._counters["snapshot_bytes"] += snap.wire_bytes()
+        the request fails mid-stream. An injected ``drop`` attaches
+        nothing (the consumer falls back to what it already had)."""
+        if self._handoff_fault(snap) == "drop":
+            return
+        self._m_handoff_snapshots.inc()
+        self._m_handoff_bytes.inc(snap.wire_bytes())
         req.future._kv_snapshot = snap
+
+    def _transfer_loop(self, exports):
+        """Disaggregated-prefill transfer: each freshly prefilled
+        ``export_kv`` slot leaves as a ``KVSnapshot``, the future's result,
+        and its pages free at once (the prefill tier's short residency). A
+        snapshot failure degrades to co-located decode here; an injected
+        drop fails the request ``SnapshotUnavailable`` (no snapshot), so a
+        fleet re-prefills it elsewhere."""
+        for slot, req in exports:
+            if self._slot_req[slot] is not req:
+                continue  # retired or expired between commit and transfer
+            try:
+                snap = self._snapshot_slot(slot)
+            except Exception:  # noqa: BLE001 — degrade to co-located
+                # decode: the slot stays active and streams here
+                self._m_handoff_fallbacks.inc()
+                continue
+            mode = self._handoff_fault(snap)
+            self._vacate(slot)
+            if mode == "drop":
+                self._m_failed.inc()
+                self._fail(req, SnapshotUnavailable(
+                    "handoff transfer dropped in flight"))
+                continue
+            self._m_handoff_snapshots.inc()
+            self._m_handoff_bytes.inc(snap.wire_bytes())
+            self._m_prefill_exports.inc()
+            self._m_retired.inc()
+            self._m_completed.inc()
+            try:
+                req.future.set_result(snap)
+            except Exception:  # caller gave up
+                pass
 
     def _maybe_snapshot_slots(self):
         """Periodic snapshots: at most ONE slot per round, the most overdue,
@@ -1128,7 +1734,11 @@ class GenerationServer:
         between dispatches, never longer than the request's own remaining
         deadline (expiry raises ``DeadlineExceeded``). Raises
         ``SnapshotUnavailable`` when the request is not resident in a
-        slot."""
+        slot, ``SnapshotUnsupported`` on a speculative server."""
+        if self._draft is not None:
+            raise SnapshotUnsupported(
+                "speculative servers cannot export: the draft's dense "
+                "KV cache is not part of the KVSnapshot wire format")
         deadline = getattr(future, "_deadline", None)
         eff = timeout
         if deadline is not None:
@@ -1159,9 +1769,14 @@ class GenerationServer:
         decoding at position N. Validation is typed and up front:
         ``SnapshotInvalid`` (checksum, version or an inconsistent header),
         ``SnapshotUnsupported`` (kv dtype or page geometry of another
-        server), ``ServerOverloaded`` (page budget or admission watermark).
-        The resumed completion equals the uninterrupted one: the serial
-        ``fold_in(key, token_index)`` schedule rides in the snapshot."""
+        server, or a speculative server), ``ServerOverloaded`` (page budget
+        or admission watermark), ``CircuitOpen``. The resumed completion
+        equals the uninterrupted one: the serial ``fold_in(key,
+        token_index)`` schedule rides in the snapshot."""
+        if self._draft is not None:
+            raise SnapshotUnsupported(
+                "speculative servers cannot adopt: the draft's dense "
+                "KV cache is not part of the KVSnapshot wire format")
         if snapshot.version not in (WIRE_VERSION - 1, WIRE_VERSION):
             raise SnapshotInvalid(
                 f"KVSnapshot wire version {snapshot.version} != "
@@ -1188,6 +1803,10 @@ class GenerationServer:
                 "inconsistent KVSnapshot header: position/count/page "
                 "stack disagree with the token history")
         self._check_fits(plen, snapshot.max_tokens, "adoption")
+        self._check_breaker()
+        # an explicit deadline_s wins, then the remaining budget the
+        # snapshot carried (a duration, re-armed on this host's clock),
+        # then this server's default
         budget = deadline_s
         if budget is None:
             budget = snapshot.deadline_remaining
@@ -1231,7 +1850,7 @@ class GenerationServer:
             self._release_slot_pages(slot)
             req.snapshot = None
             req.tokens.clear()
-            self._counters["fallbacks"] += 1
+            self._m_handoff_fallbacks.inc()
             return False
         if stored:
             dst = torch.tensor([sp[i] for i in stored], dtype=torch.long,
@@ -1258,20 +1877,70 @@ class GenerationServer:
         self._snap_counts[slot] = snap.count
         req.snapshot = None
         self._activate(slot, req)
-        self._counters["resumes"] += 1
-        self._counters["tokens_saved"] += len(req.tokens)
+        self._m_handoff_resumes.inc()
+        self._m_handoff_saved.inc(len(req.tokens))
         if req.tokens and self._finished(req, req.tokens[-1]):
             self._retire(slot, req)
         return True
+
+    def _migrate_out(self):
+        """Drain-migrate sweep (loop thread): every live slot is
+        snapshotted at its stream position and failed ``RequestMigrated``
+        with the snapshot attached to its future (and handed to the
+        ``drain(migrate=callable)`` sink), so whoever migrates it adopts
+        it elsewhere without losing a token. Queued requests migrate with
+        whatever snapshot they already carry (usually none: token-0
+        redispatch). A speculative server migrates without snapshots."""
+        with self._cond:
+            cb = self._migrate_cb
+            self._migrating = False
+            self._migrate_cb = None
+            queued = list(self._queue)
+            self._queue.clear()
+            self._cond.notify_all()
+        for req in queued:
+            if req.snapshot is not None:
+                req.future._kv_snapshot = req.snapshot
+            self._m_migrated.inc()
+            self._fail(req, RequestMigrated(
+                "request migrated off a draining server before prefill"))
+        for s in range(self.slots):
+            req = self._slot_req[s]
+            if req is None:
+                continue
+            snap = None
+            if self._draft is None:
+                try:
+                    snap = self._snapshot_slot(s)
+                except Exception:  # noqa: BLE001 — degrade to token-0
+                    snap = None
+            if snap is not None:
+                self._publish_snapshot(req, snap)
+                if cb is not None:
+                    try:
+                        cb(snap)
+                    except Exception:  # a sink's error never loses the
+                        pass           # request
+            self._vacate(s)
+            self._m_migrated.inc()
+            self._fail(req, RequestMigrated(
+                "request migrated off a draining server after "
+                f"{len(req.tokens)} tokens"))
 
     # --------------------------------------------------------- lifecycle
     def drain(self, timeout: Optional[float] = None, *,
               migrate=False) -> bool:
         """Block until every queued and in-flight request has resolved.
-        Returns False on timeout."""
+        Returns False on timeout. ``migrate`` truthy moves live requests
+        out instead of decoding them to completion: each is snapshotted
+        and failed ``RequestMigrated`` with the snapshot at
+        ``future._kv_snapshot``; a callable also receives each
+        ``KVSnapshot`` as it is exported."""
         if migrate:
-            raise NotImplementedError("drain(migrate=...) is not ported yet "
-                                      "(ROADMAP A3b)")
+            with self._cond:
+                self._migrating = True
+                self._migrate_cb = migrate if callable(migrate) else None
+                self._cond.notify_all()
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cond:
             while self._queue or self._n_active:
@@ -1284,19 +1953,21 @@ class GenerationServer:
         return True
 
     def close(self, timeout: float = 30.0) -> None:
-        """Stop admitting, drain what is in flight, stop the loop thread.
-        Any request or export still unresolved past ``timeout`` fails
-        typed. Idempotent."""
+        """Stop admitting, drain what is in flight, stop the loop. Any
+        request or export still unresolved past ``timeout`` fails typed.
+        Idempotent and re-entrant: safe from any thread, twice, or
+        concurrently (the runtime serializes the shutdown)."""
         with self._cond:
-            self._closing = True
+            # before the drain begins, so a chaos kill landing mid-drain
+            # cannot win a restart race against this deliberate close
+            self._user_close = True
+        self._runtime.begin_drain()   # submit() now rejects typed
         self.drain(timeout)
+        self._runtime.close(max(timeout, 1.0))
         with self._cond:
-            self._stop = True
-            self._cond.notify_all()
-        if threading.current_thread() is not self._thread:
-            self._thread.join(max(timeout, 1.0))
-        with self._cond:
-            victims = [r for r in self._slot_req if r is not None]
+            stragglers = [s for s in range(self.slots)
+                          if self._slot_req[s] is not None]
+            victims = [self._slot_req[s] for s in stragglers]
             victims += list(self._queue)
             self._queue.clear()
             self._slot_req = [None] * self.slots
@@ -1306,6 +1977,8 @@ class GenerationServer:
         for _fut, out in exports:  # never leave an exporter hung
             self._fail_export(out, SnapshotUnavailable(
                 "GenerationServer closed before the export was serviced"))
+        for s in stragglers:   # the loop thread is joined: safe to touch
+            self._release_slot_pages(s)
         for req in victims:
             self._fail(req, RuntimeError("GenerationServer closed with the "
                                          "request still in flight"))
@@ -1323,36 +1996,70 @@ class GenerationServer:
 
     # ------------------------------------------------------------- stats
     def stats(self) -> dict:
-        """Serving counters (racy-but-atomic reads of loop-owned state),
-        with the JAX server's ``pages`` and ``handoff`` blocks for the parts
-        ported (``spec_*`` read 0: speculative decode is not ported)."""
-        c = dict(self._counters)
-        busy = c["busy_s"]
+        """Serving counters, read off the registry: the JAX server's keys
+        in its order (``_cond`` is held only for occupancy and queue
+        depth; page gauges are racy-but-atomic reads of loop-owned
+        state)."""
         with self._cond:
-            c.update(slots=self.slots, active_slots=self._n_active,
-                     queued=len(self._queue))
-        c["tokens_per_busy_s"] = c["tokens_generated"] / busy if busy else 0.0
+            n_active = self._n_active
+            queued = len(self._queue)
+        busy_s = self._m_busy_s.value
+        tokens = int(self._m_tokens.value)
+        out = {
+            "slots": self.slots,
+            "active_slots": n_active,
+            "queued": queued,
+            "admitted": int(self._m_admitted.value),
+            "expired": int(self._m_expired.value),
+            "retired": int(self._m_retired.value),
+            "completed": int(self._m_completed.value),
+            "failed": int(self._m_failed.value),
+            "retried": int(self._m_retried.value),
+            "pool_rebuilds": int(self._m_pool_rebuilds.value),
+            "prefills": int(self._m_prefills.value),
+            "decode_steps": int(self._m_decode_steps.value),
+            "tokens_generated": tokens,
+            "tokens_per_s": (tokens / busy_s if busy_s > 0 else 0.0),
+        }
+        out.update(accepted=self.admission.accepted,
+                   rejected=self.admission.rejected,
+                   pending=self.admission.pending,
+                   breaker_state=self.breaker.state)
         pool = self._page_pool
-        c["pages"] = {
-            "page_size": self._ps, "pages_total": pool.total,
-            "pages_free": len(pool.free), "pages_cached": len(pool.cache),
+        proposed = int(self._m_spec_proposed.value)
+        accepted = int(self._m_spec_accepted.value)
+        out["pages"] = {
+            "page_size": self._ps,
+            "pages_total": pool.total,
+            "pages_free": len(pool.free),
+            "pages_cached": len(pool.cache),
             "pages_shared": pool.shared_count(),
-            "pages_refcounted": pool.refcounted(), "peak_in_use": pool.peak,
-            "cow_copies": c.pop("cow_copies"),
-            "prefix_hits": c.pop("prefix_hits"),
-            "prefix_tokens_reused": c.pop("prefix_tokens_reused"),
-            "evictions": pool.evictions, "preempted": c.pop("preempted"),
-            "spec_k": 0, "spec_rounds": 0, "spec_proposed": 0,
-            "spec_accepted": 0, "spec_accept_rate": 0.0,
+            "pages_refcounted": pool.refcounted(),
+            "resident_kv_bytes": pool.in_use() * self._page_bytes,
+            "peak_resident_kv_bytes": pool.peak * self._page_bytes,
+            "cow_copies": int(self._m_cow_copies.value),
+            "prefix_hits": int(self._m_prefix_hits.value),
+            "prefix_tokens_reused": int(self._m_prefix_reused.value),
+            "evictions": int(pool.evictions),
+            "preempted": int(self._m_preempted.value),
+            "spec_k": self.spec_k if self._draft is not None else 0,
+            "spec_rounds": int(self._m_spec_rounds.value),
+            "spec_proposed": proposed,
+            "spec_accepted": accepted,
+            "spec_accept_rate": (accepted / proposed) if proposed else 0.0,
             "kv_cache_dtype": self.kv_dtype or self.net.conf.dtype,
-            "bytes_per_token": self._page_token_bytes}
-        c["handoff"] = {
+            "bytes_per_token": self._page_token_bytes,
+        }
+        out["handoff"] = {
             "snapshot_every": self.snapshot_every,
-            "snapshots": c.pop("snapshots"), "bytes": c.pop("snapshot_bytes"),
-            "resumes": c.pop("resumes"), "tokens_saved": c.pop("tokens_saved"),
-            "fallbacks": c.pop("fallbacks"),
-            "preempt_resumes": c.pop("preempt_resumes")}
-        c.update(accepted=self.admission.accepted,
-                 rejected=self.admission.rejected,
-                 pending=self.admission.pending)
-        return c
+            "snapshots": int(self._m_handoff_snapshots.value),
+            "bytes": int(self._m_handoff_bytes.value),
+            "resumes": int(self._m_handoff_resumes.value),
+            "tokens_saved": int(self._m_handoff_saved.value),
+            "fallbacks": int(self._m_handoff_fallbacks.value),
+            "preempt_resumes": int(self._m_preempt_resumes.value),
+            "migrated": int(self._m_migrated.value),
+            "prefill_exports": int(self._m_prefill_exports.value),
+        }
+        out["role"] = self.role
+        return out

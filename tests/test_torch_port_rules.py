@@ -68,10 +68,13 @@ def test_port_imports_no_jax():
     assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
     names = {str(p.relative_to(ROOT / "deeplearning4j_torch"))
              for p in files if "deeplearning4j_torch" in p.parts}
-    # the training slice's modules are covered too
+    # the training slice's modules and the serving runtime's copies are
+    # covered too
     assert {"ops/losses.py", "nn/updater.py", "datasets/dataset.py",
             "optimize/fused_fit.py", "utils/convert.py",
-            "parallel/handoff.py", "parallel/resilience.py"} <= names
+            "parallel/handoff.py", "parallel/resilience.py",
+            "parallel/runtime.py", "metrics/registry.py",
+            "metrics/exposition.py", "metrics/__init__.py"} <= names
     bad = [(str(p.relative_to(ROOT)), mod) for p in files
            for mod in _imported_roots(p) if mod in FORBIDDEN]
     assert bad == []

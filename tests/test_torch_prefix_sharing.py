@@ -229,9 +229,9 @@ def test_deadline_fails_typed(nets):
         srv.close()
 
 
-@pytest.mark.parametrize("kw", [dict(draft_net=object()), dict(tp=2),
-                                dict(role="prefill"), dict(chaos=object())])
+@pytest.mark.parametrize("kw", [dict(tp=2), dict(tp=4), dict(mesh=object()),
+                                dict(mesh=object(), tp=2)])
 def test_unported_knobs_raise(nets, kw):
     _, tnet = nets
-    with pytest.raises(NotImplementedError, match="A3b"):
+    with pytest.raises(NotImplementedError, match="A9"):
         GenerationServer(tnet, V, device="cpu", **SERVER, **kw)
