@@ -11,8 +11,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    slice's shape (f32 causal with and without a key mask, bf16), at the
    training shape [16, 8, 128, 32] and at T=2048, d=128, then head dims 8
    and 16 (f32, bf16, f16) and f16 at d = 32, 64, 128 (``FLASH_CASES``;
-   f16 within ``F16_REL`` of max|o|); two calls must be bitwise equal;
-   timed beside the plain version and SDPA as a yardstick;
+   f16 within ``F16_REL`` of max|o|), then the padded head dims
+   ``PAD_DIMS`` (4, 24, 48, 80, 96, 120: f32 and bf16 causal, with and
+   without a key mask; f16 at 48 and 96); two calls must be bitwise equal;
+   timed beside the plain version and SDPA as a yardstick, each case with
+   the width it runs at and D_pad/d;
 3. K2, paged-attention read, against its plain gather version: decode
    (T=1), T=4 and T=5 (the two sides of the decode/chunk route boundary)
    and a 256-token prefill chunk, f32 and int8 pools, Tmax 512 and 2048,
@@ -26,8 +29,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``PAGED16_TOL``); then head dims 8 and 16 (``PAGED_SMALL_CASES``):
    f32, bf16 and f16 queries over pages of their dtype and over int8
    pages, T = 1, 4, 5, 48, 256 at page size 16 and T = 1, 48 at page size
-   8, under the same rule; two calls must be bitwise equal, and each chunk
-   case
+   8, under the same rule; then the padded head dims
+   (``PAGED_PAD_CASES``: d = 4, 48, 80, 96, f32 and bf16 queries over
+   their own and int8 pages, T = 1, 4, 5, 48, 256; page size 8 at d = 48);
+   two calls must be bitwise equal, and each chunk case
    also runs its other walk (unsplit where the kernel's rule splits the
    walk, four ranges where it does not) within the same tolerance;
 4. the slice model (zoo TransformerLM defaults, numpy-seeded weights) on
@@ -83,19 +88,31 @@ Phases (any failure exits non-zero, and no result line is printed):
    streams); a seeded ``ChaosPolicy(transient_rate=0.2)`` (every request
    completes with phase 5's tokens, retries counted), then a kill (futures
    fail typed, one pool rebuild, the next batch equal to phase 5's);
+5f. a TransformerLM of head dim 96 (``SLICE96``: d_model 384 in 4 heads,
+   numpy-seeded weights): ``output()`` against a CPU run of the plain path;
+   the phase-5 requests served greedy, f32 and int8 KV, by it and by its
+   ``quantize_net`` int8-weight copy, each against the plain-read server on
+   the same weights (f32 KV token for token; int8 KV under phase 5c's
+   near-tie rule, each divergence reported), the int8-weight streams'
+   ``greedy_agreement`` with the f32 streams and both parameter sizes; K1
+   and both routes of K2 must launch at d = 96;
 6. K3 and K4, the flash backward (dQ and dK/dV), against their plain
    PyTorch version at the training shape [16, 8, 128, 32] (f32 causal with
    and without a key mask, bf16), at [2, 8, 2048, 128] causal (f32,
-   bf16), at head dims 8 and 16 (f32, bf16, f16) and in f16 at d = 32, 64,
-   128 (``BWD_TOL``); two calls must be bitwise equal; timed beside the
-   plain version
+   bf16), at head dims 8 and 16 (f32, bf16, f16), in f16 at d = 32, 64,
+   128 and at the padded head dims as in phase 2 (``BWD_TOL``); two calls
+   must be bitwise equal; timed beside the plain version
    and the backward of SDPA as a yardstick (its device time per call and
    the SDPA backend that ran);
 7. training: the full-width model trained with the conf's Adam through
    ``do_step`` on a 16 x 128-token batch, on the card and on the CPU from
    the same weights: first-step gradients and three steps' losses agree,
    each step launches K1, K3 and K4 ``n_blocks`` times, the loss falls over
-   20 more steps on the batch, and the step time is reported.
+   20 more steps on the batch, and the step time is reported;
+7b. three Adam ``do_step``s of the phase-5f model on the phase-7 batch,
+   card against CPU (first-step gradients within 1e-4 of max|g|, losses
+   within rtol 1e-4), each step launching K1, K3 and K4 ``n_blocks`` times
+   at d = 96.
 
 Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
 calls (``ms``: the wrapper's host work included, which sets the pace once
@@ -107,8 +124,10 @@ version's and the yardstick's device time per call beside it.
 The main path is phases 4-5 (serving), phases 4b-5c (loading a zip,
 sampled and bf16 serving), phase 4c (the d=8 fixture), phase 5d (prefix
 sharing, preemption, handoff), phase 5e (speculative decoding, roles,
-migration, chaos) and phase 7 (training). The launch counters are zeroed
-just before each of the six and read just after (phase 6's and the
+migration, chaos), phase 5f (the d=96 model, f32 and int8 weights), phase
+7 (training) and phase 7b (training at d=96). The launch counters are
+zeroed just before each of the eight and read just after (phase 6's and
+the
 reference servers' launches are not counted); every kernel must have
 run on the main path, K2's chunk route and its merge pass included, and
 each path must have launched its own kernels. The script
@@ -151,6 +170,12 @@ PEAK_FLOPS_S = {"f32": 495e12 / 3, "bf16": 989e12}
 SLICE = dict(num_labels=256, max_length=128, d_model=256, n_heads=8,
              n_blocks=4, max_cache=512)
 SERVER = dict(slots=8, page_size=16, prefill_chunk=256, steps_per_dispatch=4)
+#: phases 5f and 7b: the slice's vocab, depth and capacity at d_model 384 in
+#: 4 heads of d = 96 (Phi-3-mini's head dim), which the kernels take padded
+#: only since head dims other than 8, 16, 32, 64, 128 were added
+SLICE96 = dict(num_labels=256, max_length=128, d_model=384, n_heads=4,
+               n_blocks=4, max_cache=512)
+D96 = SLICE96["d_model"] // SLICE96["n_heads"]
 # phase-5 prompt lengths: 8..300 tokens, five past prefill_chunk
 SERVE_LENS = [8, 300, 270, 257, 12, 64, 129, 31, 200, 16, 99, 280, 45, 150,
               9, 256]
@@ -159,6 +184,16 @@ TRAIN_BATCH = 16
 TRAIN_STEPS = 20
 DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16",
              torch.float16: "f16"}
+#: the flash kernels' dtype codes (kernels/flash_fwd.cu)
+FLASH_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: phases 2 and 6: head dims the kernels run padded (to 8, 48, 48, 80, 96,
+#: 128), f32 and bf16; f16 at two of them
+PAD_DIMS = (4, 24, 48, 80, 96, 120)
+PAD_F16_DIMS = (48, 96)
+#: phase 3: K2's padded head dims (decode route to 8, 64, 128, 128; chunk
+#: route to 8, 48, 80, 96), f32 and bf16 queries over their own and int8
+#: pages
+PAGED_PAD_DIMS = (4, 48, 80, 96)
 # phase-6 cases: (name, B, H, T, d, dtype, causal, masked); the first three
 # are the training shape
 BWD_CASES = [
@@ -179,7 +214,17 @@ BWD_CASES = [
                                    (torch.float16, False))
 ] + [("slice_f16_causal", 16, 8, 128, 32, torch.float16, True, False),
      ("mid_f16_causal", 2, 8, 1024, 64, torch.float16, True, False),
-     ("long_f16_causal", 2, 8, 2048, 128, torch.float16, True, False)]
+     ("long_f16_causal", 2, 8, 2048, 128, torch.float16, True, False)] + [
+    # the padded head dims (kernels.kernel_width): f32 and bf16 causal with
+    # and without a key mask at the training batch, f16 at d = 48 and 96
+    (f"d{d}_{DTYPE_TAG[dt]}_causal{'_mask' if m else ''}", 16, 8, 128, d, dt,
+     True, m)
+    for d in PAD_DIMS for dt, m in ((torch.float32, False),
+                                    (torch.float32, True),
+                                    (torch.bfloat16, False),
+                                    (torch.bfloat16, True))
+] + [(f"d{d}_f16_causal", 16, 8, 128, d, torch.float16, True, False)
+     for d in PAD_F16_DIMS]
 # phase-6 tolerances on max|err| / max|g|. Against the plain backward: f32
 # runs each product on the tensor cores as three TF32 products (about 2^-21
 # relative per product; one TF32 product would read ~1e-3) and sums each
@@ -345,10 +390,21 @@ FLASH_CASES = [
         (torch.float16, True, False, None), (torch.float16, False, True, None))
 ] + [("slice_f16_causal", 8, 8, 128, 32, torch.float16, True, False, None),
      ("mid_f16_causal", 2, 8, 1024, 64, torch.float16, True, False, None),
-     ("long_f16_causal", 2, 8, 2048, 128, torch.float16, True, False, None)]
+     ("long_f16_causal", 2, 8, 2048, 128, torch.float16, True, False, None)
+     ] + [
+    # the padded head dims: f32 and bf16 causal, with and without a key
+    # mask, and f16 at d = 48 and 96
+    (f"d{d}_{DTYPE_TAG[dt]}_causal{'_mask' if m else ''}", 8, 8, 128, d, dt,
+     True, m, tol)
+    for d in PAD_DIMS for dt, m, tol in (
+        (torch.float32, False, 1e-4), (torch.float32, True, 1e-4),
+        (torch.bfloat16, False, 2e-2), (torch.bfloat16, True, 2e-2))
+] + [(f"d{d}_f16_causal", 8, 8, 128, d, torch.float16, True, False, None)
+     for d in PAD_F16_DIMS]
 
 
 def phase_flash(dev):
+    from deeplearning4j_torch import kernels
     from deeplearning4j_torch.ops import flash_attention as fa
 
     F = torch.nn.functional
@@ -394,7 +450,7 @@ def phase_flash(dev):
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, attn_mask=keep)
         sdpa_ms = time_ms(sdpa)
-        kdev, _ = device_ms(kernel, "flash_fwd_kernel")
+        kdev, _ = device_ms(kernel, "flash_fwd_")
         plain_dev, _ = device_ms(plain, iters=5)
         sdpa_dev, _ = device_ms(sdpa)
         isz = torch.tensor([], dtype=dtype).element_size()
@@ -403,14 +459,21 @@ def phase_flash(dev):
         flops = 4 * d * visible_pairs(B, H, T, causal, m)
         bms, by = bound_ms(nbytes, flops, peak_kind(dtype))
         results[name] = dict(shape=[B, H, T, d], dtype=str(dtype),
+                             width=kernels.kernel_width(d),
+                             pad_ratio=kernels.kernel_width(d) / d,
+                             smem_bytes=kernels.load().flash_fwd_smem(
+                                 d, FLASH_DTYPE_CODE[dtype]),
                              causal=causal, masked=masked, max_abs_err=err,
                              lse_err=lerr, deterministic=True, ms=ms,
                              device_ms=kdev, plain_ms=plain_ms,
                              plain_device_ms=plain_dev, library_ms=sdpa_ms,
                              library_device_ms=sdpa_dev, bound_ms=bms,
                              bound_by=by)
+        r = results[name]
         log(f"  K1 {name:22s} err {err:.2e} lse {lerr:.2e} (atol {atol}), "
-            f"bitwise repeatable; kernel {ms:.4f} ms (device {kdev:.4f})  "
+            f"bitwise repeatable; width {r['width']} (D_pad/d "
+            f"{r['pad_ratio']:.2f}, {r['smem_bytes']} B smem per CTA); "
+            f"kernel {ms:.4f} ms (device {kdev:.4f})  "
             f"plain {plain_ms:.4f} ({plain_dev:.4f})  sdpa {sdpa_ms:.4f} "
             f"({sdpa_dev:.4f})  bound {bms:.4f} ms ({by})")
     return results
@@ -476,9 +539,9 @@ def phase_flash_bwd(dev):
         dq_ms = time_ms(lambda: ext.flash_bwd_dq(*args))
         dkv_ms = time_ms(lambda: ext.flash_bwd_dkv(*args))
         dq_dev, _ = device_ms(lambda: ext.flash_bwd_dq(*args),
-                              "flash_bwd_dq_kernel")
+                              "flash_bwd_dq_")
         dkv_dev, _ = device_ms(lambda: ext.flash_bwd_dkv(*args),
-                               "flash_bwd_dkv_kernel")
+                               "flash_bwd_dkv_")
         plain_bwd = lambda: fa.flash_attention_backward_plain(  # noqa: E731
             q, k, v, o, lse, do, causal=causal, mask=m)
         sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
@@ -498,6 +561,9 @@ def phase_flash_bwd(dev):
         dkv_bound, dkv_by = bound_ms(6 * tensor + rows, 8 * d * pairs, kind)
         results[name] = dict(
             shape=[B, H, T, d], dtype=str(dtype), causal=causal,
+            width=kernels.kernel_width(d),
+            pad_ratio=kernels.kernel_width(d) / d,
+            smem_bytes=ext.flash_bwd_smem(d, FLASH_DTYPE_CODE[dtype]),
             masked=masked, rel_err=errs, max_abs_err=abs_errs,
             tolerance=tol, sdpa_rel_err=sdpa_errs, sdpa_tolerance=sdpa_tol,
             deterministic=True, pairs=pairs,
@@ -508,9 +574,12 @@ def phase_flash_bwd(dev):
             plain_ms=plain_ms, plain_device_ms=plain_dev,
             library_ms=sdpa_ms, library_device_ms=sdpa_dev,
             library_backend=sdpa_backend)
+        r = results[name]
         log(f"  K3/K4 {name:22s} rel err vs plain {max(errs.values()):.2e} "
             f"(tol {tol}), vs SDPA {max(sdpa_errs.values()):.2e} (tol "
-            f"{sdpa_tol}), bitwise repeatable; dq {dq_ms:.4f} ms (device "
+            f"{sdpa_tol}), bitwise repeatable; width {r['width']} (D_pad/d "
+            f"{r['pad_ratio']:.2f}, {r['smem_bytes']} B smem per CTA); "
+            f"dq {dq_ms:.4f} ms (device "
             f"{dq_dev:.4f}, bound {dq_bound:.4f}, {dq_by})  dkv {dkv_ms:.4f} "
             f"ms (device {dkv_dev:.4f}, bound "
             f"{dkv_bound:.4f}, {dkv_by})  plain {plain_ms:.4f} ms (device "
@@ -684,7 +753,7 @@ def paged_case(g, T, pool, dev, lean=False, qdtype=torch.float32):
     check(err <= atol, f"K2 {name}: max |err| {err:.3g} > {atol:.3g}")
     check(torch.equal(o, again),
           f"K2 {name}: two calls differ (not deterministic)")
-    # the route paged_attn.cu takes: T <= 4 decode, else chunk
+    # the route K2 takes: T <= 4 decode, else chunk
     route = "decode" if T <= ppa.DECODE_MAX_T else "chunk"
     splits, other, smem = 1, None, None
     if route == "chunk":
@@ -726,7 +795,10 @@ def paged_case(g, T, pool, dev, lean=False, qdtype=torch.float32):
                             for p in pos.tolist())
     bms, by = bound_ms(nbytes, flops,
                        "bf16" if kp.element_size() == 2 else "f32")
-    res = dict(B=B, H=H, T=T, d=d, ps=ps, Tmax=Tmax, quant=quant,
+    width = (kernels.decode_width(d) if route == "decode"
+             else kernels.kernel_width(d))
+    res = dict(B=B, H=H, T=T, d=d, width=width, pad_ratio=width / d,
+               ps=ps, Tmax=Tmax, quant=quant,
                dtype=DTYPE_TAG[qdtype], pool_dtype=kvtag, route=route,
                splits=splits, smem_bytes=smem, max_abs_err=err,
                max_rel_err=err / max(top(ref), 1e-30), tolerance=atol, native_max_abs_err=native_err,
@@ -742,8 +814,9 @@ def paged_case(g, T, pool, dev, lean=False, qdtype=torch.float32):
     native = "" if native_err is None else (
         f", at {DTYPE_TAG[qdtype]} {native_err:.2e} (atol "
         f"{native_atol:.2e})")
-    log(f"  K2 {name:24s} {route:6s} err {err:.2e} (atol {atol:.2e})"
-        f"{native}, bitwise repeatable{extra}; kernel {ms:.4f} ms (device "
+    log(f"  K2 {name:24s} {route:6s} width {width} err {err:.2e} (atol "
+        f"{atol:.2e}){native}, bitwise repeatable{extra}; kernel {ms:.4f} "
+        f"ms (device "
         f"{kdev:.4f})  plain {plain_ms:.4f} ({plain_dev:.4f})  bound "
         f"{bms:.4f} ms ({by})")
     return name, res
@@ -782,6 +855,19 @@ PAGED_SMALL_CASES = [
                   (48, 8))]
 
 
+# phase-3 padded head dims (kernels/common.cuh): f32 and bf16 queries over
+# pages of their dtype and over int8 pages, T = 1, 4 (decode route, padded
+# to a power of two), 5, 48, 256 (chunk route, padded to the next kernel
+# width) at page size 16, and T = 1, 48 at page size 8 for d = 48: (q dtype,
+# int8 pools, T, d, ps) at Tmax 512
+PAGED_PAD_CASES = [
+    (dt, quant, T, d, 16) for d in PAGED_PAD_DIMS
+    for dt in (torch.float32, torch.bfloat16) for quant in (False, True)
+    for T in (1, 4, 5, 48, 256)] + [
+    (dt, quant, T, 48, 8) for dt in (torch.float32, torch.bfloat16)
+    for quant in (False, True) for T in (1, 48)]
+
+
 def phase_paged(dev):
     g = torch.Generator(device="cpu").manual_seed(2)
     results = {}
@@ -804,6 +890,11 @@ def phase_paged(dev):
         results[name] = res
     g = torch.Generator(device="cpu").manual_seed(13)
     for qdtype, quant, T, d, ps in PAGED_SMALL_CASES:
+        pool = paged_pool(g, B, H, ps, d, 512, quant, dev, dtype=qdtype)
+        name, res = paged_case(g, T, pool, dev, lean=True, qdtype=qdtype)
+        results[name] = res
+    g = torch.Generator(device="cpu").manual_seed(14)
+    for qdtype, quant, T, d, ps in PAGED_PAD_CASES:
         pool = paged_pool(g, B, H, ps, d, 512, quant, dev, dtype=qdtype)
         name, res = paged_case(g, T, pool, dev, lean=True, qdtype=qdtype)
         results[name] = res
@@ -1113,10 +1204,13 @@ def uncounted(fn, *args, **kw):
     from deeplearning4j_torch import kernels
 
     before = dict(kernels.LAUNCHES)
+    before_d = dict(kernels.LAUNCHES_BY_D)
     try:
         return fn(*args, **kw)
     finally:
         kernels.LAUNCHES.update(before)
+        kernels.LAUNCHES_BY_D.clear()
+        kernels.LAUNCHES_BY_D.update(before_d)
 
 
 def gap_spread(net, seqs):
@@ -1877,6 +1971,175 @@ def phase_spec(net, greedy, card):
     return results
 
 
+# ---------------------------------------------------------------- phase 5f
+def build_d96_nets():
+    """The d = 96 model (``SLICE96``, numpy-seeded weights) on the card and
+    on the CPU."""
+    from deeplearning4j_torch.models.zoo import TransformerLM
+    from deeplearning4j_torch.utils.convert import params_from_jax
+
+    net = TransformerLM(**SLICE96).init(device="cuda")
+    params = numpy_params(net, seed=9)
+    params_from_jax(params, net)
+    cpu = TransformerLM(**SLICE96).init(device="cpu")
+    params_from_jax(params, cpu)
+    return net, cpu
+
+
+def param_bytes(net):
+    return sum(t.numel() * t.element_size() for p in net.params.values()
+               for t in p.values())
+
+
+def phase_d96(net, cpu, card):
+    """Phase 5f: the d = 96 model's ``output()`` against a CPU run of the
+    port's plain path; then the phase-5 requests served greedy by it and by
+    its ``quantize_net`` int8-weight copy, f32 and int8 KV, each against
+    the plain-read server (``paged_attention="stock"``) on the same weights:
+    token for token with f32 KV, and with int8 KV equal or leaving it only
+    at a position within phase 5c's near-tie rule (each one reported); the
+    int8-weight streams' ``greedy_agreement`` with the f32 streams and the
+    parameter bytes of both."""
+    from deeplearning4j_torch import kernels
+    from deeplearning4j_torch.optimize.quantize import (greedy_agreement,
+                                                        quantize_net)
+
+    rs = np.random.RandomState(3)
+    V, T = SLICE96["num_labels"], SLICE96["max_length"]
+    x = np.eye(V, dtype=np.float32)[rs.randint(0, V, (8, T))]
+    out = net.output(x)
+    torch.cuda.synchronize()
+    err = (out.cpu() - cpu.output(x)).abs().max().item()
+    check(out.shape == (8, T, V) and torch.isfinite(out).all().item(),
+          "d96: output shape or non-finite values")
+    check(err <= 1e-4, f"d96: output() vs CPU plain path max |err| "
+                       f"{err:.3g} > 1e-4")
+    qnet = quantize_net(net)
+    check(qnet.params["attn0"]["Wq"].dtype == torch.int8
+          and net.params["attn0"]["Wq"].dtype == torch.float32,
+          "d96: quantize_net did not give int8 weights beside the source's")
+    reqs = serve_requests()
+    nb = SLICE96["n_blocks"]
+    results = dict(output_max_abs_err=err, param_bytes=param_bytes(net),
+                   int8w_param_bytes=param_bytes(qnet))
+    streams = {}
+    for wtag, model in (("f32", net), ("int8w", qnet)):
+        uncounted(serve, model, reqs[:2])                 # warm-up
+        for kv in (None, "int8"):
+            tag = f"{wtag}_{kv or 'f32'}kv"
+            before = dict(kernels.LAUNCHES)
+            outs, wall, st = serve(model, reqs, kv_dtype=kv)
+            k2 = kernels.LAUNCHES["paged_attn"] - before["paged_attn"]
+            chunk = kernels.LAUNCHES["paged_attn_chunk"] \
+                - before["paged_attn_chunk"]
+            check(k2 == nb * (st["prefill_rounds"]
+                              + SERVER["steps_per_dispatch"]
+                              * st["decode_steps"])
+                  and chunk == nb * st["prefill_rounds"],
+                  f"d96 serve {tag}: K2 launched {k2} times ({chunk} chunk "
+                  f"route) for {st['prefill_rounds']} prefill rounds and "
+                  f"{st['decode_steps']} decode dispatches")
+            ref, ref_wall, _ = uncounted(serve, model, reqs, kv_dtype=kv,
+                                         paged_attention="stock")
+            check(all(len(o) == 32 for o in outs),
+                  f"d96 serve {tag}: short output")
+            check(len({t for o in outs for t in o}) > 4,
+                  f"d96 serve {tag}: degenerate greedy streams")
+            spread = None
+            near = []
+            for i, (got, want) in enumerate(zip(outs, ref)):
+                k = first_divergence(got, want)
+                if k is None:
+                    continue
+                gap = uncounted(top2_gap, model, reqs[i][0], want[:k])
+                near.append(dict(request=i, position=k, gap=gap,
+                                 tokens=[got[k], want[k]]))
+            if kv is None:
+                check(not near, f"d96 serve {tag}: streams leave the "
+                                f"plain-read server's: {near}")
+            elif near:
+                spread = uncounted(gap_spread, model, [
+                    np.concatenate([p, w]) for (p, _), w in zip(reqs, ref)])
+                for d in near:
+                    check(d["gap"] <= spread,
+                          f"d96 serve {tag}: request {d['request']} leaves "
+                          f"the plain-read stream at token {d['position']} "
+                          f"at a top-2 logit gap of {d['gap']:.6f}, over the "
+                          f"spread {spread:.6f}")
+            ntok = sum(len(o) for o in outs)
+            streams[tag] = outs
+            results[tag] = dict(tokens=ntok, wall_s=wall,
+                                tokens_per_s=ntok / wall,
+                                plain_tokens_per_s=ntok / ref_wall,
+                                k2_launches=k2, k2_chunk_launches=chunk,
+                                prefill_rounds=st["prefill_rounds"],
+                                decode_steps=st["decode_steps"],
+                                identical_requests=len(reqs) - len(near),
+                                divergences=near, gap_spread=spread,
+                                streams=outs)
+            log(f"  d96 {tag}: {len(reqs)} requests, {ntok / wall:.1f} tok/s "
+                f"(plain read {ntok / ref_wall:.1f}); K2 {k2} launches "
+                f"({chunk} chunk route); {len(reqs) - len(near)}/{len(reqs)} "
+                f"identical to the plain-read server; divergences (request, "
+                f"token, top-2 gap): "
+                f"{[(d['request'], d['position'], round(d['gap'], 6)) for d in near]}"
+                f"; [{card}]")
+    for kv in ("f32", "int8"):
+        results[f"int8w_greedy_agreement_{kv}kv"] = greedy_agreement(
+            np.concatenate(streams[f"int8w_{kv}kv"]),
+            np.concatenate(streams[f"f32_{kv}kv"]))
+    log(f"  d96: output() max |err| vs CPU {err:.2e}; int8 weights' greedy "
+        f"agreement with f32 weights "
+        f"{results['int8w_greedy_agreement_f32kv']:.4f} (f32 KV), "
+        f"{results['int8w_greedy_agreement_int8kv']:.4f} (int8 KV); "
+        f"parameter bytes f32 {results['param_bytes']}, int8 weights "
+        f"{results['int8w_param_bytes']}")
+    return results
+
+
+def phase_train_d96(net, cpu, card):
+    """Phase 7b: three Adam ``do_step``s of the d = 96 model on the phase-7
+    batch, card against the CPU plain path from the same weights; each step
+    launches K1, K3 and K4 ``n_blocks`` times at d = 96."""
+    from deeplearning4j_torch import kernels
+    from deeplearning4j_torch.optimize.fused_fit import value_and_grad
+
+    x, y = train_batch()
+    xd, yd = train_batch(net.device)
+    _, g_d = value_and_grad(net, net.params, net.state, [xd], [yd])
+    _, g_c = value_and_grad(cpu, cpu.params, cpu.state,
+                            [torch.from_numpy(x)], [torch.from_numpy(y)])
+    grad_err = max(((g_d[v][p].cpu() - g_c[v][p]).abs().max()
+                    / g_c[v][p].abs().max()).item()
+                   for v in g_c for p in g_c[v])
+    check(grad_err <= 1e-4, f"d96 train: first-step gradients card vs CPU, "
+                            f"worst leaf max|err|/max|g| {grad_err:.3g}")
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    before = {k: kernels.LAUNCHES_BY_D.get((k, D96), 0) for k in names}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_losses = [float(net.do_step(xd, yd)[0]) for _ in range(3)]
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    per_step = {k: (kernels.LAUNCHES_BY_D.get((k, D96), 0) - before[k]) / 3
+                for k in names}
+    cpu_losses = [float(cpu.do_step(x, y)[0]) for _ in range(3)]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                        cpu_losses))
+    check(loss_err <= 1e-4, f"d96 train: Adam losses card {card_losses} vs "
+                            f"CPU {cpu_losses} (rel {loss_err:.3g})")
+    check(all(n == SLICE96["n_blocks"] for n in per_step.values()),
+          f"d96 train: launches per step at d={D96} {per_step}, expected "
+          f"{SLICE96['n_blocks']} each")
+    log(f"  d96 train [{TRAIN_BATCH}, {SLICE96['max_length']}] Adam: "
+        f"first-step grads vs CPU {grad_err:.2e}, losses vs CPU "
+        f"{loss_err:.2e} ({card_losses[0]:.4f} -> {card_losses[-1]:.4f}); "
+        f"launches per step at d={D96} {per_step}; {step_ms:.3f} ms/step "
+        f"(three steps, first included); [{card}]")
+    return dict(grad_rel_err=grad_err, loss_rel_err=loss_err,
+                first_losses=card_losses, cpu_losses=cpu_losses,
+                launches_per_step=per_step, step_ms=step_ms)
+
+
 def profile_serve(net, card, out_dir, reqs=None, tag="f32"):
     """One f32 serve of ``reqs`` (the phase-5 requests; ``tag`` names
     them) under ``torch.profiler``: device busy time against the wall
@@ -2034,7 +2297,7 @@ def profile_train(net, card, out_dir, steps=5):
                 kernel_launches_per_step=launches / steps, top=top)
 
 
-def kernel_line(flash, paged, bwd, launches):
+def kernel_line(flash, paged, bwd, launches, launches_d96):
     k1 = flash["slice_f32_causal"]
     k2 = paged["f32_T1_Tmax512"]
     k2c = paged["f32_T256_Tmax512"]          # the serve's first prefill round
@@ -2058,9 +2321,11 @@ def kernel_line(flash, paged, bwd, launches):
          "library_device_ms": k1["library_device_ms"],
          # head dims 8 and 16 (f32, bf16, f16) and f16 at 32/64/128
          **small_d_fields(flash, "d8_f32_causal", "d16_f32_causal",
-                          "slice_f16_causal")},
+                          "slice_f16_causal"),
+         "launches_d96": launches_d96["flash_fwd"],
+         "head_dims": pad_fields(flash, PAD_DIMS, "d{}_f32_causal")},
         {"name": "paged_attn", "route": "cuda",
-         "source": "deeplearning4j_torch/kernels/paged_attn.cu",
+         "source": "deeplearning4j_torch/kernels/paged_attn.cuh",
          "replaces": ("deeplearning4j_tpu/nn/conf/layers/"
                       "paged_attention.py:226"),
          "launches": launches["paged_attn"],
@@ -2106,7 +2371,12 @@ def kernel_line(flash, paged, bwd, launches):
                           "f16_T1_Tmax512", "decode_"),
          **small_d_fields(paged, "f32_T256_Tmax512_d8",
                           "f32_T256_Tmax512_d16", "f16_T256_Tmax512",
-                          "chunk_")}]
+                          "chunk_"),
+         "launches_d96": launches_d96["paged_attn"],
+         "chunk_launches_d96": launches_d96["paged_attn_chunk"],
+         "head_dims": pad_fields(paged, PAGED_PAD_DIMS, "f32_T1_Tmax512_d{}"),
+         "chunk_head_dims": pad_fields(paged, PAGED_PAD_DIMS,
+                                       "f32_T256_Tmax512_d{}")}]
     # the plain time is the whole plain backward, the library time the
     # whole SDPA backward (dq, dk and dv together), for both kernels
     for name, part, grads, line_no in (("flash_bwd_dq", "dq", ("dq",), 289),
@@ -2133,8 +2403,34 @@ def kernel_line(flash, paged, bwd, launches):
                 for tag, case in (("d8", "d8_f32_causal"),
                                   ("d16", "d16_f32_causal"),
                                   ("f16", "slice_f16_causal"))
-                for k in ("device_ms", "bound_ms", "max_abs_err")}})
+                for k in ("device_ms", "bound_ms", "max_abs_err")},
+             "launches_d96": launches_d96[name],
+             "head_dims": pad_fields(bwd, PAD_DIMS, "d{}_f32_causal", part)})
     return {"kernels": line}
+
+
+def pad_fields(cases, dims, pattern, part=None):
+    """Kernels-line fields of the padded head dims: per d, the width it runs
+    at and D_pad/d, the f32 case ``pattern.format(d)``'s times (``part``:
+    the backward's dq or dkv) and bound, and the worst error over every
+    case at that d."""
+    out = {}
+    for d in dims:
+        r = cases[pattern.format(d)]
+        t = r[part] if part else r
+        at_d = [c for c in cases.values()
+                if c.get("d", (c.get("shape") or [0] * 4)[3]) == d]
+        worst = [c["max_abs_err"] for c in at_d]
+        worst = [max(w.values()) if isinstance(w, dict) else w
+                 for w in worst]
+        out[str(d)] = dict(width=r["width"], pad_ratio=r["pad_ratio"],
+                           ms=t["ms"], device_ms=t["device_ms"],
+                           plain_device_ms=r["plain_device_ms"],
+                           bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                           library_device_ms=r.get("library_device_ms"),
+                           smem_bytes=r.get("smem_bytes"),
+                           max_abs_err=max(worst), cases=len(at_d))
+    return out
 
 
 def small_d_fields(cases, d8, d16, f16, prefix=""):
@@ -2168,6 +2464,7 @@ def main() -> int:
         return 2
     from deeplearning4j_torch import kernels
 
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     dev = torch.device("cuda")
@@ -2238,6 +2535,21 @@ def main() -> int:
     check(all(spec[k] > 0 for k in ("paged_attn", "paged_attn_chunk")),
           f"a kernel of the speculative path never launched: {spec}")
 
+    net96, cpu96 = build_d96_nets()
+    kernels.reset_launch_counts()         # the d=96 serving path starts
+    log(f"phase 5f: a TransformerLM of head dim {D96} (f32 and int8 "
+        f"weights) served through K1 and K2")
+    REPORT["d96_serve"] = phase_d96(net96, cpu96, card)
+    d96_serving = dict(kernels.LAUNCHES)  # ... and ends here
+    at96 = {k: kernels.LAUNCHES_BY_D.get((k, D96), 0) for k in
+            ("flash_fwd", "paged_attn", "paged_attn_chunk")}
+    check(all(n > 0 for n in at96.values())
+          and at96["paged_attn"] > at96["paged_attn_chunk"],
+          f"a kernel of the d={D96} serving path never launched at "
+          f"d={D96} (K2's decode route: paged_attn beyond paged_attn_chunk): "
+          f"{at96}")
+    REPORT["d96_serve"]["launches_at_d96"] = at96
+
     log("phase 6: K3/K4 flash backward vs its plain version")
     bwd = REPORT["flash_bwd"] = phase_flash_bwd(dev)
 
@@ -2248,8 +2560,19 @@ def main() -> int:
     check(all(training[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
                                         "flash_bwd_dkv")),
           f"a kernel of the training path never launched: {training}")
+
+    kernels.reset_launch_counts()         # the d=96 training path starts
+    log(f"phase 7b: three Adam steps of the head-dim-{D96} model on the "
+        f"card")
+    REPORT["d96_train"] = phase_train_d96(net96, cpu96, card)
+    d96_training = dict(kernels.LAUNCHES)  # ... and ends here
+    check(all(kernels.LAUNCHES_BY_D.get((k, D96), 0) > 0
+              for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+          f"a kernel of the d={D96} training path never launched at "
+          f"d={D96}: {kernels.LAUNCHES_BY_D}")
     windows = dict(serving=serving, loading=loading, fixture=fixture,
-                   prefix=prefix, spec=spec, training=training)
+                   prefix=prefix, spec=spec, d96_serving=d96_serving,
+                   training=training, d96_training=d96_training)
     launches = {k: sum(w[k] for w in windows.values()) for k in serving}
     REPORT["main_path_launches"] = dict(windows, total=launches)
     check(all(n > 0 for n in launches.values()),
@@ -2269,7 +2592,11 @@ def main() -> int:
     log(f"profiler windows: {WINDOW_LOG['timings']} timings, "
         f"{len(WINDOW_LOG['retried'])} needed more than one window: "
         f"{WINDOW_LOG['retried']}")
-    line = kernel_line(flash, paged, bwd, launches)
+    line = kernel_line(flash, paged, bwd, launches,
+                       {k: d96_serving[k] + d96_training[k]
+                        for k in d96_serving})
+    REPORT["total_s"] = time.perf_counter() - t_start
+    log(f"build {REPORT['build_s']:.1f} s, total {REPORT['total_s']:.1f} s")
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(REPORT, kernels=line["kernels"]), f, indent=1)

@@ -12,6 +12,8 @@
 // one-entry Frag16 array, and its 16-byte rows are read four (or two
 // k-steps') 8x8 matrices per ldmatrix. Head dims 8 and 16 in f32 are one
 // and two TF32 k-steps and need nothing of their own.
+// The *_pad helpers at the end serve the padded instantiations of other
+// head dims (common.cuh).
 // Fragment layouts are listed in mma.cuh; g = lane / 4, t = lane % 4.
 #pragma once
 
@@ -20,6 +22,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
 #include "mma.cuh"
 
 namespace dl4j {
@@ -38,6 +41,16 @@ using Frag16 = uint32_t[(D + 15) / 16][4];
 template <typename T, int D>
 constexpr int tile_stride() {
   return D * (int)sizeof(T) == 16 ? D : D + 16 / (int)sizeof(T);
+}
+
+// n-tiles per fresh-accumulator chunk of a D-column product (pv_f32_rn and
+// K2's int8 and split-plane products): 4 where that divides the D / 8
+// n-tiles, else 3 or 2 (D = 48: 6 n-tiles; D = 80: 10), so no chunk runs
+// past the accumulator
+template <int D>
+__host__ __device__ constexpr int n_chunk() {
+  return (D / 8) % 4 == 0 ? 4 : (D / 8) % 3 == 0 ? 3 : (D / 8) % 2 == 0 ? 2
+                                                                      : 1;
 }
 
 // S (16 x BN) += A (16 x D) · Bᵀ, B a [BN][STRIDE] f32 tile in shared
@@ -101,7 +114,7 @@ __device__ __forceinline__ void pv_f32_rn(const float (&p)[BN / 8][4],
                                           const float* __restrict__ vt,
                                           float (&acc)[D / 8][4], int g,
                                           int t) {
-  constexpr int NC = D / 8 < 4 ? D / 8 : 4;  // n-tiles per chunk
+  constexpr int NC = n_chunk<D>();  // n-tiles per chunk
 #pragma unroll
   for (int n0 = 0; n0 < D / 8; n0 += NC) {
     float part[NC][4];
@@ -371,6 +384,110 @@ __device__ __forceinline__ void store_acc_row(T* __restrict__ dst,
   for (int n = 0; n < D / 8; ++n) {
     const float x0 = acc[n][2 * hr] * mul, x1 = acc[n][2 * hr + 1] * mul;
     store2(dst + 8 * n + 2 * t, x0, x1);
+  }
+}
+
+// ----------------------------------------------------------- padded widths
+// The helpers above read and write rows of exactly D elements. A padded
+// instantiation (common.cuh) runs a head dim dh < D, or dh = D at 48, 80
+// and 96, on D-column tiles: its rows are dh elements apart in device
+// memory, the columns from dh on are zero in every fragment and tile, and
+// only the first dh columns are stored.
+
+// load_a_rows for rows of dh elements: columns from dh on are zero.
+template <int D>
+__device__ __forceinline__ void load_a_rows_pad(const float* __restrict__ q,
+                                                int r0, int r1, int Tlen,
+                                                int t, float (&qf)[D / 8][4],
+                                                int dh) {
+  auto at = [&](int row, int c) -> float {
+    return row < Tlen && c < dh ? q[(size_t)row * dh + c] : 0.f;
+  };
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const int c = 8 * kk + t;
+    qf[kk][0] = at(r0, c);
+    qf[kk][1] = at(r1, c);
+    qf[kk][2] = at(r0, c + 4);
+    qf[kk][3] = at(r1, c + 4);
+  }
+}
+
+template <int D, typename T16>
+__device__ __forceinline__ void load_a_rows_pad(const T16* __restrict__ q,
+                                                int r0, int r1, int Tlen,
+                                                int t, Frag16<D>& qa,
+                                                int dh) {
+  static_assert(sizeof(T16) == 2, "16-bit A fragments");
+  // a pair of columns (c even) lies wholly before dh or wholly after it,
+  // dh being even; its 4 bytes are aligned, dh being even too
+  auto word = [&](int row, int c) -> uint32_t {
+    return row < Tlen && c < dh ? *reinterpret_cast<const uint32_t*>(
+                                      q + (size_t)row * dh + c)
+                                : 0u;
+  };
+  if constexpr (D == 8) {  // the m16n8k8 A fragment: a0, a1
+    qa[0][0] = word(r0, 2 * t);
+    qa[0][1] = word(r1, 2 * t);
+    qa[0][2] = qa[0][3] = 0u;
+    return;
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = 16 * kk + 2 * t;
+    qa[kk][0] = word(r0, c);
+    qa[kk][1] = word(r1, c);
+    qa[kk][2] = word(r0, c + 8);
+    qa[kk][3] = word(r1, c + 8);
+  }
+}
+
+// stage_rows2 for rows of dh elements, by cp.async of BYTES: copies of the
+// columns from dh on, and of rows past Tlen, write zeros.
+template <typename T, int D, int ROWS, int STRIDE, int THREADS, int BYTES>
+__device__ __forceinline__ void stage_rows2_pad_n(
+    T* __restrict__ da, T* __restrict__ db, const T* __restrict__ sa,
+    const T* __restrict__ sb, int r0, int Tlen, int tid, int dh) {
+  constexpr int kPerCopy = BYTES / (int)sizeof(T);
+  constexpr int kPerRow = D / kPerCopy;
+  for (int i = tid; i < ROWS * kPerRow; i += THREADS) {
+    const int j = i / kPerRow, c = (i % kPerRow) * kPerCopy;
+    const bool ok = r0 + j < Tlen && c < dh;
+    const size_t src = ok ? (size_t)(r0 + j) * dh + c : 0;
+    cp_async_n<BYTES>(da + j * STRIDE + c, sa + src, ok);
+    cp_async_n<BYTES>(db + j * STRIDE + c, sb + src, ok);
+  }
+}
+
+// the widest copy a row of dh elements keeps aligned (common.cuh::
+// copy_bytes): 16 bytes, or 8 for a 16-bit row of dh % 8 == 4 (f32 rows of
+// dh % 4 == 0 are always 16)
+template <typename T, int D, int ROWS, int STRIDE, int THREADS>
+__device__ __forceinline__ void stage_rows2_pad(T* __restrict__ da,
+                                                T* __restrict__ db,
+                                                const T* __restrict__ sa,
+                                                const T* __restrict__ sb,
+                                                int r0, int Tlen, int tid,
+                                                int dh) {
+  if (copy_bytes(dh * (int)sizeof(T)) == 16)
+    stage_rows2_pad_n<T, D, ROWS, STRIDE, THREADS, 16>(da, db, sa, sb, r0,
+                                                       Tlen, tid, dh);
+  else
+    stage_rows2_pad_n<T, D, ROWS, STRIDE, THREADS, 8>(da, db, sa, sb, r0,
+                                                      Tlen, tid, dh);
+}
+
+// store_acc_row's columns before dh only (dst: the row's first element).
+template <typename T, int D>
+__device__ __forceinline__ void store_acc_row_pad(T* __restrict__ dst,
+                                                  const float (&acc)[D / 8][4],
+                                                  int hr, int t, float mul,
+                                                  int dh) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (8 * n + 2 * t >= dh) continue;
+    store2(dst + 8 * n + 2 * t, acc[n][2 * hr] * mul,
+           acc[n][2 * hr + 1] * mul);
   }
 }
 

@@ -11,6 +11,8 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
                               const float* mask, void* o, float* lse, int B,
                               int H, int Tlen, int D, int dtype, int causal,
                               cudaStream_t stream);
+extern "C" int dl4j_flash_fwd_smem(int D, int dtype);
+extern "C" int dl4j_flash_bwd_smem(int D, int dtype);
 extern "C" int dl4j_paged_attn_splits(int B, int H, int T, int D, int ps,
                                       int NP, int kind);
 extern "C" int dl4j_paged_chunk_smem(int D, int kind, int NP);
@@ -244,6 +246,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("paged_chunk_smem", &dl4j_paged_chunk_smem,
         "K2: dynamic shared memory of one chunk-route CTA for (d, kind, NP), "
         "in bytes (kind as for paged_attn_splits)");
+  m.def("flash_fwd_smem", &dl4j_flash_fwd_smem,
+        "K1: dynamic shared memory of one CTA for (d, dtype), in bytes "
+        "(dtype 0 f32, 1 bf16, 2 f16)");
+  m.def("flash_bwd_smem", &dl4j_flash_bwd_smem,
+        "K3/K4: dynamic shared memory of one CTA for (d, dtype), in bytes");
   m.def("flash_bwd_dq", &flash_bwd_dq, "K3: flash-attention backward, dq");
   m.def("flash_bwd_dkv", &flash_bwd_dkv,
         "K4: flash-attention backward, (dk, dv)");

@@ -17,7 +17,9 @@
 // the optional [B, T] key row (nonzero = valid) scores -1e30, and a key or
 // row past T gets P = 0 exactly. Both kernels accumulate in f32 and write in
 // the input type (f32, bf16 or f16, rounded once at the end), at head dims
-// 8, 16, 32, 64 and 128.
+// 8, 16, 32, 64 and 128 in their own instantiations and at any other d with
+// 4 <= d <= 128, d % 4 == 0 in the padded instantiation of the next of 8,
+// 16, 32, 48, 64, 80, 96, 128 (common.cuh; 1/√d the scale).
 //
 // What bounds them on this card: at the training slice's T=128, d=32 both
 // are tiny, bound by launch latency and by bytes (K3 moves q, k, v, dO, dQ;
@@ -31,8 +33,8 @@
 // does (at d=8 the A·Bᵀ products run m16n8k8 on unpadded 16-byte rows).
 // - K3 is one CTA per (b·h, 64-row q tile), 4 warps of 16 rows, the
 //   heaviest causal tiles first. The warp's q and dO rows are A fragments;
-//   K/V tiles of 8 KB a tensor (64 keys; 32 for f32 at d=64 and bf16 at
-//   128, 16 for f32 at 128) stream through a two-stage shared-memory ring
+//   K/V tiles of about 8 KB a tensor (64 keys; 32 for f32 at d=48 and 64
+//   and 16-bit past 64, 16 for f32 past 64) stream through a two-stage shared-memory ring
 //   filled by 16-byte cp.async, with the key-mask row beside each tile, up
 //   to the diagonal tile when causal. S = q·Kᵀ and dP = dO·Vᵀ, dS is built
 //   on the accumulator, and dQ += dS·K takes dS as A from the accumulator
@@ -80,10 +82,12 @@ struct BwdTile {
   // stay in registers as A fragments. Wider rows would not fit beside the
   // d-wide accumulators: they are re-read from a shared copy each tile.
   static constexpr bool kARegs = D * (int)sizeof(T) <= 128;
-  // rows of a streamed tile (K3: keys, K4: q rows): 8 KB of each tensor, at
-  // most 64 rows; 16 rows for f32 at d=128, so that two CTAs fit on an SM
+  // rows of a streamed tile (K3: keys, K4: q rows): about 8 KB of each
+  // tensor, a power of two of at most 64 rows; 16 rows for f32 at d=128
+  // (and 80, 96), so that two CTAs fit on an SM
   static constexpr int kRowBytes = D * (int)sizeof(T);
-  static constexpr int kBlockN = kRowBytes <= 128 ? 64 : 8192 / kRowBytes;
+  static constexpr int kBlockN =
+      kRowBytes <= 128 ? 64 : pow2_floor(8192 / kRowBytes);
   // row stride in elements (attn_tile.cuh::tile_stride)
   static constexpr int kStride = tile_stride<T, D>();
   static constexpr int kTile = kBlockN * kStride;
@@ -98,14 +102,14 @@ struct BwdTile {
 };
 
 // ------------------------------------------------------------------ K3: dQ
-template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        const float* __restrict__ mask, T* __restrict__ dq,
-                        int H, int Tlen, float scale, int causal) {
+// PAD: false for a head dim of exactly D (dh = D), true for a padded
+// instantiation (rows of dh elements, common.cuh)
+template <typename T, int D, bool PAD>
+__device__ __forceinline__ void flash_bwd_dq_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const float* __restrict__ mask,
+    T* __restrict__ dq, int H, int Tlen, float scale, int causal, int dh) {
   using C = BwdTile<T, D>;
   constexpr int BN = C::kBlockN;
   constexpr int STRIDE = C::kStride;
@@ -124,7 +128,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   const int g = lane >> 2, t = lane & 3;
   const int wrow = q0 + 16 * warp;  // the warp's first row
   const int r0 = wrow + g, r1 = r0 + 8;
-  const size_t base = (size_t)bh * Tlen * D;
+  const size_t base = (size_t)bh * Tlen * (PAD ? dh : D);
   const T* kb = k + base;
   const T* vb = v + base;
   const float* mrow = mask == nullptr ? nullptr : mask + (size_t)b * Tlen;
@@ -135,21 +139,32 @@ __global__ void __launch_bounds__(kBwdThreads)
   // one K/V tile (and its mask row) into ring stage st, rows past T zeroed
   auto stage = [&](int tile, int st) {
     const int k0 = tile * BN;
-    stage_rows2<T, D, BN, STRIDE, kBwdThreads>(ks + st * C::kTile,
-                                               vs + st * C::kTile, kb, vb, k0,
-                                               Tlen, tid);
+    if constexpr (PAD)
+      stage_rows2_pad<T, D, BN, STRIDE, kBwdThreads>(ks + st * C::kTile,
+                                                     vs + st * C::kTile, kb,
+                                                     vb, k0, Tlen, tid, dh);
+    else
+      stage_rows2<T, D, BN, STRIDE, kBwdThreads>(ks + st * C::kTile,
+                                                 vs + st * C::kTile, kb, vb,
+                                                 k0, Tlen, tid);
     if (mrow != nullptr)
       stage_vals<BN, kBwdThreads>(kok + st * BN, mrow, k0, Tlen, tid);
   };
 
-  if constexpr (!C::kARegs)
+  if constexpr (!C::kARegs && PAD)
+    stage_rows2_pad<T, D, kBwdBlock, STRIDE, kBwdThreads>(
+        qs, dos, q + base, dout + base, q0, Tlen, tid, dh);
+  else if constexpr (!C::kARegs)
     stage_rows2<T, D, kBwdBlock, STRIDE, kBwdThreads>(
         qs, dos, q + base, dout + base, q0, Tlen, tid);
   stage(0, 0);
   cp_async_commit();
 
   typename C::AFrag qf, dof;
-  if constexpr (C::kARegs) {
+  if constexpr (C::kARegs && PAD) {
+    load_a_rows_pad<D>(q + base, r0, r1, Tlen, t, qf, dh);
+    load_a_rows_pad<D>(dout + base, r0, r1, Tlen, t, dof, dh);
+  } else if constexpr (C::kARegs) {
     load_a_rows<D>(q + base, r0, r1, Tlen, t, qf);
     load_a_rows<D>(dout + base, r0, r1, Tlen, t, dof);
   }
@@ -217,21 +232,49 @@ __global__ void __launch_bounds__(kBwdThreads)
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = hr ? r1 : r0;
-    if (row < Tlen)
+    if (row >= Tlen) continue;
+    if constexpr (PAD)
+      store_acc_row_pad<T, D>(dq + base + (size_t)row * dh, acc, hr, t,
+                              scale, dh);
+    else
       store_acc_row<T, D>(dq + base + (size_t)row * D, acc, hr, t, scale);
   }
 }
 
-// --------------------------------------------------------------- K4: dK/dV
 template <typename T, int D>
 __global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         const float* __restrict__ mask, T* __restrict__ dk,
-                         T* __restrict__ dv, int H, int Tlen, float scale,
-                         int causal) {
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ mask, T* __restrict__ dq,
+                        int H, int Tlen, float scale, int causal) {
+  flash_bwd_dq_body<T, D, false>(q, k, v, dout, lse, delta, mask, dq, H,
+                                 Tlen, scale, causal, D);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dq_pad_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            const float* __restrict__ mask,
+                            T* __restrict__ dq, int H, int Tlen, float scale,
+                            int causal, int dh) {
+  flash_bwd_dq_body<T, D, true>(q, k, v, dout, lse, delta, mask, dq, H, Tlen,
+                                scale, causal, dh);
+}
+
+// --------------------------------------------------------------- K4: dK/dV
+template <typename T, int D, bool PAD>
+__device__ __forceinline__ void flash_bwd_dkv_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const float* __restrict__ mask,
+    T* __restrict__ dk, T* __restrict__ dv, int H, int Tlen, float scale,
+    int causal, int dh) {
   using C = BwdTile<T, D>;
   constexpr int BN = C::kBlockN;
   constexpr int STRIDE = C::kStride;
@@ -251,7 +294,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   const int g = lane >> 2, t = lane & 3;
   const int wkey = k0 + 16 * warp;  // the warp's first key
   const int key0 = wkey + g, key1 = key0 + 8;
-  const size_t base = (size_t)bh * Tlen * D;
+  const size_t base = (size_t)bh * Tlen * (PAD ? dh : D);
   const size_t rbase = (size_t)bh * Tlen;
   const T* qb = q + base;
   const T* db = dout + base;
@@ -270,23 +313,34 @@ __global__ void __launch_bounds__(kBwdThreads)
   // T zeroed
   auto stage = [&](int tile, int st) {
     const int r0 = tile * BN;
-    stage_rows2<T, D, BN, STRIDE, kBwdThreads>(qs + st * C::kTile,
-                                               dos + st * C::kTile, qb, db,
-                                               r0, Tlen, tid);
+    if constexpr (PAD)
+      stage_rows2_pad<T, D, BN, STRIDE, kBwdThreads>(qs + st * C::kTile,
+                                                     dos + st * C::kTile, qb,
+                                                     db, r0, Tlen, tid, dh);
+    else
+      stage_rows2<T, D, BN, STRIDE, kBwdThreads>(qs + st * C::kTile,
+                                                 dos + st * C::kTile, qb, db,
+                                                 r0, Tlen, tid);
     stage_vals<BN, kBwdThreads>(rowv + st * 2 * BN, lse + rbase, r0, Tlen,
                                 tid);
     stage_vals<BN, kBwdThreads>(rowv + st * 2 * BN + BN, delta + rbase, r0,
                                 Tlen, tid);
   };
 
-  if constexpr (!C::kARegs)
+  if constexpr (!C::kARegs && PAD)
+    stage_rows2_pad<T, D, kBwdBlock, STRIDE, kBwdThreads>(
+        ks, vs, k + base, v + base, k0, Tlen, tid, dh);
+  else if constexpr (!C::kARegs)
     stage_rows2<T, D, kBwdBlock, STRIDE, kBwdThreads>(
         ks, vs, k + base, v + base, k0, Tlen, tid);
   stage(first, 0);
   cp_async_commit();
 
   typename C::AFrag kf, vf;
-  if constexpr (C::kARegs) {
+  if constexpr (C::kARegs && PAD) {
+    load_a_rows_pad<D>(k + base, key0, key1, Tlen, t, kf, dh);
+    load_a_rows_pad<D>(v + base, key0, key1, Tlen, t, vf, dh);
+  } else if constexpr (C::kARegs) {
     load_a_rows<D>(k + base, key0, key1, Tlen, t, kf);
     load_a_rows<D>(v + base, key0, key1, Tlen, t, vf);
   }
@@ -349,78 +403,167 @@ __global__ void __launch_bounds__(kBwdThreads)
   for (int hr = 0; hr < 2; ++hr) {
     const int key = hr ? key1 : key0;
     if (key >= Tlen) continue;
-    store_acc_row<T, D>(dk + base + (size_t)key * D, dk_acc, hr, t, scale);
-    store_acc_row<T, D>(dv + base + (size_t)key * D, dv_acc, hr, t, 1.f);
+    if constexpr (PAD) {
+      store_acc_row_pad<T, D>(dk + base + (size_t)key * dh, dk_acc, hr, t,
+                              scale, dh);
+      store_acc_row_pad<T, D>(dv + base + (size_t)key * dh, dv_acc, hr, t,
+                              1.f, dh);
+    } else {
+      store_acc_row<T, D>(dk + base + (size_t)key * D, dk_acc, hr, t, scale);
+      store_acc_row<T, D>(dv + base + (size_t)key * D, dv_acc, hr, t, 1.f);
+    }
   }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ mask, T* __restrict__ dk,
+                         T* __restrict__ dv, int H, int Tlen, float scale,
+                         int causal) {
+  flash_bwd_dkv_body<T, D, false>(q, k, v, dout, lse, delta, mask, dk, dv, H,
+                                  Tlen, scale, causal, D);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dkv_pad_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             const float* __restrict__ mask,
+                             T* __restrict__ dk, T* __restrict__ dv, int H,
+                             int Tlen, float scale, int causal, int dh) {
+  flash_bwd_dkv_body<T, D, true>(q, k, v, dout, lse, delta, mask, dk, dv, H,
+                                 Tlen, scale, causal, dh);
 }
 
 // ------------------------------------------------------------------ launch
 // The kernels' shared memory is opted in above 48 KB once per instantiation
-// (a function-local static).
-template <typename T, int D>
+// (a function-local static). dh is the head dim: PAD false runs the
+// kernel of exactly D = dh, PAD true its padded twin (common.cuh).
+template <typename T, int D, bool PAD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, const float* mask,
               void* dq, void* /*unused*/, int B, int H, int Tlen, int causal,
-              cudaStream_t stream) {
+              int dh, cudaStream_t stream) {
   constexpr int smem = BwdTile<T, D>::kSmemBytes;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  static const cudaError_t attr = [] {
+    if constexpr (PAD)
+      return cudaFuncSetAttribute(flash_bwd_dq_pad_kernel<T, D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem);
+    else
+      return cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem);
+  }();
   if (attr != cudaSuccess) return (int)attr;
   const int tiles = (Tlen + kBwdBlock - 1) / kBwdBlock;
   if (tiles > 65535) return -1;
   const dim3 grid(B * H, tiles);
-  flash_bwd_dq_kernel<T, D><<<grid, kBwdThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
-      static_cast<T*>(dq), H, Tlen, (float)(1.0 / std::sqrt((double)D)),
-      causal);
+  const float scale = (float)(1.0 / std::sqrt((double)dh));
+  if constexpr (PAD)
+    flash_bwd_dq_pad_kernel<T, D><<<grid, kBwdThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        mask, static_cast<T*>(dq), H, Tlen, scale, causal, dh);
+  else
+    flash_bwd_dq_kernel<T, D><<<grid, kBwdThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        mask, static_cast<T*>(dq), H, Tlen, scale, causal);
   return 0;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, const float* mask,
-               void* dk, void* dv, int B, int H, int Tlen, int causal,
+               void* dk, void* dv, int B, int H, int Tlen, int causal, int dh,
                cudaStream_t stream) {
   constexpr int smem = BwdTile<T, D>::kSmemBytes;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  static const cudaError_t attr = [] {
+    if constexpr (PAD)
+      return cudaFuncSetAttribute(flash_bwd_dkv_pad_kernel<T, D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem);
+    else
+      return cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem);
+  }();
   if (attr != cudaSuccess) return (int)attr;
   const int tiles = (Tlen + kBwdBlock - 1) / kBwdBlock;
   if (tiles > 65535) return -1;
   const dim3 grid(B * H, tiles);
-  flash_bwd_dkv_kernel<T, D><<<grid, kBwdThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Tlen,
-      (float)(1.0 / std::sqrt((double)D)), causal);
+  const float scale = (float)(1.0 / std::sqrt((double)dh));
+  if constexpr (PAD)
+    flash_bwd_dkv_pad_kernel<T, D><<<grid, kBwdThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        mask, static_cast<T*>(dk), static_cast<T*>(dv), H, Tlen, scale,
+        causal, dh);
+  else
+    flash_bwd_dkv_kernel<T, D><<<grid, kBwdThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        mask, static_cast<T*>(dk), static_cast<T*>(dv), H, Tlen, scale,
+        causal);
   return 0;
 }
 
 }  // namespace dl4j
 
-// One case of the head-dim switch below, by the tensors' type (0 f32, 1
-// bf16, 2 f16).
-#define DL4J_BWD_CASE(DIM, LAUNCH)                                          \
+// One case of the width switches below, by the tensors' type (0 f32, 1
+// bf16, 2 f16); PAD selects the padded instantiation.
+#define DL4J_BWD_CASE(DIM, PAD, LAUNCH)                                     \
   case DIM:                                                                 \
     switch (dtype) {                                                        \
       case 0:                                                               \
-        return dl4j::LAUNCH<float, DIM>(q, k, v, dout, lse, delta, mask,    \
-                                        out0, out1, B, H, Tlen, causal,     \
-                                        stream);                            \
+        return dl4j::LAUNCH<float, DIM, PAD>(q, k, v, dout, lse, delta,     \
+                                             mask, out0, out1, B, H, Tlen,  \
+                                             causal, D, stream);            \
       case 1:                                                               \
-        return dl4j::LAUNCH<__nv_bfloat16, DIM>(q, k, v, dout, lse, delta,  \
-                                                mask, out0, out1, B, H,     \
-                                                Tlen, causal, stream);      \
+        return dl4j::LAUNCH<__nv_bfloat16, DIM, PAD>(                       \
+            q, k, v, dout, lse, delta, mask, out0, out1, B, H, Tlen, causal, \
+            D, stream);                                                     \
       case 2:                                                               \
-        return dl4j::LAUNCH<__half, DIM>(q, k, v, dout, lse, delta, mask,   \
-                                         out0, out1, B, H, Tlen, causal,    \
-                                         stream);                           \
+        return dl4j::LAUNCH<__half, DIM, PAD>(q, k, v, dout, lse, delta,    \
+                                              mask, out0, out1, B, H, Tlen, \
+                                              causal, D, stream);           \
       default:                                                              \
         return -5;                                                          \
     }
+
+// The exact instantiation of D where there is one, else the padded one of
+// pad_dim(D); -2 for a head dim no kernel takes.
+#define DL4J_BWD_SWITCH(LAUNCH)                                             \
+  if (dl4j::exact_dim(D)) {                                                 \
+    switch (D) {                                                            \
+      DL4J_BWD_CASE(8, false, LAUNCH)                                       \
+      DL4J_BWD_CASE(16, false, LAUNCH)                                      \
+      DL4J_BWD_CASE(32, false, LAUNCH)                                      \
+      DL4J_BWD_CASE(64, false, LAUNCH)                                      \
+      DL4J_BWD_CASE(128, false, LAUNCH)                                     \
+    }                                                                       \
+  }                                                                         \
+  switch (dl4j::pad_dim(D)) {                                               \
+    DL4J_BWD_CASE(8, true, LAUNCH)                                          \
+    DL4J_BWD_CASE(16, true, LAUNCH)                                         \
+    DL4J_BWD_CASE(32, true, LAUNCH)                                         \
+    DL4J_BWD_CASE(48, true, LAUNCH)                                         \
+    DL4J_BWD_CASE(64, true, LAUNCH)                                         \
+    DL4J_BWD_CASE(80, true, LAUNCH)                                         \
+    DL4J_BWD_CASE(96, true, LAUNCH)                                         \
+    DL4J_BWD_CASE(128, true, LAUNCH)                                        \
+    default:                                                                \
+      return -2;                                                            \
+  }
 
 // Launch K3 (dq into out0) on `stream`; 0 after a launch (the caller checks
 // it with cudaGetLastError), nonzero for an unsupported configuration,
@@ -434,15 +577,7 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (Tlen < 1 || B * H < 1 || B * H > 65535) return -1;
   void* out0 = dq;
   void* out1 = nullptr;
-  switch (D) {
-    DL4J_BWD_CASE(8, launch_dq)
-    DL4J_BWD_CASE(16, launch_dq)
-    DL4J_BWD_CASE(32, launch_dq)
-    DL4J_BWD_CASE(64, launch_dq)
-    DL4J_BWD_CASE(128, launch_dq)
-    default:
-      return -2;
-  }
+  DL4J_BWD_SWITCH(launch_dq)
 }
 
 // Launch K4 (dk into out0, dv into out1) on `stream`; return codes as above.
@@ -455,15 +590,31 @@ extern "C" int dl4j_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (Tlen < 1 || B * H < 1 || B * H > 65535) return -1;
   void* out0 = dk;
   void* out1 = dv;
-  switch (D) {
-    DL4J_BWD_CASE(8, launch_dkv)
-    DL4J_BWD_CASE(16, launch_dkv)
-    DL4J_BWD_CASE(32, launch_dkv)
-    DL4J_BWD_CASE(64, launch_dkv)
-    DL4J_BWD_CASE(128, launch_dkv)
+  DL4J_BWD_SWITCH(launch_dkv)
+}
+
+#undef DL4J_BWD_SWITCH
+#undef DL4J_BWD_CASE
+
+// Dynamic shared memory of one K3 or K4 CTA in bytes (the two kernels'
+// layouts take the same size; for reports) at the width a head dim D runs
+// at; dtype as for dl4j_flash_bwd_dq; -2 for a head dim no kernel takes.
+extern "C" int dl4j_flash_bwd_smem(int D, int dtype) {
+#define DL4J_BWD_SMEM(DIM)                                            \
+  case DIM:                                                           \
+    return dtype == 0 ? dl4j::BwdTile<float, DIM>::kSmemBytes         \
+                      : dl4j::BwdTile<__half, DIM>::kSmemBytes;
+  switch (dl4j::pad_dim(D)) {
+    DL4J_BWD_SMEM(8)
+    DL4J_BWD_SMEM(16)
+    DL4J_BWD_SMEM(32)
+    DL4J_BWD_SMEM(48)
+    DL4J_BWD_SMEM(64)
+    DL4J_BWD_SMEM(80)
+    DL4J_BWD_SMEM(96)
+    DL4J_BWD_SMEM(128)
     default:
       return -2;
   }
+#undef DL4J_BWD_SMEM
 }
-
-#undef DL4J_BWD_CASE

@@ -5,7 +5,11 @@
 // [B, H, T, d] with the online-softmax recurrence in f32, an optional causal
 // mask and an optional [B, T] key-validity row (nonzero = valid), and writes
 // O in the input type (f32, bf16 or f16, rounded once at the end) plus the
-// row logsumexp lse [B·H, T, 1] in f32. Head dims 8, 16, 32, 64 and 128.
+// row logsumexp lse [B·H, T, 1] in f32. Head dims 8, 16, 32, 64 and 128
+// run their own instantiation; any other d with 4 <= d <= 128 and
+// d % 4 == 0 runs the padded instantiation of the next of 8, 16, 32, 48,
+// 64, 80, 96, 128 (common.cuh): zero columns past d in the K/V tiles and q
+// fragments, rows of d elements in device memory, the scale 1/√d.
 //
 // What bounds it on this card: at the slice's T=128 the work is tiny and
 // the kernel is bound by launch latency and by bytes (q, k, v, o: 4·B·H·T·d
@@ -15,8 +19,8 @@
 // Design (FlashAttention-2 style): one CTA per (b·h, 64-row q tile), 4 warps
 // of 16 rows, one mma m-tile each; the heaviest causal q tiles launch first
 // (the q tile index counts down with blockIdx.y). Q stays in registers as
-// mma A fragments. The CTA streams 64-key K/V tiles (32 for f32 at d=128,
-// for registers) through a two-stage shared-memory ring filled by cp.async
+// mma A fragments. The CTA streams 64-key K/V tiles (32 for f32 past
+// d=64, for registers) through a two-stage shared-memory ring filled by cp.async
 // 16-byte copies, so tile j+1 is in flight while tile j is computed; keys
 // past T are zero-filled, never left stale (0·NaN would poison P·V).
 // S = Q·Kᵀ and O += P·V are warp-level mma.sync with f32 accumulators:
@@ -59,8 +63,9 @@ constexpr int kBlockM = kFwdWarps * 16;  // q rows of a CTA
 template <typename T, int D>
 struct FwdTile {
   static constexpr bool kF32 = std::is_same<T, float>::value;
-  // keys per K/V tile: f32 at d=128 halves it to keep S and O in registers
-  static constexpr int kBlockN = (kF32 && D == 128) ? 32 : 64;
+  // keys per K/V tile: f32 past d=64 (80, 96, 128) halves it to keep S
+  // and O in registers
+  static constexpr int kBlockN = (kF32 && D > 64) ? 32 : 64;
   // row stride in elements (attn_tile.cuh::tile_stride)
   static constexpr int kStride = tile_stride<T, D>();
   static constexpr int kTile = kBlockN * kStride;
@@ -69,12 +74,13 @@ struct FwdTile {
       2 * 2 * kTile * (int)sizeof(T) + 2 * kBlockN * (int)sizeof(float);
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kFwdThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ mask,
-                     T* __restrict__ o, float* __restrict__ lse, int H,
-                     int Tlen, float scale, int causal) {
+// The kernel's body: PAD false for a head dim of exactly D (dh = D), true
+// for a padded instantiation (rows of dh elements, common.cuh).
+template <typename T, int D, bool PAD>
+__device__ __forceinline__ void flash_fwd_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ mask, T* __restrict__ o, float* __restrict__ lse,
+    int H, int Tlen, float scale, int causal, int dh) {
   using C = FwdTile<T, D>;
   constexpr int BN = C::kBlockN;
   constexpr int STRIDE = C::kStride;
@@ -91,7 +97,7 @@ __global__ void __launch_bounds__(kFwdThreads)
   const int g = lane >> 2, t = lane & 3;
   const int wrow = q0 + 16 * warp;  // the warp's first row
   const int r0 = wrow + g, r1 = r0 + 8;
-  const size_t base = (size_t)bh * Tlen * D;
+  const size_t base = (size_t)bh * Tlen * (PAD ? dh : D);
   const T* kb = k + base;
   const T* vb = v + base;
   const float* mrow = mask == nullptr ? nullptr : mask + (size_t)b * Tlen;
@@ -102,9 +108,14 @@ __global__ void __launch_bounds__(kFwdThreads)
   // one K/V tile (and its mask row) into ring stage st, rows past T zeroed
   auto stage = [&](int tile, int st) {
     const int k0 = tile * BN;
-    stage_rows2<T, D, BN, STRIDE, kFwdThreads>(ks + st * C::kTile,
-                                               vs + st * C::kTile, kb, vb, k0,
-                                               Tlen, tid);
+    if constexpr (PAD)
+      stage_rows2_pad<T, D, BN, STRIDE, kFwdThreads>(ks + st * C::kTile,
+                                                     vs + st * C::kTile, kb,
+                                                     vb, k0, Tlen, tid, dh);
+    else
+      stage_rows2<T, D, BN, STRIDE, kFwdThreads>(ks + st * C::kTile,
+                                                 vs + st * C::kTile, kb, vb,
+                                                 k0, Tlen, tid);
     if (mrow != nullptr)
       stage_vals<BN, kFwdThreads>(kok + st * BN, mrow, k0, Tlen, tid);
   };
@@ -115,7 +126,10 @@ __global__ void __launch_bounds__(kFwdThreads)
   using QFrag =
       typename std::conditional<C::kF32, float[D / 8][4], Frag16<D>>::type;
   QFrag qfrag;
-  load_a_rows<D>(q + base, r0, r1, Tlen, t, qfrag);
+  if constexpr (PAD)
+    load_a_rows_pad<D>(q + base, r0, r1, Tlen, t, qfrag, dh);
+  else
+    load_a_rows<D>(q + base, r0, r1, Tlen, t, qfrag);
 
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
@@ -210,9 +224,10 @@ __global__ void __launch_bounds__(kFwdThreads)
     const int row = hr ? r1 : r0;
     if (row >= Tlen) continue;
     const float lc = fmaxf(lr, 1e-30f);
-    T* orow = o + base + (size_t)row * D + 2 * t;
+    T* orow = o + base + (size_t)row * (PAD ? dh : D) + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
+      if (PAD && 8 * n + 2 * t >= dh) continue;
       const float x0 = acc[n][2 * hr] / lc, x1 = acc[n][2 * hr + 1] / lc;
       store2(orow + 8 * n, x0, x1);
     }
@@ -220,64 +235,139 @@ __global__ void __launch_bounds__(kFwdThreads)
   }
 }
 
+// a head dim of exactly D
 template <typename T, int D>
+__global__ void __launch_bounds__(kFwdThreads)
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ mask,
+                     T* __restrict__ o, float* __restrict__ lse, int H,
+                     int Tlen, float scale, int causal) {
+  flash_fwd_body<T, D, false>(q, k, v, mask, o, lse, H, Tlen, scale, causal,
+                              D);
+}
+
+// a head dim dh padded to D (common.cuh)
+template <typename T, int D>
+__global__ void __launch_bounds__(kFwdThreads)
+    flash_fwd_pad_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v,
+                         const float* __restrict__ mask, T* __restrict__ o,
+                         float* __restrict__ lse, int H, int Tlen,
+                         float scale, int causal, int dh) {
+  flash_fwd_body<T, D, true>(q, k, v, mask, o, lse, H, Tlen, scale, causal,
+                             dh);
+}
+
+// dh: the head dim; D == dh runs flash_fwd_kernel, D > dh (or a width
+// with no exact instantiation) flash_fwd_pad_kernel
+template <typename T, int D, bool PAD>
 int launch_flash(const void* q, const void* k, const void* v, const float* mask,
-           void* o, float* lse, int B, int H, int Tlen, int causal,
+           void* o, float* lse, int B, int H, int Tlen, int causal, int dh,
            cudaStream_t stream) {
   constexpr int smem = FwdTile<T, D>::kSmemBytes;
   // above 48 KB only as opted-in dynamic shared memory; asked once per
   // instantiation
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  static const cudaError_t attr = [] {
+    if constexpr (PAD)
+      return cudaFuncSetAttribute(flash_fwd_pad_kernel<T, D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem);
+    else
+      return cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem);
+  }();
   if (attr != cudaSuccess) return (int)attr;
   const int qtiles = (Tlen + kBlockM - 1) / kBlockM;
   if (qtiles > 65535) return -1;
   const dim3 grid(B * H, qtiles);
-  flash_fwd_kernel<T, D><<<grid, kFwdThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(o), lse, H, Tlen,
-      (float)(1.0 / std::sqrt((double)D)), causal);
+  const float scale = (float)(1.0 / std::sqrt((double)dh));
+  if constexpr (PAD)
+    flash_fwd_pad_kernel<T, D><<<grid, kFwdThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), mask, static_cast<T*>(o), lse, H, Tlen,
+        scale, causal, dh);
+  else
+    flash_fwd_kernel<T, D><<<grid, kFwdThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), mask, static_cast<T*>(o), lse, H, Tlen,
+        scale, causal);
   return 0;
 }
 
 }  // namespace dl4j
 
-// One case of the head-dim switch below, by q's type (0 f32, 1 bf16, 2 f16).
-#define DL4J_FWD_CASE(DIM)                                                  \
+// One case of the width switches below, by q's type (0 f32, 1 bf16, 2
+// f16); PAD selects the padded instantiation.
+#define DL4J_FWD_CASE(DIM, PAD)                                             \
   case DIM:                                                                 \
     switch (dtype) {                                                        \
       case 0:                                                               \
-        return dl4j::launch_flash<float, DIM>(q, k, v, mask, o, lse, B, H,  \
-                                              Tlen, causal, stream);        \
+        return dl4j::launch_flash<float, DIM, PAD>(                         \
+            q, k, v, mask, o, lse, B, H, Tlen, causal, D, stream);          \
       case 1:                                                               \
-        return dl4j::launch_flash<__nv_bfloat16, DIM>(                      \
-            q, k, v, mask, o, lse, B, H, Tlen, causal, stream);             \
+        return dl4j::launch_flash<__nv_bfloat16, DIM, PAD>(                 \
+            q, k, v, mask, o, lse, B, H, Tlen, causal, D, stream);          \
       case 2:                                                               \
-        return dl4j::launch_flash<__half, DIM>(q, k, v, mask, o, lse, B, H, \
-                                               Tlen, causal, stream);       \
+        return dl4j::launch_flash<__half, DIM, PAD>(                        \
+            q, k, v, mask, o, lse, B, H, Tlen, causal, D, stream);          \
       default:                                                              \
         return -5;                                                          \
     }
 
 // Launches K1 on `stream`; returns 0 after a launch (the caller checks it
 // with cudaGetLastError), or a nonzero code for an unsupported
-// configuration, which launches nothing. dtype: q's, k's, v's and o's type,
-// 0 f32, 1 bf16, 2 f16.
+// configuration, which launches nothing (-2: a head dim D no kernel
+// takes). dtype: q's, k's, v's and o's type, 0 f32, 1 bf16, 2 f16.
 extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
                               const float* mask, void* o, float* lse, int B,
                               int H, int Tlen, int D, int dtype, int causal,
                               cudaStream_t stream) {
   if (Tlen < 1 || B * H < 1 || B * H > 65535) return -1;
-  switch (D) {
-    DL4J_FWD_CASE(8)
-    DL4J_FWD_CASE(16)
-    DL4J_FWD_CASE(32)
-    DL4J_FWD_CASE(64)
-    DL4J_FWD_CASE(128)
+  if (dl4j::exact_dim(D)) {
+    switch (D) {
+      DL4J_FWD_CASE(8, false)
+      DL4J_FWD_CASE(16, false)
+      DL4J_FWD_CASE(32, false)
+      DL4J_FWD_CASE(64, false)
+      DL4J_FWD_CASE(128, false)
+    }
+  }
+  switch (dl4j::pad_dim(D)) {
+    DL4J_FWD_CASE(8, true)
+    DL4J_FWD_CASE(16, true)
+    DL4J_FWD_CASE(32, true)
+    DL4J_FWD_CASE(48, true)
+    DL4J_FWD_CASE(64, true)
+    DL4J_FWD_CASE(80, true)
+    DL4J_FWD_CASE(96, true)
+    DL4J_FWD_CASE(128, true)
     default:
       return -2;
   }
 }
 
 #undef DL4J_FWD_CASE
+
+// Dynamic shared memory of one K1 CTA in bytes (for reports) at the width a
+// head dim D runs at; dtype as for dl4j_flash_fwd; -2 for a head dim no
+// kernel takes.
+extern "C" int dl4j_flash_fwd_smem(int D, int dtype) {
+#define DL4J_FWD_SMEM(DIM)                                            \
+  case DIM:                                                           \
+    return dtype == 0 ? dl4j::FwdTile<float, DIM>::kSmemBytes         \
+                      : dl4j::FwdTile<__half, DIM>::kSmemBytes;
+  switch (dl4j::pad_dim(D)) {
+    DL4J_FWD_SMEM(8)
+    DL4J_FWD_SMEM(16)
+    DL4J_FWD_SMEM(32)
+    DL4J_FWD_SMEM(48)
+    DL4J_FWD_SMEM(64)
+    DL4J_FWD_SMEM(80)
+    DL4J_FWD_SMEM(96)
+    DL4J_FWD_SMEM(128)
+    default:
+      return -2;
+  }
+#undef DL4J_FWD_SMEM
+}

@@ -3,7 +3,7 @@
 // f32 accumulators), the TF32 hi/lo split that keeps f32 accuracy through
 // three TF32 products and the two-term 16-bit splits,
 // ldmatrix fragment loads for 16-bit tiles, and cp.async 16-, 8- and 4-byte
-// copies with zero-fill. Fragment layouts (PTX ISA, "Matrix fragments for
+// copies with zero-fill (cp_async_n picks one by size). Fragment layouts (PTX ISA, "Matrix fragments for
 // mma.m16n8k8 / m16n8k16"), with g = lane / 4 and t = lane % 4:
 //   tf32 A (16x8):  a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
 //   tf32 B (8x8):   b0 (k=t, n=g), b1 (k=t+4, n=g)
@@ -217,6 +217,19 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                    smem_addr(dst)),
                "l"(src), "r"(pred ? 4 : 0)
                : "memory");
+}
+
+// cp.async of BYTES (16, 8 or 4), zero-filled when `pred` is false.
+template <int BYTES>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src,
+                                           bool pred) {
+  static_assert(BYTES == 16 || BYTES == 8 || BYTES == 4, "cp.async size");
+  if constexpr (BYTES == 16)
+    cp_async16(dst, src, pred);
+  else if constexpr (BYTES == 8)
+    cp_async8(dst, src, pred);
+  else
+    cp_async4(dst, src, pred);
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -4,6 +4,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -28,12 +30,15 @@ class TransformerLM:
     sinusoidal positions -> n_blocks x [LN -> causal multi-head
     SelfAttention -> +residual -> LN -> Dense(4D, gelu) -> Dense(D) ->
     +residual] -> LN -> RnnOutputLayer softmax/mcxent per timestep; trained
-    with ``Adam(learning_rate=3e-4)``."""
+    with ``Adam(learning_rate=3e-4)``. ``quantize="int8"`` quantizes the
+    initialized net's dense and attention weights at ``init()``
+    (``optimize/quantize.py``), as the JAX ``ZooModel`` does; None (the
+    default) keeps full-precision params."""
 
     def __init__(self, num_labels: int = 256, max_length: int = 128,
                  d_model: int = 256, n_heads: int = 8, n_blocks: int = 4,
                  seed: int = 123, dtype: str = "float32",
-                 max_cache: int = 512):
+                 max_cache: int = 512, quantize: Optional[str] = None):
         self.num_labels = num_labels
         self.max_length = max_length
         self.d_model = d_model
@@ -42,6 +47,7 @@ class TransformerLM:
         self.seed = seed
         self.dtype = dtype
         self.max_cache = max_cache
+        self.quantize = quantize
 
     def conf(self):
         D = self.d_model
@@ -83,8 +89,13 @@ class TransformerLM:
 
     def init(self, params=None, *, device=None) -> ComputationGraph:
         """The initialized graph on ``device`` (CUDA unless the caller
-        passes another device; raises on a host without CUDA)."""
-        return ComputationGraph(self.conf()).init(params, device=device)
+        passes another device; raises on a host without CUDA), its weights
+        int8-quantized when ``quantize`` is set."""
+        net = ComputationGraph(self.conf()).init(params, device=device)
+        if self.quantize is not None:
+            from deeplearning4j_torch.optimize.quantize import quantize_net
+            net = quantize_net(net, self.quantize)
+        return net
 
 
 def lm_stream_forward(net):

@@ -64,6 +64,7 @@ class SelfAttentionLayer(BaseLayer):
 
     STREAMS = True
     DEFAULT_ACTIVATION = "identity"
+    QUANT_PARAMS = ("Wq", "Wk", "Wv", "Wo")
 
     def set_n_in(self, n_in: int) -> None:
         if self.n_in == 0:
@@ -96,8 +97,16 @@ class SelfAttentionLayer(BaseLayer):
         return x.reshape(B, T, H, O // H).permute(0, 2, 1, 3)  # [B,H,T,d]
 
     def _proj(self, params, x, name):
-        """One projection matmul, ``x @ W`` with W ``[n_in, n_out]``."""
-        return torch.matmul(x, params[name])
+        """One projection matmul, ``x @ W`` with W ``[n_in, n_out]``; with a
+        ``<name>_scale`` sibling (int8 weights, ``optimize/quantize.py``)
+        ``(x @ W_q.to(x.dtype)) * scale`` cast to x's dtype, as the JAX
+        layer computes it. Every forward (dense, streaming, paged) projects
+        through here."""
+        w = params[name]
+        scale = params.get(name + "_scale")
+        if scale is None:
+            return torch.matmul(x, w)
+        return (torch.matmul(x, w.to(x.dtype)) * scale).to(x.dtype)
 
     def _attend(self, q, k, v, mask):
         if self.helper not in ("auto", "pallas", "stock"):

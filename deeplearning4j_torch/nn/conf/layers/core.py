@@ -14,7 +14,15 @@ from deeplearning4j_torch.utils.serde import register_serializable
 @dataclass
 class DenseLayer(FeedForwardLayer):
     """Fully-connected layer: ``activation(x @ W + b)``, W
-    ``[n_in, n_out]``."""
+    ``[n_in, n_out]``.
+
+    Serves int8-quantized weights when the params carry a ``W_scale``
+    sibling (``optimize/quantize.py``): ``(x @ W_q.to(x.dtype)) * scale``,
+    cast to x's dtype, plus ``b``, in the JAX layer's order and with its
+    dtype promotion (a bf16 product times the f32 scale is f32, then
+    cast)."""
+
+    QUANT_PARAMS = ("W",)
 
     def param_order(self):
         return ["W", "b"]
@@ -25,7 +33,11 @@ class DenseLayer(FeedForwardLayer):
         return {"W": W, "b": self._bias(self.n_out, dtype, device)}
 
     def preactivate(self, params, x):
-        return torch.matmul(x, params["W"]) + params["b"]
+        scale = params.get("W_scale")
+        if scale is None:
+            return torch.matmul(x, params["W"]) + params["b"]
+        out = torch.matmul(x, params["W"].to(x.dtype)) * scale
+        return out.to(x.dtype) + params["b"]
 
     def forward(self, params, state, x, *, mask=None):
         return self.act()(self.preactivate(params, x)), state

@@ -6,10 +6,12 @@ gather-then-attend version and the hand-written Hopper kernel K2.
   gathers each row's block table into a dense ``[B, H, Tmax, d]`` view and
   attends: the twin of the JAX gather path, and the plain version of K2.
 - :class:`CudaPagedAttention` reads the pages in place through the block
-  table with K2 (``kernels/paged_attn.cu``). It never builds the gathered
+  table with K2 (``kernels/paged_attn.cuh``). It never builds the gathered
   view. K2 takes f32, bf16 and f16 queries over pages of the query's
-  dtype or int8, and computes in f32 as the Pallas kernel does; the plain
-  version computes in the query's dtype, as the JAX gather does.
+  dtype or int8, at head dims 4..128 that are multiples of 4
+  (``kernels.kernel_width``, ``decode_width``), and computes in f32 as
+  the Pallas kernel does; the plain version computes in the query's
+  dtype, as the JAX gather does.
 
 The knob keeps the JAX values so a JAX ``configuration.json`` stays readable:
 ``"pallas"`` names the Hopper kernel; ``"xla"`` and ``"stock"`` the plain
@@ -24,16 +26,18 @@ import math
 
 import torch
 
+from deeplearning4j_torch.kernels import (HEAD_DIM_RULE, count_launch,
+                                          kernel_width)
+
 NEG_INF = -1e30
 
 BACKENDS = ("xla", "pallas")
 CHOICES = ("auto", "stock") + BACKENDS
 
-KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 #: query dtypes K2 takes; its pools are of the query's dtype or int8
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: query chunks of up to this many rows take K2's decode route, longer ones
-#: its chunk route (``kDecodeMaxT`` in ``kernels/paged_attn.cu``)
+#: its chunk route (``kDecodeMaxT`` in ``kernels/paged_attn.cuh``)
 DECODE_MAX_T = 4
 
 
@@ -97,9 +101,9 @@ def paged_attention(q, kp, vp, bt, pos, *, key_valid=None, kscales=None,
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"paged kernel takes a query of {KERNEL_DTYPES}, "
                         f"got {q.dtype}")
-    if q.shape[3] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged kernel is built for head dims "
-                         f"{KERNEL_HEAD_DIMS}, got {q.shape[3]}")
+    if kernel_width(q.shape[3]) is None:
+        raise ValueError(f"paged kernel takes {HEAD_DIM_RULE}, got "
+                         f"{q.shape[3]}")
     if key_valid is not None:
         key_valid = key_valid.to(torch.float32).contiguous()
     from deeplearning4j_torch import kernels
@@ -109,18 +113,18 @@ def paged_attention(q, kp, vp, bt, pos, *, key_valid=None, kscales=None,
         q.contiguous(), kp, vp, kscales, vscales,
         bt.to(torch.int32).contiguous(), pos.to(torch.int32).contiguous(),
         key_valid)
-    kernels.LAUNCHES["paged_attn"] += 1
     B, H, T, d = q.shape
+    count_launch("paged_attn", d)
     if T > DECODE_MAX_T:
-        kernels.LAUNCHES["paged_attn_chunk"] += 1
+        count_launch("paged_attn_chunk", d)
         if ext.paged_attn_splits(B, H, T, d, kp.shape[2], bt.shape[1],
                                  pool_kind(kp)) > 1:
-            kernels.LAUNCHES["paged_attn_merge"] += 1
+            count_launch("paged_attn_merge", d)
     return o
 
 
 def pool_kind(kp) -> int:
-    """The pools' element as ``paged_attn.cu`` names it: 0 f32, 1 int8
+    """The pools' element as ``paged_attn.cuh`` names it: 0 f32, 1 int8
     codes, 2 bf16/f16 (it sets the chunk route's key tile)."""
     if kp.dtype == torch.int8:
         return 1

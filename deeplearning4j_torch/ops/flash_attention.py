@@ -22,10 +22,11 @@ import math
 
 import torch
 
+from deeplearning4j_torch.kernels import (HEAD_DIM_RULE, count_launch,
+                                          kernel_width)
+
 NEG_INF = -1e30
 
-#: head dims the CUDA kernels are instantiated for
-KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
@@ -86,7 +87,8 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, *,
 def supports(q_shape, *, mask, dtype=torch.float32) -> bool:
     """Whether the CUDA kernels take this case: a 4-D query, no mask or a
     ``[B, T]`` key-validity row, f32, bf16 or f16, and a head dim the
-    kernels are built for. Any T works: the kernels mask their ragged edge. A caller may
+    kernels take (``kernels.kernel_width``: 4..128, a multiple of 4). Any
+    T works: the kernels mask their ragged edge. A caller may
     ask before it hands CUDA tensors to the wrappers, which raise on a case
     the kernels do not take."""
     if len(q_shape) != 4:
@@ -95,7 +97,7 @@ def supports(q_shape, *, mask, dtype=torch.float32) -> bool:
         return False
     if dtype not in KERNEL_DTYPES:
         return False
-    return q_shape[3] in KERNEL_HEAD_DIMS
+    return kernel_width(q_shape[3]) is not None
 
 
 def _cuda_case(q, k, v, mask):
@@ -112,9 +114,8 @@ def _cuda_case(q, k, v, mask):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash kernel takes f32, bf16 or f16 q/k/v, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel is built for head dims "
-                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    if kernel_width(d) is None:
+        raise ValueError(f"flash kernel takes {HEAD_DIM_RULE}, got {d}")
     if mask is None:
         return None
     if tuple(mask.shape) != (B, T):
@@ -134,7 +135,7 @@ def flash_attention_forward(q, k, v, *, causal: bool = False, mask=None):
     ext = kernels.load()
     o, lse = ext.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
                            mask, bool(causal))
-    kernels.LAUNCHES["flash_fwd"] += 1
+    count_launch("flash_fwd", q.shape[3])
     return o, lse
 
 
@@ -156,9 +157,9 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = False,
             do.to(q.dtype).contiguous(), lse.contiguous(), delta, mask,
             bool(causal))
     dq = ext.flash_bwd_dq(*args)
-    kernels.LAUNCHES["flash_bwd_dq"] += 1
+    count_launch("flash_bwd_dq", q.shape[3])
     dk, dv = ext.flash_bwd_dkv(*args)
-    kernels.LAUNCHES["flash_bwd_dkv"] += 1
+    count_launch("flash_bwd_dkv", q.shape[3])
     return dq, dk, dv
 
 

@@ -6,8 +6,11 @@ and loads them into a port ``ComputationGraph`` unchanged: the layouts are
 the same on both sides (Dense ``W`` is ``[n_in, n_out]``), so no transpose
 or reorder is needed. ``updater_state_from_jax`` does the same for the
 optimizer slots (``{slot: {vertex: {name: ndarray}}}``, Adam's ``m`` and
-``v``), so a run can continue from a JAX-trained state. Nothing here
-imports JAX.
+``v``), so a run can continue from a JAX-trained state. A quantized
+reference tree (``quantize_params``/``quantize_net``: int8 codes with
+``"<name>_scale"`` f32 siblings) loads as it is, codes int8 and scales f32,
+whether the port net is quantized already or not. Nothing here imports
+JAX.
 """
 
 from __future__ import annotations
@@ -15,28 +18,47 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from deeplearning4j_torch.optimize.quantize import SCALE_SUFFIX
+
 
 def _load_tree(tree: dict, ours: dict) -> dict:
     """``tree`` as tensors on the devices and dtypes of ``ours``, after
-    checking its vertices, names and shapes against ``ours``."""
+    checking its vertices, names and shapes against ``ours``. A weight that
+    carries a ``"<name>_scale"`` sibling in ``tree`` but not in ``ours``
+    loads as int8 codes (which it must be) beside its f32 scale of one
+    entry per output channel."""
     if set(tree) != set(ours):
         raise ValueError(f"vertex sets differ: only in the reference "
                          f"{sorted(set(tree) - set(ours))}, only in the "
                          f"port {sorted(set(ours) - set(tree))}")
     loaded = {}
     for vname, p in tree.items():
-        if set(p) != set(ours[vname]):
+        mine = ours[vname]
+        scales = {k for k in p if k.endswith(SCALE_SUFFIX) and k not in mine
+                  and k[:-len(SCALE_SUFFIX)] in mine}
+        if set(p) - scales != set(mine):
             raise ValueError(f"vertex '{vname}': parameters "
-                             f"{sorted(p)} != {sorted(ours[vname])}")
+                             f"{sorted(p)} != {sorted(mine)}")
         loaded[vname] = {}
         for pname, a in p.items():
             a = np.asarray(a)
-            ref = ours[vname][pname]
-            if tuple(a.shape) != tuple(ref.shape):
+            if pname in scales:          # a dequant scale: f32 [out]
+                ref = mine[pname[:-len(SCALE_SUFFIX)]]
+                shape, dtype = tuple(ref.shape[-1:]), torch.float32
+            elif pname + SCALE_SUFFIX in scales:     # its int8 codes
+                ref = mine[pname]
+                shape, dtype = tuple(ref.shape), torch.int8
+                if a.dtype != np.int8:
+                    raise ValueError(f"{vname}.{pname}: a scaled weight "
+                                     f"must be int8 codes, got {a.dtype}")
+            else:
+                ref = mine[pname]
+                shape, dtype = tuple(ref.shape), ref.dtype
+            if tuple(a.shape) != shape:
                 raise ValueError(f"{vname}.{pname}: shape {a.shape} != "
-                                 f"{tuple(ref.shape)}")
+                                 f"{shape}")
             loaded[vname][pname] = torch.from_numpy(np.array(a)).to(
-                device=ref.device, dtype=ref.dtype)
+                device=ref.device, dtype=dtype)
     return loaded
 
 

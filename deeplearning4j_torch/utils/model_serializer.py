@@ -88,7 +88,22 @@ def _merge_into(template, loaded, where: str = ""):
 
 
 def save_model(net, path: str, save_updater: bool = True) -> None:
-    """Write a ComputationGraph to a model zip the JAX package reads."""
+    """Write a ComputationGraph to a model zip the JAX package reads.
+
+    A quantized net (``optimize/quantize.py``: int8 codes with
+    ``"<name>_scale"`` siblings) raises ``ValueError``: the zip's flat f32
+    coefficients follow ``param_order``, which has no place for the scales,
+    so they would be dropped and the codes written as f32 (what the JAX
+    package's ``save_model`` does without a word). Save the source net and
+    quantize after loading."""
+    from deeplearning4j_torch.optimize.quantize import is_quantized
+
+    if is_quantized(net.params):
+        raise ValueError(
+            "save_model: the net's params are int8-quantized (they carry "
+            "'*_scale' siblings), which the zip's flat f32 coefficients "
+            "cannot hold; save the unquantized net and quantize_net() it "
+            "after load_model()")
     flat = net.params_flat()
     meta = {
         "format_version": 1,

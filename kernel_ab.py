@@ -2,7 +2,7 @@
 K3/K4 (flash backward, dQ and dK/dV) between two checkouts, on one CUDA
 card.
 
-    python3 kernel_ab.py OTHER_DIR [--out DIR]
+    python3 kernel_ab.py OTHER_DIR [--out DIR] [--sass-only]
 
 OTHER_DIR is a baseline checkout of the repository (for example the parent
 commit unpacked with ``git archive``). The script runs, each in its own
@@ -26,12 +26,18 @@ sources (into that tree's ``kernels/build/``) and reports:
   (``chip_smoke.profile_serve`` and ``profile_train``).
 
 Before the runs it compiles each tree's ``flash_fwd.cu``, ``flash_bwd.cu``
-and ``paged_attn.cu`` once more with ``nvcc -Xptxas -v -cubin`` (one
-``nvcc`` each, all started together) and reads ``cuobjdump -sass``:
-registers and spills of each kernel, its counts of ``HMMA`` (tensor-core
-products), ``LDGSTS`` (``cp.async`` copies) and ``ATOM``/``RED``
-(atomics), and a digest of its instructions; it prints how many of the
-kernels both trees compile have equal instructions.
+and ``paged_attn.cu`` (and ``paged_attn_pad.cu`` where the tree has it)
+once more with ``nvcc -Xptxas -v -cubin`` (one
+``nvcc`` each, all started together, the compile seconds of each kept) and
+reads ``cuobjdump -sass``: registers, spills and static shared memory of
+each kernel, its counts of ``HMMA`` (tensor-core products), ``LDGSTS``
+(``cp.async`` copies) and ``ATOM``/``RED`` (atomics), and a digest of its
+instructions (whitespace-normalised); it prints how many of the kernels both trees compile have
+equal instructions, and a summary of the padded-width kernels
+(``*_pad_kernel``: the head dims other than 8, 16, 32, 64, 128). Each run
+also reports the dynamic shared memory per CTA of K1, K3/K4 and K2's
+chunk route at every kernel width (``smem``). ``--sass-only`` stops after
+the compile report.
 
 The last line of its output is one JSON object with every run;
 ``--out DIR`` also writes it to ``DIR/kernel_ab.json``. The measurement
@@ -116,7 +122,7 @@ def measure(tree: str) -> dict:
         digest = hashlib.sha256(o.float().cpu().numpy().tobytes()
                                 + lse.cpu().numpy().tobytes()).hexdigest()
         ms, n = cs.device_ms(lambda: fa.flash_attention_forward(
-            q, k, v, causal=True), "flash_fwd_kernel")
+            q, k, v, causal=True), "flash_fwd_")
         out["k1"][name] = dict(device_ms=ms, launches_per_call=n,
                                digest=digest[:16])
     B, H, ps, d, Tmax = 8, 8, 16, 32, 512
@@ -166,6 +172,15 @@ def measure(tree: str) -> dict:
             ms, n = cs.device_ms(lambda: fn(*args), kernel)
             out[part][name] = dict(device_ms=ms, launches_per_call=n,
                                    digest=digest[:16])
+    out["smem"] = {
+        str(w): dict(flash_fwd_f32=ext.flash_fwd_smem(w, 0),
+                     flash_fwd_16=ext.flash_fwd_smem(w, 1),
+                     flash_bwd_f32=ext.flash_bwd_smem(w, 0),
+                     flash_bwd_16=ext.flash_bwd_smem(w, 1),
+                     **{f"paged_chunk_{k}": ext.paged_chunk_smem(w, i, 32)
+                        for i, k in enumerate(("f32", "int8", "16"))})
+        for w in getattr(kernels, "KERNEL_WIDTHS", (8, 16, 32, 64, 128))
+    } if hasattr(ext, "flash_fwd_smem") else None
     card = cs.card_line()
     net, _cpu = cs.build_nets()
     rs = cs.np.random.RandomState(4)
@@ -177,52 +192,64 @@ def measure(tree: str) -> dict:
     return out
 
 
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_attn.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_attn.cu",
+           "paged_attn_pad.cu")
 
 
 def compile_one(tree: str, src: str, tmp: str):
     """``nvcc -Xptxas -v -cubin`` of one kernel source of ``tree``; returns
     (ptxas report, SASS text)."""
+    import time
+
     path = os.path.join(tree, "deeplearning4j_torch", "kernels", src)
     cubin = os.path.join(tmp, src + ".cubin")
+    t0 = time.perf_counter()
     build = subprocess.run(
         ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
          "-O3", "-Xptxas", "-v", "-cubin", "-o", cubin, path],
         capture_output=True, text=True, timeout=900)
     if build.returncode != 0:
-        raise SystemExit(f"kernel_ab: nvcc failed on {path}:\n"
-                         f"{build.stderr[-2000:]}")
+        raise RuntimeError(f"kernel_ab: nvcc failed on {path}:\n"
+                           f"{build.stderr[-2000:]}")
+    seconds = time.perf_counter() - t0
     sass = subprocess.run(["cuobjdump", "-sass", cubin], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    return build.stderr, sass
+    return build.stderr, sass, seconds
 
 
 def sass_report(tree: str) -> dict:
-    """Registers and spills (``nvcc -Xptxas -v``), the ``HMMA``,
-    ``LDGSTS`` and ``ATOM``/``RED`` counts and a digest of the instructions
-    (``cuobjdump -sass``) of each kernel in ``tree``'s kernel sources, by
-    mangled name. The sources compile in parallel."""
+    """Registers, spills and static shared memory (``nvcc -Xptxas -v``),
+    the ``HMMA``, ``LDGSTS`` and ``ATOM``/``RED`` counts and a digest of the
+    instructions (``cuobjdump -sass``) of each kernel in ``tree``'s kernel
+    sources, by mangled name, and each source's compile seconds under
+    ``"_compile_s"``. The sources compile in parallel."""
     import hashlib
     import re
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
+    sources = [s for s in SOURCES if os.path.exists(
+        os.path.join(tree, "deeplearning4j_torch", "kernels", s))]
     with tempfile.TemporaryDirectory() as tmp:
-        with ThreadPoolExecutor(len(SOURCES)) as pool:
+        with ThreadPoolExecutor(len(sources)) as pool:
             outs = list(pool.map(lambda s: compile_one(tree, s, tmp),
-                                 SOURCES))
+                                 sources))
     report = {}
-    for src, (ptxas, sass) in zip(SOURCES, outs):
+    compile_s = {}
+    for src, (ptxas, sass, seconds) in zip(sources, outs):
+        compile_s[src] = seconds
         fn = None
         for line in ptxas.splitlines():
             if "Compiling entry function" in line:
                 fn = line.split("'")[1]
                 report[fn] = dict(source=src, registers=None, spill_stores=0,
-                                  spill_loads=0, hmma=0, ldgsts=0, atom=0,
-                                  sass=hashlib.sha256())
+                                  spill_loads=0, smem=0, hmma=0, ldgsts=0,
+                                  atom=0, sass=hashlib.sha256())
             elif fn and "Used" in line:
                 report[fn]["registers"] = int(
                     re.search(r"Used (\d+) registers", line).group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                report[fn]["smem"] = int(smem.group(1)) if smem else 0
             elif fn and "spill stores" in line:
                 nums = re.findall(r"(\d+) bytes spill", line)
                 report[fn]["spill_stores"], report[fn]["spill_loads"] = map(
@@ -236,9 +263,13 @@ def sass_report(tree: str) -> dict:
                                  ("atom", "ATOM")):
                     report[fn][key] += pat in line
                 report[fn]["atom"] += " RED." in line
-                report[fn]["sass"].update(line.encode())
+                # whitespace-normalised: cuobjdump pads each instruction's
+                # text to the widest one in the file, so a kernel added to a
+                # source moves the columns of every other kernel in it
+                report[fn]["sass"].update(" ".join(line.split()).encode())
     for r in report.values():
         r["sass"] = r["sass"].hexdigest()[:16]
+    report["_compile_s"] = compile_s
     return report
 
 
@@ -250,6 +281,8 @@ def main() -> int:
     ap.add_argument("--out", help="directory for kernel_ab.json")
     ap.add_argument("--measure", action="store_true",
                     help="(internal) measure the tree OTHER and print JSON")
+    ap.add_argument("--sass-only", action="store_true",
+                    help="stop after the compile report")
     args = ap.parse_args()
     if args.measure:
         print(json.dumps(measure(args.other)), flush=True)
@@ -260,22 +293,46 @@ def main() -> int:
         print("kernel_ab: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 2
-    sass = {label: sass_report(tree) for label, tree in
-            (("other", args.other), ("this", HERE))}
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:
+        reports = list(pool.map(sass_report, (args.other, HERE)))
+    compile_s = {label: r.pop("_compile_s") for label, r in
+                 zip(("other", "this"), reports)}
+    sass = dict(other=reports[0], this=reports[1])
+    print(f"compile seconds (nvcc -cubin, all at once): {compile_s}",
+          flush=True)
     for fn, r in sass["this"].items():
         was = sass["other"].get(fn)
         note = "new" if was is None else (
             "same instructions" if was["sass"] == r["sass"] else "CHANGED")
         print(f"this: {fn[:70]} regs {r['registers']} spill "
-              f"{r['spill_stores']}/{r['spill_loads']} B, HMMA {r['hmma']}, "
-              f"LDGSTS {r['ldgsts']}, ATOM/RED {r['atom']}; {note}",
-              flush=True)
+              f"{r['spill_stores']}/{r['spill_loads']} B, smem {r['smem']} "
+              f"B, HMMA {r['hmma']}, LDGSTS {r['ldgsts']}, ATOM/RED "
+              f"{r['atom']}; {note}", flush=True)
     both = [fn for fn in sass["this"] if fn in sass["other"]]
     same = sum(sass["this"][fn]["sass"] == sass["other"][fn]["sass"]
                for fn in both)
     print(f"kernels in both trees: {len(both)}, equal instructions: {same}; "
           f"only in this tree: {len(sass['this']) - len(both)}; only in the "
           f"other: {len(sass['other']) - len(both)}", flush=True)
+    pads = [r for fn, r in sass["this"].items() if "_pad_kernel" in fn]
+    if pads:
+        spilled = [fn for fn, r in sass["this"].items()
+                   if "_pad_kernel" in fn and r["spill_stores"]]
+        print(f"padded-width kernels: {len(pads)}, registers "
+              f"{min(r['registers'] for r in pads)}-"
+              f"{max(r['registers'] for r in pads)}, spilling: "
+              f"{len(spilled)} {[fn[:60] for fn in spilled]}", flush=True)
+    if args.sass_only:
+        line = {"sass": sass, "compile_s": compile_s}
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, "kernel_ab.json"), "w") as f:
+                json.dump(line, f, indent=1)
+        print(json.dumps({"kernels_in_both": len(both),
+                          "equal_instructions": same}))
+        return 0
     runs = []
     for label, tree in (("other", args.other), ("this", HERE),
                         ("this", HERE), ("other", args.other)):
@@ -320,7 +377,7 @@ def main() -> int:
         print(f"{part.upper()} digests over the four runs: {len(names)} "
               f"cases, differing: {differ or 'none'}", flush=True)
     print(runs[0]["card"])
-    line = {"kernel_ab": runs, "sass": sass}
+    line = {"kernel_ab": runs, "sass": sass, "compile_s": compile_s}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "kernel_ab.json"), "w") as f:

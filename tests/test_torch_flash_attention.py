@@ -130,8 +130,11 @@ def test_supports():
     assert fa.supports((2, 8, 128, 32), mask=None)
     assert fa.supports((2, 8, 100, 64), mask=torch.ones(2, 100),
                        dtype=torch.bfloat16)
-    assert not fa.supports((2, 8, 128, 48), mask=None)        # head dim
-    assert not fa.supports((2, 8, 128, 4), mask=None)
+    # head dims: 4..128, multiples of 4 (padded to the next kernel width)
+    for d in (4, 12, 48, 80, 96, 120):
+        assert fa.supports((2, 8, 128, d), mask=None)
+    for d in (2, 6, 50, 132, 256):
+        assert not fa.supports((2, 8, 128, d), mask=None)
     for d in (8, 16):
         assert fa.supports((2, 8, 128, d), mask=None)
         assert fa.supports((2, 8, 128, d), mask=None, dtype=torch.float16)
@@ -141,13 +144,16 @@ def test_supports():
 
 
 # ------------------------------------------------- K1's f32 design, rehearsed
-def _k1_emulated(q, k, v, *, causal, mask, mm, block=64, mm_p=None):
+def _k1_emulated(q, k, v, *, causal, mask, mm, block=64, mm_p=None,
+                 scale=None):
     """K1's tile walk in f32: 64-row q tiles, 64-key tiles up to the causal
-    limit, scores scaled after the product, masked keys -1e30 and keys past
-    T -inf, online softmax, l clamped at 1e-30. ``mm`` runs q·kᵀ, ``mm_p``
-    (default ``mm``) P·V. Returns (o, lse)."""
+    limit, scores scaled after the product (by ``scale``, default
+    1/√d), masked keys -1e30 and keys past T -inf, online softmax, l
+    clamped at 1e-30. ``mm`` runs q·kᵀ, ``mm_p`` (default ``mm``) P·V.
+    Returns (o, lse)."""
     mm_p = mm if mm_p is None else mm_p
     B, H, T, d = q.shape
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     o = torch.empty_like(q)
     lse = torch.empty(B, H, T, 1)
     for q0 in range(0, T, block):
@@ -163,7 +169,7 @@ def _k1_emulated(q, k, v, *, causal, mask, mm, block=64, mm_p=None):
             vt = torch.zeros(B, H, block, d)
             n = min(block, T - k0)
             kt[:, :, :n], vt[:, :, :n] = k[:, :, k0:k0 + n], v[:, :, k0:k0 + n]
-            s = mm(qt, kt.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+            s = mm(qt, kt.transpose(-1, -2)) * scale
             masked = torch.zeros(B, 1, len(rows), block, dtype=torch.bool)
             if causal:
                 masked = masked | (cols[None, None, None, :]

@@ -6,10 +6,10 @@
   instead of quietly running on the CPU;
 - a kernel wrapper handed CUDA tensors on a host without CUDA raises, and
   never computes the plain version on the CPU instead; so does a CUDA case
-  the kernels do not take (head dims 4 and 48, f64); the cases they take
-  (head dims 8, 16, 32, 64, 128; f32, bf16 and f16 for K1/K3/K4, and those
-  queries over pages of their dtype or int8 for K2) reach the kernels'
-  build;
+  the kernels do not take (head dims under 4, over 128 or not a multiple of
+  4, f64); the cases they take (head dims 4..128 that are multiples of 4;
+  f32, bf16 and f16 for K1/K3/K4, and those queries over pages of their
+  dtype or int8 for K2) reach the kernels' build;
 - ``fit`` refuses what the port does not have yet (the fused K-step driver,
   the health guard, regularization) instead of training without it.
 """
@@ -130,15 +130,15 @@ def test_flash_backward_on_cuda_tensors_raises_without_cuda(no_cuda,
             fa.flash_attention_backward(q, q, q, q, lse, q, causal=True)
 
 
-@pytest.mark.parametrize("case", ["d48", "d4", "f64"])
+@pytest.mark.parametrize("case", ["d132", "d6", "f64"])
 def test_flash_backward_refuses_unsupported_cases(case, monkeypatch):
     """The backward wrapper checks the case before any build: a CUDA
     request the kernels cannot take raises instead of taking the plain
     version."""
     monkeypatch.setattr(fa, "flash_attention_backward_plain", _no_plain)
-    d, dtype, err, match = {"d48": (48, torch.float32, ValueError,
-                                    "head dims"),
-                            "d4": (4, torch.float32, ValueError,
+    d, dtype, err, match = {"d132": (132, torch.float32, ValueError,
+                                     "head dims"),
+                            "d6": (6, torch.float32, ValueError,
                                    "head dims"),
                             "f64": (32, torch.float64, TypeError,
                                     "f32, bf16 or f16")}[case]
@@ -185,7 +185,7 @@ def test_cuda_wrappers_refuse_unsupported_shapes():
     """Shape and type checks come before any build: a CUDA request the
     kernel cannot take raises instead of taking the plain version."""
     with FakeTensorMode():
-        q = torch.empty(1, 2, 16, 48, device="cuda")           # d = 48
+        q = torch.empty(1, 2, 16, 132, device="cuda")          # d = 132
         with pytest.raises(ValueError, match="head dims"):
             fa.flash_attention_forward(q, q, q)
         q64 = torch.empty(1, 2, 16, 32, device="cuda", dtype=torch.float64)
@@ -222,20 +222,21 @@ def test_16bit_paged_query_on_cuda_reaches_the_kernel(dtype, no_cuda,
 
 
 @pytest.mark.parametrize("helper", ["auto", "pallas"])
-@pytest.mark.parametrize("case", ["d48", "f16", "mask3d"])
+@pytest.mark.parametrize("case", ["d48", "d132", "f16", "mask3d"])
 def test_attention_layer_on_cuda_never_takes_the_plain_path(
         case, helper, no_cuda, monkeypatch):
     """The layer's kernel-routed helpers hand CUDA tensors to K1's wrapper
-    whatever their shape or type, so a case the kernel cannot take raises
-    instead of computing ``scaled_dot_attention`` on the card, and one it
-    takes (f16) goes to the kernel's build, which raises on a host without
-    CUDA."""
+    whatever their shape or type, so a case the kernel cannot take (d=132,
+    a 3-D mask) raises instead of computing ``scaled_dot_attention`` on the
+    card, and one it takes (d=48 padded, f16) goes to the kernel's build,
+    which raises on a host without CUDA."""
     monkeypatch.setattr(patt, "scaled_dot_attention", _no_plain)
     monkeypatch.setattr(fa, "flash_attention_plain", _no_plain)
     refused = dict(expected_exception=(ValueError, TypeError))
     built = dict(expected_exception=RuntimeError, match="CUDA device")
     d, dtype, mask_shape, raises = {
-        "d48": (48, torch.float32, (1, 16), refused),
+        "d48": (48, torch.float32, (1, 16), built),
+        "d132": (132, torch.float32, (1, 16), refused),
         "f16": (32, torch.float16, (1, 16), built),
         "mask3d": (32, torch.float32, (1, 2, 16), refused)}[case]
     layer = patt.SelfAttentionLayer(n_in=2 * d, n_out=2 * d, n_heads=2,
@@ -280,10 +281,11 @@ def test_flash_case_table_takes_small_head_dims_and_f16(d, dtype, no_cuda,
             fa.flash_attention_backward(q, q, q, q, lse, q, causal=True)
 
 
-@pytest.mark.parametrize("d", [4, 48, 96])
+@pytest.mark.parametrize("d", [2, 6, 132, 256])
 def test_case_tables_refuse_other_head_dims(d):
-    """Head dims other than 8, 16, 32, 64 and 128 raise on CUDA tensors in
-    both case tables before any build (ROADMAP B)."""
+    """Head dims under 4, over 128 or not a multiple of 4 raise on CUDA
+    tensors in both case tables before any build (what is left of ROADMAP
+    B3)."""
     assert not fa.supports((2, 2, 16, d), mask=None)
     with FakeTensorMode():
         q = torch.empty(2, 2, 16, d, device="cuda")
@@ -308,6 +310,60 @@ def test_paged_small_head_dims_reach_the_kernel(d, quant, no_cuda,
         q = torch.empty(2, 2, 1, d, device="cuda", dtype=torch.float16)
         pool = torch.empty(5, 2, 8, d, device="cuda",
                            dtype=torch.int8 if quant else torch.float16)
+        sc = torch.empty(5, 2, 8, device="cuda") if quant else None
+        bt = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
+        pos = torch.zeros(2, dtype=torch.int32, device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            ppa.paged_attention(q, pool, pool, bt, pos, kscales=sc,
+                                vscales=sc)
+
+
+@pytest.mark.parametrize("d", [4, 12, 48, 80, 96, 120])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["f32", "bf16", "f16"])
+def test_flash_case_table_takes_padded_head_dims(d, dtype, no_cuda,
+                                                 monkeypatch):
+    """K1/K3/K4 take every head dim 4..128 that is a multiple of 4 (a
+    padded instantiation where the width has none of its own): the case
+    check passes and the wrappers go on to the kernels' build, which raises
+    on a host without CUDA, never to the plain version."""
+    from deeplearning4j_torch import kernels
+
+    monkeypatch.setattr(fa, "flash_attention_plain", _no_plain)
+    monkeypatch.setattr(fa, "flash_attention_backward_plain", _no_plain)
+    assert fa.supports((2, 2, 16, d), mask=None, dtype=dtype)
+    width = kernels.kernel_width(d)
+    assert width in kernels.KERNEL_WIDTHS and d <= width < d + 16
+    with FakeTensorMode():
+        q = torch.empty(2, 2, 16, d, device="cuda", dtype=dtype)
+        m = torch.ones(2, 16, device="cuda")
+        lse = torch.empty(4, 16, 1, device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            fa.flash_attention_forward(q, q, q, causal=True, mask=m)
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            fa.flash_attention_backward(q, q, q, q, lse, q, causal=True)
+
+
+@pytest.mark.parametrize("d", [4, 48, 96])
+@pytest.mark.parametrize("T", [1, 4, 48], ids=["T1", "T4", "T48"])
+@pytest.mark.parametrize("quant", [False, True], ids=["own", "int8"])
+def test_paged_padded_head_dims_reach_the_kernel(d, T, quant, no_cuda,
+                                                 monkeypatch):
+    """K2 takes head dims 4, 48 and 96 on both routes (T <= 4 decode, T > 4
+    chunk) over pages of the query's dtype or int8: the wrapper goes to the
+    kernel's build (raising without CUDA), never to the plain version; the
+    decode route pads to a power of two, the chunk route to the next
+    kernel width."""
+    from deeplearning4j_torch import kernels
+
+    monkeypatch.setattr(ppa, "paged_attention_plain", _no_plain)
+    assert kernels.decode_width(d) == {4: 8, 48: 64, 96: 128}[d]
+    assert kernels.kernel_width(d) == {4: 8, 48: 48, 96: 96}[d]
+    with FakeTensorMode():
+        q = torch.empty(2, 2, T, d, device="cuda", dtype=torch.bfloat16)
+        pool = torch.empty(5, 2, 8, d, device="cuda",
+                           dtype=torch.int8 if quant else torch.bfloat16)
         sc = torch.empty(5, 2, 8, device="cuda") if quant else None
         bt = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
         pos = torch.zeros(2, dtype=torch.int32, device="cuda")
