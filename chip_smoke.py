@@ -9,7 +9,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. build the hand-written kernels (``deeplearning4j_torch/kernels``);
 2. K1, flash-attention forward, against its plain PyTorch version at the
    slice's shape (f32 causal with and without a key mask, bf16), at the
-   training shape [16, 8, 128, 32] and at T=2048, d=128, then head dims 8
+   training shape [16, 8, 128, 32], at the JAX bench leg's bf16 training
+   shape [32, 8, 512, 32] (phase 7c) and at T=2048, d=128, then head dims 8
    and 16 (f32, bf16, f16) and f16 at d = 32, 64, 128 (``FLASH_CASES``;
    f16 within ``F16_REL`` of max|o|), then the padded head dims
    ``PAD_DIMS`` (4, 24, 48, 80, 96, 120: f32 and bf16 causal, with and
@@ -98,7 +99,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    and both routes of K2 must launch at d = 96;
 6. K3 and K4, the flash backward (dQ and dK/dV), against their plain
    PyTorch version at the training shape [16, 8, 128, 32] (f32 causal with
-   and without a key mask, bf16), at [2, 8, 2048, 128] causal (f32,
+   and without a key mask, bf16), at the bench leg's [32, 8, 512, 32] bf16
+   causal, at [2, 8, 2048, 128] causal (f32,
    bf16), at head dims 8 and 16 (f32, bf16, f16), in f16 at d = 32, 64,
    128 and at the padded head dims as in phase 2 (``BWD_TOL``); two calls
    must be bitwise equal; timed beside the plain version
@@ -112,7 +114,25 @@ Phases (any failure exits non-zero, and no result line is printed):
 7b. three Adam ``do_step``s of the phase-5f model on the phase-7 batch,
    card against CPU (first-step gradients within 1e-4 of max|g|, losses
    within rtol 1e-4), each step launching K1, K3 and K4 ``n_blocks`` times
-   at d = 96.
+   at d = 96;
+7c. ``fit`` as the JAX package trains. Part 1: the JAX bench leg's
+   TransformerLM (``bench.py::bench_transformer_lm``: vocab 256, T = 512,
+   d_model 256 in 8 heads of 32, 4 blocks, ``compute_dtype="bfloat16"``;
+   numpy-seeded f32 weights) on a stream of 10 batches of 32 from
+   RandomState(6), one with a NaN in its features and a trailing partial
+   batch of 20 rows, trained with ``fit(stream)`` at the defaults (K = 4,
+   the health guard on) and with ``fit(stream, fused_steps=1)``: scores and
+   params within 1e-6 (bitwise reported), exactly one skip, every param
+   finite, the loss falling, K1/K3/K4 ``n_blocks`` launches a step in bf16
+   at d = 32; the first step on 4 rows against the CPU's f32-compute
+   gradients within twice the CPU bf16 path's error plus 1e-3 of max|g|;
+   ms a step and training tokens/s over two fused blocks; the phase-5
+   requests served greedy with ``compute_dtype`` set and unset, token for
+   token. Part 2: the phase-7 model and batch with L1/L2, gradient
+   clipping, dropout, a per-layer learning rate and ``remat`` on the
+   attention vertices: dropout masks card = CPU, first-step gradients
+   and three Adam losses against the CPU (phase 7's rule), K1 twice per
+   attention vertex per step, ``remat`` against none within 1e-6.
 
 Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
 calls (``ms``: the wrapper's host work included, which sets the pace once
@@ -125,24 +145,26 @@ The main path is phases 4-5 (serving), phases 4b-5c (loading a zip,
 sampled and bf16 serving), phase 4c (the d=8 fixture), phase 5d (prefix
 sharing, preemption, handoff), phase 5e (speculative decoding, roles,
 migration, chaos), phase 5f (the d=96 model, f32 and int8 weights), phase
-7 (training) and phase 7b (training at d=96). The launch counters are
-zeroed just before each of the eight and read just after (phase 6's and
-the
-reference servers' launches are not counted); every kernel must have
+7 (training), phase 7b (training at d=96) and phase 7c (``fit``). The
+launch counters are zeroed just before each of the nine and read just
+after (phase 6's and the reference servers' launches are not counted);
+every kernel must have
 run on the main path, K2's chunk route and its merge pass included, and
 each path must have launched its own kernels. The script
 prints the card's name and power limit, one ``{"kernels": [...]}`` line with
 each kernel's launches, error, times and bound, and, last, the result line
-``{"ok": true, "device": {...}}``. Matmuls run in full f32 (TF32 off).
+``{"ok": true, "device": {...}}``. f32 matmuls run in full f32 (TF32
+off); phase 7c's bf16 compute runs its products in bf16, as JAX's does.
 
 Options: ``--out DIR`` also writes everything measured to
 ``DIR/chip_smoke.json``; ``--verbose-build`` prints the kernel build's
 compiler lines; ``--profile`` adds, after the main path, one f32 serve, one
 phase-5b mixed greedy/sampled serve and five training steps under
 ``torch.profiler`` (device busy time against the wall clock, kernels by
-device time), with their tables in ``DIR/serve_profile.txt``,
-``DIR/serve_profile_sampled.txt`` and ``DIR/train_profile.txt`` when
-``--out`` is given.
+device time), then one fused phase-7c block, with their tables in
+``DIR/serve_profile.txt``, ``DIR/serve_profile_sampled.txt``,
+``DIR/train_profile.txt`` and ``DIR/bench_fit_profile.txt`` when ``--out``
+is given.
 """
 
 from __future__ import annotations
@@ -200,6 +222,8 @@ BWD_CASES = [
     ("slice_f32_causal", 16, 8, 128, 32, torch.float32, True, False),
     ("slice_f32_causal_mask", 16, 8, 128, 32, torch.float32, True, True),
     ("slice_bf16_causal", 16, 8, 128, 32, torch.bfloat16, True, False),
+    # the JAX bench leg's bf16 training shape (phase 7c)
+    ("bench_bf16_causal", 32, 8, 512, 32, torch.bfloat16, True, False),
     ("long_f32_causal", 2, 8, 2048, 128, torch.float32, True, False),
     ("long_bf16_causal", 2, 8, 2048, 128, torch.bfloat16, True, False),
 ] + [
@@ -376,6 +400,8 @@ FLASH_CASES = [
     ("slice_bf16_causal", 8, 8, 128, 32, torch.bfloat16, True, False, 2e-2),
     # the training step's shape (phase 7)
     ("train_f32_causal", 16, 8, 128, 32, torch.float32, True, False, 1e-4),
+    # the JAX bench leg's bf16 training shape (phase 7c)
+    ("bench_bf16_causal", 32, 8, 512, 32, torch.bfloat16, True, False, 2e-2),
     ("long_f32_causal", 2, 8, 2048, 128, torch.float32, True, False, 1e-4),
     # at T=2048 a row averages hundreds of keys and |O| is a few
     # hundredths, so bf16 is held tighter than at the slice's shape
@@ -2243,6 +2269,386 @@ def phase_train(net, cpu, card):
                 tokens_per_s=tokens / step_ms * 1e3)
 
 
+# ---------------------------------------------------------------- phase 7c
+#: phase 7c part 1: the JAX package's TransformerLM bench leg
+#: (``bench.py::bench_transformer_lm``): vocab 256, T = 512, d_model 256 in
+#: 8 heads of 32, 4 blocks, bf16 compute over f32 params, batches of 32
+BENCH = dict(num_labels=256, max_length=512, d_model=256, n_heads=8,
+             n_blocks=4, max_cache=512, compute_dtype="bfloat16")
+BENCH_BATCH = 32
+#: its stream: 10 batches (not a multiple of K = 4) from RandomState(6); a
+#: NaN in batch 2's features (inside the first fused block) and a trailing
+#: partial batch of 20 rows (the unfused tail)
+BENCH_BATCHES = 10
+BENCH_NAN_AT = 2
+BENCH_PARTIAL_ROWS = 20
+#: the rows of the first step held to the CPU's plain bf16 path
+BENCH_CPU_ROWS = 4
+
+
+def bench_stream():
+    """The phase-7c stream: one-hot tokens and next-token labels as numpy
+    (the host data a user's ``fit`` reads), as the bench draws them."""
+    from deeplearning4j_torch.datasets.dataset import DataSet
+
+    V, T = BENCH["num_labels"], BENCH["max_length"]
+    rs = np.random.RandomState(6)
+    eye = np.eye(V, dtype=np.float32)
+    out = []
+    for i in range(BENCH_BATCHES):
+        idx = rs.randint(0, V, (BENCH_BATCH, T + 1))
+        x, y = eye[idx[:, :-1]], eye[idx[:, 1:]]
+        if i == BENCH_NAN_AT:
+            x[0, 0, 0] = np.nan
+        if i == BENCH_BATCHES - 1:
+            x, y = x[:BENCH_PARTIAL_ROWS], y[:BENCH_PARTIAL_ROWS]
+        out.append(DataSet(x, y))
+    return out
+
+
+def bench_net(params, device, compute_dtype="bfloat16"):
+    from deeplearning4j_torch.models.zoo import TransformerLM
+    from deeplearning4j_torch.utils.convert import params_from_jax
+
+    net = TransformerLM(**dict(BENCH, compute_dtype=compute_dtype)).init(
+        device=device)
+    if params is not None:
+        params_from_jax(params, net)
+    return net
+
+
+def grad_rule(got, ref, own):
+    """``test_torch_mixed_precision.py``'s rule, per leaf: ``got``'s max
+    error against the f32-compute gradients ``ref`` at most twice the
+    reference bf16 path's (``own``) plus 1e-3 of max|g|. Returns the worst
+    leaf's (error / bound) and that leaf."""
+    worst = (0.0, None)
+    for v in ref:
+        for p in ref[v]:
+            r = ref[v][p].double()
+            err = (got[v][p].cpu().double() - r).abs().max().item()
+            bound = 2 * (own[v][p].double() - r).abs().max().item() \
+                + 1e-3 * r.abs().max().item()
+            if err / bound > worst[0]:
+                worst = (err / bound, f"{v}.{p}")
+    return worst
+
+
+class _DtypeProbe:
+    """Records the (dtype, head dim) of every flash forward and backward
+    wrapper call while installed (the launch counters count by head dim
+    only)."""
+
+    def __init__(self):
+        from deeplearning4j_torch.ops import flash_attention as fa
+
+        self.fa = fa
+        self.seen = []
+        self._fwd, self._bwd = fa.flash_attention_forward, \
+            fa.flash_attention_backward
+
+    def __enter__(self):
+        def fwd(q, *a, **kw):
+            self.seen.append(("fwd", q.dtype, q.shape[-1]))
+            return self._fwd(q, *a, **kw)
+
+        def bwd(q, *a, **kw):
+            self.seen.append(("bwd", q.dtype, q.shape[-1]))
+            return self._bwd(q, *a, **kw)
+
+        self.fa.flash_attention_forward = fwd
+        self.fa.flash_attention_backward = bwd
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention_forward = self._fwd
+        self.fa.flash_attention_backward = self._bwd
+
+
+def phase_bench_train(card):
+    """Phase 7c part 1: the JAX bench leg's bf16 TransformerLM trained with
+    ``fit(stream)`` at the defaults (K = 4 on CUDA, the guard on) against
+    ``fit(stream, fused_steps=1)`` on the card; the first step against the
+    CPU's plain bf16 path; the bf16 K1/K3/K4 launches; a greedy serve with
+    ``compute_dtype`` set and unset (F1); the step time."""
+    from deeplearning4j_torch import kernels
+    from deeplearning4j_torch.optimize.fused_fit import value_and_grad
+    from deeplearning4j_torch.optimize.listeners import (
+        CollectScoresIterationListener, HealthListener)
+
+    nb = BENCH["n_blocks"]
+    d = BENCH["d_model"] // BENCH["n_heads"]
+    probe_net = bench_net(None, "cpu")
+    params = numpy_params(probe_net, seed=1)
+    del probe_net
+    stream = bench_stream()
+    steps = len(stream)
+
+    # the first step on BENCH_CPU_ROWS rows: card bf16 against the CPU's
+    # f32-compute gradients, under the CPU bf16 path's own error
+    rows = [torch.from_numpy(stream[0].features[:BENCH_CPU_ROWS]),
+            torch.from_numpy(stream[0].labels[:BENCH_CPU_ROWS])]
+    cpu32 = bench_net(params, "cpu", None)
+    cpu16 = bench_net(params, "cpu")
+    l32, g32 = value_and_grad(cpu32, cpu32.params, cpu32.state, [rows[0]],
+                              [rows[1]], train=True)
+    l16, g16 = value_and_grad(cpu16, cpu16.params, cpu16.state, [rows[0]],
+                              [rows[1]], train=True)
+    del cpu32, cpu16
+    net = bench_net(params, "cuda")
+    ld, gd = value_and_grad(net, net.params, net.state,
+                            [rows[0].cuda()], [rows[1].cuda()], train=True)
+    rule, leaf = grad_rule(gd, g32, g16)
+    loss_rel = abs(float(ld) - float(l16)) / abs(float(l16))
+    check(rule <= 1.0, f"bench train: first-step card bf16 gradients vs the "
+                       f"CPU f32-compute gradients exceed 2x the CPU bf16 "
+                       f"error + 1e-3 max|g| at {leaf} ({rule:.3g} of it)")
+    check(loss_rel <= 1e-2, f"bench train: first-step loss card {float(ld)} "
+                            f"vs CPU bf16 {float(l16)}")
+    check(all(g.dtype == torch.float32 for p in gd.values()
+              for g in p.values()), "bench train: gradients not f32")
+
+    # fit(stream) at the defaults against fit(stream, fused_steps=1)
+    ref = bench_net(params, "cuda")
+    runs = {}
+    for tag, n, kw in (("defaults", net, {}),
+                       ("unfused", ref, dict(fused_steps=1))):
+        scores, health = CollectScoresIterationListener(), \
+            HealthListener(log_events=False)
+        n.set_listeners(scores, health)
+        before = {k: kernels.LAUNCHES_BY_D.get((k, d), 0)
+                  for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        with _DtypeProbe() as probe:
+            n.fit(stream, **kw)
+        torch.cuda.synchronize()
+        per_step = {k: (kernels.LAUNCHES_BY_D.get((k, d), 0) - before[k])
+                    / steps for k in before}
+        runs[tag] = dict(
+            scores=[float(s) for _, s in scores.scores],
+            iterations=[i for i, _ in scores.scores],
+            skips=sum(r.get("skipped_in_block", 0) for r in health.reports
+                      if r["action"] == "skip"),
+            actions=[r["action"] for r in health.reports],
+            launches_per_step=per_step,
+            dtypes=sorted({(k, str(t), dd) for k, t, dd in probe.seen}))
+        n.set_listeners()
+    a, b = runs["defaults"], runs["unfused"]
+    check(net.iteration == ref.iteration == steps
+          and a["iterations"] == b["iterations"] == list(range(1, steps + 1)),
+          f"bench train: iterations {a['iterations']} vs {b['iterations']}")
+    check(a["skips"] == b["skips"] == 1 and a["actions"] == ["skip"],
+          f"bench train: the guard skipped {a['skips']} (defaults) and "
+          f"{b['skips']} (unfused) steps, reports {a['actions']}; expected "
+          "one skip")
+    finite = [(x, y) for x, y in zip(a["scores"], b["scores"])
+              if np.isfinite(x) or np.isfinite(y)]
+    check(len(finite) == steps - 1
+          and not np.isfinite(a["scores"][BENCH_NAN_AT]),
+          f"bench train: scores {a['scores']}")
+    score_err = max(abs(x - y) / abs(y) for x, y in finite)
+    pmax = max(t.abs().max().item() for p in ref.params.values()
+               for t in p.values())
+    perr = max((net.params[v][k] - ref.params[v][k]).abs().max().item()
+               for v in ref.params for k in ref.params[v])
+    bitwise = all(torch.equal(net.params[v][k], ref.params[v][k])
+                  for v in ref.params for k in ref.params[v]) and \
+        [x for x, _ in finite] == [y for _, y in finite]
+    check(score_err <= 1e-6 and perr <= 1e-6 * pmax,
+          f"bench train: defaults vs fused_steps=1: scores rel {score_err:.3g}"
+          f", params max|err| {perr:.3g} vs 1e-6 of max|p| {pmax:.3g}")
+    check(all(torch.isfinite(t).all().item() for p in net.params.values()
+              for t in p.values()), "bench train: a param is not finite")
+    fin = [x for x in a["scores"] if np.isfinite(x)]
+    check(fin[-1] < fin[0], f"bench train: the loss did not fall: {fin}")
+    check(all(n == nb for n in a["launches_per_step"].values())
+          and all(n == nb for n in b["launches_per_step"].values()),
+          f"bench train: launches per step at d={d} {a['launches_per_step']}"
+          f" / {b['launches_per_step']}, expected {nb} each")
+    check(a["dtypes"] == [("bwd", "torch.bfloat16", d),
+                          ("fwd", "torch.bfloat16", d)],
+          f"bench train: flash calls {a['dtypes']}, expected bf16 at d={d}")
+
+    # the step time: two fused blocks of clean full batches from the host
+    clean = [ds for i, ds in enumerate(stream)
+             if i not in (BENCH_NAN_AT, BENCH_BATCHES - 1)][:8]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(clean)
+    float(net.score())
+    wall = time.perf_counter() - t0
+    step_ms = wall / len(clean) * 1e3
+    tokens = BENCH_BATCH * BENCH["max_length"]
+
+    # F1 on the card: the compute_dtype net serves (in its param dtype)
+    # the tokens it serves with compute_dtype unset
+    reqs = serve_requests()
+    got, wall_bf, _ = serve(net, reqs, vocab=BENCH["num_labels"])
+    net.conf.compute_dtype = None
+    want, _, _ = serve(net, reqs, vocab=BENCH["num_labels"])
+    net.conf.compute_dtype = "bfloat16"
+    check(got == want, "bench train: the compute_dtype net's greedy serve "
+                       "differs from its compute_dtype=None serve")
+    log(f"  bench train [{BENCH_BATCH}, {BENCH['max_length']}] bf16 compute: "
+        f"first step ({BENCH_CPU_ROWS} rows) vs CPU {rule:.3f} of the "
+        f"bound (worst {leaf}), loss rel {loss_rel:.2e}; fit defaults (K=4, "
+        f"guard) vs fused_steps=1 over {steps} batches: scores rel "
+        f"{score_err:.2e}, params {perr:.2e} (max|p| {pmax:.3f}), bitwise "
+        f"{bitwise}; 1 skip; loss {fin[0]:.4f} -> {fin[-1]:.4f}; launches "
+        f"per step at d={d} {a['launches_per_step']} (bf16); {step_ms:.3f} "
+        f"ms/step = {tokens / step_ms * 1e3:.0f} tokens/s over "
+        f"{len(clean)} steps; compute_dtype serve equal to the unset one "
+        f"({sum(len(o) for o in got)} tokens); [{card}]")
+    return net, dict(first_step_rule=rule, first_step_worst_leaf=leaf,
+                     first_step_loss_rel=loss_rel, runs=runs,
+                     score_rel_err=score_err, param_max_err=perr,
+                     param_max=pmax, bitwise=bitwise, step_ms=step_ms,
+                     tokens_per_step=tokens,
+                     tokens_per_s=tokens / step_ms * 1e3,
+                     serve_tokens=sum(len(o) for o in got),
+                     serve_wall_s=wall_bf)
+
+
+def fields_conf(net):
+    """Part 2's training fields on a phase-7 model: L2 (with L2 on the
+    biases, the JAX package's decay) on the FFN layers and L1 on embed,
+    clip_l2_per_layer everywhere, dropout 0.1 on ff{i}a and the attention
+    vertices, a per-layer learning rate on the output layer."""
+    for name, v in net.conf.vertices.items():
+        layer = getattr(v, "layer", None)
+        if layer is None or not hasattr(layer, "l1"):
+            continue
+        layer.gradient_normalization = "clip_l2_per_layer"
+        if name.startswith("ff"):
+            layer.l2, layer.l2_bias = 1e-3, 1e-4
+        if name == "embed":
+            layer.l1 = 1e-5
+        if name.startswith("attn") or (name.startswith("ff")
+                                       and name.endswith("a")):
+            layer.dropout = 0.1
+        if name == "output":
+            layer.learning_rate = 1e-3
+    return net
+
+
+def fields_net(params, device, remat):
+    from deeplearning4j_torch.models.zoo import TransformerLM
+    from deeplearning4j_torch.utils.convert import params_from_jax
+
+    net = TransformerLM(**SLICE).init(device=device)
+    for name, v in net.conf.vertices.items():
+        if name.startswith("attn"):
+            v.remat = remat
+    params_from_jax(params, fields_conf(net))
+    return net
+
+
+def phase_train_fields(params, card):
+    """Phase 7c part 2: the phase-7 model and batch with the training
+    fields (``fields_conf``) and ``remat`` on the attention vertices, three
+    Adam steps on the card against the CPU; the dropout masks across
+    devices; K1 twice per attention vertex per step; remat against no
+    remat."""
+    from deeplearning4j_torch import kernels
+    from deeplearning4j_torch.ops import random as prandom
+    from deeplearning4j_torch.optimize.fused_fit import value_and_grad
+
+    nb = SLICE["n_blocks"]
+    net = fields_net(params, "cuda", remat=True)
+    plain = fields_net(params, "cuda", remat=False)
+    cpu = fields_net(params, "cpu", remat=False)
+    x, y = train_batch()
+    xd, yd = train_batch(net.device)
+
+    # the masks: each dropout vertex's key and draw, card and CPU
+    order = net.conf.topo_order
+    masks_equal = True
+    for it in range(3):
+        kd = prandom.split(net._step_rng(it), len(order))
+        kc = prandom.split(cpu._step_rng(it), len(order))
+        for i, name in enumerate(order):
+            layer = getattr(net.conf.vertices[name], "layer", None)
+            if (getattr(layer, "dropout", 0) or 0) > 0:
+                shape = (TRAIN_BATCH, SLICE["max_length"], SLICE["d_model"])
+                md = prandom.bernoulli(kd[i], 1 - layer.dropout, shape)
+                mc = prandom.bernoulli(kc[i], 1 - layer.dropout, shape)
+                masks_equal &= torch.equal(md.cpu(), mc)
+    check(masks_equal, "train fields: a dropout mask differs card vs CPU")
+
+    _, g_d = value_and_grad(net, net.params, net.state, [xd], [yd],
+                            train=True, rng=net._step_rng(0))
+    _, g_c = value_and_grad(cpu, cpu.params, cpu.state,
+                            [torch.from_numpy(x)], [torch.from_numpy(y)],
+                            train=True, rng=cpu._step_rng(0))
+    grad_err = max(((g_d[v][p].cpu() - g_c[v][p]).abs().max()
+                    / g_c[v][p].abs().max()).item()
+                   for v in g_c for p in g_c[v])
+    check(grad_err <= 1e-4, f"train fields: first-step gradients card vs "
+                            f"CPU, worst leaf max|err|/max|g| {grad_err:.3g}")
+    before = dict(kernels.LAUNCHES)
+    losses = [float(net.do_step(xd, yd)[0]) for _ in range(3)]
+    per_step = {k: (kernels.LAUNCHES[k] - before[k]) / 3
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    plain_losses = [float(plain.do_step(xd, yd)[0]) for _ in range(3)]
+    cpu_losses = [float(cpu.do_step(x, y)[0]) for _ in range(3)]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    check(loss_err <= 1e-4, f"train fields: losses card {losses} vs CPU "
+                            f"{cpu_losses} (rel {loss_err:.3g})")
+    check(per_step == {"flash_fwd": 2 * nb, "flash_bwd_dq": nb,
+                       "flash_bwd_dkv": nb},
+          f"train fields: launches per step {per_step}, expected K1 "
+          f"{2 * nb} (remat recompute) and K3/K4 {nb}")
+    pmax = max(t.abs().max().item() for p in plain.params.values()
+               for t in p.values())
+    remat_err = max((net.params[v][k] - plain.params[v][k]).abs().max()
+                    .item() for v in net.params for k in net.params[v])
+    remat_loss = max(abs(a - b) / abs(b)
+                     for a, b in zip(losses, plain_losses))
+    check(remat_err <= 1e-6 * pmax and remat_loss <= 1e-6,
+          f"train fields: remat vs no remat params {remat_err:.3g}, losses "
+          f"rel {remat_loss:.3g}")
+    log(f"  train fields [{TRAIN_BATCH}, {SLICE['max_length']}] (L1/L2, "
+        f"clip_l2_per_layer, dropout 0.1, output lr, remat): masks card = "
+        f"CPU; first-step grads vs CPU {grad_err:.2e}, losses vs CPU "
+        f"{loss_err:.2e} ({losses[0]:.4f} -> {losses[-1]:.4f}); launches "
+        f"per step {per_step}; remat vs none: params {remat_err:.2e}, "
+        f"losses {remat_loss:.2e}, bitwise {remat_err == 0.0}; [{card}]")
+    return dict(masks_equal=masks_equal, grad_rel_err=grad_err,
+                loss_rel_err=loss_err, card_losses=losses,
+                cpu_losses=cpu_losses, launches_per_step=per_step,
+                remat_param_err=remat_err, remat_loss_rel=remat_loss)
+
+
+def profile_bench_fit(net, card, out_dir):
+    """One fused block (K = 4 clean bench batches through ``fit`` at the
+    defaults) under ``torch.profiler``: device busy time against the wall
+    clock, launches per step, kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    stream = bench_stream()
+    clean = [ds for i, ds in enumerate(stream)
+             if i not in (BENCH_NAN_AT, BENCH_BATCHES - 1)][:4]
+    net.fit(clean)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit(clean)
+        float(net.score())
+        wall = time.perf_counter() - t0
+    busy_s, launches, top = profile_table(
+        prof, out_dir, "bench_fit_profile.txt",
+        f"{card}\none fused block of {len(clean)} steps, wall {wall:.6f} s\n")
+    steps = len(clean)
+    log(f"  profiled bench fit: one K={steps} block, wall {wall:.4f} s, "
+        f"device busy {busy_s:.4f} s (idle share {1 - busy_s / wall:.3f}), "
+        f"{launches / steps:.0f} kernel launches per step; [{card}]")
+    for t in top[:6]:
+        log(f"    {t['device_ms']:9.3f} ms  x{t['count']:<6d} {t['kernel']}")
+    return dict(steps=steps, wall_s=wall, device_busy_s=busy_s,
+                idle_share=1 - busy_s / wall,
+                kernel_launches_per_step=launches / steps, top=top)
+
+
 def profile_table(prof, out_dir, fname, header):
     """Device busy seconds (sum of the device activities' self times; one
     stream, so they do not overlap), the launch count and the kernels by
@@ -2323,6 +2729,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96):
          **small_d_fields(flash, "d8_f32_causal", "d16_f32_causal",
                           "slice_f16_causal"),
          "launches_d96": launches_d96["flash_fwd"],
+         **bench_fields(flash["bench_bf16_causal"]),
          "head_dims": pad_fields(flash, PAD_DIMS, "d{}_f32_causal")},
         {"name": "paged_attn", "route": "cuda",
          "source": "deeplearning4j_torch/kernels/paged_attn.cuh",
@@ -2405,8 +2812,25 @@ def kernel_line(flash, paged, bwd, launches, launches_d96):
                                   ("f16", "slice_f16_causal"))
                 for k in ("device_ms", "bound_ms", "max_abs_err")},
              "launches_d96": launches_d96[name],
+             **bench_fields(bwd["bench_bf16_causal"], part, grads),
              "head_dims": pad_fields(bwd, PAD_DIMS, "d{}_f32_causal", part)})
     return {"kernels": line}
+
+
+def bench_fields(r, part=None, grads=None):
+    """Kernels-line fields of the JAX bench leg's bf16 training shape
+    [32, 8, 512, 32] causal: the kernel's times (``part``: the backward's
+    dq or dkv) beside its bound, the plain version's and SDPA's device
+    times, and the error against the plain version."""
+    t = r[part] if part else r
+    err = r["max_abs_err"]
+    return {"bench_bf16_ms": t["ms"], "bench_bf16_device_ms": t["device_ms"],
+            "bench_bf16_bound_ms": t["bound_ms"],
+            "bench_bf16_bound_by": t["bound_by"],
+            "bench_bf16_plain_device_ms": r["plain_device_ms"],
+            "bench_bf16_library_device_ms": r["library_device_ms"],
+            "bench_bf16_max_abs_err": (max(err[g] for g in grads)
+                                       if grads else err)}
 
 
 def pad_fields(cases, dims, pattern, part=None):
@@ -2570,9 +2994,23 @@ def main() -> int:
               for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
           f"a kernel of the d={D96} training path never launched at "
           f"d={D96}: {kernels.LAUNCHES_BY_D}")
+    del net96, cpu96
+
+    kernels.reset_launch_counts()         # the fit path starts here
+    log("phase 7c: the JAX bench leg's bf16 TransformerLM through fit at "
+        "its defaults, then the training fields")
+    bench, REPORT["bench_train"] = phase_bench_train(card)
+    REPORT["train_fields"] = phase_train_fields(numpy_params(net, seed=0),
+                                                card)
+    fitting = dict(kernels.LAUNCHES)      # ... and ends here
+    check(all(fitting[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv", "paged_attn",
+                                       "paged_attn_chunk")),
+          f"a kernel of the fit path never launched: {fitting}")
     windows = dict(serving=serving, loading=loading, fixture=fixture,
                    prefix=prefix, spec=spec, d96_serving=d96_serving,
-                   training=training, d96_training=d96_training)
+                   training=training, d96_training=d96_training,
+                   fitting=fitting)
     launches = {k: sum(w[k] for w in windows.values()) for k in serving}
     REPORT["main_path_launches"] = dict(windows, total=launches)
     check(all(n > 0 for n in launches.values()),
@@ -2581,12 +3019,15 @@ def main() -> int:
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
-        log("profile: one f32 serve, one mixed greedy/sampled serve and "
-            "five training steps under torch.profiler")
+        log("profile: one f32 serve, one mixed greedy/sampled serve, "
+            "five training steps and one fused bench block under "
+            "torch.profiler")
         REPORT["profile"] = profile_serve(net, card, args.out)
         REPORT["sampled_profile"] = profile_serve(
             loaded, card, args.out, sampled_requests(), "sampled")
         REPORT["train_profile"] = profile_train(net, card, args.out)
+        REPORT["bench_fit_profile"] = profile_bench_fit(bench, card,
+                                                        args.out)
 
     REPORT["profiler_windows"] = WINDOW_LOG
     log(f"profiler windows: {WINDOW_LOG['timings']} timings, "

@@ -10,8 +10,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_torch.nn.conf.graph_conf import (ElementWiseVertex,
-                                                     GraphBuilder)
+from deeplearning4j_torch.nn.conf.builders import NeuralNetConfiguration
+from deeplearning4j_torch.nn.conf.graph_conf import ElementWiseVertex
 from deeplearning4j_torch.nn.conf.inputs import InputType
 from deeplearning4j_torch.nn.conf.layers.attention import (
     PositionalEncodingLayer, SelfAttentionLayer)
@@ -33,26 +33,36 @@ class TransformerLM:
     with ``Adam(learning_rate=3e-4)``. ``quantize="int8"`` quantizes the
     initialized net's dense and attention weights at ``init()``
     (``optimize/quantize.py``), as the JAX ``ZooModel`` does; None (the
-    default) keeps full-precision params."""
+    default) keeps full-precision params. ``compute_dtype`` (e.g.
+    ``"bfloat16"``) is the training forward's dtype, set on the
+    configuration at ``init()`` as the JAX ``ZooModel`` sets it; ``remat``
+    recomputes the attention and FFN-expansion vertices' activations in
+    the backward."""
 
     def __init__(self, num_labels: int = 256, max_length: int = 128,
                  d_model: int = 256, n_heads: int = 8, n_blocks: int = 4,
-                 seed: int = 123, dtype: str = "float32",
+                 remat: bool = False, seed: int = 123,
+                 dtype: str = "float32", compute_dtype: Optional[str] = None,
                  max_cache: int = 512, quantize: Optional[str] = None):
         self.num_labels = num_labels
         self.max_length = max_length
         self.d_model = d_model
         self.n_heads = n_heads
         self.n_blocks = n_blocks
+        self.remat = remat
         self.seed = seed
         self.dtype = dtype
+        self.compute_dtype = compute_dtype
         self.max_cache = max_cache
         self.quantize = quantize
 
     def conf(self):
         D = self.d_model
-        g = (GraphBuilder(seed=self.seed, dtype=self.dtype)
+        g = (NeuralNetConfiguration.builder()
+             .seed(self.seed).weight_init("xavier")
              .updater(Adam(learning_rate=3e-4))
+             .dtype(self.dtype)
+             .graph_builder()
              .add_inputs("tokens")
              .set_input_types(InputType.recurrent(self.num_labels,
                                                   self.max_length)))
@@ -66,13 +76,13 @@ class TransformerLM:
                         SelfAttentionLayer(n_out=D, n_heads=self.n_heads,
                                            causal=True, helper="auto",
                                            max_cache=self.max_cache),
-                        f"ln{i}a")
+                        f"ln{i}a", remat=self.remat)
             g.add_vertex(f"res{i}a", ElementWiseVertex(op="add"),
                          x, f"attn{i}")
             g.add_layer(f"ln{i}b", LayerNormalization(), f"res{i}a")
             g.add_layer(f"ff{i}a", DenseLayer(n_out=4 * D,
                                               activation="gelu"),
-                        f"ln{i}b")
+                        f"ln{i}b", remat=self.remat)
             g.add_layer(f"ff{i}b", DenseLayer(n_out=D,
                                               activation="identity"),
                         f"ff{i}a")
@@ -91,7 +101,9 @@ class TransformerLM:
         """The initialized graph on ``device`` (CUDA unless the caller
         passes another device; raises on a host without CUDA), its weights
         int8-quantized when ``quantize`` is set."""
-        net = ComputationGraph(self.conf()).init(params, device=device)
+        c = self.conf()
+        c.compute_dtype = self.compute_dtype
+        net = ComputationGraph(c).init(params, device=device)
         if self.quantize is not None:
             from deeplearning4j_torch.optimize.quantize import quantize_net
             net = quantize_net(net, self.quantize)
@@ -104,6 +116,7 @@ def lm_stream_forward(net):
 
     def fwd(params, state, x, carry, mask=None):
         outs, new_carry, _, _ = net._forward(params, state, [x], [mask],
+                                             train=False, rng=None,
                                              carry=carry)
         return outs[0], new_carry
 

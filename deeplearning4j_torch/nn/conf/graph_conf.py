@@ -1,12 +1,14 @@
 """Graph configuration (port of the parts of
 ``deeplearning4j_tpu/nn/conf/graph_conf.py`` the TransformerLM needs): layer
-vertices, ``ElementWiseVertex(op="add")``, the configuration, a builder and
-the topological order. The dataclasses carry the JAX package's fields and
-class names, so ``to_json``/``from_json`` read and write its
-``configuration.json``."""
+vertices (with ``remat``), ``ElementWiseVertex(op="add")``, the
+configuration, a builder over the global configuration
+(``nn/conf/builders.py``) and the topological order. The dataclasses carry
+the JAX package's fields and class names, so ``to_json``/``from_json`` read
+and write its ``configuration.json``."""
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -21,16 +23,23 @@ from deeplearning4j_torch.utils.serde import register_serializable
 class GraphVertex:
     name: Optional[str] = None
 
+    def finalize(self, g=None) -> None:
+        pass
+
     def param_order(self) -> list:
         return []
 
     def init_params(self, gen, dtype, device):
         return {}
 
+    def regularization_grad(self, params):
+        return {}
+
     def output_size(self, sizes: list) -> int:
         return sizes[0]
 
-    def forward(self, params, state, inputs, *, masks=None):
+    def forward(self, params, state, inputs, *, masks=None, train=False,
+                rng=None):
         raise NotImplementedError
 
     def feed_forward_mask(self, masks):
@@ -45,13 +54,17 @@ class GraphVertex:
 @dataclass
 class LayerVertex(GraphVertex):
     """A Layer inside the graph. ``preprocessor`` is not ported (ROADMAP
-    A7) and raises where it would act; ``remat`` (recompute the vertex's
-    activations in the backward to save memory) changes no number, and the
-    port keeps the activations."""
+    A7) and raises where it would act. ``remat``: in training, the vertex's
+    internal activations are recomputed in the backward instead of stored
+    (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``); the dropout key
+    is explicit, so the recompute draws the same mask."""
 
     layer: Optional[Layer] = None
     preprocessor: Optional[object] = None
     remat: bool = False
+
+    def finalize(self, g=None) -> None:
+        self.layer.finalize(g)
 
     def param_order(self):
         return self.layer.param_order()
@@ -59,17 +72,33 @@ class LayerVertex(GraphVertex):
     def init_params(self, gen, dtype, device):
         return self.layer.init_params(gen, dtype, device)
 
+    def regularization_grad(self, params):
+        return self.layer.regularization_grad(params)
+
     def output_size(self, sizes):
         self.layer.set_n_in(sizes[0])
         return self.layer.output_size(sizes[0])
 
-    def forward(self, params, state, inputs, *, masks=None):
+    def forward(self, params, state, inputs, *, masks=None, train=False,
+                rng=None):
         if self.preprocessor is not None:
             raise NotImplementedError(
                 f"vertex '{self.name}': input preprocessors are not ported "
                 "yet (ROADMAP A7)")
         mask = masks[0] if masks else None
-        return self.layer.forward(params, state, inputs[0], mask=mask)
+        if self.remat and train:
+            from torch.utils.checkpoint import checkpoint
+
+            def run(p, xx, st, mk, k):
+                return self.layer.forward(p, st, xx, mask=mk, train=True,
+                                          rng=k)
+
+            # the port draws no number from torch's RNG, so there is no RNG
+            # state to stash for the recompute
+            return checkpoint(run, params, inputs[0], state, mask, rng,
+                              use_reentrant=False, preserve_rng_state=False)
+        return self.layer.forward(params, state, inputs[0], mask=mask,
+                                  train=train, rng=rng)
 
 
 @register_serializable
@@ -79,7 +108,8 @@ class ElementWiseVertex(GraphVertex):
 
     op: str = "add"
 
-    def forward(self, params, state, inputs, *, masks=None):
+    def forward(self, params, state, inputs, *, masks=None, train=False,
+                rng=None):
         if self.op.lower() != "add":
             raise ValueError(f"ElementWiseVertex op '{self.op}' is not "
                              "ported (only 'add')")
@@ -93,9 +123,10 @@ class ElementWiseVertex(GraphVertex):
 @dataclass
 class ComputationGraphConfiguration:
     """The finalised DAG config, with ``topo_order`` computed once at build
-    and serialized. ``backprop_type="tbptt"`` and ``pretrain`` act in
-    ``fit`` and ``compute_dtype`` in every forward; none is ported yet
-    (ROADMAP A6) and each raises there."""
+    and serialized. ``compute_dtype`` is the training forward's dtype
+    (``ComputationGraph._loss``); inference runs in ``dtype``.
+    ``backprop_type="tbptt"`` and ``pretrain`` act in ``fit``, which raises
+    on them (ROADMAP A11)."""
 
     network_inputs: list = field(default_factory=list)
     network_outputs: list = field(default_factory=list)
@@ -123,16 +154,16 @@ class ComputationGraphConfiguration:
                              "ComputationGraphConfiguration")
         return conf
 
-    def finalize(self) -> "ComputationGraphConfiguration":
-        """Fill each layer's defaults and infer every ``n_in`` from the
-        input types, in topological order (what ``build`` does; a loaded
-        configuration arrives with both already set, and is unchanged)."""
+    def finalize(self, g=None) -> "ComputationGraphConfiguration":
+        """Fill each layer's None fields from the global conf ``g`` (else
+        the defaults) and infer every ``n_in`` from the input types, in
+        topological order (what ``build`` does; a loaded configuration
+        arrives with both already set, and is unchanged)."""
         sizes = dict(zip(self.network_inputs,
                          [t.flat_size() for t in self.input_types or []]))
         for name in self.topo_order:
             v = self.vertices[name]
-            if isinstance(v, LayerVertex):
-                v.layer.finalize()
+            v.finalize(g)
             ins = [sizes.get(k) for k in self.vertex_inputs[name]]
             if all(s is not None for s in ins):
                 sizes[name] = v.output_size(ins)
@@ -140,17 +171,17 @@ class ComputationGraphConfiguration:
 
 
 class GraphBuilder:
-    """``NeuralNetConfiguration.builder().graph_builder()`` reduced to what
-    the TransformerLM conf calls."""
+    """``NeuralNetConfiguration.builder()...graph_builder()``: the DAG over
+    a global configuration, whose seed, updater, dtypes and layer defaults
+    the built configuration takes."""
 
-    def __init__(self, seed: int = 123, dtype: str = "float32"):
-        self._conf = ComputationGraphConfiguration(seed=seed, dtype=dtype)
+    def __init__(self, global_conf=None):
+        from deeplearning4j_torch.nn.conf.builders import (
+            NeuralNetConfiguration)
 
-    def updater(self, u: Updater):
-        """The updater ``fit`` trains with (JAX: the builder's
-        ``.updater(...)``)."""
-        self._conf.updater = u
-        return self
+        self._g = global_conf if global_conf is not None \
+            else NeuralNetConfiguration()
+        self._conf = ComputationGraphConfiguration()
 
     def add_inputs(self, *names):
         self._conf.network_inputs.extend(names)
@@ -162,8 +193,9 @@ class GraphBuilder:
         self._conf.input_types = list(types)
         return self
 
-    def add_layer(self, name, layer: Layer, *inputs):
-        return self.add_vertex(name, LayerVertex(layer=layer), *inputs)
+    def add_layer(self, name, layer: Layer, *inputs, remat: bool = False):
+        return self.add_vertex(name, LayerVertex(layer=layer, remat=remat),
+                               *inputs)
 
     def add_vertex(self, name, vertex: GraphVertex, *inputs):
         if name in self._conf.vertices or name in self._conf.network_inputs:
@@ -178,10 +210,15 @@ class GraphBuilder:
         return self
 
     def build(self) -> ComputationGraphConfiguration:
-        conf = self._conf
+        conf = copy.deepcopy(self._conf)
+        g = self._g
+        conf.seed = g.seed
+        conf.updater = copy.deepcopy(g.updater)
+        conf.dtype = g.dtype
+        conf.compute_dtype = g.compute_dtype
         conf.topo_order = topological_sort(conf.vertex_inputs,
                                            conf.network_inputs)
-        return conf.finalize()
+        return conf.finalize(g)
 
 
 def topological_sort(vertex_inputs: dict, network_inputs: list) -> list:

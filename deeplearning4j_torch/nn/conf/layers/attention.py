@@ -126,11 +126,13 @@ class SelfAttentionLayer(BaseLayer):
             out = out * mask.to(out.dtype)[:, :, None]
         return self.act()(out)
 
-    def forward(self, params, state, x, *, mask=None):
+    def forward(self, params, state, x, *, mask=None, train=False,
+                rng=None):
         if "kpages" in state:
             return self._paged_forward(params, state, x, mask=mask)
         if "kcache" in state:
             return self._streaming_forward(params, state, x, mask=mask)
+        x = self.apply_input_dropout(x, train=train, rng=rng)
         q = self._split_heads(self._proj(params, x, "Wq"))
         k = self._split_heads(self._proj(params, x, "Wk"))
         v = self._split_heads(self._proj(params, x, "Wv"))
@@ -375,7 +377,8 @@ class PositionalEncodingLayer(Layer):
         return {"cache_pos": torch.zeros((), dtype=torch.int32,
                                          device=device)}
 
-    def forward(self, params, state, x, *, mask=None):
+    def forward(self, params, state, x, *, mask=None, train=False,
+                rng=None):
         T, F = x.shape[-2], x.shape[-1]
         start = state.get("cache_pos")
         steps = torch.arange(T, dtype=torch.float32, device=x.device)

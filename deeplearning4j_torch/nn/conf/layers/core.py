@@ -1,4 +1,5 @@
-"""Core feed-forward layers (port of ``nn/conf/layers/core.py``): Dense."""
+"""Core feed-forward layers (port of ``nn/conf/layers/core.py``): Dense and
+the Dense + loss head ``OutputLayer``."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ from dataclasses import dataclass
 import torch
 
 from deeplearning4j_torch.nn.conf.layers.base import FeedForwardLayer
+from deeplearning4j_torch.ops.losses import get_loss
 from deeplearning4j_torch.utils.serde import register_serializable
 
 
@@ -39,5 +41,26 @@ class DenseLayer(FeedForwardLayer):
         out = torch.matmul(x, params["W"].to(x.dtype)) * scale
         return out.to(x.dtype) + params["b"]
 
-    def forward(self, params, state, x, *, mask=None):
+    def forward(self, params, state, x, *, mask=None, train=False,
+                rng=None):
+        x = self.apply_input_dropout(x, train=train, rng=rng)
         return self.act()(self.preactivate(params, x)), state
+
+
+@register_serializable
+@dataclass
+class OutputLayer(DenseLayer):
+    """Dense + loss head. The training loss is computed from this layer's
+    pre-activations, so the fused softmax/sigmoid cross-entropy forms
+    apply."""
+
+    loss: str = "mcxent"
+
+    DEFAULT_ACTIVATION = "softmax"
+
+    def loss_fn(self):
+        return get_loss(self.loss)
+
+    def compute_loss_per_example(self, params, x, labels, weights=None):
+        pre = self.preactivate(params, x)
+        return self.loss_fn().per_example(labels, pre, self.act(), weights)

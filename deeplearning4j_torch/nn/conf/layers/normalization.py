@@ -16,7 +16,8 @@ from deeplearning4j_torch.utils.serde import register_serializable
 class LayerNormalization(BaseLayer):
     """Per-example normalization over the feature (last) axis with learned
     gamma/beta: biased variance, ``eps=1e-5``, written out as the JAX layer
-    writes it so the two reduce in the same order."""
+    writes it so the two reduce in the same order. gamma and beta are never
+    regularized (no penalty, no penalty gradient), as in the JAX layer."""
 
     n_out: int = 0
     eps: float = 1e-5
@@ -38,7 +39,15 @@ class LayerNormalization(BaseLayer):
                 "beta": torch.full((self.n_out,), self.beta_init,
                                    dtype=dtype, device=device)}
 
-    def forward(self, params, state, x, *, mask=None):
+    def regularization(self, params):
+        return 0.0
+
+    def regularization_grad(self, params):
+        return {}
+
+    def forward(self, params, state, x, *, mask=None, train=False,
+                rng=None):
+        x = self.apply_input_dropout(x, train=train, rng=rng)
         mean = x.mean(dim=-1, keepdim=True)
         var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
         xhat = (x - mean) * torch.rsqrt(var + self.eps)

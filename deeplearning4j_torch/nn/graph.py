@@ -1,19 +1,23 @@
 """ComputationGraph (port of ``deeplearning4j_tpu/nn/graph.py``): parameters,
 the topological forward with an optional serving carry, ``output()``,
-streaming inference (``rnn_time_step`` over the attention layers' dense KV
-caches), ``_stream_layers``, and training: ``_loss``, ``do_step``,
-``fit``, ``score`` and the flat-parameter plumbing.
+``feed_forward``, streaming inference (``rnn_time_step`` over the attention
+layers' dense KV caches), ``_stream_layers``, and training: ``_loss`` (with
+``compute_dtype`` mixed precision and the reported L1/L2 penalty),
+``do_step``, ``fit`` at the JAX package's defaults (the fused K-step driver
+and the numerical-health guard on), listeners, ``score`` and the
+flat-parameter plumbing.
 
 Params keep the JAX pytree shape, ``{vertex_name: {param: Tensor}}``, so the
 reference's weights load unchanged (``utils/convert.py``); the updater state
 is a dict of such trees. One training step is ``build_step_core``
-(``optimize/fused_fit.py``): autograd of ``_loss``, the updater, then
-``params - steps``.
+(``optimize/fused_fit.py``): autograd of ``_loss``, the closed-form
+regularization gradients, the finite check (guarded), gradient
+normalization, the updater with per-layer learning rates, then ``params -
+steps``. ``compute_dtype`` acts only in ``_loss``: ``output()``,
+``rnn_time_step`` and the servers run in the parameter dtype, as JAX's do.
 
-``fit`` in this port is JAX's ``fit(..., fused_steps=1,
-health_guard=None)``: the fused K-step driver and the numerical-health
-guard are ROADMAP §A5, TBPTT, layer-wise pretraining, ``compute_dtype`` and
-MultiDataSet are not ported (ROADMAP §A6) and raise.
+Not ported: TBPTT and layer-wise pretraining (ROADMAP A11); ``fit`` raises
+on them.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ import torch
 
 from deeplearning4j_torch import resolve_device
 from deeplearning4j_torch.nn.conf.graph_conf import (
-    ComputationGraphConfiguration)
+    ComputationGraphConfiguration, LayerVertex)
+from deeplearning4j_torch.nn.regularization import penalty_value
+from deeplearning4j_torch.ops import random
 from deeplearning4j_torch.utils.pytree import (flatten_params,
                                                unflatten_params)
 
@@ -43,6 +49,11 @@ def _as_list(x):
     return [x]
 
 
+def _has_loss_head(v) -> bool:
+    return isinstance(v, LayerVertex) and hasattr(v.layer,
+                                                  "compute_loss_per_example")
+
+
 class ComputationGraph:
     def __init__(self, conf: ComputationGraphConfiguration):
         self.conf = conf
@@ -51,21 +62,28 @@ class ComputationGraph:
         self.updater_state: dict = {}
         self.iteration = 0
         self.epoch = 0
-        # the last step's loss, a device tensor: reading it is the sync
+        self.listeners: list = []
+        # the last step's loss: a device tensor after an unwatched step
+        # (reading it is the sync), a host value where listeners or the
+        # health guard fetched it
         self.score_value = float("nan")
         self.device: Optional[torch.device] = None
-        self._step = None
+        # the active health policy (optimize/health.py), set by fit()
+        self._health = None
+        self._base_key = None             # cached PRNGKey(seed), _rng_base
+        self._base_key_seed = None
+        self._step_cache: dict = {}
         self._rnn_state: Optional[dict] = None
         self._stream_pos = 0              # tokens consumed this stream
         self._stream_capacity = None      # min attention max_cache, if any
 
     def init(self, params: Optional[dict] = None, *,
              device=None) -> "ComputationGraph":
-        """Draw the weights (xavier from a CPU ``torch.Generator`` seeded
-        with ``conf.seed``, so the draw is the same on every device) or take
-        ``params``, and home them on ``device`` (CUDA unless the caller
-        passes another device). The updater state starts from
-        ``conf.updater.init``."""
+        """Draw the weights (each layer's ``weight_init`` from a CPU
+        ``torch.Generator`` seeded with ``conf.seed``, so the draw is the
+        same on every device) or take ``params``, and home them on
+        ``device`` (CUDA unless the caller passes another device). The
+        updater state starts from ``conf.updater.init``."""
         self.device = resolve_device(device)
         dtype = getattr(torch, self.conf.dtype)
         if params is None:
@@ -77,45 +95,69 @@ class ComputationGraph:
                        for name, p in params.items()}
         self.state = {name: {} for name in self.conf.topo_order}
         self.updater_state = self.conf.updater.init(self.params)
+        self._step_cache.clear()
         return self
 
-    def _forward(self, params, state, inputs, masks, *, carry=None,
-                 collect_loss_inputs=False):
+    def _forward(self, params, state, inputs, masks, *, train=False,
+                 rng=None, carry=None, collect_loss_inputs=False):
         """Traverse the DAG in topo order. Returns (outputs list, new_carry,
         output masks list, loss_inputs), where ``loss_inputs[name]`` is the
         input of each output vertex with a loss head (what its loss
-        consumes), filled when ``collect_loss_inputs``."""
+        consumes), filled when ``collect_loss_inputs``; such a vertex's own
+        forward is then not run (the loss recomputes its pre-activations),
+        unless another vertex reads its output. With ``rng`` (a ``[2]``
+        key) vertex i of the topo order gets key i of ``split(rng, n)``,
+        as the JAX forward hands them out."""
         conf = self.conf
-        if conf.compute_dtype is not None:
-            raise NotImplementedError(
-                f"compute_dtype={conf.compute_dtype!r}: mixed precision is "
-                "not ported yet (ROADMAP §A6)")
         acts = dict(zip(conf.network_inputs, inputs))
         act_masks = dict(zip(conf.network_inputs,
                              masks or [None] * len(inputs)))
+        keys = (random.split(rng, max(len(conf.topo_order), 1))
+                if rng is not None else None)
+        read = {i for ins in conf.vertex_inputs.values() for i in ins}
         new_carry: dict = {}
         loss_inputs: dict = {}
-        for name in conf.topo_order:
+        for i, name in enumerate(conf.topo_order):
             v = conf.vertices[name]
             v_in = [acts[k] for k in conf.vertex_inputs[name]]
             v_masks = [act_masks.get(k) for k in conf.vertex_inputs[name]]
+            act_masks[name] = v.feed_forward_mask(v_masks)
             if (collect_loss_inputs and name in conf.network_outputs
-                    and hasattr(getattr(v, "layer", None),
-                                "compute_loss_per_example")):
+                    and _has_loss_head(v)):
                 loss_inputs[name] = v_in[0]
+                if name not in read:
+                    acts[name] = None
+                    continue
             vertex_state = dict(state.get(name, {}))
             if carry is not None and name in carry:
                 vertex_state.update(carry[name])
             out, ns = v.forward(params.get(name, {}), vertex_state, v_in,
-                                masks=v_masks)
+                                masks=v_masks, train=train,
+                                rng=None if keys is None else keys[i])
             c = {k: t for k, t in ns.items() if k in _CARRY_KEYS}
             if c:
                 new_carry[name] = c
             acts[name] = out
-            act_masks[name] = v.feed_forward_mask(v_masks)
         outs = [acts[o] for o in conf.network_outputs]
         out_masks = [act_masks.get(o) for o in conf.network_outputs]
         return outs, new_carry, out_masks, loss_inputs
+
+    def feed_forward(self, *inputs, train: bool = False):
+        """Every vertex's activation as ``{name: tensor}`` (no key, so
+        ``train=True`` draws no dropout, as in JAX)."""
+        conf = self.conf
+        dtype = getattr(torch, conf.dtype)
+        acts = {k: self._as_tensor(a, dtype)
+                for k, a in zip(conf.network_inputs, inputs)}
+        with torch.no_grad():
+            for name in conf.topo_order:
+                v = conf.vertices[name]
+                out, _ = v.forward(self.params.get(name, {}),
+                                   self.state.get(name, {}),
+                                   [acts[k] for k in conf.vertex_inputs[name]],
+                                   masks=None, train=train)
+                acts[name] = out
+        return acts
 
     def _as_tensor(self, a, dtype=None):
         t = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a)
@@ -139,9 +181,10 @@ class ComputationGraph:
 
     @torch.inference_mode()
     def output(self, *inputs, masks=None):
-        """Output-vertex activations; a single output returns the bare
-        tensor. Inputs may be numpy arrays or tensors; they are moved to the
-        net's device."""
+        """Output-vertex activations, in the parameter dtype whatever
+        ``compute_dtype`` says; a single output returns the bare tensor.
+        Inputs may be numpy arrays or tensors; they are moved to the net's
+        device."""
         dtype = getattr(torch, self.conf.dtype)
         xs = [self._as_tensor(a, dtype) for a in inputs]
         ms = ([None if m is None else self._as_tensor(m, torch.float32)
@@ -151,16 +194,36 @@ class ComputationGraph:
         return outs[0] if len(outs) == 1 else outs
 
     # ------------------------------------------------------------- training
-    def _loss(self, params, state, x, y, input_mask, label_mask):
+    def _loss(self, params, state, x, y, input_mask, label_mask, *,
+              train=False, rng=None, carry=None):
         """The training loss (JAX ``_loss``): each output vertex's per-example
         loss, averaged over its label mask (else the propagated output mask,
-        else a plain mean), summed over the outputs. Returns a 0-d tensor."""
+        else a plain mean), summed over the outputs, plus the L1/L2 penalty
+        value (reported, not differentiated: the step adds its closed-form
+        gradient). Under ``compute_dtype`` every vertex but the outputs and
+        the inputs compute in that dtype (the casts inside the autograd
+        graph, so the gradients come back in the parameter dtype) and the
+        loss heads take their inputs back in the parameter dtype. Returns
+        ``(loss, (new_state, new_carry))``."""
         conf = self.conf
         xs, ys = _as_list(x), _as_list(y)
         ims = _as_list(input_mask) or [None] * len(xs)
         lms = _as_list(label_mask) or [None] * len(ys)
-        _, _, out_masks, loss_inputs = self._forward(
-            params, state, xs, ims, collect_loss_inputs=True)
+        cd = conf.compute_dtype
+        fwd_params = params
+        if cd is not None:
+            cdt = getattr(torch, cd)
+            outs_set = set(conf.network_outputs)
+            fwd_params = {k: (v if k in outs_set
+                              else {n: t.to(cdt) for n, t in v.items()})
+                          for k, v in params.items()}
+            xs = [a.to(cdt) for a in xs]
+        _, new_carry, out_masks, loss_inputs = self._forward(
+            fwd_params, state, xs, ims, train=train, rng=rng, carry=carry,
+            collect_loss_inputs=True)
+        if cd is not None:
+            pdt = getattr(torch, conf.dtype)
+            loss_inputs = {k: v.to(pdt) for k, v in loss_inputs.items()}
         total = 0.0
         for j, name in enumerate(conf.network_outputs):
             if name not in loss_inputs:
@@ -173,74 +236,190 @@ class ComputationGraph:
                 total = total + (per_ex * lm).sum() / lm.sum().clamp_min(1.0)
             else:
                 total = total + per_ex.mean()
-        return total
+        return total + penalty_value(self, params), (state, new_carry)
 
-    def _get_step(self):
-        if self._step is None:
+    def _lr_mult_tree(self):
+        """Per-leaf learning-rate multipliers from the layers'
+        ``learning_rate``/``bias_learning_rate`` over the updater's base
+        rate, or None when no layer overrides it (JAX ``_lr_mult_tree``)."""
+        base_lr = getattr(self.conf.updater, "learning_rate", None)
+        if not base_lr:
+            return None
+        any_override = False
+        tree: dict = {}
+        for name in self.conf.topo_order:
+            v = self.conf.vertices[name]
+            layer = v.layer if isinstance(v, LayerVertex) else None
+            layer_lr = getattr(layer, "learning_rate", None)
+            bias_lr = getattr(layer, "bias_learning_rate", None)
+            biases = (layer.bias_param_names()
+                      if hasattr(layer, "bias_param_names") else frozenset())
+            leaf = {}
+            for pname in self.params.get(name, {}):
+                lr = (bias_lr if (pname in biases and bias_lr is not None)
+                      else layer_lr)
+                leaf[pname] = (lr / base_lr) if lr is not None else 1.0
+                if lr is not None:
+                    any_override = True
+            tree[name] = leaf
+        return tree if any_override else None
+
+    def _rng_base(self):
+        """``PRNGKey(conf.seed)`` on the net's device, cached."""
+        if self._base_key is None or self._base_key_seed != self.conf.seed \
+                or self._base_key.device != self.device:
+            self._base_key = random.PRNGKey(self.conf.seed,
+                                            device=self.device)
+            self._base_key_seed = self.conf.seed
+        return self._base_key
+
+    def _step_rng(self, iteration: int):
+        """The step's key, ``fold_in(PRNGKey(seed), iteration)`` as JAX
+        folds it, or None when no vertex draws from it (no dropout): the
+        key changes nothing then, and the threefry launches are saved."""
+        if not any((getattr(getattr(v, "layer", None), "dropout", 0) or 0)
+                   > 0 for v in self.conf.vertices.values()):
+            return None
+        return random.fold_in(self._rng_base(), iteration)
+
+    def _get_step(self, key):
+        """The cached step function for ``key``: ``("step", guarded)`` the
+        per-minibatch core, ``("fused", K, guarded)`` the K-step block."""
+        if key not in self._step_cache:
             from deeplearning4j_torch.optimize.fused_fit import (
-                build_step_core)
+                build_fused_step, build_step_core)
 
-            self._step = build_step_core(self)
-        return self._step
+            if key[0] == "fused":
+                self._step_cache[key] = build_fused_step(self,
+                                                         guarded=key[-1])
+            else:
+                self._step_cache[key] = build_step_core(self,
+                                                        guarded=key[-1])
+        return self._step_cache[key]
 
-    def do_step(self, xs, ys, input_masks=None, label_masks=None):
-        """One training iteration; returns ``(loss, new_carry)`` with the
-        loss a device tensor (no host sync) and no carry (``{}``)."""
+    def do_step(self, xs, ys, input_masks=None, label_masks=None,
+                carry=None):
+        """One training iteration; returns ``(loss, new_carry)``, the loss a
+        device tensor (no host sync unless the health guard is on, which
+        fetches the loss and the skip flag to observe them)."""
         xs, ys, ims, lms = self._batch(xs, ys, input_masks, label_masks)
-        (self.params, self.updater_state, self.state,
-         loss) = self._get_step()(self.params, self.updater_state,
-                                  self.state, self.iteration, xs, ys, ims,
-                                  lms)
+        health = self._health
+        guarded = health is not None
+        step = self._get_step(("step", guarded))
+        out = step(self.params, self.updater_state, self.state,
+                   self._step_rng(self.iteration), self.iteration, xs, ys,
+                   ims, lms, carry)
+        if guarded:
+            (self.params, self.updater_state, self.state, new_carry, loss,
+             skip) = out
+        else:
+            self.params, self.updater_state, self.state, new_carry, loss = out
         self.iteration += 1
         self.score_value = loss
-        return self.score_value, {}
+        it_done = self.iteration
+        if guarded:
+            # observe before the listeners: gated checkpointers read this
+            # step's skip state
+            score_h, skip_h = torch.stack(
+                [loss.float(), skip]).cpu().numpy()
+            health.observe(self, score_h, skip_h, it_done - 1)
+        for listener in self.listeners:
+            listener.iteration_done(self, it_done)
+        return self.score_value, new_carry
 
     def fit(self, data, labels=None, epochs: int = 1, *,
-            fused_steps: Optional[int] = None, health_guard=None):
-        """Train on a DataSet or an iterable of DataSets, one ``do_step``
-        per batch (JAX ``fit(..., fused_steps=1, health_guard=None)``). An
-        iterable counts ``epoch`` up once per pass. The fused K-step driver
-        and the health guard are not ported (ROADMAP §A5): any other
-        ``fused_steps`` or a health policy raises."""
-        from deeplearning4j_torch.datasets.dataset import DataSet
+            fused_steps: Optional[int] = None, prefetch_depth: int = 2,
+            health_guard=True):
+        """Train on a DataSet, a MultiDataSet or an iterable of either (JAX
+        ``fit``, with its defaults).
 
-        if fused_steps not in (None, 1):
-            raise NotImplementedError(
-                f"fused_steps={fused_steps}: the fused K-step driver is not "
-                "ported yet (ROADMAP §A5); use fused_steps=None or 1")
-        if health_guard not in (None, False):
-            raise NotImplementedError(
-                "health_guard: the numerical-health guard is not ported yet "
-                "(ROADMAP §A5); pass None or False")
+        DataSet streams take the fused K-step driver
+        (``optimize/fused_fit.py``; ``fused_steps=None`` is 4 on CUDA and 2
+        on the CPU, ``fused_steps=1`` opts out); MultiDataSet batches take
+        the per-minibatch path. ``health_guard`` (default on): the device
+        skip of non-finite steps and the host recovery ladder
+        (``optimize/health.py``); ``None``/``False`` turn it off, a
+        ``HealthPolicy`` configures it. An iterable counts ``epoch`` up
+        once per pass and fires the listeners' ``on_epoch_start`` and
+        ``on_epoch_end``. TBPTT and layer-wise pretraining raise (ROADMAP
+        A11)."""
+        from deeplearning4j_torch.datasets.dataset import (DataSet,
+                                                           MultiDataSet)
+        from deeplearning4j_torch.optimize.fused_fit import (
+            FusedFitDriver, resolve_fused_steps)
+        from deeplearning4j_torch.optimize.health import (
+            resolve_health_policy)
+
         if self.conf.backprop_type != "standard" or self.conf.pretrain:
             raise NotImplementedError(
                 f"backprop_type={self.conf.backprop_type!r}, pretrain="
                 f"{self.conf.pretrain}: TBPTT and layer-wise pretraining are "
-                "not ported yet (ROADMAP §A6)")
+                "not ported yet (ROADMAP A11)")
         if labels is not None:
             data = DataSet(data, labels)
-        if isinstance(data, DataSet):
+        K = resolve_fused_steps(self, fused_steps)
+        policy = resolve_health_policy(health_guard)
+        prev_health = self._health
+        if policy is not None:
+            policy.bind(self)
+        self._health = policy
+        try:
+            if isinstance(data, (DataSet, MultiDataSet)):
+                if K > 1 and epochs > 1 and isinstance(data, DataSet):
+                    # repeated single-batch fit: the epochs loop is fused
+                    # (this path fires no epoch listeners)
+                    FusedFitDriver(self, K, prefetch_depth).fit_stream(
+                        data for _ in range(epochs))
+                    return self
+                for _ in range(epochs):
+                    self._fit_batch(data)
+                return self
+            driver = (FusedFitDriver(self, K, prefetch_depth)
+                      if K > 1 else None)
             for _ in range(epochs):
-                self._fit_batch(data)
+                for listener in self.listeners:
+                    listener.on_epoch_start(self)
+                if hasattr(data, "reset"):
+                    data.reset()
+                if driver is not None:
+                    driver.fit_stream(iter(data))
+                else:
+                    for ds in data:
+                        self._fit_batch(ds)
+                for listener in self.listeners:
+                    listener.on_epoch_end(self)
+                self.epoch += 1
             return self
-        for _ in range(epochs):
-            if hasattr(data, "reset"):
-                data.reset()
-            for ds in data:
-                self._fit_batch(ds)
-            self.epoch += 1
-        return self
+        finally:
+            self._health = prev_health
 
     def _fit_batch(self, ds):
+        from deeplearning4j_torch.datasets.dataset import MultiDataSet
+
+        if isinstance(ds, MultiDataSet):
+            self.do_step(ds.features, ds.labels,
+                         ds.features_masks if any(
+                             m is not None for m in ds.features_masks)
+                         else None,
+                         ds.labels_masks if any(
+                             m is not None for m in ds.labels_masks)
+                         else None)
+            return
         self.do_step(ds.features, ds.labels, ds.features_mask,
                      ds.labels_mask)
 
     def score(self, ds=None, x=None, y=None) -> float:
-        """The last step's loss as a host float, or the loss of ``ds`` (or
-        ``x``, ``y``) at the current parameters."""
+        """The last step's loss as a host float, or the loss of ``ds`` (a
+        DataSet or MultiDataSet; or ``x``, ``y``) at the current
+        parameters."""
+        from deeplearning4j_torch.datasets.dataset import MultiDataSet
+
         if ds is None and x is None:
             return float(self.score_value)
-        if ds is not None:
+        if isinstance(ds, MultiDataSet):
+            x, y = ds.features, ds.labels
+            im, lm = ds.features_masks, ds.labels_masks
+        elif ds is not None:
             x, y = ds.features, ds.labels
             im, lm = ds.features_mask, ds.labels_mask
         else:
@@ -248,7 +427,15 @@ class ComputationGraph:
         xs, ys, ims, lms = self._batch(x, y, im, lm)
         with torch.no_grad():
             return float(self._loss(self.params, self.state, xs, ys, ims,
-                                    lms))
+                                    lms)[0])
+
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+        return self
+
+    def add_listener(self, listener):
+        self.listeners.append(listener)
+        return self
 
     # ------------------------------------------------------- params plumbing
     def params_flat(self) -> np.ndarray:
@@ -298,7 +485,7 @@ class ComputationGraph:
         """Streaming inference with persistent state (JAX
         ``ComputationGraph.rnn_time_step``): each call consumes the next
         chunk of time steps (a 2-D input is one step) and returns the
-        output for it; ``rnn_clear_previous_state`` starts a new stream."""
+        output for it, in the parameter dtype; ``rnn_clear_previous_state`` starts a new stream."""
         dtype = getattr(torch, self.conf.dtype)
         xs = []
         squeeze = False
@@ -320,8 +507,8 @@ class ComputationGraph:
                 "rnn_clear_previous_state()")
         self._stream_pos += T_in
         outs, new_carry, _, _ = self._forward(
-            self.params, self.state, xs, [None] * len(xs),
-            carry=self._rnn_state)
+            self.params, self.state, xs, [None] * len(xs), train=False,
+            rng=None, carry=self._rnn_state)
         self._rnn_state = new_carry
         outs = [o[:, 0] if squeeze and o.dim() == 3 else o for o in outs]
         return outs[0] if len(outs) == 1 else outs

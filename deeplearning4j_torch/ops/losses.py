@@ -3,11 +3,10 @@
 Semantics follow the JAX package: the per-example loss is the SUM over
 output units; the reported score is the MEAN over (unmasked) examples. A
 loss takes ``(labels, preactivations, activation, weights)`` so that the
-fused forms can be used (softmax + cross entropy as one log-softmax).
-
-Only the loss the TransformerLM slice trains with is ported: ``mcxent``.
-``get_loss`` raises on any other name; the rest of the JAX registry is
-ROADMAP §A6.
+fused forms can be used (softmax + cross entropy as one log-softmax,
+sigmoid + binary cross entropy in the stable form). Every loss of the JAX
+registry is here under its names; probabilities taken from an activation
+are clipped as JAX clips them (``_EPS``).
 """
 
 from __future__ import annotations
@@ -46,6 +45,12 @@ class LossFunction:
     def __repr__(self):  # pragma: no cover
         return f"LossFunction({self.name})"
 
+    def __eq__(self, other):
+        return isinstance(other, LossFunction) and other.name == self.name
+
+    def __hash__(self):
+        return hash(self.name)
+
 
 def _register(name: str, fn) -> LossFunction:
     loss = LossFunction(name, fn)
@@ -58,9 +63,8 @@ def get_loss(name) -> LossFunction:
         return name
     key = str(name).lower()
     if key not in _REGISTRY:
-        raise ValueError(f"loss '{name}' is not ported (ported: "
-                         f"{sorted(_REGISTRY)}; the rest of the JAX "
-                         "registry is ROADMAP §A6)")
+        raise ValueError(f"Unknown loss '{name}'. Known: "
+                         f"{sorted(_REGISTRY)}")
     return _REGISTRY[key]
 
 
@@ -80,4 +84,110 @@ def _mcxent(labels, preact, activation, weights):
     return -_apply_weights(labels * logp, weights).sum(dim=-1)
 
 
+def _xent(labels, preact, activation, weights):
+    """Binary cross entropy (per unit), in the stable fused form
+    ``max(x, 0) - x·z + log1p(exp(-|x|))`` under a sigmoid output."""
+    if activation.name == "sigmoid":
+        x = preact
+        per = (torch.clamp(x, min=0.0) - x * labels
+               + torch.log1p(torch.exp(-torch.abs(x))))
+    else:
+        p = torch.clamp(activation(preact), _EPS, 1.0 - _EPS)
+        per = -(labels * torch.log(p) + (1.0 - labels) * torch.log(1.0 - p))
+    return _apply_weights(per, weights).sum(dim=-1)
+
+
+def _mse(labels, preact, activation, weights):
+    out = activation(preact)
+    return (_apply_weights((labels - out) ** 2, weights).sum(dim=-1)
+            / labels.shape[-1])
+
+
+def _sse(labels, preact, activation, weights):
+    out = activation(preact)
+    return _apply_weights((labels - out) ** 2, weights).sum(dim=-1)
+
+
+def _mae(labels, preact, activation, weights):
+    out = activation(preact)
+    return (_apply_weights(torch.abs(labels - out), weights).sum(dim=-1)
+            / labels.shape[-1])
+
+
+def _l1(labels, preact, activation, weights):
+    out = activation(preact)
+    return _apply_weights(torch.abs(labels - out), weights).sum(dim=-1)
+
+
+def _mape(labels, preact, activation, weights):
+    out = activation(preact)
+    denom = torch.where(torch.abs(labels) < _EPS,
+                        torch.full_like(labels, _EPS), labels)
+    per = torch.abs((labels - out) / denom) * 100.0
+    return _apply_weights(per, weights).sum(dim=-1) / labels.shape[-1]
+
+
+def _msle(labels, preact, activation, weights):
+    out = activation(preact)
+    per = (torch.log1p(torch.clamp(out, min=-1.0 + _EPS))
+           - torch.log1p(torch.clamp(labels, min=-1.0 + _EPS))) ** 2
+    return _apply_weights(per, weights).sum(dim=-1) / labels.shape[-1]
+
+
+def _kld(labels, preact, activation, weights):
+    out = torch.clamp(activation(preact), _EPS, 1.0)
+    lab = torch.clamp(labels, _EPS, 1.0)
+    per = lab * (torch.log(lab) - torch.log(out))
+    return _apply_weights(per, weights).sum(dim=-1)
+
+
+def _nll(labels, preact, activation, weights):
+    # the reference aliases NEGATIVELOGLIKELIHOOD to MCXENT
+    return _mcxent(labels, preact, activation, weights)
+
+
+def _poisson(labels, preact, activation, weights):
+    out = torch.clamp(activation(preact), min=_EPS)
+    per = out - labels * torch.log(out)
+    return _apply_weights(per, weights).sum(dim=-1)
+
+
+def _cosine(labels, preact, activation, weights):
+    out = activation(preact)
+    dot = (out * labels).sum(dim=-1)
+    norm = (torch.linalg.vector_norm(out, dim=-1)
+            * torch.linalg.vector_norm(labels, dim=-1))
+    return 1.0 - dot / torch.clamp(norm, min=_EPS)
+
+
+def _hinge(labels, preact, activation, weights):
+    # labels in {-1, +1}
+    out = activation(preact)
+    return _apply_weights(torch.clamp(1.0 - labels * out, min=0.0),
+                          weights).sum(dim=-1)
+
+
+def _squared_hinge(labels, preact, activation, weights):
+    out = activation(preact)
+    return _apply_weights(torch.clamp(1.0 - labels * out, min=0.0) ** 2,
+                          weights).sum(dim=-1)
+
+
 MCXENT = _register("mcxent", _mcxent)
+NEGATIVELOGLIKELIHOOD = _register("negativeloglikelihood", _nll)
+XENT = _register("xent", _xent)
+MSE = _register("mse", _mse)
+SQUARED_LOSS = _register("squared_loss", _sse)
+MEAN_ABSOLUTE_ERROR = _register("mean_absolute_error", _mae)
+L1 = _register("l1", _l1)
+L2 = _register("l2", _sse)
+MEAN_ABSOLUTE_PERCENTAGE_ERROR = _register("mean_absolute_percentage_error",
+                                           _mape)
+MEAN_SQUARED_LOGARITHMIC_ERROR = _register("mean_squared_logarithmic_error",
+                                           _msle)
+KL_DIVERGENCE = _register("kl_divergence", _kld)
+RECONSTRUCTION_CROSSENTROPY = _register("reconstruction_crossentropy", _xent)
+POISSON = _register("poisson", _poisson)
+COSINE_PROXIMITY = _register("cosine_proximity", _cosine)
+HINGE = _register("hinge", _hinge)
+SQUARED_HINGE = _register("squared_hinge", _squared_hinge)

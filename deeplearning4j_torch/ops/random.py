@@ -1,6 +1,7 @@
 """The parts of ``jax.random`` that the JAX package's sampling calls, in
 torch: threefry2x32 keys (``PRNGKey``, ``fold_in``, ``split``), raw bits,
-``uniform``, ``gumbel`` and ``categorical`` (the Gumbel-argmax).
+``uniform``, ``bernoulli`` (dropout masks), ``gumbel`` and ``categorical``
+(the Gumbel-argmax).
 
 A key is an int64 tensor ``[..., 2]`` holding the two uint32 words of JAX's
 ``uint32[2]`` key; every word is kept in ``[0, 2^32)`` by masking after each
@@ -22,6 +23,9 @@ seed:
   draws keep the low bits;
 - ``uniform`` builds floats from the top mantissa bits as JAX's
   ``_uniform`` does (bf16, with 7 mantissa bits, draws 8-bit words);
+- ``bernoulli`` is ``uniform(key, shape, dtype of p) < p``; a Python
+  float ``p`` has JAX's default float dtype, f64 under 64-bit types, so
+  its uniform takes 64-bit words (the two hash words, high then low);
 - ``gumbel`` is JAX's default ``mode="low"``, ``-log(-log(u))`` with ``u``
   uniform on ``[tiny, 1)``, as XLA compiles it on the CPU. Its logarithm
   is XLA's (``_xla_log``: the Cephes polynomial with fused multiply-adds,
@@ -138,6 +142,20 @@ def uniform(key: torch.Tensor, shape=(), dtype=torch.float32,
     lo = torch.tensor(minval, dtype=dtype, device=key.device)
     hi = torch.tensor(maxval, dtype=dtype, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (``mode="low"``) for one
+    ``[2]`` key and a Python-float ``p``: a bool tensor, True where an f64
+    uniform draw is below ``p`` (JAX gives a Python float its default
+    dtype, f64 under 64-bit types, as the keys here follow). The f64
+    uniform is the top 52 bits of the 64-bit word ``(o1 << 32) | o2`` over
+    2^52, compared in f64 on the key's device."""
+    shape = tuple(int(s) for s in shape)
+    hi, lo = _counters(shape, key.device)
+    o1, o2 = threefry2x32(key[0], key[1], hi, lo)
+    top = (o1 << 20) | (o2 >> 12)
+    return top.to(torch.float64) * 2.0 ** -52 < float(p)
 
 
 def _f32(x: float) -> float:

@@ -32,6 +32,7 @@ def register_serializable(cls):
 def _ensure_registry() -> None:
     """Import every module that registers classes, so a process whose first
     call is ``load_model`` knows them all."""
+    import deeplearning4j_torch.nn.conf.builders  # noqa: F401
     import deeplearning4j_torch.nn.conf.graph_conf  # noqa: F401
     import deeplearning4j_torch.nn.conf.inputs  # noqa: F401
     import deeplearning4j_torch.nn.conf.layers.attention  # noqa: F401
@@ -39,6 +40,7 @@ def _ensure_registry() -> None:
     import deeplearning4j_torch.nn.conf.layers.normalization  # noqa: F401
     import deeplearning4j_torch.nn.conf.layers.recurrent  # noqa: F401
     import deeplearning4j_torch.nn.updater  # noqa: F401
+    import deeplearning4j_torch.nn.weights  # noqa: F401
 
 
 def to_jsonable(obj: Any) -> Any:

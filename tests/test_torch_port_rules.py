@@ -10,8 +10,10 @@
   4, f64); the cases they take (head dims 4..128 that are multiples of 4;
   f32, bf16 and f16 for K1/K3/K4, and those queries over pages of their
   dtype or int8 for K2) reach the kernels' build;
-- ``fit`` refuses what the port does not have yet (the fused K-step driver,
-  the health guard, regularization) instead of training without it.
+- ``fit`` refuses what the port does not have yet (TBPTT, layer-wise
+  pretraining, the CenterLoss head) instead of training without it, and
+  trains as the JAX package does what it has: the fused K-step driver, the
+  health guard and L2 regularization (held to JAX's ``fit`` here).
 """
 
 import ast
@@ -74,7 +76,11 @@ def test_port_imports_no_jax():
             "optimize/fused_fit.py", "utils/convert.py",
             "parallel/handoff.py", "parallel/resilience.py",
             "parallel/runtime.py", "metrics/registry.py",
-            "metrics/exposition.py", "metrics/__init__.py"} <= names
+            "metrics/exposition.py", "metrics/__init__.py",
+            "optimize/health.py", "optimize/listeners.py",
+            "parallel/elastic.py", "nn/regularization.py",
+            "nn/gradient_normalization.py", "nn/weights.py",
+            "nn/conf/builders.py", "datasets/iterators.py"} <= names
     bad = [(str(p.relative_to(ROOT)), mod) for p in files
            for mod in _imported_roots(p) if mod in FORBIDDEN]
     assert bad == []
@@ -149,24 +155,123 @@ def test_flash_backward_refuses_unsupported_cases(case, monkeypatch):
             fa.flash_attention_backward(q, q, q, q, lse, q)
 
 
-@pytest.mark.parametrize("kw", [dict(fused_steps=2),
-                                dict(health_guard=True),
-                                dict(health_guard=object())],
-                         ids=["fused2", "guard_on", "guard_policy"])
-def test_fit_refuses_what_is_not_ported(kw):
+@pytest.mark.parametrize("what", ["tbptt", "pretrain", "center_loss"])
+def test_fit_refuses_what_is_not_ported(what):
+    """TBPTT and layer-wise pretraining (ROADMAP A11) and the CenterLoss
+    head's center update (A7) raise, naming their item, before a step."""
     net = TransformerLM(**TINY).init(device="cpu")
     x = np.eye(11, dtype=np.float32)[np.arange(8) % 11][None]
-    with pytest.raises(NotImplementedError, match="ROADMAP §A5"):
-        net.fit(x, x, **kw)
+    item = "A11"
+    if what == "tbptt":
+        net.conf.backprop_type = "tbptt"
+    elif what == "pretrain":
+        net.conf.pretrain = True
+    else:
+        net.conf.vertices["output"].layer.__class__ = type(
+            "CenterLossOutputLayer",
+            (type(net.conf.vertices["output"].layer),), {})
+        item = "A7"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        net.fit(x, x)
     assert net.iteration == 0
 
 
-def test_step_refuses_regularization():
-    net = TransformerLM(**TINY).init(device="cpu")
-    net.conf.vertices["ff0a"].layer.l2 = 1e-4
-    x = np.eye(11, dtype=np.float32)[np.arange(8) % 11][None]
-    with pytest.raises(NotImplementedError, match="ROADMAP §A6"):
-        net.do_step(x, x)
+def _jax_and_port(updater=None, l2=None):
+    """A JAX and a port TINY TransformerLM on the JAX net's weights (Sgd
+    with ``updater``'s rate, and L2 on the FFN layers, when given)."""
+    import jax
+
+    from deeplearning4j_tpu.models.zoo import TransformerLM as JaxLM
+    from deeplearning4j_tpu.nn import updater as jup
+    from deeplearning4j_tpu.nn.graph import ComputationGraph as JaxGraph
+    from deeplearning4j_torch.nn import updater as tup
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+    from deeplearning4j_torch.utils.convert import params_from_jax
+
+    kw = {k: v for k, v in TINY.items() if k != "max_cache"}
+    jconf, tconf = JaxLM(**kw).conf(), TransformerLM(**TINY).conf()
+    if updater is not None:
+        jconf.updater = jup.Sgd(learning_rate=updater)
+        tconf.updater = tup.Sgd(learning_rate=updater)
+    for c in (jconf, tconf):
+        for name, v in c.vertices.items():
+            if l2 is not None and name.startswith("ff"):
+                v.layer.l2 = l2
+    j = JaxGraph(jconf).init()
+    t = ComputationGraph(tconf).init(device="cpu")
+    params_from_jax(jax.device_get(j.params), t)
+    return j, t
+
+
+def _stream(n, nan_at=None):
+    rs = np.random.RandomState(21)
+    tok = rs.randint(0, 11, (n, 2, 9))
+    eye = np.eye(11, dtype=np.float32)
+    out = []
+    for i in range(n):
+        x, y = eye[tok[i, :, :-1]], eye[tok[i, :, 1:]]
+        if i == nan_at:
+            x = x.copy()
+            x[0, 0, 0] = np.nan
+        out.append((x, y))
+    return out
+
+
+@pytest.mark.parametrize("kw", ["fused2", "guard_on", "guard_policy"])
+def test_fit_options_match_jax(kw):
+    """What the refusals stood for: ``fused_steps=2``, ``health_guard=True``
+    and a ``HealthPolicy`` train as JAX's ``fit`` with the same options
+    (a NaN batch mid-stream under the guard), losses and params within
+    1e-5."""
+    import jax
+
+    from deeplearning4j_tpu.datasets.dataset import DataSet as JaxDataSet
+    from deeplearning4j_tpu.optimize.health import HealthPolicy as JaxPolicy
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.optimize.health import HealthPolicy
+    from deeplearning4j_torch.utils.convert import params_to_numpy
+
+    j, t = _jax_and_port(updater=0.1)
+    nan_at = None if kw == "fused2" else 1
+    batches = _stream(4, nan_at)
+    opts = {"fused2": (dict(fused_steps=2, health_guard=None),) * 2,
+            "guard_on": (dict(fused_steps=1, health_guard=True),) * 2,
+            "guard_policy": (
+                dict(fused_steps=1, health_guard=JaxPolicy(skip_threshold=3)),
+                dict(fused_steps=1,
+                     health_guard=HealthPolicy(skip_threshold=3)))}[kw]
+    j.fit([JaxDataSet(x, y) for x, y in batches], **opts[0])
+    t.fit([DataSet(x, y) for x, y in batches], **opts[1])
+    assert t.iteration == j.iteration == 4
+    ref = jax.device_get(j.params)
+    got = params_to_numpy(t)
+    assert np.isfinite(t.params_flat()).all()
+    for v in ref:
+        for k in ref[v]:
+            np.testing.assert_allclose(got[v][k], ref[v][k], atol=1e-5,
+                                       rtol=0, err_msg=f"{v}.{k}")
+    assert t.score() == pytest.approx(float(j.score_value), abs=1e-5)
+
+
+def test_step_with_l2_matches_jax():
+    """L2 on the FFN layers trains as JAX's: the reported loss carries the
+    penalty and three Sgd steps end on JAX's params within 1e-5."""
+    import jax
+
+    from deeplearning4j_torch.utils.convert import params_to_numpy
+
+    j, t = _jax_and_port(updater=0.1, l2=0.05)
+    (x, y), = _stream(1)
+    for _ in range(3):
+        jl = float(j.do_step([x], [y])[0])
+        tl = float(t.do_step([x], [y])[0])
+        assert tl == pytest.approx(jl, rel=1e-5)
+    ref = jax.device_get(j.params)
+    got = params_to_numpy(t)
+    for v in ref:
+        for k in ref[v]:
+            np.testing.assert_allclose(got[v][k], ref[v][k], atol=1e-5,
+                                       rtol=0, err_msg=f"{v}.{k}")
 
 
 def test_paged_wrapper_on_cuda_tensors_raises_without_cuda(no_cuda,

@@ -237,35 +237,61 @@ def test_load_model_runs_on_cuda_by_default(monkeypatch):
         ms.load_model(ZIP)
 
 
-def test_unported_fields_are_refused_where_they_act(tmp_path):
-    """Set away from their defaults in a zip's JSON, the fields the port
-    cannot honour yet raise where they would act: dropout and per-layer
-    learning rates in training, ``compute_dtype`` in every forward,
-    another weight init when drawing weights."""
+def _zip_with(tmp_path, edit):
+    """The fixture zip with its configuration JSON edited by ``edit``."""
     d = json.loads(_entry(ZIP, "configuration.json"))
-    d["vertices"]["ff0a"]["layer"]["dropout"] = 0.1
-    net = ms.net_from_conf(serde.from_json(json.dumps(d)), device="cpu")
-    x = np.load(EXPECTED)["probe"]
-    net.output(x)                                    # inference is fine
-    with pytest.raises(NotImplementedError, match="dropout"):
-        net.do_step(x, x)
-    d = json.loads(_entry(ZIP, "configuration.json"))
-    d["compute_dtype"] = "bfloat16"
-    net = ms.net_from_conf(serde.from_json(json.dumps(d)), device="cpu")
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        net.output(x)
-    d = json.loads(_entry(ZIP, "configuration.json"))
-    d["vertices"]["embed"]["layer"]["weight_init"] = "relu"
-    with pytest.raises(NotImplementedError, match="weight_init"):
-        ms.net_from_conf(serde.from_json(json.dumps(d)), device="cpu")
-    # a zip's weights are loaded, not drawn: its init scheme never acts
-    path = str(tmp_path / "relu.zip")
+    edit(d)
+    path = str(tmp_path / "edited.zip")
     with zipfile.ZipFile(ZIP) as src, zipfile.ZipFile(path, "w") as dst:
         for name in src.namelist():
             dst.writestr(name, json.dumps(d) if name == "configuration.json"
                          else src.read(name))
-    np.testing.assert_allclose(ms.load_model(path, device="cpu").output(x),
-                               np.load(EXPECTED)["output"], atol=1e-5)
+    return path
+
+
+@pytest.mark.parametrize("field", ["dropout", "compute_dtype",
+                                   "weight_init"])
+def test_training_fields_in_a_zip_act_as_jax(tmp_path, field):
+    """A zip whose JSON sets a training field loads and does what the JAX
+    package does with it: with ``dropout`` on ff0a it trains as JAX's
+    (three Adam steps' losses within rtol 1e-5, the same masks); with
+    ``compute_dtype="bfloat16"`` its ``output()`` (parameter dtype) is
+    JAX's within 1e-5; with ``weight_init="relu"`` a fresh net draws
+    N(0, 2/fan_in) weights, while the zip's own weights are loaded, not
+    drawn."""
+    x = np.load(EXPECTED)["probe"]
+
+    def edit(d):
+        if field == "dropout":
+            d["vertices"]["ff0a"]["layer"]["dropout"] = 0.1
+        elif field == "compute_dtype":
+            d["compute_dtype"] = "bfloat16"
+        else:
+            d["vertices"]["embed"]["layer"]["weight_init"] = "relu"
+
+    path = _zip_with(tmp_path, edit)
+    net = ms.load_model(path, device="cpu")
+    jnet = jms.load_model(path)
+    np.testing.assert_allclose(net.output(x).numpy(),
+                               np.asarray(jnet.output(x)), atol=1e-5)
+    if field == "dropout":
+        y = np.roll(x, -1, axis=1)
+        for _ in range(3):
+            jl = float(jnet.do_step([x], [y])[0])
+            tl = float(net.do_step([x], [y])[0])
+            assert tl == pytest.approx(jl, rel=1e-5)
+    elif field == "compute_dtype":
+        assert net.conf.compute_dtype == "bfloat16"
+        assert net.output(x).dtype == torch.float32
+    else:
+        fresh = ms.net_from_conf(serde.from_json(json.dumps(
+            json.loads(_entry(path, "configuration.json")))), device="cpu")
+        W = fresh.params["embed"]["W"]
+        fan_in = W.shape[0]
+        assert float(W.std()) == pytest.approx((2.0 / fan_in) ** 0.5,
+                                               rel=0.25)
+        np.testing.assert_allclose(net.output(x).numpy(),
+                                   np.load(EXPECTED)["output"], atol=1e-5)
 
 
 def test_params_from_a_zip_equal_params_from_jax():

@@ -216,10 +216,15 @@ def test_mcxent_per_example_matches_jax(masked):
 
 
 def test_unported_loss_raises():
-    from deeplearning4j_torch.ops.losses import get_loss
+    """Every loss of the JAX registry is ported; a name neither package
+    knows raises, listing the known ones."""
+    from deeplearning4j_tpu.ops.losses import _REGISTRY as JAX_LOSSES
+    from deeplearning4j_torch.ops.losses import _REGISTRY, get_loss
 
-    with pytest.raises(ValueError, match="ROADMAP §A6"):
-        get_loss("mse")
+    assert set(_REGISTRY) == set(JAX_LOSSES)
+    assert get_loss("MSE").name == "mse"
+    with pytest.raises(ValueError, match="Unknown loss 'nosuch'.*mcxent"):
+        get_loss("nosuch")
 
 
 # --------------------------------------------------------- the small model
