@@ -133,6 +133,27 @@ Phases (any failure exits non-zero, and no result line is printed):
    attention vertices: dropout masks card = CPU, first-step gradients
    and three Adam losses against the CPU (phase 7's rule), K1 twice per
    attention vertex per step, ``remat`` against none within 1e-6.
+8. the MultiLayerNetwork substrate, with cuDNN's TF32 flag at torch's
+   default (on) for the whole phase, so the convolution layers must hold
+   f32 themselves (a control convolution reports what a bare ``F.conv2d``
+   loses under that flag). 8a: ``zoo.LeNet`` (28×28×1, 10 labels,
+   AdaDelta) on the port's synthetic MNIST, 64 batches of 64 with one NaN
+   batch: ``fit`` at the defaults (K = 4, the guard) bit for bit
+   ``fit(fused_steps=1)``, one skip each; the first step against the CPU
+   plain path (phase 7's rule); fused ``evaluate`` count for count the
+   per-batch path's over 1,000 test images (a padded tail); the zip saved
+   and loaded on the card; ms a step and images/s (launches a step and the
+   idle share of a fused block with ``--profile``). 8b: the committed
+   ``tests/fixtures/regression_convnet_r4.zip`` on the card against its
+   npz (``params_sum`` within 1e-4, ``output`` within 1e-5), then one
+   ``fit`` step against the CPU's. 8c: ``LeNet(quantize="int8")`` under
+   the JAX package's eval-parity rule (confusion delta <= 0.05, outputs
+   within 5e-2). 8d: SimpleCNN (48×48×1), AlexNet and VGG16 (224×224×3)
+   against the CPU at batch 2 (first-step gradients in f64 under phase
+   7's rule; in f32 every layer's activation within 1e-4 of its max and
+   the loss within rtol 1e-4, the f32 gradient ratio reported: a ReLU
+   flip makes deep f32 gradients incomparable leaf by leaf), then timed
+   steps at batch 32 (VGG16 16) with the device busy share.
 
 Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
 calls (``ms``: the wrapper's host work included, which sets the pace once
@@ -145,12 +166,14 @@ The main path is phases 4-5 (serving), phases 4b-5c (loading a zip,
 sampled and bf16 serving), phase 4c (the d=8 fixture), phase 5d (prefix
 sharing, preemption, handoff), phase 5e (speculative decoding, roles,
 migration, chaos), phase 5f (the d=96 model, f32 and int8 weights), phase
-7 (training), phase 7b (training at d=96) and phase 7c (``fit``). The
-launch counters are zeroed just before each of the nine and read just
-after (phase 6's and the reference servers' launches are not counted);
-every kernel must have
-run on the main path, K2's chunk route and its merge pass included, and
-each path must have launched its own kernels. The script
+7 (training), phase 7b (training at d=96), phase 7c (``fit``) and phase
+8 (the MultiLayerNetwork substrate, which runs no hand-written kernel:
+its convolutions and pooling are library calls, as the JAX package's are
+XLA's). The launch counters are zeroed just before each of the ten and
+read just after (phase 6's and the reference servers' launches are not
+counted); every kernel must have run on the main path, K2's chunk route
+and its merge pass included, and each path but phase 8 must have launched
+its own kernels. The script
 prints the card's name and power limit, one ``{"kernels": [...]}`` line with
 each kernel's launches, error, times and bound, and, last, the result line
 ``{"ok": true, "device": {...}}``. f32 matmuls run in full f32 (TF32
@@ -173,6 +196,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -2703,6 +2727,429 @@ def profile_train(net, card, out_dir, steps=5):
                 kernel_launches_per_step=launches / steps, top=top)
 
 
+# ----------------------------------------------------------------- phase 8
+#: phase 8a: LeNet on the port's synthetic MNIST, batches of 64, a NaN in
+#: one batch's features; its test set (a short last batch) for evaluate
+LENET_BATCH = 64
+LENET_BATCHES = 64
+LENET_NAN_AT = 5
+LENET_TEST = 1000
+#: phase 8b: the JAX package's committed conv-net fixture
+CONVNET = os.path.join("tests", "fixtures", "regression_convnet_r4.zip")
+CONVNET_EXPECTED = os.path.join("tests", "fixtures",
+                                "regression_convnet_r4_expected.npz")
+#: phase 8d: (zoo model, input shape, timed batch); gradients at batch 2
+BIG_CNNS = [("SimpleCNN", (48, 48, 1), 32), ("AlexNet", (224, 224, 3), 32),
+            ("VGG16", (224, 224, 3), 16)]
+BIG_CNN_TIMED_STEPS = 5
+
+
+def mnist_nhwc(train, n, batch):
+    """The port's synthetic MNIST as NHWC batches (numpy, the host data a
+    user's ``fit`` reads)."""
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.datasets.mnist import MnistDataSetIterator
+
+    it = MnistDataSetIterator(batch_size=batch, train=train, num_examples=n)
+    check(it.synthetic, "phase 8: MNIST files were found; the phase runs "
+                        "on the synthetic set")
+    return [DataSet(ds.features.reshape(-1, 28, 28, 1), ds.labels)
+            for ds in it]
+
+
+def twin(name, device, params=None, **kw):
+    """Zoo model ``name`` on ``device``, on ``params`` (a tree of tensors,
+    cast to the model's dtype) when given, else drawn from its seed."""
+    from deeplearning4j_torch.models import zoo
+
+    dt = getattr(torch, kw.get("dtype", "float32"))
+    return getattr(zoo, name)(**kw).init(
+        None if params is None else
+        {k: {n: t.detach().to(dt, copy=True) for n, t in p.items()}
+         for k, p in params.items()}, device=device)
+
+
+def zero_grad_leaves(net):
+    """The biases of convolutions feeding a training-mode batch norm: their
+    exact gradient is 0 (the batch mean takes the bias out), so both
+    devices' values are rounding noise."""
+    from deeplearning4j_torch.nn.conf.layers.normalization import (
+        BatchNormalization)
+
+    return {(str(i), "b") for i in range(len(net.layers) - 1)
+            if isinstance(net.layers[i + 1], BatchNormalization)
+            and "b" in net.params[str(i)]}
+
+
+def step_grads(net, x, y, seed=0):
+    """Loss and gradients (f64, on the host) of ``net``'s first training
+    step on numpy ``x``, ``y``, its dropout keyed by ``PRNGKey(seed)`` on
+    the net's device."""
+    from deeplearning4j_torch.ops import random
+    from deeplearning4j_torch.optimize.fused_fit import value_and_grad
+
+    dev, dt = net.device, getattr(torch, net.conf.dtype)
+    loss, g = value_and_grad(
+        net, net.params, net.state, torch.from_numpy(x).to(dev, dt),
+        torch.from_numpy(y).to(dev, dt), train=True,
+        rng=random.PRNGKey(seed, device=dev))
+    return float(loss), {k: {n: t.detach().cpu().double()
+                             for n, t in p.items()} for k, p in g.items()}
+
+
+def worst_leaf(got, ref, bound):
+    """The largest per-leaf max|got - ref| / bound(leaf) and its leaf."""
+    worst = (0.0, None)
+    for v in ref:
+        for k in ref[v]:
+            r = (got[v][k] - ref[v][k]).abs().max().item() / bound(v, k)
+            if r > worst[0]:
+                worst = (r, f"{v}.{k}")
+    return worst
+
+
+def rule_1e4(net, ref):
+    """Phase 7's gradient bound per leaf: 1e-4 of the leaf's max|g| (of
+    the net's max|g| for a leaf whose exact gradient is 0)."""
+    top = max(g.abs().max().item() for p in ref.values() for g in p.values())
+    zero = zero_grad_leaves(net)
+
+    def bound(v, k):
+        scale = top if (v, k) in zero else ref[v][k].abs().max().item()
+        return 1e-4 * max(scale, 1e-300)
+
+    return bound
+
+
+def first_step_rule(net, cpu, x, y, seed=0):
+    """Phase 7's rule on a MultiLayerNetwork's first training step: the
+    card's gradients within ``rule_1e4`` of the CPU plain path's, the loss
+    within rtol 1e-4. Returns (worst leaf ratio, leaf, loss rel, card
+    loss)."""
+    ld, gd = step_grads(net, x, y, seed)
+    lc, gc = step_grads(cpu, x, y, seed)
+    rule, leaf = worst_leaf(gd, gc, rule_1e4(cpu, gc))
+    return rule, leaf, abs(ld - lc) / abs(lc), ld
+
+
+def busy_share(fn, steps):
+    """Device busy seconds over the wall clock of ``fn()`` (``steps`` steps
+    ending in a sync) under ``torch.profiler``, and kernel launches per
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_s, launches, top = profile_table(prof, None, None, "")
+    return dict(wall_s=wall, device_busy_s=busy_s,
+                busy_share=busy_s / wall, idle_share=1 - busy_s / wall,
+                kernel_launches_per_step=launches / steps, top=top[:6])
+
+
+def phase_lenet(card, profile):
+    """Phase 8a: ``zoo.LeNet`` at its published width on the port's
+    synthetic MNIST. ``fit`` at the defaults (K = 4, the guard on) against
+    ``fit(fused_steps=1)`` over the same stream with one NaN batch: params
+    bitwise equal, one skip each; the first step against the CPU plain
+    path (phase 7's rule); fused ``evaluate`` count for count the
+    per-batch path's; the model zip saved and loaded on the card; ms a
+    step and images/s (and, with ``--profile``, launches a step and the
+    idle share of one fused block)."""
+    from deeplearning4j_torch.optimize.health import HealthPolicy
+    from deeplearning4j_torch.utils.model_serializer import (load_model,
+                                                             save_model)
+
+    stream = mnist_nhwc(True, LENET_BATCH * LENET_BATCHES, LENET_BATCH)
+    stream[LENET_NAN_AT].features[3, 10, 11, 0] = np.nan
+    cpu = twin("LeNet", "cpu")
+    net = twin("LeNet", "cuda", cpu.params)
+    rule, leaf, loss_rel, _ = first_step_rule(
+        net, cpu, stream[0].features, stream[0].labels)
+    check(rule <= 1.0 and loss_rel <= 1e-4,
+          f"lenet: first step card vs CPU: {rule:.3g} of the bound at "
+          f"{leaf}, loss rel {loss_rel:.3g}")
+    ref = twin("LeNet", "cuda", cpu.params)
+    skips = []
+    for n, kw in ((net, {}), (ref, dict(fused_steps=1))):
+        policy = HealthPolicy()
+        n.fit(stream, health_guard=policy, **kw)
+        skips.append(policy.total_skips)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(net.params[v][k], ref.params[v][k])
+                  for v in ref.params for k in ref.params[v])
+    check(net.iteration == ref.iteration == LENET_BATCHES,
+          f"lenet: iterations {net.iteration} / {ref.iteration}")
+    check(skips == [1, 1], f"lenet: skips {skips}, expected one each")
+    check(bitwise, "lenet: fit at the defaults differs from "
+                   "fit(fused_steps=1)")
+    check(all(torch.isfinite(t).all().item() for p in net.params.values()
+              for t in p.values()), "lenet: a param is not finite")
+
+    test = mnist_nhwc(False, LENET_TEST, LENET_BATCH)
+    fused = net.evaluate(test)
+    plain = net.evaluate(test, fused=False)
+    check(np.array_equal(fused.confusion, plain.confusion)
+          and fused.confusion.sum() == LENET_TEST,
+          "lenet: fused evaluate differs from the per-batch path")
+    check(fused.accuracy() > 0.5, f"lenet: accuracy {fused.accuracy()} "
+                                  "after one epoch")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lenet.zip")
+        save_model(net, path)
+        back = load_model(path, device="cuda")
+    x = torch.from_numpy(test[0].features).cuda()
+    check(type(back).__name__ == "MultiLayerNetwork"
+          and back.device.type == "cuda"
+          and np.array_equal(back.params_flat(), net.params_flat())
+          and all(torch.equal(back.state[k][n], net.state[k][n])
+                  for k in net.state for n in net.state[k])
+          and torch.equal(back.output(x), net.output(x)),
+          "lenet: the zip saved on the card loads back different")
+
+    clean = [ds for i, ds in enumerate(stream) if i != LENET_NAN_AT][:32]
+    net.fit(clean[:4])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(clean)
+    float(net.score())
+    wall = time.perf_counter() - t0
+    step_ms = wall / len(clean) * 1e3
+    prof = None
+    if profile:
+        prof = busy_share(lambda: net.fit(clean[:4]), 4)
+    log(f"  lenet [{LENET_BATCH}, 28, 28, 1] AdaDelta: first step vs CPU "
+        f"{rule:.3f} of the bound ({leaf}), loss rel {loss_rel:.2e}; fit "
+        f"defaults (K=4, guard) vs fused_steps=1 over {LENET_BATCHES} "
+        f"batches bitwise {bitwise}, skips {skips}; evaluate fused = "
+        f"per-batch ({LENET_TEST} images, accuracy {fused.accuracy():.4f}); "
+        f"zip round trip on the card equal; {step_ms:.3f} ms/step = "
+        f"{LENET_BATCH / step_ms * 1e3:.0f} images/s over {len(clean)} "
+        f"steps" + ("" if prof is None else
+                    f"; one K=4 block: {prof['kernel_launches_per_step']:.0f}"
+                    f" launches a step, idle share {prof['idle_share']:.3f}")
+        + f"; [{card}]")
+    return dict(first_step_rule=rule, first_step_worst_leaf=leaf,
+                first_step_loss_rel=loss_rel, bitwise=bitwise, skips=skips,
+                accuracy=fused.accuracy(), step_ms=step_ms,
+                images_per_s=LENET_BATCH / step_ms * 1e3, profile=prof)
+
+
+def phase_convnet_fixture(card):
+    """Phase 8b: the committed conv-net zip loaded on the card: its
+    ``params_sum`` within 1e-4 and ``output(probe)`` within 1e-5 of the
+    npz (``tests/test_format_regression.py``'s rule), then one ``fit`` step
+    against the CPU's within 1e-5 of max|p|."""
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.utils.model_serializer import load_model
+
+    exp = np.load(CONVNET_EXPECTED)
+    net = load_model(CONVNET, device="cuda")
+    psum = float(net.params_flat().sum())
+    out_err = float(np.abs(net.output(exp["probe"]).cpu().numpy()
+                           - exp["output"]).max())
+    check(abs(psum - float(exp["params_sum"])) < 1e-4 and out_err <= 1e-5,
+          f"convnet fixture: params_sum {psum} vs {float(exp['params_sum'])}"
+          f", output max|err| {out_err:.3g}")
+    rs = np.random.RandomState(0)
+    ds = DataSet(rs.randn(8, 8, 8, 1).astype(np.float32),
+                 np.eye(3, dtype=np.float32)[rs.randint(0, 3, 8)])
+    cpu = load_model(CONVNET, device="cpu")
+    net.fit(ds)
+    cpu.fit(ds)
+    pmax = float(np.abs(cpu.params_flat()).max())
+    perr = float(np.abs(net.params_flat() - cpu.params_flat()).max())
+    check(net.iteration == 7 and perr <= 1e-5 * pmax,
+          f"convnet fixture: one fit step card vs CPU max|err| {perr:.3g}")
+    log(f"  convnet fixture: params_sum {psum:.6f}, output max|err| "
+        f"{out_err:.2e}; one fit step vs CPU {perr:.2e}; [{card}]")
+    return dict(params_sum=psum, output_max_err=out_err,
+                fit_step_param_err=perr)
+
+
+def phase_int8_lenet(card):
+    """Phase 8c: ``LeNet(quantize="int8")`` on the card under the JAX
+    package's eval-parity rule (``tests/test_quantize.py``): confusion delta
+    against the f32 net at most 0.05, outputs within 5e-2."""
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.models.zoo import LeNet
+    from deeplearning4j_torch.optimize.quantize import confusion_delta
+
+    net = LeNet(num_labels=10, seed=1).init(device="cuda")
+    qnet = LeNet(num_labels=10, seed=1, quantize="int8").init(device="cuda")
+    check(qnet.params["0"]["W"].dtype == torch.int8,
+          "int8 lenet: the conv kernel is not int8")
+    rs = np.random.RandomState(2)
+    x = rs.randn(64, 28, 28, 1).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rs.randint(0, 10, 64)]
+    delta = confusion_delta(net.evaluate(DataSet(x, y)),
+                            qnet.evaluate(DataSet(x, y)))
+    out_err = (qnet.output(x) - net.output(x)).abs().max().item()
+    check(delta <= 0.05 and out_err <= 5e-2,
+          f"int8 lenet: confusion delta {delta}, outputs {out_err:.3g}")
+    log(f"  int8 lenet: confusion delta {delta:.4f}, outputs max|err| "
+        f"{out_err:.2e}; [{card}]")
+    return dict(confusion_delta=delta, output_max_err=out_err)
+
+
+def phase_big_cnns(card):
+    """Phase 8d: SimpleCNN, AlexNet and VGG16 at their zoo input shapes
+    against the CPU plain path at batch 2. The first step's gradients
+    (dropout keyed alike) in f64 on both devices under phase 7's rule
+    (``rule_1e4``, losses rtol 1e-4): the code is the same on both. In
+    f32 the gradients of a deep ReLU net are not comparable leaf by leaf
+    across two implementations: a pre-activation within rounding of 0
+    flips its ReLU (and a max-pool choice), which moves a whole gradient
+    contribution (VGG16: the CPU's own f32 gradients miss its f64 ones
+    by tens of times phase 7's bound; reported). So in f32 every layer's
+    activation is held to the CPU's within 1e-4 of that layer's max|a|
+    (the forward is continuous; a TF32 convolution misses it, see
+    ``tf32_control``), the loss within rtol 1e-4,
+    and the leaf-by-leaf f32 gradient ratio is reported. Then timed
+    ``do_step``s at the timed batch: ms a step, images/s and the device
+    busy share of three steps."""
+    out = {}
+    for name, shape, batch in BIG_CNNS:
+        kw = dict(num_labels=10, input_shape=shape)
+        rs = np.random.RandomState(3)
+        x = rs.rand(2, *shape).astype(np.float32)
+        y = np.eye(10, dtype=np.float32)[rs.randint(0, 10, 2)]
+        cpu = twin(name, "cpu", **kw)
+        c32_loss, c32 = step_grads(cpu, x, y, seed=4)
+        c64_loss, c64 = step_grads(
+            twin(name, "cpu", cpu.params, dtype="float64", **kw),
+            x.astype(np.float64), y.astype(np.float64), seed=4)
+        d64_loss, d64 = step_grads(
+            twin(name, "cuda", cpu.params, dtype="float64", **kw),
+            x.astype(np.float64), y.astype(np.float64), seed=4)
+        net = twin(name, "cuda", cpu.params, **kw)
+        loss, d32 = step_grads(net, x, y, seed=4)
+        f64_rule, f64_leaf = worst_leaf(d64, c64, rule_1e4(cpu, c64))
+        plain, plain_leaf = worst_leaf(d32, c32, rule_1e4(cpu, c32))
+        # the CPU's own f32 gradients against its f64 ones: what rounding
+        # alone moves, on one implementation
+        own, own_leaf = worst_leaf(c32, c64, rule_1e4(cpu, c64))
+        acts = max(
+            ((a.cpu().double() - b.double()).abs().max()
+             / b.double().abs().max().clamp_min(1e-30)).item()
+            for a, b in zip(net.feed_forward(x), cpu.feed_forward(x)))
+        loss_rel = abs(loss - c32_loss) / abs(c32_loss)
+        f64_loss_rel = abs(d64_loss - c64_loss) / abs(c64_loss)
+        del cpu
+        check(f64_rule <= 1.0 and f64_loss_rel <= 1e-4,
+              f"{name}: f64 first step card vs CPU: {f64_rule:.3g} of the "
+              f"bound at {f64_leaf}, loss rel {f64_loss_rel:.3g}")
+        check(acts <= 1e-4 and loss_rel <= 1e-4,
+              f"{name}: f32 card vs CPU: activations {acts:.3g} of max|a|, "
+              f"loss rel {loss_rel:.3g}")
+        xb = torch.rand((batch, *shape), generator=torch.Generator()
+                        .manual_seed(5)).cuda()
+        yb = torch.eye(10)[torch.randint(0, 10, (batch,),
+                                         generator=torch.Generator()
+                                         .manual_seed(6))].cuda()
+        net.do_step(xb, yb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BIG_CNN_TIMED_STEPS):
+            net.do_step(xb, yb)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / BIG_CNN_TIMED_STEPS * 1e3
+
+        def three():
+            for _ in range(3):
+                net.do_step(xb, yb)
+
+        prof = busy_share(three, 3)
+        check(np.isfinite(float(net.score())), f"{name}: loss not finite")
+        log(f"  {name} {list(shape)}: batch 2 card vs CPU: f64 first "
+            f"step {f64_rule:.3f} of phase 7's bound ({f64_leaf}), loss rel "
+            f"{f64_loss_rel:.2e}; f32 activations {acts:.2e} of max|a|, "
+            f"loss rel {loss_rel:.2e}, gradients {plain:.3f} of phase 7's "
+            f"bound ({plain_leaf}; the CPU's f32 against its f64 "
+            f"{own:.3f}, {own_leaf}); "
+            f"batch {batch}: {step_ms:.3f} ms/step = "
+            f"{batch / step_ms * 1e3:.0f} images/s, device busy share "
+            f"{prof['busy_share']:.3f}, "
+            f"{prof['kernel_launches_per_step']:.0f} launches a step; "
+            f"[{card}]")
+        out[name] = dict(f64_rule=f64_rule, f64_worst_leaf=f64_leaf,
+                         f64_loss_rel=f64_loss_rel, f32_act_rel=acts,
+                         f32_grad_rule=plain, f32_grad_worst_leaf=plain_leaf,
+                         cpu_f32_vs_f64_rule=own,
+                         cpu_f32_vs_f64_worst_leaf=own_leaf,
+                         f32_loss_rel=loss_rel, batch=batch,
+                         step_ms=step_ms,
+                         images_per_s=batch / step_ms * 1e3, profile=prof)
+        del net, xb, yb
+        torch.cuda.empty_cache()
+    return out
+
+
+def tf32_control(card):
+    """The precision the convolution layers own: a VGG-sized convolution
+    ([16, 56, 56, 128] by 3×3×128×128, f32) through ``ConvolutionLayer``
+    and through a bare ``F.conv2d``, both on the card under torch's
+    default cuDNN flags (TF32 allowed), against an f64 CPU reference. The
+    layer must be f32-accurate (1e-5 of max|y|); the bare call shows what
+    the flag would have cost."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_torch.nn.conf.inputs import InputType
+    from deeplearning4j_torch.nn.conf.layers.convolution import (
+        ConvolutionLayer)
+
+    check(torch.backends.cudnn.allow_tf32, "tf32 control: run it with "
+                                           "cuDNN's TF32 flag on")
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(16, 56, 56, 128, generator=g)
+    W = torch.randn(3, 3, 128, 128, generator=g) / 34.0
+    layer = ConvolutionLayer(n_out=128, kernel_size=3,
+                             convolution_mode="same")
+    layer.finalize(None)
+    layer.set_n_in(InputType.convolutional(56, 56, 128))
+    p = {"W": W.cuda(), "b": torch.zeros(128, device="cuda")}
+    ref = layer.preactivate({"W": W.double(), "b": torch.zeros(
+        128, dtype=torch.float64)}, x.double())
+    got = layer.preactivate(p, x.cuda()).cpu().double()
+    bare = F.conv2d(x.cuda().permute(0, 3, 1, 2), W.cuda().permute(
+        3, 2, 0, 1), padding=1).permute(0, 2, 3, 1).cpu().double()
+    scale = ref.abs().max().item()
+    layer_err = (got - ref).abs().max().item() / scale
+    bare_err = (bare - ref).abs().max().item() / scale
+    check(layer_err <= 1e-5, f"tf32 control: the layer's f32 convolution "
+                             f"is {layer_err:.3g} of max|y| off")
+    log(f"  tf32 control: ConvolutionLayer {layer_err:.2e} of max|y| from "
+        f"f64, a bare F.conv2d under torch's default flags "
+        f"{bare_err:.2e}; [{card}]")
+    return dict(layer_rel_err=layer_err, bare_conv2d_rel_err=bare_err)
+
+
+def phase_multilayer(card, profile):
+    """Phase 8: the MultiLayerNetwork substrate at the zoo widths, with
+    cuDNN's TF32 flag at torch's default (True) for the whole phase: the
+    convolution layers must hold f32 themselves."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        control = tf32_control(card)
+        log("phase 8a: LeNet on synthetic MNIST: fit, evaluate, zip")
+        lenet = phase_lenet(card, profile)
+        log("phase 8b: the committed conv-net fixture on the card")
+        fixture = phase_convnet_fixture(card)
+        log("phase 8c: int8 LeNet eval parity")
+        int8 = phase_int8_lenet(card)
+        log("phase 8d: SimpleCNN, AlexNet and VGG16 at their zoo shapes")
+        big = phase_big_cnns(card)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return dict(tf32_control=control, lenet=lenet, convnet_fixture=fixture,
+                int8_lenet=int8, big_cnns=big)
+
+
 def kernel_line(flash, paged, bwd, launches, launches_d96):
     k1 = flash["slice_f32_causal"]
     k2 = paged["f32_T1_Tmax512"]
@@ -3007,10 +3454,18 @@ def main() -> int:
                                        "flash_bwd_dkv", "paged_attn",
                                        "paged_attn_chunk")),
           f"a kernel of the fit path never launched: {fitting}")
+    kernels.reset_launch_counts()         # the MultiLayerNetwork path
+    log("phase 8: the MultiLayerNetwork substrate (LeNet, the conv-net "
+        "fixture, int8 LeNet, SimpleCNN/AlexNet/VGG16)")
+    REPORT["multilayer"] = phase_multilayer(card, args.profile)
+    multilayer = dict(kernels.LAUNCHES)   # ... and ends here
+    check(not any(multilayer.values()),
+          f"the MultiLayerNetwork path launched an attention kernel: "
+          f"{multilayer}")
     windows = dict(serving=serving, loading=loading, fixture=fixture,
                    prefix=prefix, spec=spec, d96_serving=d96_serving,
                    training=training, d96_training=d96_training,
-                   fitting=fitting)
+                   fitting=fitting, multilayer=multilayer)
     launches = {k: sum(w[k] for w in windows.values()) for k in serving}
     REPORT["main_path_launches"] = dict(windows, total=launches)
     check(all(n > 0 for n in launches.values()),

@@ -1,6 +1,11 @@
-"""Model zoo (port of ``deeplearning4j_tpu/models/zoo.py``): TransformerLM,
+"""Model zoo (port of ``deeplearning4j_tpu/models/zoo.py``): the
+MultiLayerNetwork models (LeNet, SimpleCNN, AlexNet, VGG16, VGG19) at the
+JAX package's architectures and hyperparameters, NHWC; TransformerLM,
 ``lm_stream_forward``, the sampled next-token select and the streaming
-``greedy_generate``/``sample_generate``."""
+``greedy_generate``/``sample_generate``. The graph models of the CNN zoo
+(ResNet50, GoogLeNet, FaceNetNN4Small2, InceptionResNetV1) need vertices
+the port lacks (ROADMAP A12) and TextGenerationLSTM the LSTM (A11); they
+raise naming their item."""
 
 from __future__ import annotations
 
@@ -15,13 +20,250 @@ from deeplearning4j_torch.nn.conf.graph_conf import ElementWiseVertex
 from deeplearning4j_torch.nn.conf.inputs import InputType
 from deeplearning4j_torch.nn.conf.layers.attention import (
     PositionalEncodingLayer, SelfAttentionLayer)
-from deeplearning4j_torch.nn.conf.layers.core import DenseLayer
+from deeplearning4j_torch.nn.conf.layers.convolution import (
+    ConvolutionLayer, SubsamplingLayer)
+from deeplearning4j_torch.nn.conf.layers.core import (ActivationLayer,
+                                                      DenseLayer,
+                                                      DropoutLayer,
+                                                      OutputLayer)
 from deeplearning4j_torch.nn.conf.layers.normalization import (
-    LayerNormalization)
+    BatchNormalization, LayerNormalization)
+from deeplearning4j_torch.nn.conf.layers.pooling import GlobalPoolingLayer
 from deeplearning4j_torch.nn.conf.layers.recurrent import RnnOutputLayer
 from deeplearning4j_torch.nn.graph import ComputationGraph
-from deeplearning4j_torch.nn.updater import Adam
+from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_torch.nn.updater import AdaDelta, Adam, Nesterovs
+from deeplearning4j_torch.nn.weights import Distribution
 from deeplearning4j_torch.ops import random
+
+
+class ZooModel:
+    """Base of the instantiable zoo models. ``input_shape`` is (height,
+    width, channels), NHWC. ``quantize="int8"`` quantizes the initialized
+    net's dense and convolution weights at ``init()``
+    (``optimize/quantize.py``); ``compute_dtype`` is set on the
+    configuration at ``init()``, as the JAX ``ZooModel`` sets it."""
+
+    def __init__(self, num_labels: int = 1000, seed: int = 123,
+                 input_shape: Optional[tuple] = None, dtype: str = "float32",
+                 compute_dtype: Optional[str] = None,
+                 quantize: Optional[str] = None):
+        self.num_labels = num_labels
+        self.seed = seed
+        self.dtype = dtype
+        self.compute_dtype = compute_dtype
+        self.quantize = quantize
+        if input_shape is not None:
+            self.input_shape = tuple(input_shape)
+
+    def conf(self):
+        raise NotImplementedError
+
+    def init(self, params=None, *, device=None):
+        """The initialized net on ``device`` (CUDA unless the caller passes
+        another device; raises on a host without CUDA)."""
+        c = self.conf()
+        c.compute_dtype = self.compute_dtype
+        cls = (ComputationGraph
+               if type(c).__name__ == "ComputationGraphConfiguration"
+               else MultiLayerNetwork)
+        net = cls(c).init(params, device=device)
+        if self.quantize is not None:
+            from deeplearning4j_torch.optimize.quantize import quantize_net
+            net = quantize_net(net, self.quantize)
+        return net
+
+    def init_pretrained(self, pretrained_type: str = "imagenet"):
+        raise NotImplementedError(
+            "Pretrained weights need a download; restore from a local zip "
+            "with utils.model_serializer.load_model instead.")
+
+    def model_type(self) -> str:
+        return "MultiLayerNetwork"
+
+
+class LeNet(ZooModel):
+    """LeNet-5 for MNIST: conv5x5(20) -> max2 -> conv5x5(50) -> max2 ->
+    dense500 -> softmax, AdaDelta."""
+
+    input_shape = (28, 28, 1)
+
+    def __init__(self, num_labels: int = 10, **kw):
+        super().__init__(num_labels=num_labels, **kw)
+
+    def conf(self):
+        h, w, c = self.input_shape
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed).activation("identity").weight_init("xavier")
+                .updater(AdaDelta()).dtype(self.dtype)
+                .list(
+                    ConvolutionLayer(name="cnn1", n_out=20, kernel_size=(5, 5),
+                                     stride=(1, 1), convolution_mode="same",
+                                     activation="relu"),
+                    SubsamplingLayer(name="maxpool1", kernel_size=(2, 2),
+                                     stride=(2, 2)),
+                    ConvolutionLayer(name="cnn2", n_out=50, kernel_size=(5, 5),
+                                     stride=(1, 1), convolution_mode="same",
+                                     activation="relu"),
+                    SubsamplingLayer(name="maxpool2", kernel_size=(2, 2),
+                                     stride=(2, 2)),
+                    DenseLayer(name="ffn1", n_out=500, activation="relu"),
+                    OutputLayer(name="output", n_out=self.num_labels,
+                                activation="softmax", loss="mcxent"))
+                .set_input_type(InputType.convolutional(h, w, c))
+                .build())
+
+
+class SimpleCNN(ZooModel):
+    """Five conv/BN blocks and a global-average-pool head, AdaDelta; the
+    head is an OutputLayer (softmax, mcxent) so the net trains alone, as
+    the JAX model's is."""
+
+    input_shape = (48, 48, 1)
+
+    def __init__(self, num_labels: int = 10, **kw):
+        super().__init__(num_labels=num_labels, **kw)
+
+    def conf(self):
+        h, w, c = self.input_shape
+
+        def block(k, n):
+            return [ConvolutionLayer(n_out=n, kernel_size=(k, k),
+                                     convolution_mode="same"),
+                    BatchNormalization(),
+                    ConvolutionLayer(n_out=n, kernel_size=(k, k),
+                                     convolution_mode="same"),
+                    BatchNormalization(),
+                    ActivationLayer(activation="relu"),
+                    SubsamplingLayer(pooling_type="avg", kernel_size=(2, 2),
+                                     stride=(2, 2)),
+                    DropoutLayer(dropout=0.5)]
+
+        layers = (block(7, 16) + block(5, 32) + block(3, 64) + block(3, 128)
+                  + [ConvolutionLayer(n_out=256, kernel_size=(3, 3),
+                                      convolution_mode="same"),
+                     BatchNormalization(),
+                     ConvolutionLayer(n_out=self.num_labels,
+                                      kernel_size=(3, 3),
+                                      convolution_mode="same"),
+                     GlobalPoolingLayer(pooling_type="avg"),
+                     OutputLayer(n_out=self.num_labels, activation="softmax",
+                                 loss="mcxent")])
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed).activation("identity").weight_init("relu")
+                .updater(AdaDelta()).dtype(self.dtype)
+                .list(*layers)
+                .set_input_type(InputType.convolutional(h, w, c))
+                .build())
+
+
+class AlexNet(ZooModel):
+    """AlexNet, one tower, with the JAX model's strides, normal(0, 0.01)
+    weights, dropout 0.5 on the dense layers, L2 5e-4 and Nesterovs."""
+
+    input_shape = (224, 224, 3)
+
+    def conf(self):
+        h, w, c = self.input_shape
+        non_zero_bias = 1.0
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed).activation("relu")
+                .weight_init("distribution")
+                .dist(Distribution.normal(0.0, 0.01))
+                .updater(Nesterovs(learning_rate=1e-2, momentum=0.9))
+                .l2(5e-4).dtype(self.dtype)
+                .list(
+                    ConvolutionLayer(name="cnn1", n_out=64,
+                                     kernel_size=(11, 11), stride=(4, 4),
+                                     padding=(2, 2),
+                                     convolution_mode="truncate"),
+                    SubsamplingLayer(name="maxpool1", kernel_size=(3, 3),
+                                     stride=(2, 2), padding=(1, 1),
+                                     convolution_mode="truncate"),
+                    ConvolutionLayer(name="cnn2", n_out=192,
+                                     kernel_size=(5, 5), stride=(2, 2),
+                                     padding=(2, 2),
+                                     convolution_mode="truncate",
+                                     bias_init=non_zero_bias),
+                    SubsamplingLayer(name="maxpool2", kernel_size=(3, 3),
+                                     stride=(2, 2)),
+                    ConvolutionLayer(name="cnn3", n_out=384,
+                                     kernel_size=(3, 3), stride=(1, 1),
+                                     padding=(1, 1)),
+                    ConvolutionLayer(name="cnn4", n_out=256,
+                                     kernel_size=(3, 3), stride=(1, 1),
+                                     padding=(1, 1), bias_init=non_zero_bias),
+                    ConvolutionLayer(name="cnn5", n_out=256,
+                                     kernel_size=(3, 3), stride=(1, 1),
+                                     padding=(1, 1), bias_init=non_zero_bias),
+                    SubsamplingLayer(name="maxpool3", kernel_size=(3, 3),
+                                     stride=(7, 7)),
+                    DenseLayer(name="ffn1", n_out=4096,
+                               dist=Distribution.normal(0, 0.005),
+                               weight_init="distribution",
+                               bias_init=non_zero_bias, dropout=0.5),
+                    DenseLayer(name="ffn2", n_out=4096,
+                               dist=Distribution.normal(0, 0.005),
+                               weight_init="distribution",
+                               bias_init=non_zero_bias, dropout=0.5),
+                    OutputLayer(name="output", n_out=self.num_labels,
+                                activation="softmax", loss="mcxent"))
+                .set_input_type(InputType.convolutional(h, w, c))
+                .build())
+
+
+def _vgg_convs(*spec):
+    """spec: channel counts; 'M' is a 2x2 max pool."""
+    return [SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                             stride=(2, 2)) if s == "M"
+            else ConvolutionLayer(n_out=s, kernel_size=(3, 3), stride=(1, 1),
+                                  padding=(1, 1))
+            for s in spec]
+
+
+class VGG16(ZooModel):
+    """VGG-16 with the conv-only head of the JAX model, Nesterovs."""
+
+    input_shape = (224, 224, 3)
+    SPEC = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512,
+            "M", 512, 512, 512, "M")
+
+    def conf(self):
+        h, w, c = self.input_shape
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed).activation("relu")
+                .updater(Nesterovs(learning_rate=1e-2, momentum=0.9))
+                .dtype(self.dtype)
+                .list(*_vgg_convs(*self.SPEC),
+                      OutputLayer(name="output", n_out=self.num_labels,
+                                  activation="softmax", loss="mcxent"))
+                .set_input_type(InputType.convolutional(h, w, c))
+                .build())
+
+
+class VGG19(VGG16):
+    """VGG-19: VGG16 with a fourth conv in the last three stages."""
+
+    SPEC = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M", 512, 512,
+            512, 512, "M", 512, 512, 512, 512, "M")
+
+
+def _not_ported(name, item, what):
+    def conf(self):
+        raise NotImplementedError(f"{name} is not ported yet: {what} "
+                                  f"(ROADMAP {item})")
+
+    return type(name, (ZooModel,), {"conf": conf, "__doc__":
+                                    f"{name}: {what} (ROADMAP {item})."})
+
+
+_GRAPH_ZOO = "the graph models of the zoo come with the graph vertices"
+ResNet50 = _not_ported("ResNet50", "A12", _GRAPH_ZOO)
+GoogLeNet = _not_ported("GoogLeNet", "A12", _GRAPH_ZOO)
+FaceNetNN4Small2 = _not_ported("FaceNetNN4Small2", "A12", _GRAPH_ZOO)
+InceptionResNetV1 = _not_ported("InceptionResNetV1", "A12", _GRAPH_ZOO)
+TextGenerationLSTM = _not_ported("TextGenerationLSTM", "A11",
+                                 "it needs the GravesLSTM layer")
 
 
 class TransformerLM:
@@ -286,3 +528,20 @@ def _device_generate(net, prompt_ids, steps: int, vocab: int,
         generated.append(last)
     net.rnn_clear_previous_state()
     return torch.stack(generated, dim=1).cpu().numpy().astype(np.int64)
+
+
+def zoo_models() -> dict:
+    """Name -> zoo model class, as the JAX package's ``zoo_models``."""
+    return {
+        "alexnet": AlexNet,
+        "facenetnn4small2": FaceNetNN4Small2,
+        "googlenet": GoogLeNet,
+        "inceptionresnetv1": InceptionResNetV1,
+        "lenet": LeNet,
+        "resnet50": ResNet50,
+        "simplecnn": SimpleCNN,
+        "textgenlstm": TextGenerationLSTM,
+        "transformerlm": TransformerLM,
+        "vgg16": VGG16,
+        "vgg19": VGG19,
+    }

@@ -1,10 +1,10 @@
 """Graph configuration (port of the parts of
 ``deeplearning4j_tpu/nn/conf/graph_conf.py`` the TransformerLM needs): layer
-vertices (with ``remat``), ``ElementWiseVertex(op="add")``, the
-configuration, a builder over the global configuration
-(``nn/conf/builders.py``) and the topological order. The dataclasses carry
-the JAX package's fields and class names, so ``to_json``/``from_json`` read
-and write its ``configuration.json``."""
+vertices (with an input preprocessor and ``remat``),
+``ElementWiseVertex(op="add")``, the configuration, a builder over the
+global configuration (``nn/conf/builders.py``) and the topological order.
+The dataclasses carry the JAX package's fields and class names, so
+``to_json``/``from_json`` read and write its ``configuration.json``."""
 
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ from typing import Optional
 
 from deeplearning4j_torch.nn.conf.inputs import InputType
 from deeplearning4j_torch.nn.conf.layers.base import Layer
+from deeplearning4j_torch.nn.conf.preprocessors import (default_preprocessor,
+                                                        preprocessor_key)
 from deeplearning4j_torch.nn.updater import Sgd, Updater
 from deeplearning4j_torch.utils import serde
 from deeplearning4j_torch.utils.serde import register_serializable
@@ -32,11 +34,14 @@ class GraphVertex:
     def init_params(self, gen, dtype, device):
         return {}
 
+    def init_state(self, dtype, device):
+        return {}
+
     def regularization_grad(self, params):
         return {}
 
-    def output_size(self, sizes: list) -> int:
-        return sizes[0]
+    def output_type(self, input_types: list) -> InputType:
+        return input_types[0]
 
     def forward(self, params, state, inputs, *, masks=None, train=False,
                 rng=None):
@@ -53,11 +58,12 @@ class GraphVertex:
 @register_serializable
 @dataclass
 class LayerVertex(GraphVertex):
-    """A Layer inside the graph. ``preprocessor`` is not ported (ROADMAP
-    A7) and raises where it would act. ``remat``: in training, the vertex's
-    internal activations are recomputed in the backward instead of stored
-    (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``); the dropout key
-    is explicit, so the recompute draws the same mask."""
+    """A Layer inside the graph, behind an optional input preprocessor
+    (keyed by ``preprocessor_key`` of the vertex's key). ``remat``: in
+    training, the vertex's internal activations are recomputed in the
+    backward instead of stored (``torch.utils.checkpoint``, JAX's
+    ``jax.checkpoint``); the dropout key is explicit, so the recompute
+    draws the same mask."""
 
     layer: Optional[Layer] = None
     preprocessor: Optional[object] = None
@@ -72,20 +78,44 @@ class LayerVertex(GraphVertex):
     def init_params(self, gen, dtype, device):
         return self.layer.init_params(gen, dtype, device)
 
+    def init_state(self, dtype, device):
+        return self.layer.init_state(dtype, device)
+
     def regularization_grad(self, params):
         return self.layer.regularization_grad(params)
 
-    def output_size(self, sizes):
-        self.layer.set_n_in(sizes[0])
-        return self.layer.output_size(sizes[0])
+    def output_type(self, input_types):
+        """Insert the default preprocessor where none is set, infer the
+        layer's ``n_in`` and check it (what the JAX build does per
+        vertex); returns the vertex's output type."""
+        it = input_types[0]
+        if self.preprocessor is None:
+            self.preprocessor = default_preprocessor(it, self.layer)
+        if self.preprocessor is not None:
+            it = self.preprocessor.output_type(it)
+        self.layer.set_n_in(it)
+        self.layer.validate()
+        return self.layer.output_type(it)
+
+    def feed_forward_mask(self, masks):
+        mask = masks[0] if masks else None
+        if self.preprocessor is not None:
+            mask = self.preprocessor.feed_forward_mask(mask)
+        return self.layer.feed_forward_mask(mask)
+
+    def preprocess(self, x, rng=None):
+        """The vertex input after its preprocessor (if any)."""
+        if self.preprocessor is None:
+            return x
+        return self.preprocessor.forward(x, rng=preprocessor_key(rng))
 
     def forward(self, params, state, inputs, *, masks=None, train=False,
                 rng=None):
-        if self.preprocessor is not None:
-            raise NotImplementedError(
-                f"vertex '{self.name}': input preprocessors are not ported "
-                "yet (ROADMAP A7)")
         mask = masks[0] if masks else None
+        x = inputs[0]
+        if self.preprocessor is not None:
+            x = self.preprocess(x, rng)
+            mask = self.preprocessor.feed_forward_mask(mask)
         if self.remat and train:
             from torch.utils.checkpoint import checkpoint
 
@@ -95,10 +125,10 @@ class LayerVertex(GraphVertex):
 
             # the port draws no number from torch's RNG, so there is no RNG
             # state to stash for the recompute
-            return checkpoint(run, params, inputs[0], state, mask, rng,
+            return checkpoint(run, params, x, state, mask, rng,
                               use_reentrant=False, preserve_rng_state=False)
-        return self.layer.forward(params, state, inputs[0], mask=mask,
-                                  train=train, rng=rng)
+        return self.layer.forward(params, state, x, mask=mask, train=train,
+                                  rng=rng)
 
 
 @register_serializable
@@ -156,17 +186,19 @@ class ComputationGraphConfiguration:
 
     def finalize(self, g=None) -> "ComputationGraphConfiguration":
         """Fill each layer's None fields from the global conf ``g`` (else
-        the defaults) and infer every ``n_in`` from the input types, in
-        topological order (what ``build`` does; a loaded configuration
-        arrives with both already set, and is unchanged)."""
-        sizes = dict(zip(self.network_inputs,
-                         [t.flat_size() for t in self.input_types or []]))
+        the defaults), then, in topological order, insert the default
+        preprocessors and infer every ``n_in`` from the input types (what
+        ``build`` does; a loaded configuration arrives with all of it
+        set, and is unchanged)."""
+        types = dict(zip(self.network_inputs, self.input_types or []))
         for name in self.topo_order:
             v = self.vertices[name]
             v.finalize(g)
-            ins = [sizes.get(k) for k in self.vertex_inputs[name]]
-            if all(s is not None for s in ins):
-                sizes[name] = v.output_size(ins)
+            ins = [types.get(k) for k in self.vertex_inputs[name]]
+            if all(t is not None for t in ins):
+                types[name] = v.output_type(ins)
+            elif isinstance(v, LayerVertex):
+                v.layer.validate()
         return self
 
 

@@ -1,8 +1,8 @@
 """Input types (port of the ``InputType`` of
 ``deeplearning4j_tpu/nn/conf/inputs.py``): what a network input holds, so
-the builder can infer each layer's ``n_in``. The port's graphs take the
-feed-forward and recurrent kinds; the convolutional kinds come with the
-MultiLayerNetwork substrate (ROADMAP A7)."""
+the builders can infer each layer's ``n_in`` and insert the shape
+preprocessors between layer kinds. Image arrays are NHWC and recurrent
+arrays ``[batch, time, features]``, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from deeplearning4j_torch.utils.serde import register_serializable
 
 
 @register_serializable
-@dataclass
+@dataclass(frozen=True)
 class InputType:
     kind: str = "feed_forward"  # feed_forward | recurrent | convolutional | convolutional_flat
     size: int = 0               # feed-forward / recurrent feature count
@@ -32,8 +32,29 @@ class InputType:
         return InputType(kind="recurrent", size=int(size),
                          timeseries_length=timeseries_length)
 
+    @staticmethod
+    def convolutional(height: int, width: int, channels: int) -> "InputType":
+        return InputType(kind="convolutional", height=int(height),
+                         width=int(width), channels=int(channels))
+
+    @staticmethod
+    def convolutional_flat(height: int, width: int,
+                           channels: int) -> "InputType":
+        return InputType(kind="convolutional_flat", height=int(height),
+                         width=int(width), channels=int(channels),
+                         size=int(height) * int(width) * int(channels))
+
     def flat_size(self) -> int:
         """Features per example (per time step for recurrent inputs)."""
         if self.kind in ("feed_forward", "recurrent"):
             return self.size
         return self.height * self.width * self.channels
+
+    def array_shape(self, batch: int = -1):
+        """The array shape, batch first (NHWC, ``[B, T, F]``)."""
+        if self.kind in ("feed_forward", "convolutional_flat"):
+            return (batch, self.flat_size())
+        if self.kind == "recurrent":
+            t = self.timeseries_length if self.timeseries_length else -1
+            return (batch, t, self.size)
+        return (batch, self.height, self.width, self.channels)

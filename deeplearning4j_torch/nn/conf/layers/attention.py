@@ -14,6 +14,7 @@ from dataclasses import dataclass
 
 import torch
 
+from deeplearning4j_torch.nn.conf.inputs import InputType
 from deeplearning4j_torch.nn.conf.layers import paged_attention as ppa
 from deeplearning4j_torch.nn.conf.layers.base import BaseLayer, Layer
 from deeplearning4j_torch.ops import flash_attention as fa
@@ -63,20 +64,24 @@ class SelfAttentionLayer(BaseLayer):
     paged_attention: str = "auto"
 
     STREAMS = True
+    INPUT_KIND = "rnn"
     DEFAULT_ACTIVATION = "identity"
     QUANT_PARAMS = ("Wq", "Wk", "Wv", "Wo")
 
-    def set_n_in(self, n_in: int) -> None:
+    def set_n_in(self, input_type: InputType) -> None:
         if self.n_in == 0:
-            self.n_in = int(n_in)
+            self.n_in = input_type.size
         if self.n_out == 0:
             self.n_out = self.n_in
+
+    def validate(self) -> None:
+        super().validate()
         if self.n_out % self.n_heads:
             raise ValueError(f"n_out={self.n_out} not divisible by "
                              f"n_heads={self.n_heads}")
 
-    def output_size(self, n_in: int) -> int:
-        return self.n_out
+    def output_type(self, input_type: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, input_type.timeseries_length)
 
     def param_order(self):
         return ["Wq", "Wk", "Wv", "Wo", "b"]
@@ -369,6 +374,7 @@ class PositionalEncodingLayer(Layer):
     max_wavelength: float = 10000.0
 
     STREAMS = True
+    INPUT_KIND = "rnn"
 
     def init_streaming_carry(self, batch: int, dtype=torch.float32,
                              device="cpu") -> dict:

@@ -2,8 +2,12 @@
 
 The contract stays functional, as in the JAX package:
 
-- ``init_params(gen, dtype, device) -> dict[str, Tensor]``;
+- ``init_params(gen, dtype, device) -> dict[str, Tensor]`` and
+  ``init_state(dtype, device)`` (batch-norm running statistics, loss
+  centers);
 - ``forward(params, state, x, *, mask, train, rng) -> (out, new_state)``;
+- ``set_n_in(input_type)``/``output_type(input_type)``: shape inference
+  over ``InputType`` at build time, and ``validate()``;
 - ``regularization(params)`` (the L1/L2 penalty value) and
   ``regularization_grad(params)`` (its closed-form gradient per leaf, which
   the train step adds to the data-loss gradients, ``nn/regularization.py``).
@@ -22,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from deeplearning4j_torch.nn.conf.inputs import InputType
 from deeplearning4j_torch.nn.weights import init_weight
 from deeplearning4j_torch.ops import random
 from deeplearning4j_torch.ops.activations import Activation, get_activation
@@ -41,6 +46,9 @@ class Layer:
     #: True for layers that carry streaming state (KV pages or a position
     #: counter) through a serving carry
     STREAMS = False
+    #: what array kind the layer consumes: ff | cnn | rnn | any (the
+    #: builders insert a shape preprocessor where the input differs)
+    INPUT_KIND = "any"
 
     def finalize(self, g=None) -> None:
         """Fill None fields from the global conf ``g``, else with the
@@ -57,11 +65,26 @@ class Layer:
                 g.gradient_normalization_threshold if g is not None
                 and g.gradient_normalization_threshold is not None else 1.0)
 
-    def set_n_in(self, n_in: int) -> None:
-        """Infer nIn-like fields from the previous vertex's feature size."""
+    def set_n_in(self, input_type: InputType) -> None:
+        """Infer nIn-like fields from the type of the layer's input."""
 
-    def output_size(self, n_in: int) -> int:
-        return n_in
+    def output_type(self, input_type: InputType) -> InputType:
+        return input_type
+
+    def validate(self) -> None:
+        """Build-time sanity: a layer with weights needs positive
+        ``n_in``/``n_out`` (the JAX package's message)."""
+        if not self.param_order():
+            return
+        for attr in ("n_in", "n_out"):
+            v = getattr(self, attr, None)
+            if isinstance(v, int) and v <= 0:
+                label = self.name or type(self).__name__
+                hint = (" (set an InputType on the builder, or pass "
+                        f"{attr} explicitly)" if attr == "n_in" else "")
+                raise ValueError(
+                    f"Invalid configuration for layer '{label}': "
+                    f"{attr} must be > 0, got {v}{hint}")
 
     def param_order(self) -> list[str]:
         """Parameter names in the flat-vector order (``params_flat``)."""
@@ -69,6 +92,10 @@ class Layer:
 
     def init_params(self, gen: torch.Generator, dtype=torch.float32,
                     device="cpu") -> dict:
+        return {}
+
+    def init_state(self, dtype=torch.float32, device="cpu") -> dict:
+        """The layer's non-trainable state (empty for most layers)."""
         return {}
 
     def regularization(self, params: dict):
@@ -199,9 +226,14 @@ class FeedForwardLayer(BaseLayer):
     n_in: int = 0
     n_out: int = 0
 
-    def set_n_in(self, n_in: int) -> None:
-        if self.n_in == 0:
-            self.n_in = int(n_in)
+    INPUT_KIND = "ff"
 
-    def output_size(self, n_in: int) -> int:
-        return self.n_out
+    def set_n_in(self, input_type: InputType) -> None:
+        if self.n_in == 0:
+            self.n_in = input_type.flat_size()
+
+    def output_type(self, input_type: InputType) -> InputType:
+        if input_type.kind == "recurrent":
+            return InputType.recurrent(self.n_out,
+                                       input_type.timeseries_length)
+        return InputType.feed_forward(self.n_out)

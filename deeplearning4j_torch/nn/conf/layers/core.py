@@ -1,5 +1,7 @@
-"""Core feed-forward layers (port of ``nn/conf/layers/core.py``): Dense and
-the Dense + loss head ``OutputLayer``."""
+"""Core feed-forward layers (port of ``nn/conf/layers/core.py``): Dense, the
+Dense + loss head ``OutputLayer``, the loss-only ``LossLayer``,
+``ActivationLayer``, ``DropoutLayer`` and ``EmbeddingLayer``.
+``AutoEncoder`` needs layer-wise pretraining (ROADMAP A11) and raises."""
 
 from __future__ import annotations
 
@@ -7,7 +9,8 @@ from dataclasses import dataclass
 
 import torch
 
-from deeplearning4j_torch.nn.conf.layers.base import FeedForwardLayer
+from deeplearning4j_torch.nn.conf.layers.base import (BaseLayer,
+                                                      FeedForwardLayer)
 from deeplearning4j_torch.ops.losses import get_loss
 from deeplearning4j_torch.utils.serde import register_serializable
 
@@ -64,3 +67,93 @@ class OutputLayer(DenseLayer):
     def compute_loss_per_example(self, params, x, labels, weights=None):
         pre = self.preactivate(params, x)
         return self.loss_fn().per_example(labels, pre, self.act(), weights)
+
+
+@register_serializable
+@dataclass
+class LossLayer(BaseLayer):
+    """Loss-only head with no parameters: the loss of the activation of
+    its input."""
+
+    loss: str = "mcxent"
+
+    DEFAULT_ACTIVATION = "identity"
+
+    def loss_fn(self):
+        return get_loss(self.loss)
+
+    def preactivate(self, params, x):
+        return x
+
+    def forward(self, params, state, x, *, mask=None, train=False,
+                rng=None):
+        x = self.apply_input_dropout(x, train=train, rng=rng)
+        return self.act()(x), state
+
+    def compute_loss_per_example(self, params, x, labels, weights=None):
+        return self.loss_fn().per_example(labels, x, self.act(), weights)
+
+
+@register_serializable
+@dataclass
+class ActivationLayer(BaseLayer):
+    """The activation alone, no parameters."""
+
+    def forward(self, params, state, x, *, mask=None, train=False,
+                rng=None):
+        x = self.apply_input_dropout(x, train=train, rng=rng)
+        return self.act()(x), state
+
+
+@register_serializable
+@dataclass
+class DropoutLayer(BaseLayer):
+    """Dropout alone (its input dropout), no parameters."""
+
+    DEFAULT_ACTIVATION = "identity"
+
+    def forward(self, params, state, x, *, mask=None, train=False,
+                rng=None):
+        x = self.apply_input_dropout(x, train=train, rng=rng)
+        return self.act()(x), state
+
+
+@register_serializable
+@dataclass
+class EmbeddingLayer(FeedForwardLayer):
+    """Index lookup: integer inputs ``[B]`` or ``[B, 1]`` select rows of W
+    ``[n_in, n_out]``, plus the bias."""
+
+    DEFAULT_ACTIVATION = "identity"
+
+    def param_order(self):
+        return ["W", "b"]
+
+    def init_params(self, gen, dtype=torch.float32, device="cpu"):
+        W = self._init_w(gen, (self.n_in, self.n_out), self.n_in, self.n_out,
+                         dtype, device)
+        return {"W": W, "b": self._bias(self.n_out, dtype, device)}
+
+    def forward(self, params, state, x, *, mask=None, train=False,
+                rng=None):
+        idx = x.to(torch.int64)
+        if idx.dim() == 2 and idx.shape[-1] == 1:
+            idx = idx[:, 0]
+        return self.act()(params["W"][idx] + params["b"]), state
+
+
+@register_serializable
+@dataclass
+class AutoEncoder(FeedForwardLayer):
+    """Registered so a configuration naming it fails with its reason: the
+    denoising autoencoder trains by layer-wise pretraining, which is not
+    ported (ROADMAP A11)."""
+
+    corruption_level: float = 0.3
+    sparsity: float = 0.0
+    loss: str = "mse"
+
+    def __post_init__(self):
+        raise NotImplementedError(
+            "AutoEncoder trains by layer-wise pretraining, which is not "
+            "ported yet (ROADMAP A11)")

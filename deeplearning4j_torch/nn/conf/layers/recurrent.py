@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from deeplearning4j_torch.nn.conf.inputs import InputType
 from deeplearning4j_torch.nn.conf.layers.core import DenseLayer
 from deeplearning4j_torch.ops.losses import get_loss
 from deeplearning4j_torch.utils.serde import register_serializable
@@ -18,7 +19,11 @@ class RnnOutputLayer(DenseLayer):
 
     loss: str = "mcxent"
 
+    INPUT_KIND = "rnn"
     DEFAULT_ACTIVATION = "softmax"
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, input_type.timeseries_length)
 
     def loss_fn(self):
         return get_loss(self.loss)

@@ -71,10 +71,7 @@ def apply_gradient_normalization(layer_map: dict, grads: dict) -> dict:
 
 
 def layer_map_for(net) -> dict:
-    """The gradient-tree-keyed layer map of a ComputationGraph: each
-    LayerVertex's layer, whose ``gradient_normalization`` fields the build
-    filled from the global configuration where the layer left them None."""
-    from deeplearning4j_torch.nn.conf.graph_conf import LayerVertex
-
-    return {name: v.layer for name, v in net.conf.vertices.items()
-            if isinstance(v, LayerVertex)}
+    """The gradient-tree-keyed layer map of a net (``_param_owners``):
+    each layer, whose ``gradient_normalization`` fields the build filled
+    from the global configuration where the layer left them None."""
+    return dict(net._param_owners())

@@ -1,0 +1,195 @@
+"""MultiLayerNetwork (port of ``deeplearning4j_tpu/nn/multilayer.py``): the
+sequential net. Params keep the JAX pytree shape, ``{layer index:
+{param: Tensor}}`` with string indices ``"0"``, ``"1"``, ..., so the
+reference's weights and zips load unchanged (``utils/convert.py``,
+``utils/model_serializer.py``); the layer state (batch norm's running
+statistics, the center-loss centers) is a tree of the same shape.
+
+The forward hands layer i key i of ``split(rng, n)`` and a preprocessor in
+front of it ``preprocessor_key`` of that key, as the JAX forward does, so
+dropout masks and Bernoulli samples are JAX's bit for bit. ``_loss``
+runs layers ``[0, n-1)``, the output layer's preprocessor, and the output
+head's per-example loss from its pre-activations (``compute_dtype``
+casts the body only), plus the reported L1/L2 penalty. Training,
+evaluation and the flat parameters are ``nn/network.py``'s; ``output``
+pads the batch to a power of two (``optimize/bucketing.py``) as JAX's
+does. TBPTT, ``pretrain`` and streaming over recurrent layers are not
+ported (ROADMAP A11) and raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deeplearning4j_torch.nn.conf.builders import MultiLayerConfiguration
+from deeplearning4j_torch.nn.conf.layers.misc import CenterLossOutputLayer
+from deeplearning4j_torch.nn.conf.preprocessors import preprocessor_key
+from deeplearning4j_torch.nn.network import CARRY_KEYS, Network
+from deeplearning4j_torch.nn.regularization import penalty_value
+from deeplearning4j_torch.optimize.bucketing import bucket_rows, pad_rows
+from deeplearning4j_torch.ops import random
+
+
+class MultiLayerNetwork(Network):
+    conf: MultiLayerConfiguration
+
+    def __init__(self, conf: MultiLayerConfiguration):
+        super().__init__(conf)
+        self.layers = conf.layers
+
+    def _param_owners(self) -> dict:
+        return {str(i): layer for i, layer in enumerate(self.layers)}
+
+    def _preprocessors(self) -> list:
+        return list(self.conf.preprocessors.values())
+
+    # ------------------------------------------------------------- forward
+    def _forward(self, params, state, x, mask, *, train=False, rng=None,
+                 carry=None, upto=None, new_states=None):
+        """Run layers ``[0, upto)``; returns ``(x, new_carry, mask)``. A
+        ``new_states`` dict receives each layer's new state."""
+        n = len(self.layers) if upto is None else upto
+        keys = random.split(rng, max(n, 1)) if rng is not None else None
+        new_carry = {}
+        for i in range(n):
+            layer = self.layers[i]
+            k = None if keys is None else keys[i]
+            prep = self.conf.preprocessors.get(i)
+            if prep is not None:
+                # a derived key, never keys[i]: the preprocessor must not
+                # share its uniforms with the layer behind it
+                x = prep.forward(x, rng=preprocessor_key(k))
+                mask = prep.feed_forward_mask(mask)
+            key = str(i)
+            layer_state = dict(state.get(key, {}))
+            if carry is not None and key in carry:
+                layer_state.update(carry[key])
+            x, ns = layer.forward(params[key], layer_state, x, mask=mask,
+                                  train=train, rng=k)
+            c = {n_: t for n_, t in ns.items() if n_ in CARRY_KEYS}
+            if c:
+                new_carry[key] = c
+            if new_states is not None:
+                new_states[key] = {n_: t for n_, t in ns.items()
+                                   if n_ not in CARRY_KEYS}
+            mask = layer.feed_forward_mask(mask)
+        return x, new_carry, mask
+
+    def feed_forward(self, x, train: bool = False):
+        """Every layer's activation, the input first (no key, so
+        ``train=True`` draws nothing)."""
+        cur = self._as_tensor(x, getattr(torch, self.conf.dtype))
+        acts = [cur]
+        with torch.no_grad():
+            for i, layer in enumerate(self.layers):
+                if i in self.conf.preprocessors:
+                    cur = self.conf.preprocessors[i].forward(cur)
+                cur, _ = layer.forward(self.params[str(i)],
+                                       self.state.get(str(i), {}), cur,
+                                       train=train)
+                acts.append(cur)
+        return acts
+
+    def _batch(self, x, y, input_mask, label_mask):
+        """Features and labels in the param dtype and masks in f32, as
+        tensors on the net's device."""
+        dtype = getattr(torch, self.conf.dtype)
+
+        def mask(m):
+            return None if m is None else self._as_tensor(m, torch.float32)
+
+        return (self._as_tensor(x, dtype), self._as_tensor(y, dtype),
+                mask(input_mask), mask(label_mask))
+
+    @torch.inference_mode()
+    def output(self, x, train: bool = False, mask=None):
+        """The output layer's activations in the parameter dtype. The batch
+        is padded to the next power of two by repeating its last row and
+        the padding cut from the result, as the JAX package buckets it."""
+        x = self._as_tensor(x, getattr(torch, self.conf.dtype))
+        mask = None if mask is None else self._as_tensor(mask,
+                                                         torch.float32)
+        n = x.shape[0]
+        B = bucket_rows(n)
+        if B != n:
+            x = pad_rows(x, B)
+            if mask is not None:
+                mask = pad_rows(mask, B)
+        out, _, _ = self._forward(self.params, self.state, x, mask,
+                                  train=train)
+        return out if B == n else out[:n]
+
+    def _output_one(self, x, mask):
+        return self.output(x, mask=mask)
+
+    # --------------------------------------------------------------- loss
+    def _loss(self, params, state, x, y, input_mask, label_mask, *,
+              train=False, rng=None, carry=None):
+        """The training loss (JAX ``_loss``): the output head's per-example
+        loss of its input, averaged over the label mask (else the
+        propagated mask, else a plain mean), plus the L1/L2 penalty value
+        (reported, not differentiated: the step adds its closed-form
+        gradient). Under ``compute_dtype`` the body layers compute in that
+        dtype and the head in the parameter dtype. Returns ``(loss,
+        (new_states, new_carry, last_in))``, ``last_in`` the head's
+        input (what a center-loss head's center update reads)."""
+        out_idx = len(self.layers) - 1
+        cd = self.conf.compute_dtype
+        fwd_params = params
+        if cd is not None:
+            cdt = getattr(torch, cd)
+            fwd_params = {k: (v if k == str(out_idx)
+                              else {n: t.to(cdt) for n, t in v.items()})
+                          for k, v in params.items()}
+            x = x.to(cdt)
+        new_states: dict = {}
+        last_in, new_carry, cur_mask = self._forward(
+            fwd_params, state, x, input_mask, train=train, rng=rng,
+            carry=carry, upto=out_idx, new_states=new_states)
+        if cd is not None:
+            last_in = last_in.to(getattr(torch, self.conf.dtype))
+        out_layer = self.layers[out_idx]
+        prep = self.conf.preprocessors.get(out_idx)
+        if prep is not None:
+            # the forward split rng already; only a derived key is drawn
+            last_in = prep.forward(last_in, rng=preprocessor_key(rng))
+        p_out = params[str(out_idx)]
+        if isinstance(out_layer, CenterLossOutputLayer):
+            per_ex = out_layer.compute_loss_per_example(
+                p_out, last_in, y, state=state.get(str(out_idx)))
+        else:
+            per_ex = out_layer.compute_loss_per_example(p_out, last_in, y)
+        lm = label_mask if label_mask is not None else cur_mask
+        if lm is not None:
+            lm = lm.reshape(per_ex.shape).to(per_ex.dtype)
+            data_loss = (per_ex * lm).sum() / lm.sum().clamp_min(1.0)
+        else:
+            data_loss = per_ex.mean()
+        new_states[str(out_idx)] = state.get(str(out_idx), {})
+        return (data_loss + penalty_value(self, params),
+                (new_states, new_carry, last_in))
+
+    def _fit_batch(self, ds):
+        self.do_step(ds.features, ds.labels, ds.features_mask,
+                     ds.labels_mask)
+
+    # ---------------------------------------------------- not ported (A11)
+    def pretrain(self, data_iterator, epochs: int = 1):
+        raise NotImplementedError(
+            "layer-wise pretraining is not ported yet (ROADMAP A11)")
+
+    @torch.inference_mode()
+    def rnn_time_step(self, x):
+        """Streaming inference over attention layers' KV caches (JAX
+        ``rnn_time_step``); each call consumes the next chunk of steps (a
+        2-D input is one step). Recurrent (LSTM) layers are not ported
+        (ROADMAP A11)."""
+        x = self._as_tensor(x, getattr(torch, self.conf.dtype))
+        squeeze = x.dim() == 2
+        if squeeze:
+            x = x[:, None, :]
+        carry = self._stream_advance(x.shape[0], x.shape[1])
+        out, new_carry, _ = self._forward(self.params, self.state, x, None,
+                                          carry=carry)
+        self._rnn_state = new_carry
+        return out[:, 0] if squeeze and out.dim() == 3 else out

@@ -17,9 +17,8 @@ from deeplearning4j_torch.nn.conf.layers.base import BaseLayer, Layer
 
 
 def _layer_param_pairs(net, params):
-    for name, v in net.conf.vertices.items():
-        layer = getattr(v, "layer", None)
-        yield (layer if layer is not None else v), params.get(name, {})
+    for key, owner in net._param_owners().items():
+        yield owner, params.get(key, {})
 
 
 def penalty_value(net, params):
@@ -58,10 +57,10 @@ def penalty_value(net, params):
 
 
 def add_regularization_grads(net, params, grads):
-    """``grads`` with each vertex's closed-form penalty gradient added
+    """``grads`` with each layer's closed-form penalty gradient added
     (mutates the freshly computed ``grads`` trees and returns them)."""
-    for name, v in net.conf.vertices.items():
-        sub = params.get(name, {})
-        for k, g in v.regularization_grad(sub).items():
-            grads[name][k] = grads[name][k] + g
+    for key, owner in net._param_owners().items():
+        sub = params.get(key, {})
+        for k, g in owner.regularization_grad(sub).items():
+            grads[key][k] = grads[key][k] + g
     return grads

@@ -1,10 +1,13 @@
 """Shape bucketing (copied from ``deeplearning4j_tpu/optimize/bucketing.py``):
 ``bucket_length`` and ``bucket_pages``, with the ``bucket_rows`` helper they
-share. The port runs eagerly and compiles nothing per shape; the buckets
-keep the serving schedule (and so its outputs) identical to the JAX
-server's."""
+share, and ``pad_rows`` (``MultiLayerNetwork.output`` pads its batch to a
+``bucket_rows`` size). The port runs eagerly and compiles nothing per
+shape; the buckets keep the serving schedule (and so its outputs)
+identical to the JAX server's."""
 
 from __future__ import annotations
+
+import torch
 
 
 def bucket_rows(n: int, multiple: int = 1) -> int:
@@ -50,3 +53,12 @@ def bucket_pages(n: int, page_size: int,
         if pages > maximum:
             pages = int(maximum)
     return pages
+
+
+def pad_rows(x, n: int):
+    """``x`` padded to ``n`` rows by repeating its last row (real data, so
+    the padding rows compute nothing degenerate)."""
+    pad = n - x.shape[0]
+    if pad <= 0:
+        return x
+    return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])

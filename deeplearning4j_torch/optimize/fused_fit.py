@@ -1,14 +1,16 @@
 """The training step core and the fused K-step fit driver (port of
 ``deeplearning4j_tpu/optimize/fused_fit.py``).
 
-- ``build_step_core``: one functional step over a net's ``_loss``: the
-  gradient of the loss with respect to the parameter leaves (autograd on
-  detached copies marked ``requires_grad``, as ``jax.value_and_grad`` leaves
-  the parameters plain tensors), then the closed-form L1/L2 gradients,
-  then ``grad_transform``, then the finite check (guarded), then gradient
-  normalization, then the updater with the per-layer learning-rate
-  multipliers, then ``params - steps``; in JAX's order. Guarded, a
-  non-finite step selects the identity update on the device.
+- ``build_step_core``: one functional step over a net's ``_loss`` (a
+  MultiLayerNetwork's or a ComputationGraph's): the gradient of the loss
+  with respect to the parameter leaves (autograd on detached copies marked
+  ``requires_grad``, as ``jax.value_and_grad`` leaves the parameters plain
+  tensors), then the closed-form L1/L2 gradients, then ``grad_transform``,
+  then the finite check (guarded), then gradient normalization, then the
+  updater with the per-layer learning-rate multipliers, then ``params -
+  steps``, then the center update of ``CenterLossOutputLayer`` heads; in
+  JAX's order. Guarded, a non-finite step selects the identity update on
+  the device.
 - ``build_fused_step``: K steps of that core in one call, each on its own
   microbatch with the key ``fold_in(PRNGKey(seed), iteration)`` (the
   iteration advances on a skipped step too), with no host sync inside. In
@@ -65,17 +67,26 @@ def resolve_fused_steps(net, fused_steps):
 
 
 # --------------------------------------------------------------- step core
-def _center_spec(net):
-    """CenterLoss output heads need a non-gradient center update in the
-    step; that layer is not ported (ROADMAP A7), so a conf naming one
-    raises here."""
-    for name in net.conf.network_outputs:
-        layer = getattr(net.conf.vertices[name], "layer", None)
-        if type(layer).__name__ == "CenterLossOutputLayer":
-            raise NotImplementedError(
-                f"output '{name}' is a CenterLossOutputLayer: its center "
-                "update is not ported yet (ROADMAP A7)")
-    return None
+def _center_heads(net) -> list:
+    """The keys of the net's ``CenterLossOutputLayer`` heads (each needs
+    its centers moved after the step, outside the gradient): a
+    MultiLayerNetwork's last layer, a graph's output vertices."""
+    from deeplearning4j_torch.nn.conf.layers.misc import (
+        CenterLossOutputLayer)
+
+    owners = net._param_owners()
+    outs = getattr(net.conf, "network_outputs", None) or [
+        str(len(net.layers) - 1)]
+    return [k for k in outs if isinstance(owners.get(k),
+                                          CenterLossOutputLayer)]
+
+
+def _detached(tree):
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_detached(v) for v in tree)
+    return tree.detach() if torch.is_tensor(tree) else tree
 
 
 def _loss_and_grads(net, params, state, x, y, input_mask, label_mask, *,
@@ -87,6 +98,7 @@ def _loss_and_grads(net, params, state, x, y, input_mask, label_mask, *,
         loss, aux = net._loss(leaves, state, x, y, input_mask, label_mask,
                               train=train, rng=rng, carry=carry)
         gs = torch.autograd.grad(loss, flat, allow_unused=True)
+    aux = _detached(aux)
     it = iter(gs)
     grads = {}
     for v, p in leaves.items():
@@ -120,14 +132,15 @@ def build_step_core(net, *, grad_transform=None, guarded=False):
     bit-identical."""
     from deeplearning4j_torch.optimize.health import all_finite, tree_select
 
-    _center_spec(net)
+    centers = _center_heads(net)
+    owners = net._param_owners()
     updater = net.conf.updater
     lr_mults = net._lr_mult_tree()
     layer_map = layer_map_for(net)
 
     def core(params, opt_state, state, rng, iteration, x, y, input_mask,
              label_mask, carry):
-        loss, (new_states, new_carry), grads = _loss_and_grads(
+        loss, (new_states, new_carry, last_in), grads = _loss_and_grads(
             net, params, state, x, y, input_mask, label_mask, train=True,
             rng=rng, carry=carry)
         with torch.no_grad():
@@ -144,6 +157,14 @@ def build_step_core(net, *, grad_transform=None, guarded=False):
                 steps, opt_state2 = updater.step(grads, opt_state, iteration)
             new_params = {v: {k: t - steps[v][k] for k, t in p.items()}
                           for v, p in params.items()}
+            for key in centers:
+                if isinstance(last_in, dict):       # a graph's heads
+                    j = net.conf.network_outputs.index(key)
+                    xin, yy = last_in[key], y[j]
+                else:
+                    xin, yy = last_in, y
+                new_states[key] = owners[key].update_centers(state[key],
+                                                             xin, yy)
             if guarded:
                 new_params = tree_select(ok, new_params, params)
                 opt_state2 = tree_select(ok, opt_state2, opt_state)

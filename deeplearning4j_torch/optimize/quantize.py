@@ -1,16 +1,19 @@
 """Post-training int8 weight quantization (port of
 ``deeplearning4j_tpu/optimize/quantize.py``).
 
-- ``quantize_params(net) -> (qparams, scales)`` rewrites the dense and
-  attention-projection weights (every layer's ``QUANT_PARAMS``) to absmax
+- ``quantize_params(net) -> (qparams, scales)`` rewrites the dense,
+  convolution and attention-projection weights (every layer's
+  ``QUANT_PARAMS``) to absmax
   per-output-channel int8 (``scale = absmax / 127`` over every axis but
   the last), leaving biases, norms and the rest untouched. The int8 tensor
   and its ``"<name>_scale"`` f32 sibling ride the same params tree.
 - Layers key on the sibling's presence: ``DenseLayer.preactivate`` and
   ``SelfAttentionLayer._proj`` compute ``(x @ W_q.to(x.dtype)) * scale``
   (the JAX package leaves the dequant to XLA's matmul epilogue; here the
-  widened weight goes to ``torch.matmul``), so the weights stay int8 in
-  memory.
+  widened weight goes to ``torch.matmul``), and the convolutions scale
+  their output the same way (``ConvolutionLayer``'s ``W``,
+  ``SeparableConvolution2D``'s ``dW`` and ``pW``), so the weights stay
+  int8 in memory.
 - ``quantize_net(net)`` returns a servable shallow copy whose params are
   quantized; the source net is untouched.
 
@@ -19,8 +22,7 @@ computes them (``np.round``, half to even; clip to ±127; all-zero channels
 get scale 0), so for the same f32 weights the port's codes and scales are
 bitwise the JAX package's; the result then moves to each weight's device.
 Quantized outputs are gated on ``confusion_delta`` and ``greedy_agreement``,
-not on bit equality. Only ComputationGraph nets are ported (ROADMAP A7);
-the convolution layers' opt-ins wait for A7 too. Nothing here imports JAX.
+not on bit equality. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -65,15 +67,6 @@ def dequantize_array(q, scale, dtype=np.float32):
     return (q.astype(np.float32) * scale).astype(dtype)
 
 
-def _layer_items(net):
-    """(params key, layer) pairs keyed as ``net.params``: the vertex names
-    of a ComputationGraph."""
-    for name, v in net.conf.vertices.items():
-        layer = getattr(v, "layer", None)
-        if layer is not None:
-            yield name, layer
-
-
 def quantize_params(net):
     """Quantize every ``QUANT_PARAMS`` weight of ``net`` (dense ``W``,
     attention ``Wq``/``Wk``/``Wv``/``Wo``; layers opt in by the class
@@ -85,7 +78,7 @@ def quantize_params(net):
     qparams = {k: dict(v) if isinstance(v, dict) else v
                for k, v in net.params.items()}
     scales: dict = {}
-    for key, layer in _layer_items(net):
+    for key, layer in net._param_owners().items():
         names = getattr(layer, "QUANT_PARAMS", ())
         lp = qparams.get(key)
         if not names or not isinstance(lp, dict):

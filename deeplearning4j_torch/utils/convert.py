@@ -1,10 +1,11 @@
 """Load the JAX package's parameters and updater state into the port.
 
 ``params_from_jax`` takes the reference net's parameters as numpy arrays —
-``{vertex: {name: ndarray}}``, as ``jax.device_get(net.params)`` gives them —
-and loads them into a port ``ComputationGraph`` unchanged: the layouts are
-the same on both sides (Dense ``W`` is ``[n_in, n_out]``), so no transpose
-or reorder is needed. ``updater_state_from_jax`` does the same for the
+``{vertex: {name: ndarray}}`` for a graph, ``{layer index: {name:
+ndarray}}`` for a MultiLayerNetwork, as ``jax.device_get(net.params)``
+gives them — and loads them into the port's net unchanged: the layouts are
+the same on both sides (Dense ``W`` is ``[n_in, n_out]``, convolution
+kernels HWIO), so no transpose or reorder is needed. ``updater_state_from_jax`` does the same for the
 optimizer slots (``{slot: {vertex: {name: ndarray}}}``, Adam's ``m`` and
 ``v``), so a run can continue from a JAX-trained state. A quantized
 reference tree (``quantize_params``/``quantize_net``: int8 codes with

@@ -6,18 +6,19 @@ The zip is the contract between the two packages. Its entries:
 - ``configuration.json``: the ``@class``-tagged configuration JSON
   (``utils/serde.py``);
 - ``coefficients.bin``: the flat parameter vector (``utils/pytree.py``
-  order: topological order, then each vertex's ``param_order()``) as
-  little-endian f32;
+  order: a MultiLayerNetwork's layers by index or a graph's vertices in
+  topological order, then each one's ``param_order()``) as little-endian
+  f32;
 - ``metadata.json``: format version, model type, ``iteration``, ``epoch``
   and the parameter count;
-- ``state.npz``: the layer state tree, keys ``vertex/name``;
+- ``state.npz``: the layer state tree, keys ``layer/name`` (batch norm's
+  ``3/mean`` and ``3/var``);
 - ``updaterState.bin``: the updater state as an npz, keys
-  ``slot/vertex/name`` (Adam's ``m`` and ``v``).
+  ``slot/layer/name`` (Adam's ``m`` and ``v``).
 
-A zip written here loads in the JAX package and the reverse; the
-coefficients of a round trip are byte for byte the same. Only
-ComputationGraph zips are ported: a MultiLayerNetwork's raises (ROADMAP
-A7).
+A zip written here loads in the JAX package and the reverse, for
+MultiLayerNetworks and ComputationGraphs; the coefficients of a round trip
+are byte for byte the same.
 """
 
 from __future__ import annotations
@@ -29,9 +30,11 @@ import zipfile
 import numpy as np
 import torch
 
+from deeplearning4j_torch.nn.conf.builders import MultiLayerConfiguration
 from deeplearning4j_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration)
 from deeplearning4j_torch.nn.graph import ComputationGraph
+from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_torch.utils import serde
 
 
@@ -88,7 +91,7 @@ def _merge_into(template, loaded, where: str = ""):
 
 
 def save_model(net, path: str, save_updater: bool = True) -> None:
-    """Write a ComputationGraph to a model zip the JAX package reads.
+    """Write a net to a model zip the JAX package reads.
 
     A quantized net (``optimize/quantize.py``: int8 codes with
     ``"<name>_scale"`` siblings) raises ``ValueError``: the zip's flat f32
@@ -121,15 +124,21 @@ def save_model(net, path: str, save_updater: bool = True) -> None:
             zf.writestr("updaterState.bin", _state_to_npz(net.updater_state))
 
 
+def _net_class(conf):
+    if isinstance(conf, ComputationGraphConfiguration):
+        conf.finalize()
+        return ComputationGraph
+    if isinstance(conf, MultiLayerConfiguration):
+        return MultiLayerNetwork
+    raise ValueError(f"configuration.json holds a {type(conf).__name__}, "
+                     "not a network configuration")
+
+
 def net_from_conf(conf, *, device=None):
-    """The initialised network (freshly drawn weights) for a deserialized
-    configuration, on ``device`` (CUDA unless the caller asks for another
-    device)."""
-    if not isinstance(conf, ComputationGraphConfiguration):
-        raise NotImplementedError(
-            f"{type(conf).__name__}: only ComputationGraph configurations "
-            "are ported; the MultiLayerNetwork substrate is ROADMAP A7")
-    return ComputationGraph(conf.finalize()).init(device=device)
+    """The initialised network (freshly drawn weights) of the right class
+    for a deserialized configuration, on ``device`` (CUDA unless the
+    caller asks for another device)."""
+    return _net_class(conf)(conf).init(device=device)
 
 
 def load_model(path: str, load_updater: bool = True, *, device=None):
@@ -145,22 +154,17 @@ def load_model(path: str, load_updater: bool = True, *, device=None):
                  if "state.npz" in names else {})
         upd = (_npz_to_state(zf.read("updaterState.bin"))
                if load_updater and "updaterState.bin" in names else None)
-    if isinstance(raw, dict) and raw.get("@class") == \
-            "MultiLayerConfiguration":
-        raise NotImplementedError(
-            f"{path} holds a MultiLayerNetwork: only ComputationGraph zips "
-            "are ported; the MultiLayerNetwork substrate is ROADMAP A7")
     conf = serde.from_jsonable(raw)
-    if not isinstance(conf, ComputationGraphConfiguration):
-        raise ValueError(f"{path}: configuration.json holds a "
-                         f"{type(conf).__name__}, not a configuration")
+    try:
+        cls = _net_class(conf)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+    net = cls(conf)
     # the zip's weights replace any draw, so none is made (and an init
     # scheme the port cannot draw does not stop the load)
-    conf.finalize()
     dtype = getattr(torch, conf.dtype)
-    zeros = {name: conf.vertices[name].init_params(None, dtype, "cpu")
-             for name in conf.topo_order}
-    net = ComputationGraph(conf).init(zeros, device=device)
+    net.init({k: o.init_params(None, dtype, "cpu")
+              for k, o in net._param_owners().items()}, device=device)
     net.set_params_flat(coeff)
     if state:
         net.state = _merge_into(net.state, state, "state")

@@ -80,7 +80,12 @@ def test_port_imports_no_jax():
             "optimize/health.py", "optimize/listeners.py",
             "parallel/elastic.py", "nn/regularization.py",
             "nn/gradient_normalization.py", "nn/weights.py",
-            "nn/conf/builders.py", "datasets/iterators.py"} <= names
+            "nn/conf/builders.py", "datasets/iterators.py",
+            "nn/multilayer.py", "nn/network.py",
+            "nn/conf/preprocessors.py", "nn/conf/layers/convolution.py",
+            "nn/conf/layers/pooling.py", "nn/conf/layers/misc.py",
+            "evaluation/classification.py", "evaluation/fused_eval.py",
+            "datasets/mnist.py"} <= names
     bad = [(str(p.relative_to(ROOT)), mod) for p in files
            for mod in _imported_roots(p) if mod in FORBIDDEN]
     assert bad == []
@@ -97,6 +102,25 @@ def test_default_device_raises_without_cuda(no_cuda):
     net = TransformerLM(**TINY).init(device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GenerationServer(net, 11)
+
+
+def test_multilayer_entry_points_run_on_cuda_by_default(no_cuda):
+    """The MultiLayerNetwork entry points (a zoo model's ``init``, a zip's
+    ``load_model``, ``MultiLayerNetwork.init``) resolve to CUDA and, with
+    no card, raise unless the caller asks for the host."""
+    from deeplearning4j_torch.models.zoo import LeNet
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.utils.model_serializer import load_model
+
+    fixture = str(ROOT / "tests" / "fixtures" / "regression_convnet_r4.zip")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LeNet().init()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model(fixture)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiLayerNetwork(LeNet().conf()).init()
+    assert LeNet().init(device="cpu").device.type == "cpu"
+    assert load_model(fixture, device="cpu").device.type == "cpu"
 
 
 def test_prng_key_lands_on_the_card(no_cuda):
@@ -155,24 +179,26 @@ def test_flash_backward_refuses_unsupported_cases(case, monkeypatch):
             fa.flash_attention_backward(q, q, q, q, lse, q)
 
 
-@pytest.mark.parametrize("what", ["tbptt", "pretrain", "center_loss"])
+@pytest.mark.parametrize("what", ["tbptt", "pretrain", "mln_tbptt"])
 def test_fit_refuses_what_is_not_ported(what):
-    """TBPTT and layer-wise pretraining (ROADMAP A11) and the CenterLoss
-    head's center update (A7) raise, naming their item, before a step."""
+    """TBPTT and layer-wise pretraining (ROADMAP A11) raise, naming their
+    item, before a step: on the graph, and TBPTT on a MultiLayerNetwork."""
     net = TransformerLM(**TINY).init(device="cpu")
     x = np.eye(11, dtype=np.float32)[np.arange(8) % 11][None]
-    item = "A11"
+    y = x
     if what == "tbptt":
         net.conf.backprop_type = "tbptt"
     elif what == "pretrain":
         net.conf.pretrain = True
     else:
-        net.conf.vertices["output"].layer.__class__ = type(
-            "CenterLossOutputLayer",
-            (type(net.conf.vertices["output"].layer),), {})
-        item = "A7"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        net.fit(x, x)
+        from deeplearning4j_torch.models.zoo import LeNet
+
+        net = LeNet(input_shape=(8, 8, 1)).init(device="cpu")
+        net.conf.backprop_type = "tbptt"
+        x = np.zeros((2, 8, 8, 1), np.float32)
+        y = np.eye(10, dtype=np.float32)[[1, 2]]
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        net.fit(x, y)
     assert net.iteration == 0
 
 

@@ -53,7 +53,23 @@ CLASSES = ["ComputationGraphConfiguration", "LayerVertex",
            "ElementWiseVertex", "DenseLayer", "PositionalEncodingLayer",
            "LayerNormalization", "SelfAttentionLayer", "RnnOutputLayer",
            "Adam", "LearningRateSchedule", "InputType", "Sgd", "Nesterovs",
-           "AdaMax", "Nadam", "AdaGrad", "RmsProp", "AdaDelta", "NoOp"]
+           "AdaMax", "Nadam", "AdaGrad", "RmsProp", "AdaDelta", "NoOp",
+           # the MultiLayerNetwork substrate's classes
+           "MultiLayerConfiguration", "ConvolutionLayer", "Deconvolution2D",
+           "SeparableConvolution2D", "Convolution1DLayer",
+           "SubsamplingLayer", "Subsampling1DLayer", "ZeroPaddingLayer",
+           "Upsampling2D", "GlobalPoolingLayer", "BatchNormalization",
+           "LocalResponseNormalization", "LossLayer", "ActivationLayer",
+           "DropoutLayer", "EmbeddingLayer", "AutoEncoder", "FrozenLayer",
+           "CenterLossOutputLayer", "CnnToFeedForwardPreProcessor",
+           "FeedForwardToCnnPreProcessor", "ZeroMeanPrePreProcessor",
+           "UnitVarianceProcessor", "ZeroMeanAndUnitVariancePreProcessor",
+           "BinomialSamplingPreProcessor", "ComposableInputPreProcessor",
+           "RnnToFeedForwardPreProcessor", "FeedForwardToRnnPreProcessor",
+           "CnnToRnnPreProcessor", "RnnToCnnPreProcessor"]
+CONVNET = os.path.join(FIXTURES, "regression_convnet_r4.zip")
+CONVNET_EXPECTED = os.path.join(FIXTURES,
+                                "regression_convnet_r4_expected.npz")
 
 
 def _entry(path, name):
@@ -226,9 +242,66 @@ def test_unknown_class_or_field_raises_naming_it(where):
 
 
 def test_multilayer_zip_raises_naming_a7():
-    with pytest.raises(NotImplementedError, match="A7"):
-        ms.load_model(os.path.join(FIXTURES, "regression_convnet_r4.zip"),
-                      device="cpu")
+    """(Named for the refusal it replaced.) The committed JAX-saved conv
+    net ``regression_convnet_r4.zip`` (conv, max pool, the NHWC flatten,
+    dense, batch norm with its running statistics, Adam state) loads in
+    the port, reproduces ``regression_convnet_r4_expected.npz`` as
+    ``tests/test_format_regression.py`` holds the JAX package
+    (``params_sum`` within 1e-4, ``output(probe)`` within 1e-5) and fits
+    a step, on the same batch to the same parameters as the JAX package
+    within 1e-5."""
+    from deeplearning4j_tpu.datasets.dataset import DataSet as JaxDataSet
+
+    net = ms.load_model(CONVNET, device="cpu")
+    exp = np.load(CONVNET_EXPECTED)
+    assert type(net).__name__ == "MultiLayerNetwork"
+    assert abs(float(net.params_flat().sum())
+               - float(exp["params_sum"])) < 1e-4
+    np.testing.assert_allclose(net.output(exp["probe"]).numpy(),
+                               exp["output"], atol=1e-5)
+    rs = np.random.RandomState(0)
+    x = rs.randn(8, 8, 8, 1).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rs.randint(0, 3, 8)]
+    net.fit(DataSet(x, y))
+    jnet = jms.load_model(CONVNET)
+    jnet.fit(JaxDataSet(x, y))
+    assert net.iteration == jnet.iteration == 7
+    np.testing.assert_allclose(net.params_flat(),
+                               np.asarray(jnet.params_flat()), atol=1e-5,
+                               rtol=0)
+    for k in ("mean", "var"):
+        np.testing.assert_allclose(net.state["3"][k].numpy(),
+                                   np.asarray(jnet.state["3"][k]),
+                                   atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_lenet_zip_coefficients_identical_both_ways(tmp_path, first):
+    """A LeNet zip's ``coefficients.bin`` and ``state.npz`` keys are the
+    same bytes and names whichever package saves it first: JAX -> zip ->
+    port -> zip, and port -> zip -> JAX -> zip; the other package's load
+    computes the same ``output()`` within 1e-5."""
+    from deeplearning4j_torch.models.zoo import LeNet
+    from deeplearning4j_tpu.models.zoo import LeNet as JaxLeNet
+
+    a, b = str(tmp_path / "first.zip"), str(tmp_path / "second.zip")
+    x = np.random.RandomState(3).rand(3, 28, 28, 1).astype(np.float32)
+    if first == "jax":
+        src = JaxLeNet(seed=4).init()
+        jms.save_model(src, a)
+        other = ms.load_model(a, device="cpu")
+        ms.save_model(other, b)
+        want, got = np.asarray(src.output(x)), other.output(x).numpy()
+    else:
+        src = LeNet(seed=4).init(device="cpu")
+        ms.save_model(src, a)
+        other = jms.load_model(a)
+        jms.save_model(other, b)
+        want, got = src.output(x).numpy(), np.asarray(other.output(x))
+    assert _entry(a, "coefficients.bin") == _entry(b, "coefficients.bin")
+    assert json.loads(_entry(a, "configuration.json")) == \
+        json.loads(_entry(b, "configuration.json"))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
 def test_load_model_runs_on_cuda_by_default(monkeypatch):
