@@ -154,6 +154,30 @@ Phases (any failure exits non-zero, and no result line is printed):
    the loss within rtol 1e-4, the f32 gradient ratio reported: a ReLU
    flip makes deep f32 gradients incomparable leaf by leaf), then timed
    steps at batch 32 (VGG16 16) with the device busy share.
+9. the serving fabric at the slice's width, on phase 5's weights. 9a: a
+   ``ReplicaFleet`` of two phase-5 servers on the one card serves the 16
+   phase-5 requests and the 8 sampled ones of phase 5b, once clean (its
+   tokens/s beside one server's) and once with replica 0 killed while it
+   decodes: every stream equal to phase 5's or 5b's, a death, nothing
+   lost, the respawn, and ``torch.cuda.memory_allocated()`` before the
+   fleet, with two live replicas and after the respawn (the killed
+   replica's pool freed). 9b: a prefill/decode fleet (streams equal to
+   phase 5's, TTFT and inter-token latency from ``fleet_ttft_ms`` /
+   ``fleet_itl_ms``), then its decode tier dark (co-located serving,
+   streams still phase 5's). 9c: 64 single-row submits through
+   ``ParallelInference`` over LeNet (trained on 32 synthetic MNIST
+   batches) and over the slice model: 4 forwards of 16 rows, each row bit
+   for bit ``output()`` of its batch and within 1e-5 of max|y| of an
+   unpadded ``output()``; int8 LeNet under phase 8c's rule. 9d:
+   ``KerasBackendServer`` on port 0: eight concurrent ``/generate``
+   through a two-replica fleet (phase 5's/5b's tokens), ``/predict`` (9c's
+   rows bit for bit), ``/stats`` (the JAX server's keys), ``/metrics``,
+   ``/import`` (a structured 500 naming ROADMAP A12) and ``/fit`` on two
+   batches of phase 7's shape (losses and parameters bit for bit ``fit``
+   called directly). 9e: ``LoadGenerator.run_open`` Poisson arrivals
+   against a fleet with an ``Autoscaler`` on a ``FleetTierTarget``:
+   achieved req/s, p50/p99, the decisions, nothing lost, every stream
+   phase 5's or 5b's.
 
 Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
 calls (``ms``: the wrapper's host work included, which sets the pace once
@@ -166,14 +190,15 @@ The main path is phases 4-5 (serving), phases 4b-5c (loading a zip,
 sampled and bf16 serving), phase 4c (the d=8 fixture), phase 5d (prefix
 sharing, preemption, handoff), phase 5e (speculative decoding, roles,
 migration, chaos), phase 5f (the d=96 model, f32 and int8 weights), phase
-7 (training), phase 7b (training at d=96), phase 7c (``fit``) and phase
+7 (training), phase 7b (training at d=96), phase 7c (``fit``), phase
 8 (the MultiLayerNetwork substrate, which runs no hand-written kernel:
 its convolutions and pooling are library calls, as the JAX package's are
-XLA's). The launch counters are zeroed just before each of the ten and
-read just after (phase 6's and the reference servers' launches are not
-counted); every kernel must have run on the main path, K2's chunk route
-and its merge pass included, and each path but phase 8 must have launched
-its own kernels. The script
+XLA's) and phase 9 (the serving fabric: K1, both routes of K2, K3 and K4).
+The launch counters are zeroed just before each of the eleven and read
+just after (phase 6's and the reference servers' and forwards' launches
+are not counted); every kernel must have run on the main path, K2's
+chunk route and its merge pass included, and each path but phase 8 must
+have launched its own kernels. The script
 prints the card's name and power limit, one ``{"kernels": [...]}`` line with
 each kernel's launches, error, times and bound, and, last, the result line
 ``{"ok": true, "device": {...}}``. f32 matmuls run in full f32 (TF32
@@ -3150,6 +3175,519 @@ def phase_multilayer(card, profile):
                 int8_lenet=int8, big_cnns=big)
 
 
+# ----------------------------------------------------------------- phase 9
+#: phase-9 fleets: replicas of the phase-5 server, all on the one card
+FLEET_REPLICAS = 2
+#: phase 9c: single-row submits through ParallelInference, coalesced into
+#: full batches of PI_BATCH consecutive rows (a 10 s window never expires)
+PI_SUBMITS = 64
+PI_BATCH = 16
+#: phase 9c trains its LeNet on this many synthetic MNIST batches first
+PI_TRAIN_BATCHES = 32
+#: phase 9e: open-loop Poisson arrivals against a fleet
+LOAD_RATE = 12.0
+LOAD_SECONDS = 4.0
+#: phase 9d: the keys of the JAX KerasBackendServer's /stats with a
+#: generation fleet and a ParallelInference attached (tests/test_metrics.py's
+#: SERVER_KEYS, then the blocks those two add)
+SERVER_STATS_KEYS = ["retried", "expired", "rejected_circuit", "completed",
+                     "failed", "accepted", "rejected", "pending",
+                     "breaker_state", "models", "generation", "handoff",
+                     "inference"]
+
+
+def fabric_net():
+    """The slice model on the card with phase 5's weights (phase 7 trains
+    the phase-5 net in place)."""
+    from deeplearning4j_torch.models.zoo import TransformerLM
+    from deeplearning4j_torch.utils.convert import params_from_jax
+
+    net = TransformerLM(**SLICE).init(device="cuda")
+    params_from_jax(numpy_params(net, seed=0), net)
+    return net
+
+
+def fabric_requests(net, greedy=None, sampled=None):
+    """Phase 9's traffic: the 16 phase-5 requests, then the 8 sampled ones
+    of phase 5b, each with the tokens it must return (phase 5's and 5b's
+    streams; a run of phase 9 alone serves them once through one server)."""
+    reqs = [(p, n, {}) for p, n in serve_requests()]
+    mixed = sampled_requests()
+    if greedy is None:
+        greedy = uncounted(serve, net, reqs)[0]
+    if sampled is None:
+        sampled = uncounted(serve, net, mixed)[0]
+    want = list(greedy)
+    for i in range(1, len(mixed), 2):
+        reqs.append(mixed[i])
+        want.append(sampled[i])
+    return reqs, want
+
+
+def fleet_of(net, roles=None, **kw):
+    """A ``ReplicaFleet`` of ``FLEET_REPLICAS`` phase-5 servers on the
+    card (``roles``: one serving role per replica)."""
+    from deeplearning4j_torch.parallel.fleet import ReplicaFleet
+    from deeplearning4j_torch.parallel.generation import GenerationServer
+
+    def factory(rid):
+        return GenerationServer(net, SLICE["num_labels"], device="cuda",
+                                role=roles[rid] if roles else "unified",
+                                **SERVER)
+    return ReplicaFleet(factory, replicas=FLEET_REPLICAS, roles=roles, **kw)
+
+
+def fleet_serve(fleet, reqs, after_submit=None):
+    """Submit every request, run ``after_submit()``, wait for all: (token
+    lists, wall seconds)."""
+    t0 = time.perf_counter()
+    futs = [fleet.submit(p, n, **o) for p, n, o in reqs]
+    if after_submit is not None:
+        after_submit()
+    outs = [f.result(timeout=300).tolist() for f in futs]
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0
+
+
+def wait_for(pred, timeout, what):
+    limit = time.monotonic() + timeout
+    while not pred():
+        check(time.monotonic() < limit, f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def check_fleet(tag, st, completed):
+    """Zero lost futures: every accepted request completed."""
+    ledger = {k: st[k] for k in ("submitted", "completed", "failed",
+                                 "expired", "rejected_submits", "inflight",
+                                 "parked")}
+    check(ledger["completed"] == completed and ledger["failed"] == 0
+          and ledger["expired"] == 0 and ledger["inflight"] == 0
+          and ledger["parked"] == 0
+          and ledger["submitted"] == completed + ledger["rejected_submits"],
+          f"{tag}: fleet ledger {ledger}")
+
+
+def phase_fleet_failover(net, reqs, want, card):
+    """Phase 9a: a two-replica fleet on the card serves the phase-9
+    traffic once clean (its tokens/s beside one server's on the same
+    requests), then again with replica 0 killed once it is decoding: every
+    stream equal to phase 5's or 5b's, one death, nothing lost, and the
+    killed replica's pool freed (``memory_allocated`` before the fleet,
+    with two live replicas and after the respawn)."""
+    import gc
+
+    ntok = sum(len(w) for w in want)
+    single, single_wall, _ = uncounted(serve, net, reqs)
+    check(single == want, "fleet: one server's streams differ from phase "
+                          "5's/5b's")
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    fleet = fleet_of(net, restart_backoff_s=0.05)
+    try:
+        mem_two = torch.cuda.memory_allocated()
+        outs, wall = fleet_serve(fleet, reqs)
+        check(outs == want, "fleet: a stream differs from phase 5's/5b's")
+        check_fleet("fleet", fleet.stats(), len(reqs))
+
+        def kill_when_decoding():
+            def decoding():
+                blk = fleet.stats()["replicas"][0]
+                return blk["inflight"] > 0 and \
+                    (blk["server"] or {}).get("tokens_generated", 0) > 0
+            wait_for(decoding, 60, "replica 0 to decode")
+            check(fleet.kill_replica(0), "fleet: replica 0 was not live")
+
+        outs2, wall2 = fleet_serve(fleet, reqs, kill_when_decoding)
+        check(outs2 == want, "fleet failover: a stream differs from phase "
+                             "5's/5b's")
+        st = fleet.stats()
+        check(st["deaths"] >= 1, f"fleet failover: deaths {st['deaths']}")
+        check_fleet("fleet failover", st, 2 * len(reqs))
+        wait_for(lambda: fleet.stats()["replicas"][0]["state"] == "ready"
+                 and fleet.stats()["replicas"][0]["restarts"] >= 1, 60,
+                 "replica 0's respawn")
+        st = fleet.stats()
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_respawned = torch.cuda.memory_allocated()
+    finally:
+        fleet.close()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_closed = torch.cuda.memory_allocated()
+    two = mem_two - mem0
+    check(two > 0 and mem_respawned - mem0 <= 1.25 * two,
+          f"fleet: the killed replica's memory was not freed (before "
+          f"{mem0}, two live {mem_two}, after the respawn {mem_respawned} "
+          f"bytes)")
+    r = dict(requests=len(reqs), tokens=ntok, wall_s=wall,
+             tokens_per_s=ntok / wall, single_wall_s=single_wall,
+             single_tokens_per_s=ntok / single_wall, failover_wall_s=wall2,
+             failover_tokens_per_s=ntok / wall2, deaths=st["deaths"],
+             restarts=st["restarts"], redispatched=st["redispatched"],
+             handoff_resumes=st["handoff_resumes"],
+             mem_before=mem0, mem_two_replicas=mem_two,
+             mem_after_respawn=mem_respawned, mem_after_close=mem_closed,
+             dispatched=[b["dispatched"] for b in st["replicas"]])
+    log(f"  fleet: {len(reqs)} requests ({ntok} tokens) on 2 replicas "
+        f"{ntok / wall:.1f} tok/s, one server {ntok / single_wall:.1f} tok/s; "
+        f"replica 0 killed mid-run: {ntok / wall2:.1f} tok/s, deaths "
+        f"{st['deaths']}, {st['redispatched']} re-dispatched, every stream "
+        f"equal to phase 5's/5b's, none lost; memory {mem0} -> {mem_two} "
+        f"(two replicas) -> {mem_respawned} (respawned) -> {mem_closed} "
+        f"(closed) bytes; [{card}]")
+    return r
+
+
+def hist_ms(h):
+    return dict(count=h.count, p50=h.quantile(0.5), p99=h.quantile(0.99),
+                mean=(h.sum / h.count) if h.count else None)
+
+
+def phase_tiered(net, reqs, want, card):
+    """Phase 9b: a prefill/decode fleet serves the 16 phase-5 requests
+    (every one crossing the tiers, streams equal to phase 5's; TTFT and
+    inter-token latency from ``fleet_ttft_ms``/``fleet_itl_ms``), then a
+    fleet whose decode tier is dark serves co-located on the prefill
+    replica, streams still phase 5's."""
+    roles = ("prefill", "decode")
+    fleet = fleet_of(net, roles=roles)
+    try:
+        outs, wall = fleet_serve(fleet, reqs)
+        st = fleet.stats()
+        ttft, itl = hist_ms(fleet.ttft_hist), hist_ms(fleet.itl_hist)
+    finally:
+        fleet.close()
+    check(outs == want, "tiered: a stream differs from phase 5's")
+    check_fleet("tiered", st, len(reqs))
+    check(st["tier_handoffs"] >= len(reqs) and not st["degraded_mode"],
+          f"tiered: {st['tier_handoffs']} handoffs, degraded "
+          f"{st['degraded_mode']}")
+    check(ttft["count"] == itl["count"] == len(reqs),
+          f"tiered: TTFT/ITL observed {ttft['count']}/{itl['count']} times")
+    dark = fleet_of(net, roles=roles, restart_backoff_s=600.0)
+    try:
+        check(dark.kill_replica(1), "tiered: the decode replica was not live")
+        outs2, wall2 = fleet_serve(dark, reqs[:4])
+        st2 = dark.stats()
+    finally:
+        dark.close()
+    check(outs2 == want[:4], "degraded: a stream differs from phase 5's")
+    check(st2["degraded_mode"] and st2["degraded_submits"] >= 4,
+          f"degraded: mode {st2['degraded_mode']}, "
+          f"{st2['degraded_submits']} co-located submits")
+    ntok = sum(len(w) for w in want)
+    log(f"  tiered: {len(reqs)} requests prefill -> decode, "
+        f"{st['tier_handoffs']} handoffs, {ntok / wall:.1f} tok/s; TTFT p50 "
+        f"{ttft['p50']:.2f} ms p99 {ttft['p99']:.2f} ms, ITL p50 "
+        f"{itl['p50']:.3f} ms p99 {itl['p99']:.3f} ms; decode tier dark: 4 "
+        f"requests co-located ({st2['degraded_submits']} degraded submits); "
+        f"streams equal to phase 5's; [{card}]")
+    return dict(requests=len(reqs), wall_s=wall, tokens_per_s=ntok / wall,
+                tier_handoffs=st["tier_handoffs"], ttft_ms=ttft, itl_ms=itl,
+                degraded_submits=st2["degraded_submits"],
+                degraded_wall_s=wall2)
+
+
+def host_rows(out):
+    return out.detach().cpu().numpy()
+
+
+def pi_rows(model, x, **kw):
+    """``PI_SUBMITS`` single-row submits through one ``ParallelInference``
+    (full ``PI_BATCH``-row batches): (rows, stats, wall seconds)."""
+    from deeplearning4j_torch.parallel.inference import ParallelInference
+
+    inf = ParallelInference(model, max_batch=PI_BATCH, max_wait_ms=10_000.0,
+                            device="cuda", **kw)
+    try:
+        t0 = time.perf_counter()
+        futs = [inf.submit(x[i:i + 1]) for i in range(len(x))]
+        rows = np.concatenate([f.result(timeout=120) for f in futs])
+        wall = time.perf_counter() - t0
+        st = inf.stats()
+    finally:
+        inf.close()
+    return rows, st, wall
+
+
+def phase_coalescer(net, card):
+    """Phase 9c: 64 single-row submits through ``ParallelInference`` over
+    LeNet (trained on 32 synthetic MNIST batches, then the test images)
+    and over the slice model: 4
+    forwards of 16 rows, each row bit for bit the net's own ``output()``
+    of its 16-row batch and within 1e-5 of max|y| of an unpadded
+    ``output()`` of the row alone; int8 LeNet under the JAX package's
+    quantized-serving rule (confusion delta <= 0.05, rows within 5e-2).
+    Returns (LeNet, its images, its rows, measurements)."""
+    from deeplearning4j_torch.evaluation.classification import Evaluation
+    from deeplearning4j_torch.models.zoo import LeNet
+    from deeplearning4j_torch.optimize.quantize import confusion_delta
+
+    lenet = LeNet(num_labels=10, seed=1).init(device="cuda")
+    # trained first: an untrained LeNet's near-uniform rows put near-ties
+    # under the int8 rule's argmax
+    lenet.fit(mnist_nhwc(True, LENET_BATCH * PI_TRAIN_BATCHES, LENET_BATCH))
+    test = mnist_nhwc(False, PI_SUBMITS, PI_SUBMITS)[0]
+    rs = np.random.RandomState(3)
+    V, T = SLICE["num_labels"], SLICE["max_length"]
+    x_lm = np.eye(V, dtype=np.float32)[rs.randint(0, V, (PI_SUBMITS, T))]
+    results, rows_of = {}, {}
+    for tag, model, x in (("lenet", lenet, test.features),
+                          ("transformer", net, x_lm)):
+        rows, st, wall = pi_rows(model, x)
+        batched = uncounted(lambda: np.concatenate(
+            [host_rows(model.output(x[k:k + PI_BATCH]))
+             for k in range(0, PI_SUBMITS, PI_BATCH)]))
+        alone = uncounted(lambda: np.concatenate(
+            [host_rows(model.output(x[i:i + 1]))
+             for i in range(PI_SUBMITS)]))
+        scale = float(np.abs(alone).max())
+        err = float(np.abs(rows - alone).max())
+        check(st["dispatches"] == PI_SUBMITS // PI_BATCH
+              and st["completed"] == PI_SUBMITS,
+              f"coalescer {tag}: {st['dispatches']} dispatches for "
+              f"{PI_SUBMITS} submits")
+        check(np.array_equal(rows, batched),
+              f"coalescer {tag}: rows differ from output() of the same "
+              f"{PI_BATCH}-row batches")
+        check(err <= 1e-5 * scale, f"coalescer {tag}: rows vs unpadded "
+                                   f"output() {err:.3g} > 1e-5 x {scale:.3g}")
+        rows_of[tag] = rows
+        results[tag] = dict(submits=PI_SUBMITS, dispatches=st["dispatches"],
+                            dispatches_per_submit=st["dispatches"]
+                            / PI_SUBMITS, wall_s=wall,
+                            rows_per_s=PI_SUBMITS / wall,
+                            max_abs_err_vs_alone=err, max_abs_y=scale)
+        log(f"  coalescer {tag}: {PI_SUBMITS} single-row submits in "
+            f"{st['dispatches']} forwards ({PI_SUBMITS / wall:.0f} rows/s), "
+            f"rows bitwise output() of their batches, {err:.2e} from "
+            f"output() alone (max|y| {scale:.3g}); [{card}]")
+    q_rows, q_st, _ = pi_rows(lenet, test.features, quantize="int8")
+    ev_f, ev_q = Evaluation(), Evaluation()
+    ev_f.eval(test.labels, rows_of["lenet"])
+    ev_q.eval(test.labels, q_rows)
+    delta = confusion_delta(ev_f, ev_q)
+    q_err = float(np.abs(q_rows - rows_of["lenet"]).max())
+    check(delta <= 0.05 and q_err <= 5e-2,
+          f"coalescer int8 lenet: confusion delta {delta}, rows {q_err:.3g}")
+    results["int8_lenet"] = dict(confusion_delta=delta, max_abs_err=q_err,
+                                 dispatches=q_st["dispatches"])
+    log(f"  coalescer int8 lenet: confusion delta {delta:.4f}, rows within "
+        f"{q_err:.2e} of f32; [{card}]")
+    return lenet, test.features, rows_of["lenet"], results
+
+
+def fit_batches(tmp):
+    """Two ``.npz`` batches of phase 7's shape (16 x 128 tokens): the
+    phase-7 batch and one drawn from RandomState(8)."""
+    V, T = SLICE["num_labels"], SLICE["max_length"]
+    eye = np.eye(V, dtype=np.float32)
+    tok = np.random.RandomState(8).randint(0, V, (TRAIN_BATCH, T + 1))
+    paths = []
+    for i, (x, y) in enumerate((train_batch(),
+                                (eye[tok[:, :-1]], eye[tok[:, 1:]]))):
+        path = os.path.join(tmp, f"batch{i}.npz")
+        np.savez(path, features=x, labels=y)
+        paths.append(path)
+    return paths
+
+
+def direct_fit(net, paths):
+    from deeplearning4j_torch.datasets.dataset import DataSet
+
+    scores = []
+    for p in paths:
+        with np.load(p) as z:
+            net.fit(DataSet(z["features"], z["labels"]))
+        scores.append(float(net.score_value))
+    return scores
+
+
+def phase_http(net, lenet, images, lenet_rows, reqs, want, card):
+    """Phase 9d: ``KerasBackendServer`` on port 0 with a two-replica fleet
+    behind ``/generate``, a coalescing ``ParallelInference`` over LeNet
+    behind ``/predict`` and a copy of the slice model for ``/fit``: eight
+    concurrent ``/generate`` requests (4 greedy, 4 sampled) return phase
+    5's/5b's tokens, ``/predict`` 9c's rows bit for bit, ``/stats`` the
+    JAX server's keys, ``/metrics`` the fleet, inference and server
+    families, ``/import`` the structured 500 naming ROADMAP A12, and
+    ``/fit`` on two batches of phase 7's shape the losses (and parameters)
+    of ``fit`` called directly from the same start, bit for bit."""
+    import urllib.error
+    import urllib.request
+
+    from deeplearning4j_torch.modelimport.server import KerasBackendServer
+
+    srv = KerasBackendServer()
+    fit_net, ref_net = net.clone(), net.clone()
+    try:
+        gen_kw = {k: v for k, v in SERVER.items() if k != "slots"}
+        gmid = srv.attach_generation(net, vocab=SLICE["num_labels"],
+                                     slots=SERVER["slots"],
+                                     replicas=FLEET_REPLICAS, mid="lm",
+                                     device="cuda", **gen_kw)
+        pmid = srv.attach_inference(lenet, mid="lenet", max_batch=PI_BATCH,
+                                    max_wait_ms=10_000.0, device="cuda")
+        fmid = srv.attach_inference(fit_net, mid="lm_fit", device="cuda")
+        base = f"http://127.0.0.1:{srv.start()}"
+
+        def post(path, body):
+            req = urllib.request.Request(
+                base + path, json.dumps(body).encode(),
+                {"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    return resp.status, json.loads(resp.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=60) as resp:
+                return resp.read()
+
+        picks = [0, 1, 2, 3] + list(range(16, 20))
+        answers = {}
+
+        def generate(i):
+            p, n, o = reqs[i]
+            answers[i] = post("/generate", dict(
+                model=gmid, prompt_ids=[int(t) for t in p], max_tokens=n,
+                **o))
+
+        threads = [threading.Thread(target=generate, args=(i,))
+                   for i in picks]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        gen_wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "http: a /generate "
+                                                      "request hung")
+        for i in picks:
+            status, body = answers[i]
+            check(status == 200 and body["tokens"] == want[i],
+                  f"http /generate request {i}: {status}, tokens differ "
+                  f"from phase 5's/5b's")
+        status, body = post("/predict", {"model": pmid,
+                                         "features": images[:PI_BATCH]
+                                         .tolist()})
+        check(status == 200 and np.array_equal(
+            np.asarray(body["output"], np.float32), lenet_rows[:PI_BATCH]),
+            f"http /predict: {status}, rows differ from 9c's")
+        stats = json.loads(get("/stats"))
+        check(list(stats) == SERVER_STATS_KEYS
+              and len(stats["generation"][gmid]["replicas"]) == 2,
+              f"http /stats: keys {list(stats)}")
+        text = get("/metrics").decode()
+        for fam in (f'fleet_completed_total{{model="{gmid}"}}',
+                    f'inference_completed_total{{model="{pmid}"}}',
+                    "server_completed_total"):
+            check(fam in text, f"http /metrics: no {fam}")
+        status, body = post("/import", {"path": "model.h5"})
+        check(status == 500 and body["type"] == "InternalError"
+              and "A12" in body["error"], f"http /import: {status} {body}")
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = fit_batches(tmp)
+            t0 = time.perf_counter()
+            fits = [post("/fit", {"model": fmid, "batches": [p]})
+                    for p in paths]
+            fit_wall = time.perf_counter() - t0
+            check(all(s == 200 for s, _ in fits), f"http /fit: {fits}")
+            ref_scores = uncounted(direct_fit, ref_net, paths)
+        scores = [b["score"] for _, b in fits]
+        check(scores == ref_scores and all(
+            torch.equal(t, ref_net.params[k][n])
+            for k, p in fit_net.params.items() for n, t in p.items()),
+            f"http /fit: losses {scores} vs fit() directly {ref_scores}")
+        srv_stats = srv.stats()
+    finally:
+        srv.stop()
+    log(f"  http: {len(picks)} concurrent /generate through the fleet in "
+        f"{gen_wall:.3f} s, tokens equal to phase 5's/5b's; /predict rows "
+        f"bitwise 9c's; /stats JAX's keys; /metrics fleet, inference and "
+        f"server families; /import a structured 500 naming A12; /fit two "
+        f"16 x 128 batches, losses {scores} bitwise fit() called directly "
+        f"({fit_wall:.3f} s); [{card}]")
+    return dict(generate_requests=len(picks), generate_wall_s=gen_wall,
+                fit_losses=scores, fit_wall_s=fit_wall,
+                completed=srv_stats["completed"],
+                failed=srv_stats["failed"])
+
+
+def phase_load(net, reqs, want, card):
+    """Phase 9e: ``LoadGenerator.run_open`` Poisson arrivals at
+    ``LOAD_RATE`` req/s for ``LOAD_SECONDS`` s against a two-replica fleet
+    (the phase-9 requests in turn) with an ``Autoscaler`` ticking every
+    0.1 s on a ``FleetTierTarget``: nothing lost, every stream phase 5's or
+    5b's; achieved req/s, p50/p99 latency and the decisions."""
+    from deeplearning4j_torch.metrics.autoscale import (Autoscaler,
+                                                        FleetTierTarget)
+    from deeplearning4j_torch.metrics.loadgen import LoadGenerator
+
+    fleet = fleet_of(net)
+    futs = {}
+
+    def submit(i):
+        p, n, o = reqs[i % len(reqs)]
+        futs[i] = fleet.submit(p, n, **o)
+        return futs[i]
+
+    scaler = Autoscaler([FleetTierTarget(fleet, "unified")], high_depth=4,
+                        low_depth=1, up_ticks=2, down_ticks=3,
+                        cooldown_s=0.5)
+    try:
+        scaler.start(interval_s=0.1)
+        res = LoadGenerator(submit, seed=0).run_open(
+            lambda t: LOAD_RATE, LOAD_SECONDS, LOAD_RATE, timeout_s=300)
+        scaler.stop()
+        outs = {i: f.result(timeout=60).tolist() for i, f in futs.items()}
+        st = fleet.stats()
+    finally:
+        scaler.stop()
+        fleet.close()
+    check(res.submitted > 0 and res.lost == 0 and res.failed == 0
+          and res.completed == res.submitted == len(outs),
+          f"load: {res.as_dict()}")
+    check(all(outs[i] == want[i % len(want)] for i in outs),
+          "load: a stream differs from phase 5's/5b's")
+    check_fleet("load", st, res.submitted)
+    d = res.as_dict()
+    decisions = [x.as_dict() for x in scaler.decisions]
+    log(f"  load: {d['submitted']} Poisson arrivals at {LOAD_RATE} req/s "
+        f"over {LOAD_SECONDS} s: {d['achieved_req_s']:.2f} req/s achieved, "
+        f"p50 {d['p50_ms']:.1f} ms, p99 {d['p99_ms']:.1f} ms, lost "
+        f"{d['lost']}; autoscaler decisions "
+        f"{[(x['action'], x['level_from'], x['level_to']) for x in decisions]}"
+        f"; streams equal to phase 5's/5b's; [{card}]")
+    return dict(d, rate=LOAD_RATE, duration_planned_s=LOAD_SECONDS,
+                decisions=decisions)
+
+
+def phase_fabric(card, greedy=None, sampled=None):
+    """Phase 9: the serving fabric at the slice's width (9a-9e)."""
+    net = fabric_net()
+    reqs, want = fabric_requests(net, greedy, sampled)
+    t0 = time.perf_counter()
+    log("phase 9a: a two-replica fleet, a replica killed mid-run")
+    fleet = phase_fleet_failover(net, reqs, want, card)
+    log("phase 9b: a prefill/decode fleet, then its decode tier dark")
+    tiered = phase_tiered(net, reqs[:16], want[:16], card)
+    log("phase 9c: ParallelInference over LeNet and the slice model")
+    lenet, images, lenet_rows, coalescer = phase_coalescer(net, card)
+    log("phase 9d: KerasBackendServer over HTTP")
+    http = phase_http(net, lenet, images, lenet_rows, reqs, want, card)
+    log("phase 9e: open-loop load with an autoscaler")
+    load = phase_load(net, reqs, want, card)
+    wall = time.perf_counter() - t0
+    log(f"  phase 9: {wall:.1f} s; [{card}]")
+    return dict(fleet=fleet, tiered=tiered, coalescer=coalescer, http=http,
+                load=load, wall_s=wall)
+
+
 def kernel_line(flash, paged, bwd, launches, launches_d96):
     k1 = flash["slice_f32_causal"]
     k2 = paged["f32_T1_Tmax512"]
@@ -3462,10 +4000,20 @@ def main() -> int:
     check(not any(multilayer.values()),
           f"the MultiLayerNetwork path launched an attention kernel: "
           f"{multilayer}")
+    kernels.reset_launch_counts()         # the serving fabric starts here
+    log("phase 9: the serving fabric (fleets, ParallelInference, HTTP, "
+        "load and autoscaling)")
+    REPORT["fabric"] = phase_fabric(card, greedy,
+                                    REPORT["sampled"]["streams"])
+    fabric = dict(kernels.LAUNCHES)       # ... and ends here
+    check(all(fabric[k] > 0 for k in ("flash_fwd", "paged_attn",
+                                      "paged_attn_chunk", "flash_bwd_dq",
+                                      "flash_bwd_dkv")),
+          f"a kernel of the serving fabric never launched: {fabric}")
     windows = dict(serving=serving, loading=loading, fixture=fixture,
                    prefix=prefix, spec=spec, d96_serving=d96_serving,
                    training=training, d96_training=d96_training,
-                   fitting=fitting, multilayer=multilayer)
+                   fitting=fitting, multilayer=multilayer, fabric=fabric)
     launches = {k: sum(w[k] for w in windows.values()) for k in serving}
     REPORT["main_path_launches"] = dict(windows, total=launches)
     check(all(n > 0 for n in launches.values()),

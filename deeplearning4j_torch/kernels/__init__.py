@@ -66,18 +66,23 @@ HEAD_DIM_RULE = "head dims 4..128 that are multiples of 4"
 
 _ext = None
 _lock = threading.Lock()
+#: guards ``LAUNCHES`` and ``LAUNCHES_BY_D``: fleet replicas count launches
+#: from their own loop threads at once
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    LAUNCHES_BY_D.clear()
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        LAUNCHES_BY_D.clear()
 
 
 def count_launch(name: str, d: int) -> None:
     """One launch of kernel ``name`` at head dim ``d``."""
-    LAUNCHES[name] += 1
-    LAUNCHES_BY_D[(name, d)] = LAUNCHES_BY_D.get((name, d), 0) + 1
+    with _count_lock:
+        LAUNCHES[name] += 1
+        LAUNCHES_BY_D[(name, d)] = LAUNCHES_BY_D.get((name, d), 0) + 1
 
 
 def kernel_width(d: int):

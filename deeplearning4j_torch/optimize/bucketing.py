@@ -1,13 +1,19 @@
 """Shape bucketing (copied from ``deeplearning4j_tpu/optimize/bucketing.py``):
 ``bucket_length`` and ``bucket_pages``, with the ``bucket_rows`` helper they
-share, and ``pad_rows`` (``MultiLayerNetwork.output`` pads its batch to a
-``bucket_rows`` size). The port runs eagerly and compiles nothing per
-shape; the buckets keep the serving schedule (and so its outputs)
-identical to the JAX server's."""
+share, ``pad_rows`` (``MultiLayerNetwork.output`` pads its batch to a
+``bucket_rows`` size) and ``BoundedCache``, the LRU that
+``ParallelInference`` keys its bucket forwards by. The port runs eagerly
+and compiles nothing per shape; the buckets keep the serving schedule (and
+so its outputs) identical to the JAX server's."""
 
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import torch
+
+#: entries a ``BoundedCache`` keeps by default
+DEFAULT_CACHE_PROGRAMS = 64
 
 
 def bucket_rows(n: int, multiple: int = 1) -> int:
@@ -62,3 +68,25 @@ def pad_rows(x, n: int):
     if pad <= 0:
         return x
     return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
+
+
+class BoundedCache(OrderedDict):
+    """dict-compatible LRU: lookups refresh recency, inserts past
+    ``maxsize`` evict the least-recently-used entry."""
+
+    def __init__(self, maxsize: int = DEFAULT_CACHE_PROGRAMS):
+        super().__init__()
+        if maxsize < 1:
+            raise ValueError("maxsize must be >= 1")
+        self.maxsize = maxsize
+
+    def __getitem__(self, key):
+        value = super().__getitem__(key)
+        self.move_to_end(key)
+        return value
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, value)
+        self.move_to_end(key)
+        while len(self) > self.maxsize:
+            self.popitem(last=False)

@@ -1347,6 +1347,9 @@ class GenerationServer:
         self._topk[slot] = req.top_k
         self._keys[slot] = key
         req.tokens.append(tok)
+        # TTFT stamp: the first token exists now, even when the request
+        # later crosses the tier boundary (the fleet's histograms read it)
+        req.future._t_first = time.monotonic()
         self._activate(slot, req)
         self._m_prefills.inc()
         self._m_tokens.inc()

@@ -13,7 +13,13 @@
 - ``fit`` refuses what the port does not have yet (TBPTT, layer-wise
   pretraining, the CenterLoss head) instead of training without it, and
   trains as the JAX package does what it has: the fused K-step driver, the
-  health guard and L2 regularization (held to JAX's ``fit`` here).
+  health guard and L2 regularization (held to JAX's ``fit`` here);
+- the serving fabric's entry points (``ParallelInference``,
+  ``KerasBackendServer.attach_generation`` / ``attach_inference`` and the
+  fleets they build) resolve their device through ``resolve_device``, and
+  what is not ported yet (``mesh=``, ``workers > 1``, ``tp > 1``,
+  ``/import``, ``/rag``) raises naming its ROADMAP item;
+- the kernels' launch counters count exactly from many threads at once.
 """
 
 import ast
@@ -85,7 +91,10 @@ def test_port_imports_no_jax():
             "nn/conf/preprocessors.py", "nn/conf/layers/convolution.py",
             "nn/conf/layers/pooling.py", "nn/conf/layers/misc.py",
             "evaluation/classification.py", "evaluation/fused_eval.py",
-            "datasets/mnist.py"} <= names
+            "datasets/mnist.py", "parallel/inference.py",
+            "parallel/fleet.py", "parallel/mesh.py", "metrics/autoscale.py",
+            "metrics/loadgen.py", "modelimport/__init__.py",
+            "modelimport/server.py", "optimize/bucketing.py"} <= names
     bad = [(str(p.relative_to(ROOT)), mod) for p in files
            for mod in _imported_roots(p) if mod in FORBIDDEN]
     assert bad == []
@@ -501,3 +510,114 @@ def test_paged_padded_head_dims_reach_the_kernel(d, T, quant, no_cuda,
         with pytest.raises(RuntimeError, match="CUDA device"):
             ppa.paged_attention(q, pool, pool, bt, pos, kscales=sc,
                                 vscales=sc)
+
+
+# ------------------------------------------------------- the serving fabric
+def _mln_on(device):
+    from deeplearning4j_torch.nn.conf.builders import NeuralNetConfiguration
+    from deeplearning4j_torch.nn.conf.inputs import InputType
+    from deeplearning4j_torch.nn.conf.layers.core import OutputLayer
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.builder().seed(1)
+            .list(OutputLayer(n_out=3, loss="mcxent", activation="softmax"))
+            .set_input_type(InputType.feed_forward(4)).build())
+    return MultiLayerNetwork(conf).init(device=device)
+
+
+def test_fabric_entry_points_run_on_cuda_by_default(no_cuda):
+    """``ParallelInference`` and the HTTP server's ``attach_*`` (with the
+    fleets they build) resolve to CUDA and, with no card, raise unless the
+    caller asks for the host; a net on another device is refused."""
+    from deeplearning4j_torch.modelimport.server import KerasBackendServer
+    from deeplearning4j_torch.parallel.inference import ParallelInference
+
+    net, lm = _mln_on("cpu"), TransformerLM(**TINY).init(device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ParallelInference(net)
+    srv = KerasBackendServer()
+    try:
+        for call in (lambda: srv.attach_inference(net),
+                     lambda: srv.attach_inference(net, replicas=2),
+                     lambda: srv.attach_generation(lm, vocab=11),
+                     lambda: srv.attach_generation(lm, vocab=11,
+                                                   replicas=2)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+        with ParallelInference(net, device="cpu") as inf:
+            assert inf.device.type == "cpu"
+        with pytest.raises(ValueError, match="lives on"):
+            ParallelInference(net, device="meta")
+        mid = srv.attach_inference(net, replicas=2, device="cpu")
+        fleet = srv._inference[mid]
+        assert all(r.server.device.type == "cpu" for r in fleet._replicas)
+        gid = srv.attach_generation(lm, vocab=11, replicas=2, device="cpu")
+        assert all(r.server.device.type == "cpu"
+                   for r in srv._generators[gid]._replicas)
+    finally:
+        srv.stop()
+
+
+def test_fabric_parts_not_ported_raise_naming_their_item():
+    """``mesh=``, ``workers > 1`` and ``tp > 1`` name A9; ``/import``
+    names A12; ``attach_rag`` and ``/rag`` name A9."""
+    from deeplearning4j_torch.modelimport.server import KerasBackendServer
+    from deeplearning4j_torch.parallel.fleet import device_groups
+    from deeplearning4j_torch.parallel.inference import ParallelInference
+
+    net = _mln_on("cpu")
+    for kw in (dict(mesh=object()), dict(workers=2), dict(workers=8)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+            ParallelInference(net, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        device_groups(1, 2, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        GenerationServer(TransformerLM(**TINY).init(device="cpu"), 11,
+                         tp=2, device="cpu")
+    srv = KerasBackendServer()
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        srv.import_model("model.h5")
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        srv.attach_rag(net, vocab=3, passages=[], doc_vectors=[])
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        srv.rag("m0", [1], 2)
+
+
+def test_launch_counters_are_exact_across_threads():
+    """Eight threads count 10,000 launches each at once (fleet replicas
+    count K2 launches from their own loop threads): the totals are exact,
+    and a reset under the same lock clears them."""
+    import sys
+    import threading
+
+    from deeplearning4j_torch import kernels
+
+    saved = dict(kernels.LAUNCHES), dict(kernels.LAUNCHES_BY_D)
+    interval = sys.getswitchinterval()
+    kernels.reset_launch_counts()
+    start = threading.Event()
+
+    def count():
+        start.wait(10)
+        for _ in range(10_000):
+            kernels.count_launch("paged_attn", 32)
+
+    threads = [threading.Thread(target=count) for _ in range(8)]
+    try:
+        sys.setswitchinterval(1e-6)
+        for t in threads:
+            t.start()
+        start.set()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert kernels.LAUNCHES["paged_attn"] == 80_000
+        assert kernels.LAUNCHES_BY_D[("paged_attn", 32)] == 80_000
+        kernels.reset_launch_counts()
+        assert not any(kernels.LAUNCHES.values())
+        assert kernels.LAUNCHES_BY_D == {}
+    finally:
+        sys.setswitchinterval(interval)
+        kernels.LAUNCHES.update(saved[0])
+        kernels.LAUNCHES_BY_D.clear()
+        kernels.LAUNCHES_BY_D.update(saved[1])
