@@ -178,6 +178,37 @@ Phases (any failure exits non-zero, and no result line is printed):
    against a fleet with an ``Autoscaler`` on a ``FleetTierTarget``:
    achieved req/s, p50/p99, the decisions, nothing lost, every stream
    phase 5's or 5b's.
+10. retrieval and RAG, on stores drawn as ``bench.py`` draws them
+   (RandomState(0), centers x 2.0 plus noise x 0.6, queries perturbed
+   corpus rows). 10a: the exact f32 ``EmbeddingIndex`` at 1M x 32
+   (cosine at 65,536 rows) bitwise ``DeviceBruteForceIndex`` and itself,
+   64 queries against the CPU under the tie rule (``tie_rule``: squared
+   distances within 2^-20 of the norms, ids equal where the exact
+   distances are apart), 256 one-row submits coalesced (``max_batch``
+   256, ``max_wait_ms`` 20) beside 64 serial ones (q/s, p99, dispatches),
+   and one Q = 256 dispatch's device time, launches and peak transient
+   beside its bound. 10b: the int8 flat store at 1M x 32 (recall@10 >=
+   0.9, capacity >= 1.8x from twin 65,536-row stores, the peak transient
+   of one dispatch with the f32 widening of the store in it, a bitwise
+   rebuild after ``drain``/``close``). 10c: IVF int8 at 1M x 32 with
+   1,024 partitions probed 8 deep (recall@10 >= 0.95, a full probe
+   answering as the int8 flat store, build seconds, spills, the open
+   loop). 10d: ``NearestNeighborsServer(backend="index")`` over HTTP
+   (``/knn`` with a point and points as ``search_batch_arrays``,
+   ``/encode`` with ``"add": true`` through a ``ParallelInference`` over a
+   Dense MultiLayerNetwork, ``/status`` growing, the typed 400, 404, 413
+   and 504). 10e: ``RagPipeline`` at ``bench.py::bench_serve_rag``'s
+   configuration: a 10M x 16 int8 IVF store (recall@10 >= 0.95 at 10M),
+   virtual 24-token passages, k = 2, page size 8, the full-width slice
+   model on the generate tier through K2; 2 warm, 12 hot and 12 cold
+   requests, then 96 Zipf (s = 1.1) requests over 64 hot documents with a
+   60 s deadline: every stream equal to a plain-read server's on the
+   assembled prompt, prefix hits, nothing lost or expired, req/s, p99 and
+   hot/cold ms a turn; one ``/rag`` through ``attach_rag`` answering as
+   ``submit``. 10f: ``BarnesHutTsne`` and ``Tsne`` on 2,000 x 50
+   clustered points: the sparse P card against CPU within 1e-3 of its
+   largest entry, ten iterations from the same P within 1e-2 of max|y|,
+   timed.
 
 Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
 calls (``ms``: the wrapper's host work included, which sets the pace once
@@ -193,8 +224,11 @@ migration, chaos), phase 5f (the d=96 model, f32 and int8 weights), phase
 7 (training), phase 7b (training at d=96), phase 7c (``fit``), phase
 8 (the MultiLayerNetwork substrate, which runs no hand-written kernel:
 its convolutions and pooling are library calls, as the JAX package's are
-XLA's) and phase 9 (the serving fabric: K1, both routes of K2, K3 and K4).
-The launch counters are zeroed just before each of the eleven and read
+XLA's), phase 9 (the serving fabric: K1, both routes of K2, K3 and K4)
+and phase 10 (retrieval and RAG: both routes of K2 on the generate tier;
+the stores' searches are matmuls and top-k, as the JAX package's are
+XLA's). The launch counters are zeroed just before each of the twelve and
+read
 just after (phase 6's and the reference servers' and forwards' launches
 are not counted); every kernel must have run on the main path, K2's
 chunk route and its merge pass included, and each path but phase 8 must
@@ -3688,6 +3722,721 @@ def phase_fabric(card, greedy=None, sampled=None):
                 load=load, wall_s=wall)
 
 
+# --------------------------------------------------------------------------
+# phase 10: retrieval and RAG
+# --------------------------------------------------------------------------
+#: ``bench.py::bench_knn_serve``'s store: 1M clustered vectors of 32 dims
+#: (1,024 centers), 256 one-row queries (64 served serially), IVF with
+#: 1,024 partitions probed 8 deep
+KNN = dict(n=1_000_000, d=32, partitions=1024, nprobe=8, queries=256,
+           serial=64, deadline_s=10.0, max_wait_ms=20.0)
+#: the cosine store and the int8 capacity twins (the bench's 65,536 rows)
+COS_ROWS = 65_536
+#: ``bench.py::bench_serve_rag``: 10M vectors of 16 dims in an int8 IVF
+#: store, 96 Zipf (s = 1.1) requests over 64 hot documents after a hot and
+#: a cold burst of 12, 8 new tokens, 24-token passages, k = 2, page size 8
+RAG = dict(n=10_000_000, d=16, partitions=1024, nprobe=8, requests=96,
+           hot=64, burst=12, tokens=8, deadline_s=60.0, passage_len=24,
+           k=2, page_size=8, slots=8)
+#: squared euclidean distances from the expansion ||q||^2 - 2 q.p + ||p||^2
+#: round relative to the norms: two f32 computations of one distance
+#: agree within SQ_REL * (max||q||^2 + max||p||^2); cosine within COS_ATOL
+SQ_REL = 2.0 ** -20
+COS_ATOL = 1e-4
+#: t-SNE at 2,000 x 50 (four clusters), ten iterations
+TSNE = dict(n=2000, d=50, iters=10, perplexity=30.0)
+#: t-SNE is chaotic: a rounding difference grows about 2x a step once the
+#: embedding spreads, so ten steps card against CPU are held within this
+#: share of max|y| (the CPU parity tests hold five steps to 1e-4); the
+#: sparse P within P_REL of its largest entry (kNN near-ties at the k-th
+#: neighbour may swap one small edge)
+TSNE_REL = 1e-2
+P_REL = 1e-3
+
+
+class VirtualPassages:
+    """``bench.py::_VirtualPassages``: doc id -> token ids, computed on
+    demand (the 10M-document corpus never materializes)."""
+
+    def __init__(self, vocab, length=24):
+        self.vocab = int(vocab)
+        self.length = int(length)
+
+    def __getitem__(self, i):
+        rs = np.random.RandomState((int(i) * 2654435761) & 0x7FFFFFFF)
+        return rs.randint(1, self.vocab, size=self.length).astype(np.int64)
+
+
+def knn_store():
+    """``bench_knn_serve``'s draw: RandomState(0), centers x 2.0 plus
+    noise x 0.6, queries perturbed corpus rows."""
+    n, d, c, nq = KNN["n"], KNN["d"], KNN["partitions"], KNN["queries"]
+    rs = np.random.RandomState(0)
+    centers = rs.randn(c, d).astype(np.float32) * 2.0
+    pts = (centers[rs.randint(0, c, n)]
+           + rs.randn(n, d).astype(np.float32) * 0.6)
+    qs = (pts[rs.choice(n, nq, replace=False)]
+          + rs.randn(nq, d).astype(np.float32) * 0.2)
+    return pts, qs
+
+
+def exact_top(pts, qs, k, metric="euclidean"):
+    """The k + 1 nearest exact distances of each query (float64 on the
+    host; squared for euclidean, 1 - cos for cosine), ascending."""
+    p = torch.from_numpy(pts).double()
+    q = torch.from_numpy(np.ascontiguousarray(qs)).double()
+    if metric == "cosine":
+        p = p / p.norm(dim=1, keepdim=True).clamp_min(1e-12)
+        q = q / q.norm(dim=1, keepdim=True).clamp_min(1e-12)
+        d = 1.0 - q @ p.T
+    else:
+        d = (q * q).sum(1, keepdim=True) - 2.0 * (q @ p.T) + (p * p).sum(1)
+    return torch.topk(d, k + 1, dim=1, largest=False).values.numpy()
+
+
+def tie_rule(tag, got, want, pts, qs, metric="euclidean"):
+    """Two searches of one store agree: (squared, for euclidean) distances
+    within the rounding tolerance, ids equal at every rank whose exact
+    distance is apart from both neighbouring ranks' by more than it."""
+    (dg, ig), (dw, iw) = got, want
+    check(dg.shape == dw.shape, f"{tag}: shapes {dg.shape} vs {dw.shape}")
+    if metric == "cosine":
+        tol, a, b = COS_ATOL, dg.astype(np.float64), dw.astype(np.float64)
+    else:
+        tol = SQ_REL * float(np.max(np.sum(qs * qs, 1))
+                             + np.max(np.sum(pts * pts, 1)))
+        a, b = dg.astype(np.float64) ** 2, dw.astype(np.float64) ** 2
+    err = float(np.abs(a - b).max())
+    check(err <= tol, f"{tag}: distances differ by {err:.3g} > {tol:.3g}")
+    k = dg.shape[1]
+    ref = exact_top(pts, qs, k, metric)
+    full = np.concatenate([np.full((len(ref), 1), -np.inf), ref], axis=1)
+    gap = np.minimum(full[:, 1:k + 1] - full[:, :k],
+                     full[:, 2:k + 2] - full[:, 1:k + 1])
+    clear = gap > tol
+    bad = int((ig[clear] != iw[clear]).sum())
+    check(bad == 0, f"{tag}: {bad} ids differ at ranks clear of ties")
+    return dict(max_err=err, tol=tol, ranks=int(clear.size),
+                near_ties=int((~clear).sum()),
+                bitwise=bool(np.array_equal(dg, dw)
+                             and np.array_equal(ig, iw)))
+
+
+def peak_transient(fn):
+    """(bytes the card allocated above what was resident while ``fn()``
+    ran, fn's result)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, out
+
+
+def open_loop(index, qs, k=10, deadline_s=KNN["deadline_s"]):
+    """``bench_knn_serve.open_loop``: one-row submits with a deadline,
+    latency from done-callbacks; returns (rows in submit order, q/s, p99
+    ms, failed). Every admitted future resolves."""
+    from deeplearning4j_torch.parallel.resilience import (CircuitOpen,
+                                                          DeadlineExceeded,
+                                                          ServerOverloaded)
+
+    lat, t_sub, futs = [], {}, []
+    shed = failed = 0
+    t0 = time.perf_counter()
+    for i in range(len(qs)):
+        try:
+            f = index.submit(qs[i:i + 1], k, deadline_s=deadline_s)
+        except (ServerOverloaded, CircuitOpen):
+            shed += 1
+            continue
+        t_sub[id(f)] = time.monotonic()
+        f.add_done_callback(
+            lambda f: lat.append(time.monotonic() - t_sub[id(f)]))
+        futs.append(f)
+    rows = []
+    for f in futs:
+        try:
+            rows.append(f.result(timeout=120))
+        except (DeadlineExceeded, ServerOverloaded, CircuitOpen):
+            failed += 1
+    wall = time.perf_counter() - t0
+    check(len(rows) + failed + shed == len(qs) and rows,
+          f"open loop: {len(qs) - len(rows) - failed - shed} queries lost")
+    d = np.concatenate([r[0] for r in rows])
+    i = np.concatenate([r[1] for r in rows])
+    p99 = float(np.percentile(np.asarray(lat) * 1e3, 99))
+    check(p99 < deadline_s * 1e3, f"open loop: p99 {p99:.0f} ms")
+    return (d, i), len(rows) / wall, p99, failed + shed
+
+
+def phase_exact_store(pts, qs, card):
+    """10a: the exact f32 store at 1M x 32 (and cosine at 65,536 rows)."""
+    from deeplearning4j_torch.nearestneighbors.brute import (
+        DeviceBruteForceIndex)
+    from deeplearning4j_torch.nearestneighbors.index import EmbeddingIndex
+
+    out = {}
+    for metric, rows in (("euclidean", len(pts)), ("cosine", COS_ROWS)):
+        p = pts[:rows]
+        t0 = time.perf_counter()
+        index = EmbeddingIndex(p, metric, device="cuda",
+                               max_batch=KNN["queries"],
+                               max_wait_ms=KNN["max_wait_ms"],
+                               max_pending=4 * KNN["queries"])
+        build = time.perf_counter() - t0
+        brute = DeviceBruteForceIndex(p, metric, device="cuda")
+        try:
+            for q in (qs[:64], qs):
+                a = index.search_batch_arrays(q, 10)
+                b = brute.search_batch_arrays(q, 10)
+                c = index.search_batch_arrays(q, 10)
+                check(all(np.array_equal(x, y) for x, y in zip(a, b))
+                      and all(np.array_equal(x, y) for x, y in zip(a, c)),
+                      f"10a {metric}: EmbeddingIndex not bitwise the brute "
+                      f"index (or itself) at Q={len(q)}")
+            cpu = DeviceBruteForceIndex(p, metric, device="cpu")
+            vs_cpu = tie_rule(f"10a {metric} vs CPU",
+                              index.search_batch_arrays(qs[:64], 10),
+                              cpu.search_batch_arrays(qs[:64], 10),
+                              p, qs[:64], metric)
+            del cpu
+            res = dict(build_s=build, vs_cpu=vs_cpu,
+                       resident_bytes=index.resident_bytes)
+            if metric == "euclidean":
+                res.update(serve_store(index, p, qs))
+        finally:
+            index.close()
+            del brute
+        out[metric] = res
+        log(f"  10a {metric} {rows} x {KNN['d']}: bitwise the brute index, "
+            f"vs CPU max |d^2 err| {vs_cpu['max_err']:.3g} "
+            f"(tol {vs_cpu['tol']:.3g}, near-ties {vs_cpu['near_ties']}); "
+            f"[{card}]")
+    return out
+
+
+def serve_store(index, pts, qs):
+    """The serial loop and the coalesced open loop on one store, then one
+    Q = 256 dispatch's device time and peak transient beside its bound."""
+    n, d = pts.shape
+    nq = len(qs)
+    sync = index.search_batch_arrays(qs, 10)
+    t0 = time.perf_counter()
+    for i in range(KNN["serial"]):
+        index.submit(qs[i:i + 1], 10).result(timeout=120)
+    serial = KNN["serial"] / (time.perf_counter() - t0)
+    d0 = index.stats()["dispatches"]
+    rows, qps, p99, failed = open_loop(index, qs)
+    dispatches = index.stats()["dispatches"] - d0
+    check(failed == 0, f"10a: {failed} coalesced queries failed")
+    coalesced = tie_rule("10a coalesced vs sync", rows, sync, pts, qs)
+    kb = 16
+    ms, launches = device_ms(lambda: index._dispatch_knn(qs, kb), iters=5)
+    peak, _ = peak_transient(lambda: index._dispatch_knn(qs, kb))
+    nbytes = index.resident_bytes + nq * d * 4 + nq * kb * 8
+    bound, by = bound_ms(nbytes, 2 * nq * n * d, "f32")
+    store_ms = index.resident_bytes / PEAK_BYTES_S * 1e3
+    log(f"  10a serial {serial:.1f} q/s; coalesced {qps:.1f} q/s "
+        f"({qps / serial:.1f}x), p99 {p99:.1f} ms, {dispatches} dispatches "
+        f"for {nq} submits (bitwise sync: {coalesced['bitwise']}); one "
+        f"Q={nq} dispatch {ms:.4f} device ms, {launches:.0f} launches, "
+        f"bound {bound:.4f} ms ({by}; the store's bytes alone "
+        f"{store_ms:.4f} ms), peak transient {peak} B")
+    return dict(serial_q_s=serial, coalesced_q_s=qps, p99_ms=p99,
+                dispatches=dispatches, coalesced=coalesced,
+                dispatch_device_ms=ms, dispatch_launches=launches,
+                bound_ms=bound, bound_by=by, store_bytes_ms=store_ms,
+                peak_transient_bytes=peak)
+
+
+def phase_int8_store(pts, qs, card):
+    """10b: the int8 flat store at 1M x 32: recall, capacity, the widening
+    transient of one dispatch, a bitwise rebuild after drain/close."""
+    from deeplearning4j_torch.nearestneighbors.index import EmbeddingIndex
+
+    twins = [EmbeddingIndex(pts[:COS_ROWS], store=s, device="cuda")
+             for s in ("f32", "int8")]
+    capacity = twins[0].resident_bytes / twins[1].resident_bytes
+    for t in twins:
+        t.close()
+    check(capacity >= 1.8, f"10b: int8 capacity {capacity:.2f}x < 1.8")
+    t0 = time.perf_counter()
+    index = EmbeddingIndex(pts, store="int8", device="cuda",
+                           max_batch=KNN["queries"])
+    build = time.perf_counter() - t0
+    try:
+        recall = index.measure_recall(qs[:64], k=10)
+        check(recall >= 0.9, f"10b: int8 recall@10 {recall:.3f} < 0.9")
+        peak, _ = peak_transient(lambda: index._dispatch_knn(qs, 16))
+        ms, _ = device_ms(lambda: index._dispatch_knn(qs, 16), iters=5)
+        first = index.search_batch_arrays(qs[:64], 10)
+        index.submit(qs[:4], 5).result(timeout=120)
+        check(index.drain(timeout=60), "10b: drain timed out")
+        mid = index.search_batch_arrays(qs[:64], 10)
+        held = index.resident_bytes
+    finally:
+        index.close()
+    again = EmbeddingIndex(pts, store="int8", device="cuda")
+    try:
+        second = again.search_batch_arrays(qs[:64], 10)
+    finally:
+        again.close()
+    rebuilt = all(np.array_equal(a, b) for a, b in zip(first, second)) \
+        and all(np.array_equal(a, b) for a, b in zip(first, mid))
+    check(rebuilt, "10b: the int8 rebuild after drain/close is not bitwise")
+    widen = pts.shape[0] * pts.shape[1] * 4
+    log(f"  10b int8 {pts.shape[0]} x {pts.shape[1]}: recall@10 "
+        f"{recall:.4f}, capacity {capacity:.3f}x, resident {held} B, one "
+        f"Q={len(qs)} dispatch {ms:.4f} device ms, peak transient {peak} B "
+        f"(of it the f32 widening of the store {widen} B), rebuild bitwise; "
+        f"[{card}]")
+    return dict(recall=recall, capacity_x=capacity, build_s=build,
+                resident_bytes=held, dispatch_device_ms=ms,
+                peak_transient_bytes=peak, widening_bytes=widen,
+                rebuild_bitwise=rebuilt)
+
+
+def phase_ivf_store(pts, qs, card):
+    """10c: IVF int8 at 1M x 32, 1,024 partitions probed 8 deep: recall,
+    a full probe answering as the int8 flat store, build seconds, spills,
+    and the coalesced open loop."""
+    from deeplearning4j_torch.nearestneighbors.index import (
+        EmbeddingIndex, _knn_ivf, _quantize_rows)
+
+    t0 = time.perf_counter()
+    ivf = EmbeddingIndex(pts, store="int8", partitions=KNN["partitions"],
+                         nprobe=KNN["nprobe"], train_sample=32768,
+                         kmeans_iters=10, seed=0, max_batch=64,
+                         max_wait_ms=2.0, max_pending=4 * KNN["queries"],
+                         device="cuda")
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    flat = EmbeddingIndex(pts, store="int8", device="cuda")
+    try:
+        recall = ivf.measure_recall(qs[:64], k=10)
+        check(recall >= 0.95, f"10c: IVF recall@10 {recall:.3f} < 0.95")
+        st = ivf.stats()
+        # the full probe gathers every list: [4, 1024, list_len, 32]
+        q4 = qs[:4]
+        with torch.inference_mode():
+            d, i = _knn_ivf(*ivf._store.arrays,
+                            torch.as_tensor(q4, device="cuda"), k=16,
+                            nprobe=st["partitions"], metric="euclidean")
+        full = (d.cpu().numpy()[:, :10], i.cpu().numpy()[:, :10])
+        q, s = _quantize_rows(pts)
+        held = q.astype(np.float32) * s[:, None]
+        full_probe = tie_rule("10c full probe vs the int8 flat store", full,
+                              flat.search_batch_arrays(q4, 10), held, q4)
+        peak, _ = peak_transient(lambda: ivf._dispatch_knn(qs[:64], 16))
+        ms, _ = device_ms(lambda: ivf._dispatch_knn(qs[:64], 16), iters=5)
+        _rows, qps, p99, failed = open_loop(ivf, qs)
+        check(failed == 0, f"10c: {failed} IVF queries failed")
+    finally:
+        ivf.close()
+        flat.close()
+    log(f"  10c IVF int8: recall@10 {recall:.4f}, build {build:.2f} s, "
+        f"list_len {st['list_len']}, spilled {st['spilled']}, full probe "
+        f"as the flat store (near-ties {full_probe['near_ties']}); Q=64 "
+        f"dispatch {ms:.4f} device ms, peak transient {peak} B; open loop "
+        f"{qps:.1f} q/s, p99 {p99:.1f} ms; [{card}]")
+    return dict(recall=recall, build_s=build, list_len=st["list_len"],
+                spilled=st["spilled"], resident_bytes=st["resident_bytes"],
+                full_probe=full_probe, dispatch_device_ms=ms,
+                peak_transient_bytes=peak, q_s=qps, p99_ms=p99)
+
+
+def phase_knn_http(pts, qs, card):
+    """10d: ``NearestNeighborsServer(backend="index")`` on the card over
+    HTTP: /knn (a point, points) as ``search_batch_arrays``, /encode with
+    ``"add": true`` through a ``ParallelInference`` over a Dense
+    MultiLayerNetwork on the card (/status grows), and the typed 400, 404,
+    413 and 504."""
+    import urllib.error
+    import urllib.request
+
+    from deeplearning4j_torch.nearestneighbors.index import EmbeddingIndex
+    from deeplearning4j_torch.nearestneighbors.server import (
+        NearestNeighborsServer)
+    from deeplearning4j_torch.nn.conf.builders import NeuralNetConfiguration
+    from deeplearning4j_torch.nn.conf.inputs import InputType
+    from deeplearning4j_torch.nn.conf.layers.core import (DenseLayer,
+                                                          OutputLayer)
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.parallel.inference import ParallelInference
+
+    d = pts.shape[1]
+    conf = (NeuralNetConfiguration.builder().seed(5)
+            .list(DenseLayer(n_out=64, activation="relu"),
+                  OutputLayer(n_out=d, activation="identity", loss="mse"))
+            .set_input_type(InputType.feed_forward(16)).build())
+    encoder = ParallelInference(MultiLayerNetwork(conf).init(device="cuda"),
+                                device="cuda")
+    index = EmbeddingIndex(pts, encoder=encoder, device="cuda")
+    server = NearestNeighborsServer(index=index, port=0,
+                                    max_body_bytes=1 << 20)
+    try:
+        base = f"http://127.0.0.1:{server.start()}"
+
+        def post(path, body):
+            req = urllib.request.Request(
+                base + path, json.dumps(body).encode(),
+                {"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    return resp.status, json.loads(resp.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+
+        def status():
+            with urllib.request.urlopen(base + "/status", timeout=60) as r:
+                return json.loads(r.read())
+
+        def answer(res):
+            rows = res["results"]
+            if rows and isinstance(rows[0], dict):
+                rows = [rows]
+            return ([[r["distance"] for r in row] for row in rows],
+                    [[r["index"] for r in row] for row in rows])
+
+        t0 = time.perf_counter()
+        s1, one = post("/knn", {"k": 5, "point": qs[0].tolist()})
+        s2, many = post("/knn", {"k": 5, "points": qs[:4].tolist()})
+        http_s = time.perf_counter() - t0
+        check(s1 == s2 == 200, f"10d: /knn answered {s1}, {s2}")
+        for got, q in ((answer(one), qs[:1]), (answer(many), qs[:4])):
+            dd, ii = index.search_batch_arrays(q, 5)
+            check(got == (dd.astype(float).tolist(), ii.tolist()),
+                  "10d: /knn does not answer as search_batch_arrays")
+        before = status()["points"]
+        docs = np.random.RandomState(9).randn(8, 16).astype(np.float32)
+        se, enc = post("/encode", {"docs": docs.tolist(), "add": True})
+        after = status()["points"]
+        check(se == 200 and enc["added"] == 8 and after == before + 8,
+              f"10d: /encode add answered {se}, points {before} -> "
+              f"{after}")
+        vecs = np.asarray(enc["vectors"], np.float32)
+        check(np.array_equal(vecs, encoder.output(docs)),
+              "10d: /encode vectors are not the encoder's output")
+        _s, own = post("/knn", {"k": 1, "points": vecs[:3].tolist()})
+        check([r[0]["index"] for r in own["results"]]
+              == [before, before + 1, before + 2],
+              f"10d: encoded docs do not find their own rows: {own}")
+        codes = {
+            "bad_k": post("/knn", {"k": 0, "point": qs[0].tolist()}),
+            "dims": post("/knn", {"k": 1, "point": [1.0, 2.0]}),
+            "not_found": post("/nope", {"k": 1}),
+            "too_large": post("/knn", {"k": 1, "points":
+                                       [[0.5] * d] * 8000}),
+            "deadline": post("/knn", {"k": 1, "point": qs[0].tolist(),
+                                      "deadline_s": 1e-6})}
+        want = {"bad_k": (400, "BadRequest"), "dims": (400, "BadRequest"),
+                "not_found": (404, "NotFound"),
+                "too_large": (413, "BodyTooLarge"),
+                "deadline": (504, "DeadlineExceeded")}
+        got = {k: (s, b.get("error")) for k, (s, b) in codes.items()}
+        check(got == want, f"10d: typed answers {got}")
+    finally:
+        server.stop()
+        index.close()
+        encoder.close()
+    log(f"  10d HTTP: /knn point+points as search_batch_arrays "
+        f"({http_s * 1e3:.1f} ms for both), /encode added 8 "
+        f"({before} -> {after}), typed answers {sorted(got.values())}; "
+        f"[{card}]")
+    return dict(points_before=before, points_after=after,
+                knn_http_ms=http_s * 1e3, typed=got)
+
+
+def rag_store():
+    """``bench_serve_rag``'s draw, chunked as there."""
+    n, d, c = RAG["n"], RAG["d"], RAG["partitions"]
+    rs = np.random.RandomState(0)
+    centers = rs.randn(c, d).astype(np.float32) * 2.0
+    pts = np.empty((n, d), np.float32)
+    ch = 1 << 20
+    for s in range(0, n, ch):
+        m = min(ch, n - s)
+        pts[s:s + m] = (centers[rs.randint(0, c, m)]
+                        + rs.randn(m, d).astype(np.float32) * 0.6)
+    return pts, rs
+
+
+def phase_rag(card):
+    """10e: RAG at ``bench_serve_rag``'s configuration, the generate tier
+    the full-width slice model through K2."""
+    from deeplearning4j_torch.nearestneighbors.index import EmbeddingIndex
+    from deeplearning4j_torch.parallel.generation import (
+        GenerationServer, assemble_passage_prefix)
+    from deeplearning4j_torch.parallel.rag import RagPipeline
+    from deeplearning4j_torch.parallel.resilience import (CircuitOpen,
+                                                          DeadlineExceeded,
+                                                          ServerOverloaded)
+
+    pts, rs = rag_store()
+    n, d, V = RAG["n"], RAG["d"], SLICE["num_labels"]
+    t0 = time.perf_counter()
+    index = EmbeddingIndex(pts, store="int8", partitions=RAG["partitions"],
+                           nprobe=RAG["nprobe"], train_sample=32768,
+                           kmeans_iters=10, seed=0, max_batch=64,
+                           max_wait_ms=2.0, max_pending=4 * RAG["requests"],
+                           device="cuda")
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    probe = (pts[rs.choice(n, 32, replace=False)]
+             + rs.randn(32, d).astype(np.float32) * 0.2)
+    recall = index.measure_recall(probe, k=10)
+    check(recall >= 0.95, f"10e: 10M IVF recall@10 {recall:.3f} < 0.95")
+    st_index = index.stats()
+    hot_ids = rs.choice(n, RAG["hot"], replace=False)
+    pz = 1.0 / np.arange(1, RAG["hot"] + 1, dtype=np.float64) ** 1.1
+    pz /= pz.sum()
+    targets = hot_ids[rs.choice(RAG["hot"], RAG["requests"], p=pz)]
+    passages = VirtualPassages(V, RAG["passage_len"])
+    net = fabric_net()
+    rag = RagPipeline(
+        lambda rid: index,
+        lambda rid: GenerationServer(net, V, slots=RAG["slots"],
+                                     page_size=RAG["page_size"],
+                                     device="cuda"),
+        passages, page_size=RAG["page_size"], k=RAG["k"],
+        max_pending=4 * RAG["requests"], device="cuda")
+    prompt = np.arange(1, 9, dtype=np.int64)
+    tokens = RAG["tokens"]
+
+    def q_for(doc, jitter):
+        return pts[doc] + jitter * rs.randn(d).astype(np.float32)
+
+    served = []                   # (future, tokens) of every request
+
+    def one(q, **kw):
+        f = rag.submit(prompt, tokens, query_vec=q, **kw)
+        served.append((f, f.result(timeout=300).tolist()))
+
+    try:
+        hot = int(targets[0])
+        for _ in range(2):
+            one(q_for(hot, 0.0))
+        t0 = time.perf_counter()
+        for _ in range(RAG["burst"]):
+            one(q_for(hot, 0.0))
+        hot_ms = (time.perf_counter() - t0) * 1e3 / RAG["burst"]
+        t0 = time.perf_counter()
+        for cd in rs.choice(n, RAG["burst"], replace=False):
+            one(q_for(int(cd), 0.0))
+        cold_ms = (time.perf_counter() - t0) * 1e3 / RAG["burst"]
+        lat, t_sub, futs = [], {}, []
+        shed = failed = 0
+        t0 = time.perf_counter()
+        for i in range(RAG["requests"]):
+            try:
+                f = rag.submit(prompt, tokens,
+                               query_vec=q_for(int(targets[i]), 0.05),
+                               deadline_s=RAG["deadline_s"])
+            except (ServerOverloaded, CircuitOpen):
+                shed += 1
+                continue
+            t_sub[id(f)] = time.monotonic()
+            f.add_done_callback(
+                lambda f: lat.append(time.monotonic() - t_sub[id(f)]))
+            futs.append(f)
+        for f in futs:
+            try:
+                served.append((f, f.result(timeout=300).tolist()))
+            except (DeadlineExceeded, ServerOverloaded, CircuitOpen):
+                failed += 1
+        wall = time.perf_counter() - t0
+        ok = len(futs) - failed
+        # shedding at submit is typed (the fleet's per-replica admission
+        # of 64, as in the bench); nothing admitted may fail
+        check(failed == 0 and ok + shed == RAG["requests"],
+              f"10e: {failed} failed, {RAG['requests'] - ok - shed - failed}"
+              f" lost of {RAG['requests']}")
+        p99 = float(np.percentile(np.asarray(lat) * 1e3, 99))
+        st = rag.stats()
+        check(st["expired"] == 0 and st["inflight"] == 0
+              and st["submitted"] == st["completed"] + st["failed"]
+              + st["expired"] + st["rejected"]
+              and st["completed"] == len(served),
+              f"10e: the rag ledger does not balance: {st}")
+        check(st["prefix_hits"] > 0 and st["prefix_tokens_reused"] > 0,
+              f"10e: no prefix hit ({st['prefix_hits']}, "
+              f"{st['prefix_tokens_reused']})")
+    finally:
+        rag.close()
+    # every stream is the plain-read server's on the assembled prompt
+    prompts = []
+    for f, _toks in served:
+        want, _o, plen = assemble_passage_prefix(
+            f._rag_docs, passages, page_size=RAG["page_size"],
+            query_ids=prompt)
+        check(np.array_equal(f._rag_prompt, want)
+              and plen == f._rag_prefix_len,
+              "10e: a RAG prompt is not the canonical assembly of its docs")
+        prompts.append((want, tokens))
+    ref = uncounted(plain_read_streams, net, prompts)
+    differ = sum(toks != r for (_f, toks), r in zip(served, ref))
+    check(differ == 0, f"10e: {differ} of {len(served)} RAG streams differ "
+                       f"from the plain-read server's")
+    route = rag_route(net, pts, passages, prompt, card)
+    log(f"  10e RAG {n} x {d} int8 IVF: build {build:.2f} s, recall@10 "
+        f"{recall:.4f}; {ok} Zipf requests ({shed} shed at submit) "
+        f"{ok / wall:.2f} req/s, p99 "
+        f"{p99:.1f} ms; hot {hot_ms:.1f} ms/turn, cold {cold_ms:.1f} "
+        f"ms/turn; prefix hits {st['prefix_hits']}, tokens reused "
+        f"{st['prefix_tokens_reused']}; {len(served)} streams equal the "
+        f"plain read; [{card}]")
+    del pts
+    return dict(build_s=build, recall=recall, req_s=ok / wall, p99_ms=p99,
+                completed=ok, shed=shed,
+                hot_ms=hot_ms, cold_ms=cold_ms,
+                prefix_hits=st["prefix_hits"],
+                prefix_tokens_reused=st["prefix_tokens_reused"],
+                streams=len(served), list_len=st_index["list_len"],
+                spilled=st_index["spilled"],
+                resident_bytes=st_index["resident_bytes"], route=route)
+
+
+def plain_read_streams(net, reqs):
+    """``reqs`` served by a generate-tier server with the plain paged read
+    (``paged_attention="stock"``): the RAG streams' reference."""
+    from deeplearning4j_torch.parallel.generation import GenerationServer
+
+    srv = GenerationServer(net, SLICE["num_labels"], slots=RAG["slots"],
+                           page_size=RAG["page_size"], device="cuda",
+                           paged_attention="stock", max_pending=len(reqs))
+    try:
+        futs = [srv.submit(p, n) for p, n in reqs]
+        return [f.result(timeout=600).tolist() for f in futs]
+    finally:
+        srv.close()
+
+
+def rag_route(net, pts, passages, prompt, card):
+    """One ``/rag`` call through ``KerasBackendServer.attach_rag`` (an int8
+    flat store over the first 65,536 documents) answers as the pipeline's
+    own ``submit``."""
+    import urllib.request
+
+    from deeplearning4j_torch.modelimport.server import KerasBackendServer
+
+    srv = KerasBackendServer()
+    docs = pts[:COS_ROWS]
+    try:
+        mid = srv.attach_rag(net, vocab=SLICE["num_labels"],
+                             passages=passages, doc_vectors=docs,
+                             k=RAG["k"], slots=RAG["slots"],
+                             page_size=RAG["page_size"], mid="rag",
+                             index_kw={"store": "int8"}, device="cuda")
+        base = f"http://127.0.0.1:{srv.start()}"
+        q = docs[123] + 0.01
+        body = json.dumps({"model": mid, "prompt_ids": prompt.tolist(),
+                           "max_tokens": RAG["tokens"],
+                           "query_vec": q.tolist()}).encode()
+        req = urllib.request.Request(base + "/rag", body,
+                                     {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            got = json.loads(resp.read())
+        fut = srv._rags[mid].submit(prompt, RAG["tokens"], query_vec=q)
+        want = dict(tokens=fut.result(timeout=300).tolist(),
+                    docs=list(fut._rag_docs),
+                    prefix_len=fut._rag_prefix_len)
+    finally:
+        srv.stop()
+    check(got == want and 123 in got["docs"],
+          f"10e: /rag answered {got}, submit {want}")
+    log(f"  10e /rag through attach_rag answers as submit: docs "
+        f"{got['docs']}, prefix {got['prefix_len']}; [{card}]")
+    return got
+
+
+def tsne_data():
+    rs = np.random.RandomState(7)
+    mu = rs.randn(4, TSNE["d"]).astype(np.float32) * 4.0
+    lab = rs.randint(0, 4, TSNE["n"])
+    return (mu[lab] + rs.randn(TSNE["n"], TSNE["d"]).astype(np.float32)
+            ).astype(np.float32)
+
+
+def phase_tsne(card):
+    """10f: ``BarnesHutTsne`` and ``Tsne`` on 2,000 x 50 clustered points,
+    card against CPU: the sparse P, then ten iterations from the same P."""
+    from deeplearning4j_torch.plot import BarnesHutTsne, Tsne
+    from deeplearning4j_torch.plot import barnes_hut
+
+    x = tsne_data()
+    n = len(x)
+    t0 = time.perf_counter()
+    p_card = barnes_hut.build_sparse_p(x, TSNE["perplexity"], device="cuda")
+    p_card_s = time.perf_counter() - t0
+    p_cpu = barnes_hut.build_sparse_p(x, TSNE["perplexity"], device="cpu")
+    dense = []
+    for ei, ej, ep in (p_card, p_cpu):
+        m = np.zeros((n, n))
+        np.add.at(m, (ei, ej), ep)
+        dense.append(m)
+    p_err = float(np.abs(dense[0] - dense[1]).max())
+    p_max = float(dense[1].max())
+    edges = float(np.mean((p_card[0] == p_cpu[0]) & (p_card[1] == p_cpu[1])))
+    check(p_err <= P_REL * p_max, f"10f: sparse P card vs CPU {p_err:.3g} "
+                                  f"> {P_REL} x {p_max:.3g}")
+    out = dict(p_max_abs_err=p_err, p_max=p_max, edges_equal=edges,
+               p_card_s=p_card_s)
+    kw = dict(perplexity=TSNE["perplexity"], max_iter=TSNE["iters"],
+              seed=0)
+    real = barnes_hut.build_sparse_p
+    barnes_hut.build_sparse_p = lambda *a, **k: p_cpu
+    try:
+        for tag, cls in (("bh", BarnesHutTsne), ("exact", Tsne)):
+            times, ys = {}, {}
+            for dev in ("cuda", "cpu"):
+                model = cls(device=dev, **kw)
+                t0 = time.perf_counter()
+                ys[dev] = model.fit(x)
+                times[dev] = time.perf_counter() - t0
+            err = float(np.abs(ys["cuda"] - ys["cpu"]).max())
+            scale = float(np.abs(ys["cpu"]).max())
+            check(np.isfinite(ys["cuda"]).all() and err <= TSNE_REL * scale,
+                  f"10f {tag}: y card vs CPU {err:.3g} > {TSNE_REL} x "
+                  f"{scale:.3g}")
+            out[tag] = dict(max_abs_err=err, max_abs_y=scale,
+                            card_s=times["cuda"], cpu_s=times["cpu"])
+    finally:
+        barnes_hut.build_sparse_p = real
+    log(f"  10f t-SNE {n} x {TSNE['d']}: P card vs CPU {p_err:.3g} of "
+        f"{p_max:.3g} ({edges:.4f} of edges equal); {TSNE['iters']} "
+        f"iterations BH {out['bh']['max_abs_err']:.3g} of "
+        f"{out['bh']['max_abs_y']:.3g} ({out['bh']['card_s']:.2f} s card, "
+        f"{out['bh']['cpu_s']:.2f} s CPU), exact "
+        f"{out['exact']['max_abs_err']:.3g} of {out['exact']['max_abs_y']:.3g}"
+        f" ({out['exact']['card_s']:.2f} s card, {out['exact']['cpu_s']:.2f}"
+        f" s CPU); [{card}]")
+    return out
+
+
+def phase_retrieval(card):
+    """Phase 10: retrieval and RAG (10a-10f)."""
+    t0 = time.perf_counter()
+    pts, qs = knn_store()
+    log("phase 10a: the exact f32 store")
+    exact = phase_exact_store(pts, qs, card)
+    log("phase 10b: the int8 flat store")
+    int8 = phase_int8_store(pts, qs, card)
+    log("phase 10c: IVF int8")
+    ivf = phase_ivf_store(pts, qs, card)
+    log("phase 10d: NearestNeighborsServer over HTTP")
+    http = phase_knn_http(pts, qs, card)
+    del pts
+    log("phase 10e: RAG at the bench's serve_rag configuration")
+    rag = phase_rag(card)
+    log("phase 10f: t-SNE")
+    tsne = phase_tsne(card)
+    wall = time.perf_counter() - t0
+    log(f"  phase 10: {wall:.1f} s; [{card}]")
+    return dict(exact=exact, int8=int8, ivf=ivf, http=http, rag=rag,
+                tsne=tsne, wall_s=wall)
+
+
 def kernel_line(flash, paged, bwd, launches, launches_d96):
     k1 = flash["slice_f32_causal"]
     k2 = paged["f32_T1_Tmax512"]
@@ -4010,10 +4759,18 @@ def main() -> int:
                                       "paged_attn_chunk", "flash_bwd_dq",
                                       "flash_bwd_dkv")),
           f"a kernel of the serving fabric never launched: {fabric}")
+    kernels.reset_launch_counts()         # retrieval and RAG start here
+    log("phase 10: retrieval and RAG (the f32, int8 and IVF stores, the "
+        "k-NN HTTP server, RagPipeline, t-SNE)")
+    REPORT["retrieval"] = phase_retrieval(card)
+    retrieval = dict(kernels.LAUNCHES)    # ... and end here
+    check(all(retrieval[k] > 0 for k in ("paged_attn", "paged_attn_chunk")),
+          f"a kernel of the RAG generate tier never launched: {retrieval}")
     windows = dict(serving=serving, loading=loading, fixture=fixture,
                    prefix=prefix, spec=spec, d96_serving=d96_serving,
                    training=training, d96_training=d96_training,
-                   fitting=fitting, multilayer=multilayer, fabric=fabric)
+                   fitting=fitting, multilayer=multilayer, fabric=fabric,
+                   retrieval=retrieval)
     launches = {k: sum(w[k] for w in windows.values()) for k in serving}
     REPORT["main_path_launches"] = dict(windows, total=launches)
     check(all(n > 0 for n in launches.values()),

@@ -21,7 +21,6 @@ an HTTP entry point serves any client), batches are ``.npz`` files with
 - POST /rag      {"model": id, "prompt_ids": [..], "max_tokens": n,
                   "query_vec": [..], "k": 4, ...}
                   -> {"tokens": [..], "docs": [..], "prefix_len": n}
-                  (not ported yet: a structured 500 naming ROADMAP A9)
 - GET  /models                                          -> {"models": [..]}
 - GET  /stats                                           -> serving counters
 - GET  /metrics                     -> Prometheus text exposition (0.0.4)
@@ -33,12 +32,17 @@ taxonomy: 429 past the admission watermark, 503 while the breaker is
 open, 504 when the per-request deadline expires (queued OR
 mid-generation — the decode slot is freed either way).
 
-Models are registered with ``attach_generation`` / ``attach_inference``
-(or placed in ``_models`` directly); their servers run on the card unless
-the caller passes ``device="cpu"``. ``/rag`` (``attach_rag``, the two-tier
-``RagPipeline``) waits for ROADMAP A9 and ``/import`` (Keras HDF5 import)
-for A12: both raise ``NotImplementedError`` naming their item, which the
-handler returns as the structured 500 JSON.
+/rag serves models registered with ``attach_rag`` through a two-tier
+``RagPipeline`` (parallel/rag.py): the query retrieves top-k passages from
+a knn-tier ``EmbeddingIndex``, the canonical passage prefix is assembled,
+and a generate-tier ``GenerationServer`` decodes; the response carries the
+tokens, the retrieved doc ids and the shareable prefix length.
+
+Models are registered with ``attach_generation`` / ``attach_inference`` /
+``attach_rag`` (or placed in ``_models`` directly); their servers run on
+the card unless the caller passes ``device="cpu"``. ``/import`` (Keras
+HDF5 import) waits for ROADMAP A12: it raises ``NotImplementedError``
+naming the item, which the handler returns as the structured 500 JSON.
 
 The serving path degrades typed instead of failing open
 (parallel/resilience.py): /predict sheds load with 429 past the
@@ -124,6 +128,7 @@ class KerasBackendServer:
         self._models: dict = {}
         self._generators: dict = {}
         self._inference: dict = {}
+        self._rags: dict = {}
         # leaf lock for the /predict server registry: predict() must not
         # touch self._lock before admission (the legacy path holds it for
         # the whole dispatch — the watermark could never 429)
@@ -412,21 +417,87 @@ class KerasBackendServer:
                    generate_replicas: int = 1, mid: Optional[str] = None,
                    encoder=None, index_kw: Optional[dict] = None,
                    gen_kw: Optional[dict] = None,
-                   rag_kw: Optional[dict] = None) -> str:
-        """Retrieval-augmented serving (the two-tier ``RagPipeline``): not
-        ported yet."""
-        raise NotImplementedError(
-            "attach_rag is not ported yet (ROADMAP A9: parallel/rag.py with "
-            "the retrieval tier)")
+                   rag_kw: Optional[dict] = None, device=None) -> str:
+        """Register a causal LM + document corpus for /rag, served by a
+        two-tier ``RagPipeline`` (parallel/rag.py): ``doc_vectors``
+        [N, D] build a knn-tier ``EmbeddingIndex`` per knn replica
+        (``index_kw`` forwards — store=, partitions=, nprobe=, ...),
+        ``net`` serves per generate replica through a paged
+        ``GenerationServer`` (``gen_kw`` forwards), and ``passages`` maps
+        retrieved doc id -> token ids for the canonical chunk-aligned
+        prefix. ``net`` may be a model instance or an imported model id;
+        returns the id /rag requests should name. ``device``: the card
+        both tiers run on (CUDA unless the caller passes another device;
+        the net must live there)."""
+        from deeplearning4j_torch.nearestneighbors.index import EmbeddingIndex
+        from deeplearning4j_torch.parallel.generation import GenerationServer
+        from deeplearning4j_torch.parallel.rag import RagPipeline
+
+        device = resolve_device(device)
+        with self._lock:
+            if isinstance(net, str):
+                mid = net
+                net = self._net(mid)
+            elif mid is None:
+                mid = f"m{self._next_id}"
+                self._next_id += 1
+            self._models[mid] = net
+            old = self._rags.pop(mid, None)
+        if old is not None:
+            old.close()
+        vecs = np.asarray(doc_vectors, np.float32)
+        ikw = dict(index_kw or {})
+        gkw = dict(gen_kw or {})
+        gkw.setdefault("page_size", page_size)
+        gkw.setdefault("role", "generate")
+
+        def knn_factory(rid):
+            return EmbeddingIndex(vecs, device=device, **ikw)
+
+        def gen_factory(rid):
+            return GenerationServer(net, vocab, slots=slots, device=device,
+                                    **gkw)
+
+        pipe = RagPipeline(knn_factory, gen_factory, passages,
+                           page_size=page_size, pad_id=pad_id, k=k,
+                           encoder=encoder, knn_replicas=knn_replicas,
+                           generate_replicas=generate_replicas,
+                           device=device, **(rag_kw or {}))
+        with self._lock:
+            self._rags[mid] = pipe
+        return mid
 
     def rag(self, mid: str, prompt_ids, max_tokens: int,
             query_vec=None, k: Optional[int] = None,
             temperature: float = 0.0, top_k: int = 0, seed: int = 0,
             deadline_s: Optional[float] = None) -> dict:
-        """/rag: not ported yet (see ``attach_rag``)."""
-        raise NotImplementedError(
-            "/rag is not ported yet (ROADMAP A9: parallel/rag.py with the "
-            "retrieval tier)")
+        """Submit one retrieval-augmented request and wait for its
+        tokens + retrieval metadata. The pipeline enforces admission/
+        deadline/breaker typing across both tiers; the handler maps it
+        onto 429/503/504 exactly like /generate."""
+        with self._lock:
+            pipe = self._rags.get(mid)
+        if pipe is None:
+            raise UnknownModelError(
+                f"unknown rag model '{mid}' — register it with "
+                "attach_rag()")
+        budget = deadline_s if deadline_s is not None \
+            else self.request_deadline_s
+        fut = pipe.submit(np.asarray(prompt_ids, np.int64),
+                          int(max_tokens), query_vec=query_vec, k=k,
+                          temperature=float(temperature),
+                          top_k=int(top_k), seed=int(seed),
+                          deadline_s=budget)
+        try:
+            out = fut.result(timeout=None if budget is None
+                             else budget + 30.0)
+        except Exception:
+            self._m_failed.inc()
+            raise
+        self._m_completed.inc()
+        return {"tokens": _host(out).tolist(),
+                "docs": [int(d) for d in fut._rag_docs],
+                "prefix_len": int(fut._rag_prefix_len)}
 
     def generate(self, mid: str, prompt_ids, max_tokens: int,
                  temperature: float = 0.0, top_k: int = 0, seed: int = 0,
@@ -478,6 +549,7 @@ class KerasBackendServer:
         with self._lock:
             out["models"] = len(self._models)
             gens = dict(self._generators)
+            rags = dict(self._rags)
         with self._inference_lock:
             infs = dict(self._inference)
         if gens:
@@ -501,6 +573,10 @@ class KerasBackendServer:
                 out["handoff"] = handoff
         if infs:
             out["inference"] = {mid: i.stats() for mid, i in infs.items()}
+        if rags:
+            # two-tier RAG ledgers: per-model submitted/completed/...,
+            # headline prefix-dedupe counters, per-tier aggregates
+            out["rag"] = {mid: r.stats() for mid, r in rags.items()}
         return out
 
     def register_metrics(self, labels: Optional[dict],
@@ -521,12 +597,25 @@ class KerasBackendServer:
         once — first labeling wins."""
         with self._lock:
             gens = dict(self._generators)
+            rags = dict(self._rags)
             extras = list(self._extra_metrics)
         with self._inference_lock:
             infs = dict(self._inference)
         sources = [({}, self.metrics)]
         seen = {id(self.metrics)}
-        for mid, target in list(gens.items()) + list(infs.items()):
+        for mid, target in (list(gens.items()) + list(infs.items())
+                            + list(rags.items())):
+            # a RAG pipeline exposes one source per tier (injected
+            # tier= label alongside model=) via metrics_sources(); plain
+            # targets expose one registry
+            ms = getattr(target, "metrics_sources", None)
+            if ms is not None:
+                for lbls, src in ms():
+                    if id(src) not in seen:
+                        seen.add(id(src))
+                        sources.append(({"model": mid, **(lbls or {})},
+                                        src))
+                continue
             reg = getattr(target, "metrics", None)
             if reg is not None and id(reg) not in seen:
                 seen.add(id(reg))
@@ -662,6 +751,8 @@ class KerasBackendServer:
         with self._lock:
             gens = list(self._generators.values())
             self._generators.clear()
+            gens.extend(self._rags.values())
+            self._rags.clear()
         with self._inference_lock:
             gens.extend(self._inference.values())
             self._inference.clear()

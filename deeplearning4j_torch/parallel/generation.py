@@ -76,6 +76,9 @@ slots with the same values, since no host state advances before it
 returns. Counters live in a ``MetricsRegistry`` under the JAX server's
 metric names, and ``stats()`` has the JAX server's keys in its order.
 Tensor-parallel meshes (``mesh``, ``tp``) are not ported yet (ROADMAP A9).
+``assemble_passage_prefix`` (the JAX package's, verbatim) lays retrieved
+passages out as a canonical page-aligned prompt prefix for RAG
+(``parallel/rag.py``).
 Snapshots of bf16 pools carry their pages as raw 16-bit words labelled
 ``bfloat16``, as the JAX package's do.
 """
@@ -145,6 +148,57 @@ def _from_wire(a: np.ndarray) -> torch.Tensor:
     if (a.dtype.metadata or {}).get("wire") == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def assemble_passage_prefix(doc_ids, passages, *, page_size: int,
+                            pad_id: int = 0, query_ids=None):
+    """Assemble retrieved passages into a canonical chunk-aligned prompt
+    prefix — the admission contract that turns the prefix cache into a
+    device-resident document cache.
+
+    Two rules make the page digests collide exactly when the content
+    does (``_match_prefix`` hashes ``page_size`` chunks under a chained
+    digest, so byte-identical leading pages are the sharing unit):
+
+    - **Canonical order.** Retrieved doc ids are deduplicated and
+      sorted ascending, so every request hitting the same documents
+      assembles the same byte stream regardless of retrieval-score
+      order. Under a skewed (Zipf) query mix the hot documents sort
+      first, giving concurrent requests long shared leading runs.
+    - **Chunk alignment.** Each passage is padded to a ``page_size``
+      multiple with ``pad_id``, so a passage always starts on a page
+      boundary and its pages hash identically no matter which
+      passages precede it in the shared run.
+
+    Negative ids (IVF empty-slot padding) are dropped. ``query_ids``
+    (the user's own prompt tokens) are appended unpadded after the
+    prefix — they are per-request and never shared.
+
+    Returns ``(prompt_ids int64, doc_order, prefix_len)``: the full
+    prompt, the canonical doc order actually assembled, and how many
+    leading tokens are shareable passage prefix."""
+    ps = int(page_size)
+    if ps < 1:
+        raise ValueError(f"page_size must be >= 1, got {page_size}")
+    order = sorted({int(i) for i in np.asarray(doc_ids).ravel()
+                    if int(i) >= 0})
+    parts = []
+    for d in order:
+        p = np.asarray(passages[d], np.int64).ravel()
+        if p.size == 0:
+            continue
+        pad = -p.size % ps
+        if pad:
+            p = np.concatenate([p, np.full(pad, int(pad_id), np.int64)])
+        parts.append(p)
+    prefix = np.concatenate(parts) if parts else np.zeros(0, np.int64)
+    plen = int(prefix.size)
+    if query_ids is not None:
+        q = np.asarray(query_ids, np.int64).ravel()
+        prompt = np.concatenate([prefix, q]) if plen else q
+    else:
+        prompt = prefix
+    return prompt, order, plen
 
 
 class _Request:

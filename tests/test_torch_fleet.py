@@ -216,7 +216,8 @@ def test_validation_errors_propagate_sync(lm):
 
 def test_roles_validated_as_jax():
     """Role lists are validated as JAX validates them, ``knn``/
-    ``generate`` included (their servers wait for ROADMAP A9/A10)."""
+    ``generate`` included (the RAG tiers: ``EmbeddingIndex`` and
+    ``GenerationServer`` replicas behind ``parallel/rag.py``)."""
     cases = [(("prefill", "bogus"), 2), (("prefill",), 2),
              (("decode", "decode"), 2), (("prefill", "prefill"), 2),
              (("knn", "generate"), 2)]

@@ -15,10 +15,11 @@
   trains as the JAX package does what it has: the fused K-step driver, the
   health guard and L2 regularization (held to JAX's ``fit`` here);
 - the serving fabric's entry points (``ParallelInference``,
-  ``KerasBackendServer.attach_generation`` / ``attach_inference`` and the
-  fleets they build) resolve their device through ``resolve_device``, and
-  what is not ported yet (``mesh=``, ``workers > 1``, ``tp > 1``,
-  ``/import``, ``/rag``) raises naming its ROADMAP item;
+  ``KerasBackendServer.attach_generation`` / ``attach_inference`` /
+  ``attach_rag`` and the fleets they build) resolve their device through
+  ``resolve_device``, and what is not ported yet (``mesh=``, ``workers >
+  1``, ``tp > 1``, ``EmbeddingIndex(mesh=)``, ``/import``) raises naming
+  its ROADMAP item;
 - the kernels' launch counters count exactly from many threads at once.
 """
 
@@ -94,7 +95,14 @@ def test_port_imports_no_jax():
             "datasets/mnist.py", "parallel/inference.py",
             "parallel/fleet.py", "parallel/mesh.py", "metrics/autoscale.py",
             "metrics/loadgen.py", "modelimport/__init__.py",
-            "modelimport/server.py", "optimize/bucketing.py"} <= names
+            "modelimport/server.py", "optimize/bucketing.py",
+            "clustering/__init__.py", "clustering/kmeans.py",
+            "clustering/kdtree.py", "clustering/vptree.py",
+            "clustering/sptree.py", "nearestneighbors/__init__.py",
+            "nearestneighbors/brute.py", "nearestneighbors/hnsw.py",
+            "nearestneighbors/index.py", "nearestneighbors/server.py",
+            "parallel/rag.py", "plot/__init__.py", "plot/tsne.py",
+            "plot/barnes_hut.py"} <= names
     bad = [(str(p.relative_to(ROOT)), mod) for p in files
            for mod in _imported_roots(p) if mod in FORBIDDEN]
     assert bad == []
@@ -541,7 +549,9 @@ def test_fabric_entry_points_run_on_cuda_by_default(no_cuda):
                      lambda: srv.attach_inference(net, replicas=2),
                      lambda: srv.attach_generation(lm, vocab=11),
                      lambda: srv.attach_generation(lm, vocab=11,
-                                                   replicas=2)):
+                                                   replicas=2),
+                     lambda: srv.attach_rag(lm, vocab=11, passages=[[1]],
+                                            doc_vectors=np.eye(2))):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 call()
         with ParallelInference(net, device="cpu") as inf:
@@ -554,13 +564,21 @@ def test_fabric_entry_points_run_on_cuda_by_default(no_cuda):
         gid = srv.attach_generation(lm, vocab=11, replicas=2, device="cpu")
         assert all(r.server.device.type == "cpu"
                    for r in srv._generators[gid]._replicas)
+        rid = srv.attach_rag(lm, vocab=11, passages=[[1], [2]],
+                             doc_vectors=np.eye(2), device="cpu")
+        assert all(r.server.device.type == "cpu"
+                   for r in srv._rags[rid].fleet._replicas)
     finally:
         srv.stop()
 
 
 def test_fabric_parts_not_ported_raise_naming_their_item():
-    """``mesh=``, ``workers > 1`` and ``tp > 1`` name A9; ``/import``
-    names A12; ``attach_rag`` and ``/rag`` name A9."""
+    """``mesh=``, ``workers > 1`` and ``tp > 1`` name A9, and so do the
+    mesh-sharded retrieval stores (``EmbeddingIndex(mesh=)``,
+    ``kmeans="sharded"``, ``NearestNeighborsServer(mesh=)``); ``/import``
+    names A12."""
+    from deeplearning4j_torch.nearestneighbors import NearestNeighborsServer
+    from deeplearning4j_torch.nearestneighbors.index import EmbeddingIndex
     from deeplearning4j_torch.modelimport.server import KerasBackendServer
     from deeplearning4j_torch.parallel.fleet import device_groups
     from deeplearning4j_torch.parallel.inference import ParallelInference
@@ -574,13 +592,18 @@ def test_fabric_parts_not_ported_raise_naming_their_item():
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         GenerationServer(TransformerLM(**TINY).init(device="cpu"), 11,
                          tp=2, device="cpu")
+    pts = np.zeros((4, 2), np.float32)
+    for make in (lambda: EmbeddingIndex(pts, mesh=object(), device="cpu"),
+                 lambda: EmbeddingIndex(pts, partitions=2, kmeans="sharded",
+                                        device="cpu"),
+                 lambda: NearestNeighborsServer(pts, backend="index",
+                                                mesh=object(),
+                                                device="cpu")):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+            make()
     srv = KerasBackendServer()
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         srv.import_model("model.h5")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        srv.attach_rag(net, vocab=3, passages=[], doc_vectors=[])
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        srv.rag("m0", [1], 2)
 
 
 def test_launch_counters_are_exact_across_threads():

@@ -14,8 +14,10 @@
   server's; ``/fit`` losses within 1e-5 of JAX's over two Adam steps and
   bit for bit the port's own ``fit`` on the same batches; ``/evaluate``
   JAX's accuracy; ``/stats`` has JAX's keys and a scrape JAX's families.
-- ``/import`` and ``/rag`` return the structured 500 naming ROADMAP A12
-  and A9.
+- ``/import`` returns the structured 500 naming ROADMAP A12; ``/rag``
+  through ``attach_rag`` (an exact knn tier, a paged generate tier) returns
+  JAX's tokens, doc ids and prefix length, and the same 404/400 for an
+  unknown model and a bad body.
 
 Every server is stopped in a ``finally``; every HTTP call has a timeout.
 """
@@ -281,23 +283,62 @@ def test_concurrent_predicts_count_exactly():
     assert all(0 <= s <= n * per for s in snaps)
 
 
-def test_import_and_rag_are_structured_500s_naming_their_items(servers):
+def test_import_is_a_structured_500_naming_a12(servers):
     srv, http = servers("port")
     status, body = http.post("/import", {"path": "model.h5"})
     assert status == 500 and body["type"] == "InternalError"
     assert "NotImplementedError" in body["error"] and "A12" in body["error"]
-    status, body = http.post("/rag", {"model": "m0", "prompt_ids": [1],
-                                      "max_tokens": 2})
-    assert status == 500 and body["type"] == "InternalError"
-    assert "A9" in body["error"]
-    with pytest.raises(NotImplementedError, match="A9"):
-        srv.attach_rag(None, vocab=V, passages=[], doc_vectors=[])
+    with pytest.raises(NotImplementedError, match="A12"):
+        srv.import_model("model.h5")
 
 
 # -------------------------------------------------------- real models
 @pytest.fixture(scope="module")
 def lm():
     return jax_pair(3, 16)
+
+
+def test_rag_route_answers_as_jax(servers, lm):
+    """``/rag`` through ``attach_rag`` on both packages (the JAX server's
+    tiny LM and its port twin, 16 doc vectors, passages of 1..4 tokens at
+    page size 4, so a prompt stays inside the model's 16 positions): the
+    same tokens, doc ids and prefix length, greedy and sampled; an unknown
+    model 404 and a body without ``max_tokens`` 400, as JAX's."""
+    jnet, tnet = lm
+    rs = np.random.RandomState(0)
+    vecs = rs.randn(16, 4).astype(np.float32) * 4.0
+    passages = [rs.randint(1, V, size=rs.randint(1, 5)) for _ in range(16)]
+    reqs = [{"model": "rag0", "prompt_ids": [1, 2, 3], "max_tokens": 4,
+             "query_vec": (vecs[5] + 0.01).tolist()},
+            {"model": "rag0", "prompt_ids": [4, 5], "max_tokens": 3,
+             "query_vec": vecs[11].tolist(), "temperature": 0.9,
+             "top_k": 5, "seed": 21, "k": 1},
+            {"model": "nope", "prompt_ids": [1], "max_tokens": 2,
+             "query_vec": vecs[0].tolist()},
+            {"model": "rag0", "prompt_ids": [1],
+             "query_vec": vecs[0].tolist()}]
+
+    def call(srv, http):
+        if srv.__class__.__module__.startswith("deeplearning4j_tpu"):
+            srv.attach_rag(jnet, vocab=V, passages=passages,
+                           doc_vectors=vecs, k=2, slots=2, page_size=4,
+                           mid="rag0",
+                           gen_kw={"paged_attention": "xla"})
+        else:
+            srv.attach_rag(tnet, vocab=V, passages=passages,
+                           doc_vectors=vecs, k=2, slots=2, page_size=4,
+                           mid="rag0", device="cpu")
+        got = []
+        for body in reqs:
+            status, out = http.post("/rag", body)
+            got.append((status, out if status == 200 else out["type"]))
+        st = json.loads(http.get("/stats")[1])["rag"]["rag0"]
+        return got, list(st), st["completed"]
+
+    jgot, tgot = _both(servers, call)
+    assert tgot == jgot
+    assert [s for s, _ in tgot[0]] == [200, 200, 404, 400]
+    assert 5 in tgot[0][0][1]["docs"] and tgot[2] == 2
 
 
 def test_fleet_generate_predict_stats_and_metrics_equal_jax(lm):
