@@ -209,6 +209,35 @@ Phases (any failure exits non-zero, and no result line is printed):
    clustered points: the sparse P card against CPU within 1e-3 of its
    largest entry, ten iterations from the same P within 1e-2 of max|y|,
    timed.
+11. recurrent nets, on numpy-seeded weights. 11a: ``zoo.TextGenerationLSTM``
+   (GravesLSTM 256 x2, RmsProp, L2, TBPTT 50) on the JAX bench leg
+   (``bench.py::bench_lstm``: vocab 77, batch 64, seq 50): the first
+   step's gradients card against CPU within 1e-4 of max|g|, steady
+   tokens/s (the median of marginal windows), launches a step and the idle
+   share under the profiler; on DL4J's char-modelling shape (batch 32,
+   1,000 steps, twenty 50-step segments of a seeded Markov text): each
+   segment's step card against CPU from the same state (twenty losses
+   within rtol 1e-4, the parameters after each within 1e-4 of the leaf's
+   max|p|; the free-running ``fit`` of both reported, not gated, beside
+   the CPU's f32 run against its f64 run: RmsProp amplifies f32
+   rounding), ``fit`` at its defaults bit for bit a
+   ``do_step`` loop over the segments with the carry, a NaN segment
+   skipped by the guard. 11b: on the char-trained
+   net, ``rnn_time_step`` in chunks of 7 equal to ``output()`` within 1e-5
+   of max|y|; ``greedy_generate`` of 200 tokens after a 50-token prompt at
+   batch 8, the device and host loops token for token and card against
+   CPU under phase 5c's near-tie rule; a sampled stream card against CPU
+   under the same rule on the perturbed scores; ms a generated token. 11c:
+   the UCI synthetic-control shape (6 classes, 60 steps, lengths 30..60
+   under a mask): a GravesBidirectionalLSTM -> LastTimeStep -> OutputLayer
+   MultiLayerNetwork and an LSTM -> LastTimeStepVertex ->
+   DuplicateToTimeSeriesVertex -> RnnOutputLayer graph, each trained by
+   ``EarlyStoppingTrainer`` (MaxEpochs 5, ScoreImprovement 2) on the card
+   and the CPU (the same termination and best epoch, scores within rtol
+   1e-4), their best models' ``Evaluation``, ``EvaluationBinary``,
+   ``ROCMultiClass`` and ``RegressionEvaluation`` card against CPU except
+   at near-ties. The recurrent path runs no hand-written kernel (the JAX
+   package's LSTM is a matmul and a ``lax.scan``, no Pallas kernel).
 
 Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
 calls (``ms``: the wrapper's host work included, which sets the pace once
@@ -224,15 +253,16 @@ migration, chaos), phase 5f (the d=96 model, f32 and int8 weights), phase
 7 (training), phase 7b (training at d=96), phase 7c (``fit``), phase
 8 (the MultiLayerNetwork substrate, which runs no hand-written kernel:
 its convolutions and pooling are library calls, as the JAX package's are
-XLA's), phase 9 (the serving fabric: K1, both routes of K2, K3 and K4)
-and phase 10 (retrieval and RAG: both routes of K2 on the generate tier;
+XLA's), phase 9 (the serving fabric: K1, both routes of K2, K3 and K4),
+phase 10 (retrieval and RAG: both routes of K2 on the generate tier;
 the stores' searches are matmuls and top-k, as the JAX package's are
-XLA's). The launch counters are zeroed just before each of the twelve and
-read
+XLA's) and phase 11 (recurrent nets, which launch none of K1-K4). The
+launch counters are zeroed just before each of the thirteen and read
 just after (phase 6's and the reference servers' and forwards' launches
 are not counted); every kernel must have run on the main path, K2's
-chunk route and its merge pass included, and each path but phase 8 must
-have launched its own kernels. The script
+chunk route and its merge pass included, and each path but phases 8 and
+11 must have launched its own kernels (those two must launch none). The
+script
 prints the card's name and power limit, one ``{"kernels": [...]}`` line with
 each kernel's launches, error, times and bound, and, last, the result line
 ``{"ok": true, "device": {...}}``. f32 matmuls run in full f32 (TF32
@@ -4240,18 +4270,21 @@ def phase_rag(card):
             f.add_done_callback(
                 lambda f: lat.append(time.monotonic() - t_sub[id(f)]))
             futs.append(f)
+        failures = []
         for f in futs:
             try:
                 served.append((f, f.result(timeout=300).tolist()))
-            except (DeadlineExceeded, ServerOverloaded, CircuitOpen):
+            except (DeadlineExceeded, ServerOverloaded, CircuitOpen) as e:
                 failed += 1
+                failures.append(f"{type(e).__name__}: {e}")
         wall = time.perf_counter() - t0
         ok = len(futs) - failed
         # shedding at submit is typed (the fleet's per-replica admission
         # of 64, as in the bench); nothing admitted may fail
         check(failed == 0 and ok + shed == RAG["requests"],
               f"10e: {failed} failed, {RAG['requests'] - ok - shed - failed}"
-              f" lost of {RAG['requests']}")
+              f" lost of {RAG['requests']} ({shed} shed at submit): "
+              f"{failures}")
         p99 = float(np.percentile(np.asarray(lat) * 1e3, 99))
         st = rag.stats()
         check(st["expired"] == 0 and st["inflight"] == 0
@@ -4437,7 +4470,682 @@ def phase_retrieval(card):
                 tsne=tsne, wall_s=wall)
 
 
-def kernel_line(flash, paged, bwd, launches, launches_d96):
+# ---------------------------------------------------------------- phase 11
+#: phase 11a: ``zoo.TextGenerationLSTM`` at the zoo's width (GravesLSTM 256
+#: x2, RmsProp 0.01, L2 1e-3, TBPTT 50/50) on the JAX bench leg
+#: (``bench.py::bench_lstm``: vocab 77, batch 64, seq 50, the bench's
+#: RandomState(2) data) and on DL4J's GravesLSTMCharModellingExample shape
+#: (miniBatch 32, exampleLength 1000, TBPTT 50: twenty segments; its text
+#: drawn from a seeded Markov chain over the 77 characters)
+LSTM_VOCAB = 77
+LSTM_BENCH = dict(batch=64, seq=50)
+LSTM_CHAR = dict(batch=32, seq=1000)
+#: the char stream's segment that carries a NaN in the guard's run
+LSTM_NAN_SEGMENT = 7
+#: steady tokens/s: the median of LSTM_WINDOWS marginal windows, each the
+#: time of 2n steps less that of n (bench.py's MarginalTimer), n steps
+LSTM_WINDOWS = 5
+LSTM_WINDOW_STEPS = 10
+#: phase 11b: streaming and generation at batch 8 from the char-trained net
+LSTM_STREAM = dict(batch=8, prompt=50, tokens=200, chunk=7)
+LSTM_SAMPLED = dict(temperature=0.8, top_k=40, seed=7)
+#: phase 11c: the UCI synthetic-control shape of DL4J's
+#: UCISequenceClassificationExample (6 classes of 60-step series, 450 to
+#: train and 150 to test), each series cut at random to 30..60 steps under
+#: a mask; a bidirectional LSTM of 10 units each way, batches of 30
+UCI = dict(classes=6, steps=60, train=450, test=150, batch=30, hidden=10,
+           min_len=30)
+#: 11c fails when the card's and the CPU's best models' class
+#: probabilities differ by more than this anywhere
+UCI_SPREAD_CAP = 1e-3
+
+
+def lstm_params(net, seed, gain=1.0):
+    """Seeded numpy weights for a recurrent net: every ``W``/``RW``
+    ``randn·gain/sqrt(fan_in)``, biases and peepholes ``0.1·randn``, an
+    LSTM bias's forget block ``[H:2H]`` one higher."""
+    from deeplearning4j_torch.nn.conf.layers.recurrent import LSTM
+
+    rs = np.random.RandomState(seed)
+    owners = net._param_owners()
+    out = {}
+    for v, p in net.params.items():
+        out[v] = {}
+        for k, t in p.items():
+            shp = tuple(t.shape)
+            leaf = k.split("_")[-1]
+            if leaf in ("W", "RW"):
+                a = rs.randn(*shp) * gain / np.sqrt(shp[0])
+            else:
+                a = 0.1 * rs.randn(*shp)
+                if leaf == "b" and isinstance(owners[v], LSTM):
+                    H = shp[0] // 4
+                    a[H:2 * H] += 1.0
+            out[v][k] = a.astype(np.float32)
+    return out
+
+
+def textgen(params, device, dtype="float32"):
+    """``TextGenerationLSTM(77, 50)`` on ``device``, on ``params`` (cast to
+    ``dtype``)."""
+    from deeplearning4j_torch.models.zoo import TextGenerationLSTM
+    from deeplearning4j_torch.utils.convert import params_from_jax
+
+    net = TextGenerationLSTM(num_labels=LSTM_VOCAB,
+                             max_length=LSTM_BENCH["seq"],
+                             dtype=dtype).init(device=device)
+    if params is not None:
+        params_from_jax(params, net)
+    return net
+
+
+def char_stream(rows, T, seed=11):
+    """``rows`` one-hot character rows of ``T`` steps and their next
+    characters, from a Markov chain whose transition rows are
+    Dirichlet(0.05) draws (a learnable, text-like stream)."""
+    V = LSTM_VOCAB
+    rs = np.random.RandomState(seed)
+    cdf = np.cumsum(rs.dirichlet(np.full(V, 0.05), V), axis=1)
+    idx = np.empty((rows, T + 1), np.int64)
+    idx[:, 0] = rs.randint(0, V, rows)
+    u = rs.rand(rows, T)
+    for t in range(T):
+        idx[:, t + 1] = np.minimum((u[:, t, None] > cdf[idx[:, t]]).sum(1),
+                                   V - 1)
+    eye = np.eye(V, dtype=np.float32)
+    return eye[idx[:, :-1]], eye[idx[:, 1:]], idx
+
+
+def fit_losses(net, ds, **kw):
+    """``net.fit(ds, **kw)`` and each of its steps' losses as host floats
+    (``CollectScoresIterationListener`` keeps the device scalars; they are
+    read after the fit)."""
+    from deeplearning4j_torch.optimize.listeners import (
+        CollectScoresIterationListener)
+
+    rec = CollectScoresIterationListener()
+    net.set_listeners(rec)
+    net.fit(ds, **kw)
+    net.set_listeners()
+    return [float(v) for _, v in rec.scores]
+
+
+def tbptt_segments(x, y, L):
+    for s in range(0, x.shape[1], L):
+        yield x[:, s:s + L], y[:, s:s + L]
+
+
+def to_host(tree):
+    """A nested dict of tensors, copied to the CPU."""
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return tree.detach().cpu().clone()
+
+
+def segment_parity(params, x, y, L):
+    """Each TBPTT segment's step card against CPU from the same state: the
+    card runs the segment loop with the carry; before each step the CPU
+    net takes the card's parameters, RmsProp state, iteration and carry.
+    Per segment: the loss's relative error, the parameters after the step
+    as a share of 1e-4 of each leaf's max|p|, and the carry's largest
+    error."""
+    card, cpu = textgen(params, "cuda"), textgen(params, "cpu")
+    carry = {}
+    out = dict(loss_rel=[], param_rule=[], carry_err=[])
+    for fx, fy in tbptt_segments(x, y, L):
+        cpu.params = to_host(card.params)
+        cpu.updater_state = to_host(card.updater_state)
+        cpu.iteration = card.iteration
+        ld, carry_d = card.do_step(fx, fy, carry=carry)
+        lc, carry_c = cpu.do_step(fx, fy, carry=to_host(carry))
+        carry = carry_d
+        out["loss_rel"].append(abs(float(ld) - float(lc)) / abs(float(lc)))
+        out["param_rule"].append(max(
+            (card.params[v][k].cpu() - t).abs().max().item()
+            / (1e-4 * t.abs().max().item())
+            for v, p in cpu.params.items() for k, t in p.items()))
+        out["carry_err"].append(max(
+            (carry_d[v][k].cpu() - t).abs().max().item()
+            for v, c in carry_c.items() for k, t in c.items()))
+    return out
+
+
+def marginal_tokens_s(step, tokens_per_step):
+    """Steady tokens/s of ``step()``: LSTM_WINDOWS windows, each the time
+    of 2n steps less that of n (n = LSTM_WINDOW_STEPS, each run ending in
+    a sync); the median and every window."""
+    def run(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    n = LSTM_WINDOW_STEPS
+    windows = []
+    for _ in range(LSTM_WINDOWS):
+        t1 = run(n)
+        t2 = run(2 * n)
+        windows.append(tokens_per_step * n / (t2 - t1))
+    return float(np.median(windows)), windows
+
+
+def phase_lstm_train(card):
+    """Phase 11a: TextGenerationLSTM trained by TBPTT at the zoo's width.
+    The bench leg (64 x 50, one segment a batch): the first step's
+    gradients card against CPU within 1e-4 of max|g|, steady tokens/s, and
+    launches a step and the idle share under the profiler. The
+    char-modelling shape (32 x 1,000, twenty segments): each segment's step
+    card against CPU from the same state (``segment_parity``: twenty losses
+    within rtol 1e-4, the parameters after each within 1e-4 of the leaf's
+    max|p|), the free-running ``fit`` of both reported beside, with the
+    CPU's f32 run against its f64 run (RmsProp amplifies f32 rounding, so
+    two right f32 runs drift apart over these segments), ``fit`` at its
+    defaults
+    bit for bit a hand-written ``do_step`` loop over the segments with the
+    carry, and a NaN segment skipped by the guard. Returns the report and
+    the char-trained card net."""
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.optimize.health import HealthPolicy
+
+    V, L = LSTM_VOCAB, LSTM_BENCH["seq"]
+    params = lstm_params(textgen(None, "cpu"), seed=3, gain=0.5)
+    cpu, net = textgen(params, "cpu"), textgen(params, "cuda")
+    rs = np.random.RandomState(2)
+    eye = np.eye(V, dtype=np.float32)
+    x = eye[rs.randint(0, V, (LSTM_BENCH["batch"], L))]
+    y = eye[rs.randint(0, V, (LSTM_BENCH["batch"], L))]
+    ld, gd = step_grads(net, x, y)
+    lc, gc = step_grads(cpu, x, y)
+    top = max(g.abs().max().item() for p in gc.values() for g in p.values())
+    grad_rule, grad_leaf = worst_leaf(gd, gc, lambda v, k: 1e-4 * top)
+    leaf_rule, leaf_at = worst_leaf(gd, gc, rule_1e4(cpu, gc))
+    loss_rel = abs(ld - lc) / abs(lc)
+    check(grad_rule <= 1.0 and loss_rel <= 1e-4,
+          f"lstm bench: first-step gradients card vs CPU at "
+          f"{grad_rule:.3g} of 1e-4 max|g| ({grad_leaf}), loss rel "
+          f"{loss_rel:.3g}")
+    xd, yd = (torch.from_numpy(a).to(net.device) for a in (x, y))
+    tok_s, windows = marginal_tokens_s(lambda: net.do_step(xd, yd),
+                                       x.shape[0] * L)
+    check(np.isfinite(float(net.score())), "lstm bench: non-finite loss")
+    prof = busy_share(lambda: [net.do_step(xd, yd) for _ in range(3)], 3)
+    log(f"  bench leg [64, 50, 77]: first step vs CPU {grad_rule:.3f} of "
+        f"1e-4 max|g| ({grad_leaf}; per leaf {leaf_rule:.3f} of 1e-4 of "
+        f"the leaf's max at {leaf_at}), loss rel {loss_rel:.2e}; "
+        f"{tok_s:.0f} tokens/s (median of {LSTM_WINDOWS} windows "
+        f"{[round(w) for w in windows]}), "
+        f"{prof['kernel_launches_per_step']:.0f} launches a step, idle "
+        f"share {prof['idle_share']:.3f} under the profiler; [{card}]")
+    bench = dict(first_step_rule=grad_rule, first_step_worst_leaf=grad_leaf,
+                 first_step_leaf_rule=leaf_rule, first_step_loss_rel=loss_rel,
+                 tokens_per_s=tok_s, windows=windows, profile=prof)
+
+    cx, cy, _ = char_stream(LSTM_CHAR["batch"], LSTM_CHAR["seq"])
+    n_seg = LSTM_CHAR["seq"] // L
+    seg = segment_parity(params, cx, cy, L)
+    check(len(seg["loss_rel"]) == n_seg and max(seg["loss_rel"]) <= 1e-4
+          and max(seg["param_rule"]) <= 1.0,
+          f"lstm char: segment steps card vs CPU from the same state: "
+          f"loss rel {max(seg['loss_rel']):.3g}, params "
+          f"{max(seg['param_rule']):.3g} of 1e-4 of the leaf's max|p|")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        n = textgen(params, dev)
+        t0 = time.perf_counter()
+        losses = fit_losses(n, DataSet(cx, cy))
+        runs[dev] = (n, losses, time.perf_counter() - t0)
+    char_net, card_losses, card_s = runs["cuda"]
+    cpu_losses = runs["cpu"][1]
+    # free-running drift, reported: RmsProp's lr/sqrt(h) amplifies f32
+    # rounding, so two right f32 runs part within twenty segments; the
+    # CPU's f32 run against its f64 run gives the size of that drift
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    f64_losses = fit_losses(textgen(params, "cpu", "float64"),
+                            DataSet(cx, cy))
+    f32_drift = max(abs(a - b) / abs(b)
+                    for a, b in zip(cpu_losses, f64_losses))
+    check(card_losses[-1] < card_losses[0],
+          f"lstm char: loss {card_losses[0]:.4f} -> {card_losses[-1]:.4f}")
+    loop = textgen(params, "cuda")
+    carry = {}
+    for fx, fy in tbptt_segments(cx, cy, L):
+        _, carry = loop.do_step(fx, fy, carry=carry)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(loop.params[v][k], char_net.params[v][k])
+                  for v in loop.params for k in loop.params[v])
+    check(bitwise and loop.iteration == char_net.iteration == n_seg,
+          "lstm char: fit at the defaults differs from the do_step loop")
+    xn = cx.copy()
+    xn[3, LSTM_NAN_SEGMENT * L + 10, 5] = np.nan
+    guarded, policy = textgen(params, "cuda"), HealthPolicy()
+    nan_losses = fit_losses(guarded, DataSet(xn, cy), health_guard=policy)
+    bad = [i for i, v in enumerate(nan_losses) if not np.isfinite(v)]
+    check(bad == [LSTM_NAN_SEGMENT] and policy.total_skips == 1
+          and np.isfinite(guarded.params_flat()).all()
+          and nan_losses[:LSTM_NAN_SEGMENT]
+          == card_losses[:LSTM_NAN_SEGMENT],
+          f"lstm char NaN: non-finite segments {bad}, skips "
+          f"{policy.total_skips}")
+    char_tok_s = cx.shape[0] * cx.shape[1] / card_s
+    log(f"  char shape [32, 1000, 77], {n_seg} TBPTT segments: each "
+        f"segment's step card vs CPU from the same state: loss rel "
+        f"{max(seg['loss_rel']):.2e}, params {max(seg['param_rule']):.3f} of "
+        f"1e-4 of the leaf's max|p|, carry {max(seg['carry_err']):.2e}; fit "
+        f"losses {card_losses[0]:.4f} -> {card_losses[-1]:.4f}, free-running "
+        f"card vs CPU rel {rel:.2e} (reported; the CPU's f32 run vs its f64 "
+        f"run {f32_drift:.2e}); fit bitwise the do_step loop "
+        f"{bitwise}; NaN segment "
+        f"{LSTM_NAN_SEGMENT} skipped ({policy.total_skips} skip); fit "
+        f"{card_s:.3f} s = {char_tok_s:.0f} tokens/s on the card (the "
+        f"guard fetches each segment's loss), {runs['cpu'][2]:.3f} s on "
+        f"the CPU; [{card}]")
+    char = dict(losses=card_losses, cpu_losses=cpu_losses,
+                free_running_rel=rel, cpu_f32_vs_f64_rel=f32_drift,
+                segments=seg,
+                bitwise=bitwise, skips=policy.total_skips, fit_s=card_s,
+                tokens_per_s=char_tok_s, cpu_fit_s=runs["cpu"][2])
+    return dict(bench=bench, char=char), char_net
+
+
+def lstm_logprobs(net, ids):
+    """``[n, T, V]`` f64 log-probabilities of one full-sequence
+    ``output()`` over the token rows ``ids`` ``[n, T]``: position t scores
+    the token after ``ids[:, t]``."""
+    eye = np.eye(LSTM_VOCAB, dtype=np.float32)
+    out = net.output(eye[ids]).float().cpu().numpy().astype(np.float64)
+    return np.log(np.maximum(out, 1e-30))
+
+
+def top2_spread(lp_a, lp_b):
+    """The largest change of the gap between ``lp_b``'s two best entries
+    from ``lp_b`` to ``lp_a`` over every position."""
+    idx = np.argsort(lp_b, axis=-1)[..., -2:]
+    ga = np.take_along_axis(lp_a, idx, -1)
+    gb = np.take_along_axis(lp_b, idx, -1)
+    return float(np.abs((ga[..., 1] - ga[..., 0])
+                        - (gb[..., 1] - gb[..., 0])).max())
+
+
+def sampled_gap(lp, k, row, batch):
+    """The gap between the two best perturbed scores of the device loop's
+    draw of token ``k`` for ``row``: ``log p / T`` within the top-k cut
+    plus the Gumbel noise of ``fold_in(PRNGKey(seed), k)`` over the
+    ``[batch, V]`` batch."""
+    from deeplearning4j_torch.ops import random
+
+    opts = LSTM_SAMPLED
+    z = torch.from_numpy(lp).float() / opts["temperature"]
+    kth = torch.topk(z, opts["top_k"]).values[-1]
+    key = random.fold_in(random.PRNGKey(opts["seed"], device="cpu"), k)
+    g = random.gumbel(key, (batch, LSTM_VOCAB))[row]
+    score = torch.where(z >= kth, z + g, torch.full_like(z, -1e30))
+    top = torch.topk(score, 2).values
+    return (top[0] - top[1]).item()
+
+
+def stream_rule(tag, got, want, lp_cpu, spread, prompt_len, gap_of):
+    """Card streams ``got`` against CPU streams ``want``: each row equal,
+    or leaving the CPU's at a token whose decision gap (``gap_of(lp, k,
+    row)`` on the CPU's read) is within ``spread``. Returns the
+    divergences."""
+    divergences = []
+    for b, (g, w) in enumerate(zip(got, want)):
+        k = first_divergence(list(g), list(w))
+        if k is None:
+            continue
+        gap = gap_of(lp_cpu[b, prompt_len - 1 + k], k, b)
+        divergences.append(dict(row=b, position=k, gap=gap,
+                                tokens=[int(g[k]), int(w[k])]))
+        check(gap <= spread, f"lstm stream {tag}: row {b} leaves the CPU's "
+                             f"at token {k} at a gap of {gap:.4g} over the "
+                             f"spread {spread:.4g}")
+    return divergences
+
+
+def phase_lstm_stream(net, card):
+    """Phase 11b: streaming and generation on the char-trained card net and
+    a CPU twin on its weights. ``rnn_time_step`` in chunks of 7 equal to
+    ``output()`` within 1e-5 of max|y|; ``greedy_generate`` of 200 tokens
+    after a 50-token prompt at batch 8 on both loops, token for token, and
+    card against CPU under phase 5c's near-tie rule (a row may leave the
+    CPU's stream only at a token whose own top-2 log-probability gap is
+    within the largest change of that gap between the card's and the
+    CPU's reads of the CPU's streams); a sampled stream (temperature 0.8,
+    top_k 40) card against CPU under the same rule on the perturbed
+    scores; ms a generated token."""
+    from deeplearning4j_torch.models.zoo import (greedy_generate,
+                                                 sample_generate)
+    from deeplearning4j_torch.utils.convert import params_to_numpy
+
+    V, P = LSTM_VOCAB, LSTM_STREAM["prompt"]
+    cpu = textgen(params_to_numpy(net), "cpu")
+    _, _, ids = char_stream(LSTM_STREAM["batch"], 56, seed=12)
+    eye = np.eye(V, dtype=np.float32)
+    x = eye[ids[:, :56]]
+    full = net.output(x)
+    net.rnn_clear_previous_state()
+    c = LSTM_STREAM["chunk"]
+    parts = [net.rnn_time_step(x[:, s:s + c]) for s in range(0, 56, c)]
+    net.rnn_clear_previous_state()
+    chunk_err = ((torch.cat(parts, 1) - full).abs().max()
+                 / full.abs().max()).item()
+    check(chunk_err <= 1e-5, f"lstm stream: chunks of {c} vs output() "
+                             f"{chunk_err:.3g} of max|y|")
+    prompt = ids[:, :P]
+    n = LSTM_STREAM["tokens"]
+    greedy_generate(net, prompt, 4, V)                  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_loop = greedy_generate(net, prompt, n, V)
+    ms_token = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    host_loop = greedy_generate(net, prompt, n, V, device_loop=False)
+    host_ms_token = (time.perf_counter() - t0) / n * 1e3
+    check(np.array_equal(dev_loop, host_loop),
+          "lstm stream: the device and host loops' greedy tokens differ")
+    ref = greedy_generate(cpu, prompt, n, V)
+    seqs = np.concatenate([prompt, ref], 1)[:, :-1]
+    lp_cpu = lstm_logprobs(cpu, seqs)
+    spread = top2_spread(lstm_logprobs(net, seqs), lp_cpu)
+    check(spread <= NEAR_TIE_CAP, f"lstm stream: card and CPU reads move "
+                                  f"the top-2 gap by {spread:.4g}")
+
+    def greedy_gap(lp, k, b):
+        top = np.sort(lp)[-2:]
+        return float(top[1] - top[0])
+
+    greedy_div = stream_rule("greedy", dev_loop, ref, lp_cpu, spread, P,
+                             greedy_gap)
+    s_card = sample_generate(net, prompt, n, V, **LSTM_SAMPLED)
+    s_cpu = sample_generate(cpu, prompt, n, V, **LSTM_SAMPLED)
+    s_seqs = np.concatenate([prompt, s_cpu], 1)[:, :-1]
+    s_lp = lstm_logprobs(cpu, s_seqs)
+    s_spread = top2_spread(lstm_logprobs(net, s_seqs), s_lp) \
+        / LSTM_SAMPLED["temperature"]
+    sampled_div = stream_rule(
+        "sampled", s_card, s_cpu, s_lp, s_spread, P,
+        lambda lp, k, b: sampled_gap(lp, k, b, LSTM_STREAM["batch"]))
+    check(not np.array_equal(s_card, dev_loop),
+          "lstm stream: the sampled stream is the greedy one")
+    log(f"  streaming: chunks of {c} vs output() {chunk_err:.2e} of max|y|; "
+        f"greedy {n} tokens after {P} at batch {LSTM_STREAM['batch']}: "
+        f"device loop = host loop, card vs CPU {len(greedy_div)} rows "
+        f"diverge (gap spread {spread:.2e}): "
+        f"{[(d['row'], d['position'], round(d['gap'], 6)) for d in greedy_div]}; "
+        f"sampled: {len(sampled_div)} rows diverge (spread {s_spread:.2e}): "
+        f"{[(d['row'], d['position'], round(d['gap'], 6)) for d in sampled_div]}; "
+        f"{ms_token:.3f} ms a generated token (device loop, batch "
+        f"{LSTM_STREAM['batch']}), {host_ms_token:.3f} ms on the host loop; "
+        f"[{card}]")
+    return dict(chunk_err=chunk_err, ms_per_token=ms_token,
+                host_ms_per_token=host_ms_token, gap_spread=spread,
+                greedy_divergences=greedy_div, sampled_spread=s_spread,
+                sampled_divergences=sampled_div)
+
+
+def uci_data(seed=0):
+    """The synthetic-control series (Alcock and Manolopoulos' six
+    generators: normal, cyclic, increasing and decreasing trend, upward
+    and downward shift; m = 30, s = 2), 100 of each class shuffled,
+    standardized with the training rows' statistics, each cut to a random
+    length in ``[min_len, steps]`` under a mask (zeros past it). Returns
+    (train, test) lists of ``(x [B, T, 1], y [B, 6], mask [B, T])``."""
+    rs = np.random.RandomState(seed)
+    T, C = UCI["steps"], UCI["classes"]
+    n = UCI["train"] + UCI["test"]
+    t = np.arange(1, T + 1, dtype=np.float64)
+    cls = rs.permutation(np.repeat(np.arange(C), n // C))
+    x = 30.0 + 2.0 * rs.uniform(-3, 3, (n, T))
+    for i, c in enumerate(cls):
+        if c == 1:
+            x[i] += rs.uniform(10, 15) * np.sin(2 * np.pi * t
+                                                / rs.uniform(10, 15))
+        elif c in (2, 3):
+            x[i] += (1 if c == 2 else -1) * rs.uniform(0.2, 0.5) * t
+        elif c in (4, 5):
+            x[i] += ((1 if c == 4 else -1) * rs.uniform(7.5, 20)
+                     * (t >= rs.uniform(T / 3, 2 * T / 3)))
+    tr = UCI["train"]
+    x = (x - x[:tr].mean()) / x[:tr].std()
+    lengths = rs.randint(UCI["min_len"], T + 1, n)
+    mask = (np.arange(T)[None] < lengths[:, None]).astype(np.float32)
+    x = (x * mask)[..., None].astype(np.float32)
+    y = np.eye(C, dtype=np.float32)[cls]
+    B = UCI["batch"]
+
+    def batches(lo, hi):
+        return [(x[s:s + B], y[s:s + B], mask[s:s + B])
+                for s in range(lo, hi, B)]
+
+    return batches(0, tr), batches(tr, n)
+
+
+def uci_conf(form):
+    """The masked sequence classifier: ``"mln"`` GravesBidirectionalLSTM ->
+    LastTimeStep -> OutputLayer; ``"graph"`` LSTM -> LastTimeStepVertex ->
+    DuplicateToTimeSeriesVertex -> RnnOutputLayer (a class at every
+    step, the steps past each row's length masked out of the loss)."""
+    from deeplearning4j_torch.nn.conf.builders import NeuralNetConfiguration
+    from deeplearning4j_torch.nn.conf.graph_conf import (
+        DuplicateToTimeSeriesVertex, LastTimeStepVertex)
+    from deeplearning4j_torch.nn.conf.inputs import InputType
+    from deeplearning4j_torch.nn.conf.layers.core import OutputLayer
+    from deeplearning4j_torch.nn.conf.layers.recurrent import (
+        LSTM, GravesBidirectionalLSTM, LastTimeStep, RnnOutputLayer)
+    from deeplearning4j_torch.nn.updater import Adam
+
+    g = (NeuralNetConfiguration.builder().seed(5).weight_init("xavier")
+         .updater(Adam(learning_rate=5e-3))
+         .gradient_normalization("clip_element_wise_absolute_value")
+         .gradient_normalization_threshold(0.5))
+    H, C = UCI["hidden"], UCI["classes"]
+    if form == "mln":
+        return (g.list(GravesBidirectionalLSTM(n_out=H, activation="tanh"),
+                       LastTimeStep(),
+                       OutputLayer(n_out=C, activation="softmax",
+                                   loss="mcxent"))
+                .set_input_type(InputType.recurrent(1)).build())
+    return (g.graph_builder().add_inputs("in")
+            .add_layer("lstm", LSTM(n_out=H, activation="tanh"), "in")
+            .add_vertex("last", LastTimeStepVertex(mask_input="in"), "lstm")
+            .add_vertex("dup", DuplicateToTimeSeriesVertex(input_name="in"),
+                        "last")
+            .add_layer("out", RnnOutputLayer(n_out=C, activation="softmax",
+                                             loss="mcxent"), "dup")
+            .set_outputs("out").set_input_types(InputType.recurrent(1))
+            .build())
+
+
+def uci_sets(form, batches):
+    """DataSets of ``batches``: features masked; the graph's labels
+    repeated at every step under the same mask."""
+    from deeplearning4j_torch.datasets.dataset import DataSet
+
+    T = UCI["steps"]
+    if form == "mln":
+        return [DataSet(x, y, m, None) for x, y, m in batches]
+    return [DataSet(x, np.repeat(y[:, None], T, 1), m, m)
+            for x, y, m in batches]
+
+
+def uci_probs(net, form, batches):
+    """The best model's class probabilities over ``batches`` on the host,
+    and the labels and labels mask the evaluations read."""
+    ps = []
+    for x, _, m in batches:
+        out = (net.output(x, mask=m) if form == "mln"
+               else net.output(x, masks=[m]))
+        ps.append(out.float().cpu().numpy().astype(np.float64))
+    p = np.concatenate(ps)
+    y = np.concatenate([b[1] for b in batches]).astype(np.float64)
+    m = np.concatenate([b[2] for b in batches])
+    if form == "mln":
+        return p, y, None
+    return p, np.repeat(y[:, None], UCI["steps"], 1), m
+
+
+def uci_evaluations(p, y, m):
+    from deeplearning4j_torch.evaluation import (Evaluation,
+                                                 EvaluationBinary,
+                                                 RegressionEvaluation,
+                                                 ROCMultiClass)
+
+    return dict(ev=Evaluation().eval(y, p, mask=m),
+                binary=EvaluationBinary().eval(y, p, mask=m),
+                roc=ROCMultiClass().eval(y, p, mask=m),
+                reg=RegressionEvaluation().eval(y, p, mask=m))
+
+
+def uci_compare(tag, card_p, cpu_p, y, m):
+    """The four evaluations of the card's probabilities against the CPU's,
+    equal but where a decision sits within the spread of the two reads:
+    a class choice whose CPU top-2 gap is within 2·spread, a 0.5
+    threshold within spread, a pair of ROC scores within 2·spread (each
+    such pair may move one class's AUC by 1/(P·N)); MSE within
+    2·spread + spread² and MAE within spread per column."""
+    keep = (np.ones(y.shape[:-1], bool) if m is None
+            else m.astype(bool)).reshape(-1)
+    C = y.shape[-1]
+    pc = card_p.reshape(-1, C)[keep]
+    pp = cpu_p.reshape(-1, C)[keep]
+    yy = y.reshape(-1, C)[keep]
+    spread = float(np.abs(pc - pp).max())
+    check(spread <= UCI_SPREAD_CAP, f"uci {tag}: card and CPU best models' "
+                                    f"probabilities differ by {spread:.3g}")
+    a, b = uci_evaluations(card_p, y, m), uci_evaluations(cpu_p, y, m)
+    srt = np.sort(pp, axis=1)
+    flips = pc.argmax(1) != pp.argmax(1)
+    check(np.all(srt[flips, -1] - srt[flips, -2] <= 2 * spread),
+          f"uci {tag}: a class choice flips away from a near-tie")
+    check(np.abs(a["ev"].confusion - b["ev"].confusion).sum()
+          <= 2 * flips.sum(), f"uci {tag}: confusion differs")
+    th = (pc >= 0.5) != (pp >= 0.5)
+    check(np.all(np.abs(pp[th] - 0.5) <= spread),
+          f"uci {tag}: a 0.5 decision flips away from a near-tie")
+    for k in ("tp", "fp", "tn", "fn"):
+        check(np.abs(getattr(a["binary"], k) - getattr(b["binary"], k)).sum()
+              <= th.sum(), f"uci {tag}: binary {k} differs")
+    auc_gap = []
+    for c in range(C):
+        pos, neg = pp[yy[:, c] > 0.5, c], pp[yy[:, c] <= 0.5, c]
+        near = (np.abs(pos[:, None] - neg[None]) <= 2 * spread).sum()
+        d = abs(a["roc"].calculate_auc(c) - b["roc"].calculate_auc(c))
+        auc_gap.append(d)
+        check(d <= near / max(len(pos) * len(neg), 1) + 1e-12,
+              f"uci {tag}: class {c} AUC moved {d:.3g} with {near} "
+              f"near-tie pairs")
+    for c in range(C):
+        check(abs(a["reg"].mean_squared_error(c)
+                  - b["reg"].mean_squared_error(c))
+              <= 2 * spread + spread ** 2
+              and abs(a["reg"].mean_absolute_error(c)
+                      - b["reg"].mean_absolute_error(c)) <= spread,
+              f"uci {tag}: regression column {c} differs")
+    return dict(spread=spread, class_flips=int(flips.sum()),
+                threshold_flips=int(th.sum()), max_auc_gap=max(auc_gap),
+                accuracy=a["ev"].accuracy(), cpu_accuracy=b["ev"].accuracy(),
+                average_auc=a["roc"].calculate_average_auc(),
+                mse=a["reg"].average_mean_squared_error())
+
+
+def phase_uci(card):
+    """Phase 11c: the masked sequence classifier in both forms, trained by
+    ``EarlyStoppingTrainer`` (MaxEpochs 5, ScoreImprovement 2, the test
+    loss by ``DataSetLossCalculator``, ``InMemoryModelSaver``) on the card
+    and on the CPU from the same numpy-seeded weights: the termination
+    reason and details and the best epoch equal, every epoch's score
+    within rtol 1e-4; then ``Evaluation``, ``EvaluationBinary``,
+    ``ROCMultiClass`` and ``RegressionEvaluation`` of the best models on
+    the test set card against CPU (``uci_compare``), and the card's fused
+    ``evaluate`` count for count the host ``Evaluation``."""
+    from deeplearning4j_torch.earlystopping import (
+        DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingTrainer, InMemoryModelSaver,
+        MaxEpochsTerminationCondition,
+        ScoreImprovementEpochTerminationCondition)
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.utils.convert import params_from_jax
+
+    train, test = uci_data()
+    out = {}
+    for form in ("mln", "graph"):
+        cls = MultiLayerNetwork if form == "mln" else ComputationGraph
+        params = lstm_params(cls(uci_conf(form)).init(device="cpu"), seed=8)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            net = cls(uci_conf(form)).init(device=dev)
+            params_from_jax(params, net)
+            cfg = EarlyStoppingConfiguration(
+                epoch_termination_conditions=[
+                    MaxEpochsTerminationCondition(5),
+                    ScoreImprovementEpochTerminationCondition(2)],
+                score_calculator=DataSetLossCalculator(
+                    uci_sets(form, test)),
+                model_saver=InMemoryModelSaver())
+            t0 = time.perf_counter()
+            r = EarlyStoppingTrainer(cfg, net, uci_sets(form, train)).fit()
+            res[dev] = (r, time.perf_counter() - t0)
+        (rd, card_s), (rc, cpu_s) = res["cuda"], res["cpu"]
+        check(rd.termination_reason == rc.termination_reason
+              != "Error" and rd.termination_details == rc.termination_details
+              and rd.best_model_epoch == rc.best_model_epoch
+              and rd.total_epochs == rc.total_epochs,
+              f"uci {form}: early stopping card {rd.termination_reason} "
+              f"({rd.termination_details}, best {rd.best_model_epoch}) vs "
+              f"CPU {rc.termination_reason} ({rc.termination_details}, "
+              f"best {rc.best_model_epoch})")
+        score_rel = max(abs(rd.score_vs_epoch[e] - s) / abs(s)
+                        for e, s in rc.score_vs_epoch.items())
+        check(score_rel <= 1e-4, f"uci {form}: epoch scores card vs CPU "
+                                 f"rel {score_rel:.3g}")
+        best = rd.best_model
+        check(best.device.type == "cuda", f"uci {form}: best model on "
+                                          f"{best.device}")
+        card_p, y, m = uci_probs(best, form, test)
+        cpu_p, _, _ = uci_probs(rc.best_model, form, test)
+        cmp = uci_compare(form, card_p, cpu_p, y, m)
+        fused = best.evaluate(uci_sets(form, test))
+        host = uci_evaluations(card_p, y, m)["ev"]
+        check(np.array_equal(fused.confusion, host.confusion),
+              f"uci {form}: fused evaluate differs from the host count")
+        out[form] = dict(termination=rd.termination_reason,
+                         details=rd.termination_details,
+                         best_epoch=rd.best_model_epoch,
+                         epochs=rd.total_epochs,
+                         scores=[rd.score_vs_epoch[e]
+                                 for e in sorted(rd.score_vs_epoch)],
+                         score_rel=score_rel, card_s=card_s, cpu_s=cpu_s,
+                         **cmp)
+        log(f"  uci {form}: {rd.termination_reason} ({rd.termination_details}"
+            f") after {rd.total_epochs} epochs, best epoch "
+            f"{rd.best_model_epoch}, scores card vs CPU rel {score_rel:.2e}; "
+            f"accuracy {cmp['accuracy']:.4f} (CPU {cmp['cpu_accuracy']:.4f}), "
+            f"average AUC {cmp['average_auc']:.4f}, probability spread "
+            f"{cmp['spread']:.2e}, {cmp['class_flips']} class and "
+            f"{cmp['threshold_flips']} threshold flips; early stopping "
+            f"{card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU; [{card}]")
+    return out
+
+
+def phase_recurrent(card):
+    """Phase 11: recurrent nets (11a-11c)."""
+    t0 = time.perf_counter()
+    log("phase 11a: TextGenerationLSTM trained by TBPTT")
+    train, char_net = phase_lstm_train(card)
+    log("phase 11b: streaming and generation")
+    stream = phase_lstm_stream(char_net, card)
+    log("phase 11c: masked sequence classifiers and early stopping")
+    uci = phase_uci(card)
+    wall = time.perf_counter() - t0
+    log(f"  phase 11: {wall:.1f} s; [{card}]")
+    return dict(train=train, stream=stream, uci=uci, wall_s=wall)
+
+
+def kernel_line(flash, paged, bwd, launches, launches_d96,
+                launches_recurrent):
     k1 = flash["slice_f32_causal"]
     k2 = paged["f32_T1_Tmax512"]
     k2c = paged["f32_T256_Tmax512"]          # the serve's first prefill round
@@ -4451,6 +5159,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96):
          "source": "deeplearning4j_torch/kernels/flash_fwd.cu",
          "replaces": "deeplearning4j_tpu/ops/pallas_attention.py:135",
          "launches": launches["flash_fwd"],
+         "launches_recurrent": launches_recurrent["flash_fwd"],
          "max_abs_err": max(r["max_abs_err"] for n, r in flash.items()
                             if n.startswith("slice_f32")),
          "ms": k1["ms"], "device_ms": k1["device_ms"],
@@ -4470,6 +5179,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96):
          "replaces": ("deeplearning4j_tpu/nn/conf/layers/"
                       "paged_attention.py:226"),
          "launches": launches["paged_attn"],
+         "launches_recurrent": launches_recurrent["paged_attn"],
          "max_abs_err": max(r["max_abs_err"] for n, r in paged.items()
                             if n.startswith("f32_") and "Tmax512" in n),
          "ms": k2["ms"], "device_ms": k2["device_ms"],
@@ -4529,6 +5239,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96):
              "replaces": f"deeplearning4j_tpu/ops/pallas_attention.py:"
                          f"{line_no}",
              "launches": launches[name],
+             "launches_recurrent": launches_recurrent[name],
              "max_abs_err": max(r["max_abs_err"][g] for r in slice_bwd
                                 for g in grads),
              "ms": kb[part]["ms"], "device_ms": kb[part]["device_ms"],
@@ -4766,11 +5477,18 @@ def main() -> int:
     retrieval = dict(kernels.LAUNCHES)    # ... and end here
     check(all(retrieval[k] > 0 for k in ("paged_attn", "paged_attn_chunk")),
           f"a kernel of the RAG generate tier never launched: {retrieval}")
+    kernels.reset_launch_counts()         # the recurrent path starts here
+    log("phase 11: recurrent nets (TextGenerationLSTM by TBPTT, streaming "
+        "and generation, masked sequence classifiers, early stopping)")
+    REPORT["recurrent"] = phase_recurrent(card)
+    recurrent = dict(kernels.LAUNCHES)    # ... and ends here
+    check(not any(recurrent.values()),
+          f"the recurrent path launched an attention kernel: {recurrent}")
     windows = dict(serving=serving, loading=loading, fixture=fixture,
                    prefix=prefix, spec=spec, d96_serving=d96_serving,
                    training=training, d96_training=d96_training,
                    fitting=fitting, multilayer=multilayer, fabric=fabric,
-                   retrieval=retrieval)
+                   retrieval=retrieval, recurrent=recurrent)
     launches = {k: sum(w[k] for w in windows.values()) for k in serving}
     REPORT["main_path_launches"] = dict(windows, total=launches)
     check(all(n > 0 for n in launches.values()),
@@ -4795,7 +5513,7 @@ def main() -> int:
         f"{WINDOW_LOG['retried']}")
     line = kernel_line(flash, paged, bwd, launches,
                        {k: d96_serving[k] + d96_training[k]
-                        for k in d96_serving})
+                        for k in d96_serving}, recurrent)
     REPORT["total_s"] = time.perf_counter() - t_start
     log(f"build {REPORT['build_s']:.1f} s, total {REPORT['total_s']:.1f} s")
     if args.out:

@@ -1,11 +1,12 @@
 """Model zoo (port of ``deeplearning4j_tpu/models/zoo.py``): the
-MultiLayerNetwork models (LeNet, SimpleCNN, AlexNet, VGG16, VGG19) at the
-JAX package's architectures and hyperparameters, NHWC; TransformerLM,
-``lm_stream_forward``, the sampled next-token select and the streaming
-``greedy_generate``/``sample_generate``. The graph models of the CNN zoo
-(ResNet50, GoogLeNet, FaceNetNN4Small2, InceptionResNetV1) need vertices
-the port lacks (ROADMAP A12) and TextGenerationLSTM the LSTM (A11); they
-raise naming their item."""
+MultiLayerNetwork models (LeNet, SimpleCNN, AlexNet, VGG16, VGG19,
+TextGenerationLSTM) at the JAX package's architectures and
+hyperparameters, NHWC; TransformerLM, ``lm_stream_forward``, the sampled
+next-token select and the streaming ``greedy_generate``/
+``sample_generate`` (over a TransformerLM's KV caches or an LSTM net's
+h/c). The graph models of the CNN zoo (ResNet50, GoogLeNet,
+FaceNetNN4Small2, InceptionResNetV1) need vertices the port lacks; they
+raise naming ROADMAP A12."""
 
 from __future__ import annotations
 
@@ -29,10 +30,12 @@ from deeplearning4j_torch.nn.conf.layers.core import (ActivationLayer,
 from deeplearning4j_torch.nn.conf.layers.normalization import (
     BatchNormalization, LayerNormalization)
 from deeplearning4j_torch.nn.conf.layers.pooling import GlobalPoolingLayer
-from deeplearning4j_torch.nn.conf.layers.recurrent import RnnOutputLayer
+from deeplearning4j_torch.nn.conf.layers.recurrent import (GravesLSTM,
+                                                           RnnOutputLayer)
 from deeplearning4j_torch.nn.graph import ComputationGraph
 from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
-from deeplearning4j_torch.nn.updater import AdaDelta, Adam, Nesterovs
+from deeplearning4j_torch.nn.updater import (AdaDelta, Adam, Nesterovs,
+                                             RmsProp)
 from deeplearning4j_torch.nn.weights import Distribution
 from deeplearning4j_torch.ops import random
 
@@ -262,8 +265,32 @@ ResNet50 = _not_ported("ResNet50", "A12", _GRAPH_ZOO)
 GoogLeNet = _not_ported("GoogLeNet", "A12", _GRAPH_ZOO)
 FaceNetNN4Small2 = _not_ported("FaceNetNN4Small2", "A12", _GRAPH_ZOO)
 InceptionResNetV1 = _not_ported("InceptionResNetV1", "A12", _GRAPH_ZOO)
-TextGenerationLSTM = _not_ported("TextGenerationLSTM", "A11",
-                                 "it needs the GravesLSTM layer")
+
+
+class TextGenerationLSTM(ZooModel):
+    """Char-level text-generation LSTM (the JAX zoo's): GravesLSTM(256) ×2
+    and a softmax/mcxent RnnOutputLayer over one-hot characters, RmsProp
+    0.01, L2 1e-3, truncated BPTT 50/50. ``greedy_generate`` and
+    ``sample_generate`` stream through its h/c."""
+
+    def __init__(self, num_labels: int = 77, max_length: int = 40, **kw):
+        super().__init__(num_labels=num_labels, **kw)
+        self.max_length = max_length
+        self.input_shape = (max_length, num_labels)
+
+    def conf(self):
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed).weight_init("xavier")
+                .updater(RmsProp(learning_rate=0.01)).l2(0.001)
+                .dtype(self.dtype)
+                .list(
+                    GravesLSTM(n_out=256, activation="tanh"),
+                    GravesLSTM(n_out=256, activation="tanh"),
+                    RnnOutputLayer(n_out=self.num_labels,
+                                   activation="softmax", loss="mcxent"))
+                .set_input_type(InputType.recurrent(self.num_labels))
+                .t_bptt_lengths(50, 50)
+                .build())
 
 
 class TransformerLM:
@@ -353,8 +380,16 @@ class TransformerLM:
 
 
 def lm_stream_forward(net):
-    """One streaming forward chunk through ``net`` as a plain function:
-    ``fwd(params, state, x, carry, mask=None) -> (out, new_carry)``."""
+    """One streaming forward chunk through ``net`` (a graph or a
+    MultiLayerNetwork) as a plain function: ``fwd(params, state, x, carry,
+    mask=None) -> (out, new_carry)``."""
+    if not hasattr(net.conf, "network_inputs"):
+        def fwd_mln(params, state, x, carry, mask=None):
+            out, new_carry, _ = net._forward(params, state, x, mask,
+                                             carry=carry)
+            return out, new_carry
+
+        return fwd_mln
 
     def fwd(params, state, x, carry, mask=None):
         outs, new_carry, _, _ = net._forward(params, state, [x], [mask],
@@ -423,9 +458,10 @@ def greedy_generate(net, prompt_ids, steps: int, vocab: int,
 def sample_generate(net, prompt_ids, steps: int, vocab: int,
                     temperature: float = 1.0, top_k: int = 0, seed: int = 0,
                     device_loop: bool = True):
-    """Autoregressive decoding over the KV-cache streaming forward (JAX
+    """Autoregressive decoding over the streaming forward (JAX
     ``zoo.sample_generate``): the prompt is consumed once, then each token
-    costs one incremental attention row.
+    costs one incremental attention row (a TransformerLM's KV caches) or
+    one recurrent step (a TextGenerationLSTM's h/c).
 
     ``temperature`` 0 is greedy; otherwise tokens are sampled from the
     softmax sharpened by 1/temperature, restricted to the ``top_k`` most

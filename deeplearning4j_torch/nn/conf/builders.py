@@ -28,8 +28,11 @@ from deeplearning4j_torch.utils.serde import register_serializable
 class MultiLayerConfiguration:
     """The built sequential configuration: every layer's None fields
     filled, ``n_in`` set, and ``preprocessors[i]`` the shape adapter run
-    before layer i. ``backprop_type="tbptt"`` and ``pretrain`` act in
-    ``fit``, which raises on them (ROADMAP A11)."""
+    before layer i. ``backprop_type="tbptt"`` makes ``fit`` train sequence
+    batches by truncated BPTT in ``tbptt_fwd_length`` segments (a
+    ``tbptt_back_length`` other than the forward length raises here, as in
+    the JAX package); ``pretrain`` makes ``fit`` raise (layer-wise
+    pretraining is ROADMAP A11b)."""
 
     layers: list = field(default_factory=list)
     preprocessors: dict = field(default_factory=dict)  # {int: preprocessor}

@@ -1,16 +1,24 @@
 """Graph configuration (port of the parts of
-``deeplearning4j_tpu/nn/conf/graph_conf.py`` the TransformerLM needs): layer
-vertices (with an input preprocessor and ``remat``),
-``ElementWiseVertex(op="add")``, the configuration, a builder over the
-global configuration (``nn/conf/builders.py``) and the topological order.
-The dataclasses carry the JAX package's fields and class names, so
-``to_json``/``from_json`` read and write its ``configuration.json``."""
+``deeplearning4j_tpu/nn/conf/graph_conf.py`` the TransformerLM and the
+recurrent graphs need): layer vertices (with an input preprocessor and
+``remat``), ``ElementWiseVertex(op="add")``, the two rnn vertices
+(``LastTimeStepVertex``, ``DuplicateToTimeSeriesVertex``), the
+configuration, a builder over the global configuration
+(``nn/conf/builders.py``, TBPTT lengths included) and the topological
+order. The dataclasses carry the JAX package's fields and class names, so
+``to_json``/``from_json`` read and write its ``configuration.json``.
+
+A vertex's ``forward(params, state, inputs, *, masks, ctx, train, rng)``
+gets ``ctx``: ``{"input_arrays": {network input: array}, "input_masks":
+{network input: mask}}``, as the JAX vertices get it."""
 
 from __future__ import annotations
 
 import copy
 from dataclasses import dataclass, field
 from typing import Optional
+
+import torch
 
 from deeplearning4j_torch.nn.conf.inputs import InputType
 from deeplearning4j_torch.nn.conf.layers.base import Layer
@@ -43,8 +51,8 @@ class GraphVertex:
     def output_type(self, input_types: list) -> InputType:
         return input_types[0]
 
-    def forward(self, params, state, inputs, *, masks=None, train=False,
-                rng=None):
+    def forward(self, params, state, inputs, *, masks=None, ctx=None,
+                train=False, rng=None):
         raise NotImplementedError
 
     def feed_forward_mask(self, masks):
@@ -109,8 +117,8 @@ class LayerVertex(GraphVertex):
             return x
         return self.preprocessor.forward(x, rng=preprocessor_key(rng))
 
-    def forward(self, params, state, inputs, *, masks=None, train=False,
-                rng=None):
+    def forward(self, params, state, inputs, *, masks=None, ctx=None,
+                train=False, rng=None):
         mask = masks[0] if masks else None
         x = inputs[0]
         if self.preprocessor is not None:
@@ -138,8 +146,8 @@ class ElementWiseVertex(GraphVertex):
 
     op: str = "add"
 
-    def forward(self, params, state, inputs, *, masks=None, train=False,
-                rng=None):
+    def forward(self, params, state, inputs, *, masks=None, ctx=None,
+                train=False, rng=None):
         if self.op.lower() != "add":
             raise ValueError(f"ElementWiseVertex op '{self.op}' is not "
                              "ported (only 'add')")
@@ -151,12 +159,67 @@ class ElementWiseVertex(GraphVertex):
 
 @register_serializable
 @dataclass
+class LastTimeStepVertex(GraphVertex):
+    """``[B, T, F] -> [B, F]`` at each row's last active step under the mask
+    of the network input ``mask_input`` (else the vertex input's own mask):
+    the index of the LAST nonzero mask entry, step 0 for an all-masked row;
+    without a mask, the last step. The mask ends here."""
+
+    mask_input: Optional[str] = None
+
+    def output_type(self, input_types):
+        return InputType.feed_forward(input_types[0].size)
+
+    def forward(self, params, state, inputs, *, masks=None, ctx=None,
+                train=False, rng=None):
+        x = inputs[0]
+        mask = None
+        if self.mask_input is not None and ctx is not None:
+            mask = ctx.get("input_masks", {}).get(self.mask_input)
+        if mask is None and masks:
+            mask = masks[0]
+        if mask is None:
+            return x[:, -1, :], state
+        T = x.shape[1]
+        steps = torch.arange(1, T + 1, dtype=torch.float32,
+                             device=x.device)[None, :]
+        idx = torch.argmax(steps * mask.to(torch.float32), dim=1)
+        return x[torch.arange(x.shape[0], device=x.device), idx], state
+
+    def feed_forward_mask(self, masks):
+        return None
+
+
+@register_serializable
+@dataclass
+class DuplicateToTimeSeriesVertex(GraphVertex):
+    """``[B, F] -> [B, T, F]``, T the time length of the network input
+    ``input_name`` (a broadcast view, no copy). The mask ends here."""
+
+    input_name: Optional[str] = None
+
+    def output_type(self, input_types):
+        return InputType.recurrent(input_types[0].flat_size())
+
+    def forward(self, params, state, inputs, *, masks=None, ctx=None,
+                train=False, rng=None):
+        x = inputs[0]
+        T = ctx["input_arrays"][self.input_name].shape[1]
+        return x[:, None, :].expand(x.shape[0], T, x.shape[1]), state
+
+    def feed_forward_mask(self, masks):
+        return None
+
+
+@register_serializable
+@dataclass
 class ComputationGraphConfiguration:
     """The finalised DAG config, with ``topo_order`` computed once at build
     and serialized. ``compute_dtype`` is the training forward's dtype
     (``ComputationGraph._loss``); inference runs in ``dtype``.
-    ``backprop_type="tbptt"`` and ``pretrain`` act in ``fit``, which raises
-    on them (ROADMAP A11)."""
+    ``backprop_type="tbptt"`` trains a single-input graph's sequence
+    batches by truncated BPTT in ``fit``; ``pretrain`` makes ``fit`` raise
+    (layer-wise pretraining is ROADMAP A11b)."""
 
     network_inputs: list = field(default_factory=list)
     network_outputs: list = field(default_factory=list)
@@ -214,6 +277,22 @@ class GraphBuilder:
         self._g = global_conf if global_conf is not None \
             else NeuralNetConfiguration()
         self._conf = ComputationGraphConfiguration()
+
+    def backprop_type(self, t: str, fwd_length: int = 20,
+                      back_length: int = 20) -> "GraphBuilder":
+        self._conf.backprop_type = t
+        self._conf.tbptt_fwd_length = fwd_length
+        self._conf.tbptt_back_length = back_length
+        return self
+
+    def t_bptt_lengths(self, fwd: int,
+                       back: Optional[int] = None) -> "GraphBuilder":
+        return self.backprop_type("tbptt", fwd,
+                                  back if back is not None else fwd)
+
+    def pretrain(self, flag: bool) -> "GraphBuilder":
+        self._conf.pretrain = flag
+        return self
 
     def add_inputs(self, *names):
         self._conf.network_inputs.extend(names)

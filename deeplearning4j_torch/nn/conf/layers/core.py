@@ -1,7 +1,7 @@
 """Core feed-forward layers (port of ``nn/conf/layers/core.py``): Dense, the
 Dense + loss head ``OutputLayer``, the loss-only ``LossLayer``,
 ``ActivationLayer``, ``DropoutLayer`` and ``EmbeddingLayer``.
-``AutoEncoder`` needs layer-wise pretraining (ROADMAP A11) and raises."""
+``AutoEncoder`` needs layer-wise pretraining (ROADMAP A11b) and raises."""
 
 from __future__ import annotations
 
@@ -147,7 +147,7 @@ class EmbeddingLayer(FeedForwardLayer):
 class AutoEncoder(FeedForwardLayer):
     """Registered so a configuration naming it fails with its reason: the
     denoising autoencoder trains by layer-wise pretraining, which is not
-    ported (ROADMAP A11)."""
+    ported (ROADMAP A11b)."""
 
     corruption_level: float = 0.3
     sparsity: float = 0.0
@@ -156,4 +156,4 @@ class AutoEncoder(FeedForwardLayer):
     def __post_init__(self):
         raise NotImplementedError(
             "AutoEncoder trains by layer-wise pretraining, which is not "
-            "ported yet (ROADMAP A11)")
+            "ported yet (ROADMAP A11b)")

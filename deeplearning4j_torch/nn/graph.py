@@ -17,8 +17,11 @@ steps``. ``compute_dtype`` acts only in ``_loss``: ``output()``,
 ``rnn_time_step`` and the servers run in the parameter dtype, as JAX's do.
 
 The training plumbing it shares with ``MultiLayerNetwork`` is
-``nn/network.py``. Not ported: TBPTT and layer-wise pretraining (ROADMAP
-A11); ``fit`` raises on them.
+``nn/network.py``, truncated BPTT included: a graph with one network
+input sends a 3-D DataSet to it under ``backprop_type="tbptt"``. Vertices
+see the network inputs and their masks through ``ctx`` (what
+``LastTimeStepVertex`` and ``DuplicateToTimeSeriesVertex`` read). Not
+ported: layer-wise pretraining (ROADMAP A11b); ``fit`` raises on it.
 """
 
 from __future__ import annotations
@@ -75,6 +78,7 @@ class ComputationGraph(Network):
         acts = dict(zip(conf.network_inputs, inputs))
         act_masks = dict(zip(conf.network_inputs,
                              masks or [None] * len(inputs)))
+        ctx = {"input_arrays": dict(acts), "input_masks": dict(act_masks)}
         keys = (random.split(rng, max(len(conf.topo_order), 1))
                 if rng is not None else None)
         read = {i for ins in conf.vertex_inputs.values() for i in ins}
@@ -96,7 +100,7 @@ class ComputationGraph(Network):
             if carry is not None and name in carry:
                 vertex_state.update(carry[name])
             out, ns = v.forward(params.get(name, {}), vertex_state, v_in,
-                                masks=v_masks, train=train, rng=k)
+                                masks=v_masks, ctx=ctx, train=train, rng=k)
             c = {n: t for n, t in ns.items() if n in CARRY_KEYS}
             if c:
                 new_carry[name] = c
@@ -115,13 +119,14 @@ class ComputationGraph(Network):
         dtype = getattr(torch, conf.dtype)
         acts = {k: self._as_tensor(a, dtype)
                 for k, a in zip(conf.network_inputs, inputs)}
+        ctx = {"input_arrays": dict(acts), "input_masks": {}}
         with torch.no_grad():
             for name in conf.topo_order:
                 v = conf.vertices[name]
                 out, _ = v.forward(self.params.get(name, {}),
                                    self.state.get(name, {}),
                                    [acts[k] for k in conf.vertex_inputs[name]],
-                                   masks=None, train=train)
+                                   masks=None, ctx=ctx, train=train)
                 acts[name] = out
         return acts
 
@@ -226,16 +231,22 @@ class ComputationGraph(Network):
                              m is not None for m in ds.labels_masks)
                          else None)
             return
-        self.do_step(ds.features, ds.labels, ds.features_mask,
-                     ds.labels_mask)
+        if (self.conf.backprop_type == "tbptt" and ds.features.ndim == 3
+                and len(self.conf.network_inputs) == 1):
+            self._fit_tbptt(ds)
+        else:
+            self.do_step(ds.features, ds.labels, ds.features_mask,
+                         ds.labels_mask)
 
     # -------------------------------------------------------- rnn streaming
     @torch.inference_mode()
     def rnn_time_step(self, *inputs):
         """Streaming inference with persistent state (JAX
         ``ComputationGraph.rnn_time_step``): each call consumes the next
-        chunk of time steps (a 2-D input is one step) and returns the
-        output for it, in the parameter dtype; ``rnn_clear_previous_state`` starts a new stream."""
+        chunk of time steps (a 2-D input is one step), carrying the
+        recurrent layers' h/c and the attention layers' KV caches, and
+        returns the output for it, in the parameter dtype;
+        ``rnn_clear_previous_state`` starts a new stream."""
         dtype = getattr(torch, self.conf.dtype)
         xs = []
         squeeze = False

@@ -13,8 +13,10 @@ head's per-example loss from its pre-activations (``compute_dtype``
 casts the body only), plus the reported L1/L2 penalty. Training,
 evaluation and the flat parameters are ``nn/network.py``'s; ``output``
 pads the batch to a power of two (``optimize/bucketing.py``) as JAX's
-does. TBPTT, ``pretrain`` and streaming over recurrent layers are not
-ported (ROADMAP A11) and raise.
+does. ``_fit_batch`` sends a 3-D DataSet to truncated BPTT under
+``backprop_type="tbptt"``; ``rnn_time_step`` streams the recurrent layers'
+h/c and the attention layers' KV caches. ``pretrain`` is not ported
+(ROADMAP A11b) and raises.
 """
 
 from __future__ import annotations
@@ -170,20 +172,24 @@ class MultiLayerNetwork(Network):
                 (new_states, new_carry, last_in))
 
     def _fit_batch(self, ds):
-        self.do_step(ds.features, ds.labels, ds.features_mask,
-                     ds.labels_mask)
+        if self.conf.backprop_type == "tbptt" and ds.features.ndim == 3:
+            self._fit_tbptt(ds)
+        else:
+            self.do_step(ds.features, ds.labels, ds.features_mask,
+                         ds.labels_mask)
 
-    # ---------------------------------------------------- not ported (A11)
+    # --------------------------------------------------- not ported (A11b)
     def pretrain(self, data_iterator, epochs: int = 1):
         raise NotImplementedError(
-            "layer-wise pretraining is not ported yet (ROADMAP A11)")
+            "layer-wise pretraining is not ported yet (ROADMAP A11b)")
 
     @torch.inference_mode()
     def rnn_time_step(self, x):
-        """Streaming inference over attention layers' KV caches (JAX
-        ``rnn_time_step``); each call consumes the next chunk of steps (a
-        2-D input is one step). Recurrent (LSTM) layers are not ported
-        (ROADMAP A11)."""
+        """Streaming inference with persistent state (JAX
+        ``rnn_time_step``): each call consumes the next chunk of steps (a
+        2-D input is one step), carrying the recurrent layers' h/c and the
+        attention layers' KV caches to the next call;
+        ``rnn_clear_previous_state`` starts a new stream."""
         x = self._as_tensor(x, getattr(torch, self.conf.dtype))
         squeeze = x.dim() == 2
         if squeeze:

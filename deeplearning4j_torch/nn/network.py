@@ -16,13 +16,16 @@ gradient normalization. A subclass adds its forward, ``_loss``,
 Training: ``do_step`` runs the cached step core (``optimize/fused_fit.py``)
 keyed by ``fold_in(PRNGKey(seed), iteration)`` where anything draws;
 ``fit`` has the JAX package's signature and defaults (the fused K-step
-driver, the health guard on). TBPTT and layer-wise pretraining are not
-ported (ROADMAP A11) and raise.
+driver, the health guard on). Under ``backprop_type="tbptt"`` a
+sequence batch trains by truncated BPTT (``_fit_tbptt``: one step per
+``tbptt_fwd_length`` segment, the recurrent state carried between them).
+Layer-wise pretraining is not ported (ROADMAP A11b) and raises.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 from typing import Optional
 
 import numpy as np
@@ -33,10 +36,11 @@ from deeplearning4j_torch.ops import random
 from deeplearning4j_torch.utils.pytree import (flatten_params,
                                                unflatten_params)
 
-#: state keys that belong to the streaming or serving carry rather than the
-#: layer state: dense KV caches (``rnn_time_step``) and paged pools
-CARRY_KEYS = ("cache_pos", "kcache", "vcache", "kscale", "vscale", "kpages",
-              "vpages", "block_table", "kscales", "vscales")
+#: state keys that belong to the streaming, serving or TBPTT carry rather
+#: than the layer state: a recurrent layer's h/c, dense KV caches
+#: (``rnn_time_step``) and paged pools
+CARRY_KEYS = ("h", "c", "cache_pos", "kcache", "vcache", "kscale", "vscale",
+              "kpages", "vpages", "block_table", "kscales", "vscales")
 
 
 class Network:
@@ -199,8 +203,10 @@ class Network:
         (``optimize/health.py``); ``None``/``False`` turn it off, a
         ``HealthPolicy`` configures it. An iterable counts ``epoch`` up
         once per pass and fires the listeners' ``on_epoch_start`` and
-        ``on_epoch_end``. TBPTT and layer-wise pretraining raise (ROADMAP
-        A11)."""
+        ``on_epoch_end``. Under ``backprop_type="tbptt"`` every batch takes
+        the per-minibatch path (K = 1) and a sequence batch is trained by
+        ``_fit_tbptt``. ``conf.pretrain`` raises: layer-wise pretraining is
+        not ported (ROADMAP A11b)."""
         from deeplearning4j_torch.datasets.dataset import (DataSet,
                                                            MultiDataSet)
         from deeplearning4j_torch.optimize.fused_fit import (
@@ -208,11 +214,10 @@ class Network:
         from deeplearning4j_torch.optimize.health import (
             resolve_health_policy)
 
-        if self.conf.backprop_type != "standard" or self.conf.pretrain:
+        if self.conf.pretrain:
             raise NotImplementedError(
-                f"backprop_type={self.conf.backprop_type!r}, pretrain="
-                f"{self.conf.pretrain}: TBPTT and layer-wise pretraining are "
-                "not ported yet (ROADMAP A11)")
+                "pretrain=True: layer-wise pretraining is not ported yet "
+                "(ROADMAP A11b)")
         if labels is not None:
             data = DataSet(data, labels)
         K = resolve_fused_steps(self, fused_steps)
@@ -250,6 +255,28 @@ class Network:
             return self
         finally:
             self._health = prev_health
+
+    def _fit_tbptt(self, ds):
+        """Truncated BPTT over one DataSet of ``[B, T, F]`` features (JAX
+        ``_fit_tbptt``, which the JAX package writes once per net): one
+        ``do_step`` per ``tbptt_fwd_length`` segment of the time axis (the
+        last may be shorter), the features mask and labels mask cut with
+        it and the labels only when they are 3-D. The recurrent state is
+        carried from segment to segment (an empty carry on the first; a
+        step the health guard skips hands back the carry it was given),
+        detached between them (the step core hands it back out of the
+        autograd graph), and dropped at the end of the batch."""
+        T = ds.features.shape[1]
+        L = self.conf.tbptt_fwd_length
+        carry: dict = {}
+        for s in range(max(1, math.ceil(T / L))):
+            sl = slice(s * L, min((s + 1) * L, T))
+            fy = ds.labels[:, sl] if ds.labels.ndim == 3 else ds.labels
+            fm = (ds.features_mask[:, sl] if ds.features_mask is not None
+                  else None)
+            lm = ds.labels_mask[:, sl] if ds.labels_mask is not None else None
+            _, carry = self.do_step(ds.features[:, sl], fy, fm, lm,
+                                    carry=carry)
 
     def score(self, ds=None, x=None, y=None) -> float:
         """The last step's loss as a host float, or the loss of ``ds`` (or

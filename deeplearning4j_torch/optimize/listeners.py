@@ -7,8 +7,8 @@ of the stacked losses. ``iteration_done`` still fires once per iteration
 parameters a hook sees are the END-OF-BLOCK parameters. Listeners that want
 the whole stacked score array override ``on_block_done``.
 
-``EvaluativeListener`` (it needs ``evaluation/``) and ``ProfilerListener``
-are not ported yet (ROADMAP A11).
+``EvaluativeListener`` evaluates the net on a held-out iterator every N
+iterations. ``ProfilerListener`` is not ported yet (ROADMAP A11b).
 """
 
 from __future__ import annotations
@@ -100,6 +100,28 @@ class CollectScoresIterationListener(TrainingListener):
     def iteration_done(self, model, iteration: int):
         if iteration % self.frequency == 0:
             self.scores.append((iteration, model.score_value))
+
+
+class EvaluativeListener(TrainingListener):
+    """Evaluate on a held-out iterator every N iterations
+    (``model.evaluate``): each ``(iteration, Evaluation)`` is kept in
+    ``evaluations`` and handed to ``callback(model, ev)``, else logged."""
+
+    def __init__(self, eval_iterator, frequency: int = 100, callback=None):
+        self.eval_iterator = eval_iterator
+        self.frequency = max(1, frequency)
+        self.callback = callback
+        self.evaluations: list = []
+
+    def iteration_done(self, model, iteration: int):
+        if iteration % self.frequency == 0:
+            ev = model.evaluate(self.eval_iterator)
+            self.evaluations.append((iteration, ev))
+            if self.callback:
+                self.callback(model, ev)
+            else:
+                log.info("Eval at iter %d: accuracy=%.4f f1=%.4f", iteration,
+                         ev.accuracy(), ev.f1())
 
 
 class TimeIterationListener(TrainingListener):

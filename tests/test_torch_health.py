@@ -11,7 +11,7 @@ by ``TOL``). A skipped step leaves params, updater state and layer state
 bit for bit unchanged; under Sgd a skipped batch equals a batch never
 seen. The recovery ladder emits JAX's events, in JAX's order, on the same
 score/skip stream. The ParallelWrapper cases wait for its port (ROADMAP
-A8/A11).
+A11c).
 """
 
 import numpy as np

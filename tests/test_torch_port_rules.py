@@ -10,10 +10,14 @@
   4, f64); the cases they take (head dims 4..128 that are multiples of 4;
   f32, bf16 and f16 for K1/K3/K4, and those queries over pages of their
   dtype or int8 for K2) reach the kernels' build;
-- ``fit`` refuses what the port does not have yet (TBPTT, layer-wise
-  pretraining, the CenterLoss head) instead of training without it, and
-  trains as the JAX package does what it has: the fused K-step driver, the
-  health guard and L2 regularization (held to JAX's ``fit`` here);
+- ``fit`` refuses what the port does not have yet (layer-wise
+  pretraining) instead of training without it, and trains as the JAX
+  package does what it has: the fused K-step driver, the health guard and
+  L2 regularization (held to JAX's ``fit`` here);
+- the recurrent entry points (``TextGenerationLSTM``, a TBPTT ``fit``,
+  ``rnn_time_step``, ``greedy_generate``, ``EarlyStoppingTrainer`` and its
+  ``LocalFileModelSaver``) run on CUDA unless the caller asks for the
+  host;
 - the serving fabric's entry points (``ParallelInference``,
   ``KerasBackendServer.attach_generation`` / ``attach_inference`` /
   ``attach_rag`` and the fleets they build) resolve their device through
@@ -102,7 +106,14 @@ def test_port_imports_no_jax():
             "nearestneighbors/brute.py", "nearestneighbors/hnsw.py",
             "nearestneighbors/index.py", "nearestneighbors/server.py",
             "parallel/rag.py", "plot/__init__.py", "plot/tsne.py",
-            "plot/barnes_hut.py"} <= names
+            "plot/barnes_hut.py", "nn/conf/layers/recurrent.py",
+            "nn/conf/graph_conf.py", "models/zoo.py",
+            "evaluation/__init__.py", "evaluation/binary.py",
+            "evaluation/curves.py", "evaluation/regression.py",
+            "evaluation/roc.py", "earlystopping/__init__.py",
+            "earlystopping/config.py", "earlystopping/savers.py",
+            "earlystopping/scorecalc.py", "earlystopping/termination.py",
+            "earlystopping/trainer.py"} <= names
     bad = [(str(p.relative_to(ROOT)), mod) for p in files
            for mod in _imported_roots(p) if mod in FORBIDDEN]
     assert bad == []
@@ -196,27 +207,102 @@ def test_flash_backward_refuses_unsupported_cases(case, monkeypatch):
             fa.flash_attention_backward(q, q, q, q, lse, q)
 
 
-@pytest.mark.parametrize("what", ["tbptt", "pretrain", "mln_tbptt"])
+@pytest.mark.parametrize("what", ["pretrain"])
 def test_fit_refuses_what_is_not_ported(what):
-    """TBPTT and layer-wise pretraining (ROADMAP A11) raise, naming their
-    item, before a step: on the graph, and TBPTT on a MultiLayerNetwork."""
+    """Layer-wise pretraining (ROADMAP A11b) raises, naming its item,
+    before a step."""
     net = TransformerLM(**TINY).init(device="cpu")
     x = np.eye(11, dtype=np.float32)[np.arange(8) % 11][None]
     y = x
-    if what == "tbptt":
-        net.conf.backprop_type = "tbptt"
-    elif what == "pretrain":
-        net.conf.pretrain = True
-    else:
-        from deeplearning4j_torch.models.zoo import LeNet
-
-        net = LeNet(input_shape=(8, 8, 1)).init(device="cpu")
-        net.conf.backprop_type = "tbptt"
-        x = np.zeros((2, 8, 8, 1), np.float32)
-        y = np.eye(10, dtype=np.float32)[[1, 2]]
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    net.conf.pretrain = True
+    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
         net.fit(x, y)
     assert net.iteration == 0
+
+
+TEXTGEN = dict(num_labels=11, max_length=8)
+
+
+def _textgen_batch(T=12):
+    eye = np.eye(11, dtype=np.float32)
+    tok = np.random.RandomState(4).randint(0, 11, (2, T + 1))
+    return eye[tok[:, :-1]], eye[tok[:, 1:]]
+
+
+def test_recurrent_entry_points_run_on_cuda_by_default(no_cuda, tmp_path):
+    """``TextGenerationLSTM.init``, a recurrent layer's net, ``load_model``
+    of its zip and ``LocalFileModelSaver`` resolve to CUDA and, with no
+    card, raise unless the caller asks for the host; on the host a TBPTT
+    ``fit`` (one step per segment), ``rnn_time_step``, ``greedy_generate``
+    and ``EarlyStoppingTrainer`` run where the net lives."""
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.earlystopping import (
+        DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingTrainer, LocalFileModelSaver,
+        MaxEpochsTerminationCondition)
+    from deeplearning4j_torch.models.zoo import (TextGenerationLSTM,
+                                                 greedy_generate)
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.utils.model_serializer import (load_model,
+                                                             save_model)
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TextGenerationLSTM(**TEXTGEN).init()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiLayerNetwork(TextGenerationLSTM(**TEXTGEN).conf()).init()
+    net = TextGenerationLSTM(**TEXTGEN).init(device="cpu")
+    x, y = _textgen_batch(T=120)
+    net.fit(x, y)
+    assert net.iteration == 3                     # segments of 50, 50, 20
+    assert all(t.device.type == "cpu" for p in net.params.values()
+               for t in p.values())
+    assert net.rnn_time_step(x[:, :3]).device.type == "cpu"
+    assert greedy_generate(net, np.zeros((1, 2), int), 3, 11).shape == (1, 3)
+    path = str(tmp_path / "textgen.zip")
+    save_model(net, path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model(path)
+    assert load_model(path, device="cpu").device.type == "cpu"
+
+    def run(saver):
+        cfg = EarlyStoppingConfiguration(
+            epoch_termination_conditions=[MaxEpochsTerminationCondition(1)],
+            score_calculator=DataSetLossCalculator([DataSet(x, y)]),
+            model_saver=saver)
+        return EarlyStoppingTrainer(cfg, net, [DataSet(x, y)]).fit()
+
+    # the saver reads its best zip back onto CUDA unless told otherwise
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run(LocalFileModelSaver(str(tmp_path / "es")))
+    assert net.iteration == 6
+    res = run(LocalFileModelSaver(str(tmp_path / "es"), device="cpu"))
+    assert res.termination_reason == "EpochTerminationCondition"
+    assert net.iteration == 9
+    assert res.best_model.device.type == "cpu"
+
+
+@pytest.mark.parametrize("layer", ["LSTM", "GravesLSTM",
+                                   "GravesBidirectionalLSTM", "SimpleRnn"])
+def test_recurrent_layer_nets_run_on_cuda_by_default(no_cuda, layer):
+    """A net of each recurrent layer resolves to CUDA; on the host its
+    TBPTT ``fit`` trains."""
+    from deeplearning4j_torch.nn.conf.builders import NeuralNetConfiguration
+    from deeplearning4j_torch.nn.conf.inputs import InputType
+    from deeplearning4j_torch.nn.conf.layers import recurrent
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.builder().seed(1)
+            .list(getattr(recurrent, layer)(n_out=4),
+                  recurrent.RnnOutputLayer(n_out=11))
+            .set_input_type(InputType.recurrent(11))
+            .t_bptt_lengths(5).build())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiLayerNetwork(conf).init()
+    net = MultiLayerNetwork(conf).init(device="cpu")
+    before = net.params_flat()
+    net.fit(*_textgen_batch(T=12))
+    assert net.iteration == 3
+    assert not np.array_equal(net.params_flat(), before)
 
 
 def _jax_and_port(updater=None, l2=None):
