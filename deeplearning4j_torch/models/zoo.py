@@ -1,12 +1,12 @@
 """Model zoo (port of ``deeplearning4j_tpu/models/zoo.py``): the
 MultiLayerNetwork models (LeNet, SimpleCNN, AlexNet, VGG16, VGG19,
 TextGenerationLSTM) at the JAX package's architectures and
-hyperparameters, NHWC; TransformerLM, ``lm_stream_forward``, the sampled
+hyperparameters, NHWC; the graph models (ResNet50, GoogLeNet,
+FaceNetNN4Small2, InceptionResNetV1) with the JAX package's vertex names
+and block helpers; TransformerLM, ``lm_stream_forward``, the sampled
 next-token select and the streaming ``greedy_generate``/
 ``sample_generate`` (over a TransformerLM's KV caches or an LSTM net's
-h/c). The graph models of the CNN zoo (ResNet50, GoogLeNet,
-FaceNetNN4Small2, InceptionResNetV1) need vertices the port lacks; they
-raise naming ROADMAP A12."""
+h/c). No pretrained weights: ``init_pretrained`` raises."""
 
 from __future__ import annotations
 
@@ -17,18 +17,20 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_torch.nn.conf.builders import NeuralNetConfiguration
-from deeplearning4j_torch.nn.conf.graph_conf import ElementWiseVertex
+from deeplearning4j_torch.nn.conf.graph_conf import (ElementWiseVertex,
+                                                     MergeVertex)
 from deeplearning4j_torch.nn.conf.inputs import InputType
 from deeplearning4j_torch.nn.conf.layers.attention import (
     PositionalEncodingLayer, SelfAttentionLayer)
 from deeplearning4j_torch.nn.conf.layers.convolution import (
-    ConvolutionLayer, SubsamplingLayer)
+    ConvolutionLayer, SubsamplingLayer, ZeroPaddingLayer)
 from deeplearning4j_torch.nn.conf.layers.core import (ActivationLayer,
                                                       DenseLayer,
                                                       DropoutLayer,
                                                       OutputLayer)
+from deeplearning4j_torch.nn.conf.layers.misc import CenterLossOutputLayer
 from deeplearning4j_torch.nn.conf.layers.normalization import (
-    BatchNormalization, LayerNormalization)
+    BatchNormalization, LayerNormalization, LocalResponseNormalization)
 from deeplearning4j_torch.nn.conf.layers.pooling import GlobalPoolingLayer
 from deeplearning4j_torch.nn.conf.layers.recurrent import (GravesLSTM,
                                                            RnnOutputLayer)
@@ -251,20 +253,445 @@ class VGG19(VGG16):
             512, 512, "M", 512, 512, 512, 512, "M")
 
 
-def _not_ported(name, item, what):
+class ResNet50(ZooModel):
+    """ResNet-50 as a ComputationGraph, the JAX zoo's variant (a stride-2
+    stage 2a; 4 conv blocks and 12 identity blocks, 16
+    ``ElementWiseVertex(add)`` joins), RmsProp, L1 1e-7 and L2 5e-5.
+
+    Its N(0, 0.5) weights (the JAX model's) make the untrained net's
+    inference forward overflow f32 (batch norm's running statistics are the
+    identity at init); the training forward normalizes by batch statistics
+    and is finite, so compare untrained nets with ``output(train=True)``.
+    The helpers ``_conv_bn_act``, ``_identity_block`` and ``_conv_block``
+    keep the JAX names and signatures, so single blocks build alike in
+    both packages."""
+
+    input_shape = (224, 224, 3)
+
+    def _conv_bn_act(self, g, name, n_out, kernel, stride, mode, input_name,
+                     act="relu"):
+        g.add_layer(name, ConvolutionLayer(n_out=n_out, kernel_size=kernel,
+                                           stride=stride,
+                                           convolution_mode=mode), input_name)
+        g.add_layer(name + "_bn", BatchNormalization(), name)
+        if act is None:
+            return name + "_bn"
+        g.add_layer(name + "_act", ActivationLayer(activation=act),
+                    name + "_bn")
+        return name + "_act"
+
+    def _identity_block(self, g, kernel, filters, stage, block, input_name):
+        n = f"res{stage}{block}"
+        f1, f2, f3 = filters
+        a = self._conv_bn_act(g, n + "_2a", f1, (1, 1), (1, 1), "truncate",
+                              input_name)
+        b = self._conv_bn_act(g, n + "_2b", f2, kernel, (1, 1), "same", a)
+        c = self._conv_bn_act(g, n + "_2c", f3, (1, 1), (1, 1), "truncate", b,
+                              act=None)
+        g.add_vertex(n + "_add", ElementWiseVertex(op="add"), c, input_name)
+        g.add_layer(n, ActivationLayer(activation="relu"), n + "_add")
+        return n
+
+    def _conv_block(self, g, kernel, filters, stage, block, stride,
+                    input_name):
+        n = f"res{stage}{block}"
+        f1, f2, f3 = filters
+        a = self._conv_bn_act(g, n + "_2a", f1, (1, 1), stride, "truncate",
+                              input_name)
+        b = self._conv_bn_act(g, n + "_2b", f2, kernel, (1, 1), "same", a)
+        c = self._conv_bn_act(g, n + "_2c", f3, (1, 1), (1, 1), "truncate", b,
+                              act=None)
+        s = self._conv_bn_act(g, n + "_1", f3, (1, 1), stride, "truncate",
+                              input_name, act=None)
+        g.add_vertex(n + "_add", ElementWiseVertex(op="add"), c, s)
+        g.add_layer(n, ActivationLayer(activation="relu"), n + "_add")
+        return n
+
     def conf(self):
-        raise NotImplementedError(f"{name} is not ported yet: {what} "
-                                  f"(ROADMAP {item})")
+        h, w, c = self.input_shape
+        g = (NeuralNetConfiguration.builder()
+             .seed(self.seed).activation("identity")
+             .updater(RmsProp(learning_rate=0.1, rms_decay=0.96, epsilon=0.001))
+             .weight_init("distribution").dist(Distribution.normal(0.0, 0.5))
+             .l1(1e-7).l2(5e-5).dtype(self.dtype)
+             .graph_builder()
+             .add_inputs("input"))
+        g.add_layer("stem_zero", ZeroPaddingLayer(pad_top=3, pad_bottom=3,
+                                                  pad_left=3, pad_right=3),
+                    "input")
+        stem = self._conv_bn_act(g, "stem_cnn1", 64, (7, 7), (2, 2),
+                                 "truncate", "stem_zero")
+        g.add_layer("stem_maxpool1",
+                    SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                     stride=(2, 2)), stem)
 
-    return type(name, (ZooModel,), {"conf": conf, "__doc__":
-                                    f"{name}: {what} (ROADMAP {item})."})
+        x = self._conv_block(g, (3, 3), (64, 64, 256), 2, "a", (2, 2),
+                             "stem_maxpool1")
+        x = self._identity_block(g, (3, 3), (64, 64, 256), 2, "b", x)
+        x = self._identity_block(g, (3, 3), (64, 64, 256), 2, "c", x)
+
+        x = self._conv_block(g, (3, 3), (128, 128, 512), 3, "a", (2, 2), x)
+        for blk in "bcd":
+            x = self._identity_block(g, (3, 3), (128, 128, 512), 3, blk, x)
+
+        x = self._conv_block(g, (3, 3), (256, 256, 1024), 4, "a", (2, 2), x)
+        for blk in "bcdef":
+            x = self._identity_block(g, (3, 3), (256, 256, 1024), 4, blk, x)
+
+        x = self._conv_block(g, (3, 3), (512, 512, 2048), 5, "a", (2, 2), x)
+        x = self._identity_block(g, (3, 3), (512, 512, 2048), 5, "b", x)
+        x = self._identity_block(g, (3, 3), (512, 512, 2048), 5, "c", x)
+
+        g.add_layer("avgpool", GlobalPoolingLayer(pooling_type="avg"), x)
+        g.add_layer("output", OutputLayer(n_out=self.num_labels,
+                                          activation="softmax", loss="mcxent"),
+                    "avgpool")
+        g.set_outputs("output")
+        g.set_input_types(InputType.convolutional(h, w, c))
+        return g.build()
+
+    def model_type(self) -> str:
+        return "ComputationGraph"
 
 
-_GRAPH_ZOO = "the graph models of the zoo come with the graph vertices"
-ResNet50 = _not_ported("ResNet50", "A12", _GRAPH_ZOO)
-GoogLeNet = _not_ported("GoogLeNet", "A12", _GRAPH_ZOO)
-FaceNetNN4Small2 = _not_ported("FaceNetNN4Small2", "A12", _GRAPH_ZOO)
-InceptionResNetV1 = _not_ported("InceptionResNetV1", "A12", _GRAPH_ZOO)
+class GoogLeNet(ZooModel):
+    """GoogLeNet / Inception-v1 as a ComputationGraph: ``MergeVertex``
+    depth-concatenations of four-branch ``_inception`` blocks, LRN, a
+    global average pool and ``DenseLayer(dropout=0.4)``, Nesterovs, L2
+    2e-4 (the JAX model's head and hyperparameters)."""
+
+    input_shape = (224, 224, 3)
+
+    def _inception(self, g, name, config, input_name):
+        (c1,), (c3r, c3), (c5r, c5), (pp,) = config
+        g.add_layer(f"{name}-cnn1",
+                    ConvolutionLayer(n_out=c1, kernel_size=(1, 1),
+                                     bias_init=0.2, activation="relu"),
+                    input_name)
+        g.add_layer(f"{name}-cnn2",
+                    ConvolutionLayer(n_out=c3r, kernel_size=(1, 1),
+                                     bias_init=0.2, activation="relu"),
+                    input_name)
+        g.add_layer(f"{name}-cnn3",
+                    ConvolutionLayer(n_out=c5r, kernel_size=(1, 1),
+                                     bias_init=0.2, activation="relu"),
+                    input_name)
+        g.add_layer(f"{name}-max1",
+                    SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                     stride=(1, 1), padding=(1, 1)),
+                    input_name)
+        g.add_layer(f"{name}-cnn4",
+                    ConvolutionLayer(n_out=c3, kernel_size=(3, 3),
+                                     padding=(1, 1), bias_init=0.2,
+                                     activation="relu"), f"{name}-cnn2")
+        g.add_layer(f"{name}-cnn5",
+                    ConvolutionLayer(n_out=c5, kernel_size=(5, 5),
+                                     padding=(2, 2), bias_init=0.2,
+                                     activation="relu"), f"{name}-cnn3")
+        g.add_layer(f"{name}-cnn6",
+                    ConvolutionLayer(n_out=pp, kernel_size=(1, 1),
+                                     bias_init=0.2, activation="relu"),
+                    f"{name}-max1")
+        g.add_vertex(f"{name}-depthconcat1", MergeVertex(), f"{name}-cnn1",
+                     f"{name}-cnn4", f"{name}-cnn5", f"{name}-cnn6")
+        return f"{name}-depthconcat1"
+
+    def conf(self):
+        h, w, c = self.input_shape
+        g = (NeuralNetConfiguration.builder()
+             .seed(self.seed).activation("relu").weight_init("xavier")
+             .updater(Nesterovs(learning_rate=1e-2, momentum=0.9))
+             .l2(2e-4).dtype(self.dtype)
+             .graph_builder()
+             .add_inputs("input"))
+        g.add_layer("cnn1", ConvolutionLayer(n_out=64, kernel_size=(7, 7),
+                                             stride=(2, 2), padding=(3, 3),
+                                             bias_init=0.2), "input")
+        g.add_layer("max1", SubsamplingLayer(pooling_type="max",
+                                             kernel_size=(3, 3),
+                                             stride=(2, 2), padding=(1, 1)),
+                    "cnn1")
+        g.add_layer("lrn1", LocalResponseNormalization(n=5, alpha=1e-4,
+                                                       beta=0.75), "max1")
+        g.add_layer("cnn2", ConvolutionLayer(n_out=64, kernel_size=(1, 1),
+                                             bias_init=0.2), "lrn1")
+        g.add_layer("cnn3", ConvolutionLayer(n_out=192, kernel_size=(3, 3),
+                                             padding=(1, 1), bias_init=0.2),
+                    "cnn2")
+        g.add_layer("lrn2", LocalResponseNormalization(n=5, alpha=1e-4,
+                                                       beta=0.75), "cnn3")
+        g.add_layer("max2", SubsamplingLayer(pooling_type="max",
+                                             kernel_size=(3, 3),
+                                             stride=(2, 2), padding=(1, 1)),
+                    "lrn2")
+        x = self._inception(g, "3a", ((64,), (96, 128), (16, 32), (32,)),
+                            "max2")
+        x = self._inception(g, "3b", ((128,), (128, 192), (32, 96), (64,)), x)
+        g.add_layer("max3", SubsamplingLayer(pooling_type="max",
+                                             kernel_size=(3, 3),
+                                             stride=(2, 2), padding=(1, 1)),
+                    x)
+        x = self._inception(g, "4a", ((192,), (96, 208), (16, 48), (64,)),
+                            "max3")
+        x = self._inception(g, "4b", ((160,), (112, 224), (24, 64), (64,)), x)
+        x = self._inception(g, "4c", ((128,), (128, 256), (24, 64), (64,)), x)
+        x = self._inception(g, "4d", ((112,), (144, 288), (32, 64), (64,)), x)
+        x = self._inception(g, "4e", ((256,), (160, 320), (32, 128), (128,)),
+                            x)
+        g.add_layer("max4", SubsamplingLayer(pooling_type="max",
+                                             kernel_size=(3, 3),
+                                             stride=(2, 2), padding=(1, 1)),
+                    x)
+        x = self._inception(g, "5a", ((256,), (160, 320), (32, 128), (128,)),
+                            "max4")
+        x = self._inception(g, "5b", ((384,), (192, 384), (48, 128), (128,)),
+                            x)
+        g.add_layer("avg3", GlobalPoolingLayer(pooling_type="avg"), x)
+        g.add_layer("fc1", DenseLayer(n_out=1024, dropout=0.4), "avg3")
+        g.add_layer("output", OutputLayer(n_out=self.num_labels,
+                                          activation="softmax", loss="mcxent"),
+                    "fc1")
+        g.set_outputs("output")
+        g.set_input_types(InputType.convolutional(h, w, c))
+        return g.build()
+
+    def model_type(self) -> str:
+        return "ComputationGraph"
+
+
+class FaceNetNN4Small2(ZooModel):
+    """FaceNet NN4.small2 embedding net at 96×96: stem, inception blocks
+    2-5 (``MergeVertex`` joins), average pool, a 128-wide bottleneck and a
+    ``CenterLossOutputLayer`` head, Nesterovs (the JAX model's)."""
+
+    input_shape = (96, 96, 3)
+    embedding_size = 128
+
+    def __init__(self, num_labels: int = 1000, **kw):
+        super().__init__(num_labels=num_labels, **kw)
+
+    def _conv_bn(self, g, name, n_out, kernel, stride, pad, input_name):
+        g.add_layer(name, ConvolutionLayer(n_out=n_out, kernel_size=kernel,
+                                           stride=stride, padding=pad),
+                    input_name)
+        g.add_layer(name + "_bn", BatchNormalization(), name)
+        g.add_layer(name + "_act", ActivationLayer(activation="relu"),
+                    name + "_bn")
+        return name + "_act"
+
+    def _inception(self, g, name, reduce_sizes, out_sizes, input_name):
+        """4 branches: 1x1, 1x1->3x3, 1x1->5x5, pool->1x1;
+        reduce_sizes = (3x3-reduce, 5x5-reduce, pool-proj, 1x1)."""
+        r3, r5, p1, c1 = reduce_sizes
+        c3, c5 = out_sizes
+        branches = []
+        if c1:
+            branches.append(self._conv_bn(g, f"{name}-1x1", c1, (1, 1),
+                                          (1, 1), (0, 0), input_name))
+        a = self._conv_bn(g, f"{name}-3x3r", r3, (1, 1), (1, 1), (0, 0),
+                          input_name)
+        branches.append(self._conv_bn(g, f"{name}-3x3", c3, (3, 3), (1, 1),
+                                      (1, 1), a))
+        if r5 and c5:  # block 5a has no 5x5 branch
+            b = self._conv_bn(g, f"{name}-5x5r", r5, (1, 1), (1, 1), (0, 0),
+                              input_name)
+            branches.append(self._conv_bn(g, f"{name}-5x5", c5, (5, 5),
+                                          (1, 1), (2, 2), b))
+        g.add_layer(f"{name}-pool",
+                    SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                     stride=(1, 1), padding=(1, 1)),
+                    input_name)
+        branches.append(self._conv_bn(g, f"{name}-poolproj", p1, (1, 1),
+                                      (1, 1), (0, 0), f"{name}-pool"))
+        g.add_vertex(f"{name}-merge", MergeVertex(), *branches)
+        return f"{name}-merge"
+
+    def conf(self):
+        h, w, c = self.input_shape
+        g = (NeuralNetConfiguration.builder()
+             .seed(self.seed).activation("relu").weight_init("relu")
+             .updater(Nesterovs(learning_rate=1e-3, momentum=0.9))
+             .dtype(self.dtype)
+             .graph_builder()
+             .add_inputs("input"))
+        x = self._conv_bn(g, "stem-cnn1", 64, (7, 7), (2, 2), (3, 3), "input")
+        g.add_layer("stem-pool1",
+                    SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                     stride=(2, 2), padding=(1, 1)), x)
+        x = self._conv_bn(g, "inception-2-cnn1", 64, (1, 1), (1, 1), (0, 0),
+                          "stem-pool1")
+        x = self._conv_bn(g, "inception-2-cnn2", 192, (3, 3), (1, 1), (1, 1),
+                          x)
+        g.add_layer("inception-2-pool1",
+                    SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                     stride=(2, 2), padding=(1, 1)), x)
+        x = self._inception(g, "3a", (96, 16, 32, 64), (128, 32),
+                            "inception-2-pool1")
+        x = self._inception(g, "3b", (96, 32, 64, 64), (128, 64), x)
+        g.add_layer("3c-pool",
+                    SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                     stride=(2, 2), padding=(1, 1)), x)
+        x = self._inception(g, "4a", (96, 32, 128, 256), (192, 64),
+                            "3c-pool")
+        g.add_layer("4e-pool",
+                    SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                     stride=(2, 2), padding=(1, 1)), x)
+        x = self._inception(g, "5a", (96, 0, 96, 256), (384, 0), "4e-pool")
+        g.add_layer("avgpool", GlobalPoolingLayer(pooling_type="avg"), x)
+        g.add_layer("bottleneck", DenseLayer(n_out=self.embedding_size,
+                                             activation="identity"), "avgpool")
+        g.add_layer("lossLayer",
+                    CenterLossOutputLayer(n_out=self.num_labels,
+                                          activation="softmax", loss="mcxent",
+                                          alpha=0.1, lambda_=3e-4),
+                    "bottleneck")
+        g.set_outputs("lossLayer")
+        g.set_input_types(InputType.convolutional(h, w, c))
+        return g.build()
+
+    def model_type(self) -> str:
+        return "ComputationGraph"
+
+
+class InceptionResNetV1(ZooModel):
+    """Inception-ResNet v1 embedding net at 160×160: stem, 5 × block35,
+    reduction-A, 10 × block17, reduction-B, 5 × block8 (each a
+    ``MergeVertex`` of branches, a 1×1 up-projection and an
+    ``ElementWiseVertex(add)`` residual with a post-add ReLU), average
+    pool, bottleneck and a ``CenterLossOutputLayer`` head, RmsProp (the
+    JAX model's)."""
+
+    input_shape = (160, 160, 3)
+    embedding_size = 128
+
+    def __init__(self, num_labels: int = 1000, **kw):
+        super().__init__(num_labels=num_labels, **kw)
+
+    def _conv_bn(self, g, name, n_out, kernel, stride, pad, input_name,
+                 act="relu"):
+        g.add_layer(name, ConvolutionLayer(n_out=n_out, kernel_size=kernel,
+                                           stride=stride, padding=pad),
+                    input_name)
+        g.add_layer(name + "_bn", BatchNormalization(), name)
+        if act is None:
+            return name + "_bn"
+        g.add_layer(name + "_act", ActivationLayer(activation=act),
+                    name + "_bn")
+        return name + "_act"
+
+    def _block35(self, g, name, input_name, ch=256):
+        b1 = self._conv_bn(g, f"{name}-b1", 32, (1, 1), (1, 1), (0, 0),
+                           input_name)
+        b2 = self._conv_bn(g, f"{name}-b2a", 32, (1, 1), (1, 1), (0, 0),
+                           input_name)
+        b2 = self._conv_bn(g, f"{name}-b2b", 32, (3, 3), (1, 1), (1, 1), b2)
+        b3 = self._conv_bn(g, f"{name}-b3a", 32, (1, 1), (1, 1), (0, 0),
+                           input_name)
+        b3 = self._conv_bn(g, f"{name}-b3b", 32, (3, 3), (1, 1), (1, 1), b3)
+        b3 = self._conv_bn(g, f"{name}-b3c", 32, (3, 3), (1, 1), (1, 1), b3)
+        g.add_vertex(f"{name}-merge", MergeVertex(), b1, b2, b3)
+        up = self._conv_bn(g, f"{name}-up", ch, (1, 1), (1, 1), (0, 0),
+                           f"{name}-merge", act=None)
+        g.add_vertex(f"{name}-add", ElementWiseVertex(op="add"), input_name,
+                     up)
+        g.add_layer(f"{name}", ActivationLayer(activation="relu"),
+                    f"{name}-add")
+        return f"{name}"
+
+    def _block17(self, g, name, input_name, ch=896):
+        b1 = self._conv_bn(g, f"{name}-b1", 128, (1, 1), (1, 1), (0, 0),
+                           input_name)
+        b2 = self._conv_bn(g, f"{name}-b2a", 128, (1, 1), (1, 1), (0, 0),
+                           input_name)
+        b2 = self._conv_bn(g, f"{name}-b2b", 128, (1, 7), (1, 1), (0, 3), b2)
+        b2 = self._conv_bn(g, f"{name}-b2c", 128, (7, 1), (1, 1), (3, 0), b2)
+        g.add_vertex(f"{name}-merge", MergeVertex(), b1, b2)
+        up = self._conv_bn(g, f"{name}-up", ch, (1, 1), (1, 1), (0, 0),
+                           f"{name}-merge", act=None)
+        g.add_vertex(f"{name}-add", ElementWiseVertex(op="add"), input_name,
+                     up)
+        g.add_layer(f"{name}", ActivationLayer(activation="relu"),
+                    f"{name}-add")
+        return f"{name}"
+
+    def _block8(self, g, name, input_name, ch=1792):
+        b1 = self._conv_bn(g, f"{name}-b1", 192, (1, 1), (1, 1), (0, 0),
+                           input_name)
+        b2 = self._conv_bn(g, f"{name}-b2a", 192, (1, 1), (1, 1), (0, 0),
+                           input_name)
+        b2 = self._conv_bn(g, f"{name}-b2b", 192, (1, 3), (1, 1), (0, 1), b2)
+        b2 = self._conv_bn(g, f"{name}-b2c", 192, (3, 1), (1, 1), (1, 0), b2)
+        g.add_vertex(f"{name}-merge", MergeVertex(), b1, b2)
+        up = self._conv_bn(g, f"{name}-up", ch, (1, 1), (1, 1), (0, 0),
+                           f"{name}-merge", act=None)
+        g.add_vertex(f"{name}-add", ElementWiseVertex(op="add"), input_name,
+                     up)
+        g.add_layer(f"{name}", ActivationLayer(activation="relu"),
+                    f"{name}-add")
+        return f"{name}"
+
+    def conf(self):
+        h, w, c = self.input_shape
+        g = (NeuralNetConfiguration.builder()
+             .seed(self.seed).activation("relu").weight_init("relu")
+             .updater(RmsProp(learning_rate=0.1, rms_decay=0.96, epsilon=0.001))
+             .dtype(self.dtype)
+             .graph_builder()
+             .add_inputs("input"))
+        # stem: 3 convs, a max pool, 3 convs
+        x = self._conv_bn(g, "stem1", 32, (3, 3), (2, 2), (0, 0), "input")
+        x = self._conv_bn(g, "stem2", 32, (3, 3), (1, 1), (0, 0), x)
+        x = self._conv_bn(g, "stem3", 64, (3, 3), (1, 1), (1, 1), x)
+        g.add_layer("stem-pool",
+                    SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                     stride=(2, 2)), x)
+        x = self._conv_bn(g, "stem4", 80, (1, 1), (1, 1), (0, 0), "stem-pool")
+        x = self._conv_bn(g, "stem5", 192, (3, 3), (1, 1), (0, 0), x)
+        x = self._conv_bn(g, "stem6", 256, (3, 3), (2, 2), (0, 0), x)
+        for i in range(5):
+            x = self._block35(g, f"block35-{i}", x)
+        # reduction-A
+        ra1 = self._conv_bn(g, "redA-b1", 384, (3, 3), (2, 2), (0, 0), x)
+        ra2 = self._conv_bn(g, "redA-b2a", 192, (1, 1), (1, 1), (0, 0), x)
+        ra2 = self._conv_bn(g, "redA-b2b", 192, (3, 3), (1, 1), (1, 1), ra2)
+        ra2 = self._conv_bn(g, "redA-b2c", 256, (3, 3), (2, 2), (0, 0), ra2)
+        g.add_layer("redA-pool",
+                    SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                     stride=(2, 2)), x)
+        g.add_vertex("redA", MergeVertex(), ra1, ra2, "redA-pool")
+        x = "redA"
+        for i in range(10):
+            x = self._block17(g, f"block17-{i}", x)
+        # reduction-B
+        rb1 = self._conv_bn(g, "redB-b1a", 256, (1, 1), (1, 1), (0, 0), x)
+        rb1 = self._conv_bn(g, "redB-b1b", 384, (3, 3), (2, 2), (0, 0), rb1)
+        rb2 = self._conv_bn(g, "redB-b2a", 256, (1, 1), (1, 1), (0, 0), x)
+        rb2 = self._conv_bn(g, "redB-b2b", 256, (3, 3), (2, 2), (0, 0), rb2)
+        rb3 = self._conv_bn(g, "redB-b3a", 256, (1, 1), (1, 1), (0, 0), x)
+        rb3 = self._conv_bn(g, "redB-b3b", 256, (3, 3), (1, 1), (1, 1), rb3)
+        rb3 = self._conv_bn(g, "redB-b3c", 256, (3, 3), (2, 2), (0, 0), rb3)
+        g.add_layer("redB-pool",
+                    SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                     stride=(2, 2)), x)
+        g.add_vertex("redB", MergeVertex(), rb1, rb2, rb3, "redB-pool")
+        x = "redB"
+        for i in range(5):
+            x = self._block8(g, f"block8-{i}", x)
+        g.add_layer("avgpool", GlobalPoolingLayer(pooling_type="avg"), x)
+        g.add_layer("bottleneck", DenseLayer(n_out=self.embedding_size,
+                                             activation="identity"),
+                    "avgpool")
+        g.add_layer("lossLayer",
+                    CenterLossOutputLayer(n_out=self.num_labels,
+                                          activation="softmax", loss="mcxent",
+                                          alpha=0.1, lambda_=3e-4),
+                    "bottleneck")
+        g.set_outputs("lossLayer")
+        g.set_input_types(InputType.convolutional(h, w, c))
+        return g.build()
+
+    def model_type(self) -> str:
+        return "ComputationGraph"
 
 
 class TextGenerationLSTM(ZooModel):

@@ -18,7 +18,7 @@ from typing import Optional
 from deeplearning4j_torch.nn.conf.inputs import InputType
 from deeplearning4j_torch.nn.conf.preprocessors import (InputPreProcessor,
                                                         default_preprocessor)
-from deeplearning4j_torch.nn.updater import Sgd, Updater
+from deeplearning4j_torch.nn.updater import Sgd, Updater, get_updater
 from deeplearning4j_torch.utils import serde
 from deeplearning4j_torch.utils.serde import register_serializable
 
@@ -156,9 +156,12 @@ class ListBuilder:
             dtype=g.dtype, compute_dtype=g.compute_dtype)
 
 
+@register_serializable
 @dataclass
 class NeuralNetConfiguration:
-    """Global hyperparameters, inherited by the layers at build time."""
+    """Global hyperparameters, inherited by the layers at build time.
+    ``optimization_algo`` names what ``optimize.solvers.Solver`` runs
+    (JAX's field and default)."""
 
     seed: int = 12345
     activation: Optional[str] = None
@@ -175,6 +178,7 @@ class NeuralNetConfiguration:
     updater: Updater = field(default_factory=lambda: Sgd(learning_rate=0.1))
     dtype: str = "float32"
     compute_dtype: Optional[str] = None
+    optimization_algo: str = "stochastic_gradient_descent"
 
     @staticmethod
     def builder() -> "NeuralNetConfigurationBuilder":
@@ -234,8 +238,10 @@ class NeuralNetConfigurationBuilder:
         self._c.gradient_normalization_threshold = float(t)
         return self
 
-    def updater(self, u: Updater):
-        self._c.updater = u
+    def updater(self, u, learning_rate: Optional[float] = None):
+        """An ``Updater``, or a name (``"adam"``, ``"rmsprop"``, ...)
+        resolved by ``nn.updater.get_updater`` with ``learning_rate``."""
+        self._c.updater = get_updater(u, learning_rate)
         return self
 
     def learning_rate(self, lr: float):
@@ -248,6 +254,10 @@ class NeuralNetConfigurationBuilder:
 
     def compute_dtype(self, dt: Optional[str]):
         self._c.compute_dtype = dt
+        return self
+
+    def optimization_algo(self, algo: str):
+        self._c.optimization_algo = algo
         return self
 
     def list(self, *layers) -> ListBuilder:

@@ -1,12 +1,15 @@
-"""Graph configuration (port of the parts of
-``deeplearning4j_tpu/nn/conf/graph_conf.py`` the TransformerLM and the
-recurrent graphs need): layer vertices (with an input preprocessor and
-``remat``), ``ElementWiseVertex(op="add")``, the two rnn vertices
-(``LastTimeStepVertex``, ``DuplicateToTimeSeriesVertex``), the
-configuration, a builder over the global configuration
-(``nn/conf/builders.py``, TBPTT lengths included) and the topological
-order. The dataclasses carry the JAX package's fields and class names, so
-``to_json``/``from_json`` read and write its ``configuration.json``.
+"""Graph configuration (port of ``deeplearning4j_tpu/nn/conf/graph_conf.py``):
+the vertices (a layer behind an optional input preprocessor and ``remat``;
+merge, element-wise, subset, stack/unstack, scale, shift, L2 distance, L2
+normalization, a standalone preprocessor, reshape, the pool-helper crop,
+and the two rnn vertices ``LastTimeStepVertex`` and
+``DuplicateToTimeSeriesVertex``), the configuration, a builder over the
+global configuration (``nn/conf/builders.py``, TBPTT lengths included) and
+the topological order. The dataclasses carry the JAX package's fields and
+class names, so ``to_json``/``from_json`` read and write its
+``configuration.json``. Layouts are NHWC and ``[B, T, F]``: the feature
+axis is the last one, where ``MergeVertex`` concatenates and
+``SubsetVertex`` slices.
 
 A vertex's ``forward(params, state, inputs, *, masks, ctx, train, rng)``
 gets ``ctx``: ``{"input_arrays": {network input: array}, "input_masks":
@@ -141,20 +144,216 @@ class LayerVertex(GraphVertex):
 
 @register_serializable
 @dataclass
+class MergeVertex(GraphVertex):
+    """Concatenation of the inputs along the feature (last) axis; the
+    output type sums the channels (images), sizes (sequences) or flat
+    sizes."""
+
+    def output_type(self, input_types):
+        first = input_types[0]
+        if first.kind == "convolutional":
+            return InputType.convolutional(
+                first.height, first.width,
+                sum(t.channels for t in input_types))
+        if first.kind == "recurrent":
+            return InputType.recurrent(sum(t.size for t in input_types),
+                                       first.timeseries_length)
+        return InputType.feed_forward(sum(t.flat_size() for t in input_types))
+
+    def forward(self, params, state, inputs, *, masks=None, ctx=None,
+                train=False, rng=None):
+        return torch.cat(list(inputs), dim=-1), state
+
+
+@register_serializable
+@dataclass
 class ElementWiseVertex(GraphVertex):
-    """Pointwise combine of its inputs; only ``op="add"`` is ported."""
+    """Pointwise combine of the inputs: ``add``, ``subtract`` (exactly two
+    inputs), ``product``, ``average`` or ``max``."""
 
     op: str = "add"
 
     def forward(self, params, state, inputs, *, masks=None, ctx=None,
                 train=False, rng=None):
-        if self.op.lower() != "add":
-            raise ValueError(f"ElementWiseVertex op '{self.op}' is not "
-                             "ported (only 'add')")
+        op = self.op.lower()
         out = inputs[0]
-        for x in inputs[1:]:
-            out = out + x
+        if op == "add":
+            for x in inputs[1:]:
+                out = out + x
+        elif op == "subtract":
+            if len(inputs) != 2:
+                raise ValueError("subtract requires exactly 2 inputs")
+            out = inputs[0] - inputs[1]
+        elif op == "product":
+            for x in inputs[1:]:
+                out = out * x
+        elif op == "average":
+            out = sum(inputs) / float(len(inputs))
+        elif op == "max":
+            for x in inputs[1:]:
+                out = torch.maximum(out, x)
+        else:
+            raise ValueError(f"Unknown ElementWiseVertex op '{self.op}'")
         return out, state
+
+
+@register_serializable
+@dataclass
+class SubsetVertex(GraphVertex):
+    """The feature-axis slice ``[from_index, to_index]``, both ends
+    included."""
+
+    from_index: int = 0
+    to_index: int = 0
+
+    def output_type(self, input_types):
+        n = self.to_index - self.from_index + 1
+        it = input_types[0]
+        if it.kind == "recurrent":
+            return InputType.recurrent(n, it.timeseries_length)
+        if it.kind == "convolutional":
+            return InputType.convolutional(it.height, it.width, n)
+        return InputType.feed_forward(n)
+
+    def forward(self, params, state, inputs, *, masks=None, ctx=None,
+                train=False, rng=None):
+        return inputs[0][..., self.from_index:self.to_index + 1], state
+
+
+@register_serializable
+@dataclass
+class StackVertex(GraphVertex):
+    """Concatenation of the inputs along the batch (first) axis."""
+
+    def forward(self, params, state, inputs, *, masks=None, ctx=None,
+                train=False, rng=None):
+        return torch.cat(list(inputs), dim=0), state
+
+
+@register_serializable
+@dataclass
+class UnstackVertex(GraphVertex):
+    """Chunk ``from_index`` of ``stack_size`` equal batch chunks (``step =
+    B // stack_size`` rows each)."""
+
+    from_index: int = 0
+    stack_size: int = 1
+
+    def forward(self, params, state, inputs, *, masks=None, ctx=None,
+                train=False, rng=None):
+        x = inputs[0]
+        step = x.shape[0] // self.stack_size
+        return x[self.from_index * step:(self.from_index + 1) * step], state
+
+
+@register_serializable
+@dataclass
+class ScaleVertex(GraphVertex):
+    """``scale · x``."""
+
+    scale: float = 1.0
+
+    def forward(self, params, state, inputs, *, masks=None, ctx=None,
+                train=False, rng=None):
+        return inputs[0] * self.scale, state
+
+
+@register_serializable
+@dataclass
+class ShiftVertex(GraphVertex):
+    """``x + shift``."""
+
+    shift: float = 0.0
+
+    def forward(self, params, state, inputs, *, masks=None, ctx=None,
+                train=False, rng=None):
+        return inputs[0] + self.shift, state
+
+
+@register_serializable
+@dataclass
+class L2Vertex(GraphVertex):
+    """The L2 distance between two inputs per example, ``sqrt(sum d² +
+    eps)`` into ``[B, 1]`` (``eps`` keeps the gradient finite at 0)."""
+
+    eps: float = 1e-8
+
+    def output_type(self, input_types):
+        return InputType.feed_forward(1)
+
+    def forward(self, params, state, inputs, *, masks=None, ctx=None,
+                train=False, rng=None):
+        a, b = inputs[0], inputs[1]
+        d = (a - b).reshape(a.shape[0], -1)
+        return torch.sqrt((d * d).sum(dim=1, keepdim=True) + self.eps), state
+
+
+@register_serializable
+@dataclass
+class L2NormalizeVertex(GraphVertex):
+    """``x / sqrt(sum x² + eps)``, the sum over every non-batch axis."""
+
+    eps: float = 1e-8
+
+    def forward(self, params, state, inputs, *, masks=None, ctx=None,
+                train=False, rng=None):
+        x = inputs[0]
+        flat = x.reshape(x.shape[0], -1)
+        norm = torch.sqrt((flat * flat).sum(dim=1) + self.eps)
+        return x / norm.reshape((-1,) + (1,) * (x.dim() - 1)), state
+
+
+@register_serializable
+@dataclass
+class PreprocessorVertex(GraphVertex):
+    """An input preprocessor as a vertex of its own; a stochastic one
+    draws from ``preprocessor_key`` of the vertex's key, as a layer
+    vertex's preprocessor does."""
+
+    preprocessor: Optional[object] = None
+
+    def output_type(self, input_types):
+        return self.preprocessor.output_type(input_types[0])
+
+    def forward(self, params, state, inputs, *, masks=None, ctx=None,
+                train=False, rng=None):
+        return (self.preprocessor.forward(inputs[0],
+                                          rng=preprocessor_key(rng)),
+                state)
+
+    def feed_forward_mask(self, masks):
+        return self.preprocessor.feed_forward_mask(masks[0] if masks
+                                                   else None)
+
+
+@register_serializable
+@dataclass
+class ReshapeVertex(GraphVertex):
+    """Row-major reshape of the non-batch axes to ``shape`` (numpy's
+    order). Its output type is its input's, as in the JAX package."""
+
+    shape: tuple = ()
+
+    def forward(self, params, state, inputs, *, masks=None, ctx=None,
+                train=False, rng=None):
+        x = inputs[0]
+        return x.reshape((x.shape[0],) + tuple(self.shape)), state
+
+
+@register_serializable
+@dataclass
+class PoolHelperVertex(GraphVertex):
+    """Drops the first row and the first column of an NHWC activation (the
+    crop imported GoogLeNet-style models carry)."""
+
+    def output_type(self, input_types):
+        it = input_types[0]
+        return InputType.convolutional(it.height - 1, it.width - 1,
+                                       it.channels)
+
+    def forward(self, params, state, inputs, *, masks=None, ctx=None,
+                train=False, rng=None):
+        return inputs[0][:, 1:, 1:, :], state
 
 
 @register_serializable
@@ -304,9 +503,11 @@ class GraphBuilder:
         self._conf.input_types = list(types)
         return self
 
-    def add_layer(self, name, layer: Layer, *inputs, remat: bool = False):
-        return self.add_vertex(name, LayerVertex(layer=layer, remat=remat),
-                               *inputs)
+    def add_layer(self, name, layer: Layer, *inputs, preprocessor=None,
+                  remat: bool = False):
+        return self.add_vertex(
+            name, LayerVertex(layer=layer, preprocessor=preprocessor,
+                              remat=remat), *inputs)
 
     def add_vertex(self, name, vertex: GraphVertex, *inputs):
         if name in self._conf.vertices or name in self._conf.network_inputs:

@@ -1,6 +1,7 @@
 """ComputationGraph (port of ``deeplearning4j_tpu/nn/graph.py``): parameters,
 the topological forward with an optional serving carry, ``output()``,
-``feed_forward``, streaming inference (``rnn_time_step`` over the attention
+``feed_forward``, ``output(train=)`` (JAX's batch bucketing included),
+streaming inference (``rnn_time_step`` over the attention
 layers' dense KV caches), ``_stream_layers``, and training: ``_loss`` (with
 ``compute_dtype`` mixed precision and the reported L1/L2 penalty),
 ``do_step``, ``fit`` at the JAX package's defaults (the fused K-step driver
@@ -34,6 +35,7 @@ from deeplearning4j_torch.nn.conf.layers.misc import CenterLossOutputLayer
 from deeplearning4j_torch.nn.network import CARRY_KEYS, Network
 from deeplearning4j_torch.nn.regularization import penalty_value
 from deeplearning4j_torch.ops import random
+from deeplearning4j_torch.optimize.bucketing import bucket_rows, pad_rows
 
 def _as_list(x):
     if x is None:
@@ -58,6 +60,8 @@ class ComputationGraph(Network):
                 or self.conf.vertices[name] for name in self.conf.topo_order}
 
     def _preprocessors(self) -> list:
+        """The layer vertices' input preprocessors and the preprocessor
+        vertices'."""
         return [v.preprocessor for v in self.conf.vertices.values()
                 if getattr(v, "preprocessor", None) is not None]
 
@@ -147,17 +151,31 @@ class ComputationGraph(Network):
                 masks(input_mask), masks(label_mask))
 
     @torch.inference_mode()
-    def output(self, *inputs, masks=None):
+    def output(self, *inputs, train: bool = False, masks=None):
         """Output-vertex activations, in the parameter dtype whatever
         ``compute_dtype`` says; a single output returns the bare tensor.
         Inputs may be numpy arrays or tensors; they are moved to the net's
-        device."""
+        device. ``train=True`` runs the training forward with no key (batch
+        statistics, no dropout) and drops the new batch-norm state, as
+        JAX's does; its shared batch is then padded to the next power of
+        two by repeating the last row and the padding cut from every
+        output, as the JAX package buckets it, since batch statistics see
+        the padded rows (an inference forward is row-wise and runs
+        unpadded)."""
         dtype = getattr(torch, self.conf.dtype)
         xs = [self._as_tensor(a, dtype) for a in inputs]
         ms = ([None if m is None else self._as_tensor(m, torch.float32)
                for m in _as_list(masks)] if masks is not None
               else [None] * len(xs))
-        outs, _, _, _ = self._forward(self.params, self.state, xs, ms)
+        n = xs[0].shape[0]
+        B = bucket_rows(n) if train else n
+        if B != n:
+            xs = [pad_rows(a, B) for a in xs]
+            ms = [None if m is None else pad_rows(m, B) for m in ms]
+        outs, _, _, _ = self._forward(self.params, self.state, xs, ms,
+                                      train=train)
+        if B != n:
+            outs = [o[:n] for o in outs]
         return outs[0] if len(outs) == 1 else outs
 
     def _output_one(self, x, mask):

@@ -282,3 +282,20 @@ class AdaDelta(Updater):
         ex = _tmap(lambda x, d: rho * x + (1 - rho) * d * d, state["ex"], dx)
         return dx, {"eg": eg, "ex": ex}
 
+
+_BY_NAME = {"sgd": Sgd, "adam": Adam, "adamax": AdaMax, "nadam": Nadam,
+            "nesterovs": Nesterovs, "adagrad": AdaGrad, "rmsprop": RmsProp,
+            "adadelta": AdaDelta, "none": NoOp, "noop": NoOp}
+
+
+def get_updater(u, learning_rate=None) -> Updater:
+    """An updater from an instance (returned as it is) or a name of
+    ``_BY_NAME`` (case-insensitive), with ``learning_rate`` where given,
+    else the class's defaults."""
+    if isinstance(u, Updater):
+        return u
+    cls = _BY_NAME.get(str(u).lower())
+    if cls is None:
+        raise ValueError(f"Unknown updater '{u}'. Known: {sorted(_BY_NAME)}")
+    return (cls(learning_rate=learning_rate) if learning_rate is not None
+            else cls())

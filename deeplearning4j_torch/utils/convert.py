@@ -5,9 +5,14 @@
 ndarray}}`` for a MultiLayerNetwork, as ``jax.device_get(net.params)``
 gives them — and loads them into the port's net unchanged: the layouts are
 the same on both sides (Dense ``W`` is ``[n_in, n_out]``, convolution
-kernels HWIO), so no transpose or reorder is needed. ``updater_state_from_jax`` does the same for the
-optimizer slots (``{slot: {vertex: {name: ndarray}}}``, Adam's ``m`` and
-``v``), so a run can continue from a JAX-trained state. A quantized
+kernels HWIO, the mixture-of-experts leaves ``Wg, W1, b1, W2, b2``
+stacked on the expert axis), so no transpose or reorder is needed. A
+graph's tree is keyed by vertex name and holds an empty dict for each
+parameterless vertex, on both sides. ``state_from_jax`` loads the layer
+state the same way (batch norm's running ``mean``/``var``, the center-loss
+centers) and ``updater_state_from_jax`` the optimizer slots (``{slot:
+{vertex: {name: ndarray}}}``, Adam's ``m`` and ``v``), so a run can
+continue from a JAX-trained state. A quantized
 reference tree (``quantize_params``/``quantize_net``: int8 codes with
 ``"<name>_scale"`` f32 siblings) loads as it is, codes int8 and scales f32,
 whether the port net is quantized already or not. Nothing here imports
@@ -79,6 +84,19 @@ def params_to_numpy(net) -> dict:
     """The port's parameters as ``{vertex: {name: ndarray}}`` (the inverse
     of ``params_from_jax``)."""
     return _to_numpy(net.params)
+
+
+def state_from_jax(state: dict, net):
+    """Check the reference's layer state (``jax.device_get(net.state)``)
+    against ``net.state`` and replace it, on the net's device; the carry
+    entries the port keeps out of the layer state (``nn/network.py::
+    CARRY_KEYS``) are dropped. Returns ``net``."""
+    from deeplearning4j_torch.nn.network import CARRY_KEYS
+
+    tree = {v: {k: a for k, a in p.items() if k not in CARRY_KEYS}
+            for v, p in state.items()}
+    net.state = _load_tree(tree, net.state)
+    return net
 
 
 def updater_state_from_jax(state: dict, net, iteration=None):

@@ -113,7 +113,10 @@ def test_port_imports_no_jax():
             "evaluation/roc.py", "earlystopping/__init__.py",
             "earlystopping/config.py", "earlystopping/savers.py",
             "earlystopping/scorecalc.py", "earlystopping/termination.py",
-            "earlystopping/trainer.py"} <= names
+            "earlystopping/trainer.py", "gradientcheck.py",
+            "nn/transferlearning.py", "optimize/solvers.py",
+            "nn/conf/layers/moe.py", "nn/conf/layers/__init__.py",
+            "nn/simple.py"} <= names
     bad = [(str(p.relative_to(ROOT)), mod) for p in files
            for mod in _imported_roots(p) if mod in FORBIDDEN]
     assert bad == []
@@ -149,6 +152,41 @@ def test_multilayer_entry_points_run_on_cuda_by_default(no_cuda):
         MultiLayerNetwork(LeNet().conf()).init()
     assert LeNet().init(device="cpu").device.type == "cpu"
     assert load_model(fixture, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["ResNet50", "GoogLeNet",
+                                  "FaceNetNN4Small2", "InceptionResNetV1"])
+def test_graph_zoo_and_solver_run_on_cuda_by_default(name, no_cuda):
+    """The graph zoo models' ``init`` resolves to CUDA and, with no card,
+    raises unless the caller asks for the host; a ``Solver`` and a
+    transfer-learning rebuild run where their net lives (its vectors and
+    the rebuilt net's parameters on the net's device)."""
+    from deeplearning4j_torch.models import zoo
+    from deeplearning4j_torch.nn.transferlearning import TransferLearning
+    from deeplearning4j_torch.optimize.solvers import Solver
+
+    small = dict(num_labels=3, input_shape=(32, 32, 3))
+    if name == "InceptionResNetV1":
+        small["input_shape"] = (80, 80, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(zoo, name)(**small).init()
+    if name != "ResNet50":
+        return
+    net = getattr(zoo, name)(**small).init(device="cpu")
+    assert net.device.type == "cpu"
+    lenet = zoo.LeNet().init(device="cpu")
+    x = np.random.RandomState(0).rand(4, 28, 28, 1).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[[1, 2, 3, 4]]
+    solver = Solver(lenet, algorithm="line_gradient_descent",
+                    max_iterations=1)
+    assert np.isfinite(solver.optimize(x, y))
+    assert all(t.device.type == "cpu" for p in lenet.params.values()
+               for t in p.values())
+    rebuilt = (TransferLearning.GraphBuilder(net)
+               .set_feature_extractor("res3a").build())
+    assert rebuilt.device.type == "cpu"
+    assert all(t.device.type == "cpu" for p in rebuilt.params.values()
+               for t in p.values())
 
 
 def test_prng_key_lands_on_the_card(no_cuda):

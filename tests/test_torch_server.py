@@ -347,8 +347,17 @@ def test_fleet_generate_predict_stats_and_metrics_equal_jax(lm):
     greedy and sampled tokens, ``/predict`` through a coalescing server
     JAX's rows, ``/stats`` JAX's keys (per-replica blocks included) and one
     ``/metrics`` scrape JAX's families."""
+    from deeplearning4j_torch.optimize.health import HealthPolicy
+    from deeplearning4j_tpu.optimize.health import (
+        HealthPolicy as JHealthPolicy)
+
     jnet, tnet = lm
     jmln, tmln = mln_pair()
+    # ``fit`` registers the health guard's families in each package's
+    # process registry; whether an earlier test in this process ran one
+    # depends on the test order, so register them on both sides here
+    HealthPolicy()
+    JHealthPolicy()
     x = features(4, seed=12)
     reqs = [{"prompt_ids": [1, 2, 3], "max_tokens": 4},
             {"prompt_ids": [4, 5, 6, 7], "max_tokens": 6,
