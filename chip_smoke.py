@@ -262,6 +262,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``load_model(..., device="cuda")``. No hand-written kernel runs there
    (convolutions, batch norm and the einsums are library calls, as the
    JAX package's are XLA's).
+13. layer-wise pretraining, the data pipeline and listeners (no
+   hand-written kernel: the JAX package computes them in XLA or on the
+   host). 13a: dl4j-examples' ``DeepAutoEncoderExample`` stack (binary
+   RBMs 784 -> 1000 -> 500 -> 250 -> 100 -> 30 and the mirrored decoder,
+   a sigmoid MSE head; CD-1, Adam, batch 128) on ``CurvesDataSetIterator``:
+   ``pretrain`` at 20 steps a layer, each layer's first CD step card
+   against CPU from the same state and key (gradients within 1e-4 of
+   max|g| once the card's hidden samples are handed to the CPU; the units
+   where the CPU's own sample differs counted as flips), steps/s a layer,
+   launches a step and the idle share, layer 0's reconstruction MSE before
+   and after, then ``fit`` of the stack. 13b: ``VaeMNISTAnomaly``'s VAE
+   (784 -> 256, 256 -> 32 -> 256, 256, Bernoulli(sigmoid), Adam 1e-3, L2
+   1e-4) on synthetic MNIST: its first step card against CPU in f64
+   (1e-6 of the bound) and f32 (reported), the -ELBO over 50 steps,
+   steps/s. 13c: a stacked denoising AutoEncoder 784 -> 500 -> 250
+   (corruption 0.3) on the curves under the same first-step rule, then
+   ``fit``. 13d: LeNet ``fit`` through ``AsyncDataSetIterator(
+   DevicePrefetchIterator(...))`` and through ``MultipleEpochsIterator``
+   bit for bit their plain runs; an Iris MLP; ``ProfilerListener``'s
+   Chrome trace holding kernel events of its window; ``threshold_encode``
+   card = CPU bit for bit; ``DL4JClassifier`` bit for bit the net's own
+   ``fit``/``output``.
 
 Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
 calls (``ms``: the wrapper's host work included, which sets the pace once
@@ -280,14 +302,14 @@ its convolutions and pooling are library calls, as the JAX package's are
 XLA's), phase 9 (the serving fabric: K1, both routes of K2, K3 and K4),
 phase 10 (retrieval and RAG: both routes of K2 on the generate tier;
 the stores' searches are matmuls and top-k, as the JAX package's are
-XLA's), phase 11 (recurrent nets, which launch none of K1-K4) and
-phase 12 (graphs and fine-tuning, which launch none either). The
-launch counters are zeroed just before each of the fourteen and read
-just after (phase 6's and the reference servers' and forwards' launches
-are not counted); every kernel must have run on the main path, K2's
-chunk route and its merge pass included, and each path but phases 8, 11
-and 12 must have launched its own kernels (those three must launch
-none). The
+XLA's), phase 11 (recurrent nets, which launch none of K1-K4), phase
+12 (graphs and fine-tuning, which launch none either) and phase 13
+(pretraining and the data pipeline, none either). The launch counters
+are zeroed just before each of the fifteen and read just after (phase
+6's and the reference servers' and forwards' launches are not counted);
+every kernel must have run on the main path, K2's chunk route and its
+merge pass included, and each path but phases 8, 11, 12 and 13 must have
+launched its own kernels (those four must launch none). The
 script
 prints the card's name and power limit, one ``{"kernels": [...]}`` line with
 each kernel's launches, error, times and bound, and, last, the result line
@@ -5837,8 +5859,469 @@ def phase_graphs(card):
                 solvers=solvers, vertex_zip=vertex_zip, wall_s=wall)
 
 
+# ------------------------------------------------------------- phase 13
+#: 13a: dl4j-examples' DeepAutoEncoderExample: RBM encoder widths and the
+#: mirrored decoder, CD-1, batch 128; 10 curve batches twice = 20 steps a
+#: layer
+DBN = dict(encoder=(1000, 500, 250, 100, 30), batch=128, batches=10,
+           epochs=2, lr=1e-2, seed=123)
+#: 13b: dl4j-examples' VaeMNISTAnomaly
+VAE = dict(encoder=(256, 256), decoder=(256, 256), latent=32, batch=128,
+           steps=50, lr=1e-3, l2=1e-4, seed=123)
+#: 13c: a stacked denoising autoencoder on the curves
+SDA = dict(sizes=(500, 250), corruption=0.3, lr=1e-3, seed=12)
+#: 13d: LeNet batches for the iterator checks, Iris epochs, the profiler
+#: window (iterations), the accumulation vector's length
+PIPE = dict(lenet_batches=16, lenet_batch=64, iris_epochs=60,
+            iris_batch=50, profile_start=4, profile_n=8, accum=2_800_000)
+#: the first pretrain step card against CPU: 1e-4 of each leaf's max|g|
+PRETRAIN_RULE = 1e-4
+
+
+def curves_batches():
+    """The curves set (generated from its seed, labels = features) as
+    ``DBN["batches"]`` numpy DataSets of ``DBN["batch"]``."""
+    from deeplearning4j_torch.datasets.curves import CurvesDataSetIterator
+
+    return list(CurvesDataSetIterator(
+        batch_size=DBN["batch"], num_examples=DBN["batch"] * DBN["batches"]))
+
+
+def pretrain_conf(layers, updater, dtype="float32", seed=123, l2=None):
+    from deeplearning4j_torch.nn.conf.builders import NeuralNetConfiguration
+    from deeplearning4j_torch.nn.conf.inputs import InputType
+
+    b = (NeuralNetConfiguration.builder().seed(seed).updater(updater)
+         .weight_init("xavier").dtype(dtype))
+    if l2:
+        b = b.l2(l2)
+    return b.list(*layers).set_input_type(InputType.feed_forward(784)).build()
+
+
+def probe_net(net, device, dtype):
+    """A copy of ``net`` on ``device`` in ``dtype`` under Sgd(1.0), so one
+    ``_pretrain_layer`` step moves each leaf by minus its gradient."""
+    import copy
+
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.nn.updater import Sgd
+
+    conf = copy.deepcopy(net.conf)
+    conf.updater = Sgd(learning_rate=1.0)
+    conf.dtype = dtype
+    dt = getattr(torch, dtype)
+    return MultiLayerNetwork(conf).init(
+        {k: {n: t.detach().to("cpu", dt, copy=True) for n, t in p.items()}
+         for k, p in net.params.items()}, device=device)
+
+
+def first_pretrain_step(net, idx, ds, dtype="float32"):
+    """Layer ``idx``'s first pretrain step (key ``fold_in(PRNGKey(seed +
+    idx), 0)``) on the card and on the CPU from ``net``'s state, as
+    gradients: the worst leaf's max|g_card - g_cpu| over ``PRETRAIN_RULE``
+    of its max|g_cpu|. An RBM's binary hidden samples of the card are
+    handed to the CPU (so the comparison is of the arithmetic) and the
+    units where the CPU's own sample differs are counted as flips."""
+    card, cpu = probe_net(net, "cuda", dtype), probe_net(net, "cpu", dtype)
+    lc, lh = card.layers[idx], cpu.layers[idx]
+    seen = {"flips": 0, "units": 0}
+    if hasattr(lc, "_hidden_sample"):
+        def record(rng, pre, mean):
+            s = type(lc)._hidden_sample(lc, rng, pre, mean)
+            seen.setdefault("card", []).append(s.cpu())
+            return s
+
+        def inject(rng, pre, mean):
+            own = type(lh)._hidden_sample(lh, rng, pre, mean)
+            theirs = seen["card"][len(seen.get("used", []))]
+            seen.setdefault("used", []).append(1)
+            seen["flips"] += int((own != theirs).sum())
+            seen["units"] += own.numel()
+            return theirs
+
+        lc._hidden_sample = record
+        lh._hidden_sample = inject
+    before = {n: t.detach().cpu().double() for n, t in
+              card.params[str(idx)].items()}
+    card._pretrain_layer(idx, ds, 1)
+    cpu._pretrain_layer(idx, ds, 1)
+    worst, leaf = 0.0, None
+    for n, b in before.items():
+        gd = b - card.params[str(idx)][n].cpu().double()
+        gc = b - cpu.params[str(idx)][n].double()
+        r = ((gd - gc).abs().max() / (PRETRAIN_RULE * max(
+            gc.abs().max().item(), 1e-300))).item()
+        if r > worst:
+            worst, leaf = r, n
+    return dict(rule=worst, leaf=leaf, flips=seen["flips"],
+                units=seen["units"])
+
+
+def timed_pretrain(net, data, epochs, checks):
+    """``net.pretrain(data, epochs)`` with each layer's ``_pretrain_layer``
+    timed (synchronized) and its per-step losses kept; ``checks(idx)``
+    runs before each layer, from the state that layer starts at, outside
+    the timing. Returns ``{idx: dict(s, steps, losses, check)}``."""
+    out = {}
+    orig = net._pretrain_layer
+
+    def wrapped(idx, it, n_epochs):
+        res = checks(idx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = orig(idx, it, n_epochs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[idx] = dict(s=wall, steps=len(losses), steps_per_s=len(losses)
+                        / wall, losses=[float(v) for v in losses],
+                        check=res)
+        return losses
+
+    net._pretrain_layer = wrapped
+    try:
+        net.pretrain(data, epochs=epochs)
+    finally:
+        del net._pretrain_layer
+    return out
+
+
+def pretrain_profile(net, idx, data, steps):
+    """Launches a step and the idle share of ``steps`` pretrain steps of
+    layer ``idx`` on a copy of ``net``."""
+    probe = net.clone()
+    probe._pretrain_layer(idx, data[:1], 1)
+    return busy_share(lambda: probe._pretrain_layer(idx, data[:steps], 1),
+                      steps)
+
+
+def rbm_recon_mse(net, idx, x):
+    lyr, p = net.layers[idx], net.params[str(idx)]
+    with torch.no_grad():
+        return float(((lyr.prop_down(p, lyr.prop_up(p, x)) - x) ** 2).mean())
+
+
+def phase_dbn(curves, card):
+    """13a: a deep belief stack at DeepAutoEncoderExample's widths."""
+    from deeplearning4j_torch.nn.conf.layers import OutputLayer, RBM
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.nn.updater import Adam
+
+    widths = DBN["encoder"] + DBN["encoder"][-2::-1]
+    layers = [RBM(n_out=w) for w in widths] + [
+        OutputLayer(n_out=784, activation="sigmoid", loss="mse")]
+    net = MultiLayerNetwork(pretrain_conf(
+        layers, Adam(learning_rate=DBN["lr"]), seed=DBN["seed"])).init(
+            device="cuda")
+    x0 = torch.from_numpy(curves[0].features).cuda()
+    mse0 = rbm_recon_mse(net, 0, x0)
+    score0 = net.score(curves[0])
+    first = curves[:1]
+    per = timed_pretrain(net, curves, DBN["epochs"],
+                         lambda idx: first_pretrain_step(net, idx, first[0]))
+    mse1 = rbm_recon_mse(net, 0, x0)
+    flips = sum(r["check"]["flips"] for r in per.values())
+    units = sum(r["check"]["units"] for r in per.values())
+    worst = max(per.items(), key=lambda kv: kv[1]["check"]["rule"])
+    check(len(per) == len(widths) and all(
+        r["steps"] == DBN["batches"] * DBN["epochs"] for r in per.values()),
+        f"13a: pretrain ran layers {sorted(per)} with steps "
+        f"{[r['steps'] for r in per.values()]}")
+    check(worst[1]["check"]["rule"] <= 1.0,
+          f"13a: layer {worst[0]}'s first CD step card vs CPU "
+          f"{worst[1]['check']['rule']:.3g} of the bound at "
+          f"{worst[1]['check']['leaf']}")
+    check(all(np.isfinite(r["losses"]).all() for r in per.values()),
+          "13a: a pretrain loss is not finite")
+    check(mse1 < mse0, f"13a: layer 0's reconstruction MSE {mse0:.5f} -> "
+                       f"{mse1:.5f} did not fall")
+    prof = {i: pretrain_profile(net, i, curves, 5) for i in (0, 4)}
+    fit_t0 = time.perf_counter()
+    net.fit(curves)
+    score1 = float(net.score(curves[0]))
+    fit_s = time.perf_counter() - fit_t0
+    check(np.isfinite(score1) and score1 < score0,
+          f"13a: fit of the stack: MSE {score0:.5f} -> {score1:.5f}")
+    for i, r in sorted(per.items()):
+        log(f"  13a layer {i} ({net.layers[i].n_in} -> "
+            f"{net.layers[i].n_out}): {r['steps_per_s']:.1f} steps/s, "
+            f"first step {r['check']['rule']:.3g} of the bound, flips "
+            f"{r['check']['flips']}/{r['check']['units']}, recon error "
+            f"{r['losses'][0]:.3f} -> {r['losses'][-1]:.3f}")
+    log(f"  13a: layer 0 reconstruction MSE {mse0:.5f} -> {mse1:.5f}; "
+        f"flips {flips} of {units} units; launches a step "
+        f"{prof[0]['kernel_launches_per_step']:.0f} (layer 0) / "
+        f"{prof[4]['kernel_launches_per_step']:.0f} (layer 4), idle "
+        f"{prof[0]['idle_share']:.3f} / {prof[4]['idle_share']:.3f}; fit "
+        f"{len(curves)} steps {fit_s / len(curves) * 1e3:.2f} ms/step, MSE "
+        f"{score0:.5f} -> {score1:.5f}; [{card}]")
+    return dict(layers={str(i): dict(n_in=net.layers[i].n_in,
+                                     n_out=net.layers[i].n_out,
+                                     steps_per_s=r["steps_per_s"],
+                                     first_step_rule=r["check"]["rule"],
+                                     flips=r["check"]["flips"],
+                                     units=r["check"]["units"],
+                                     loss_first=r["losses"][0],
+                                     loss_last=r["losses"][-1])
+                        for i, r in per.items()},
+                flips=flips, units=units, recon_mse=[mse0, mse1],
+                profile={str(i): p for i, p in prof.items()},
+                fit_ms_per_step=fit_s / len(curves) * 1e3,
+                fit_mse=[float(score0), score1])
+
+
+def phase_vae(card):
+    """13b: the VAE of VaeMNISTAnomaly on the synthetic MNIST."""
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.datasets.mnist import synthetic_mnist
+    from deeplearning4j_torch.nn.conf.layers import (
+        BernoulliReconstructionDistribution, VariationalAutoencoder)
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.nn.updater import Adam
+
+    data = synthetic_mnist(VAE["batch"] * VAE["steps"], seed=VAE["seed"])
+    batches = list(data.batch_by(VAE["batch"]))
+    vae = VariationalAutoencoder(
+        n_out=VAE["latent"], encoder_layer_sizes=VAE["encoder"],
+        decoder_layer_sizes=VAE["decoder"], activation="leakyrelu",
+        pzx_activation="identity",
+        reconstruction_distribution=BernoulliReconstructionDistribution(
+            activation="sigmoid"))
+    net = MultiLayerNetwork(pretrain_conf(
+        [vae], Adam(learning_rate=VAE["lr"]), seed=VAE["seed"],
+        l2=VAE["l2"])).init(device="cuda")
+    f64 = first_pretrain_step(net, 0, batches[0], "float64")
+    f32 = first_pretrain_step(net, 0, batches[0], "float32")
+    check(f64["rule"] <= 1e-6,
+          f"13b: first VAE step card vs CPU in f64 {f64['rule']:.3g} of the "
+          f"bound at {f64['leaf']}")
+    per = timed_pretrain(net, batches, 1, lambda idx: None)[0]
+    elbo = per["losses"]
+    first, last = float(np.mean(elbo[:5])), float(np.mean(elbo[-5:]))
+    check(np.isfinite(elbo).all() and last < first,
+          f"13b: -ELBO {first:.2f} -> {last:.2f}")
+    prof = pretrain_profile(net, 0, batches, 5)
+    x = torch.from_numpy(batches[0].features).cuda()
+    with torch.no_grad():
+        rec = net.layers[0].reconstruct(net.params["0"], x)
+    check(rec.shape == x.shape and torch.isfinite(rec).all().item(),
+          "13b: reconstruct")
+    log(f"  13b VAE 784 -> {VAE['encoder']} -> {VAE['latent']} -> "
+        f"{VAE['decoder']}: first step card vs CPU {f64['rule']:.3g} of the "
+        f"bound in f64 ({f64['leaf']}), {f32['rule']:.3g} in f32 "
+        f"({f32['leaf']}); -ELBO {elbo[0]:.2f} -> {elbo[-1]:.2f} over "
+        f"{len(elbo)} steps (mean of 5: {first:.2f} -> {last:.2f}); "
+        f"{per['steps_per_s']:.1f} steps/s, "
+        f"{prof['kernel_launches_per_step']:.0f} launches a step, idle "
+        f"{prof['idle_share']:.3f}; [{card}]")
+    return dict(first_step_rule_f64=f64["rule"],
+                first_step_leaf_f64=f64["leaf"],
+                first_step_rule_f32=f32["rule"],
+                first_step_leaf_f32=f32["leaf"],
+                elbo=elbo, steps_per_s=per["steps_per_s"], profile=prof)
+
+
+def phase_sda(curves, card):
+    """13c: a stacked denoising autoencoder on the curves, then fit."""
+    from deeplearning4j_torch.nn.conf.layers import AutoEncoder, OutputLayer
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.nn.updater import Adam
+
+    layers = [AutoEncoder(n_out=w, corruption_level=SDA["corruption"])
+              for w in SDA["sizes"]] + [
+        OutputLayer(n_out=784, activation="sigmoid", loss="mse")]
+    net = MultiLayerNetwork(pretrain_conf(
+        layers, Adam(learning_rate=SDA["lr"]), seed=SDA["seed"])).init(
+            device="cuda")
+    x0 = torch.from_numpy(curves[0].features).cuda()
+
+    def clean_recon():
+        with torch.no_grad():
+            return float(net.layers[0].reconstruction_loss_per_example(
+                net.params["0"], x0).mean())
+
+    r0, score0 = clean_recon(), net.score(curves[0])
+
+    def both(idx):
+        return dict(f64=first_pretrain_step(net, idx, curves[0], "float64"),
+                    f32=first_pretrain_step(net, idx, curves[0]))
+
+    per = timed_pretrain(net, curves, DBN["epochs"], both)
+    r1 = clean_recon()
+    firsts = {i: {p: (r["check"][p]["rule"], r["check"][p]["leaf"])
+                  for p in ("f64", "f32")} for i, r in per.items()}
+    worst64 = max(f["f64"][0] for f in firsts.values())
+    worst32 = max(f["f32"][0] for f in firsts.values())
+    check(worst64 <= 1e-6 and worst32 <= 1.0,
+          f"13c: a first AutoEncoder step card vs CPU: {firsts}")
+    check(r1 < r0, f"13c: layer 0's reconstruction {r0:.5f} -> {r1:.5f}")
+    prof = pretrain_profile(net, 0, curves, 5)
+    t0 = time.perf_counter()
+    net.fit(curves)
+    score1 = float(net.score(curves[0]))
+    fit_s = time.perf_counter() - t0
+    check(np.isfinite(score1) and score1 < score0,
+          f"13c: fit MSE {score0:.5f} -> {score1:.5f}")
+    log(f"  13c stacked denoising AutoEncoder 784 -> {SDA['sizes']}: first "
+        f"steps card vs CPU (of the bound, worst leaf) {firsts}; "
+        f"{[round(r['steps_per_s'], 1) for r in per.values()]}"
+        f" steps/s; layer 0 reconstruction {r0:.5f} -> {r1:.5f}; "
+        f"{prof['kernel_launches_per_step']:.0f} launches a step, idle "
+        f"{prof['idle_share']:.3f}; fit MSE {score0:.5f} -> {score1:.5f} "
+        f"({fit_s / len(curves) * 1e3:.2f} ms/step); [{card}]")
+    return dict(first_steps={str(i): f for i, f in firsts.items()},
+                steps_per_s=[r["steps_per_s"] for r in per.values()],
+                recon=[r0, r1], fit_mse=[float(score0), score1],
+                fit_ms_per_step=fit_s / len(curves) * 1e3, profile=prof)
+
+
+def iris_conf():
+    from deeplearning4j_torch.nn.conf.builders import NeuralNetConfiguration
+    from deeplearning4j_torch.nn.conf.inputs import InputType
+    from deeplearning4j_torch.nn.conf.layers import DenseLayer, OutputLayer
+    from deeplearning4j_torch.nn.updater import Adam
+
+    return (NeuralNetConfiguration.builder().seed(6)
+            .updater(Adam(learning_rate=0.03))
+            .list(DenseLayer(n_out=10, activation="tanh"),
+                  OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(4)).build())
+
+
+def phase_pipeline(card, out_dir):
+    """13d: the data pipeline and listeners on the card."""
+    import json as _json
+
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.datasets.iterators import (
+        AsyncDataSetIterator, DevicePrefetchIterator, ListDataSetIterator,
+        MultipleEpochsIterator)
+    from deeplearning4j_torch.datasets.mnist import IrisDataSetIterator
+    from deeplearning4j_torch.ml import DL4JClassifier
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.optimize.accumulation import threshold_encode
+    from deeplearning4j_torch.optimize.listeners import ProfilerListener
+
+    n, b = PIPE["lenet_batches"], PIPE["lenet_batch"]
+    merged = DataSet.merge(mnist_nhwc(True, n * b, b))
+
+    def base():
+        return ListDataSetIterator(merged, batch_size=b)
+
+    twin("LeNet", "cuda").fit(base())        # warm: cuDNN's first calls
+    plain, piped = twin("LeNet", "cuda"), twin("LeNet", "cuda")
+    t0 = time.perf_counter()
+    plain.fit(base())
+    float(plain.score())
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    piped.fit(AsyncDataSetIterator(DevicePrefetchIterator(base(), depth=2)))
+    float(piped.score())
+    piped_s = time.perf_counter() - t0
+    pipe_bitwise = same_params(plain, piped)
+    check(piped.iteration == plain.iteration == n and pipe_bitwise[0],
+          f"13d: LeNet fit through Async(DevicePrefetch) vs plain: "
+          f"iterations {piped.iteration}/{plain.iteration}, {pipe_bitwise}")
+
+    twice, replay = twin("LeNet", "cuda"), twin("LeNet", "cuda")
+    twice.fit(base(), epochs=2)
+    replay.fit(MultipleEpochsIterator(base(), 2))
+    multi_bitwise = same_params(twice, replay)
+    check(replay.iteration == 2 * n and multi_bitwise[0],
+          f"13d: MultipleEpochsIterator vs epochs=2: {multi_bitwise}")
+
+    iris = IrisDataSetIterator(batch_size=PIPE["iris_batch"])
+    mlp = MultiLayerNetwork(iris_conf()).init(device="cuda")
+    mlp.fit(iris, epochs=PIPE["iris_epochs"])
+    acc = mlp.evaluate(IrisDataSetIterator(batch_size=150)).accuracy()
+    check(acc >= 0.9, f"13d: Iris MLP accuracy {acc:.4f}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log_dir = os.path.join(out_dir, "profiler_listener") if out_dir \
+            else tmp
+        lst = ProfilerListener(log_dir, start_iteration=PIPE["profile_start"],
+                               num_iterations=PIPE["profile_n"])
+        prof_net = twin("LeNet", "cuda")
+        prof_net.set_listeners(lst)
+        prof_net.fit(base())
+        check(lst.trace_path is not None, "13d: ProfilerListener wrote no "
+                                          "trace")
+        with open(lst.trace_path) as f:
+            events = _json.load(f)["traceEvents"]
+        trace_bytes = os.path.getsize(lst.trace_path)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(len(kernels) > 0, f"13d: the profiler trace holds no kernel "
+                            f"events ({len(events)} events)")
+
+    g = torch.Generator().manual_seed(5)
+    grad = torch.randn(PIPE["accum"], generator=g) * 1e-3
+    res = torch.randn(PIPE["accum"], generator=g) * 5e-4
+    msg_c, res_c = threshold_encode(grad, res, 1e-3)
+    gd, rd = grad.cuda(), res.cuda()
+    msg_d, res_d = threshold_encode(gd, rd, 1e-3)
+    enc_bitwise = (torch.equal(msg_d.cpu(), msg_c)
+                   and torch.equal(res_d.cpu(), res_c))
+    check(enc_bitwise, "13d: threshold_encode card != CPU")
+    enc_ms = time_ms(lambda: threshold_encode(gd, rd, 1e-3), iters=20)
+
+    rows = IrisDataSetIterator(batch_size=150).data
+    x, labels = rows.features, np.argmax(rows.labels, axis=-1)
+    clf = DL4JClassifier(iris_conf, epochs=PIPE["iris_epochs"],
+                         batch_size=PIPE["iris_batch"]).fit(x, labels)
+    own = MultiLayerNetwork(iris_conf()).init(device="cuda")
+    own.fit(ListDataSetIterator(DataSet(x, np.eye(3, dtype=np.float32)
+                                        [labels]),
+                                batch_size=PIPE["iris_batch"]),
+            epochs=PIPE["iris_epochs"])
+    clf_bitwise = (same_params(clf.net_, own)[0] and np.array_equal(
+        clf.predict_proba(x), own.output(x).cpu().numpy()))
+    check(clf.net_.device.type == "cuda",
+          f"13d: DL4JClassifier built its net on {clf.net_.device}")
+    check(clf_bitwise, "13d: DL4JClassifier differs from the net's own "
+                       "fit/output")
+    clf_acc = clf.score(x, labels)
+    log(f"  13d: LeNet fit through Async(DevicePrefetch) bitwise the plain "
+        f"iterator over {n} batches ({piped_s * 1e3 / n:.2f} vs "
+        f"{plain_s * 1e3 / n:.2f} ms/step, after a warm fit); "
+        f"MultipleEpochsIterator bitwise epochs=2; Iris MLP accuracy "
+        f"{acc:.4f}; ProfilerListener trace {trace_bytes} bytes, "
+        f"{len(kernels)} kernel events of {len(events)}; threshold_encode "
+        f"of {PIPE['accum']} card = CPU bitwise, {enc_ms:.4f} ms; "
+        f"DL4JClassifier bitwise the net's own fit/output, accuracy "
+        f"{clf_acc:.4f}; [{card}]")
+    return dict(prefetch_bitwise=pipe_bitwise[0],
+                prefetch_ms_per_step=piped_s * 1e3 / n,
+                plain_ms_per_step=plain_s * 1e3 / n,
+                multiple_epochs_bitwise=multi_bitwise[0], iris_accuracy=acc,
+                trace_bytes=trace_bytes, trace_kernel_events=len(kernels),
+                threshold_encode_bitwise=enc_bitwise,
+                threshold_encode_ms=enc_ms, classifier_bitwise=clf_bitwise,
+                classifier_accuracy=clf_acc)
+
+
+def phase_pretrain(card, out_dir=None):
+    """Phase 13: layer-wise pretraining, the data pipeline and listeners
+    (13a-13d)."""
+    t0 = time.perf_counter()
+    curves = curves_batches()
+    log(f"  13: {len(curves)} curve batches made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log("phase 13a: a deep belief stack (RBMs 784 -> 1000 -> 500 -> 250 -> "
+        "100 -> 30 and back, CD-1) on the curves, then fit")
+    dbn = phase_dbn(curves, card)
+    log("phase 13b: the VaeMNISTAnomaly VAE on synthetic MNIST")
+    vae = phase_vae(card)
+    log("phase 13c: a stacked denoising AutoEncoder on the curves, then "
+        "fit")
+    sda = phase_sda(curves, card)
+    log("phase 13d: the data pipeline and listeners")
+    pipe = phase_pipeline(card, out_dir)
+    wall = time.perf_counter() - t0
+    log(f"  phase 13: {wall:.1f} s; [{card}]")
+    return dict(dbn=dbn, vae=vae, sda=sda, pipeline=pipe, wall_s=wall)
+
+
 def kernel_line(flash, paged, bwd, launches, launches_d96,
-                launches_recurrent, launches_graphs):
+                launches_recurrent, launches_graphs, launches_pretrain):
     k1 = flash["slice_f32_causal"]
     k2 = paged["f32_T1_Tmax512"]
     k2c = paged["f32_T256_Tmax512"]          # the serve's first prefill round
@@ -5854,6 +6337,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "launches": launches["flash_fwd"],
          "launches_recurrent": launches_recurrent["flash_fwd"],
          "launches_graphs": launches_graphs["flash_fwd"],
+         "launches_pretrain": launches_pretrain["flash_fwd"],
          "max_abs_err": max(r["max_abs_err"] for n, r in flash.items()
                             if n.startswith("slice_f32")),
          "ms": k1["ms"], "device_ms": k1["device_ms"],
@@ -5875,6 +6359,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "launches": launches["paged_attn"],
          "launches_recurrent": launches_recurrent["paged_attn"],
          "launches_graphs": launches_graphs["paged_attn"],
+         "launches_pretrain": launches_pretrain["paged_attn"],
          "max_abs_err": max(r["max_abs_err"] for n, r in paged.items()
                             if n.startswith("f32_") and "Tmax512" in n),
          "ms": k2["ms"], "device_ms": k2["device_ms"],
@@ -5936,6 +6421,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
              "launches": launches[name],
              "launches_recurrent": launches_recurrent[name],
              "launches_graphs": launches_graphs[name],
+             "launches_pretrain": launches_pretrain[name],
              "max_abs_err": max(r["max_abs_err"][g] for r in slice_bwd
                                 for g in grads),
              "ms": kb[part]["ms"], "device_ms": kb[part]["device_ms"],
@@ -6187,11 +6673,19 @@ def main() -> int:
     graphs = dict(kernels.LAUNCHES)       # ... and ends here
     check(not any(graphs.values()),
           f"the graph path launched an attention kernel: {graphs}")
+    kernels.reset_launch_counts()         # the pretraining path starts here
+    log("phase 13: layer-wise pretraining (a deep belief stack, the VAE, a "
+        "stacked denoising AutoEncoder), the data pipeline and listeners")
+    REPORT["pretrain"] = phase_pretrain(card, args.out)
+    pretrain = dict(kernels.LAUNCHES)     # ... and ends here
+    check(not any(pretrain.values()),
+          f"the pretraining path launched an attention kernel: {pretrain}")
     windows = dict(serving=serving, loading=loading, fixture=fixture,
                    prefix=prefix, spec=spec, d96_serving=d96_serving,
                    training=training, d96_training=d96_training,
                    fitting=fitting, multilayer=multilayer, fabric=fabric,
-                   retrieval=retrieval, recurrent=recurrent, graphs=graphs)
+                   retrieval=retrieval, recurrent=recurrent, graphs=graphs,
+                   pretrain=pretrain)
     launches = {k: sum(w[k] for w in windows.values()) for k in serving}
     REPORT["main_path_launches"] = dict(windows, total=launches)
     check(all(n > 0 for n in launches.values()),
@@ -6216,7 +6710,7 @@ def main() -> int:
         f"{WINDOW_LOG['retried']}")
     line = kernel_line(flash, paged, bwd, launches,
                        {k: d96_serving[k] + d96_training[k]
-                        for k in d96_serving}, recurrent, graphs)
+                        for k in d96_serving}, recurrent, graphs, pretrain)
     REPORT["total_s"] = time.perf_counter() - t_start
     log(f"build {REPORT['build_s']:.1f} s, total {REPORT['total_s']:.1f} s")
     if args.out:

@@ -52,6 +52,14 @@ class DataSet:
     def num_examples(self) -> int:
         return int(self.features.shape[0])
 
+    @classmethod
+    def on_device(cls, features, labels=None, features_mask=None,
+                  labels_mask=None) -> "DataSet":
+        """A DataSet around tensors already placed on a device (JAX's
+        ``on_device``, which skips its ``np.asarray``; here the
+        constructor keeps tensors as they are too)."""
+        return cls(features, labels, features_mask, labels_mask)
+
     def _rows(self, idx) -> "DataSet":
         return DataSet(_take(self.features, idx), _take(self.labels, idx),
                        _take(self.features_mask, idx),

@@ -1,14 +1,21 @@
-"""DataSet iterators (port of the in-memory part of
-``deeplearning4j_tpu/datasets/iterators.py``): the ``DataSetIterator``
-contract and ``ListDataSetIterator``."""
+"""DataSet iterators (port of ``deeplearning4j_tpu/datasets/iterators.py``):
+the ``DataSetIterator`` contract, ``ListDataSetIterator``, the host-side
+prefetch thread ``AsyncDataSetIterator``, the device prefetch
+``DevicePrefetchIterator``, ``MultipleEpochsIterator`` and
+``SamplingDataSetIterator``."""
 
 from __future__ import annotations
 
-from typing import Optional
+import queue
+import threading
+from typing import Iterable, Optional
 
 import numpy as np
+import torch
 
+from deeplearning4j_torch import resolve_device
 from deeplearning4j_torch.datasets.dataset import DataSet
+from deeplearning4j_torch.optimize.fused_fit import device_put_ahead
 
 
 class DataSetIterator:
@@ -56,3 +63,175 @@ class ListDataSetIterator(DataSetIterator):
 
     def total_examples(self):
         return self.data.num_examples()
+
+
+def _base_iter(base):
+    return (base._iterate() if isinstance(base, DataSetIterator)
+            else iter(base))
+
+
+class AsyncDataSetIterator(DataSetIterator):
+    """Produces the base iterator's batches on a background thread into a
+    bounded queue, so batch production overlaps the training step. An
+    error in the producer is raised in the consumer; the thread is joined
+    when the pass ends, also when the consumer stops early."""
+
+    def __init__(self, base: Iterable, queue_size: int = 4):
+        self.base = base
+        self.queue_size = queue_size
+
+    def reset(self):
+        if hasattr(self.base, "reset"):
+            self.base.reset()
+
+    def _iterate(self):
+        q: queue.Queue = queue.Queue(maxsize=self.queue_size)
+        done = object()
+        err: list = []
+        stop = threading.Event()
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def worker():
+            try:
+                for ds in _base_iter(self.base):
+                    if not put(ds):
+                        return
+            except BaseException as e:  # raised on the consumer's side
+                err.append(e)
+            finally:
+                put(done)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                yield item
+        finally:
+            stop.set()
+            t.join()
+        if err:
+            raise err[0]
+
+    def total_examples(self):
+        return (self.base.total_examples()
+                if hasattr(self.base, "total_examples") else None)
+
+
+class DevicePrefetchIterator(DataSetIterator):
+    """Keeps the next ``depth`` minibatches already on the device while the
+    current one trains (``optimize/fused_fit.py::device_put_ahead`` issues
+    the copies ahead of use).
+
+    On CUDA each batch's arrays go through pinned host memory as
+    non-blocking copies on a side stream, so they overlap the running
+    step; an event recorded after them is waited on by the consumer's
+    stream when the batch is handed out, and each tensor is marked used
+    on that stream (``record_stream``), so no kernel reads a half-copied
+    batch and the allocator does not reuse its memory early. On the CPU
+    the arrays are wrapped without a copy. ``device`` is CUDA unless the
+    caller names another; ``sharding=`` (placement over several cards)
+    is ROADMAP A11c and raises."""
+
+    def __init__(self, base: Iterable, depth: int = 2, sharding=None,
+                 device=None):
+        if depth < 1:
+            raise ValueError("depth must be >= 1")
+        if sharding is not None:
+            raise NotImplementedError(
+                "DevicePrefetchIterator(sharding=...) places batches over "
+                "several cards, which is not ported yet (ROADMAP A11c)")
+        self.base = base
+        self.depth = depth
+        self.sharding = sharding
+        self.device = resolve_device(device)
+        self._stream = None
+
+    def reset(self):
+        if hasattr(self.base, "reset"):
+            self.base.reset()
+
+    def _put(self, ds):
+        arrs = (ds.features, ds.labels, ds.features_mask, ds.labels_mask)
+        cuda = self.device.type == "cuda"
+
+        def host(a):
+            if torch.is_tensor(a):
+                return a
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            return t.pin_memory() if cuda else t
+
+        if not cuda:
+            return tuple(None if a is None else host(a).to(self.device)
+                         for a in arrs), None
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._stream):
+            placed = tuple(None if a is None
+                           else host(a).to(self.device, non_blocking=True)
+                           for a in arrs)
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+        return placed, ready
+
+    def _iterate(self):
+        for placed, ready in device_put_ahead(_base_iter(self.base),
+                                              self.depth, self._put):
+            if ready is not None:
+                consumer = torch.cuda.current_stream(self.device)
+                consumer.wait_event(ready)
+                for t in placed:
+                    if t is not None and t.device.type == "cuda":
+                        t.record_stream(consumer)
+            yield DataSet.on_device(*placed)
+
+    def total_examples(self):
+        return (self.base.total_examples()
+                if hasattr(self.base, "total_examples") else None)
+
+
+class MultipleEpochsIterator(DataSetIterator):
+    """Replays a base iterator ``num_epochs`` times as one pass."""
+
+    def __init__(self, base: DataSetIterator, num_epochs: int):
+        self.base = base
+        self.num_epochs = num_epochs
+
+    def reset(self):
+        self.base.reset()
+
+    def _iterate(self):
+        for _ in range(self.num_epochs):
+            self.base.reset()
+            yield from self.base._iterate()
+
+
+class SamplingDataSetIterator(DataSetIterator):
+    """``total_batches`` batches sampled with replacement from a DataSet
+    (numpy's ``default_rng(seed + pass)``, the JAX package's draws)."""
+
+    def __init__(self, data: DataSet, batch_size: int, total_batches: int,
+                 seed: int = 0):
+        self.data = data
+        self.batch_size = batch_size
+        self.total_batches = total_batches
+        self.seed = seed
+        self._calls = 0
+
+    def _iterate(self):
+        rng = np.random.default_rng(self.seed + self._calls)
+        self._calls += 1
+        n = self.data.num_examples()
+        for _ in range(self.total_batches):
+            idx = rng.integers(0, n, self.batch_size)
+            yield DataSet(self.data.features[idx], self.data.labels[idx])

@@ -31,8 +31,8 @@ class MultiLayerConfiguration:
     before layer i. ``backprop_type="tbptt"`` makes ``fit`` train sequence
     batches by truncated BPTT in ``tbptt_fwd_length`` segments (a
     ``tbptt_back_length`` other than the forward length raises here, as in
-    the JAX package); ``pretrain`` makes ``fit`` raise (layer-wise
-    pretraining is ROADMAP A11b)."""
+    the JAX package); ``pretrain`` is stored and not read by ``fit``, as
+    in the JAX package (``MultiLayerNetwork.pretrain`` is explicit)."""
 
     layers: list = field(default_factory=list)
     preprocessors: dict = field(default_factory=dict)  # {int: preprocessor}

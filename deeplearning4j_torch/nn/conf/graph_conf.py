@@ -417,8 +417,8 @@ class ComputationGraphConfiguration:
     and serialized. ``compute_dtype`` is the training forward's dtype
     (``ComputationGraph._loss``); inference runs in ``dtype``.
     ``backprop_type="tbptt"`` trains a single-input graph's sequence
-    batches by truncated BPTT in ``fit``; ``pretrain`` makes ``fit`` raise
-    (layer-wise pretraining is ROADMAP A11b)."""
+    batches by truncated BPTT in ``fit``; ``pretrain`` is stored and not
+    read, as in the JAX package."""
 
     network_inputs: list = field(default_factory=list)
     network_outputs: list = field(default_factory=list)

@@ -24,21 +24,31 @@ from deeplearning4j_torch.nn.conf.layers.pooling import (GlobalPoolingLayer,
 from deeplearning4j_torch.nn.conf.layers.recurrent import (
     LSTM, GravesBidirectionalLSTM, GravesLSTM, LastTimeStep, RnnOutputLayer,
     SimpleRnn)
+from deeplearning4j_torch.nn.conf.layers.variational import (
+    BernoulliReconstructionDistribution, CompositeReconstructionDistribution,
+    ExponentialReconstructionDistribution,
+    GaussianReconstructionDistribution, LossFunctionWrapper,
+    VariationalAutoencoder)
 from deeplearning4j_torch.nn.conf.layers.misc import (CenterLossOutputLayer,
                                                       FrozenLayer)
+from deeplearning4j_torch.nn.conf.layers.rbm import RBM
 from deeplearning4j_torch.nn.conf.layers.moe import MixtureOfExpertsLayer
 from deeplearning4j_torch.nn.conf.layers.attention import (
     PositionalEncodingLayer, SelfAttentionLayer)
 
 __all__ = [
     "ActivationLayer", "AutoEncoder", "BaseLayer", "BatchNormalization",
-    "CenterLossOutputLayer", "Convolution1DLayer", "ConvolutionLayer",
-    "Deconvolution2D", "DenseLayer", "DropoutLayer", "EmbeddingLayer",
-    "FeedForwardLayer", "FrozenLayer", "GlobalPoolingLayer",
-    "GravesBidirectionalLSTM", "GravesLSTM", "LSTM", "LastTimeStep", "Layer",
-    "LayerNormalization", "LocalResponseNormalization", "LossLayer",
+    "BernoulliReconstructionDistribution", "CenterLossOutputLayer",
+    "CompositeReconstructionDistribution", "Convolution1DLayer",
+    "ConvolutionLayer", "Deconvolution2D", "DenseLayer", "DropoutLayer",
+    "EmbeddingLayer", "ExponentialReconstructionDistribution",
+    "FeedForwardLayer", "FrozenLayer", "GaussianReconstructionDistribution",
+    "GlobalPoolingLayer", "GravesBidirectionalLSTM", "GravesLSTM", "LSTM",
+    "LastTimeStep", "Layer", "LayerNormalization",
+    "LocalResponseNormalization", "LossFunctionWrapper", "LossLayer",
     "MixtureOfExpertsLayer", "OutputLayer", "PoolingType",
-    "PositionalEncodingLayer", "RnnOutputLayer", "SelfAttentionLayer",
-    "SeparableConvolution2D", "SimpleRnn", "Subsampling1DLayer",
-    "SubsamplingLayer", "Upsampling2D", "ZeroPaddingLayer",
+    "PositionalEncodingLayer", "RBM", "RnnOutputLayer",
+    "SelfAttentionLayer", "SeparableConvolution2D", "SimpleRnn",
+    "Subsampling1DLayer", "SubsamplingLayer", "Upsampling2D",
+    "VariationalAutoencoder", "ZeroPaddingLayer",
 ]

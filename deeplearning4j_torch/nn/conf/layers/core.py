@@ -1,7 +1,7 @@
 """Core feed-forward layers (port of ``nn/conf/layers/core.py``): Dense, the
 Dense + loss head ``OutputLayer``, the loss-only ``LossLayer``,
-``ActivationLayer``, ``DropoutLayer`` and ``EmbeddingLayer``.
-``AutoEncoder`` needs layer-wise pretraining (ROADMAP A11b) and raises."""
+``ActivationLayer``, ``DropoutLayer``, ``EmbeddingLayer`` and the
+denoising ``AutoEncoder`` (trained by ``MultiLayerNetwork.pretrain``)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch
 
 from deeplearning4j_torch.nn.conf.layers.base import (BaseLayer,
                                                       FeedForwardLayer)
+from deeplearning4j_torch.ops import random
 from deeplearning4j_torch.ops.losses import get_loss
 from deeplearning4j_torch.utils.serde import register_serializable
 
@@ -145,15 +146,45 @@ class EmbeddingLayer(FeedForwardLayer):
 @register_serializable
 @dataclass
 class AutoEncoder(FeedForwardLayer):
-    """Registered so a configuration naming it fails with its reason: the
-    denoising autoencoder trains by layer-wise pretraining, which is not
-    ported (ROADMAP A11b)."""
+    """Denoising autoencoder. The supervised forward is the encoder
+    (``activation(x @ W + b)``); layer-wise pretraining minimizes
+    ``reconstruction_loss_per_example``: the input corrupted by a
+    keep-mask ``bernoulli(rng, 1 - corruption_level, x.shape)`` (JAX's
+    draw bit for bit), encoded, decoded through ``Wᵀ`` and the visible bias
+    ``vb``, and scored by ``loss`` against the clean input."""
 
     corruption_level: float = 0.3
     sparsity: float = 0.0
     loss: str = "mse"
 
-    def __post_init__(self):
-        raise NotImplementedError(
-            "AutoEncoder trains by layer-wise pretraining, which is not "
-            "ported yet (ROADMAP A11b)")
+    def param_order(self):
+        return ["W", "b", "vb"]
+
+    def bias_param_names(self):
+        return frozenset({"b", "vb"})
+
+    def init_params(self, gen, dtype=torch.float32, device="cpu"):
+        W = self._init_w(gen, (self.n_in, self.n_out), self.n_in, self.n_out,
+                         dtype, device)
+        return {"W": W, "b": self._bias(self.n_out, dtype, device),
+                "vb": torch.zeros(self.n_in, dtype=dtype, device=device)}
+
+    def preactivate(self, params, x):
+        return torch.matmul(x, params["W"]) + params["b"]
+
+    def forward(self, params, state, x, *, mask=None, train=False,
+                rng=None):
+        x = self.apply_input_dropout(x, train=train, rng=rng)
+        return self.act()(self.preactivate(params, x)), state
+
+    def reconstruction_loss_per_example(self, params, x, rng=None):
+        corrupted = x
+        if rng is not None and self.corruption_level > 0:
+            keep = random.bernoulli(rng, 1.0 - self.corruption_level,
+                                    x.shape)
+            corrupted = torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
+        hidden = self.act()(self.preactivate(params, corrupted))
+        recon_pre = torch.matmul(hidden, params["W"].T) + params["vb"]
+        return get_loss(self.loss).per_example(x, recon_pre, self.act(),
+                                               None)

@@ -21,8 +21,9 @@ The training plumbing it shares with ``MultiLayerNetwork`` is
 ``nn/network.py``, truncated BPTT included: a graph with one network
 input sends a 3-D DataSet to it under ``backprop_type="tbptt"``. Vertices
 see the network inputs and their masks through ``ctx`` (what
-``LastTimeStepVertex`` and ``DuplicateToTimeSeriesVertex`` read). Not
-ported: layer-wise pretraining (ROADMAP A11b); ``fit`` raises on it.
+``LastTimeStepVertex`` and ``DuplicateToTimeSeriesVertex`` read). As in
+the JAX package, a graph has no layer-wise ``pretrain`` and ``fit`` does
+not read ``conf.pretrain``.
 """
 
 from __future__ import annotations

@@ -15,8 +15,9 @@ evaluation and the flat parameters are ``nn/network.py``'s; ``output``
 pads the batch to a power of two (``optimize/bucketing.py``) as JAX's
 does. ``_fit_batch`` sends a 3-D DataSet to truncated BPTT under
 ``backprop_type="tbptt"``; ``rnn_time_step`` streams the recurrent layers'
-h/c and the attention layers' KV caches. ``pretrain`` is not ported
-(ROADMAP A11b) and raises.
+h/c and the attention layers' KV caches. ``pretrain`` trains the RBM,
+AutoEncoder and VAE layers one at a time on their unsupervised losses,
+as JAX's does.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from deeplearning4j_torch.nn.conf.builders import MultiLayerConfiguration
 from deeplearning4j_torch.nn.conf.layers.misc import CenterLossOutputLayer
 from deeplearning4j_torch.nn.conf.preprocessors import preprocessor_key
 from deeplearning4j_torch.nn.network import CARRY_KEYS, Network
-from deeplearning4j_torch.nn.regularization import penalty_value
+from deeplearning4j_torch.nn.regularization import (add_regularization_grads,
+                                                   penalty_value)
 from deeplearning4j_torch.optimize.bucketing import bucket_rows, pad_rows
 from deeplearning4j_torch.ops import random
 
@@ -178,10 +180,73 @@ class MultiLayerNetwork(Network):
             self.do_step(ds.features, ds.labels, ds.features_mask,
                          ds.labels_mask)
 
-    # --------------------------------------------------- not ported (A11b)
+    # ---------------------------------------------------------- pretraining
     def pretrain(self, data_iterator, epochs: int = 1):
-        raise NotImplementedError(
-            "layer-wise pretraining is not ported yet (ROADMAP A11b)")
+        """Layer-wise unsupervised pretraining (JAX ``pretrain``): each
+        layer with a ``pretrain_loss_per_example`` (RBM, VAE) or a
+        ``reconstruction_loss_per_example`` (AutoEncoder), in order, for
+        ``epochs`` passes over ``data_iterator`` (a DataSet or an iterable
+        of them; ``reset()`` each epoch). Labels are not read. Like JAX's,
+        it leaves ``iteration`` where it was and fires no listener."""
+        for i, layer in enumerate(self.layers):
+            if not hasattr(layer, "pretrain_loss_per_example") and \
+                    not hasattr(layer, "reconstruction_loss_per_example"):
+                continue
+            self._pretrain_layer(i, data_iterator, epochs)
+        return self
+
+    def _pretrain_layer(self, idx, data_iterator, epochs):
+        """Train layer ``idx`` alone with fresh ``conf.updater`` state. Step
+        ``it`` (counted from 0 over the epochs) keys
+        ``fold_in(PRNGKey(seed + idx), it)``, split three ways as JAX
+        splits it: the inference forward of layers ``[0, idx)``, the
+        layer's input preprocessor, and the loss. The gradient of the mean
+        loss gains the closed-form L1/L2 gradients (biases take
+        ``l1_bias``/``l2_bias``) before the updater steps at ``it``.
+        Returns the per-step losses (0-d device tensors, not fetched)."""
+        layer = self.layers[idx]
+        key = str(idx)
+        loss_fn = (getattr(layer, "pretrain_loss_per_example", None)
+                   or layer.reconstruction_loss_per_example)
+        updater = self.conf.updater
+        opt_state = updater.init({key: self.params[key]})
+        base = random.PRNGKey(self.conf.seed + idx, device=self.device)
+        dtype = getattr(torch, self.conf.dtype)
+        batches = ([data_iterator] if hasattr(data_iterator, "features")
+                   else data_iterator)
+        losses = []
+        it = 0
+        for _ in range(epochs):
+            if hasattr(data_iterator, "reset"):
+                data_iterator.reset()
+            for ds in batches:
+                k_fwd, k_prep, k_loss = random.split(
+                    random.fold_in(base, it), 3)
+                with torch.no_grad():
+                    feats, _, _ = self._forward(
+                        self.params, self.state,
+                        self._as_tensor(ds.features, dtype), None,
+                        train=False, rng=k_fwd, upto=idx)
+                    prep = self.conf.preprocessors.get(idx)
+                    if prep is not None:
+                        feats = prep.forward(feats, rng=k_prep)
+                leaves = {n: t.detach().requires_grad_(True)
+                          for n, t in self.params[key].items()}
+                with torch.enable_grad():
+                    loss = loss_fn(leaves, feats, k_loss).mean()
+                    gs = torch.autograd.grad(loss, list(leaves.values()),
+                                             allow_unused=True)
+                grads = {key: {n: torch.zeros_like(t) if g is None else g
+                               for (n, t), g in zip(leaves.items(), gs)}}
+                with torch.no_grad():
+                    p_layer = {key: self.params[key]}
+                    grads = add_regularization_grads(self, p_layer, grads)
+                    steps, opt_state = updater.step(grads, opt_state, it)
+                    self.params[key] = {n: t - steps[key][n]
+                                        for n, t in p_layer[key].items()}
+                losses.append(loss.detach())
+                it += 1
+        return losses
 
     @torch.inference_mode()
     def rnn_time_step(self, x):

@@ -19,7 +19,8 @@ keyed by ``fold_in(PRNGKey(seed), iteration)`` where anything draws;
 driver, the health guard on). Under ``backprop_type="tbptt"`` a
 sequence batch trains by truncated BPTT (``_fit_tbptt``: one step per
 ``tbptt_fwd_length`` segment, the recurrent state carried between them).
-Layer-wise pretraining is not ported (ROADMAP A11b) and raises.
+``conf.pretrain`` is stored and not read by ``fit``, as in the JAX
+package: layer-wise pretraining is ``MultiLayerNetwork.pretrain``.
 """
 
 from __future__ import annotations
@@ -205,8 +206,8 @@ class Network:
         once per pass and fires the listeners' ``on_epoch_start`` and
         ``on_epoch_end``. Under ``backprop_type="tbptt"`` every batch takes
         the per-minibatch path (K = 1) and a sequence batch is trained by
-        ``_fit_tbptt``. ``conf.pretrain`` raises: layer-wise pretraining is
-        not ported (ROADMAP A11b)."""
+        ``_fit_tbptt``. ``conf.pretrain`` is not read (JAX's ``fit`` does
+        not read it either)."""
         from deeplearning4j_torch.datasets.dataset import (DataSet,
                                                            MultiDataSet)
         from deeplearning4j_torch.optimize.fused_fit import (
@@ -214,10 +215,6 @@ class Network:
         from deeplearning4j_torch.optimize.health import (
             resolve_health_policy)
 
-        if self.conf.pretrain:
-            raise NotImplementedError(
-                "pretrain=True: layer-wise pretraining is not ported yet "
-                "(ROADMAP A11b)")
         if labels is not None:
             data = DataSet(data, labels)
         K = resolve_fused_steps(self, fused_steps)

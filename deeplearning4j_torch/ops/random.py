@@ -25,7 +25,16 @@ seed:
   ``_uniform`` does (bf16, with 7 mantissa bits, draws 8-bit words);
 - ``bernoulli`` is ``uniform(key, shape, dtype of p) < p``; a Python
   float ``p`` has JAX's default float dtype, f64 under 64-bit types, so
-  its uniform takes 64-bit words (the two hash words, high then low);
+  its uniform takes 64-bit words (the two hash words, high then low); an
+  array ``p`` draws in its own dtype over its own shape;
+- ``normal`` is ``√2·erf_inv(u)`` with ``u`` uniform on ``[nextafter(-1,
+  0), 1)``. In f32 it is bitwise XLA's CPU program: Giles' polynomial
+  (``_xla_erf_inv``) over XLA's ``log1p`` (``_xla_log1p``: Cephes'
+  rational function below ``√2 - 1``, ``_xla_log(1 + x)`` above) with
+  fused multiply-adds, and a correctly rounded square root (XLA's is;
+  torch's CPU f32 ``sqrt`` is not always). In f64 the inverse error
+  function is ``torch.erfinv``, not XLA's f64 polynomial: within 2^13
+  ulps of JAX's draw (about 1e-12 relative);
 - ``gumbel`` is JAX's default ``mode="low"``, ``-log(-log(u))`` with ``u``
   uniform on ``[tiny, 1)``, as XLA compiles it on the CPU. Its logarithm
   is XLA's (``_xla_log``: the Cephes polynomial with fused multiply-adds,
@@ -144,18 +153,38 @@ def uniform(key: torch.Tensor, shape=(), dtype=torch.float32,
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
-def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
-    """``jax.random.bernoulli(key, p, shape)`` (``mode="low"``) for one
-    ``[2]`` key and a Python-float ``p``: a bool tensor, True where an f64
-    uniform draw is below ``p`` (JAX gives a Python float its default
-    dtype, f64 under 64-bit types, as the keys here follow). The f64
-    uniform is the top 52 bits of the 64-bit word ``(o1 << 32) | o2`` over
-    2^52, compared in f64 on the key's device."""
-    shape = tuple(int(s) for s in shape)
+def _uniform64(key: torch.Tensor, shape, minval=0.0, maxval=1.0
+               ) -> torch.Tensor:
+    """``jax.random.uniform`` in f64 for one ``[2]`` key: the top 52 bits
+    of the 64-bit word ``(o1 << 32) | o2`` over 2^52, then scaled and
+    shifted in f64."""
     hi, lo = _counters(shape, key.device)
     o1, o2 = threefry2x32(key[0], key[1], hi, lo)
-    top = (o1 << 20) | (o2 >> 12)
-    return top.to(torch.float64) * 2.0 ** -52 < float(p)
+    floats = ((o1 << 20) | (o2 >> 12)).to(torch.float64) * 2.0 ** -52
+    return torch.clamp(floats * (maxval - minval) + minval, min=minval)
+
+
+def bernoulli(key: torch.Tensor, p, shape=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (``mode="low"``) for one
+    ``[2]`` key: a bool tensor, True where a uniform draw is below ``p``.
+
+    A Python-float ``p`` takes JAX's default float dtype, f64 under 64-bit
+    types (as the keys here follow): the f64 uniform is the top 52 bits of
+    the 64-bit word ``(o1 << 32) | o2`` over 2^52, compared in f64 on the
+    key's device. A tensor ``p`` (f32 or f64, an RBM's hidden means) draws
+    a uniform of its own dtype over ``shape`` (its own shape when None)."""
+    if torch.is_tensor(p):
+        shape = tuple(p.shape) if shape is None else tuple(int(s)
+                                                           for s in shape)
+        if p.dtype == torch.float64:
+            u = _uniform64(key, shape)
+        elif p.dtype == torch.float32:
+            u = uniform(key, shape, torch.float32)
+        else:
+            raise TypeError(f"bernoulli takes an f32 or f64 p, got {p.dtype}")
+        return u < p
+    shape = tuple(int(s) for s in shape)
+    return _uniform64(key, shape) < float(p)
 
 
 def _f32(x: float) -> float:
@@ -271,3 +300,71 @@ def _gumbel_from_bits(bits: torch.Tensor, dtype) -> torch.Tensor:
     u = torch.clamp(floats, min=torch.finfo(dtype).tiny)   # tiny is exact
     nl = (-_xla_log(u.float())).to(dtype)
     return (-_xla_log(nl.float())).to(dtype)
+
+
+# Cephes' log1p rational function, as XLA's CPU backend emits it
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+# Giles' single-precision erf_inv coefficients, w < 5 and w >= 5
+_ERFINV_LT = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+              -4.39150654e-06, 0.00021858087, -0.00125372503,
+              -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE = (-0.000200214257, 0.000100950558, 0.00134934322,
+              -0.00367342844, 0.00573950773, -0.0076224613,
+              0.00943887047, 1.00167406, 2.83297682)
+
+
+def _horner32(x, coeffs):
+    r = torch.full_like(x, _f32(coeffs[0]))
+    for c in coeffs[1:]:
+        r = _fma32(r, x, _f32(c))
+    return r
+
+
+def _xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + x)`` of f32 ``x`` bit for bit as XLA's CPU backend
+    computes it: below ``√2 - 1`` in magnitude, ``x - x²/2 + x³·P(x)/Q(x)``
+    (Cephes' rational function, Horner with fused multiply-adds); above,
+    ``_xla_log(x + 1)``."""
+    x2 = x * x
+    r = (x * x2) * (_horner32(x, _LOG1P_NUM) / _horner32(x, _LOG1P_DEN))
+    small = x + _fma32(x2, -0.5, r)
+    return torch.where(x.abs() < 0.41421356237309504880, small,
+                       _xla_log(x + 1.0))
+
+
+def _xla_erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """The inverse error function of f32 ``x`` in ``[-1, 1]`` bit for bit as
+    XLA's CPU backend computes it (Giles, "Approximating the erfinv
+    function"): ``w = -log1p(-x²)``, a degree-8 polynomial in ``w - 2.5``
+    (``w < 5``) or ``√w - 3`` with fused multiply-adds, times ``x``;
+    ``±1`` give ``±inf``."""
+    w = -_xla_log1p(x * -x)
+    lt = w < 5.0
+    # f32 sqrt correctly rounded (through f64), as XLA's
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    p = torch.where(lt, _f32(_ERFINV_LT[0]), _f32(_ERFINV_GE[0])).to(x)
+    for a, b in zip(_ERFINV_LT[1:], _ERFINV_GE[1:]):
+        p = _fma32(p, w, torch.where(lt, _f32(a), _f32(b)).to(x))
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def normal(key: torch.Tensor, shape=(), dtype=torch.float32
+           ) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)`` for one ``[2]`` key in f32
+    (bitwise) or f64 (``torch.erfinv``: within 2^13 ulps): ``√2·erf_inv(u)``
+    with ``u`` uniform on ``[nextafter(-1, 0), 1)``."""
+    shape = tuple(int(s) for s in shape)
+    if dtype == torch.float32:
+        lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+        u = uniform(key, shape, torch.float32, lo, 1.0)
+        return _f32(math.sqrt(2.0)) * _xla_erf_inv(u)
+    if dtype == torch.float64:
+        u = _uniform64(key, shape, math.nextafter(-1.0, 0.0), 1.0)
+        return math.sqrt(2.0) * torch.erfinv(u)
+    raise TypeError(f"normal takes f32 or f64, got {dtype}")

@@ -8,12 +8,14 @@ parameters a hook sees are the END-OF-BLOCK parameters. Listeners that want
 the whole stacked score array override ``on_block_done``.
 
 ``EvaluativeListener`` evaluates the net on a held-out iterator every N
-iterations. ``ProfilerListener`` is not ported yet (ROADMAP A11b).
+iterations. ``ProfilerListener`` records a ``torch.profiler`` trace of a
+window of iterations into a Chrome trace file.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Optional
 
@@ -139,6 +141,48 @@ class TimeIterationListener(TrainingListener):
             remaining = (self.total_iterations - iteration) * rate
             log.info("iteration %d/%d, ~%.0fs remaining", iteration,
                      self.total_iterations, remaining)
+
+
+class ProfilerListener(TrainingListener):
+    """Profile a window of iterations: the trace starts at the first
+    ``iteration_done`` with ``start_iteration <= iteration <
+    start_iteration + num_iterations`` and stops at the first one past the
+    window (JAX's window logic). ``torch.profiler`` records CPU activity,
+    and CUDA activity (kernels, copies) when the net is on a card; the
+    trace is written to ``log_dir`` as a Chrome trace,
+    ``trace_<start>_<stop>.json`` (``trace_path`` once written), openable
+    in Perfetto or ``chrome://tracing``."""
+
+    def __init__(self, log_dir: str, start_iteration: int = 10,
+                 num_iterations: int = 5):
+        self.log_dir = log_dir
+        self.start_iteration = start_iteration
+        self.stop_iteration = start_iteration + num_iterations
+        self._active = False
+        self._prof = None
+        self.trace_path: Optional[str] = None
+
+    def iteration_done(self, model, iteration: int):
+        import torch
+
+        if not self._active and self.start_iteration <= iteration \
+                < self.stop_iteration:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            dev = getattr(model, "device", None)
+            if dev is not None and dev.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.start()
+            self._active = True
+        elif self._active and iteration >= self.stop_iteration:
+            self._prof.stop()
+            os.makedirs(self.log_dir, exist_ok=True)
+            path = os.path.join(self.log_dir, f"trace_{self.start_iteration}"
+                                f"_{self.stop_iteration}.json")
+            self._prof.export_chrome_trace(path)
+            self.trace_path = path
+            self._active = False
+            log.info("profiler trace written to %s", path)
 
 
 class HealthListener(TrainingListener):

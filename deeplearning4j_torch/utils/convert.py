@@ -6,7 +6,10 @@ ndarray}}`` for a MultiLayerNetwork, as ``jax.device_get(net.params)``
 gives them — and loads them into the port's net unchanged: the layouts are
 the same on both sides (Dense ``W`` is ``[n_in, n_out]``, convolution
 kernels HWIO, the mixture-of-experts leaves ``Wg, W1, b1, W2, b2``
-stacked on the expert axis), so no transpose or reorder is needed. A
+stacked on the expert axis, the pretrain layers' ``W [n_in, n_out]``,
+``b`` and visible bias ``vb`` (RBM, AutoEncoder) and the VAE's
+``eW*/eb*, mW/mb, lW/lb, dW*/db*, rW/rb`` in its ``param_order``), so no
+transpose or reorder is needed. A
 graph's tree is keyed by vertex name and holds an empty dict for each
 parameterless vertex, on both sides. ``state_from_jax`` loads the layer
 state the same way (batch norm's running ``mean``/``var``, the center-loss

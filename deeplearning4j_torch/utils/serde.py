@@ -42,7 +42,9 @@ def _ensure_registry() -> None:
     import deeplearning4j_torch.nn.conf.layers.moe  # noqa: F401
     import deeplearning4j_torch.nn.conf.layers.normalization  # noqa: F401
     import deeplearning4j_torch.nn.conf.layers.pooling  # noqa: F401
+    import deeplearning4j_torch.nn.conf.layers.rbm  # noqa: F401
     import deeplearning4j_torch.nn.conf.layers.recurrent  # noqa: F401
+    import deeplearning4j_torch.nn.conf.layers.variational  # noqa: F401
     import deeplearning4j_torch.nn.conf.preprocessors  # noqa: F401
     import deeplearning4j_torch.nn.transferlearning  # noqa: F401
     import deeplearning4j_torch.nn.updater  # noqa: F401

@@ -431,7 +431,8 @@ def test_multilayer_plumbing():
     """``output`` pads a batch to a power of two and cuts the padding
     (rows equal to an unpadded call's), ``feed_forward`` lists every
     activation, ``params_flat``/``set_params_flat`` round-trip, ``clone``
-    copies, and ``pretrain`` raises naming ROADMAP A11b."""
+    copies, and ``pretrain`` of a net with no pretrain layer leaves its
+    parameters as they were."""
     net = tzoo.LeNet(seed=1, input_shape=(12, 12, 1)).init(device="cpu")
     x, y = _batch((12, 12, 1), 10, 3, seed=9)
     out3 = net.output(x)
@@ -449,8 +450,11 @@ def test_multilayer_plumbing():
     np.testing.assert_array_equal(twin.params_flat(), flat)
     twin.set_params_flat(net.params_flat())
     torch.testing.assert_close(twin.output(x), net.output(x))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
-        net.pretrain([DataSet(x, y)])
+    # LeNet has no pretrain layer: pretrain returns the net untouched, as
+    # JAX's does
+    before = net.params_flat()
+    assert net.pretrain([DataSet(x, y)]) is net
+    np.testing.assert_array_equal(net.params_flat(), before)
     # an unguarded step leaves batch norm's statistics out of autograd
     bn = tzoo.SimpleCNN(input_shape=(16, 16, 1)).init(device="cpu")
     bn.do_step(*_batch((16, 16, 1), 10, 2, seed=1))

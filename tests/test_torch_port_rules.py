@@ -10,10 +10,11 @@
   4, f64); the cases they take (head dims 4..128 that are multiples of 4;
   f32, bf16 and f16 for K1/K3/K4, and those queries over pages of their
   dtype or int8 for K2) reach the kernels' build;
-- ``fit`` refuses what the port does not have yet (layer-wise
-  pretraining) instead of training without it, and trains as the JAX
-  package does what it has: the fused K-step driver, the health guard and
-  L2 regularization (held to JAX's ``fit`` here);
+- ``fit`` trains as the JAX package does: the fused K-step driver, the
+  health guard and L2 regularization (held to JAX's ``fit`` here), and
+  it stores ``conf.pretrain`` without reading it, as JAX's ``fit`` does;
+- layer-wise ``pretrain``, ``DevicePrefetchIterator`` and the estimator
+  wrappers run on CUDA unless the caller asks for the host;
 - the recurrent entry points (``TextGenerationLSTM``, a TBPTT ``fit``,
   ``rnn_time_step``, ``greedy_generate``, ``EarlyStoppingTrainer`` and its
   ``LocalFileModelSaver``) run on CUDA unless the caller asks for the
@@ -116,7 +117,11 @@ def test_port_imports_no_jax():
             "earlystopping/trainer.py", "gradientcheck.py",
             "nn/transferlearning.py", "optimize/solvers.py",
             "nn/conf/layers/moe.py", "nn/conf/layers/__init__.py",
-            "nn/simple.py"} <= names
+            "nn/simple.py", "nn/conf/layers/rbm.py",
+            "nn/conf/layers/variational.py", "nn/conf/layers/core.py",
+            "datasets/__init__.py", "datasets/curves.py",
+            "datasets/cifar.py", "datasets/streaming.py",
+            "optimize/accumulation.py", "ml.py"} <= names
     bad = [(str(p.relative_to(ROOT)), mod) for p in files
            for mod in _imported_roots(p) if mod in FORBIDDEN]
     assert bad == []
@@ -189,6 +194,50 @@ def test_graph_zoo_and_solver_run_on_cuda_by_default(name, no_cuda):
                for t in p.values())
 
 
+def test_pretrain_prefetch_and_estimators_run_on_cuda_by_default(no_cuda):
+    """Layer-wise ``pretrain`` runs where its net lives (CUDA unless the
+    net was built on the host), ``DevicePrefetchIterator`` and the
+    estimator wrappers resolve CUDA and, with no card, raise unless the
+    caller asks for the host."""
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.datasets.iterators import (
+        DevicePrefetchIterator, ListDataSetIterator)
+    from deeplearning4j_torch.ml import DL4JClassifier
+    from deeplearning4j_torch.nn.conf.builders import NeuralNetConfiguration
+    from deeplearning4j_torch.nn.conf.inputs import InputType
+    from deeplearning4j_torch.nn.conf.layers import OutputLayer, RBM
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.nn.updater import Sgd
+
+    def conf():
+        return (NeuralNetConfiguration.builder().seed(1)
+                .updater(Sgd(learning_rate=0.1))
+                .list(RBM(n_out=5),
+                      OutputLayer(n_out=3, activation="softmax",
+                                  loss="mcxent"))
+                .set_input_type(InputType.feed_forward(4)).build())
+
+    rs = np.random.RandomState(0)
+    x = (rs.rand(6, 4) > 0.5).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rs.randint(0, 3, 6)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiLayerNetwork(conf()).init()
+    net = MultiLayerNetwork(conf()).init(device="cpu")
+    net.pretrain(DataSet(x, None), epochs=2)
+    assert all(t.device.type == "cpu" for t in net.params["0"].values())
+    base = ListDataSetIterator(DataSet(x, y), batch_size=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DevicePrefetchIterator(base)
+    placed = list(DevicePrefetchIterator(base, device="cpu"))
+    assert all(torch.is_tensor(ds.features) for ds in placed)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DL4JClassifier(conf, epochs=1).fit(x, y)
+    clf = DL4JClassifier(conf, epochs=1, device="cpu").fit(x, y)
+    assert clf.net_.device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
+        DevicePrefetchIterator(base, sharding=object(), device="cpu")
+
+
 def test_prng_key_lands_on_the_card(no_cuda):
     """``PRNGKey`` is an entry point: its key is made on the card, so with
     no CUDA device it raises unless the caller asks for the host."""
@@ -247,15 +296,29 @@ def test_flash_backward_refuses_unsupported_cases(case, monkeypatch):
 
 @pytest.mark.parametrize("what", ["pretrain"])
 def test_fit_refuses_what_is_not_ported(what):
-    """Layer-wise pretraining (ROADMAP A11b) raises, naming its item,
-    before a step."""
-    net = TransformerLM(**TINY).init(device="cpu")
-    x = np.eye(11, dtype=np.float32)[np.arange(8) % 11][None]
-    y = x
-    net.conf.pretrain = True
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
-        net.fit(x, y)
-    assert net.iteration == 0
+    """``conf.pretrain`` is stored and not read by ``fit`` (C13, as in the
+    JAX package, whose ``fit`` never reads it): a net with the flag set
+    fits to the parameters of the same net without it, bit for bit, and
+    to JAX's with the flag set (1e-5)."""
+    import jax
+
+    from deeplearning4j_torch.utils.convert import params_to_numpy
+
+    j, flagged = _jax_and_port(updater=0.1)
+    _, plain = _jax_and_port(updater=0.1)
+    (x, y), = _stream(1)
+    setattr(flagged.conf, what, True)
+    setattr(j.conf, what, True)
+    for net in (j, flagged, plain):
+        net.fit(x, y, epochs=2)
+    assert flagged.iteration == plain.iteration == j.iteration == 2
+    np.testing.assert_array_equal(flagged.params_flat(), plain.params_flat())
+    ref = jax.device_get(j.params)
+    got = params_to_numpy(flagged)
+    for v in ref:
+        for k in ref[v]:
+            np.testing.assert_allclose(got[v][k], ref[v][k], atol=1e-5,
+                                       rtol=0, err_msg=f"{v}.{k}")
 
 
 TEXTGEN = dict(num_labels=11, max_length=8)
