@@ -171,10 +171,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    unpadded ``output()``; int8 LeNet under phase 8c's rule. 9d:
    ``KerasBackendServer`` on port 0: eight concurrent ``/generate``
    through a two-replica fleet (phase 5's/5b's tokens), ``/predict`` (9c's
-   rows bit for bit), ``/stats`` (the JAX server's keys), ``/metrics``,
-   ``/import`` (a structured 500 naming ROADMAP A12) and ``/fit`` on two
-   batches of phase 7's shape (losses and parameters bit for bit ``fit``
-   called directly). 9e: ``LoadGenerator.run_open`` Poisson arrivals
+   rows bit for bit), ``/stats`` (the JAX server's keys), ``/metrics``
+   and ``/fit`` on two batches of phase 7's shape (losses and parameters
+   bit for bit ``fit`` called directly; ``/import`` runs in 14e). 9e: ``LoadGenerator.run_open`` Poisson arrivals
    against a fleet with an ``Autoscaler`` on a ``FleetTierTarget``:
    achieved req/s, p50/p99, the decisions, nothing lost, every stream
    phase 5's or 5b's.
@@ -284,6 +283,34 @@ Phases (any failure exits non-zero, and no result line is printed):
    Chrome trace holding kernel events of its window; ``threshold_encode``
    card = CPU bit for bit; ``DL4JClassifier`` bit for bit the net's own
    ``fit``/``output``.
+14. the NLP embedding stack, DeepWalk and Keras import (no hand-written
+   kernel: the JAX package trains embeddings in XLA or in host C and
+   imports Keras on the host). 14a: Word2Vec at the JAX bench leg
+   (``bench.py::bench_word2vec``: 50,000 sentences of 20 Zipf(1.3) words
+   over 30,000, min frequency 2, layer 128, window 5, negative 5, batch
+   8,192, one epoch; not cut) through ``backend="device"`` on the card
+   and ``backend="native"`` on the C loop (which must have built and
+   been taken): words/s of each, launches a batch and the idle share; a
+   negative-sampling fit under the default ``"auto"`` keeps its tables
+   on the card; an
+   80-batch block card against CPU from the same tables and key (window
+   and negative draws bitwise, tables within ``NLP_TABLE_ATOL``), run
+   twice on the card (bitwise reported); the class defaults (HS) on the
+   first 5,000 sentences card against CPU, ``words_nearest`` equal. 14b:
+   ParagraphVectors DBOW at ``bench_doc2vec``'s shape (4,000 documents of
+   40 words over 5,000, layer 100, negative 5) on the card, words/s;
+   ``infer_vector`` card against CPU from the same state; a DM run card
+   against CPU. 14c: GloVe on 14a's first 5,000 sentences: ``fit``, then
+   one epoch card against CPU (the permutation bitwise). 14d: DeepWalk
+   (vector 128, window 10, 10 walks of 40 a vertex) on a 2,000-vertex
+   two-community graph: same-community similarity above cross. 14e: a
+   Keras-1 MNIST CNN at LeNet's widths and a residual / concat functional
+   model imported onto the card (card against CPU and a numpy forward),
+   with ``quantize="int8"``; ``KerasBackendServer`` ``/import`` (through
+   ``import_model`` from an ``InMemoryH5`` where h5py is absent, said on
+   an earlier line), ``/predict`` and ``/fit`` over HTTP bit for bit
+   direct calls; ``load_model_guess`` on a zip, both vector formats and
+   an ``.h5``.
 
 Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
 calls (``ms``: the wrapper's host work included, which sets the pace once
@@ -303,13 +330,14 @@ XLA's), phase 9 (the serving fabric: K1, both routes of K2, K3 and K4),
 phase 10 (retrieval and RAG: both routes of K2 on the generate tier;
 the stores' searches are matmuls and top-k, as the JAX package's are
 XLA's), phase 11 (recurrent nets, which launch none of K1-K4), phase
-12 (graphs and fine-tuning, which launch none either) and phase 13
-(pretraining and the data pipeline, none either). The launch counters
-are zeroed just before each of the fifteen and read just after (phase
+12 (graphs and fine-tuning, which launch none either), phase 13
+(pretraining and the data pipeline, none either) and phase 14 (the NLP
+stack and Keras import, none either). The launch counters
+are zeroed just before each of the sixteen and read just after (phase
 6's and the reference servers' and forwards' launches are not counted);
 every kernel must have run on the main path, K2's chunk route and its
-merge pass included, and each path but phases 8, 11, 12 and 13 must have
-launched its own kernels (those four must launch none). The
+merge pass included, and each path but phases 8, 11, 12, 13 and 14 must
+have launched its own kernels (those five must launch none). The
 script
 prints the card's name and power limit, one ``{"kernels": [...]}`` line with
 each kernel's launches, error, times and bound, and, last, the result line
@@ -3627,8 +3655,7 @@ def phase_http(net, lenet, images, lenet_rows, reqs, want, card):
     concurrent ``/generate`` requests (4 greedy, 4 sampled) return phase
     5's/5b's tokens, ``/predict`` 9c's rows bit for bit, ``/stats`` the
     JAX server's keys, ``/metrics`` the fleet, inference and server
-    families, ``/import`` the structured 500 naming ROADMAP A12, and
-    ``/fit`` on two batches of phase 7's shape the losses (and parameters)
+    families, and ``/fit`` on two batches of phase 7's shape the losses (and parameters)
     of ``fit`` called directly from the same start, bit for bit."""
     import urllib.error
     import urllib.request
@@ -3701,9 +3728,6 @@ def phase_http(net, lenet, images, lenet_rows, reqs, want, card):
                     f'inference_completed_total{{model="{pmid}"}}',
                     "server_completed_total"):
             check(fam in text, f"http /metrics: no {fam}")
-        status, body = post("/import", {"path": "model.h5"})
-        check(status == 500 and body["type"] == "InternalError"
-              and "A12" in body["error"], f"http /import: {status} {body}")
         with tempfile.TemporaryDirectory() as tmp:
             paths = fit_batches(tmp)
             t0 = time.perf_counter()
@@ -6320,8 +6344,805 @@ def phase_pretrain(card, out_dir=None):
     return dict(dbn=dbn, vae=vae, sda=sda, pipeline=pipe, wall_s=wall)
 
 
+# ---------------------------------------------------------------- phase 14
+#: 14a: ``bench.py::bench_word2vec``'s corpus and model (not cut); repeats
+#: of the timed fits (the bench takes three; fewer keep the phase short)
+W2V = dict(sentences=50_000, words=20, vocab=30_000, zipf=1.3, seed=3,
+           layer=128, window=5, negative=5, batch=8192, min_freq=2,
+           repeats=2, block_batches=80, defaults_sentences=5_000)
+#: 14b: ``bench.py::bench_doc2vec``'s documents and DBOW model
+D2V = dict(docs=4_000, words=40, vocab=5_000, seed=5, layer=100, window=5,
+           negative=5, min_freq=2, model_seed=11, dm_docs=500)
+GLOVE = dict(sentences=5_000, epochs=3)
+#: 14d: DeepWalk at the paper's vector size and window, the class's walk
+#: length and walks a vertex (the paper takes 80 walks a vertex)
+DEEPWALK = dict(vertices=2_000, vector=128, window=10, walk_length=40,
+                walks=10, within=5, bridges=100, seed=3)
+#: 14e: a Keras-1 MNIST CNN at LeNet's widths
+KERAS_LENET = dict(conv=(20, 50), kernel=5, dense=500, labels=10, batch=256)
+#: tables after a block or an epoch from the same state, card against CPU
+NLP_TABLE_ATOL = 1e-5
+#: the same after a whole fit of many batches, over max|table| (on an H100
+#: 80GB HBM3, 2,560 HS batches drift up to 2e-4 of it apart)
+NLP_FIT_REL = 1e-3
+#: 14c: a GloVe epoch's tables card against CPU, over each table's max (on
+#: an H100 80GB HBM3 they read up to 6.5e-6 of it: the atomics reorder
+#: AdaGrad's adds to hot rows)
+GLOVE_EPOCH_REL = 1e-4
+#: 14a profiles a fit of this many sentences of the corpus (a full fit's
+#: ~500k profiler events take longer to read than to run)
+W2V_PROFILED = 2_500
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def zipf_text(n, words, vocab, seed):
+    """``bench.py``'s corpus: ``n`` lines of ``words`` Zipf(1.3) words
+    over ``vocab`` words, from RandomState(seed)."""
+    rs = np.random.RandomState(seed)
+    names = [f"w{i}" for i in range(vocab)]
+    z = np.minimum(rs.zipf(W2V["zipf"], size=n * words) - 1, vocab - 1)
+    return [" ".join(names[k] for k in z[i * words:(i + 1) * words])
+            for i in range(n)]
+
+
+def table_err(a, b):
+    from deeplearning4j_torch.nlp.sequence_vectors import host
+
+    return float(np.max(np.abs(host(a) - host(b))))
+
+
+def nearest_agree(a, b, tol):
+    """Two ``words_nearest`` lists agree: the same words in the same order,
+    or swapped only where their similarities are within ``tol``."""
+    sims_b = dict(b)
+    for (wa, sa), (wb, sb) in zip(a, b):
+        if abs(sa - sb) > tol:
+            return False
+        if wa != wb and abs(sims_b.get(wa, -9.0) - sa) > tol:
+            return False
+    return len(a) == len(b)
+
+
+def w2v_block(w, init, stream, dev):
+    """One corpus block of the bench leg (its first ``block_batches``
+    batches) trained from the same tables and key on ``dev``; returns the
+    tables, the window validity and the negative draws."""
+    from deeplearning4j_torch.nlp import learning
+    from deeplearning4j_torch.ops import random as prandom
+
+    B, W, K = W2V["batch"], W2V["window"], W2V["negative"]
+    n = W2V["block_batches"] * B // (2 * W)
+    tabs = [torch.from_numpy(a.copy()).to(dev) for a in init]
+    lut = w._lookup_tables(torch.device(dev))
+    toks = torch.from_numpy(stream[:n]).long().to(dev)
+    key = prandom.fold_in(prandom.PRNGKey(w.seed + 1, device=dev), 0)
+    _, val, kn = learning._shifted_pairs(toks, key, W)
+    draws = torch.stack(list(learning._negative_draws(
+        kn, W2V["block_batches"], B, K, lut[3].shape[0])))
+    learning.skipgram_corpus_epoch(
+        *tabs, toks, key, w.learning_rate, w.min_learning_rate,
+        learning.DUP_CAP, *lut, window=W, batch=B, neg_k=K, use_hs=False,
+        use_ns=True)
+    sync(dev)
+    return tabs, val.cpu(), draws.cpu()
+
+
+def phase_word2vec(card, dev):
+    """14a: Word2Vec at the JAX bench leg, device and native, a block card
+    against CPU, then the class defaults on 5,000 sentences."""
+    from deeplearning4j_torch import native
+    from deeplearning4j_torch.nlp import CollectionSentenceIterator, Word2Vec
+
+    t0 = time.perf_counter()
+    sents = zipf_text(W2V["sentences"], W2V["words"], W2V["vocab"],
+                      W2V["seed"])
+    total = len(sents) * W2V["words"]
+    kw = dict(layer_size=W2V["layer"], window=W2V["window"],
+              min_word_frequency=W2V["min_freq"], negative=W2V["negative"],
+              use_hierarchic_softmax=False, epochs=1,
+              batch_size=W2V["batch"])
+    w = Word2Vec(backend="device", device=dev, **kw)
+    w.build_vocab(sents)
+    w.reset_weights()
+    check(torch.is_tensor(w.syn0) and w.syn0.device.type ==
+          torch.device(dev).type, "14a: the device path's tables are not "
+          "on the card")
+    init = [t.cpu().numpy() for t in (w.syn0, w.syn1, w.syn1neg)]
+    b = w._builder
+    stream = w._token_stream([b.lookup_indices(s.split()) for s in sents],
+                             W2V["batch"], W2V["window"])
+    batches = stream.size * 2 * W2V["window"] // W2V["batch"]
+    log(f"  14a: corpus {len(sents)} x {W2V['words']} words, vocab "
+        f"{w.vocab_size()}, {batches} batches of {W2V['batch']} "
+        f"({time.perf_counter() - t0:.1f} s to make and count)")
+
+    def fresh_fit(model):
+        model.syn0 = None
+        model.reset_weights()
+        t = time.perf_counter()
+        model.fit(CollectionSentenceIterator(sents))
+        sync(dev)
+        return time.perf_counter() - t
+
+    tick = time.perf_counter()
+
+    def lap(what):
+        nonlocal tick
+        now = time.perf_counter()
+        log(f"    {what}: {now - tick:.1f} s")
+        tick = now
+
+    fresh_fit(w)                                   # warm
+    device_s = [fresh_fit(w) for _ in range(W2V["repeats"])]
+    check(torch.isfinite(w.syn0).all().item()
+          and table_err(w.syn0, init[0]) > 0, "14a: device tables")
+    lap(f"{W2V['repeats'] + 1} device fits")
+    part = sents[:W2V_PROFILED]
+    w.syn0 = None
+    w.reset_weights()
+    part_batches = w._token_stream(
+        [b.lookup_indices(s.split()) for s in part], W2V["batch"],
+        W2V["window"]).size * 2 * W2V["window"] // W2V["batch"]
+    prof = busy_share(lambda: w.fit(CollectionSentenceIterator(part)),
+                      part_batches)
+    lap(f"a profiled fit of {len(part)} sentences ({part_batches} "
+        f"batches): {prof['kernel_launches_per_step']:.1f} launches a "
+        f"batch, idle {prof['idle_share']:.3f}")
+    card_tabs, card_val, card_draws = w2v_block(w, init, stream, dev)
+    again, _, _ = w2v_block(w, init, stream, dev)
+    cpu_tabs, cpu_val, cpu_draws = w2v_block(w, init, stream, "cpu")
+    lap("the block twice on the card and once on the CPU")
+    check(torch.equal(card_val, cpu_val) and torch.equal(card_draws,
+                                                         cpu_draws),
+          "14a: the window or negative draws differ card against CPU")
+    block_err = max(table_err(a, c) for a, c in zip(card_tabs, cpu_tabs))
+    check(block_err <= NLP_TABLE_ATOL,
+          f"14a: a block's tables card against CPU {block_err:.3g}")
+    deterministic = all(torch.equal(a, c) for a, c in zip(card_tabs, again))
+
+    wn = Word2Vec(backend="native", device=dev, **kw)
+    wn.build_vocab(sents)
+    check(native.skipgram_native_available() and wn._use_native_backend(),
+          "14a: the native library did not build, or 'native' did not "
+          "take it")
+    native_s = [fresh_fit(wn) for _ in range(W2V["repeats"])]
+    check(isinstance(wn.syn0, np.ndarray) and np.isfinite(wn.syn0).all(),
+          "14a: 'native' did not train in the native loop")
+    lap(f"{W2V['repeats']} native fits")
+    sub = sents[:W2V["defaults_sentences"]]
+    auto = Word2Vec(device=dev, **kw).fit(sub)
+    check(auto.backend == "auto" and not auto._use_native_backend()
+          and torch.is_tensor(auto.syn0) and auto.syn0.device.type == "cuda"
+          and torch.isfinite(auto.syn0).all().item(),
+          "14a: a negative-sampling fit under the default 'auto' did not "
+          "keep its tables on the card")
+    lap(f"an 'auto' fit of {len(sub)} sentences on the card")
+
+    t = time.perf_counter()
+    dflt = Word2Vec(device=dev).fit(sub)
+    sync(dev)
+    dflt_s = time.perf_counter() - t
+    lap("the class defaults on the card")
+    dflt_cpu = Word2Vec(device="cpu").fit(sub)
+    lap("... and on the CPU")
+    scale = float(dflt_cpu.syn0.abs().max())
+    dflt_err = max(table_err(getattr(dflt, n), getattr(dflt_cpu, n))
+                   for n in ("syn0", "syn1"))
+    check(dflt.use_hs and dflt.negative == 0
+          and dflt_err <= NLP_FIT_REL * scale,
+          f"14a: class defaults card against CPU {dflt_err:.3g} "
+          f"(max|syn0| {scale:.3g})")
+    queries = ["w0", "w1", "w7", "w42", "w300"]
+    for q in queries:
+        got, want = dflt.words_nearest(q, 10), dflt_cpu.words_nearest(q, 10)
+        check(nearest_agree(got, want, 1e-5),
+              f"14a: words_nearest({q!r}) card {got[:3]} CPU {want[:3]}")
+    sums = dflt.words_nearest_sum(["w1", "w2"], ["w3"], 5)
+    check(nearest_agree(sums, dflt_cpu.words_nearest_sum(
+        ["w1", "w2"], ["w3"], 5), 1e-5), "14a: words_nearest_sum card vs "
+        "CPU")
+    dev_wps = [total / s for s in device_s]
+    nat_wps = [total / s for s in native_s]
+    log(f"  14a Word2Vec (layer {W2V['layer']}, window {W2V['window']}, "
+        f"negative {W2V['negative']}, batch {W2V['batch']}): device "
+        f"{np.median(dev_wps):,.0f} words/s {[round(v) for v in dev_wps]}, "
+        f"{prof['kernel_launches_per_step']:.1f} launches a batch, idle "
+        f"{prof['idle_share']:.3f}; native "
+        f"{np.median(nat_wps):,.0f} words/s {[round(v) for v in nat_wps]}; "
+        f"a {W2V['block_batches']}-batch block card vs CPU {block_err:.3g} "
+        f"(draws bitwise), two card runs bitwise: {deterministic}; class "
+        f"defaults on {len(sub)} sentences {dflt_s:.2f} s, card vs CPU "
+        f"{dflt_err:.3g} (max|syn0| {scale:.3g}), words_nearest equal for "
+        f"{queries}; [{card}]")
+    return w, dict(device_words_s=dev_wps, native_words_s=nat_wps,
+                   batches=batches, profile=prof, block_max_abs_err=block_err,
+                   block_bitwise_repeat=deterministic,
+                   defaults_s=dflt_s, defaults_max_abs_err=dflt_err,
+                   defaults_max_abs=scale, vocab=w.vocab_size())
+
+
+def phase_doc2vec(card, dev):
+    """14b: ParagraphVectors DBOW at ``bench_doc2vec``'s shape on the card,
+    ``infer_vector`` card against CPU from the same state, a short DM
+    run."""
+    from deeplearning4j_torch.nlp import ParagraphVectors
+    from deeplearning4j_torch.nlp.tokenization import LabelledDocument
+    from deeplearning4j_torch.utils.convert import (sequence_vectors_from_jax,
+                                                    sequence_vectors_state)
+
+    texts = zipf_text(D2V["docs"], D2V["words"], D2V["vocab"], D2V["seed"])
+    docs = [LabelledDocument(t, f"doc_{i}") for i, t in enumerate(texts)]
+    total = D2V["docs"] * D2V["words"]
+    kw = dict(layer_size=D2V["layer"], window=D2V["window"],
+              min_word_frequency=D2V["min_freq"], negative=D2V["negative"],
+              use_hierarchic_softmax=False, epochs=1, seed=D2V["model_seed"],
+              backend="device")
+    pv = ParagraphVectors(sequence_algorithm="dbow", device=dev, **kw)
+    pv.build_vocab_from_documents(docs)
+    pv.reset_weights()
+    pv.fit(docs)                                   # warm
+    pv.syn0 = None
+    pv.reset_weights()
+    t = time.perf_counter()
+    pv.fit(docs)
+    sync(dev)
+    dbow_s = time.perf_counter() - t
+    check(torch.isfinite(pv.syn0).all().item(), "14b: DBOW tables")
+    cpu = sequence_vectors_from_jax(
+        sequence_vectors_state(pv),
+        ParagraphVectors(sequence_algorithm="dbow", device="cpu", **kw))
+    infer_err = 0.0
+    for d in docs[:8]:
+        a = pv.infer_vector(d.content)
+        c = cpu.infer_vector(d.content)
+        infer_err = max(infer_err, float(np.max(np.abs(a - c))))
+    label_gap = abs(pv.similarity_to_label(docs[0].content, "doc_0")
+                    - cpu.similarity_to_label(docs[0].content, "doc_0"))
+    check(infer_err <= 1e-6 and label_gap <= 1e-5,
+          f"14b: infer_vector card vs CPU {infer_err:.3g}, "
+          f"similarity_to_label {label_gap:.3g}")
+    dm_docs = docs[:D2V["dm_docs"]]
+    t = time.perf_counter()
+    dm = ParagraphVectors(sequence_algorithm="dm", device=dev, **kw)
+    dm.fit(dm_docs)
+    sync(dev)
+    dm_s = time.perf_counter() - t
+    dm_cpu = ParagraphVectors(sequence_algorithm="dm", device="cpu", **kw)
+    dm_cpu.fit(dm_docs)
+    dm_err = max(table_err(getattr(dm, n), getattr(dm_cpu, n))
+                 for n in ("syn0", "syn1neg"))
+    check(dm_err <= NLP_TABLE_ATOL, f"14b: DM card vs CPU {dm_err:.3g}")
+    log(f"  14b ParagraphVectors DBOW ({D2V['docs']} x {D2V['words']} over "
+        f"{D2V['vocab']}, layer {D2V['layer']}, batch {pv.batch_size}): "
+        f"{total / dbow_s:,.0f} words/s ({dbow_s:.2f} s); infer_vector card "
+        f"vs CPU {infer_err:.3g}; DM on {len(dm_docs)} docs {dm_s:.2f} s, "
+        f"card vs CPU {dm_err:.3g}; [{card}]")
+    return dict(dbow_words_s=total / dbow_s, dbow_s=dbow_s,
+                infer_max_abs_err=infer_err, dm_s=dm_s, dm_max_abs_err=dm_err)
+
+
+def phase_glove(sents, card, dev):
+    """14c: GloVe on 14a's first 5,000 sentences: ``fit`` on the card, then
+    one epoch card against CPU from the same tables and key."""
+    from deeplearning4j_torch.nlp import Glove
+    from deeplearning4j_torch.nlp.glove import _glove_epoch
+    from deeplearning4j_torch.ops import random as prandom
+
+    sub = sents[:GLOVE["sentences"]]
+    t = time.perf_counter()
+    g = Glove(epochs=GLOVE["epochs"], device=dev).fit(sub)
+    sync(dev)
+    fit_s = time.perf_counter() - t
+    check(torch.isfinite(g.syn0).all().item(), "14c: GloVe tables")
+    t = time.perf_counter()
+    cooc = g._cooccurrences(sub)
+    count_s = time.perf_counter() - t
+
+    def epoch(device):
+        gg = Glove(device=device)
+        gg.vocab = g.vocab
+        tabs = gg.init_tables(g.vocab.num_words())
+        wi, wj, logx, fx, B = gg.triples(cooc, device)
+        key = prandom.fold_in(prandom.PRNGKey(gg.seed, device=device), 0)
+        perm = prandom.permutation(key, wi.shape[0]).cpu()
+        sync(device)
+        t0 = time.perf_counter()
+        _glove_epoch(*tabs, wi, wj, logx, fx, key, gg.learning_rate, 1e-8,
+                     batch=B)
+        sync(device)
+        return tabs, perm, time.perf_counter() - t0, wi.shape[0] // B
+
+    card_t, card_perm, epoch_s, nb = epoch(dev)
+    cpu_t, cpu_perm, _, _ = epoch("cpu")
+    check(torch.equal(card_perm, cpu_perm), "14c: the permutation differs")
+    # W, Wc, b, bc and their AdaGrad sums: each over its own max (the
+    # atomics order a hot row's many adds differently on the card)
+    rel = [table_err(a, c) / max(float(c.abs().max()), 1e-30)
+           for a, c in zip(card_t, cpu_t)]
+    err = max(table_err(a, c) for a, c in zip(card_t, cpu_t))
+    check(max(rel) <= GLOVE_EPOCH_REL,
+          f"14c: an epoch card vs CPU {[f'{r:.3g}' for r in rel]} of each "
+          f"table's max")
+    log(f"  14c GloVe (layer {g.layer_size}, window {g.window}) on "
+        f"{len(sub)} sentences: {len(cooc):,} co-occurrences counted in "
+        f"{count_s:.2f} s; fit of {GLOVE['epochs']} epochs {fit_s:.2f} s; "
+        f"one epoch ({nb} batches of {g.batch_size}) {epoch_s * 1e3:.1f} ms "
+        f"on the card, permutation bitwise, tables card vs CPU {err:.3g} "
+        f"({max(rel):.3g} of a table's max: W {rel[0]:.3g}, Wc "
+        f"{rel[1]:.3g}, b {rel[2]:.3g}, bc {rel[3]:.3g}, sums "
+        f"{max(rel[4:]):.3g}); [{card}]")
+    return dict(fit_s=fit_s, count_s=count_s, epoch_ms=epoch_s * 1e3,
+                batches=nb, triples=len(cooc), max_abs_err=err,
+                max_rel_err=rel)
+
+
+def two_communities(graph_cls):
+    """2,000 vertices in two communities of 1,000: each vertex joins
+    ``within`` random vertices of its own community, and ``bridges``
+    random edges join the two (RandomState(seed))."""
+    n, rs = DEEPWALK["vertices"], np.random.RandomState(DEEPWALK["seed"])
+    half = n // 2
+    edges = set()
+    for v in range(n):
+        base = 0 if v < half else half
+        for u in rs.randint(base, base + half, DEEPWALK["within"]):
+            if u != v:
+                edges.add((min(u, v), max(u, v)))
+    for _ in range(DEEPWALK["bridges"]):
+        edges.add((int(rs.randint(0, half)), int(rs.randint(half, n))))
+    return graph_cls.from_edges(n, sorted((int(a), int(b))
+                                          for a, b in edges))
+
+
+def phase_deepwalk(card, dev):
+    """14d: DeepWalk at the paper's widths on a two-community graph."""
+    from deeplearning4j_torch.graph import DeepWalk, Graph
+
+    g = two_communities(Graph)
+    dw = DeepWalk(vector_size=DEEPWALK["vector"], window=DEEPWALK["window"],
+                  walk_length=DEEPWALK["walk_length"],
+                  walks_per_vertex=DEEPWALK["walks"], device=dev,
+                  seed=DEEPWALK["seed"])
+    t = time.perf_counter()
+    dw.fit(g)
+    sync(dev)
+    fit_s = time.perf_counter() - t
+    check(torch.is_tensor(dw._sv.syn0) and torch.isfinite(
+        dw._sv.syn0).all().item(), "14d: DeepWalk tables")
+    rs = np.random.RandomState(1)
+    half = DEEPWALK["vertices"] // 2
+    a = rs.randint(0, half, 300)
+    same = np.mean([dw.similarity(int(x), int(y))
+                    for x, y in zip(a, rs.randint(0, half, 300))])
+    cross = np.mean([dw.similarity(int(x), int(y))
+                     for x, y in zip(a, rs.randint(half, 2 * half, 300))])
+    check(same > cross, f"14d: same-community {same:.3f} <= cross "
+          f"{cross:.3f}")
+    tokens = DEEPWALK["vertices"] * DEEPWALK["walks"] * \
+        DEEPWALK["walk_length"]
+    edges = sum(g.degree(v) for v in range(g.num_vertices())) // 2
+    log(f"  14d DeepWalk ({DEEPWALK['vertices']} vertices, {edges} edges; "
+        f"vector {DEEPWALK['vector']}, window {DEEPWALK['window']}, "
+        f"{DEEPWALK['walks']} walks of {DEEPWALK['walk_length']}): fit "
+        f"{fit_s:.2f} s, the host's walks included ({tokens / fit_s:,.0f} "
+        f"walk tokens/s); same-community similarity "
+        f"{same:.3f} against cross {cross:.3f}; [{card}]")
+    return dict(fit_s=fit_s, tokens=tokens,
+                same_similarity=float(same), cross_similarity=float(cross))
+
+
+class _Group:
+    """A group of ``InMemoryH5``: ``attrs``, named members, ``in`` and
+    item access (datasets are numpy arrays)."""
+
+    def __init__(self, members: dict, attrs: dict):
+        self.members = members
+        self.attrs = attrs
+
+    def __contains__(self, name):
+        return name in self.members
+
+    def __getitem__(self, name):
+        return self.members[name]
+
+
+class InMemoryH5(_Group):
+    """What the Keras importers read of an HDF5 file, held in memory: the
+    ``model_config`` attribute and, under ``model_weights``, one group per
+    layer with its ``weight_names`` and arrays. Phase 14e's source for the
+    importers where h5py is absent (they take any h5py-like object) (``weights``: ``{layer name: [(weight
+    name, array), ...]}``); ``read`` copies an open h5py file."""
+
+    def __init__(self, model_config, weights: dict):
+        groups = {}
+        for layer, arrays in weights.items():
+            groups[layer] = _Group(
+                {n: np.asarray(a) for n, a in arrays},
+                {"weight_names": [n.encode() for n, _ in arrays]})
+        cfg = model_config if isinstance(model_config, str) \
+            else json.dumps(model_config)
+        super().__init__({"model_weights": _Group(groups, {})},
+                         {"model_config": cfg})
+
+    @classmethod
+    def read(cls, f) -> "InMemoryH5":
+        root = f["model_weights"] if "model_weights" in f else f
+        weights = {}
+        for layer in root:
+            names = root[layer].attrs.get("weight_names")
+            if names is None:
+                continue
+            names = [n.decode() if isinstance(n, bytes) else str(n)
+                     for n in names]
+            weights[layer] = [(n, np.asarray(root[layer][n]))
+                              for n in names]
+        raw = f.attrs.get("model_config")
+        return cls(raw.decode() if isinstance(raw, bytes) else raw, weights)
+
+
+def keras_lenet_source():
+    """A Keras-1 Sequential MNIST CNN at LeNet's widths (th ordering, true
+    convolution) with numpy-seeded weights: its config, weights and an
+    ``InMemoryH5`` holding both."""
+
+    (c1, c2), k = KERAS_LENET["conv"], KERAS_LENET["kernel"]
+    rs = np.random.RandomState(14)
+
+    def w(*shape, scale):
+        return (rs.randn(*shape) * scale).astype(np.float32)
+
+    weights = {
+        "conv1": [("conv1_W", w(c1, 1, k, k, scale=0.2)),
+                  ("conv1_b", w(c1, scale=0.05))],
+        "conv2": [("conv2_W", w(c2, c1, k, k, scale=0.05)),
+                  ("conv2_b", w(c2, scale=0.05))],
+        "dense1": [("dense1_W", w(c2 * 16, KERAS_LENET["dense"],
+                                  scale=0.03)),
+                   ("dense1_b", w(KERAS_LENET["dense"], scale=0.05))],
+        "dense2": [("dense2_W", w(KERAS_LENET["dense"],
+                                  KERAS_LENET["labels"], scale=0.5)),
+                   ("dense2_b", w(KERAS_LENET["labels"], scale=0.05))]}
+    conv = dict(nb_row=k, nb_col=k, subsample=[1, 1], border_mode="valid",
+                activation="relu", dim_ordering="th")
+    pool = dict(pool_size=[2, 2], strides=[2, 2], border_mode="valid",
+                dim_ordering="th")
+    config = {"class_name": "Sequential", "config": [
+        {"class_name": "Convolution2D", "config": dict(
+            name="conv1", nb_filter=c1, batch_input_shape=[None, 1, 28, 28],
+            **conv)},
+        {"class_name": "MaxPooling2D", "config": dict(name="pool1", **pool)},
+        {"class_name": "Convolution2D", "config": dict(name="conv2",
+                                                       nb_filter=c2,
+                                                       **conv)},
+        {"class_name": "MaxPooling2D", "config": dict(name="pool2", **pool)},
+        {"class_name": "Flatten", "config": {"name": "flat"}},
+        {"class_name": "Dense", "config": {
+            "name": "dense1", "output_dim": KERAS_LENET["dense"],
+            "activation": "relu"}},
+        {"class_name": "Dense", "config": {
+            "name": "dense2", "output_dim": KERAS_LENET["labels"],
+            "activation": "softmax"}}]}
+    return config, weights, InMemoryH5(config, weights)
+
+
+def keras_residual_source():
+    """A functional model in the Keras-1/2 inbound format: conv -> conv ->
+    Add (residual) -> relu -> 1x1 conv -> Concatenate -> Dense."""
+
+    rs = np.random.RandomState(15)
+
+    def w(*shape):
+        return (rs.randn(*shape) * 0.3).astype(np.float32)
+
+    def conv(name, n, k, inbound, act="linear"):
+        return {"class_name": "Conv2D", "name": name, "config": {
+            "name": name, "filters": n, "kernel_size": [k, k],
+            "strides": [1, 1], "padding": "same", "activation": act,
+            "data_format": "channels_last"},
+            "inbound_nodes": [[[i, 0, 0] for i in inbound]]}
+
+    layers = [
+        {"class_name": "InputLayer", "name": "in0", "config": {
+            "name": "in0", "batch_input_shape": [None, 8, 8, 3]},
+         "inbound_nodes": []},
+        conv("c1", 4, 3, ["in0"], "relu"), conv("c2", 4, 3, ["c1"]),
+        {"class_name": "Add", "name": "add1", "config": {"name": "add1"},
+         "inbound_nodes": [[["c1", 0, 0], ["c2", 0, 0]]]},
+        {"class_name": "Activation", "name": "act1", "config": {
+            "name": "act1", "activation": "relu"},
+         "inbound_nodes": [[["add1", 0, 0]]]},
+        conv("c3", 2, 1, ["act1"]),
+        {"class_name": "Concatenate", "name": "cat1", "config": {
+            "name": "cat1", "axis": -1},
+         "inbound_nodes": [[["act1", 0, 0], ["c3", 0, 0]]]},
+        {"class_name": "Flatten", "name": "fl", "config": {"name": "fl"},
+         "inbound_nodes": [[["cat1", 0, 0]]]},
+        {"class_name": "Dense", "name": "d1", "config": {
+            "name": "d1", "units": 5, "activation": "softmax"},
+         "inbound_nodes": [[["fl", 0, 0]]]}]
+    weights = {"c1": [("c1_W", w(3, 3, 3, 4)), ("c1_b", w(4))],
+               "c2": [("c2_W", w(3, 3, 4, 4)), ("c2_b", w(4))],
+               "c3": [("c3_W", w(1, 1, 4, 2)), ("c3_b", w(2))],
+               "d1": [("d1_W", w(8 * 8 * 6, 5) * 0.2), ("d1_b", w(5))]}
+    config = {"class_name": "Model", "config": {
+        "name": "residual", "layers": layers,
+        "input_layers": [["in0", 0, 0]], "output_layers": [["d1", 0, 0]]}}
+    return weights, InMemoryH5(config, weights)
+
+
+def np_softmax(z):
+    e = np.exp(z - z.max(axis=1, keepdims=True))
+    return e / e.sum(axis=1, keepdims=True)
+
+
+def np_lenet(x_nchw, weights):
+    """The Keras-1 th forward in f64 numpy: true convolution (flipped
+    kernels) over NCHW, 2x2 max pooling, the (c, h, w) flatten."""
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    def conv(x, k, b):
+        win = sliding_window_view(x, k.shape[2:], axis=(2, 3))
+        out = np.einsum("bchwij,ocij->bohw", win, k[:, :, ::-1, ::-1])
+        return np.maximum(out + b[None, :, None, None], 0)
+
+    def pool(x):
+        B, C, H, W = x.shape
+        return x.reshape(B, C, H // 2, 2, W // 2, 2).max(axis=(3, 5))
+
+    p = {n: a.astype(np.float64) for ws in weights.values() for n, a in ws}
+    h = pool(conv(x_nchw, p["conv1_W"], p["conv1_b"]))
+    h = pool(conv(h, p["conv2_W"], p["conv2_b"]))
+    h = np.maximum(h.reshape(h.shape[0], -1) @ p["dense1_W"]
+                   + p["dense1_b"], 0)
+    return np_softmax(h @ p["dense2_W"] + p["dense2_b"])
+
+
+def np_residual(x, weights):
+    """The functional model's forward in f64 numpy (NHWC, 'same'
+    cross-correlation)."""
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    p = {n: a.astype(np.float64) for ws in weights.values() for n, a in ws}
+
+    def conv(h, k, b):
+        r = k.shape[0] // 2
+        hp = np.pad(h, ((0, 0), (r, r), (r, r), (0, 0)))
+        win = sliding_window_view(hp, k.shape[:2], axis=(1, 2))
+        return np.einsum("bhwcij,ijco->bhwo", win, k) + b
+
+    c1 = np.maximum(conv(x, p["c1_W"], p["c1_b"]), 0)
+    act = np.maximum(c1 + conv(c1, p["c2_W"], p["c2_b"]), 0)
+    cat = np.concatenate([act, conv(act, p["c3_W"], p["c3_b"])], axis=-1)
+    return np_softmax(cat.reshape(x.shape[0], -1) @ p["d1_W"] + p["d1_b"])
+
+
+def phase_keras(w2v, card, dev):
+    """14e: Keras import onto the card (a Keras-1 LeNet, a residual /
+    concat functional model, int8), ``/import`` then ``/predict`` and
+    ``/fit`` over HTTP, and ``load_model_guess`` on each format; the files
+    live in a temporary directory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return keras_checks(w2v, card, dev, tmp)
+
+
+def keras_checks(w2v, card, dev, tmp):
+    import importlib.util
+    import urllib.error
+    import urllib.request
+
+    from deeplearning4j_torch.modelimport import (
+        import_keras_model_and_weights,
+        import_keras_sequential_model_and_weights)
+    from deeplearning4j_torch.modelimport.server import KerasBackendServer
+    from deeplearning4j_torch.nlp.sequence_vectors import host
+    from deeplearning4j_torch.nlp.serde import (write_word2vec_binary,
+                                                write_word_vectors_text)
+    from deeplearning4j_torch.utils.model_guesser import (guess_format,
+                                                          load_model_guess)
+    from deeplearning4j_torch.utils.model_serializer import save_model
+
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    log(f"  14e: h5py {'present: the Keras files are written as .h5' if has_h5py else 'absent on this machine: the importers read an InMemoryH5 source (the HDF5 read is CPU-tested)'}")
+    config, lw, lenet_mem = keras_lenet_source()
+    rw, res_mem = keras_residual_source()
+    lenet_src, res_src = lenet_mem, res_mem
+    if has_h5py:
+        import h5py
+
+        for name, (cfg, ws) in (("lenet", (config, lw)),
+                                ("residual", (json.loads(
+                                    res_mem.attrs["model_config"]), rw))):
+            path = os.path.join(tmp, f"{name}.h5")
+            with h5py.File(path, "w") as f:
+                f.attrs["model_config"] = json.dumps(cfg)
+                mw = f.create_group("model_weights")
+                for layer, arrays in ws.items():
+                    g = mw.create_group(layer)
+                    g.attrs["weight_names"] = [n.encode() for n, _ in arrays]
+                    for n, a in arrays:
+                        g.create_dataset(n, data=a)
+            if name == "lenet":
+                lenet_src = path
+            else:
+                res_src = path
+    from deeplearning4j_torch.datasets.mnist import synthetic_mnist
+
+    rs = np.random.RandomState(16)
+    x = np.ascontiguousarray(synthetic_mnist(
+        KERAS_LENET["batch"], seed=16).features.reshape(-1, 28, 28, 1),
+        np.float32)
+    x_nchw = np.ascontiguousarray(np.transpose(x, (0, 3, 1, 2)))
+    t = time.perf_counter()
+    lenet = import_keras_sequential_model_and_weights(lenet_src, device=dev)
+    import_s = time.perf_counter() - t
+    lenet_cpu = import_keras_sequential_model_and_weights(lenet_src,
+                                                          device="cpu")
+    with torch.no_grad():
+        out = host(lenet.output(x))
+        out_cpu = host(lenet_cpu.output(x))
+    ref = np_lenet(x_nchw.astype(np.float64), lw)
+    lenet_err, lenet_np = float(np.max(np.abs(out - out_cpu))), \
+        float(np.max(np.abs(out - ref)))
+    check(next(iter(lenet.params["0"].values())).device.type ==
+          torch.device(dev).type and lenet_err <= 1e-5 and lenet_np <= 1e-4,
+          f"14e: LeNet card vs CPU {lenet_err:.3g}, vs numpy {lenet_np:.3g}")
+    xr = rs.randn(16, 8, 8, 3).astype(np.float32)
+    res = import_keras_model_and_weights(res_src, device=dev)
+    res_cpu = import_keras_model_and_weights(res_src, device="cpu")
+    with torch.no_grad():
+        r_out, r_cpu = host(res.output(xr)), host(res_cpu.output(xr))
+    res_err = float(np.max(np.abs(r_out - r_cpu)))
+    res_np = float(np.max(np.abs(r_out - np_residual(
+        xr.astype(np.float64), rw))))
+    check(type(res).__name__ == "ComputationGraph" and res_err <= 1e-5
+          and res_np <= 1e-4, f"14e: functional card vs CPU {res_err:.3g}, "
+          f"vs numpy {res_np:.3g}")
+    q = import_keras_sequential_model_and_weights(lenet_src, quantize="int8",
+                                                  device=dev)
+    q_cpu = import_keras_sequential_model_and_weights(
+        lenet_src, quantize="int8", device="cpu")
+    with torch.no_grad():
+        q_out, q_cpu_out = host(q.output(x)), host(q_cpu.output(x))
+    q_err = float(np.max(np.abs(q_out - q_cpu_out)))
+    flips = q_out.argmax(1) != out.argmax(1)
+    top2 = np.sort(out, axis=1)[:, -2:]
+    moved = np.max(np.abs(q_out - out), axis=1)
+    changed = float(np.mean(flips))
+    # a prediction may change only where int8 moved the row by at least
+    # half its top-2 gap (untrained weights leave near-ties)
+    check(q_err <= 1e-5 and changed <= 0.05
+          and np.all(2 * moved[flips] >= (top2[:, 1] - top2[:, 0])[flips]),
+          f"14e: int8 card vs CPU {q_err:.3g}, {changed:.3f} of the "
+          f"predictions changed")
+
+    srv = KerasBackendServer(device=dev)
+    try:
+        base = f"http://127.0.0.1:{srv.start()}"
+
+        def post(path, body):
+            req = urllib.request.Request(
+                base + path, json.dumps(body).encode(),
+                {"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    return resp.status, json.loads(resp.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+
+        if has_h5py:
+            status, body = post("/import", {"path": lenet_src})
+            check(status == 200, f"14e: /import {status} {body}")
+            mid = body["model"]
+            fit_mid = post("/import", {"path": lenet_src})[1]["model"]
+        else:
+            status, body = post("/import", {"path": os.path.join(
+                tmp, "lenet.h5")})
+            check(status == 500 and "h5py" in body.get("error", ""),
+                  f"14e: /import without h5py: {status} {body}")
+            mid = srv.import_model(lenet_mem)
+            fit_mid = srv.import_model(lenet_mem)
+        status, body = post("/predict", {"model": mid,
+                                         "features": x[:16].tolist()})
+        with torch.no_grad():
+            want = host(lenet.output(x[:16]))
+        # bit for bit on the card; a CPU rehearsal's HTTP thread runs
+        # another thread pool, whose sums round apart
+        tol = 0.0 if torch.device(dev).type == "cuda" else 1e-5
+        check(status == 200 and np.max(np.abs(np.asarray(
+            body["output"], np.float32) - want)) <= tol,
+            f"14e: /predict {status}, rows differ from output()")
+        labels = np.eye(KERAS_LENET["labels"], dtype=np.float32)[
+            rs.randint(0, KERAS_LENET["labels"], (2, 32))]
+        paths = []
+        for i in range(2):
+            p = os.path.join(tmp, f"b{i}.npz")
+            np.savez(p, features=x[i * 32:(i + 1) * 32], labels=labels[i])
+            paths.append(p)
+        status, body = post("/fit", {"model": fit_mid, "batches": paths})
+        ref_net = import_keras_sequential_model_and_weights(lenet_src,
+                                                            device=dev)
+        ref_scores = direct_fit(ref_net, paths)
+        check(status == 200 and body["iterations"] == 2
+              and abs(body["score"] - ref_scores[-1]) <= tol,
+              f"14e: /fit {status} {body} against direct fit {ref_scores}")
+    finally:
+        srv.stop()
+
+    zp = os.path.join(tmp, "lenet.zip")
+    save_model(lenet, zp)
+    bp, tp = os.path.join(tmp, "v.bin"), os.path.join(tmp, "v.txt")
+    write_word2vec_binary(w2v, bp)
+    write_word_vectors_text(w2v, tp)
+    hp = lenet_src if has_h5py else os.path.join(tmp, "sig.h5")
+    if not has_h5py:
+        with open(hp, "wb") as f:
+            f.write(b"\x89HDF\r\n\x1a\n" + bytes(56))
+    kinds = {zp: "dl4j-zip", bp: "word2vec-binary", tp: "word-vectors-text",
+             hp: "keras-h5"}
+    for p, kind in kinds.items():
+        check(guess_format(p) == kind, f"14e: guess_format {p} != {kind}")
+    with torch.no_grad():
+        check(np.array_equal(host(load_model_guess(zp, device=dev)
+                                  .output(x)), out),
+              "14e: load_model_guess(zip) output differs")
+    syn0 = host(w2v.syn0)
+    words, vecs = load_model_guess(bp)
+    check(np.array_equal(vecs, syn0[:len(words)]), "14e: binary vectors")
+    words_t, vecs_t = load_model_guess(tp)
+    check(words_t == words and np.max(np.abs(vecs_t - vecs)) <= 1e-6,
+          "14e: text vectors")
+    if has_h5py:
+        with torch.no_grad():
+            check(np.array_equal(host(load_model_guess(hp, device=dev)
+                                      .output(x)), out),
+                  "14e: load_model_guess(h5) output differs")
+    log(f"  14e Keras: LeNet ({KERAS_LENET['conv']} @ 5x5, "
+        f"{KERAS_LENET['dense']}, {KERAS_LENET['labels']}) imported in "
+        f"{import_s * 1e3:.1f} ms, card vs CPU {lenet_err:.3g}, vs numpy "
+        f"{lenet_np:.3g}; residual/concat graph card vs CPU {res_err:.3g}, "
+        f"vs numpy {res_np:.3g}; int8 card vs CPU {q_err:.3g}, "
+        f"{changed:.3f} of the predictions changed; /predict bitwise "
+        f"output(), /fit bitwise a direct fit; guessed {len(kinds)} formats"
+        f"{'' if has_h5py else ' (the .h5 by its signature only)'}; "
+        f"[{card}]")
+    return dict(h5py=has_h5py, import_ms=import_s * 1e3,
+                lenet_max_abs_err=lenet_err, lenet_numpy_err=lenet_np,
+                residual_max_abs_err=res_err, residual_numpy_err=res_np,
+                int8_max_abs_err=q_err, int8_changed=changed)
+
+
+def phase_nlp(card, dev="cuda"):
+    """Phase 14: the NLP embedding stack, DeepWalk and Keras import
+    (14a-14e)."""
+    t0 = time.perf_counter()
+    log("phase 14a: Word2Vec at the JAX bench leg (device, native), then "
+        "the class defaults")
+    w2v, wv = phase_word2vec(card, dev)
+    log("phase 14b: ParagraphVectors DBOW at bench_doc2vec's shape, "
+        "infer_vector, DM")
+    d2v = phase_doc2vec(card, dev)
+    log("phase 14c: GloVe")
+    # 14a's first sentences: RandomState's Zipf draws are sequential
+    sents = zipf_text(GLOVE["sentences"], W2V["words"], W2V["vocab"],
+                      W2V["seed"])
+    glove = phase_glove(sents, card, dev)
+    log("phase 14d: DeepWalk on a two-community graph")
+    deepwalk = phase_deepwalk(card, dev)
+    log("phase 14e: Keras import, /import, /predict, /fit, the guesser")
+    keras = phase_keras(w2v, card, dev)
+    wall = time.perf_counter() - t0
+    log(f"  phase 14: {wall:.1f} s; [{card}]")
+    return dict(word2vec=wv, doc2vec=d2v, glove=glove, deepwalk=deepwalk,
+                keras=keras, wall_s=wall)
+
+
 def kernel_line(flash, paged, bwd, launches, launches_d96,
-                launches_recurrent, launches_graphs, launches_pretrain):
+                launches_recurrent, launches_graphs, launches_pretrain,
+                launches_nlp):
     k1 = flash["slice_f32_causal"]
     k2 = paged["f32_T1_Tmax512"]
     k2c = paged["f32_T256_Tmax512"]          # the serve's first prefill round
@@ -6338,6 +7159,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "launches_recurrent": launches_recurrent["flash_fwd"],
          "launches_graphs": launches_graphs["flash_fwd"],
          "launches_pretrain": launches_pretrain["flash_fwd"],
+         "launches_nlp": launches_nlp["flash_fwd"],
          "max_abs_err": max(r["max_abs_err"] for n, r in flash.items()
                             if n.startswith("slice_f32")),
          "ms": k1["ms"], "device_ms": k1["device_ms"],
@@ -6360,6 +7182,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "launches_recurrent": launches_recurrent["paged_attn"],
          "launches_graphs": launches_graphs["paged_attn"],
          "launches_pretrain": launches_pretrain["paged_attn"],
+         "launches_nlp": launches_nlp["paged_attn"],
          "max_abs_err": max(r["max_abs_err"] for n, r in paged.items()
                             if n.startswith("f32_") and "Tmax512" in n),
          "ms": k2["ms"], "device_ms": k2["device_ms"],
@@ -6422,6 +7245,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
              "launches_recurrent": launches_recurrent[name],
              "launches_graphs": launches_graphs[name],
              "launches_pretrain": launches_pretrain[name],
+             "launches_nlp": launches_nlp[name],
              "max_abs_err": max(r["max_abs_err"][g] for r in slice_bwd
                                 for g in grads),
              "ms": kb[part]["ms"], "device_ms": kb[part]["device_ms"],
@@ -6680,12 +7504,19 @@ def main() -> int:
     pretrain = dict(kernels.LAUNCHES)     # ... and ends here
     check(not any(pretrain.values()),
           f"the pretraining path launched an attention kernel: {pretrain}")
+    kernels.reset_launch_counts()         # the NLP path starts here
+    log("phase 14: the NLP embedding stack (Word2Vec, ParagraphVectors, "
+        "GloVe), DeepWalk and Keras import")
+    REPORT["nlp"] = phase_nlp(card)
+    nlp = dict(kernels.LAUNCHES)          # ... and ends here
+    check(not any(nlp.values()),
+          f"the NLP path launched an attention kernel: {nlp}")
     windows = dict(serving=serving, loading=loading, fixture=fixture,
                    prefix=prefix, spec=spec, d96_serving=d96_serving,
                    training=training, d96_training=d96_training,
                    fitting=fitting, multilayer=multilayer, fabric=fabric,
                    retrieval=retrieval, recurrent=recurrent, graphs=graphs,
-                   pretrain=pretrain)
+                   pretrain=pretrain, nlp=nlp)
     launches = {k: sum(w[k] for w in windows.values()) for k in serving}
     REPORT["main_path_launches"] = dict(windows, total=launches)
     check(all(n > 0 for n in launches.values()),
@@ -6710,7 +7541,8 @@ def main() -> int:
         f"{WINDOW_LOG['retried']}")
     line = kernel_line(flash, paged, bwd, launches,
                        {k: d96_serving[k] + d96_training[k]
-                        for k in d96_serving}, recurrent, graphs, pretrain)
+                        for k in d96_serving}, recurrent, graphs, pretrain,
+                       nlp)
     REPORT["total_s"] = time.perf_counter() - t_start
     log(f"build {REPORT['build_s']:.1f} s, total {REPORT['total_s']:.1f} s")
     if args.out:

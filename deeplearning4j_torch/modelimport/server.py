@@ -10,7 +10,6 @@ an HTTP entry point serves any client), batches are ``.npz`` files with
 ``features``/``labels`` arrays (the HDF5MiniBatchDataSetIterator analog):
 
 - POST /import   {"path": "model.h5"}                   -> {"model": id}
-                  (not ported yet: a structured 500 naming ROADMAP A12)
 - POST /fit      {"model": id, "batches": [paths], "epochs": n}
 - POST /evaluate {"model": id, "batches": [paths]}      -> {"accuracy": ..}
 - POST /predict  {"model": id, "features": [[..], ..],
@@ -38,11 +37,11 @@ a knn-tier ``EmbeddingIndex``, the canonical passage prefix is assembled,
 and a generate-tier ``GenerationServer`` decodes; the response carries the
 tokens, the retrieved doc ids and the shareable prefix length.
 
-Models are registered with ``attach_generation`` / ``attach_inference`` /
-``attach_rag`` (or placed in ``_models`` directly); their servers run on
-the card unless the caller passes ``device="cpu"``. ``/import`` (Keras
-HDF5 import) waits for ROADMAP A12: it raises ``NotImplementedError``
-naming the item, which the handler returns as the structured 500 JSON.
+Models are registered with ``import_model`` (``/import``: a Keras HDF5
+file through ``modelimport/keras.py``), ``attach_generation`` /
+``attach_inference`` / ``attach_rag`` (or placed in ``_models``
+directly); they and their servers run on the card unless the caller
+passes ``device="cpu"`` (for ``/import``, the server's ``device``).
 
 The serving path degrades typed instead of failing open
 (parallel/resilience.py): /predict sheds load with 429 past the
@@ -115,7 +114,8 @@ class KerasBackendServer:
                  retry: Optional[RetryPolicy] = None,
                  breaker: Optional[CircuitBreaker] = None,
                  chaos: Optional[ChaosPolicy] = None,
-                 registry: Optional[MetricsRegistry] = None):
+                 registry: Optional[MetricsRegistry] = None,
+                 device=None):
         """Resilience knobs mirror ``ParallelInference``: ``max_pending``
         bounds concurrent in-flight requests (beyond it /predict returns
         429 immediately), ``request_deadline_s`` is the default /predict
@@ -123,8 +123,11 @@ class KerasBackendServer:
         = unbounded), ``retry``/``breaker`` guard the model dispatch, and
         ``chaos`` injects faults into it — test/bench only, default off.
         ``max_body_bytes`` caps request bodies (413 beyond it; the body
-        is discarded unbuffered, never parsed)."""
+        is discarded unbuffered, never parsed). ``device`` is where
+        ``/import`` places imported models (CUDA unless the caller passes
+        another device)."""
         self._port = port
+        self.device = device
         self._models: dict = {}
         self._generators: dict = {}
         self._inference: dict = {}
@@ -179,10 +182,17 @@ class KerasBackendServer:
 
     # ---------------------------------------------------------- operations
     def import_model(self, path: str) -> str:
-        """Keras HDF5 import: not ported yet."""
-        raise NotImplementedError(
-            "import_model (/import) is not ported yet (ROADMAP A12: Keras "
-            "HDF5 model import)")
+        """Import a Keras HDF5 model onto the server's device and register
+        it; returns its model id."""
+        from deeplearning4j_torch.modelimport.keras import (
+            import_keras_model_and_weights,
+        )
+        net = import_keras_model_and_weights(path, device=self.device)
+        with self._lock:
+            mid = f"m{self._next_id}"
+            self._next_id += 1
+            self._models[mid] = net
+        return mid
 
     def _net(self, mid: str):
         net = self._models.get(mid)

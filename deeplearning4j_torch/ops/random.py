@@ -35,6 +35,14 @@ seed:
   torch's CPU f32 ``sqrt`` is not always). In f64 the inverse error
   function is ``torch.erfinv``, not XLA's f64 polynomial: within 2^13
   ulps of JAX's draw (about 1e-12 relative);
+- ``randint`` is JAX's ``_randint`` for int32: two 32-bit words per draw
+  from the two halves of ``split(key)``, folded into the span with JAX's
+  uint32 arithmetic (``2^16 mod span`` squared mod span as the multiplier,
+  products wrapping at 2^32); ``randint_rows`` draws it for many keys at
+  once, row i bitwise ``randint(keys[i], ...)``;
+- ``permutation`` is JAX's ``_shuffle`` of ``arange(n)``: ``ceil(3 ln n /
+  ln(2^32 - 1))`` rounds, each a stable sort by fresh 32-bit words drawn
+  from the second half of ``split(key)``, the first half carried on;
 - ``gumbel`` is JAX's default ``mode="low"``, ``-log(-log(u))`` with ``u``
   uniform on ``[tiny, 1)``, as XLA compiles it on the CPU. Its logarithm
   is XLA's (``_xla_log``: the Cephes polynomial with fused multiply-adds,
@@ -123,6 +131,74 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     hi, lo = _counters((num,), key.device)
     o1, o2 = threefry2x32(key[0], key[1], hi, lo)
     return torch.stack([o1, o2], dim=-1)
+
+
+def _split_rows(keys: torch.Tensor):
+    """``split(k)`` for every key of ``keys`` ``[..., 2]``: the two halves
+    as ``[..., 2]`` keys each."""
+    c = torch.arange(2, dtype=torch.int64, device=keys.device)
+    o1, o2 = threefry2x32(keys[..., 0:1], keys[..., 1:2], c * 0, c)
+    return (torch.stack([o1[..., 0], o2[..., 0]], -1),
+            torch.stack([o1[..., 1], o2[..., 1]], -1))
+
+
+def _bits_rows(keys: torch.Tensor, shape) -> torch.Tensor:
+    """32-bit ``random_bits`` of ``shape`` for every key of ``keys``
+    ``[..., 2]``: ``[..., *shape]``, row i bitwise ``random_bits(keys[i],
+    32, shape)``."""
+    n = math.prod(shape)
+    hi, lo = _counters((n,), keys.device)
+    o1, o2 = threefry2x32(keys[..., 0:1], keys[..., 1:2], hi, lo)
+    return (o1 ^ o2).reshape(tuple(keys.shape[:-1]) + tuple(shape))
+
+
+_I32 = (-2 ** 31, 2 ** 31 - 1)
+
+
+def randint_rows(keys: torch.Tensor, shape, minval: int, maxval: int
+                 ) -> torch.Tensor:
+    """``jax.random.randint(keys[i], shape, minval, maxval, dtype=int32)``
+    for every key of ``keys`` ``[..., 2]`` at once: an int32 tensor
+    ``[..., *shape]`` (Python-int bounds, clipped to int32 as JAX clips
+    them)."""
+    shape = tuple(int(s) for s in shape)
+    out_of_range = maxval > _I32[1]
+    lo = min(max(int(minval), _I32[0]), _I32[1])
+    hi = min(max(int(maxval), _I32[0]), _I32[1])
+    span = (hi - lo) & _M32 if hi > lo else 1
+    if out_of_range and hi > lo:
+        span = (span + 1) & _M32
+    k1, k2 = _split_rows(keys)
+    higher, lower = _bits_rows(k1, shape), _bits_rows(k2, shape)
+    if span == 0:        # a span of 2^32 wrapped: XLA's x rem 0 is x
+        offset = (higher * 0 + lower) & _M32
+    else:
+        m = 2 ** 16 % span
+        mult = ((m * m) & _M32) % span
+        offset = ((((higher % span) * mult) & _M32) + lower % span) & _M32
+        offset = offset % span
+    out = (lo + offset) & _M32
+    return torch.where(out > _I32[1], out - 2 ** 32, out).to(torch.int32)
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, dtype=int32)`` for
+    one ``[2]`` key, bitwise (see ``randint_rows``)."""
+    return randint_rows(key, shape, minval, maxval)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` for one ``[2]`` key: an int64
+    permutation of ``arange(n)`` on the key's device, bitwise JAX's."""
+    n = int(n)
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(_M32)))
+    for _ in range(rounds):
+        key, sub = _split_rows(key)
+        sort_keys = random_bits(sub, 32, (n,))
+        x = x[torch.sort(sort_keys, stable=True).indices]
+    return x
 
 
 def random_bits(key: torch.Tensor, bit_width: int, shape) -> torch.Tensor:

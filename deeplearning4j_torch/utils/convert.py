@@ -15,7 +15,9 @@ parameterless vertex, on both sides. ``state_from_jax`` loads the layer
 state the same way (batch norm's running ``mean``/``var``, the center-loss
 centers) and ``updater_state_from_jax`` the optimizer slots (``{slot:
 {vertex: {name: ndarray}}}``, Adam's ``m`` and ``v``), so a run can
-continue from a JAX-trained state. A quantized
+continue from a JAX-trained state. ``sequence_vectors_state`` and
+``sequence_vectors_from_jax`` carry an embedding trainer's vocab, Huffman
+tree and tables across the same way. A quantized
 reference tree (``quantize_params``/``quantize_net``: int8 codes with
 ``"<name>_scale"`` f32 siblings) loads as it is, codes int8 and scales f32,
 whether the port net is quantized already or not. Nothing here imports
@@ -127,3 +129,64 @@ def updater_state_to_numpy(net) -> dict:
     """The port's updater state as ``{slot: {vertex: {name: ndarray}}}``
     (the inverse of ``updater_state_from_jax``)."""
     return {slot: _to_numpy(tree) for slot, tree in net.updater_state.items()}
+
+
+def sequence_vectors_state(sv) -> dict:
+    """The trainable state of an embedding trainer as host data: the vocab
+    in index order as ``(word, count, codes, points)``, ``syn0``/``syn1``/
+    ``syn1neg`` as numpy, the batch builder's numpy stream state and, for
+    paragraph vectors, the label rows. Reads any object with the
+    ``SequenceVectors`` surface (the JAX package's or the port's) by
+    duck typing; arrays are fetched with ``np.asarray`` (a tensor through
+    its host copy)."""
+    def arr(a):
+        if torch.is_tensor(a):
+            a = a.detach().cpu()
+        return np.array(a, np.float32)
+
+    words = []
+    for i in range(sv.vocab.num_words()):
+        w = sv.vocab.element_at_index(i)
+        words.append((w.word, float(w.count), list(w.codes), list(w.points)))
+    state = {"words": words, "syn0": arr(sv.syn0), "syn1": arr(sv.syn1),
+             "syn1neg": arr(sv.syn1neg)}
+    if getattr(sv, "_builder", None) is not None:
+        state["builder_rng"] = sv._builder.rng.get_state()
+    if getattr(sv, "_label_ids", None):
+        state["label_ids"] = dict(sv._label_ids)
+    return state
+
+
+def sequence_vectors_from_jax(state: dict, sv):
+    """Load ``state`` (``sequence_vectors_state`` of a JAX
+    ``SequenceVectors``, ``Word2Vec``, ``ParagraphVectors`` or DeepWalk's
+    trainer) into the port's ``sv``: the same vocab (words, counts,
+    indices, Huffman codes and points), the three tables on ``sv``'s
+    device, and a batch builder in the same numpy stream state, so one
+    epoch trains from the same state in both packages. Returns ``sv``."""
+    from deeplearning4j_torch.nlp.learning import BatchBuilder
+    from deeplearning4j_torch.nlp.vocab import AbstractCache, VocabWord
+
+    cache = AbstractCache()
+    for i, (word, count, codes, points) in enumerate(state["words"]):
+        cache.add_token(VocabWord(word, count, i, list(codes), list(points)))
+    cache.update_indices()
+    if [cache.word_at_index(i) for i in range(cache.num_words())] != \
+            [w[0] for w in state["words"]]:
+        raise ValueError("the vocab's counts do not give its index order")
+    sv.vocab = cache
+    dev = sv._dev()
+    V, D = state["syn0"].shape
+    if D != sv.layer_size:
+        raise ValueError(f"layer size {D} != the trainer's {sv.layer_size}")
+    for name in ("syn0", "syn1", "syn1neg"):
+        setattr(sv, name, torch.from_numpy(np.array(state[name],
+                                                    np.float32)).to(dev))
+    sv._builder = BatchBuilder(cache, window=sv.window, negative=sv.negative,
+                               use_hs=sv.use_hs, sampling=sv.sampling,
+                               seed=sv.seed)
+    if "builder_rng" in state:
+        sv._builder.rng.set_state(state["builder_rng"])
+    if "label_ids" in state and hasattr(sv, "_label_ids"):
+        sv._label_ids = dict(state["label_ids"])
+    return sv

@@ -3,7 +3,7 @@ against the port's runtime-hosted servers (``ParallelInference``,
 ``GenerationServer``, ``ReplicaFleet``), on the CPU: drain twice, close
 twice, close from four threads at once, drain after close, submit after
 close fails typed. The spec's ``StreamingBroker`` case waits for the
-port of ``streaming/`` (ROADMAP A12).
+port of ``streaming/`` (ROADMAP A12, part 3).
 """
 
 import threading

@@ -23,8 +23,12 @@
   ``KerasBackendServer.attach_generation`` / ``attach_inference`` /
   ``attach_rag`` and the fleets they build) resolve their device through
   ``resolve_device``, and what is not ported yet (``mesh=``, ``workers >
-  1``, ``tp > 1``, ``EmbeddingIndex(mesh=)``, ``/import``) raises naming
-  its ROADMAP item;
+  1``, ``tp > 1``, ``EmbeddingIndex(mesh=)``) raises naming its ROADMAP
+  item;
+- the NLP trainers (``Word2Vec.fit``, ``ParagraphVectors``, ``Glove``,
+  ``DeepWalk``), ``load_word2vec`` and the Keras importers (with
+  ``KerasBackendServer.import_model``) run on CUDA unless the caller asks
+  for the host;
 - the kernels' launch counters count exactly from many threads at once.
 """
 
@@ -121,7 +125,13 @@ def test_port_imports_no_jax():
             "nn/conf/layers/variational.py", "nn/conf/layers/core.py",
             "datasets/__init__.py", "datasets/curves.py",
             "datasets/cifar.py", "datasets/streaming.py",
-            "optimize/accumulation.py", "ml.py"} <= names
+            "optimize/accumulation.py", "ml.py", "native/__init__.py",
+            "nlp/__init__.py", "nlp/tokenization.py", "nlp/vocab.py",
+            "nlp/learning.py", "nlp/sequence_vectors.py",
+            "nlp/word2vec.py", "nlp/paragraph_vectors.py", "nlp/glove.py",
+            "nlp/bagofwords.py", "nlp/serde.py", "graph/__init__.py",
+            "graph/graph.py", "graph/walks.py", "graph/deepwalk.py",
+            "modelimport/keras.py", "utils/model_guesser.py"} <= names
     bad = [(str(p.relative_to(ROOT)), mod) for p in files
            for mod in _imported_roots(p) if mod in FORBIDDEN]
     assert bad == []
@@ -759,11 +769,11 @@ def test_fabric_entry_points_run_on_cuda_by_default(no_cuda):
         srv.stop()
 
 
-def test_fabric_parts_not_ported_raise_naming_their_item():
+def test_fabric_parts_not_ported_raise_naming_their_item(tmp_path):
     """``mesh=``, ``workers > 1`` and ``tp > 1`` name A9, and so do the
     mesh-sharded retrieval stores (``EmbeddingIndex(mesh=)``,
     ``kmeans="sharded"``, ``NearestNeighborsServer(mesh=)``); ``/import``
-    names A12."""
+    is ported and returns a model id."""
     from deeplearning4j_torch.nearestneighbors import NearestNeighborsServer
     from deeplearning4j_torch.nearestneighbors.index import EmbeddingIndex
     from deeplearning4j_torch.modelimport.server import KerasBackendServer
@@ -788,9 +798,83 @@ def test_fabric_parts_not_ported_raise_naming_their_item():
                                                 device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP A9"):
             make()
-    srv = KerasBackendServer()
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        srv.import_model("model.h5")
+    # /import is ported (it named ROADMAP A12 before): on the CPU it
+    # returns a model id whose net lives there
+    pytest.importorskip("h5py")
+    from tests.test_modelimport import TestKeras1StyleImport
+
+    srv = KerasBackendServer(device="cpu")
+    path = str(tmp_path / "k1.h5")
+    TestKeras1StyleImport()._write_k1_fixture(path)
+    mid = srv.import_model(path)
+    assert mid in srv._models and srv._models[mid].device.type == "cpu"
+
+
+def test_nlp_and_keras_entry_points_run_on_cuda_by_default(no_cuda,
+                                                          tmp_path):
+    """``Word2Vec.fit`` (device and native routes), ``ParagraphVectors``,
+    ``Glove``, ``DeepWalk``, ``load_word2vec``, the Keras importers and
+    ``KerasBackendServer.import_model`` resolve CUDA and, with no card,
+    raise unless the caller asks for the host; asked for the host, their
+    tables and nets live there. On a card the default ``"auto"`` backend
+    keeps negative-sampling tables there: only ``backend="native"`` or
+    the host takes the C loop."""
+    from deeplearning4j_torch.graph import DeepWalk, Graph
+    from deeplearning4j_torch.modelimport import (
+        import_keras_model_and_weights,
+        import_keras_sequential_model_and_weights)
+    from deeplearning4j_torch.modelimport.server import KerasBackendServer
+    from deeplearning4j_torch.nlp import Glove, ParagraphVectors, Word2Vec
+    from deeplearning4j_torch.nlp.serde import (load_word2vec,
+                                                write_word2vec_binary)
+    from deeplearning4j_torch.nlp.tokenization import LabelledDocument
+
+    sents = ["a b c a b", "b c d e", "c d e a"] * 4
+    docs = [LabelledDocument(t, l) for t, l in (("a b c", "X"),
+                                                ("d e a", "Y"))] * 3
+    graph = Graph.from_edges(4, [(0, 1), (1, 2), (2, 3)])
+    makers = {
+        "device": lambda **d: Word2Vec(layer_size=4, negative=2, epochs=1,
+                                       backend="device", **d).fit(sents),
+        "native": lambda **d: Word2Vec(layer_size=4, negative=2, epochs=1,
+                                       use_hierarchic_softmax=False,
+                                       **d).fit(sents),
+        "pv": lambda **d: ParagraphVectors(layer_size=4, negative=2,
+                                           epochs=1, **d).fit(docs),
+        "glove": lambda **d: Glove(layer_size=4, epochs=1, **d).fit(sents),
+        "deepwalk": lambda **d: DeepWalk(vector_size=4, walk_length=4,
+                                         walks_per_vertex=1, **d).fit(graph),
+    }
+    for name, make in makers.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        m = make(device="cpu")
+        table = m._sv.syn0 if name == "deepwalk" else m.syn0
+        assert (isinstance(table, np.ndarray) if name == "native"
+                else table.device.type == "cpu"), name
+    ns = dict(layer_size=4, negative=2, use_hierarchic_softmax=False)
+    for cls in (Word2Vec, ParagraphVectors):
+        assert not cls(device="cuda", **ns)._use_native_backend(), cls
+        assert cls(backend="native", device="cuda",
+                   **ns)._use_native_backend(), cls
+        assert cls(device="cpu", **ns)._use_native_backend(), cls
+    vec = str(tmp_path / "v.bin")
+    write_word2vec_binary(makers["device"](device="cpu"), vec)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_word2vec(vec)
+    assert load_word2vec(vec, device="cpu").syn0.device.type == "cpu"
+    pytest.importorskip("h5py")
+    from tests.test_modelimport import TestKeras1StyleImport
+
+    h5 = str(tmp_path / "k1.h5")
+    TestKeras1StyleImport()._write_k1_fixture(h5)
+    for imp in (import_keras_model_and_weights,
+                import_keras_sequential_model_and_weights):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            imp(h5)
+        assert imp(h5, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        KerasBackendServer().import_model(h5)
 
 
 def test_launch_counters_are_exact_across_threads():

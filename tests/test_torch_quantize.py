@@ -11,9 +11,10 @@ package's for the same weights (f32, bf16, f16); a quantized
 the bf16 products at other places); the zoo knob; quantized greedy serving
 token for token the JAX server's (f32 and int8 KV, and a quantized draft at
 ``spec_k`` 4); a quantized JAX tree carried onto the port; ``save_model``
-refusing a quantized net. The LeNet and Keras cases wait for the
-MultiLayerNetwork substrate and the Keras import (ROADMAP A7, A12), the
-``ParallelInference`` case for the port's inference server (A8).
+refusing a quantized net. The LeNet case is in
+``tests/test_torch_multilayer.py``, the ``ParallelInference`` case in
+``tests/test_torch_inference.py``, the Keras case in
+``tests/test_torch_keras.py``.
 """
 
 import numpy as np

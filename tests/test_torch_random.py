@@ -20,6 +20,17 @@ from deeplearning4j_torch.ops import random as R  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its draws are many small ops,
+    whose thread pools only contend with the other test workers sharing
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 SEEDS = [0, 1, 42, 2 ** 31, 2 ** 32 - 1, 2 ** 32, 2 ** 32 + 5, 2 ** 40 + 7,
          -1, -5, 2 ** 63 - 1, -2 ** 63]
 SHAPES = [(), (1,), (7,), (3, 5), (8, 256), (4, 3, 2)]
@@ -148,3 +159,45 @@ def test_xla_log_matches_jnp_log():
         want = _f32(jnp.log(jnp.asarray(xs).astype(jd)))
         got = R._xla_log(torch.from_numpy(xs)).to(td).float().numpy()
         np.testing.assert_array_equal(got, want)
+
+
+RANGES = [(0, 5), (1, 6), (0, 7), (-5, 100), (0, 65536), (0, 65537),
+          (0, 100_000), (3, 3), (7, 2), (0, 1 << 24), (0, 2 ** 31 - 1),
+          (-2 ** 31, 2 ** 31 - 1), (0, 2 ** 31), (-3, 2 ** 33)]
+
+
+@pytest.mark.parametrize("lo,hi", RANGES)
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 32 + 5, -1])
+def test_randint_matches_jax(seed, lo, hi):
+    """``randint`` over spans that are and are not powers of two, empty
+    and reversed ranges, a range reaching 2^31 - 1 and ranges past int32
+    (JAX clips them and widens the span by one), int32 bitwise."""
+    for shape in [(), (7,), (3, 5), (1000,)]:
+        want = jax.random.randint(jax.random.PRNGKey(seed), shape, lo, hi,
+                                  dtype=jnp.int32)
+        got = R.randint(_key(seed), shape, lo, hi)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("lo,hi", [(1, 6), (0, 100_000), (0, 2 ** 31 - 1)])
+def test_randint_rows_match_per_key_draws(lo, hi):
+    """``randint_rows`` over ``fold_in(k, i)`` keys: row i bitwise
+    ``jax.random.randint(fold_in(k, i), ...)``."""
+    keys = R.fold_in(_key(9), torch.arange(6))
+    got = R.randint_rows(keys, (4, 3), lo, hi)
+    for i in range(6):
+        want = jax.random.randint(jax.random.fold_in(jax.random.PRNGKey(9),
+                                                     i), (4, 3), lo, hi,
+                                  dtype=jnp.int32)
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 10, 1000, 65_537, 200_000])
+@pytest.mark.parametrize("seed", [0, 3, 2 ** 40 + 7])
+def test_permutation_matches_jax(seed, n):
+    """``permutation(key, n)``: the number of sort rounds grows with n
+    (one round to 2^10, two beyond), each a stable sort on fresh words."""
+    want = jax.random.permutation(jax.random.PRNGKey(seed), n)
+    got = R.permutation(_key(seed), n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

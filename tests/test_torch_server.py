@@ -14,7 +14,8 @@
   server's; ``/fit`` losses within 1e-5 of JAX's over two Adam steps and
   bit for bit the port's own ``fit`` on the same batches; ``/evaluate``
   JAX's accuracy; ``/stats`` has JAX's keys and a scrape JAX's families.
-- ``/import`` returns the structured 500 naming ROADMAP A12; ``/rag``
+- ``/import`` of a Keras ``.h5`` then ``/predict`` gives the JAX server's
+  rows within 1e-5; ``/rag``
   through ``attach_rag`` (an exact knn tier, a paged generate tier) returns
   JAX's tokens, doc ids and prefix length, and the same 404/400 for an
   unknown model and a bad body.
@@ -283,13 +284,34 @@ def test_concurrent_predicts_count_exactly():
     assert all(0 <= s <= n * per for s in snaps)
 
 
-def test_import_is_a_structured_500_naming_a12(servers):
-    srv, http = servers("port")
-    status, body = http.post("/import", {"path": "model.h5"})
-    assert status == 500 and body["type"] == "InternalError"
-    assert "NotImplementedError" in body["error"] and "A12" in body["error"]
-    with pytest.raises(NotImplementedError, match="A12"):
-        srv.import_model("model.h5")
+def test_import_is_a_structured_500_naming_a12(servers, tmp_path):
+    """``/import`` is ported (it answered a structured 500 naming ROADMAP
+    A12 before): a Keras-1-style ``.h5`` written with h5py imports on both
+    servers, ``/predict`` of the port's model is within 1e-5 of the JAX
+    server's rows, and a missing file gets the same structured error
+    from both."""
+    pytest.importorskip("h5py")
+    from tests.test_modelimport import TestKeras1StyleImport
+
+    path = str(tmp_path / "k1.h5")
+    *_, (cin, h, w) = TestKeras1StyleImport()._write_k1_fixture(path)
+    x = np.random.RandomState(5).randn(3, h, w, cin).astype(np.float32)
+    rows, errors = [], []
+    for pkg, kw in (("jax", {}), ("port", dict(device="cpu"))):
+        srv, http = servers(pkg, fake=False, **kw)
+        status, body = http.post("/import", {"path": path})
+        assert status == 200, body
+        mid = body["model"]
+        assert mid in json.loads(http.get("/models")[1])["models"]
+        status, out = http.post("/predict", {"model": mid,
+                                             "features": x.tolist()})
+        assert status == 200, out
+        rows.append(np.asarray(out["output"], np.float32))
+        status, err = http.post("/import", {"path": str(tmp_path / "no")})
+        errors.append((status, err["type"]))
+    assert errors[0] == errors[1] and errors[0][0] >= 400
+    assert rows[1].shape == (3, 4)
+    np.testing.assert_allclose(rows[1], rows[0], rtol=0, atol=1e-5)
 
 
 # -------------------------------------------------------- real models
