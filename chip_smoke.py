@@ -302,7 +302,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``infer_vector`` card against CPU from the same state; a DM run card
    against CPU. 14c: GloVe on 14a's first 5,000 sentences: ``fit``, then
    one epoch card against CPU (the permutation bitwise). 14d: DeepWalk
-   (vector 128, window 10, 10 walks of 40 a vertex) on a 2,000-vertex
+   (vector 128, window 10, 5 walks of 40 a vertex) on a 2,000-vertex
    two-community graph: same-community similarity above cross. 14e: a
    Keras-1 MNIST CNN at LeNet's widths and a residual / concat functional
    model imported onto the card (card against CPU and a numpy forward),
@@ -311,6 +311,33 @@ Phases (any failure exits non-zero, and no result line is printed):
    an earlier line), ``/predict`` and ``/fit`` over HTTP bit for bit
    direct calls; ``load_model_guess`` on a zip, both vector formats and
    an ``.h5``.
+15. the data-ingest and telemetry stack. 15a: the synthetic MNIST test
+   set written as the CSV users download (the label, then 784 integer
+   pixels; 10,000 rows), read by ``CSVRecordReader`` (which must take the
+   native parser) and ``RecordReaderDataSetIterator`` (batch 128, 10
+   classes) into one epoch of ``examples/mnist_mlp.py``'s net (pixels
+   scaled by 1/255): every batch bitwise the written arrays, the epoch
+   bitwise the same batches from memory; rows/s of the reader and the
+   iterator, images/s from the CSV and from memory, the CSV fit's idle
+   share; then phase 11c's 600 synthetic-control series as one CSV per
+   sequence through ``CSVSequenceRecordReader`` and
+   ``SequenceRecordReaderDataSetIterator`` (batch 30, 6 classes): batches
+   bitwise the numpy build of JAX's iterator, one epoch of 11c's graph
+   net bitwise the same from memory. 15b: ``examples/
+   streaming_training.py`` at its full size: a producer process, the
+   broker and ``NDArrayRoute(buffer_batches=8)`` into ``fit`` (400
+   iterations, no frame dropped, held-out accuracy over 0.85, bitwise the
+   fit from memory), batches/s and the idle share; a producer that stops
+   without END makes its consumer raise ``StreamStalled``. 15c: phase
+   7c's bf16 TransformerLM through ``fit`` for 40 steps under
+   ``StatsListener(reporting_frequency=10, collect_histograms=True)``
+   into a ``FileStatsStorage``: bitwise the fit without the listener,
+   reports at 10/20/30/40, the last norms within 1e-5 of f64 host norms,
+   whole histogram counts, a ``UIServer`` over the reopened file
+   answering over HTTP; ms a step with and without the listener
+   (marginal windows); the three legacy listeners on LeNet (batch 512),
+   the activation maps within 1e-5 of a CPU net's on the card's
+   parameters.
 
 Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
 calls (``ms``: the wrapper's host work included, which sets the pace once
@@ -331,14 +358,16 @@ phase 10 (retrieval and RAG: both routes of K2 on the generate tier;
 the stores' searches are matmuls and top-k, as the JAX package's are
 XLA's), phase 11 (recurrent nets, which launch none of K1-K4), phase
 12 (graphs and fine-tuning, which launch none either), phase 13
-(pretraining and the data pipeline, none either) and phase 14 (the NLP
-stack and Keras import, none either). The launch counters
-are zeroed just before each of the sixteen and read just after (phase
-6's and the reference servers' and forwards' launches are not counted);
-every kernel must have run on the main path, K2's chunk route and its
-merge pass included, and each path but phases 8, 11, 12, 13 and 14 must
-have launched its own kernels (those five must launch none). The
-script
+(pretraining and the data pipeline, none either), phase 14 (the NLP
+stack and Keras import, none either) and phase 15 (data ingest and
+telemetry: K1, K3 and K4 in 15c's bench-leg fit, none in 15a and 15b,
+K2 nowhere; the counters are also read between its parts). The launch
+counters are zeroed just before each of the seventeen and read just
+after (phase 6's and the reference servers' and forwards' launches are
+not counted); every kernel must have run on the main path, K2's chunk
+route and its merge pass included, and each path but phases 8, 11, 12,
+13 and 14 must have launched its own kernels (those five must launch
+none). The script
 prints the card's name and power limit, one ``{"kernels": [...]}`` line with
 each kernel's launches, error, times and bound, and, last, the result line
 ``{"ok": true, "device": {...}}``. f32 matmuls run in full f32 (TF32
@@ -4564,7 +4593,8 @@ LSTM_CHAR = dict(batch=32, seq=1000)
 LSTM_NAN_SEGMENT = 7
 #: steady tokens/s: the median of LSTM_WINDOWS marginal windows, each the
 #: time of 2n steps less that of n (bench.py's MarginalTimer), n steps
-LSTM_WINDOWS = 5
+#: (bench.py takes five windows; three keep the script within its limit)
+LSTM_WINDOWS = 3
 LSTM_WINDOW_STEPS = 10
 #: phase 11b: streaming and generation at batch 8 from the char-trained net
 LSTM_STREAM = dict(batch=8, prompt=50, tokens=200, chunk=7)
@@ -5235,8 +5265,9 @@ RESNET_TRAIN_FLOP_PER_IMG = 6.6e9
 RESNET_FIT_BATCHES = 8            # two fused blocks at K = 4
 RESNET_FALL_STEPS = 20
 #: marginal windows of ``do_step`` (bench.py's ``MarginalTimer``): each the
-#: time of 2n steps less that of n
-GRAPH_WINDOWS = 5
+#: time of 2n steps less that of n (bench.py takes five; three keep the
+#: script within its limit)
+GRAPH_WINDOWS = 3
 GRAPH_WINDOW_STEPS = 4
 #: 12b: the other graph models at their zoo input shapes; timed batch
 GRAPH_ZOO = [("GoogLeNet", (224, 224, 3)), ("FaceNetNN4Small2", (96, 96, 3)),
@@ -6354,10 +6385,11 @@ W2V = dict(sentences=50_000, words=20, vocab=30_000, zipf=1.3, seed=3,
 D2V = dict(docs=4_000, words=40, vocab=5_000, seed=5, layer=100, window=5,
            negative=5, min_freq=2, model_seed=11, dm_docs=500)
 GLOVE = dict(sentences=5_000, epochs=3)
-#: 14d: DeepWalk at the paper's vector size and window, the class's walk
-#: length and walks a vertex (the paper takes 80 walks a vertex)
+#: 14d: DeepWalk at the paper's vector size and window and the class's
+#: walk length, 5 walks a vertex (the class takes 10, the paper 80: cut to
+#: keep the script within its limit)
 DEEPWALK = dict(vertices=2_000, vector=128, window=10, walk_length=40,
-                walks=10, within=5, bridges=100, seed=3)
+                walks=5, within=5, bridges=100, seed=3)
 #: 14e: a Keras-1 MNIST CNN at LeNet's widths
 KERAS_LENET = dict(conv=(20, 50), kernel=5, dense=500, labels=10, batch=256)
 #: tables after a block or an epoch from the same state, card against CPU
@@ -7140,9 +7172,710 @@ def phase_nlp(card, dev="cuda"):
                 keras=keras, wall_s=wall)
 
 
+# ---------------------------------------------------------------- phase 15
+#: 15a: MNIST's test set as the CSV users download (the label, then 784
+#: integer pixels; 10,000 rows) read in batches of 128 into one epoch of
+#: examples/mnist_mlp.py's net; phase 11c's synthetic-control series as
+#: one CSV per sequence (600 files) in batches of 30 into its graph net
+MNIST_CSV = dict(rows=10_000, batch=128, classes=10)
+#: 15b: examples/streaming_training.py at its full size (400 batches of
+#: 64 from a producer process, the route buffering 8); the consumer of a
+#: producer that stops without END waits ``stall_timeout_s``
+STREAM = dict(batches=400, batch=64, buffer=8, stall_timeout_s=1.0,
+              stall_frames=3)
+#: 15c: the phase-7c model through ``fit`` for 40 steps under
+#: ``StatsListener`` (a report every 10, histograms on); ms a step from
+#: marginal windows of ``window`` against ``2 * window`` steps; the legacy
+#: listeners on bench.py's LeNet (``bench_lenet``: batch 512)
+UI = dict(steps=40, frequency=10, distinct=10, window=10, windows=2,
+          lenet_batch=512, lenet_steps=4)
+#: the CSV's MNIST pixels are scaled to [0, 1] before the net, the same
+#: division on both sides of the bitwise gate
+PIXEL_SCALE = np.float32(255)
+
+
+def mnist_csv(path):
+    """The port's synthetic MNIST test set written as the CSV users
+    download: the label, then 784 integer pixels, an image a row. Returns
+    the written pixels (f32) and labels."""
+    from deeplearning4j_torch.datasets.mnist import MnistDataSetIterator
+
+    n = MNIST_CSV["rows"]
+    it = MnistDataSetIterator(batch_size=n, train=False, num_examples=n)
+    check(it.synthetic, "15a: MNIST files were found; the phase runs on the "
+                        "synthetic set")
+    ds = next(iter(it))
+    pix = np.rint(ds.features * 255).astype(np.int64)
+    lab = ds.labels.argmax(1)
+    np.savetxt(path, np.column_stack([lab, pix]), fmt="%d", delimiter=",")
+    return pix.astype(np.float32), lab
+
+
+def mnist_mlp(dev):
+    """examples/mnist_mlp.py's net: 784-256-128-10, Adam 1e-3, seed 123."""
+    from deeplearning4j_torch.nn.conf.builders import NeuralNetConfiguration
+    from deeplearning4j_torch.nn.conf.inputs import InputType
+    from deeplearning4j_torch.nn.conf.layers.core import (DenseLayer,
+                                                          OutputLayer)
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.nn.updater import Adam
+
+    conf = (NeuralNetConfiguration.builder().seed(123)
+            .updater(Adam(learning_rate=1e-3))
+            .list(DenseLayer(n_out=256, activation="relu"),
+                  DenseLayer(n_out=128, activation="relu"),
+                  OutputLayer(n_out=10, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.convolutional_flat(28, 28, 1)).build())
+    return MultiLayerNetwork(conf).init(device=dev)
+
+
+def scaled(batches):
+    from deeplearning4j_torch.datasets.dataset import DataSet
+
+    for ds in batches:
+        yield DataSet(ds.features / PIXEL_SCALE, ds.labels)
+
+
+def timed_fit(net, data, dev):
+    """Wall seconds of ``net.fit(data)``, the loss fetched and the device
+    synced."""
+    sync(dev)
+    t0 = time.perf_counter()
+    net.fit(data)
+    float(net.score())
+    sync(dev)
+    return time.perf_counter() - t0
+
+
+class WindowProfile:
+    """Device busy share of the steps that take the last ``n`` batches of a
+    stream of ``total`` under ``torch.profiler`` (``wrap`` the stream
+    handed to ``fit``; the fused fit pulls a block's batches ahead, so the
+    window is that many steps give or take one block). Profiling only a
+    window keeps the trace small: a whole 400-step stream's takes tens of
+    seconds to read. The window comes last so that the steps before it
+    run as they would unprofiled: ``before_s`` is the time from asking
+    for the first batch to the window, ``result`` the window's wall and busy seconds,
+    idle share and launches a step."""
+
+    def __init__(self, total, n, dev):
+        n = min(n, total // 2)
+        self.start, self.n, self.dev = total - n, n, dev
+        self.prof = self.result = None
+
+    def wrap(self, batches):
+        from torch.profiler import ProfilerActivity, profile
+
+        t_first = time.perf_counter()         # the first batch is asked
+        for i, ds in enumerate(batches):
+            if i == self.start:
+                self.before_s = time.perf_counter() - t_first
+                sync(self.dev)
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.t0 = time.perf_counter()
+            yield ds
+        if self.prof is not None:
+            sync(self.dev)
+            wall = time.perf_counter() - self.t0
+            self.prof.__exit__(None, None, None)
+            busy_s, launches, top = profile_table(self.prof, None, None, "")
+            self.result = dict(wall_s=wall, device_busy_s=busy_s,
+                               busy_share=busy_s / wall,
+                               idle_share=1 - busy_s / wall, steps=self.n,
+                               kernel_launches_per_step=launches / self.n,
+                               top=top[:6])
+
+
+def phase_csv_mnist(card, dev, tmp):
+    """15a (i): the MNIST CSV through ``CSVRecordReader`` (the native
+    parser) and ``RecordReaderDataSetIterator`` into one epoch of the MLP:
+    every batch bitwise the written arrays, the epoch's parameters bitwise
+    a fit from the same batches in memory; rows/s of the reader and of the
+    iterator, images/s of both fits (the CSV fit's up to a profiled
+    window of its last 16 steps) and that window's idle share."""
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.datavec import (CSVRecordReader,
+                                              RecordReaderDataSetIterator)
+
+    path = os.path.join(tmp, "mnist_test.csv")
+    t0 = time.perf_counter()
+    pix, lab = mnist_csv(path)
+    write_s = time.perf_counter() - t0
+    n, B, C = len(lab), MNIST_CSV["batch"], MNIST_CSV["classes"]
+    eye = np.eye(C, dtype=np.float32)
+    steps = -(-n // B)
+
+    def csv_batches():
+        return RecordReaderDataSetIterator(CSVRecordReader(path), B,
+                                           label_index=0, num_classes=C)
+
+    reader = CSVRecordReader(path)
+    check(reader.read_numeric() is not None,
+          "15a: the MNIST CSV did not take the native parser")
+    t0 = time.perf_counter()
+    rows = sum(1 for _ in reader)
+    reader_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seen, bad = 0, []
+    for i, ds in enumerate(csv_batches()):
+        s = slice(i * B, (i + 1) * B)
+        if not (ds.features.dtype == ds.labels.dtype == np.float32
+                and np.array_equal(ds.features, pix[s])
+                and np.array_equal(ds.labels, eye[lab[s]])):
+            bad.append(i)
+        seen += len(ds.features)
+    iter_s = time.perf_counter() - t0
+    check(rows == seen == n and not bad,
+          f"15a: {rows} rows read, {seen} in batches, batches {bad} differ "
+          f"from the written arrays")
+
+    memory = [DataSet(pix[i:i + B] / PIXEL_SCALE, eye[lab[i:i + B]])
+              for i in range(0, n, B)]
+    mnist_mlp(dev).fit(memory[:8])        # warm: the shapes' first calls
+    mem_net, csv_net = mnist_mlp(dev), mnist_mlp(dev)
+    mem_s = timed_fit(mem_net, memory, dev)
+    window = WindowProfile(steps, 16, dev)
+    csv_s = timed_fit(csv_net, window.wrap(scaled(csv_batches())), dev)
+    prof = window.result
+    # images/s of the steps before the profiled window
+    csv_rate = window.start * B / window.before_s
+    bitwise = same_params(mem_net, csv_net)
+    check(mem_net.iteration == csv_net.iteration == steps and bitwise[0],
+          f"15a: the MLP's epoch from the CSV vs from memory: iterations "
+          f"{csv_net.iteration}/{mem_net.iteration}, bitwise {bitwise}")
+    loss = float(csv_net.score())
+    log(f"  15a MNIST CSV ({n} rows, {os.path.getsize(path)} bytes, written "
+        f"in {write_s:.2f} s): reader {rows / reader_s:.0f} rows/s (native "
+        f"parser), iterator {n / iter_s:.0f} rows/s, every batch bitwise "
+        f"the written arrays; one epoch ({steps} steps of {B}) "
+        f"{csv_rate:.0f} images/s from the CSV (the {window.start} steps "
+        f"before the profiled window) vs {n / mem_s:.0f} from memory, "
+        f"parameters bitwise; idle {prof['idle_share']:.3f} over the last "
+        f"{prof['steps']} steps of the CSV fit, "
+        f"{prof['kernel_launches_per_step']:.1f} launches a step; loss "
+        f"{loss:.4f}; [{card}]")
+    return dict(rows=n, csv_bytes=os.path.getsize(path), write_s=write_s,
+                reader_rows_s=rows / reader_s, iterator_rows_s=n / iter_s,
+                batches_bitwise=not bad, steps=steps, csv_images_s=csv_rate,
+                memory_images_s=n / mem_s,
+                fit_bitwise=bitwise[0], loss=loss, profile=prof)
+
+
+def phase_csv_sequences(card, dev, tmp):
+    """15a (ii): phase 11c's 600 synthetic-control series as one CSV per
+    sequence (the values, then the label), read by
+    ``CSVSequenceRecordReader`` and ``SequenceRecordReaderDataSetIterator``
+    (batch 30, 6 classes): every batch bitwise the one JAX's iterator
+    builds (computed here with numpy: padded at the end to the batch's
+    longest, masked, the one-hot labels masked), and one epoch of 11c's
+    graph net bitwise the same epoch from those arrays in memory."""
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.datavec import (
+        CSVSequenceRecordReader, SequenceRecordReaderDataSetIterator)
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+
+    train, test = uci_data()
+    x = np.concatenate([b[0] for b in train + test])[..., 0]
+    cls = np.concatenate([b[1] for b in train + test]).argmax(1)
+    lengths = np.concatenate([b[2] for b in train + test]).sum(1).astype(int)
+    N, B, C = len(cls), UCI["batch"], UCI["classes"]
+    d = os.path.join(tmp, "uci")
+    os.makedirs(d)
+    for i in range(N):
+        with open(os.path.join(d, f"{i:04d}.csv"), "w") as f:
+            f.write("".join(f"{float(v)!r},{cls[i]}\n"
+                            for v in x[i, :lengths[i]]))
+    eye = np.eye(C, dtype=np.float32)
+    want = []
+    for s in range(0, N, B):
+        L = lengths[s:s + B]
+        T = int(L.max())
+        m = (np.arange(T)[None] < L[:, None]).astype(np.float32)
+        xb = (x[s:s + B, :T] * m)[..., None]
+        yb = eye[cls[s:s + B]][:, None, :] * m[..., None]
+        want.append(DataSet(xb.astype(np.float32), yb, m, m))
+
+    def csv_batches():
+        return SequenceRecordReaderDataSetIterator(
+            CSVSequenceRecordReader(d), B, num_classes=C)
+
+    t0 = time.perf_counter()
+    got = list(csv_batches())
+    iter_s = time.perf_counter() - t0
+    names = ("features", "labels", "features_mask", "labels_mask")
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if not all(getattr(a, k).dtype == getattr(b, k).dtype
+                      and np.array_equal(getattr(a, k), getattr(b, k))
+                      for k in names)]
+    check(len(got) == len(want) and not bad,
+          f"15a: sequence batches {bad} of {len(got)} differ from the numpy "
+          f"build")
+    mem_net = ComputationGraph(uci_conf("graph")).init(device=dev)
+    csv_net = ComputationGraph(uci_conf("graph")).init(device=dev)
+    mem_s = timed_fit(mem_net, want, dev)
+    csv_s = timed_fit(csv_net, csv_batches(), dev)
+    bitwise = same_params(mem_net, csv_net)
+    check(mem_net.iteration == csv_net.iteration == len(want) and bitwise[0],
+          f"15a: the sequence net's epoch from the CSVs vs from memory: "
+          f"iterations {csv_net.iteration}/{mem_net.iteration}, bitwise "
+          f"{bitwise}")
+    log(f"  15a synthetic control ({N} CSV files, lengths "
+        f"{lengths.min()}..{lengths.max()}): iterator {N / iter_s:.0f} "
+        f"sequences/s, every batch bitwise the numpy build; one epoch "
+        f"({len(want)} steps of {B}) {N / csv_s:.0f} sequences/s from the "
+        f"CSVs vs {N / mem_s:.0f} from memory, parameters bitwise; "
+        f"[{card}]")
+    return dict(sequences=N, iterator_seqs_s=N / iter_s,
+                batches_bitwise=not bad, steps=len(want),
+                csv_seqs_s=N / csv_s, memory_seqs_s=N / mem_s,
+                fit_bitwise=bitwise[0])
+
+
+def spiral_batches(n, batch, seed=0):
+    """examples/streaming_training.py's producer stream: a two-class
+    spiral from ``RandomState(seed)``, as (features, one-hot labels)."""
+    rs = np.random.RandomState(seed)
+    for _ in range(n):
+        theta = rs.rand(batch) * 3 * np.pi
+        cls = rs.randint(0, 2, batch)
+        r = theta / (3 * np.pi)
+        x = np.stack([r * np.cos(theta + np.pi * cls),
+                      r * np.sin(theta + np.pi * cls)], 1)
+        x = (x + rs.randn(batch, 2) * 0.02).astype(np.float32)
+        yield x, np.eye(2, dtype=np.float32)[cls]
+
+
+def spiral_net(dev):
+    """examples/streaming_training.py's net: 2-64-64-2, Adam 3e-3."""
+    from deeplearning4j_torch.nn.conf.builders import NeuralNetConfiguration
+    from deeplearning4j_torch.nn.conf.inputs import InputType
+    from deeplearning4j_torch.nn.conf.layers.core import (DenseLayer,
+                                                          OutputLayer)
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.nn.updater import Adam
+
+    conf = (NeuralNetConfiguration.builder().seed(7)
+            .updater(Adam(learning_rate=3e-3))
+            .list(DenseLayer(n_out=64, activation="relu"),
+                  DenseLayer(n_out=64, activation="relu"),
+                  OutputLayer(n_out=2, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(2)).build())
+    return MultiLayerNetwork(conf).init(device=dev)
+
+
+#: the producer process: the publisher client and numpy (and this file's
+#: stream), never the model
+_SPIRAL_PRODUCER = r"""
+import sys
+sys.path.insert(0, sys.argv[4])
+from chip_smoke import spiral_batches
+from deeplearning4j_torch.streaming import NDArrayPublisher
+
+port, n, batch = (int(a) for a in sys.argv[1:4])
+with NDArrayPublisher("127.0.0.1", port, "spiral") as pub:
+    print("producer: ready", flush=True)
+    if sys.stdin.readline().strip() != "go":
+        sys.exit(3)
+    for x, y in spiral_batches(n, batch):
+        pub.publish_arrays(x, y)
+    pub.end()
+print("producer: published", n, "batches", flush=True)
+"""
+
+
+def start_producer(broker):
+    """The 15b producer process, started ahead of its part (its imports
+    take seconds): it connects to ``broker``, says it is ready and
+    publishes once told to go."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(sys.path))
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-c", _SPIRAL_PRODUCER, str(broker.port),
+         str(STREAM["batches"]), str(STREAM["batch"]), root], env=env,
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def phase_streaming(card, dev, broker, producer):
+    """15b: examples/streaming_training.py at its full size: a producer
+    process publishes 400 spiral batches of 64 to an in-process broker, an
+    ``NDArrayRoute(buffer_batches=8)`` feeds ``fit`` on the card. Gates:
+    400 iterations, no frame dropped, held-out accuracy over 0.85, the
+    parameters bitwise a fit on the same batches from memory, and a
+    consumer whose producer stops without END raising ``StreamStalled``
+    within its idle timeout. Batches/s is of the fit from its first
+    batch's arrival to a profiled window of its last 40 steps, which
+    gives the idle share."""
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.streaming import (NDArrayConsumer,
+                                                NDArrayPublisher,
+                                                NDArrayRoute, StreamStalled)
+
+    N, Bs = STREAM["batches"], STREAM["batch"]
+    net, ref = spiral_net(dev), spiral_net(dev)
+    # warm the card before subscribing: a consumer that stalls past the
+    # broker's 0.5 s patience loses frames by design
+    net.output(np.zeros((1, 2), np.float32))
+    spiral_net(dev).fit([DataSet(x, y) for x, y in spiral_batches(8, Bs, 1)])
+    sync(dev)
+    ready = producer.stdout.readline()
+    check(ready.startswith("producer: ready"),
+          f"15b: the producer did not start: {ready!r} "
+          f"{producer.stderr.read()[-2000:] if producer.poll() else ''}")
+    route = NDArrayRoute("127.0.0.1", broker.port, "spiral",
+                         buffer_batches=STREAM["buffer"])
+
+    def unblock_on_producer_crash():
+        if producer.wait() != 0:
+            route.iterator().end()
+
+    threading.Thread(target=unblock_on_producer_crash, daemon=True).start()
+    t0 = time.perf_counter()
+    producer.stdin.write("go\n")
+    producer.stdin.flush()
+    stream = iter(route.iterator())
+    first = next(stream, None)
+    first_s = time.perf_counter() - t0
+    check(first is not None, "15b: the stream ended before its first batch")
+
+    def with_first():
+        yield first
+        yield from stream
+
+    window = WindowProfile(N, N // 10, dev)
+    timed_fit(net, window.wrap(with_first()), dev)
+    prof = window.result
+    out, err = producer.communicate(timeout=120)
+    check(producer.returncode == 0 and f"published {N}" in out,
+          f"15b: the producer failed: {err[-2000:]}")
+    route.join(10)
+    stats = broker.stats()
+
+    # a producer that stops without END: the consumer fails typed
+    cons = NDArrayConsumer("127.0.0.1", broker.port, "cut",
+                           idle_timeout_s=STREAM["stall_timeout_s"])
+    with NDArrayPublisher("127.0.0.1", broker.port, "cut") as pub:
+        for x, y in spiral_batches(STREAM["stall_frames"], Bs, 2):
+            pub.publish_arrays(x, y)
+    got, stalled = 0, False
+    t0 = time.perf_counter()
+    try:
+        for _ in cons:
+            got += 1
+    except StreamStalled:
+        stalled = True
+    stall_s = time.perf_counter() - t0
+    cons.close()
+    check(net.iteration == N, f"15b: {net.iteration} iterations from the "
+                              f"stream, expected {N}")
+    check(stats["frames_dropped"] == 0 and
+          stats["subscribers_disconnected"] == 0,
+          f"15b: the broker dropped frames: {stats}")
+    check(stalled and got == STREAM["stall_frames"]
+          and stall_s < STREAM["stall_timeout_s"] + 5.0,
+          f"15b: a producer that stopped without END: stalled {stalled} "
+          f"after {got} frames and {stall_s:.2f} s")
+    rs = np.random.RandomState(9)
+    theta = rs.rand(512) * 3 * np.pi
+    cls = rs.randint(0, 2, 512)
+    r = theta / (3 * np.pi)
+    xt = np.stack([r * np.cos(theta + np.pi * cls),
+                   r * np.sin(theta + np.pi * cls)], 1).astype(np.float32)
+    out_t = net.output(xt)
+    check(out_t.device.type == torch.device(dev).type,
+          f"15b: output on {out_t.device}")
+    acc = float((out_t.cpu().numpy().argmax(1) == cls).mean())
+    check(acc > 0.85, f"15b: held-out accuracy {acc:.4f}")
+    mem_s = timed_fit(ref, [DataSet(x, y)
+                            for x, y in spiral_batches(N, Bs)], dev)
+    bitwise = same_params(net, ref)
+    check(bitwise[0], f"15b: the streamed fit vs the same batches from "
+                      f"memory: {bitwise}")
+    rate = window.start / window.before_s
+    log(f"  15b streaming: {N} batches of {Bs} from a producer process "
+        f"(first batch {first_s * 1e3:.1f} ms after go) through the broker "
+        f"and NDArrayRoute(buffer_batches={STREAM['buffer']}) into fit: "
+        f"{rate:.0f} batches/s over the {window.start} steps before the "
+        f"profiled window ({N / mem_s:.0f} from memory), idle {prof['idle_share']:.3f} over the last "
+        f"{prof['steps']} steps, {prof['kernel_launches_per_step']:.1f} "
+        f"launches a step; {stats['frames_dropped']} frames dropped; "
+        f"held-out accuracy {acc:.4f}; parameters bitwise the fit from "
+        f"memory; StreamStalled after {got} frames and {stall_s:.2f} s "
+        f"(idle timeout {STREAM['stall_timeout_s']} s); [{card}]")
+    return dict(batches=N, batch=Bs, first_batch_s=first_s, batches_s=rate,
+                memory_batches_s=N / mem_s, profile=prof, broker=stats,
+                accuracy=acc, fit_bitwise=bitwise[0],
+                stalled_after_frames=got, stall_s=stall_s)
+
+
+def http_json(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        check(r.status == 200, f"15c: GET {path} answered {r.status}")
+        return json.loads(r.read())
+
+
+def marginal_fit_ms(net, stream, dev):
+    """ms a step of ``fit``: the median of ``UI["windows"]`` windows, each
+    the time of a fit of 2n batches less that of n (n = UI["window"])."""
+    n = UI["window"]
+    windows = []
+    for _ in range(UI["windows"]):
+        t1 = timed_fit(net, stream[:n], dev)
+        t2 = timed_fit(net, stream[:2 * n], dev)
+        windows.append((t2 - t1) / n * 1e3)
+    return float(np.median(windows)), windows
+
+
+def phase_ui(card, dev, tmp):
+    """15c part 1: the phase-7c model (the JAX bench leg's bf16
+    TransformerLM at [32, 512]) through ``fit`` at its defaults for 40
+    steps under ``StatsListener(reporting_frequency=10,
+    collect_histograms=True)`` writing a ``FileStatsStorage``: parameters
+    bitwise the same fit without the listener, reports at 10, 20, 30, 40,
+    the last norms within 1e-5 of f64 norms on the host, histogram counts
+    summing to each parameter's size, and a ``UIServer`` over the reopened
+    file answering the overview, model, system and histogram views over
+    HTTP with the stored series; ms a step with and without the
+    listener."""
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.ui import (FileStatsStorage, StatsListener,
+                                         UIServer)
+
+    V, T, B = BENCH["num_labels"], BENCH["max_length"], BENCH_BATCH
+    probe = bench_net(None, "cpu")
+    params = numpy_params(probe, seed=1)
+    del probe
+    rs = np.random.RandomState(7)
+    eye = np.eye(V, dtype=np.float32)
+    distinct = []
+    for _ in range(UI["distinct"]):
+        idx = rs.randint(0, V, (B, T + 1))
+        distinct.append(DataSet(eye[idx[:, :-1]], eye[idx[:, 1:]]))
+    stream = [distinct[i % len(distinct)] for i in range(UI["steps"])]
+
+    path = os.path.join(tmp, "bench_stats.jsonl")
+    store = FileStatsStorage(path)
+    watched, plain = bench_net(params, dev), bench_net(params, dev)
+    watched.set_listeners(StatsListener(
+        store, session_id="bench", reporting_frequency=UI["frequency"],
+        collect_histograms=True))
+    watched.fit(stream)
+    plain.fit(stream)
+    sync(dev)
+    store.close()
+    bitwise = same_params(watched, plain)
+    check(watched.iteration == plain.iteration == UI["steps"]
+          and bitwise[0], f"15c: fit with the listener vs without: "
+                          f"iterations {watched.iteration}/"
+                          f"{plain.iteration}, bitwise {bitwise}")
+
+    reopened = FileStatsStorage(path)
+    upd = reopened.get_all_updates_after("bench", "StatsListener")
+    iters = [r["data"]["iteration"] for r in upd]
+    want_iters = list(range(UI["frequency"], UI["steps"] + 1,
+                            UI["frequency"]))
+    check(iters == want_iters, f"15c: reports at {iters}, expected "
+                               f"{want_iters}")
+    last = upd[-1]["data"]
+    worst_rel = 0.0
+    for v in watched.params:
+        for k, t in watched.params[v].items():
+            want = float(np.linalg.norm(
+                t.detach().cpu().double().numpy().ravel()))
+            got = last["param_norms"][f"{v}/{k}"]
+            worst_rel = max(worst_rel, abs(got - want) / want)
+            h = last["param_histograms"][f"{v}/{k}"]
+            check(sum(h["counts"]) == t.numel(),
+                  f"15c: histogram of {v}/{k} counts {sum(h['counts'])} of "
+                  f"{t.numel()}")
+    check(worst_rel <= 1e-5, f"15c: the last param_norms vs f64 host norms: "
+                             f"rel {worst_rel:.3g}")
+    srv = UIServer()
+    srv.attach(reopened)
+    port = srv.start()
+    try:
+        sessions = http_json(port, "/train/sessions")
+        ov = http_json(port, "/train/overview?sid=bench")
+        model = http_json(port, "/train/model?sid=bench")
+        system = http_json(port, "/train/system?sid=bench")
+        hist = http_json(port, "/train/histograms?sid=bench")
+    finally:
+        srv.stop()
+        reopened.close()
+    check(sessions == ["bench"] and ov["iterations"] == want_iters
+          and ov["scores"] == [r["data"]["score"] for r in upd]
+          and ov["latest_param_norms"] == last["param_norms"]
+          and model.get("num_params") == watched.num_params()
+          and model.get("torch_backend") == torch.device(dev).type
+          and system["iterations"] == want_iters
+          and hist["iteration"] == UI["steps"]
+          and hist["param_histograms"] == last["param_histograms"],
+          f"15c: the UIServer's views differ from the stored series: "
+          f"{sessions}, {ov['iterations']}, {model.get('num_params')}, "
+          f"{system['iterations']}, {hist['iteration']}")
+
+    timing = FileStatsStorage(os.path.join(tmp, "timing_stats.jsonl"))
+    watched.set_listeners(StatsListener(
+        timing, session_id="timing", reporting_frequency=UI["frequency"],
+        collect_histograms=True))
+    with_ms, with_w = marginal_fit_ms(watched, stream, dev)
+    without_ms, without_w = marginal_fit_ms(plain, stream, dev)
+    watched.set_listeners()
+    timing.close()
+    log(f"  15c StatsListener on the bench leg [{B}, {T}] bf16: {UI['steps']}"
+        f" steps, reports at {iters}, parameters bitwise the fit without "
+        f"it; last norms vs f64 host norms rel {worst_rel:.2e}; histogram "
+        f"counts whole; UIServer overview/model/system/histograms over "
+        f"HTTP equal the stored series; {with_ms:.3f} ms a step with the "
+        f"listener vs {without_ms:.3f} without (marginal windows of "
+        f"{UI['window']} steps: {[round(w, 3) for w in with_w]} / "
+        f"{[round(w, 3) for w in without_w]}); [{card}]")
+    return dict(reports=iters, fit_bitwise=bitwise[0],
+                norms_max_rel=worst_rel, with_listener_ms=with_ms,
+                with_listener_windows=with_w, without_listener_ms=without_ms,
+                without_listener_windows=without_w,
+                file_bytes=os.path.getsize(path))
+
+
+def components_of(path):
+    """The component list a ``render_html`` page embeds."""
+    import re
+
+    with open(path, encoding="utf-8") as f:
+        page = f.read()
+    m = re.search(r"const COMPONENTS = (\[.*?\]);\n", page, re.S)
+    check(m is not None, f"15c: {path} holds no component data")
+    return json.loads(m.group(1).replace("<\\/", "</"))
+
+
+def phase_legacy(card, dev, tmp):
+    """15c part 2: the three legacy listeners on bench.py's LeNet (batch
+    512) writing their reports during ``fit``; the
+    ``ConvolutionalIterationListener`` maps of the last report within
+    1e-5 of the same listener's on a CPU net holding the card's
+    parameters."""
+    from deeplearning4j_torch.ui import (ConvolutionalIterationListener,
+                                         FlowIterationListener,
+                                         HistogramIterationListener)
+
+    Bl, steps = UI["lenet_batch"], UI["lenet_steps"]
+    data = mnist_nhwc(True, steps * Bl, Bl)
+    probe = data[0].features[:1]
+    card_dir, cpu_dir = os.path.join(tmp, "legacy"), \
+        os.path.join(tmp, "legacy_cpu")
+    net = twin("LeNet", dev)
+    net.set_listeners(HistogramIterationListener(card_dir, frequency=2),
+                      FlowIterationListener(card_dir, frequency=2),
+                      ConvolutionalIterationListener(card_dir, probe,
+                                                     frequency=2))
+    t0 = time.perf_counter()
+    net.fit(data)
+    sync(dev)
+    fit_s = time.perf_counter() - t0
+    net.set_listeners()
+    check(net.iteration == steps, f"15c: LeNet {net.iteration} iterations")
+    pages = {f: components_of(os.path.join(card_dir, f))
+             for f in ("histograms.html", "flow.html", "activations.html")}
+    n_params = sum(int(t.numel()) for p in net.params.values()
+                   for t in p.values())
+    hists = [c for c in pages["histograms.html"]
+             if c["componentType"] == "ChartHistogram"]
+    check(sum(sum(c["y_values"]) for c in hists) == n_params,
+          "15c: the histogram report does not count every parameter")
+    rows = [c for c in pages["flow.html"]
+            if c["componentType"] == "ComponentTable"][0]["content"]
+    check(sum(int(r[2]) for r in rows) == n_params,
+          f"15c: the flow report counts {sum(int(r[2]) for r in rows)} "
+          f"parameters of {n_params}")
+    cpu = twin("LeNet", "cpu", params=net.params)
+    ConvolutionalIterationListener(cpu_dir, probe, frequency=2) \
+        .iteration_done(cpu, steps)
+    ref = components_of(os.path.join(cpu_dir, "activations.html"))
+    maps = [c for c in pages["activations.html"]
+            if c["componentType"] == "ChartMatrix"]
+    ref_maps = [c for c in ref if c["componentType"] == "ChartMatrix"]
+    check([c["title"] for c in maps] == [c["title"] for c in ref_maps]
+          and len(maps) > 0, "15c: the card's and the CPU's activation "
+                             "reports hold different maps")
+    map_err = max(float(np.abs(np.asarray(a["values"])
+                               - np.asarray(b["values"])).max())
+                  for a, b in zip(maps, ref_maps))
+    check(map_err <= 1e-5, f"15c: activation maps card vs CPU differ by "
+                           f"{map_err:.3g}")
+    log(f"  15c legacy listeners on LeNet (batch {Bl}, {steps} steps, "
+        f"{fit_s:.2f} s with the reports): histogram, flow and "
+        f"{len(maps)} activation maps written; maps card vs CPU max|err| "
+        f"{map_err:.2e}; [{card}]")
+    return dict(maps=len(maps), map_max_err=map_err, fit_s=fit_s,
+                params=n_params)
+
+
+def ingest_parts(card, dev, tmp, broker, producer):
+    """Phase 15's parts in order: their results, and each one's launches
+    counted apart."""
+    from deeplearning4j_torch import kernels
+
+    out, by_part = {}, {}
+    before = dict(kernels.LAUNCHES)
+    log("phase 15a: DataVec into fit (the MNIST CSV, the "
+        "synthetic-control sequence CSVs)")
+    out["csv_mnist"] = phase_csv_mnist(card, dev, tmp)
+    out["csv_sequences"] = phase_csv_sequences(card, dev, tmp)
+    by_part["15a"] = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    before = dict(kernels.LAUNCHES)
+    log("phase 15b: streaming (a producer process, the broker, "
+        "NDArrayRoute into fit)")
+    out["streaming"] = phase_streaming(card, dev, broker, producer)
+    by_part["15b"] = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    before = dict(kernels.LAUNCHES)
+    log("phase 15c: the UI stats pipeline on the bench leg's fit, the "
+        "legacy listeners on LeNet")
+    out["ui"] = phase_ui(card, dev, tmp)
+    out["legacy"] = phase_legacy(card, dev, tmp)
+    by_part["15c"] = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    return out, by_part
+
+
+def phase_ingest(card, dev="cuda"):
+    """Phase 15: the data-ingest and telemetry stack (15a-15c), the launch
+    counters read between the parts: no attention kernel in 15a or 15b;
+    K1, K3 and K4 in 15c (the bench leg's fit), K2 nowhere. 15b's
+    producer process starts first, its imports overlapping 15a."""
+    from deeplearning4j_torch.streaming import StreamingBroker
+
+    t0 = time.perf_counter()
+    broker = StreamingBroker(port=0).start()
+    producer = start_producer(broker)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out, by_part = ingest_parts(card, dev, tmp, broker, producer)
+    finally:
+        if producer.poll() is None:
+            producer.kill()
+            producer.wait()
+        broker.stop()
+    check(not any(by_part["15a"].values())
+          and not any(by_part["15b"].values()),
+          f"phase 15: an attention kernel launched in 15a or 15b: {by_part}")
+    check(all(by_part["15c"][k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                               "flash_bwd_dkv"))
+          and not any(v for k, v in by_part["15c"].items()
+                      if k.startswith("paged_attn")),
+          f"phase 15c: K1, K3 and K4 must launch and K2 must not: "
+          f"{by_part['15c']}")
+    wall = time.perf_counter() - t0
+    log(f"  phase 15: {wall:.1f} s; launches by part {by_part}; [{card}]")
+    return dict(out, launches_by_part=by_part, wall_s=wall)
+
+
 def kernel_line(flash, paged, bwd, launches, launches_d96,
                 launches_recurrent, launches_graphs, launches_pretrain,
-                launches_nlp):
+                launches_nlp, launches_ingest):
     k1 = flash["slice_f32_causal"]
     k2 = paged["f32_T1_Tmax512"]
     k2c = paged["f32_T256_Tmax512"]          # the serve's first prefill round
@@ -7160,6 +7893,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "launches_graphs": launches_graphs["flash_fwd"],
          "launches_pretrain": launches_pretrain["flash_fwd"],
          "launches_nlp": launches_nlp["flash_fwd"],
+         "launches_ingest": launches_ingest["flash_fwd"],
          "max_abs_err": max(r["max_abs_err"] for n, r in flash.items()
                             if n.startswith("slice_f32")),
          "ms": k1["ms"], "device_ms": k1["device_ms"],
@@ -7183,6 +7917,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "launches_graphs": launches_graphs["paged_attn"],
          "launches_pretrain": launches_pretrain["paged_attn"],
          "launches_nlp": launches_nlp["paged_attn"],
+         "launches_ingest": launches_ingest["paged_attn"],
          "max_abs_err": max(r["max_abs_err"] for n, r in paged.items()
                             if n.startswith("f32_") and "Tmax512" in n),
          "ms": k2["ms"], "device_ms": k2["device_ms"],
@@ -7246,6 +7981,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
              "launches_graphs": launches_graphs[name],
              "launches_pretrain": launches_pretrain[name],
              "launches_nlp": launches_nlp[name],
+             "launches_ingest": launches_ingest[name],
              "max_abs_err": max(r["max_abs_err"][g] for r in slice_bwd
                                 for g in grads),
              "ms": kb[part]["ms"], "device_ms": kb[part]["device_ms"],
@@ -7511,12 +8247,23 @@ def main() -> int:
     nlp = dict(kernels.LAUNCHES)          # ... and ends here
     check(not any(nlp.values()),
           f"the NLP path launched an attention kernel: {nlp}")
+    kernels.reset_launch_counts()         # the ingest path starts here
+    log("phase 15: the data-ingest and telemetry stack (DataVec into fit, "
+        "the streaming broker and route, the UI stats pipeline)")
+    REPORT["ingest"] = phase_ingest(card)
+    ingest = dict(kernels.LAUNCHES)       # ... and ends here
+    check(all(ingest[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv"))
+          and not any(v for k, v in ingest.items()
+                      if k.startswith("paged_attn")),
+          f"the ingest path: K1, K3 and K4 must launch and K2 must not: "
+          f"{ingest}")
     windows = dict(serving=serving, loading=loading, fixture=fixture,
                    prefix=prefix, spec=spec, d96_serving=d96_serving,
                    training=training, d96_training=d96_training,
                    fitting=fitting, multilayer=multilayer, fabric=fabric,
                    retrieval=retrieval, recurrent=recurrent, graphs=graphs,
-                   pretrain=pretrain, nlp=nlp)
+                   pretrain=pretrain, nlp=nlp, ingest=ingest)
     launches = {k: sum(w[k] for w in windows.values()) for k in serving}
     REPORT["main_path_launches"] = dict(windows, total=launches)
     check(all(n > 0 for n in launches.values()),
@@ -7542,7 +8289,7 @@ def main() -> int:
     line = kernel_line(flash, paged, bwd, launches,
                        {k: d96_serving[k] + d96_training[k]
                         for k in d96_serving}, recurrent, graphs, pretrain,
-                       nlp)
+                       nlp, ingest)
     REPORT["total_s"] = time.perf_counter() - t_start
     log(f"build {REPORT['build_s']:.1f} s, total {REPORT['total_s']:.1f} s")
     if args.out:

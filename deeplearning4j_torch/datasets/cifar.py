@@ -3,7 +3,8 @@
 keeps its own copy).
 
 Both read the standard on-disk formats when present (CIFAR-10's binary
-batches; LFW as one directory of images per person, decoded with PIL) and
+batches; LFW as one directory of images per person, read by
+``datavec``'s ``ImageRecordReader``, which decodes with PIL) and
 otherwise make the JAX package's deterministic synthetic sets
 (class-conditioned colour and texture fields a CNN can learn), the same
 arrays for the same arguments. Images are NHWC in [0, 1] with one-hot
@@ -117,29 +118,6 @@ def synthetic_lfw(n: int, num_people: int, size: int, seed: int = 11
     return DataSet(xs, np.eye(num_people, dtype=np.float32)[labels])
 
 
-def _read_image_dirs(root: str, size: int, limit: int):
-    """Images under ``root/<person>/`` in sorted order (the JAX package's
-    ``ImageRecordReader(size, size, 3, root=root)``): RGB, resized to
-    ``size`` × ``size``, in [0, 1]; labels index the sorted person
-    directories. At most ``limit`` images."""
-    from PIL import Image
-
-    paths = []
-    for d in sorted(os.listdir(root)):
-        full = os.path.join(root, d)
-        if os.path.isdir(full):
-            paths += [(os.path.join(full, f), d)
-                      for f in sorted(os.listdir(full))]
-    names = sorted({lab for _, lab in paths})
-    index = {lab: i for i, lab in enumerate(names)}
-    feats, labs = [], []
-    for path, lab in paths[:limit]:
-        img = Image.open(path).convert("RGB").resize((size, size))
-        feats.append(np.asarray(img, np.float32) / 255.0)
-        labs.append(index[lab])
-    return np.stack(feats), np.eye(len(names), dtype=np.float32)[labs]
-
-
 class LFWDataSetIterator(ListDataSetIterator):
     """Labeled-faces-in-the-wild-style iterator: person-per-directory
     images when ``path`` is a directory, the synthetic set otherwise."""
@@ -149,7 +127,18 @@ class LFWDataSetIterator(ListDataSetIterator):
                  path: Optional[str] = None, seed: int = 11,
                  shuffle: bool = False):
         if path is not None and os.path.isdir(path):
-            ds = DataSet(*_read_image_dirs(path, image_size, num_examples))
+            from deeplearning4j_torch.datavec.records import (
+                ImageRecordReader)
+            rr = ImageRecordReader(image_size, image_size, 3, root=path)
+            feats, labs = [], []
+            for arr, lab in rr:
+                feats.append(arr)
+                labs.append(lab)
+                if len(feats) >= num_examples:
+                    break
+            x = np.stack(feats)
+            y = np.eye(rr.num_labels(), dtype=np.float32)[labs]
+            ds = DataSet(x, y)
             self.synthetic = False
         else:
             ds = synthetic_lfw(num_examples, num_people, image_size,

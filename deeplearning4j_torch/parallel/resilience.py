@@ -10,10 +10,12 @@ model-server guardrails: decorrelated-jitter backoff, a closed -> open ->
 half-open breaker over a sliding outcome window, and high-watermark
 admission control.
 
-Everything in this module is host-side stdlib (no torch, no device
-state). ``ChaosPolicy`` draws from Python's ``random`` exactly as the JAX
-package's does, so a policy with a given seed injects the same fault
-sequence in both packages.
+Everything in this module is host-side stdlib (no device state).
+``StreamStalled`` is the streaming consumer's (``streaming/client.py``),
+re-exported here as the JAX module re-exports it, so ``resilience`` names
+every typed serving failure. ``ChaosPolicy`` draws from Python's
+``random`` exactly as the JAX package's does, so a policy with a given
+seed injects the same fault sequence in both packages.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import threading
 import time
 from collections import deque
 from typing import Callable, Optional, Tuple
+
+from deeplearning4j_torch.streaming.client import StreamStalled  # noqa: F401
 
 
 class ResilienceError(RuntimeError):

@@ -1,9 +1,9 @@
 """Port parity: the shared lifecycle spec of ``tests/test_lifecycle.py`` run
 against the port's runtime-hosted servers (``ParallelInference``,
-``GenerationServer``, ``ReplicaFleet``), on the CPU: drain twice, close
-twice, close from four threads at once, drain after close, submit after
-close fails typed. The spec's ``StreamingBroker`` case waits for the
-port of ``streaming/`` (ROADMAP A12, part 3).
+``GenerationServer``, ``StreamingBroker``, ``ReplicaFleet``), on the CPU:
+drain twice, close twice, close from four threads at once, drain after
+close, submit after close fails typed (the broker takes no submissions, as
+in the JAX spec's ``_BrokerSpec``).
 """
 
 import threading
@@ -19,6 +19,7 @@ from deeplearning4j_torch.parallel.generation import (  # noqa: E402
     GenerationServer)
 from deeplearning4j_torch.parallel.inference import (  # noqa: E402
     ParallelInference)
+from deeplearning4j_torch.streaming import StreamingBroker  # noqa: E402
 from tests.test_torch_inference import features, mln_pair  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
@@ -78,6 +79,13 @@ class _GenSpec(_Spec):
         return srv.submit(np.array([3, 1, 4]), 3)
 
 
+class _BrokerSpec(_Spec):
+    name = "streaming-broker"
+
+    def make(self):
+        return StreamingBroker(port=0).start()
+
+
 class _FleetSpec(_Spec):
     name = "replica-fleet"
 
@@ -89,7 +97,7 @@ class _FleetSpec(_Spec):
         return srv.submit(np.array([3, 1, 4]), 3)
 
 
-SPECS = [_PISpec(), _GenSpec(), _FleetSpec()]
+SPECS = [_PISpec(), _GenSpec(), _BrokerSpec(), _FleetSpec()]
 
 
 @pytest.fixture(params=SPECS, ids=[s.name for s in SPECS])
