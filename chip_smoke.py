@@ -338,6 +338,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    (marginal windows); the three legacy listeners on LeNet (batch 512),
    the activation maps within 1e-5 of a CPU net's on the card's
    parameters.
+16. several devices of one process, over meshes of distinct cards where
+   the machine has enough and of ``cuda:0`` named several times where it
+   does not (each line says which). 16a: K2 on the head shards of a tp = 2
+   and tp = 4 pool (f32 and int8, decode and chunk routes, the full head
+   count's split rule) against the plain version and, concatenated,
+   bitwise the whole pool's read; the phase-5 requests served at tp = 1,
+   2 and 4 with f32 and int8 KV, every stream phase 5's, K2's launches a
+   token per route, tokens/s and peak pages a shard; a 300-token prompt's
+   logits and one decode step's at tp = 2 and 4 bitwise tp = 1's. 16b: four
+   live requests exported from tp = 2 (header ``shards=2``), round-tripped
+   through their bytes, adopted at tp = 4 and tp = 1, f32 and int8:
+   completions equal the uninterrupted streams. 16c: ``device_groups(2,
+   tp=2)`` under a ``ReplicaFleet`` of two tp = 2 servers serving phase
+   9's traffic, replica 0 killed mid-stream: streams phase 5's/5b's,
+   nothing lost. 16d: ``ParallelInference`` over a 4-entry data mesh on
+   the slice model (K1) and a trained LeNet within rtol 1e-5 / atol 1e-6
+   of ``output()``; ``evaluate_on_mesh`` fused and per batch, counts
+   equal ``net.evaluate``'s. 16e: ``ParallelWrapper`` over 4 workers on
+   the phase-7 model, ``AVERAGING`` with Sgd and ``SHARED_GRADIENTS`` with
+   Adam, two rounds against one device on the concatenated batches (rtol
+   1e-5 / atol 1e-6 and 1e-4 / 1e-5), the first round against the CPU;
+   then phase 7c's bench leg over 2 workers averaging every 2 steps for 10
+   rounds: tokens/s, ``last_phase_timings``, skips, K1/K3/K4 a round.
 
 Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
 calls (``ms``: the wrapper's host work included, which sets the pace once
@@ -361,8 +384,10 @@ XLA's), phase 11 (recurrent nets, which launch none of K1-K4), phase
 (pretraining and the data pipeline, none either), phase 14 (the NLP
 stack and Keras import, none either) and phase 15 (data ingest and
 telemetry: K1, K3 and K4 in 15c's bench-leg fit, none in 15a and 15b,
-K2 nowhere; the counters are also read between its parts). The launch
-counters are zeroed just before each of the seventeen and read just
+K2 nowhere; the counters are also read between its parts) and phase 16
+(several devices: K2 on head shards, both routes; K1, K3 and K4 in the
+data-parallel forwards and training). The launch
+counters are zeroed just before each of the eighteen and read just
 after (phase 6's and the reference servers' and forwards' launches are
 not counted); every kernel must have run on the main path, K2's chunk
 route and its merge pass included, and each path but phases 8, 11, 12,
@@ -1719,17 +1744,25 @@ def check_pages_returned(tag, st):
           f"{tag}: pages not returned after the drain: {pg}")
 
 
-def handoff_round(net, reqs, kv):
+def handoff_round(net, reqs, kv, source=None, adopters=(None,)):
     """Export ``reqs`` live from one server after at least HANDOFF_AFTER
     tokens (the periodic snapshot marks the moment), round-trip each
-    snapshot through its bytes, adopt them into a second server, and hold
-    each completion against the first server's uninterrupted stream."""
+    snapshot through its bytes, adopt them into a second server (one per
+    entry of ``adopters``), and hold each completion against the first
+    server's uninterrupted stream. ``source`` and each adopter is a
+    tensor-parallel mesh, or None for one card; a snapshot's header says
+    its source's shard count."""
     from deeplearning4j_torch.parallel.generation import GenerationServer
     from deeplearning4j_torch.parallel.handoff import KVSnapshot
 
     V = SLICE["num_labels"]
-    src = GenerationServer(net, V, device="cuda", kv_dtype=kv,
-                           snapshot_every=HANDOFF_AFTER, **SERVER)
+
+    def server(mesh, **kw):
+        return GenerationServer(net, V, kv_dtype=kv, mesh=mesh, **SERVER,
+                                **({} if mesh is not None
+                                   else dict(device="cuda")), **kw)
+
+    src = server(source, snapshot_every=HANDOFF_AFTER)
     try:
         futs = [src.submit(p, HANDOFF_TOKENS, **o) for p, _, o in reqs]
         snaps = []
@@ -1744,35 +1777,45 @@ def handoff_round(net, reqs, kv):
         src_stats = src.stats()
     finally:
         src.close()
+    shards = 1 if source is None else source.size
     wires = []
     for snap in snaps:
         check(HANDOFF_AFTER <= snap.count < HANDOFF_TOKENS,
               f"handoff: exported at token {snap.count}")
+        check(snap.shards == shards and snap.head_layout == "canonical",
+              f"handoff: header shards={snap.shards} layout "
+              f"{snap.head_layout!r} from a {shards}-shard source")
         blob = snap.to_bytes()
         back = KVSnapshot.from_bytes(blob)
         check(back.to_bytes() == blob, "handoff: to_bytes/from_bytes is "
                                        "not a byte-for-byte round trip")
         wires.append(back)
-    dst = GenerationServer(net, V, device="cuda", kv_dtype=kv, **SERVER)
-    try:
-        t0 = time.perf_counter()
-        outs = [f.result(timeout=600).tolist()
-                for f in [dst.adopt_request(w) for w in wires]]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        st = dst.stats()
-    finally:
-        dst.close()
-    check_streams(f"handoff {kv or 'f32'}", outs, full,
-                  "its uninterrupted stream")
-    ho = st["handoff"]
-    check(ho["resumes"] == len(reqs) and ho["fallbacks"] == 0,
-          f"handoff: adopter stats {ho}")
-    return dict(exported_at=[s.count for s in snaps],
+    adopted = []
+    for mesh in adopters:
+        tp = 1 if mesh is None else mesh.size
+        dst = server(mesh)
+        try:
+            t0 = time.perf_counter()
+            outs = [f.result(timeout=600).tolist()
+                    for f in [dst.adopt_request(w) for w in wires]]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = dst.stats()
+        finally:
+            dst.close()
+        check_streams(f"handoff {kv or 'f32'} to tp={tp}", outs, full,
+                      "its uninterrupted stream")
+        ho = st["handoff"]
+        check(ho["resumes"] == len(reqs) and ho["fallbacks"] == 0,
+              f"handoff to tp={tp}: adopter stats {ho}")
+        adopted.append(dict(tp=tp, resumes=ho["resumes"],
+                            fallbacks=ho["fallbacks"],
+                            tokens_saved=ho["tokens_saved"],
+                            adopt_wall_s=wall))
+    return dict(exported_at=[s.count for s in snaps], shards=shards,
                 wire_bytes=[len(w.to_bytes()) for w in wires],
-                resumes=ho["resumes"], fallbacks=ho["fallbacks"],
-                tokens_saved=ho["tokens_saved"], adopt_wall_s=wall,
-                source_snapshots=src_stats["handoff"]["snapshots"])
+                source_snapshots=src_stats["handoff"]["snapshots"],
+                adopted=adopted)
 
 
 def phase_prefix(net, card):
@@ -1840,10 +1883,11 @@ def phase_prefix(net, card):
     for kv in (None, "int8"):
         tag = kv or "f32"
         r = results[f"handoff_{tag}"] = handoff_round(net, reqs[1:5], kv)
+        a = r["adopted"][0]
         log(f"  handoff {tag}: 4 requests exported at tokens "
             f"{r['exported_at']} ({r['wire_bytes']} wire bytes, byte-for-byte "
-            f"round trips), adopted by a second server: {r['resumes']} "
-            f"resumes, {r['fallbacks']} fallbacks, completions equal to the "
+            f"round trips), adopted by a second server: {a['resumes']} "
+            f"resumes, {a['fallbacks']} fallbacks, completions equal to the "
             f"uninterrupted streams; [{card}]")
     return results
 
@@ -7873,9 +7917,509 @@ def phase_ingest(card, dev="cuda"):
     return dict(out, launches_by_part=by_part, wall_s=wall)
 
 
+# ---------------------------------------------------------------- phase 16
+#: phase 16: the tensor-parallel degrees served beside tp = 1, and the
+#: data-parallel width of 16d and of 16e's first part
+MESH_TPS = (2, 4)
+MESH_WORKERS = 4
+#: 16e part 1: the phase-7 model trained over MESH_WORKERS workers on the
+#: phase-7 batch and one from RandomState(8) (one round each), with
+#: ``Sgd(MESH_SGD_LR)`` averaged every step and with the conf's Adam
+#: sharing gradients; tolerances are JAX's tests' (``tests/test_parallel.py``)
+MESH_SGD_LR = 0.1
+MESH_TOL = {"averaging": (1e-5, 1e-6), "shared_gradients": (1e-4, 1e-5)}
+#: 16e part 2: phase 7c's bench leg (bf16, T = 512, batch 32 a worker) over
+#: 2 workers averaging every 2 steps, for this many timed rounds
+MESH_BENCH = dict(workers=2, frequency=2, rounds=10)
+
+
+def mesh_entries(n):
+    """``n`` mesh entries: the first ``n`` cards where the machine has them,
+    else ``cuda:0`` named ``n`` times; and which of the two."""
+    if n == 1:
+        return [torch.device("cuda", 0)], "one card"
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)], "distinct cards"
+    return [torch.device("cuda", 0)] * n, "cuda:0 repeated"
+
+
+def mesh_of(n, axis):
+    from deeplearning4j_torch.parallel.mesh import Mesh
+
+    devs, how = mesh_entries(n)
+    return Mesh(devs, (axis,)), how
+
+
+def shard_read_checks(dev):
+    """K2 on the head shards a tp server reads (``[8, 8/tp, T, 32]``
+    queries over ``[P, 8/tp, 16, 32]`` pools of Tmax 512, f32 and int8, the
+    decode route at T = 1 and the chunk route at T = 256, the served
+    prefill's shape): each shard's read against the plain version (phase
+    3's tolerances), the shards concatenated bitwise the whole pool's read
+    under the full head count's split rule; the chunk route also under the
+    shard's own rule (another split count at this shape: its largest
+    difference from the whole read reported); one shard read timed beside
+    its plain version."""
+    from deeplearning4j_torch import kernels
+    from deeplearning4j_torch.nn.conf.layers import paged_attention as ppa
+
+    g = torch.Generator().manual_seed(16)
+    H = SLICE["n_heads"]
+    d = SLICE["d_model"] // H
+    ext = kernels.load()
+    out = {}
+    for quant in (False, True):
+        for B, T in ((8, 1), (8, 256)):
+            kp, vp, ks, vs, bt = paged_pool(g, B, H, 16, d, 512, quant, dev)
+            NP = bt.shape[1]
+            pos = torch.randint(0, 512 - T + 1, (B,), generator=g).to(
+                torch.int32).to(dev)
+            q = torch.randn(B, H, T, d, generator=g).to(dev)
+            whole = ppa.paged_attention(q, kp, vp, bt, pos, kscales=ks,
+                                        vscales=vs)
+            atol = 1e-3 if quant else 1e-4
+            for tp in MESH_TPS:
+                hl = H // tp
+                parts, own, err = [], [], 0.0
+                for i in range(tp):
+                    hs = slice(i * hl, (i + 1) * hl)
+
+                    def cut(t):
+                        return None if t is None else t[:, hs].contiguous()
+
+                    args = (cut(q), cut(kp), cut(vp), bt, pos)
+                    kw = dict(kscales=cut(ks), vscales=cut(vs))
+                    o = ppa.paged_attention(*args, split_heads=H, **kw)
+                    ref = ppa.paged_attention_plain(*args, **kw)
+                    err = max(err, (o - ref).abs().max().item())
+                    parts.append(o)
+                    own.append(ppa.paged_attention(*args, **kw))
+                name = (f"{'int8' if quant else 'f32'}_T{T}_B{B}_tp{tp}")
+                kind = ppa.pool_kind(kp)
+                split_full = ext.paged_attn_splits(B, H, T, d, 16, NP, kind)
+                split_local = ext.paged_attn_splits(B, hl, T, d, 16, NP, kind)
+                check(err <= atol, f"K2 shard {name}: max |err| {err:.3g} > "
+                                   f"{atol:.3g}")
+                check(torch.equal(torch.cat(parts, dim=1), whole),
+                      f"K2 shard {name}: the shards' reads do not "
+                      f"concatenate bitwise to the whole pool's")
+                own_diff = (torch.cat(own, dim=1) - whole).abs().max().item()
+                kernel = lambda: ppa.paged_attention(  # noqa: E731
+                    *args, split_heads=H, **kw)
+                plain = lambda: ppa.paged_attention_plain(  # noqa: E731
+                    *args, **kw)
+                ms, plain_ms = time_ms(kernel, iters=20), time_ms(plain,
+                                                                  iters=5)
+                out[name] = dict(max_abs_err=err, tolerance=atol,
+                                 bitwise_whole=True, splits=split_full,
+                                 splits_by_shard_rule=split_local,
+                                 shard_rule_max_diff=own_diff, ms=ms,
+                                 plain_ms=plain_ms)
+                log(f"  K2 shard {name:18s} err {err:.2e} (atol {atol:.0e}), "
+                    f"concatenation bitwise the whole read, splits "
+                    f"{split_full} (the shard's own rule: {split_local}, "
+                    f"{own_diff:.2e} from the whole read); {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms")
+    return out
+
+
+def paged_logits(net, prompt, mesh):
+    """A fresh server's paged forward of ``prompt`` from position 0 (K2's
+    chunk route) and of one more token after it (its decode route), on
+    pages 1.. of its pool: the two logit tensors."""
+    import torch.nn.functional as F
+    from deeplearning4j_torch.parallel.generation import GenerationServer
+
+    V = SLICE["num_labels"]
+    srv = GenerationServer(net, V, mesh=mesh, **SERVER)
+    try:
+        n = -(-(len(prompt) + 1) // srv._ps)
+        bt = np.zeros((1, srv._np), np.int32)
+        bt[0, :n] = np.arange(1, n + 1)
+        logits = []
+        with torch.inference_mode():
+            for ids, p0 in ((prompt, 0), (prompt[-1:], len(prompt))):
+                x = F.one_hot(srv._to_dev(np.asarray(ids)[None]), V).float()
+                carry = srv._carry(srv._to_dev(bt),
+                                   srv._to_dev(np.array([p0], np.int32)))
+                logits.append(srv._fwd(*srv._weights, x, carry)[0])
+        torch.cuda.synchronize()
+    finally:
+        srv.close()
+    return logits
+
+
+def phase_mesh_serve(net, want, card):
+    """Phase 16a: the phase-5 requests served at tp = 1, 2 and 4 with f32
+    and int8 KV, every stream phase 5's; K2's launches a token per route,
+    tokens/s and peak pages per shard; one prompt's logits at tp = 2 and 4
+    bitwise tp = 1's (the chunk route, then a decode step)."""
+    from deeplearning4j_torch import kernels
+    from deeplearning4j_torch.parallel.mesh import MODEL_AXIS
+
+    results = dict(shard_reads=uncounted(shard_read_checks,
+                                         torch.device("cuda")))
+    reqs = serve_requests()
+    nb, M = SLICE["n_blocks"], SERVER["steps_per_dispatch"]
+    for kv in (None, "int8"):
+        tag = kv or "f32"
+        for tp in (1,) + MESH_TPS:
+            mesh, how = mesh_of(tp, MODEL_AXIS)
+            # an untimed serve first, so each device of the mesh has its
+            # context and kernels loaded before the timed one
+            uncounted(serve, net, reqs[:1], kv_dtype=kv, mesh=mesh)
+            before = dict(kernels.LAUNCHES)
+            outs, wall, st = serve(net, reqs, kv_dtype=kv, mesh=mesh)
+            k2 = kernels.LAUNCHES["paged_attn"] - before["paged_attn"]
+            chunk = (kernels.LAUNCHES["paged_attn_chunk"]
+                     - before["paged_attn_chunk"])
+            check_streams(f"mesh serve {tag} tp={tp}", outs, want[tag],
+                          "phase 5's stream")
+            check(k2 == tp * nb * (st["prefill_rounds"]
+                                   + M * st["decode_steps"])
+                  and chunk == tp * nb * st["prefill_rounds"],
+                  f"mesh serve {tag} tp={tp}: K2 launched {k2} times "
+                  f"({chunk} chunk) for {st['prefill_rounds']} prefill rounds "
+                  f"and {st['decode_steps']} decode dispatches")
+            ntok = sum(len(o) for o in outs)
+            pg = st["pages"]
+            r = results[f"{tag}_tp{tp}"] = dict(
+                tp=tp, mesh=how, tokens=ntok, wall_s=wall,
+                tokens_per_s=ntok / wall, k2_launches=k2,
+                k2_chunk_launches=chunk,
+                k2_decode_per_token=(k2 - chunk) / ntok,
+                k2_chunk_per_token=chunk / ntok,
+                prefill_rounds=st["prefill_rounds"],
+                decode_steps=st["decode_steps"],
+                peak_pages_per_shard=pg["peak_pages"],
+                peak_kv_bytes_per_shard=pg["peak_resident_kv_bytes"] // tp)
+            log(f"  mesh serve {tag} tp={tp} ({how}): {ntok} tokens in "
+                f"{wall:.3f} s = {r['tokens_per_s']:.1f} tok/s, streams "
+                f"phase 5's; K2 {r['k2_decode_per_token']:.3f} decode and "
+                f"{r['k2_chunk_per_token']:.3f} chunk launches a token; peak "
+                f"{pg['peak_pages']} pages a shard "
+                f"({r['peak_kv_bytes_per_shard']} bytes); [{card}]")
+    prompt = reqs[1][0]
+    base = paged_logits(net, prompt, mesh_of(1, MODEL_AXIS)[0])
+    for tp in MESH_TPS:
+        got = paged_logits(net, prompt, mesh_of(tp, MODEL_AXIS)[0])
+        check(all(torch.equal(a, b) for a, b in zip(got, base)),
+              f"mesh serve: a {len(prompt)}-token prompt's logits at tp={tp} "
+              f"are not bitwise tp=1's")
+    results["logits_bitwise"] = dict(prompt_tokens=len(prompt),
+                                     tps=list(MESH_TPS))
+    log(f"  mesh logits: a {len(prompt)}-token prefill and one decode step "
+        f"at tp={list(MESH_TPS)} bitwise tp=1's; [{card}]")
+    return results
+
+
+def phase_mesh_handoff(net, card):
+    """Phase 16b: four live requests exported from a tp = 2 server after
+    at least HANDOFF_AFTER tokens (header ``shards=2``), round-tripped
+    through their bytes and adopted at tp = 4 and at tp = 1, f32 and int8
+    KV: completions equal the uninterrupted streams, 4 resumes each, no
+    fallback."""
+    from deeplearning4j_torch.parallel.mesh import MODEL_AXIS
+
+    reqs = prefix_requests()[1:5]
+    results = {}
+    for kv in (None, "int8"):
+        tag = kv or "f32"
+        r = results[tag] = handoff_round(
+            net, reqs, kv, source=mesh_of(2, MODEL_AXIS)[0],
+            adopters=(mesh_of(4, MODEL_AXIS)[0], None))
+        log(f"  mesh handoff {tag}: 4 requests exported from tp=2 at tokens "
+            f"{r['exported_at']} (shards={r['shards']}, "
+            f"{sum(r['wire_bytes'])} wire bytes), adopted at tp=4 and tp=1: "
+            f"resumes {[a['resumes'] for a in r['adopted']]}, fallbacks "
+            f"{[a['fallbacks'] for a in r['adopted']]}, completions equal "
+            f"the uninterrupted streams; [{card}]")
+    return results
+
+
+def phase_mesh_fleet(net, reqs, want, card):
+    """Phase 16c: ``device_groups(2, tp=2)`` and a ``ReplicaFleet`` of two
+    tp = 2 servers (their weights replicated onto each group's first
+    device) serving phase 9's traffic, replica 0 killed once it decodes:
+    every stream phase 5's or 5b's, a death, nothing lost."""
+    from deeplearning4j_torch.parallel.fleet import (ReplicaFleet,
+                                                     device_groups)
+    from deeplearning4j_torch.parallel.generation import GenerationServer
+    from deeplearning4j_torch.parallel.mesh import MODEL_AXIS, Mesh
+
+    entries, how = mesh_entries(4)
+    groups = device_groups(2, tp=2, devices=entries)
+
+    def factory(rid):
+        return GenerationServer(net, SLICE["num_labels"],
+                                mesh=Mesh(groups[rid % 2], (MODEL_AXIS,)),
+                                **SERVER)
+
+    fleet = ReplicaFleet(factory, replicas=2, restart_backoff_s=0.05)
+    try:
+        def kill_when_decoding():
+            def decoding():
+                blk = fleet.stats()["replicas"][0]
+                return blk["inflight"] > 0 and \
+                    (blk["server"] or {}).get("tokens_generated", 0) > 0
+            wait_for(decoding, 60, "replica 0 to decode")
+            check(fleet.kill_replica(0), "mesh fleet: replica 0 was not live")
+
+        outs, wall = fleet_serve(fleet, reqs, kill_when_decoding)
+        st = fleet.stats()
+    finally:
+        fleet.close()
+    check(outs == want, "mesh fleet: a stream differs from phase 5's/5b's")
+    check(st["deaths"] >= 1, f"mesh fleet: deaths {st['deaths']}")
+    check_fleet("mesh fleet", st, len(reqs))
+    ntok = sum(len(w) for w in want)
+    log(f"  mesh fleet: 2 replica groups of tp=2 ({how}: "
+        f"{[[str(d) for d in g] for g in groups]}), {len(reqs)} requests "
+        f"({ntok} tokens) with replica 0 killed mid-run: "
+        f"{ntok / wall:.1f} tok/s, deaths {st['deaths']}, "
+        f"{st['redispatched']} re-dispatched, every stream phase 5's/5b's, "
+        f"none lost; [{card}]")
+    return dict(mesh=how, requests=len(reqs), tokens=ntok, wall_s=wall,
+                tokens_per_s=ntok / wall, deaths=st["deaths"],
+                redispatched=st["redispatched"],
+                handoff_resumes=st["handoff_resumes"])
+
+
+def allclose_excess(got, ref, rtol, atol):
+    """The largest ``|got - ref| - (atol + rtol |ref|)`` (<= 0 passes
+    ``np.allclose``'s rule)."""
+    return float((np.abs(got - ref) - (atol + rtol * np.abs(ref))).max())
+
+
+def phase_mesh_inference(net, card):
+    """Phase 16d: ``ParallelInference`` over a 4-device data mesh on the
+    slice model (K1) and on LeNet (trained on 32 synthetic MNIST batches),
+    rows against the net's own ``output()`` (JAX's rtol 1e-5 / atol 1e-6);
+    ``evaluate_on_mesh`` fused and per batch on LeNet over 4 test batches
+    and a ragged fifth, counts equal ``net.evaluate``'s."""
+    from deeplearning4j_torch.models.zoo import LeNet
+    from deeplearning4j_torch.parallel.evaluation import evaluate_on_mesh
+    from deeplearning4j_torch.parallel.inference import ParallelInference
+    from deeplearning4j_torch.parallel.mesh import DATA_AXIS
+
+    mesh, how = mesh_of(MESH_WORKERS, DATA_AXIS)
+    lenet = LeNet(num_labels=10, seed=1).init(device="cuda")
+    lenet.fit(mnist_nhwc(True, LENET_BATCH * PI_TRAIN_BATCHES, LENET_BATCH))
+    test = mnist_nhwc(False, 4 * LENET_BATCH + 20, LENET_BATCH)
+    rs = np.random.RandomState(3)
+    V, T = SLICE["num_labels"], SLICE["max_length"]
+    x_lm = np.eye(V, dtype=np.float32)[rs.randint(0, V, (PI_SUBMITS, T))]
+    results = {}
+    for tag, model, x in (("transformer", net, x_lm),
+                          ("lenet", lenet, test[0].features)):
+        inf = ParallelInference(model, mesh=mesh)
+        try:
+            rows = inf.output(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = inf.output(x)
+            wall = time.perf_counter() - t0
+        finally:
+            inf.close()
+        ref = uncounted(lambda: host_rows(model.output(x)))
+        t0 = time.perf_counter()
+        uncounted(lambda: host_rows(model.output(x)))
+        one_wall = time.perf_counter() - t0
+        excess = allclose_excess(rows, ref, 1e-5, 1e-6)
+        check(excess <= 0, f"mesh inference {tag}: rows vs output() beyond "
+                           f"rtol 1e-5 / atol 1e-6 by {excess:.3g}")
+        results[tag] = dict(rows=len(x), workers=inf.workers, wall_s=wall,
+                            rows_per_s=len(x) / wall,
+                            one_device_rows_per_s=len(x) / one_wall,
+                            max_abs_err=float(np.abs(rows - ref).max()))
+        log(f"  mesh inference {tag}: {len(x)} rows over {inf.workers} "
+            f"workers ({how}), within rtol 1e-5 / atol 1e-6 of output() "
+            f"(max |err| {results[tag]['max_abs_err']:.2e}); "
+            f"{len(x) / wall:.0f} rows/s (one output(): "
+            f"{len(x) / one_wall:.0f}); [{card}]")
+    seq = uncounted(lenet.evaluate, test)
+    for fused in (True, False):
+        ev = evaluate_on_mesh(lenet, test, mesh=mesh, fused=fused)
+        check(np.array_equal(ev.confusion, seq.confusion),
+              f"evaluate_on_mesh(fused={fused}): counts differ from "
+              f"net.evaluate's")
+        results[f"evaluate_fused_{fused}"] = dict(accuracy=ev.accuracy())
+    images = sum(len(d.features) for d in test)
+    log(f"  evaluate_on_mesh fused and per batch: {images} "
+        f"images, counts equal net.evaluate's (accuracy "
+        f"{seq.accuracy():.4f}); [{card}]")
+    return results
+
+
+def mesh_slice_net(params, device, mode):
+    """The phase-7 model on ``params``, with ``Sgd(MESH_SGD_LR)`` for
+    ``averaging`` and the conf's Adam for ``shared_gradients``."""
+    from deeplearning4j_torch.models.zoo import TransformerLM
+    from deeplearning4j_torch.nn.updater import Sgd
+    from deeplearning4j_torch.utils.convert import params_from_jax
+
+    net = TransformerLM(**SLICE).init(device=device)
+    params_from_jax(params, net)
+    if mode == "averaging":
+        net.conf.updater = Sgd(learning_rate=MESH_SGD_LR)
+        net.updater_state = net.conf.updater.init(net.params)
+    return net
+
+
+def worst_rule(got, ref, rtol, atol):
+    """Over two trees of tensors, the largest ``|got - ref| - (atol + rtol
+    |ref|)``."""
+    return max(allclose_excess(got[v][k].detach().cpu().double().numpy(),
+                               ref[v][k].detach().cpu().double().numpy(),
+                               rtol, atol)
+               for v in ref for k in ref[v])
+
+
+def phase_mesh_train(card):
+    """Phase 16e: ``ParallelWrapper`` over 4 workers on the phase-7 model:
+    ``AVERAGING`` every step with Sgd and ``SHARED_GRADIENTS`` with Adam,
+    two rounds against one device on the concatenated batches (JAX's
+    tolerances), and the first round against a 4-worker run on the CPU
+    (the round's update under SGD, Adam's first moment under Adam, within
+    1e-4 of the leaf's max, phase 7's rule); then phase 7c's bench leg over
+    2 workers averaging every 2 steps: tokens/s, ``last_phase_timings``,
+    skips, K1/K3/K4 launches a round."""
+    from deeplearning4j_torch import kernels
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.optimize.health import HealthPolicy
+    from deeplearning4j_torch.parallel.mesh import DATA_AXIS, Mesh
+    from deeplearning4j_torch.parallel.trainer import ParallelWrapper
+
+    W = MESH_WORKERS
+    mesh, how = mesh_of(W, DATA_AXIS)
+    cpu_mesh = Mesh([torch.device("cpu")] * W, (DATA_AXIS,))
+    V, T = SLICE["num_labels"], SLICE["max_length"]
+    eye = np.eye(V, dtype=np.float32)
+    tok = np.random.RandomState(8).randint(0, V, (TRAIN_BATCH, T + 1))
+    rounds = [train_batch(), (eye[tok[:, :-1]], eye[tok[:, 1:]])]
+    rows = TRAIN_BATCH // W
+
+    def split(x, y):
+        return [DataSet(x[w * rows:(w + 1) * rows], y[w * rows:(w + 1) * rows])
+                for w in range(W)]
+
+    params = numpy_params(fabric_net(), seed=0)
+    results = {}
+    for mode, (rtol, atol) in MESH_TOL.items():
+        single = mesh_slice_net(params, "cuda", mode)
+        for x, y in rounds:
+            single.do_step(x, y)
+        dist = mesh_slice_net(params, "cuda", mode)
+        p0 = {v: {k: t.clone() for k, t in p.items()}
+              for v, p in dist.params.items()}
+        pw = ParallelWrapper(dist, mesh=mesh, mode=mode)
+        pw.fit(split(*rounds[0]))
+        first = (dist.params if mode == "averaging"
+                 else dist.updater_state["m"])
+        first = {v: {k: t.clone() for k, t in p.items()}
+                 for v, p in first.items()}
+        pw.fit(split(*rounds[1]))
+        excess = worst_rule(dist.params, single.params, rtol, atol)
+        check(excess <= 0, f"mesh train {mode}: params vs one device on the "
+                           f"concatenated batches beyond rtol {rtol} / atol "
+                           f"{atol} by {excess:.3g}")
+        cpu = mesh_slice_net(params, "cpu", mode)
+        ParallelWrapper(cpu, mesh=cpu_mesh, mode=mode).fit(
+            split(*rounds[0]))
+        if mode == "averaging":     # the round's update
+            got = {v: {k: first[v][k] - p0[v][k] for k in p0[v]} for v in p0}
+            ref = {v: {k: cpu.params[v][k] - p0[v][k].cpu() for k in p0[v]}
+                   for v in p0}
+        else:                       # Adam's first moment: 0.1 x the gradient
+            got, ref = first, cpu.updater_state["m"]
+        cpu_err = max(((got[v][k].cpu() - ref[v][k]).abs().max()
+                       / ref[v][k].abs().max().clamp_min(1e-30)).item()
+                      for v in ref for k in ref[v])
+        check(cpu_err <= 1e-4, f"mesh train {mode}: the first round card vs "
+                               f"CPU, worst leaf {cpu_err:.3g} of its max")
+        results[mode] = dict(workers=W, mesh=how, excess=excess,
+                             rtol=rtol, atol=atol, cpu_rel_err=cpu_err,
+                             timings=pw.last_phase_timings)
+        log(f"  mesh train {mode}: {W} workers ({how}) two rounds within "
+            f"rtol {rtol} / atol {atol} of one device on the concatenated "
+            f"batches; first round card vs CPU {cpu_err:.2e} of each leaf's "
+            f"max; [{card}]")
+    nb = BENCH["n_blocks"]
+    Wb, Fb, R = (MESH_BENCH["workers"], MESH_BENCH["frequency"],
+                 MESH_BENCH["rounds"])
+    bmesh, bhow = mesh_of(Wb, DATA_AXIS)
+    # phase 7c's batches without its NaN one: 4 full batches, cycled
+    stream = [ds for i, ds in enumerate(bench_stream())
+              if i != BENCH_NAN_AT][:Wb * Fb]
+    net = bench_net(numpy_params(bench_net(None, "cpu"), seed=1), "cuda")
+    policy = HealthPolicy()
+    pw = ParallelWrapper(net, mesh=bmesh, averaging_frequency=Fb,
+                         health_guard=policy)
+    pw.fit(stream)                                         # warm-up round
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pw.fit(stream * R)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_round = {k: (kernels.LAUNCHES[k] - before[k]) / R
+                 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    check(all(n == nb * Wb * Fb for n in per_round.values()),
+          f"mesh bench: K1/K3/K4 launches a round {per_round}, expected "
+          f"{nb * Wb * Fb} each")
+    tokens = R * Wb * Fb * BENCH_BATCH * BENCH["max_length"]
+    check(np.isfinite(net.score_value), "mesh bench: non-finite score")
+    results["bench"] = dict(workers=Wb, frequency=Fb, rounds=R, mesh=bhow,
+                            wall_s=wall, tokens_per_s=tokens / wall,
+                            ms_per_round=wall / R * 1e3,
+                            launches_per_round=per_round,
+                            skips=policy.total_skips,
+                            last_phase_timings=pw.last_phase_timings,
+                            score=float(net.score_value))
+    log(f"  mesh bench: the 7c bench leg over {Wb} workers ({bhow}), "
+        f"averaging every {Fb} steps, {R} rounds in {wall:.3f} s = "
+        f"{tokens / wall:.0f} tokens/s ({wall / R * 1e3:.1f} ms a round), "
+        f"skips {policy.total_skips}, K1/K3/K4 a round {per_round}, last "
+        f"round {pw.last_phase_timings}; [{card}]")
+    return results
+
+
+def phase_mesh(card, greedy=None, int8=None, sampled=None):
+    """Phase 16: several devices of one process (16a-16e); the mesh entries
+    are distinct cards where the machine has enough, else ``cuda:0``
+    repeated, and every line says which."""
+    from deeplearning4j_torch import kernels
+
+    kernels.load()
+    t0 = time.perf_counter()
+    net = fabric_net()
+    reqs = serve_requests()
+    if greedy is None:
+        greedy = uncounted(serve, net, reqs)[0]
+    if int8 is None:
+        int8 = uncounted(serve, net, reqs, kv_dtype="int8")[0]
+    log(f"phase 16a: tensor-parallel serving at tp = 1, {MESH_TPS} "
+        f"({mesh_entries(max(MESH_TPS))[1]}; {torch.cuda.device_count()} "
+        f"card(s))")
+    out = dict(serve=phase_mesh_serve(net, dict(f32=greedy, int8=int8),
+                                      card))
+    log("phase 16b: cross-tp handoff (tp=2 to tp=4 and tp=1)")
+    out["handoff"] = phase_mesh_handoff(net, card)
+    log("phase 16c: replica groups (two tp=2 servers, a mid-stream kill)")
+    freqs, fwant = fabric_requests(net, greedy, sampled)
+    out["fleet"] = phase_mesh_fleet(net, freqs, fwant, card)
+    log("phase 16d: data-parallel inference and evaluation")
+    out["inference"] = phase_mesh_inference(net, card)
+    log("phase 16e: ParallelWrapper (both modes, then the bench leg)")
+    out["train"] = phase_mesh_train(card)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 16: {out['wall_s']:.1f} s; [{card}]")
+    return out
+
+
 def kernel_line(flash, paged, bwd, launches, launches_d96,
                 launches_recurrent, launches_graphs, launches_pretrain,
-                launches_nlp, launches_ingest):
+                launches_nlp, launches_ingest, launches_mesh):
     k1 = flash["slice_f32_causal"]
     k2 = paged["f32_T1_Tmax512"]
     k2c = paged["f32_T256_Tmax512"]          # the serve's first prefill round
@@ -7894,6 +8438,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "launches_pretrain": launches_pretrain["flash_fwd"],
          "launches_nlp": launches_nlp["flash_fwd"],
          "launches_ingest": launches_ingest["flash_fwd"],
+         "launches_mesh": launches_mesh["flash_fwd"],
          "max_abs_err": max(r["max_abs_err"] for n, r in flash.items()
                             if n.startswith("slice_f32")),
          "ms": k1["ms"], "device_ms": k1["device_ms"],
@@ -7918,6 +8463,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "launches_pretrain": launches_pretrain["paged_attn"],
          "launches_nlp": launches_nlp["paged_attn"],
          "launches_ingest": launches_ingest["paged_attn"],
+         "launches_mesh": launches_mesh["paged_attn"],
          "max_abs_err": max(r["max_abs_err"] for n, r in paged.items()
                             if n.startswith("f32_") and "Tmax512" in n),
          "ms": k2["ms"], "device_ms": k2["device_ms"],
@@ -7927,6 +8473,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "library_ms": None, "library_device_ms": None,
          # the chunk route (T > 4), at the serve's T=256 and T=48 rounds
          "chunk_launches": launches["paged_attn_chunk"],
+         "chunk_launches_mesh": launches_mesh["paged_attn_chunk"],
          "chunk_merge_launches": launches["paged_attn_merge"],
          "chunk_max_abs_err": max(r["max_abs_err"] for r in paged.values()
                                   if r["route"] == "chunk"
@@ -7982,6 +8529,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
              "launches_pretrain": launches_pretrain[name],
              "launches_nlp": launches_nlp[name],
              "launches_ingest": launches_ingest[name],
+             "launches_mesh": launches_mesh[name],
              "max_abs_err": max(r["max_abs_err"][g] for r in slice_bwd
                                 for g in grads),
              "ms": kb[part]["ms"], "device_ms": kb[part]["device_ms"],
@@ -8076,6 +8624,15 @@ def main() -> int:
     from deeplearning4j_torch import kernels
 
     t_start = time.perf_counter()
+    # the wall seconds of each launch window (and of what ran between two)
+    window_s = {}
+    last = [t_start]
+
+    def lap():
+        now = time.perf_counter()
+        spent, last[0] = now - last[0], now
+        return spent
+
     card = card_line()
     log(card)
     dev = torch.device("cuda")
@@ -8100,6 +8657,7 @@ def main() -> int:
     log("phase 5: serving, f32 then int8 KV pages")
     REPORT["serve"] = phase_serve(net, card)
     serving = dict(kernels.LAUNCHES)      # ... and ends here
+    window_s["serving"] = lap()
     check(all(serving[k] > 0 for k in ("flash_fwd", "paged_attn",
                                        "paged_attn_chunk",
                                        "paged_attn_merge")),
@@ -8116,6 +8674,7 @@ def main() -> int:
     log("phase 5c: a bf16 TransformerLM served through K2")
     REPORT["bf16_serve"] = phase_bf16(numpy_params(net, seed=0), card)
     loading = dict(kernels.LAUNCHES)      # ... and ends here
+    window_s["loading"] = lap()
     check(all(loading[k] > 0 for k in ("flash_fwd", "paged_attn",
                                        "paged_attn_chunk",
                                        "paged_attn_merge")),
@@ -8125,6 +8684,7 @@ def main() -> int:
     log("phase 4c: the committed d=8 fixture on the card")
     REPORT["fixture"] = phase_fixture(card)
     fixture = dict(kernels.LAUNCHES)      # ... and ends here
+    window_s["fixture"] = lap()
     check(all(fixture[k] > 0 for k in ("flash_fwd", "paged_attn",
                                        "paged_attn_chunk", "flash_bwd_dq",
                                        "flash_bwd_dkv")),
@@ -8135,6 +8695,7 @@ def main() -> int:
         "width")
     REPORT["prefix"] = phase_prefix(net, card)
     prefix = dict(kernels.LAUNCHES)       # ... and ends here
+    window_s["prefix"] = lap()
     check(all(prefix[k] > 0 for k in ("paged_attn", "paged_attn_chunk")),
           f"a kernel of the prefix-sharing path never launched: {prefix}")
 
@@ -8143,6 +8704,7 @@ def main() -> int:
         "full width")
     REPORT["spec"] = phase_spec(net, greedy, card)
     spec = dict(kernels.LAUNCHES)         # ... and ends here
+    window_s["spec"] = lap()
     check(all(spec[k] > 0 for k in ("paged_attn", "paged_attn_chunk")),
           f"a kernel of the speculative path never launched: {spec}")
 
@@ -8152,6 +8714,7 @@ def main() -> int:
         f"weights) served through K1 and K2")
     REPORT["d96_serve"] = phase_d96(net96, cpu96, card)
     d96_serving = dict(kernels.LAUNCHES)  # ... and ends here
+    window_s["d96_serving"] = lap()
     at96 = {k: kernels.LAUNCHES_BY_D.get((k, D96), 0) for k in
             ("flash_fwd", "paged_attn", "paged_attn_chunk")}
     check(all(n > 0 for n in at96.values())
@@ -8168,6 +8731,7 @@ def main() -> int:
     log("phase 7: training the slice model with Adam on the card")
     REPORT["train"] = phase_train(net, cpu, card)
     training = dict(kernels.LAUNCHES)     # ... and ends here
+    window_s["training"] = lap()
     check(all(training[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
                                         "flash_bwd_dkv")),
           f"a kernel of the training path never launched: {training}")
@@ -8177,6 +8741,7 @@ def main() -> int:
         f"card")
     REPORT["d96_train"] = phase_train_d96(net96, cpu96, card)
     d96_training = dict(kernels.LAUNCHES)  # ... and ends here
+    window_s["d96_training"] = lap()
     check(all(kernels.LAUNCHES_BY_D.get((k, D96), 0) > 0
               for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
           f"a kernel of the d={D96} training path never launched at "
@@ -8190,6 +8755,7 @@ def main() -> int:
     REPORT["train_fields"] = phase_train_fields(numpy_params(net, seed=0),
                                                 card)
     fitting = dict(kernels.LAUNCHES)      # ... and ends here
+    window_s["fitting"] = lap()
     check(all(fitting[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
                                        "flash_bwd_dkv", "paged_attn",
                                        "paged_attn_chunk")),
@@ -8199,6 +8765,7 @@ def main() -> int:
         "fixture, int8 LeNet, SimpleCNN/AlexNet/VGG16)")
     REPORT["multilayer"] = phase_multilayer(card, args.profile)
     multilayer = dict(kernels.LAUNCHES)   # ... and ends here
+    window_s["multilayer"] = lap()
     check(not any(multilayer.values()),
           f"the MultiLayerNetwork path launched an attention kernel: "
           f"{multilayer}")
@@ -8208,6 +8775,7 @@ def main() -> int:
     REPORT["fabric"] = phase_fabric(card, greedy,
                                     REPORT["sampled"]["streams"])
     fabric = dict(kernels.LAUNCHES)       # ... and ends here
+    window_s["fabric"] = lap()
     check(all(fabric[k] > 0 for k in ("flash_fwd", "paged_attn",
                                       "paged_attn_chunk", "flash_bwd_dq",
                                       "flash_bwd_dkv")),
@@ -8217,6 +8785,7 @@ def main() -> int:
         "k-NN HTTP server, RagPipeline, t-SNE)")
     REPORT["retrieval"] = phase_retrieval(card)
     retrieval = dict(kernels.LAUNCHES)    # ... and end here
+    window_s["retrieval"] = lap()
     check(all(retrieval[k] > 0 for k in ("paged_attn", "paged_attn_chunk")),
           f"a kernel of the RAG generate tier never launched: {retrieval}")
     kernels.reset_launch_counts()         # the recurrent path starts here
@@ -8224,6 +8793,7 @@ def main() -> int:
         "and generation, masked sequence classifiers, early stopping)")
     REPORT["recurrent"] = phase_recurrent(card)
     recurrent = dict(kernels.LAUNCHES)    # ... and ends here
+    window_s["recurrent"] = lap()
     check(not any(recurrent.values()),
           f"the recurrent path launched an attention kernel: {recurrent}")
     kernels.reset_launch_counts()         # the graph path starts here
@@ -8231,6 +8801,7 @@ def main() -> int:
         "learning, a mixture of experts, the solvers, every vertex)")
     REPORT["graphs"] = phase_graphs(card)
     graphs = dict(kernels.LAUNCHES)       # ... and ends here
+    window_s["graphs"] = lap()
     check(not any(graphs.values()),
           f"the graph path launched an attention kernel: {graphs}")
     kernels.reset_launch_counts()         # the pretraining path starts here
@@ -8238,6 +8809,7 @@ def main() -> int:
         "stacked denoising AutoEncoder), the data pipeline and listeners")
     REPORT["pretrain"] = phase_pretrain(card, args.out)
     pretrain = dict(kernels.LAUNCHES)     # ... and ends here
+    window_s["pretrain"] = lap()
     check(not any(pretrain.values()),
           f"the pretraining path launched an attention kernel: {pretrain}")
     kernels.reset_launch_counts()         # the NLP path starts here
@@ -8245,6 +8817,7 @@ def main() -> int:
         "GloVe), DeepWalk and Keras import")
     REPORT["nlp"] = phase_nlp(card)
     nlp = dict(kernels.LAUNCHES)          # ... and ends here
+    window_s["nlp"] = lap()
     check(not any(nlp.values()),
           f"the NLP path launched an attention kernel: {nlp}")
     kernels.reset_launch_counts()         # the ingest path starts here
@@ -8252,18 +8825,32 @@ def main() -> int:
         "the streaming broker and route, the UI stats pipeline)")
     REPORT["ingest"] = phase_ingest(card)
     ingest = dict(kernels.LAUNCHES)       # ... and ends here
+    window_s["ingest"] = lap()
     check(all(ingest[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
                                       "flash_bwd_dkv"))
           and not any(v for k, v in ingest.items()
                       if k.startswith("paged_attn")),
           f"the ingest path: K1, K3 and K4 must launch and K2 must not: "
           f"{ingest}")
+    kernels.reset_launch_counts()         # the mesh path starts here
+    log("phase 16: several devices of one process (tensor-parallel "
+        "serving, cross-tp handoff, replica groups, data-parallel "
+        "inference, evaluation and training)")
+    REPORT["mesh"] = phase_mesh(card, greedy,
+                                REPORT["serve"]["int8"]["streams"],
+                                REPORT["sampled"]["streams"])
+    mesh = dict(kernels.LAUNCHES)         # ... and ends here
+    window_s["mesh"] = lap()
+    check(all(mesh[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv", "paged_attn",
+                                    "paged_attn_chunk")),
+          f"a kernel of the mesh path never launched: {mesh}")
     windows = dict(serving=serving, loading=loading, fixture=fixture,
                    prefix=prefix, spec=spec, d96_serving=d96_serving,
                    training=training, d96_training=d96_training,
                    fitting=fitting, multilayer=multilayer, fabric=fabric,
                    retrieval=retrieval, recurrent=recurrent, graphs=graphs,
-                   pretrain=pretrain, nlp=nlp, ingest=ingest)
+                   pretrain=pretrain, nlp=nlp, ingest=ingest, mesh=mesh)
     launches = {k: sum(w[k] for w in windows.values()) for k in serving}
     REPORT["main_path_launches"] = dict(windows, total=launches)
     check(all(n > 0 for n in launches.values()),
@@ -8289,9 +8876,14 @@ def main() -> int:
     line = kernel_line(flash, paged, bwd, launches,
                        {k: d96_serving[k] + d96_training[k]
                         for k in d96_serving}, recurrent, graphs, pretrain,
-                       nlp, ingest)
+                       nlp, ingest, mesh)
     REPORT["total_s"] = time.perf_counter() - t_start
-    log(f"build {REPORT['build_s']:.1f} s, total {REPORT['total_s']:.1f} s")
+    REPORT["window_s"] = window_s
+    log(f"build {REPORT['build_s']:.1f} s, total {REPORT['total_s']:.1f} s; "
+        f"seconds to the end of each window (from the previous one's end: "
+        f"the build and phases 2-3 fall in serving's, phase 6 in "
+        f"training's) "
+        f"{json.dumps({k: round(v, 1) for k, v in window_s.items()})}")
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(REPORT, kernels=line["kernels"]), f, indent=1)

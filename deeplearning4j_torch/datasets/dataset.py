@@ -55,10 +55,16 @@ class DataSet:
     @classmethod
     def on_device(cls, features, labels=None, features_mask=None,
                   labels_mask=None) -> "DataSet":
-        """A DataSet around tensors already placed on a device (JAX's
-        ``on_device``, which skips its ``np.asarray``; here the
-        constructor keeps tensors as they are too)."""
-        return cls(features, labels, features_mask, labels_mask)
+        """A DataSet around arrays already placed (tensors on a device, or
+        ``parallel/mesh.py::ShardedArray`` pieces over a mesh), kept as
+        they are: JAX's ``on_device``, which skips the constructor's
+        ``np.asarray``."""
+        ds = cls.__new__(cls)
+        ds.features = features
+        ds.labels = labels
+        ds.features_mask = features_mask
+        ds.labels_mask = labels_mask
+        return ds
 
     def _rows(self, idx) -> "DataSet":
         return DataSet(_take(self.features, idx), _take(self.labels, idx),

@@ -140,30 +140,71 @@ class DevicePrefetchIterator(DataSetIterator):
     on that stream (``record_stream``), so no kernel reads a half-copied
     batch and the allocator does not reuse its memory early. On the CPU
     the arrays are wrapped without a copy. ``device`` is CUDA unless the
-    caller names another; ``sharding=`` (placement over several cards)
-    is ROADMAP A11c and raises."""
+    caller names another.
+
+    ``sharding`` (a ``parallel/mesh.py::DataSharding``, for example
+    ``model_sharding.data_batch_sharding(mesh)``) places each batch for
+    mesh training instead: every array is split on axis 0 into one piece
+    per data device (a side stream of its own per card) and handed out as
+    a ``ShardedArray``. A batch that does not split evenly (a trailing
+    partial batch) raises ``ValueError`` when it is placed."""
 
     def __init__(self, base: Iterable, depth: int = 2, sharding=None,
                  device=None):
         if depth < 1:
             raise ValueError("depth must be >= 1")
-        if sharding is not None:
-            raise NotImplementedError(
-                "DevicePrefetchIterator(sharding=...) places batches over "
-                "several cards, which is not ported yet (ROADMAP A11c)")
         self.base = base
         self.depth = depth
         self.sharding = sharding
-        self.device = resolve_device(device)
-        self._stream = None
+        if sharding is not None:
+            from deeplearning4j_torch.parallel.mesh import DataSharding
+
+            if not isinstance(sharding, DataSharding):
+                raise TypeError(f"sharding must be a parallel.mesh."
+                                f"DataSharding, got "
+                                f"{type(sharding).__name__}")
+            first = sharding.devices[0]
+            if device is not None and resolve_device(device) != first:
+                raise ValueError(f"device={device} disagrees with the "
+                                 f"sharding's first device {first}")
+            self.device = first
+        else:
+            self.device = resolve_device(device)
+        self._streams: dict = {}
 
     def reset(self):
         if hasattr(self.base, "reset"):
             self.base.reset()
 
+    def _copy(self, t, dev):
+        """``t`` onto ``dev``: a non-blocking copy on ``dev``'s side stream
+        for a card, a plain ``to`` elsewhere."""
+        if dev.type != "cuda":
+            return t.to(dev)
+        if dev not in self._streams:
+            self._streams[dev] = torch.cuda.Stream(dev)
+        with torch.cuda.stream(self._streams[dev]):
+            return t.to(dev, non_blocking=True)
+
     def _put(self, ds):
+        from deeplearning4j_torch.parallel.mesh import ShardedArray
+
         arrs = (ds.features, ds.labels, ds.features_mask, ds.labels_mask)
-        cuda = self.device.type == "cuda"
+        devices = ([self.device] if self.sharding is None
+                   else self.sharding.devices)
+        cuda = any(d.type == "cuda" for d in devices)
+        if self.sharding is not None:
+            # fail here, naming the batch: a trailing partial batch the
+            # mesh cannot split would otherwise surface `depth` batches
+            # away from the offending data
+            try:
+                self.sharding.shard_shape(tuple(np.shape(arrs[0])))
+            except ValueError as e:
+                raise ValueError(
+                    f"batch shape {tuple(np.shape(arrs[0]))} is not "
+                    f"divisible onto sharding {self.sharding} (trailing "
+                    "partial batch? drop it or pad before prefetching)"
+                ) from e
 
         def host(a):
             if torch.is_tensor(a):
@@ -171,28 +212,33 @@ class DevicePrefetchIterator(DataSetIterator):
             t = torch.from_numpy(np.ascontiguousarray(a))
             return t.pin_memory() if cuda else t
 
-        if not cuda:
-            return tuple(None if a is None else host(a).to(self.device)
-                         for a in arrs), None
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(self._stream):
-            placed = tuple(None if a is None
-                           else host(a).to(self.device, non_blocking=True)
-                           for a in arrs)
-            ready = torch.cuda.Event()
-            ready.record(self._stream)
-        return placed, ready
+        placed = []
+        for a in arrs:
+            if a is None:
+                placed.append(None)
+                continue
+            pieces = [self._copy(p, d) for p, d in zip(
+                host(a).chunk(len(devices)), devices)]
+            placed.append(pieces[0] if self.sharding is None
+                          else ShardedArray(pieces, self.sharding))
+        ready = []
+        for dev, stream in self._streams.items():
+            event = torch.cuda.Event()
+            event.record(stream)
+            ready.append((dev, event))
+        return tuple(placed), ready
 
     def _iterate(self):
         for placed, ready in device_put_ahead(_base_iter(self.base),
                                               self.depth, self._put):
-            if ready is not None:
-                consumer = torch.cuda.current_stream(self.device)
-                consumer.wait_event(ready)
-                for t in placed:
-                    if t is not None and t.device.type == "cuda":
-                        t.record_stream(consumer)
+            for dev, event in ready:
+                consumer = torch.cuda.current_stream(dev)
+                consumer.wait_event(event)
+                for a in placed:
+                    pieces = [] if a is None else getattr(a, "pieces", [a])
+                    for t in pieces:
+                        if t.device == dev:
+                            t.record_stream(consumer)
             yield DataSet.on_device(*placed)
 
     def total_examples(self):

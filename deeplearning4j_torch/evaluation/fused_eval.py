@@ -13,6 +13,11 @@
   the unpadded batch), copied to the device ahead of use
   (``device_put_ahead``), and ONE host fetch at the end of the call: the
   ``C²`` counts and four scalars.
+- With ``mesh=`` (a ``parallel/mesh.py`` mesh with a ``data`` axis) the
+  bucket rounds up to a multiple of the W data devices, each block's batch
+  axis is split into W equal pieces, each device's replica of the params
+  computes its piece into its own accumulator, and the W accumulators are
+  summed once at the end (JAX's cross-replica merge).
 
 The counts are ``Evaluation.eval``'s: 2-D ``[B, C]`` labels ignore any
 labels mask (only padded rows get weight 0); 3-D ``[B, T, C]`` labels weight
@@ -149,10 +154,16 @@ class FusedEvalDriver:
     evaluation is a sum, so mixing the paths reorders nothing."""
 
     def __init__(self, net, eval_batches: Optional[int] = None,
-                 prefetch_depth: int = 2):
+                 prefetch_depth: int = 2, mesh=None):
+        from deeplearning4j_torch.parallel.mesh import data_devices
+
         self.net = net
         self.K = resolve_eval_batches(net, eval_batches)
         self.depth = max(1, prefetch_depth)
+        self.mesh = mesh
+        self._devices = ([net.device] if mesh is None
+                         else data_devices(mesh))
+        self._row_multiple = len(self._devices)
 
     # ------------------------------------------------------------- assembly
     def _blocks(self, batches):
@@ -167,8 +178,10 @@ class FusedEvalDriver:
                 f, y = ds.features, ds.labels
                 im, lm = ds.features_mask, ds.labels_mask
                 if bucket is None:
-                    bucket = (f.shape[0], tuple(f.shape[1:]),
-                              tuple(y.shape[1:]), im is not None)
+                    B = -(-f.shape[0] // self._row_multiple) \
+                        * self._row_multiple
+                    bucket = (B, tuple(f.shape[1:]), tuple(y.shape[1:]),
+                              im is not None)
                 B, ftail, ltail, has_im = bucket
                 if (tuple(f.shape[1:]) == ftail
                         and tuple(y.shape[1:]) == ltail
@@ -207,13 +220,17 @@ class FusedEvalDriver:
     @torch.inference_mode()
     def evaluate(self, batches, evaluation):
         """Evaluate the stream into ``evaluation`` (mutated and returned)."""
+        from deeplearning4j_torch.parallel.mesh import Replicas
+
         net = self.net
         ev = evaluation
         top_n = getattr(ev, "top_n", 1)
         dtype = getattr(torch, net.conf.dtype)
         stats = build_eval_stats(net)
         place = FusedFitDriver(net, 1)._place
-        acc = None
+        replicas = Replicas(net)
+        devices = self._devices
+        accs = None
         num_classes = None
         for tag, payload in device_put_ahead(self._blocks(batches),
                                              self.depth, place):
@@ -224,17 +241,26 @@ class FusedEvalDriver:
                         mask=payload.labels_mask)
                 continue
             xs, ys, ims, ews = payload
-            if acc is None:
+            if accs is None:
                 num_classes = ev.num_classes or ys.shape[-1]
-                acc = init_accumulator(num_classes, net.device)
+                accs = [init_accumulator(num_classes, d) for d in devices]
             xs, ys = xs.to(dtype), ys.to(dtype)
+            rows = xs.shape[1] // len(devices)
             for k in range(xs.shape[0]):
-                probs, per_ex = stats(net.params, net.state, xs[k], ys[k],
-                                      None if ims is None
-                                      else ims[k].to(torch.float32))
-                _accumulate(acc, probs, ys[k], ews[k], per_ex, top_n,
-                            num_classes)
-        if acc is not None:
+                for i, dev in enumerate(devices):
+                    part = slice(i * rows, (i + 1) * rows)
+                    probs, per_ex = stats(
+                        *replicas.weights(dev), xs[k][part].to(dev),
+                        ys[k][part].to(dev),
+                        None if ims is None
+                        else ims[k][part].to(dev, torch.float32))
+                    _accumulate(accs[i], probs, ys[k][part].to(dev),
+                                ews[k][part].to(dev), per_ex, top_n,
+                                num_classes)
+        if accs is not None:
+            # the merge: the devices' counts summed once, in mesh order
+            acc = {key: sum((a[key].to(net.device) for a in accs[1:]),
+                            accs[0][key]) for key in accs[0]}
             # the one fetch: C² counts and four scalars
             C2 = num_classes * num_classes
             host = torch.cat([acc["confusion"].reshape(-1).double(),

@@ -4,7 +4,34 @@
 
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 namespace dl4j {
+
+// Dynamic shared memory above 48 KB is opted in per kernel in each device's
+// context, so a launch function opts its kernel in once per device (a mesh
+// over several cards launches one instantiation on each): ``fn(dev,
+// value)`` runs the first time the current device launches, may leave a
+// number in ``value`` (the device's opt-in limit, returned in ``*value_out``
+// on every call), and its error is kept.
+constexpr int kMaxDevices = 64;
+
+struct PerDevice {
+  std::once_flag once[kMaxDevices];
+  cudaError_t err[kMaxDevices] = {};
+  int value[kMaxDevices] = {};
+};
+
+template <typename F>
+cudaError_t once_per_device(PerDevice& s, F&& fn, int* value_out = nullptr) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::call_once(s.once[dev], [&] { s.err[dev] = fn(dev, s.value[dev]); });
+  if (value_out != nullptr) *value_out = s.value[dev];
+  return s.err[dev];
+}
 
 // Masked scores, as in the JAX package: -1e30 rather than -inf keeps a row
 // whose keys are all masked finite (uniform weights instead of 0/0).

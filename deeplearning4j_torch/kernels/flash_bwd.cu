@@ -445,7 +445,7 @@ __global__ void __launch_bounds__(kBwdThreads)
 
 // ------------------------------------------------------------------ launch
 // The kernels' shared memory is opted in above 48 KB once per instantiation
-// (a function-local static). dh is the head dim: PAD false runs the
+// and device (``once_per_device``). dh is the head dim: PAD false runs the
 // kernel of exactly D = dh, PAD true its padded twin (common.cuh).
 template <typename T, int D, bool PAD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -453,7 +453,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               void* dq, void* /*unused*/, int B, int H, int Tlen, int causal,
               int dh, cudaStream_t stream) {
   constexpr int smem = BwdTile<T, D>::kSmemBytes;
-  static const cudaError_t attr = [] {
+  static PerDevice opt;
+  const cudaError_t attr = once_per_device(opt, [](int, int&) {
     if constexpr (PAD)
       return cudaFuncSetAttribute(flash_bwd_dq_pad_kernel<T, D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -462,7 +463,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       return cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem);
-  }();
+  });
   if (attr != cudaSuccess) return (int)attr;
   const int tiles = (Tlen + kBwdBlock - 1) / kBwdBlock;
   if (tiles > 65535) return -1;
@@ -487,7 +488,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                void* dk, void* dv, int B, int H, int Tlen, int causal, int dh,
                cudaStream_t stream) {
   constexpr int smem = BwdTile<T, D>::kSmemBytes;
-  static const cudaError_t attr = [] {
+  static PerDevice opt;
+  const cudaError_t attr = once_per_device(opt, [](int, int&) {
     if constexpr (PAD)
       return cudaFuncSetAttribute(flash_bwd_dkv_pad_kernel<T, D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -496,7 +498,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       return cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem);
-  }();
+  });
   if (attr != cudaSuccess) return (int)attr;
   const int tiles = (Tlen + kBwdBlock - 1) / kBwdBlock;
   if (tiles > 65535) return -1;

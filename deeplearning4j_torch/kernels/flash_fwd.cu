@@ -266,8 +266,9 @@ int launch_flash(const void* q, const void* k, const void* v, const float* mask,
            cudaStream_t stream) {
   constexpr int smem = FwdTile<T, D>::kSmemBytes;
   // above 48 KB only as opted-in dynamic shared memory; asked once per
-  // instantiation
-  static const cudaError_t attr = [] {
+  // instantiation and device
+  static PerDevice opt;
+  const cudaError_t attr = once_per_device(opt, [](int, int&) {
     if constexpr (PAD)
       return cudaFuncSetAttribute(flash_fwd_pad_kernel<T, D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -276,7 +277,7 @@ int launch_flash(const void* q, const void* k, const void* v, const float* mask,
       return cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem);
-  }();
+  });
   if (attr != cudaSuccess) return (int)attr;
   const int qtiles = (Tlen + kBlockM - 1) / kBlockM;
   if (qtiles > 65535) return -1;

@@ -1190,27 +1190,25 @@ int launch_chunk(const QT* q, const void* kp, const void* vp,
                  const int* pos, const float* key_valid, QT* o, float* part,
                  int splits, int B, int H, int T, int ps, int NP, int dh,
                  cudaStream_t stream) {
-  // the opt-in limit, asked once per instantiation: the block-table slice
-  // makes the size depend on NP
-  static int limit = 0;
-  static const cudaError_t attr = [] {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                 dev);
+  // the opt-in limit, asked once per instantiation and device: the
+  // block-table slice makes the size depend on NP
+  static PerDevice opt;
+  int limit = 0;
+  const cudaError_t attr = once_per_device(opt, [](int dev, int& most) {
+    cudaError_t e = cudaDeviceGetAttribute(
+        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (e == cudaSuccess) {
       if constexpr (PAD)
         e = cudaFuncSetAttribute(paged_chunk_pad_kernel<QT, KV, D>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 limit);
+                                 most);
       else
         e = cudaFuncSetAttribute(paged_chunk_kernel<QT, KV, D>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 limit);
+                                 most);
     }
     return e;
-  }();
+  }, &limit);
   if (attr != cudaSuccess) return (int)attr;
   const int smem = chunk_smem_bytes<KV, D>(NP);
   if (smem > limit) return -3;

@@ -2,9 +2,8 @@
 ``deeplearning4j_tpu/nn/conf/layers/attention.py``): ``scaled_dot_attention``,
 ``SelfAttentionLayer`` (the full-sequence forward, the dense KV-cache
 streaming forward behind ``rnn_time_step`` and the generate loops, and the
-paged-KV serving forward) and ``PositionalEncodingLayer``.
-
-The tensor-parallel paged path is not ported yet (ROADMAP A9).
+paged-KV serving forward, on one device or head-parallel over a pool
+sharded by heads) and ``PositionalEncodingLayer``.
 """
 
 from __future__ import annotations
@@ -146,16 +145,17 @@ class SelfAttentionLayer(BaseLayer):
     # ------------------------------------------------------ paged decode
     def init_paged_carry(self, pages: int, page_size: int,
                          dtype=torch.float32, kv_dtype=None,
-                         device="cpu") -> dict:
+                         device="cpu", heads=None) -> dict:
         """KV cache as a POOL of fixed-size pages shared by every slot of a
         serving batch; a ``[B, n_pages]`` block table passed per call in
         ``state`` maps each row to its pages. ``kv_dtype="int8"`` stores
-        pages int8 with per-token-per-head f32 scales. Non-causal layers
+        pages int8 with per-token-per-head f32 scales. ``heads`` (default
+        all) sizes one head-parallel shard's pool. Non-causal layers
         return no carry."""
         if not self.causal:
             return {}
-        H = self.n_heads
-        d = self.n_out // H
+        H = self.n_heads if heads is None else int(heads)
+        d = self.n_out // self.n_heads
         if kv_dtype == "int8":
             return {
                 "kpages": torch.zeros(pages, H, page_size, d,
@@ -317,15 +317,30 @@ class SelfAttentionLayer(BaseLayer):
         Unlike the JAX layer, the chunk write updates the pool tensors IN
         PLACE (``index_put_`` through advanced indexing): the returned state
         holds the same tensors, and no pool copy is made per call.
+
+        A pool leaf is one tensor ``[P, H, ps, d]`` or the list of its head
+        shards (JAX ``_sharded_write_attend``): shard i holds heads
+        ``[i·H/tp, (i+1)·H/tp)`` of every page on its own device, and a
+        tensor is a pool of one shard. Each shard writes its head slice of
+        the chunk through the SAME page routing (the block table is
+        replicated) and reads its slice with the paged backend of its
+        device, K2 splitting the walk by the full head count. The per-head
+        contexts are disjoint, so the all-gather before Wo is an exact
+        concatenation in head order and every tp is bitwise one shard.
         """
+        from deeplearning4j_torch.parallel.mesh import all_gather
+
+        def shards(leaf):
+            return [leaf] if torch.is_tensor(leaf) else leaf
+
         B, T, _ = x.shape
-        kp, vp = state["kpages"], state["vpages"]
+        kps, vps = shards(state["kpages"]), shards(state["vpages"])
         bt = state["block_table"]
         pos = state["cache_pos"]
         if pos.dim() != 1:
             raise ValueError("paged attention requires per-row [B] "
                              f"cache_pos, got shape {tuple(pos.shape)}")
-        ps = kp.shape[2]
+        ps = kps[0].shape[2]
         NP = bt.shape[1]
         if mask is not None and tuple(mask.shape) != (B, T):
             raise ValueError(
@@ -335,9 +350,8 @@ class SelfAttentionLayer(BaseLayer):
         k = self._split_heads(self._proj(params, x, "Wk"))
         v = self._split_heads(self._proj(params, x, "Wv"))
         quant = "kscales" in state
-        ksp = vsp = None
         if quant:
-            ksp, vsp = state["kscales"], state["vscales"]
+            ksps, vsps = shards(state["kscales"]), shards(state["vscales"])
             k, ksc = self._quantize_kv(k)
             v, vsc = self._quantize_kv(v)
         # logical position p of row b lands in pool page bt[b, p // ps] at
@@ -351,17 +365,32 @@ class SelfAttentionLayer(BaseLayer):
             # caller-reserved garbage sink, so padded prefill chunks never
             # dirty real pages
             pg = torch.where(mask != 0, pg, torch.zeros_like(pg))
-        kp[pg, :, off] = k.to(kp.dtype).permute(0, 2, 1, 3)
-        vp[pg, :, off] = v.to(vp.dtype).permute(0, 2, 1, 3)
-        if quant:
-            ksp[pg, :, off] = ksc.permute(0, 2, 1)
-            vsp[pg, :, off] = vsc.permute(0, 2, 1)
-        backend = ppa.resolve_paged_backend(self.paged_attention, q.device)
-        o = ppa.paged_attend(backend, q, kp, vp, bt, pos, mask=mask,
-                             kscales=ksp, vscales=vsp)
+        hl = self.n_heads // len(kps)
+        outs = []
+        for i, (kp, vp) in enumerate(zip(kps, vps)):
+            dev = kp.device
+            heads = slice(i * hl, (i + 1) * hl)
+
+            def local(t):
+                return t[:, heads].to(dev)
+
+            pg_i, off_i = pg.to(dev), off.to(dev)
+            kp[pg_i, :, off_i] = local(k).to(kp.dtype).permute(0, 2, 1, 3)
+            vp[pg_i, :, off_i] = local(v).to(vp.dtype).permute(0, 2, 1, 3)
+            ks = vs = None
+            if quant:
+                ks, vs = ksps[i], vsps[i]
+                ks[pg_i, :, off_i] = local(ksc).permute(0, 2, 1)
+                vs[pg_i, :, off_i] = local(vsc).permute(0, 2, 1)
+            backend = ppa.resolve_paged_backend(self.paged_attention, dev)
+            outs.append(ppa.paged_attend(
+                backend, local(q), kp, vp, bt.to(dev), pos.to(dev),
+                mask=None if mask is None else mask.to(dev), kscales=ks,
+                vscales=vs, split_heads=self.n_heads))
         new_state = dict(state)
         new_state["cache_pos"] = pos + T
-        return self._merge(params, o, mask), new_state
+        return self._merge(params, all_gather(outs, q.device, dim=1),
+                           mask), new_state
 
 
 @register_serializable

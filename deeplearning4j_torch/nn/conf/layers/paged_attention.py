@@ -86,12 +86,17 @@ def paged_attention_plain(q, kp, vp, bt, pos, *, key_valid=None,
 
 
 def paged_attention(q, kp, vp, bt, pos, *, key_valid=None, kscales=None,
-                    vscales=None):
+                    vscales=None, split_heads=None):
     """K2's wrapper. CPU tensors take the plain version; CUDA tensors launch
     the kernel or raise — there is no fallback. Counts every launch under
     ``paged_attn``, chunk-route launches also under ``paged_attn_chunk``,
     and the chunk route's merge pass (when it splits the walk) under
-    ``paged_attn_merge``."""
+    ``paged_attn_merge``.
+
+    ``split_heads``: the head count whose split rule the chunk route
+    follows (default: q's). A head-parallel shard of ``H/tp`` heads passes
+    the model's full ``H``, so its walk is cut into the ranges tp=1 cuts
+    and its softmax merges in the same order: tp>1 stays bitwise tp=1."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, kp, vp, bt, pos, key_valid=key_valid,
                                      kscales=kscales, vscales=vscales)
@@ -109,16 +114,23 @@ def paged_attention(q, kp, vp, bt, pos, *, key_valid=None, kscales=None,
     from deeplearning4j_torch import kernels
 
     ext = kernels.load()
+    B, H, T, d = q.shape
+    # the chunk route's split count, by the rule of the full head count
+    # when a head shard passes it; 0 on the decode route, where the binding
+    # applies its own rule (one range)
+    splits = 0
+    if T > DECODE_MAX_T:
+        splits = ext.paged_attn_splits(B, split_heads or H, T, d,
+                                       kp.shape[2], bt.shape[1],
+                                       pool_kind(kp))
     o = ext.paged_attn(
         q.contiguous(), kp, vp, kscales, vscales,
         bt.to(torch.int32).contiguous(), pos.to(torch.int32).contiguous(),
-        key_valid)
-    B, H, T, d = q.shape
+        key_valid, splits)
     count_launch("paged_attn", d)
     if T > DECODE_MAX_T:
         count_launch("paged_attn_chunk", d)
-        if ext.paged_attn_splits(B, H, T, d, kp.shape[2], bt.shape[1],
-                                 pool_kind(kp)) > 1:
+        if splits > 1:
             count_launch("paged_attn_merge", d)
     return o
 
@@ -140,7 +152,7 @@ class PagedAttentionHelper:
     name = "base"
 
     def attend(self, q, kp, vp, bt, pos, *, mask=None, kscales=None,
-               vscales=None):
+               vscales=None, split_heads=None):
         raise NotImplementedError
 
     @staticmethod
@@ -157,7 +169,7 @@ class XlaPagedAttention(PagedAttentionHelper):
     name = "xla"
 
     def attend(self, q, kp, vp, bt, pos, *, mask=None, kscales=None,
-               vscales=None):
+               vscales=None, split_heads=None):
         return paged_attention_plain(
             q, kp, vp, bt, pos, key_valid=self._plane(q, kp, bt, pos, mask),
             kscales=kscales, vscales=vscales)
@@ -169,10 +181,10 @@ class CudaPagedAttention(PagedAttentionHelper):
     name = "pallas"
 
     def attend(self, q, kp, vp, bt, pos, *, mask=None, kscales=None,
-               vscales=None):
+               vscales=None, split_heads=None):
         return paged_attention(
             q, kp, vp, bt, pos, key_valid=self._plane(q, kp, bt, pos, mask),
-            kscales=kscales, vscales=vscales)
+            kscales=kscales, vscales=vscales, split_heads=split_heads)
 
 
 _HELPERS = {"xla": XlaPagedAttention(), "pallas": CudaPagedAttention()}
@@ -201,7 +213,9 @@ def get_paged_helper(backend) -> PagedAttentionHelper:
 
 
 def paged_attend(backend, q, kp, vp, bt, pos, *, mask=None, kscales=None,
-                 vscales=None):
-    """Dispatch one paged-attention read through the resolved backend."""
+                 vscales=None, split_heads=None):
+    """Dispatch one paged-attention read through the resolved backend
+    (``split_heads`` as for :func:`paged_attention`)."""
     return get_paged_helper(backend).attend(q, kp, vp, bt, pos, mask=mask,
-                                            kscales=kscales, vscales=vscales)
+                                            kscales=kscales, vscales=vscales,
+                                            split_heads=split_heads)

@@ -41,6 +41,14 @@ class TrainingListener:
         ``model`` carries end-of-block parameters."""
         pass
 
+    def on_phase_timings(self, model, timings: dict):
+        """Per-round training-phase wall times (reference:
+        spark/api/stats/SparkTrainingStats.java — data-fetch / fit /
+        aggregation timings per worker round), from ``ParallelWrapper``.
+        ``timings`` carries ms floats, e.g. {"host_prep_ms": ...,
+        "device_round_ms": ...}."""
+        pass
+
     def on_health(self, model, report: dict):
         """Fired by the numerical-health guard (``optimize/health.py``) when
         it sees skipped (non-finite) steps or takes a recovery action.

@@ -77,7 +77,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from deeplearning4j_torch.metrics.registry import MetricsRegistry
 from deeplearning4j_torch.parallel.handoff import KVSnapshot, SnapshotError
-from deeplearning4j_torch.parallel.mesh import MeshGeometryError
+from deeplearning4j_torch.parallel.mesh import MeshGeometryError, local_devices
 from deeplearning4j_torch.parallel.resilience import (
     AdmissionController, CircuitBreaker, CircuitOpen, Deadline,
     DeadlineExceeded, ReplicaKilled, ReplicaUnavailable, ResilienceError,
@@ -102,33 +102,25 @@ _EWMA_FLOOR_MS = 0.5  # score floor so a fresh replica isn't infinitely hot
 
 def device_groups(n_groups: int, tp: int, devices=None) -> list:
     """Partition the device pool into ``n_groups`` disjoint lists of
-    ``tp`` devices — one replica group per fleet replica. ``devices``
-    defaults to every CUDA device (``torch.cuda.device_count()``). The
-    factory idiom::
+    ``tp`` devices — one tensor-parallel replica group per fleet replica.
+    ``devices`` defaults to every CUDA device
+    (``torch.cuda.device_count()``). The factory idiom::
 
-        groups = device_groups(2, tp=1)
+        groups = device_groups(2, tp=4)
         fleet = ReplicaFleet(lambda rid: GenerationServer(
-            net_on[rid], vocab, device=groups[rid][0]), replicas=2)
+            net, vocab, mesh=model_mesh(4, devices=groups[rid % 2])),
+            replicas=2)
 
-    Groups are disjoint by construction so two replicas never contend
-    for a card; validation is loud (``MeshGeometryError``) because a
-    short group would silently shrink the page budget the replica
-    admits against. Tensor-parallel groups (``tp > 1``) raise
-    ``NotImplementedError``: sharded decode over ``torch.distributed``
-    is not ported yet (ROADMAP A9)."""
-    import torch
-
+    Groups are disjoint by construction (by entry: a pool naming one
+    device several times yields groups of those entries) so two replicas
+    never contend for a card; validation is loud (``MeshGeometryError``)
+    because a short group would silently shrink the page budget the
+    replica admits against."""
     if devices is None:
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
+        devices = local_devices()
     if n_groups < 1 or tp < 1:
         raise MeshGeometryError(
             f"need n_groups >= 1 and tp >= 1, got {n_groups}x{tp}")
-    if tp > 1:
-        raise NotImplementedError(
-            f"device_groups(tp={tp}): tensor-parallel replica groups are "
-            "not ported yet (ROADMAP A9: sharded paged decode over "
-            "torch.distributed)")
     need = n_groups * tp
     if need > len(devices):
         raise MeshGeometryError(

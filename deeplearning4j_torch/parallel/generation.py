@@ -75,7 +75,17 @@ a retried dispatch re-runs on the same inputs and rewrites the same pool
 slots with the same values, since no host state advances before it
 returns. Counters live in a ``MetricsRegistry`` under the JAX server's
 metric names, and ``stats()`` has the JAX server's keys in its order.
-Tensor-parallel meshes (``mesh``, ``tp``) are not ported yet (ROADMAP A9).
+TENSOR-PARALLEL serving (``mesh=`` with a ``model`` axis, or ``tp=``):
+every attention layer's pool is split by heads, shard i a ``[pages, H/tp,
+page_size, d]`` pool on the mesh's i-th device (``pages`` is the budget of
+each shard); weights, activations and the block table stay on the mesh's
+first device, and the only collective is the exact all-gather of the
+disjoint per-head contexts before Wo, so streams are bitwise the
+one-device server's at every tp. Snapshots gather the shards into the
+canonical ``[NP, H, ps, d]`` layout (header ``shards=tp``) and adoption
+splits them by this server's tp. Without a mesh the pool is one shard of
+every head on the server's device: one write-and-read path serves every
+tp.
 ``assemble_passage_prefix`` (the JAX package's, verbatim) lays retrieved
 passages out as a canonical page-aligned prompt prefix for RAG
 (``parallel/rag.py``).
@@ -116,6 +126,10 @@ from deeplearning4j_torch.parallel.handoff import (BF16_WIRE, WIRE_VERSION,
                                                    corrupt_snapshot,
                                                    pack_snapshot,
                                                    truncate_snapshot)
+from deeplearning4j_torch.parallel.mesh import (MODEL_AXIS, Mesh,
+                                                MeshGeometryError,
+                                                Replicas, all_gather,
+                                                model_mesh)
 from deeplearning4j_torch.parallel.resilience import (AdmissionController,
                                                       ChaosPolicy,
                                                       CircuitBreaker,
@@ -132,6 +146,7 @@ _UNSET = object()
 #: pool page 0 never backs real tokens: inactive slots' block-table rows
 #: are all zeros, so their masked garbage writes land here
 GARBAGE_PAGE = 0
+
 
 def _to_wire(t: torch.Tensor) -> np.ndarray:
     """A host tensor as a KVSnapshot payload leaf: bf16 as its raw words
@@ -332,8 +347,14 @@ class GenerationServer:
     ``breaker`` and ``chaos`` guard every dispatch (defaults: a
     ``RetryPolicy()``, a ``CircuitBreaker()``, no chaos); ``registry``
     receives the server's metrics (default: a registry of its own, at
-    ``self.metrics``). ``mesh`` and ``tp`` (tensor-parallel decode) raise
-    ``NotImplementedError`` when set (ROADMAP A9).
+    ``self.metrics``).
+
+    ``mesh`` (a ``parallel/mesh.py`` ``Mesh`` with a ``model`` axis) or
+    ``tp`` (``model_mesh(tp)`` over the CUDA devices) serves
+    tensor-parallel: the KV pools shard by heads over the mesh's devices
+    and the server runs on its first device (a ``device=`` naming another
+    raises). A net living elsewhere is replicated onto that device, so
+    replica groups of a fleet may share one net.
     """
 
     def __init__(self, net, vocab: int, *, slots: int = 8,
@@ -359,11 +380,6 @@ class GenerationServer:
                  chaos: Optional[ChaosPolicy] = None,
                  registry: Optional[MetricsRegistry] = None,
                  device=None):
-        if mesh is not None or (tp is not None and int(tp) != 1):
-            raise NotImplementedError(
-                "GenerationServer(mesh=..., tp=...) is not ported yet "
-                "(ROADMAP A9: tensor-parallel paged decode over "
-                "torch.distributed)")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if page_size < 1:
@@ -396,11 +412,23 @@ class GenerationServer:
                 "role='prefill' is incompatible with draft_net: the "
                 "exported KVSnapshot cannot carry the draft's dense "
                 "KV cache")
-        self.device = resolve_device(device)
-        if net.device != self.device:
-            raise ValueError(f"the net lives on {net.device}, the server on "
-                             f"{self.device}; init the net on the server's "
-                             "device")
+        mesh = self._resolve_mesh(mesh, tp)
+        self._tp = 1 if mesh is None else mesh.size
+        self._replicas = Replicas(net)
+        if mesh is None:
+            self.device = resolve_device(device)
+            if net.device != self.device:
+                raise ValueError(f"the net lives on {net.device}, the server "
+                                 f"on {self.device}; init the net on the "
+                                 "server's device")
+        else:
+            self.device = mesh.flat[0]
+            if device is not None and resolve_device(device) != self.device:
+                raise MeshGeometryError(
+                    f"device={device} disagrees with the mesh, whose first "
+                    f"device {self.device} hosts the server")
+        # the devices of the pool's head shards (one without a mesh)
+        self._shard_devices = [self.device] if mesh is None else mesh.flat
         self.net = net
         self.vocab = int(vocab)
         self.slots = int(slots)
@@ -492,6 +520,38 @@ class GenerationServer:
         self._runtime.start()
         supervisor().watch(self._runtime, on_death=self._on_loop_death,
                            restart=True)
+
+    @staticmethod
+    def _resolve_mesh(mesh, tp):
+        """The validated mesh, or None when neither ``mesh`` nor a ``tp``
+        other than 1 is given."""
+        if mesh is None and tp is not None and int(tp) != 1:
+            mesh = model_mesh(int(tp))
+        if mesh is None:
+            return None
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if MODEL_AXIS not in mesh.axis_names:
+            raise MeshGeometryError(
+                f"GenerationServer mesh needs a {MODEL_AXIS!r} axis "
+                f"to shard KV heads over, got axes {mesh.axis_names}")
+        if tp is not None and int(tp) != mesh.shape[MODEL_AXIS]:
+            raise MeshGeometryError(
+                f"tp={tp} disagrees with the mesh's "
+                f"{mesh.shape[MODEL_AXIS]}-way {MODEL_AXIS!r} axis")
+        if mesh.size != mesh.shape[MODEL_AXIS]:
+            raise MeshGeometryError(
+                f"GenerationServer shards heads over a 1-D {MODEL_AXIS!r} "
+                f"mesh, got axes {mesh.shape}")
+        return mesh
+
+    @property
+    def _weights(self):
+        """(params, state) on the server's device: the net's own, or their
+        replica on the mesh's first device (copied again when the net's
+        tensors change)."""
+        return self._replicas.weights(self.device)
 
     def _register_metrics(self, registry):
         """The serving counters and gauges, under the JAX server's metric
@@ -662,6 +722,11 @@ class GenerationServer:
                 self._paged_names.append(name)
                 caps.append(layer.max_cache)
                 h = layer.n_heads
+                if h % self._tp:
+                    raise MeshGeometryError(
+                        f"layer {name!r} has {h} heads, not divisible by "
+                        f"tp={self._tp}: the head-parallel pool shard "
+                        "[pages, H/tp, page_size, d] would be ragged")
                 self._page_token_bytes += 2 * h * (
                     (layer.n_out // h) * kv_itemsize + scale_bytes)
                 if self.paged_attention is not None:
@@ -711,14 +776,22 @@ class GenerationServer:
                 "position the target can")
 
     def _fresh_pool(self):
+        """One pool per paged layer, each leaf the list of its head shards,
+        shard i on the i-th shard device (one shard without a mesh)."""
         dtype = getattr(torch, self.net.conf.dtype)
-        pool = {name: self._layer_by_name[name].init_paged_carry(
-            self.pages_total, self._ps, dtype, kv_dtype=self.kv_dtype,
-            device=self.device) for name in self._paged_names}
+        pool = {}
+        for name in self._paged_names:
+            layer = self._layer_by_name[name]
+            shards = [layer.init_paged_carry(
+                self.pages_total, self._ps, dtype, kv_dtype=self.kv_dtype,
+                device=dev, heads=layer.n_heads // self._tp)
+                for dev in self._shard_devices]
+            pool[name] = {k: [sh[k] for sh in shards] for k in shards[0]}
         # the admission ledger's bytes per page must be the bytes the pool
         # really holds
         nbytes = sum(a.numel() * a.element_size()
-                     for leaves in pool.values() for a in leaves.values())
+                     for leaves in pool.values()
+                     for leaf in leaves.values() for a in leaf)
         if nbytes != self._page_bytes * self.pages_total:
             raise AssertionError(
                 f"KV admission accounting diverged from the allocated "
@@ -1057,8 +1130,9 @@ class GenerationServer:
         """Pool page ``src`` into page ``dst`` in every layer, every leaf
         (K/V pages and the int8 scale planes)."""
         for vn in self._paged_names:
-            for a in self._pool[vn].values():
-                a[dst] = a[src]
+            for leaf in self._pool[vn].values():
+                for a in leaf:
+                    a[dst] = a[src]
 
     def _ensure_writable(self, slot: int, idx: int):
         """Copy-on-write: the slot is about to write into its idx-th logical
@@ -1349,7 +1423,7 @@ class GenerationServer:
         x = F.one_hot(self._to_dev(ids), self.vocab).to(dtype) \
             * mask_t[..., None].to(dtype)
         carry = self._carry(bt_eff, self._to_dev(positions))
-        out, _ = self._fwd(self.net.params, self.net.state, x, carry, mask_t)
+        out, _ = self._fwd(*self._weights, x, carry, mask_t)
         rows = out[torch.arange(self.slots, device=self.device),
                    self._to_dev(sufflen) - 1]
         sampling = self._sampling(temp, topk, keys)
@@ -1444,7 +1518,7 @@ class GenerationServer:
             posw = torch.clamp(pos, max=cap - 1)
             bt_eff = torch.where(act[:, None], bt, torch.zeros_like(bt))
             x = F.one_hot(cur, self.vocab).to(dtype)[:, None, :]
-            out, _ = self._fwd(self.net.params, self.net.state, x,
+            out, _ = self._fwd(*self._weights, x,
                                self._carry(bt_eff, posw))
             nxt = self._select(out[:, 0], sampling, cnt)
             cur = torch.where(act, nxt, cur)
@@ -1520,7 +1594,7 @@ class GenerationServer:
         drafts = torch.stack(props, dim=1)                       # [S, K-1]
         x = F.one_hot(torch.cat([last[:, None], drafts], dim=1),
                       self.vocab).to(dtype)                      # [S, K, V]
-        out, _ = self._fwd(self.net.params, self.net.state, x,
+        out, _ = self._fwd(*self._weights, x,
                            self._carry(self._to_dev(self._bt), positions))
         if sampling is None:
             true = out.argmax(dim=-1)
@@ -1658,16 +1732,23 @@ class GenerationServer:
         n = -(-pos // self._ps)            # pages holding [0, pos)
         sp = self._slot_pages[slot]
         digests = [self._page_pool.tag.get(p) for p in sp[:n]]
-        idx = torch.tensor(sp[:n], dtype=torch.long, device=self.device)
-        fetched = {vn: {k: _to_wire(a.index_select(0, idx).cpu())
-                        for k, a in self._pool[vn].items()}
+        idx = torch.tensor(sp[:n], dtype=torch.long)
+
+        def canonical(leaf):
+            # head shards gathered back into the [n, H, ...] host layout
+            return _to_wire(all_gather(
+                [a.index_select(0, idx.to(a.device)) for a in leaf],
+                "cpu", dim=1))
+
+        fetched = {vn: {k: canonical(leaf)
+                        for k, leaf in self._pool[vn].items()}
                    for vn in self._paged_names}
         return pack_snapshot(
             req=req, pos=pos, count=int(self._counts[slot]),
             last=int(self._last[slot]), key=self._keys[slot].copy(),
             kv_dtype=self.kv_dtype, page_size=self._ps,
             page_token_bytes=self._page_token_bytes, page_digests=digests,
-            fetched=fetched, n_pages=n)
+            fetched=fetched, n_pages=n, shards=self._tp)
 
     def _handoff_fault(self, snap: KVSnapshot):
         """One chaos draw per snapshot shipped (none without a policy):
@@ -1910,14 +1991,16 @@ class GenerationServer:
             self._m_handoff_fallbacks.inc()
             return False
         if stored:
-            dst = torch.tensor([sp[i] for i in stored], dtype=torch.long,
-                               device=self.device)
+            dst = torch.tensor([sp[i] for i in stored], dtype=torch.long)
             rows = torch.tensor(stored, dtype=torch.long)
             for vn in self._paged_names:
-                for k, a in self._pool[vn].items():
-                    data = _from_wire(snap.payload[vn][k])
-                    a.index_copy_(0, dst, data.index_select(0, rows).to(
-                        device=self.device, dtype=a.dtype))
+                for k, leaf in self._pool[vn].items():
+                    data = _from_wire(snap.payload[vn][k]).index_select(
+                        0, rows)
+                    # the canonical heads split by this server's tp
+                    for a, part in zip(leaf, data.chunk(len(leaf), dim=1)):
+                        a.index_copy_(0, dst.to(a.device), part.to(
+                            device=a.device, dtype=a.dtype))
         # register the pristine prompt chunk pages (the tail page already
         # holds decoded tokens and is not registered under the tail key)
         plen = req.prompt.shape[0]

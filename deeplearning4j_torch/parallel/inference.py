@@ -39,8 +39,12 @@ dispatch runs under ``RetryPolicy`` backoff for ``TransientDispatchError``.
 The invariant: an admitted request's future always resolves — with rows,
 or with a typed error — never hangs.
 
-Data-parallel inference over several cards (``mesh=``, ``workers > 1``)
-is not ported yet (ROADMAP A9).
+Data-parallel inference (``mesh=``, ``workers``): the bucketed batch is
+split into one equal piece per device of the mesh's ``data`` axis, each
+device's replica of the params (``parallel/mesh.py::Replicas``) computes
+its rows, and the rows are concatenated in order on the first device. The
+coalescer, admission and resilience paths are the same whatever the
+width.
 """
 
 from __future__ import annotations
@@ -58,6 +62,9 @@ from deeplearning4j_torch import resolve_device
 from deeplearning4j_torch.metrics.registry import MetricsRegistry
 from deeplearning4j_torch.optimize.bucketing import (BoundedCache,
                                                      bucket_rows, pad_rows)
+from deeplearning4j_torch.parallel.mesh import (MeshGeometryError,
+                                                Replicas, all_gather,
+                                                data_devices, data_mesh)
 from deeplearning4j_torch.parallel.resilience import (AdmissionController,
                                                       ChaosPolicy,
                                                       CircuitBreaker,
@@ -130,15 +137,23 @@ class ParallelInference:
         the caller's net is untouched — the server quantizes a shallow
         copy. Default ``None`` serves the f32 params bit-exact.
 
-        ``device``: the card the server runs on (CUDA unless the caller
-        passes another device); the net must live there. ``mesh`` and
-        ``workers > 1`` (data-parallel over several cards) raise
-        ``NotImplementedError`` (ROADMAP A9)."""
-        if mesh is not None or (workers is not None and int(workers) != 1):
-            raise NotImplementedError(
-                "ParallelInference(mesh=..., workers>1) is not ported yet "
-                "(ROADMAP A9: data-parallel inference over several cards)")
-        self.device = resolve_device(device)
+        ``mesh`` (with a ``data`` axis) or ``workers`` (``data_mesh(
+        workers)`` over the CUDA devices) sets the data-parallel width;
+        with neither, the default is ``data_mesh()`` (every CUDA device)
+        unless ``device`` names one device, which then serves alone. The
+        server runs on the mesh's first device (a ``device`` naming
+        another raises) and the net must live there."""
+        if mesh is None:
+            mesh = (data_mesh(devices=[resolve_device(device)])
+                    if workers is None and device is not None
+                    else data_mesh(workers))
+        self.mesh = mesh
+        self._devices = data_devices(mesh)
+        self.device = self._devices[0]
+        if device is not None and resolve_device(device) != self.device:
+            raise MeshGeometryError(
+                f"device={device} disagrees with the mesh, whose first "
+                f"device {self.device} hosts the server")
         if net.device != self.device:
             raise ValueError(f"the net lives on {net.device}, the server on "
                              f"{self.device}; init the net on the server's "
@@ -148,7 +163,8 @@ class ParallelInference:
             net = quantize_net(net, quantize)
         self.quantize = quantize
         self.net = net
-        self.workers = 1
+        self.workers = len(self._devices)
+        self._replicas = Replicas(net)
         self._fwd_cache = BoundedCache()
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
@@ -229,20 +245,35 @@ class ParallelInference:
     def _get_fwd(self, shape, has_mask):
         """The forward of one (bucket shape, mask) key: the MultiLayerNetwork
         or single-input/single-output ComputationGraph forward at the net's
-        current parameters, in inference mode."""
+        current parameters, in inference mode; over W devices, each
+        device's replica forwards its 1/W of the rows and the rows are
+        concatenated in order on the first device."""
         key = (shape, has_mask)
         if key not in self._fwd_cache:
             net = self.net
             if hasattr(net, "layers") and isinstance(net.layers, list):
-                def fwd(x, mask):
-                    out, _, _ = net._forward(net.params, net.state, x, mask,
+                def one(params, state, x, mask):
+                    out, _, _ = net._forward(params, state, x, mask,
                                              train=False)
                     return out
             else:  # ComputationGraph, single input/output
-                def fwd(x, mask):
-                    outs, _, _, _ = net._forward(net.params, net.state, [x],
+                def one(params, state, x, mask):
+                    outs, _, _, _ = net._forward(params, state, [x],
                                                  [mask], train=False)
                     return outs[0]
+            devices = self._devices
+
+            def fwd(x, mask):
+                rows = x.shape[0] // len(devices)
+                outs = []
+                for i, dev in enumerate(devices):
+                    part = slice(i * rows, (i + 1) * rows)
+                    outs.append(one(
+                        *self._replicas.weights(dev), x[part].to(dev),
+                        None if mask is None else mask[part].to(dev)))
+                return outs[0] if len(outs) == 1 else all_gather(
+                    outs, self.device)
+
             self._fwd_cache[key] = fwd
         return self._fwd_cache[key]
 

@@ -159,8 +159,8 @@ class StatsListener(TrainingListener):
     def on_phase_timings(self, model, timings: dict):
         """Buffer the round's phase wall times; they ride on the next
         update record (reference: SparkTrainingStats routed through the
-        stats-storage pipeline). Nothing in the port calls it yet: its
-        caller is the multi-process trainer (ROADMAP A11c)."""
+        stats-storage pipeline); ``ParallelWrapper`` calls it once a
+        round."""
         self._pending_phase_timings = timings
 
     def _send_static(self, model):

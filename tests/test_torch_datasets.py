@@ -299,7 +299,22 @@ class TestDevicePrefetchIterator:
         assert counting.produced == 4
 
     def test_sharding_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
+        """``sharding=`` (once refused naming A11c) places each batch as
+        one piece per mesh device, as JAX's ``NamedSharding(mesh,
+        P("data"))`` does; a non-placement and a bad depth raise."""
+        from deeplearning4j_torch.parallel.mesh import (DataSharding, Mesh,
+                                                        ShardedArray)
+
+        sh = DataSharding(Mesh([torch.device("cpu")] * 4, ("data",)))
+        pre = list(DevicePrefetchIterator(_data(n=16, batch=8), depth=2,
+                                          sharding=sh))
+        for ds in pre:
+            assert isinstance(ds.features, ShardedArray)
+            assert ds.features.sharding == sh
+            assert [tuple(p.shape) for p in ds.features.pieces] == \
+                [(2,) + tuple(ds.features.shape[1:])] * 4
+        _same(pre, _data(n=16, batch=8))
+        with pytest.raises(TypeError, match="DataSharding"):
             DevicePrefetchIterator(_data(), sharding="data", device="cpu")
         with pytest.raises(ValueError, match="depth"):
             DevicePrefetchIterator(_data(), depth=0, device="cpu")

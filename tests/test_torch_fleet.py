@@ -369,17 +369,18 @@ def test_spawn_failure_backoff_sequence_equals_jax():
 
 
 def test_device_groups():
-    """``device_groups`` carves disjoint single-card groups; short pools
-    and bad geometry raise ``MeshGeometryError``, ``tp > 1`` waits for
-    A9."""
+    """``device_groups`` carves disjoint groups (single-card, and of
+    ``tp`` entries for tensor-parallel replica groups, as JAX's); short
+    pools and bad geometry raise ``MeshGeometryError``."""
     devs = [torch.device("cpu")] * 3
     assert device_groups(3, 1, devices=devs) == [[d] for d in devs]
     with pytest.raises(MeshGeometryError, match="needs 4 devices"):
         device_groups(4, 1, devices=devs)
     with pytest.raises(MeshGeometryError):
         device_groups(0, 1, devices=devs)
-    with pytest.raises(NotImplementedError, match="A9"):
-        device_groups(1, 2, devices=devs)
+    named = [torch.device("cuda", i) for i in range(4)]
+    assert device_groups(2, 2, devices=named) == [named[:2], named[2:]]
+    assert device_groups(1, 2, devices=devs) == [devs[:2]]
     assert issubclass(MeshGeometryError, ValueError)
 
 

@@ -137,7 +137,10 @@ def test_port_imports_no_jax():
             "streaming/serde.py", "streaming/broker.py",
             "streaming/client.py", "ui/__init__.py", "ui/storage.py",
             "ui/components.py", "ui/stats.py", "ui/remote.py",
-            "ui/server.py", "ui/legacy.py"} <= names
+            "ui/server.py", "ui/legacy.py", "parallel/__init__.py",
+            "parallel/trainer.py", "parallel/evaluation.py",
+            "parallel/early_stopping.py",
+            "parallel/model_sharding.py"} <= names
     bad = [(str(p.relative_to(ROOT)), mod) for p in files
            for mod in _imported_roots(p) if mod in FORBIDDEN]
     assert bad == []
@@ -250,8 +253,17 @@ def test_pretrain_prefetch_and_estimators_run_on_cuda_by_default(no_cuda):
         DL4JClassifier(conf, epochs=1).fit(x, y)
     clf = DL4JClassifier(conf, epochs=1, device="cpu").fit(x, y)
     assert clf.net_.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
-        DevicePrefetchIterator(base, sharding=object(), device="cpu")
+    # sharded placement (once refused naming A11c) over a host mesh: each
+    # batch's pieces live on the mesh's devices, and with no card a
+    # default data mesh raises as the entry points do
+    from deeplearning4j_torch.parallel.mesh import (DataSharding, Mesh,
+                                                    data_mesh)
+    sh = DataSharding(Mesh([torch.device("cpu")] * 3, ("data",)))
+    placed = list(DevicePrefetchIterator(base, sharding=sh))
+    assert all(p.device.type == "cpu" for ds in placed
+               for p in ds.features.pieces)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        data_mesh()
 
 
 def test_prng_key_lands_on_the_card(no_cuda):
@@ -776,25 +788,33 @@ def test_fabric_entry_points_run_on_cuda_by_default(no_cuda):
 
 
 def test_fabric_parts_not_ported_raise_naming_their_item(tmp_path):
-    """``mesh=``, ``workers > 1`` and ``tp > 1`` name A9, and so do the
-    mesh-sharded retrieval stores (``EmbeddingIndex(mesh=)``,
-    ``kmeans="sharded"``, ``NearestNeighborsServer(mesh=)``); ``/import``
-    is ported and returns a model id."""
+    """The mesh-sharded retrieval stores (``EmbeddingIndex(mesh=)``,
+    ``kmeans="sharded"``, ``NearestNeighborsServer(mesh=)``) name A9;
+    ``mesh=``, ``workers > 1`` and ``tp > 1`` are ported (they named A9
+    before): a mesh of another type is refused, ``workers`` and ``tp``
+    count the CUDA devices and never reuse the host or one card, and a
+    host mesh serves; ``/import`` is ported and returns a model id."""
     from deeplearning4j_torch.nearestneighbors import NearestNeighborsServer
     from deeplearning4j_torch.nearestneighbors.index import EmbeddingIndex
     from deeplearning4j_torch.modelimport.server import KerasBackendServer
     from deeplearning4j_torch.parallel.fleet import device_groups
     from deeplearning4j_torch.parallel.inference import ParallelInference
+    from deeplearning4j_torch.parallel.mesh import Mesh, MeshGeometryError
 
     net = _mln_on("cpu")
-    for kw in (dict(mesh=object()), dict(workers=2), dict(workers=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            ParallelInference(net, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        device_groups(1, 2, devices=[torch.device("cpu")] * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    cpu = torch.device("cpu")
+    ndev = torch.cuda.device_count()
+    with pytest.raises(TypeError, match="Mesh"):
+        ParallelInference(net, device="cpu", mesh=object())
+    for w in (ndev + 1, ndev + 8):
+        with pytest.raises(ValueError, match=f"Requested {w} devices"):
+            ParallelInference(net, device="cpu", workers=w)
+    with ParallelInference(net, mesh=Mesh([cpu] * 2, ("data",))) as inf:
+        assert inf.workers == 2 and inf.device == cpu
+    assert device_groups(1, 2, devices=[cpu] * 2) == [[cpu, cpu]]
+    with pytest.raises(MeshGeometryError, match="exceeds"):
         GenerationServer(TransformerLM(**TINY).init(device="cpu"), 11,
-                         tp=2, device="cpu")
+                         tp=ndev + 2, device="cpu")
     pts = np.zeros((4, 2), np.float32)
     for make in (lambda: EmbeddingIndex(pts, mesh=object(), device="cpu"),
                  lambda: EmbeddingIndex(pts, partitions=2, kmeans="sharded",

@@ -229,9 +229,32 @@ def test_deadline_fails_typed(nets):
         srv.close()
 
 
-@pytest.mark.parametrize("kw", [dict(tp=2), dict(tp=4), dict(mesh=object()),
-                                dict(mesh=object(), tp=2)])
+@pytest.mark.parametrize("kw", [dict(tp=2), dict(tp=4),
+                                dict(axes=("data",), tp=None),
+                                dict(tp=2, claim=4)])
 def test_unported_knobs_raise(nets, kw):
+    """The tensor-parallel knobs (once refused naming A9) on the shared
+    prefix traffic: at tp=2 and tp=4 over ``Mesh([cpu] * tp)`` the
+    sequential streams and prefix counters equal JAX's (exact tokens);
+    a mesh without a ``model`` axis and a ``tp`` that disagrees with the
+    mesh raise ``MeshGeometryError`` with JAX's messages."""
+    from deeplearning4j_torch.parallel.mesh import Mesh, MeshGeometryError
+
     _, tnet = nets
-    with pytest.raises(NotImplementedError, match="A9"):
-        GenerationServer(tnet, V, device="cpu", **SERVER, **kw)
+    cpu = torch.device("cpu")
+    axes = kw.get("axes", ("model",))
+    mesh = Mesh([cpu] * (kw["tp"] or 2), axes)
+    if "claim" in kw or axes != ("model",):
+        match = "disagrees" if "claim" in kw else "'model' axis"
+        with pytest.raises(MeshGeometryError, match=match):
+            GenerationServer(tnet, V, mesh=mesh, tp=kw.get("claim"),
+                             **SERVER)
+        return
+    prompts = _prompts()
+    ref, jst = _serve(_make("jax", nets, **SERVER), prompts, sequential=True)
+    got, st = _serve(GenerationServer(tnet, V, mesh=mesh, **SERVER), prompts,
+                     sequential=True)
+    assert got == ref
+    keys = ("prefix_hits", "prefix_tokens_reused", "cow_copies")
+    assert {k: st["pages"][k] for k in keys} == \
+        {k: jst["pages"][k] for k in keys}
