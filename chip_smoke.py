@@ -361,6 +361,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    1e-5 / atol 1e-6 and 1e-4 / 1e-5), the first round against the CPU;
    then phase 7c's bench leg over 2 workers averaging every 2 steps for 10
    rounds: tokens/s, ``last_phase_timings``, skips, K1/K3/K4 a round.
+17. sharded stores and one-process model parallelism, over the same kind
+   of meshes (each line says which). 17a: bench.py's 1M x 32 f32 and int8
+   flat stores sharded over 4 data entries against one card's (the tie
+   rule, distances within 1e-5, recall), the sharded open loop's q/s
+   beside phase 10a's, ``NearestNeighborsServer(mesh=)`` answering /knn as
+   its index, bytes per entry; then the 10M x 16 int8 IVF trained by the
+   sharded k-means and searched probe-local: recall@10 >= 0.95 and >= one
+   card's global probe. 17b: ``ShardedTrainer`` on the slice TransformerLM
+   over data 2 x model 2 at phase 7's 16 x 128 tokens with Adam: three
+   steps within rtol 2e-4 / atol 2e-5 of one card's ``fit``, the attention
+   core on 4-head shards, one shard's q/k/v through K1, K3 and K4 against
+   the plain versions, K1/K3/K4 launches 4 x one card's, ms a step and
+   params plus Adam bytes per entry. 17c: ``tp_mlp_train_step`` at JAX's
+   test shapes against the dense step; ring and Ulysses attention on the
+   slice's attention layer at T = 2,048 over a 4-entry ``seq`` axis,
+   forward and gradients against the dense layer (JAX's 2e-5 and 3e-5);
+   ``PipelineTrainer`` over 2 stages x 4 microbatches of LeNet against one
+   card. 17d: parameter averaging of the phase-7 model over 4 workers
+   through ``SparkComputationGraph`` equal to one machine (16e's rounds and
+   tolerance), Word2Vec at 14a's corpus and width over tables sharded on 2
+   entries against the unsharded fit (words/s of both),
+   ``ParameterServerParallelWrapper`` on the phase-7 model: 16 pushes from
+   2 workers, the score falls, the pulled params are the net's.
 
 Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
 calls (``ms``: the wrapper's host work included, which sets the pace once
@@ -384,10 +407,12 @@ XLA's), phase 11 (recurrent nets, which launch none of K1-K4), phase
 (pretraining and the data pipeline, none either), phase 14 (the NLP
 stack and Keras import, none either) and phase 15 (data ingest and
 telemetry: K1, K3 and K4 in 15c's bench-leg fit, none in 15a and 15b,
-K2 nowhere; the counters are also read between its parts) and phase 16
+K2 nowhere; the counters are also read between its parts), phase 16
 (several devices: K2 on head shards, both routes; K1, K3 and K4 in the
-data-parallel forwards and training). The launch
-counters are zeroed just before each of the eighteen and read just
+data-parallel forwards and training) and phase 17 (sharded stores and
+model parallelism: K1, K3 and K4 on the dp x tp trainer's head shards,
+K2 nowhere). The launch
+counters are zeroed just before each of the nineteen and read just
 after (phase 6's and the reference servers' and forwards' launches are
 not counted); every kernel must have run on the main path, K2's chunk
 route and its merge pass included, and each path but phases 8, 11, 12,
@@ -465,6 +490,8 @@ BWD_CASES = [
     ("slice_f32_causal", 16, 8, 128, 32, torch.float32, True, False),
     ("slice_f32_causal_mask", 16, 8, 128, 32, torch.float32, True, True),
     ("slice_bf16_causal", 16, 8, 128, 32, torch.bfloat16, True, False),
+    # one head shard of phase 17b's dp 2 x tp 2 training step
+    ("shard_f32_causal", 8, 4, 128, 32, torch.float32, True, False),
     # the JAX bench leg's bf16 training shape (phase 7c)
     ("bench_bf16_causal", 32, 8, 512, 32, torch.bfloat16, True, False),
     ("long_f32_causal", 2, 8, 2048, 128, torch.float32, True, False),
@@ -643,6 +670,8 @@ FLASH_CASES = [
     ("slice_bf16_causal", 8, 8, 128, 32, torch.bfloat16, True, False, 2e-2),
     # the training step's shape (phase 7)
     ("train_f32_causal", 16, 8, 128, 32, torch.float32, True, False, 1e-4),
+    # one head shard of phase 17b's dp 2 x tp 2 training step
+    ("shard_f32_causal", 8, 4, 128, 32, torch.float32, True, False, 1e-4),
     # the JAX bench leg's bf16 training shape (phase 7c)
     ("bench_bf16_causal", 32, 8, 512, 32, torch.bfloat16, True, False, 2e-2),
     ("long_f32_causal", 2, 8, 2048, 128, torch.float32, True, False, 1e-4),
@@ -3488,20 +3517,31 @@ def phase_fleet_failover(net, reqs, want, card):
     traffic once clean (its tokens/s beside one server's on the same
     requests), then again with replica 0 killed once it is decoding: every
     stream equal to phase 5's or 5b's, one death, nothing lost, and the
-    killed replica's pool freed (``memory_allocated`` before the fleet,
-    with two live replicas and after the respawn)."""
+    killed replica's server gone and its pool freed (``memory_allocated``
+    before the fleet, with two live replicas and after the respawn, each
+    read with cuBLAS's cached workspaces released: every new thread's
+    cuBLAS handle caches a 32 MiB workspace on this card, a pool's worth,
+    which is not the replica's memory)."""
     import gc
+    import weakref
+
+    def settled_memory():
+        gc.collect()
+        torch.cuda.synchronize()
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        return torch.cuda.memory_allocated()
 
     ntok = sum(len(w) for w in want)
     single, single_wall, _ = uncounted(serve, net, reqs)
     check(single == want, "fleet: one server's streams differ from phase "
                           "5's/5b's")
-    gc.collect()
-    torch.cuda.synchronize()
-    mem0 = torch.cuda.memory_allocated()
+    mem0 = settled_memory()
     fleet = fleet_of(net, restart_backoff_s=0.05)
+    killed = []
     try:
-        mem_two = torch.cuda.memory_allocated()
+        mem_two = settled_memory()
         outs, wall = fleet_serve(fleet, reqs)
         check(outs == want, "fleet: a stream differs from phase 5's/5b's")
         check_fleet("fleet", fleet.stats(), len(reqs))
@@ -3512,6 +3552,7 @@ def phase_fleet_failover(net, reqs, want, card):
                 return blk["inflight"] > 0 and \
                     (blk["server"] or {}).get("tokens_generated", 0) > 0
             wait_for(decoding, 60, "replica 0 to decode")
+            killed.append(weakref.ref(fleet._replicas[0].server))
             check(fleet.kill_replica(0), "fleet: replica 0 was not live")
 
         outs2, wall2 = fleet_serve(fleet, reqs, kill_when_decoding)
@@ -3524,9 +3565,9 @@ def phase_fleet_failover(net, reqs, want, card):
                  and fleet.stats()["replicas"][0]["restarts"] >= 1, 60,
                  "replica 0's respawn")
         st = fleet.stats()
-        gc.collect()
-        torch.cuda.synchronize()
-        mem_respawned = torch.cuda.memory_allocated()
+        mem_respawned = settled_memory()
+        check(killed[0]() is None, "fleet: the killed replica's server is "
+                                   "still reachable after its respawn")
     finally:
         fleet.close()
     gc.collect()
@@ -8266,6 +8307,24 @@ def mesh_slice_net(params, device, mode):
     return net
 
 
+def mesh_rounds():
+    """16e's two rounds on the phase-7 model (the phase-7 batch, then one
+    from RandomState(8)), and ``split(x, y)``: a round's MESH_WORKERS
+    DataSets of TRAIN_BATCH / MESH_WORKERS rows."""
+    from deeplearning4j_torch.datasets.dataset import DataSet
+
+    V, T = SLICE["num_labels"], SLICE["max_length"]
+    eye = np.eye(V, dtype=np.float32)
+    tok = np.random.RandomState(8).randint(0, V, (TRAIN_BATCH, T + 1))
+    rows = TRAIN_BATCH // MESH_WORKERS
+
+    def split(x, y):
+        return [DataSet(x[w * rows:(w + 1) * rows], y[w * rows:(w + 1) * rows])
+                for w in range(MESH_WORKERS)]
+
+    return [train_batch(), (eye[tok[:, :-1]], eye[tok[:, 1:]])], split
+
+
 def worst_rule(got, ref, rtol, atol):
     """Over two trees of tensors, the largest ``|got - ref| - (atol + rtol
     |ref|)``."""
@@ -8285,7 +8344,6 @@ def phase_mesh_train(card):
     2 workers averaging every 2 steps: tokens/s, ``last_phase_timings``,
     skips, K1/K3/K4 launches a round."""
     from deeplearning4j_torch import kernels
-    from deeplearning4j_torch.datasets.dataset import DataSet
     from deeplearning4j_torch.optimize.health import HealthPolicy
     from deeplearning4j_torch.parallel.mesh import DATA_AXIS, Mesh
     from deeplearning4j_torch.parallel.trainer import ParallelWrapper
@@ -8293,16 +8351,7 @@ def phase_mesh_train(card):
     W = MESH_WORKERS
     mesh, how = mesh_of(W, DATA_AXIS)
     cpu_mesh = Mesh([torch.device("cpu")] * W, (DATA_AXIS,))
-    V, T = SLICE["num_labels"], SLICE["max_length"]
-    eye = np.eye(V, dtype=np.float32)
-    tok = np.random.RandomState(8).randint(0, V, (TRAIN_BATCH, T + 1))
-    rounds = [train_batch(), (eye[tok[:, :-1]], eye[tok[:, 1:]])]
-    rows = TRAIN_BATCH // W
-
-    def split(x, y):
-        return [DataSet(x[w * rows:(w + 1) * rows], y[w * rows:(w + 1) * rows])
-                for w in range(W)]
-
+    rounds, split = mesh_rounds()
     params = numpy_params(fabric_net(), seed=0)
     results = {}
     for mode, (rtol, atol) in MESH_TOL.items():
@@ -8417,9 +8466,570 @@ def phase_mesh(card, greedy=None, int8=None, sampled=None):
     return out
 
 
+# ---------------------------------------------------------------- phase 17
+#: phase 17a: the phase-10 stores sharded over a data mesh of this many
+#: entries (bench.py's 1M x 32 flat f32 and int8, then the 10M x 16 int8
+#: IVF trained by the sharded k-means and searched probe-local)
+SHARD_ENTRIES = 4
+#: 17a: queries held one-card against sharded, and the recall probe rows
+SHARD_QUERIES = 64
+#: 17b: the slice TransformerLM over data_model_mesh(2, 2) at phase 7's
+#: 16 x 128 tokens with the conf's Adam, this many steps against one card
+#: (JAX's dp x tp tolerance, ``tests/test_model_sharding.py``)
+SHARDED_STEPS = 3
+SHARDED_TOL = (2e-4, 2e-5)
+#: 17c: ring and Ulysses attention on the slice's attention layer at this
+#: many positions over a 4-entry ``seq`` axis (JAX's tolerances: outputs
+#: 2e-5, gradients 3e-5, relative to the leaf's max for the gradients);
+#: the pipeline over 2 stages x 4 microbatches of phase 8's LeNet (its
+#: AdaDelta) on batches of 64, in f64, held to one card's steps within
+#: PIPE_REL of each leaf's largest change: in f32 the ReLU and max-pool
+#: choices turn a microbatch's other summation order into ~1e-3 of a
+#: change after three steps (on the CPU too), in f64 into ~1e-14
+SEQ_T = 2048
+SEQ_TOL = (2e-5, 3e-5)
+PIPE17 = dict(stages=2, micro=4, batch=64, steps=3)
+PIPE_REL = 1e-9
+#: 17d: Word2Vec at 14a's corpus and width over tables sharded on 2
+#: entries, held to the unsharded fit (CUDA's index_add_ adds with
+#: atomics, in an order that varies from run to run: allclose, ROADMAP C5)
+W2V_SHARDED_ATOL = 1e-4
+
+
+def one_card_q_s():
+    """Phase 10a's coalesced euclidean q/s of this run, where it ran."""
+    exact = REPORT.get("retrieval", {}).get("exact", {})
+    q_s = exact.get("euclidean", {}).get("coalesced_q_s")
+    return "not run" if q_s is None else f"{q_s:.1f} q/s"
+
+
+def shard_store_checks(pts, qs, card):
+    """17a part 1: the 1M x 32 flat stores sharded over SHARD_ENTRIES
+    entries against one card's, the server over the sharded f32 store,
+    and the sharded open loop."""
+    from deeplearning4j_torch.nearestneighbors.index import (
+        EmbeddingIndex, _quantize_rows, _shard_bytes)
+    import urllib.request
+
+    from deeplearning4j_torch.nearestneighbors.server import (
+        NearestNeighborsServer)
+
+    mesh, how = mesh_of(SHARD_ENTRIES, "data")
+    q = qs[:SHARD_QUERIES]
+    out = dict(entries=how)
+    for store in ("f32", "int8"):
+        one = EmbeddingIndex(pts, store=store, device="cuda")
+        t0 = time.perf_counter()
+        sh = EmbeddingIndex(pts, store=store, mesh=mesh,
+                            max_batch=KNN["queries"])
+        torch.cuda.synchronize()
+        build = time.perf_counter() - t0
+        try:
+            want = one.search_batch_arrays(q, 10)
+            got = sh.search_batch_arrays(q, 10)
+            if store == "f32":
+                held = pts
+            else:
+                qq, s = _quantize_rows(pts)
+                held = qq.astype(np.float32) * s[:, None]
+            rule = tie_rule(f"17a sharded {store} vs one card", got, want,
+                            held, q)
+            ids_equal = bool(np.array_equal(got[1], want[1]))
+            d_err = float(np.abs(got[0] - want[0]).max())
+            check(d_err <= 1e-5 * max(1.0, float(np.abs(want[0]).max())),
+                  f"17a {store}: distances differ by {d_err:.3g}")
+            recall = sh.measure_recall(q, k=10)
+            check(recall >= (0.9 if store == "int8" else 1.0),
+                  f"17a sharded {store}: recall@10 {recall:.4f}")
+            per_entry = _shard_bytes(sh._store)
+            r = dict(build_s=build, ids_equal=ids_equal, max_dist_err=d_err,
+                     tie_rule=rule, recall=recall,
+                     bytes_per_entry=per_entry,
+                     one_card_bytes=one.resident_bytes)
+            if store == "f32":
+                _rows, qps, p99, failed = open_loop(sh, qs)
+                check(failed == 0, f"17a: {failed} sharded queries failed")
+                r.update(q_s=qps, p99_ms=p99)
+                srv = NearestNeighborsServer(pts[:65536], port=0,
+                                             backend="index", mesh=mesh)
+                srv.start()
+                try:
+                    base = f"http://127.0.0.1:{srv.port}"
+                    qv = qs[:3].tolist()
+                    req = urllib.request.Request(
+                        base + "/knn", data=json.dumps(
+                            {"k": 5, "points": qv}).encode(),
+                        headers={"Content-Type": "application/json"})
+                    with urllib.request.urlopen(req, timeout=60) as res:
+                        body = json.loads(res.read())
+                    ids = [[x["index"] for x in row]
+                           for row in body["results"]]
+                    check(ids == srv.index.search_batch_arrays(
+                        qs[:3], 5)[1].tolist(),
+                          "17a: the sharded server's /knn differs from its "
+                          "index")
+                    r["server_variant"] = srv.index.stats()["variant"]
+                finally:
+                    srv.stop()
+            out[store] = r
+            log(f"  17a {store} 1M x 32 over {SHARD_ENTRIES} entries "
+                f"({how}): ids equal {ids_equal} (tie rule: near-ties "
+                f"{rule['near_ties']}), max |d err| {d_err:.3g}, recall@10 "
+                f"{recall:.4f}, bytes per entry {per_entry} (one card "
+                f"{one.resident_bytes}), build {build:.2f} s"
+                + (f"; open loop {r['q_s']:.1f} q/s (phase 10a's one "
+                   f"card: {one_card_q_s()}), p99 {r['p99_ms']:.1f} ms; "
+                   f"server /knn as its index" if store == "f32" else "")
+                + f"; [{card}]")
+        finally:
+            one.close()
+            sh.close()
+    return out
+
+
+def shard_ivf_checks(card):
+    """17a part 2: the 10M x 16 int8 IVF with sharded k-means and the
+    probe-local search against the global probe of one card's store."""
+    from deeplearning4j_torch.nearestneighbors.index import (EmbeddingIndex,
+                                                             _shard_bytes)
+
+    mesh, how = mesh_of(SHARD_ENTRIES, "data")
+    pts, rs = rag_store()
+    n, d = RAG["n"], RAG["d"]
+    probe = (pts[rs.choice(n, 32, replace=False)]
+             + rs.randn(32, d).astype(np.float32) * 0.2)
+    kw = dict(store="int8", partitions=RAG["partitions"],
+              nprobe=RAG["nprobe"], train_sample=32768, kmeans_iters=10,
+              seed=0)
+    t0 = time.perf_counter()
+    local = EmbeddingIndex(pts, mesh=mesh, kmeans="sharded", **kw)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    try:
+        st = local.stats()
+        check(st["probe_local"] is True and st["variant"] == "ivf"
+              and st["nprobe"] == RAG["nprobe"],
+              f"17a: sharded IVF stats {st}")
+        r_local = local.measure_recall(probe, k=10)
+        per_entry = _shard_bytes(local._store)
+        ms, _ = device_ms(lambda: local._dispatch_knn(probe, 16), iters=5)
+    finally:
+        local.close()
+    globl = EmbeddingIndex(pts, device="cuda", **kw)
+    try:
+        r_global = globl.measure_recall(probe, k=10)
+    finally:
+        globl.close()
+    del pts
+    check(r_local >= 0.95, f"17a: sharded IVF recall@10 {r_local:.4f} < "
+                           f"0.95 (JAX's sharded k-means gate)")
+    check(r_local >= r_global, f"17a: probe-local recall {r_local:.4f} "
+                               f"below the global probe's {r_global:.4f}")
+    log(f"  17a 10M x 16 int8 IVF, sharded k-means, probe-local over "
+        f"{SHARD_ENTRIES} entries ({how}): recall@10 {r_local:.4f} (one "
+        f"card's global probe {r_global:.4f}), build {build:.1f} s, "
+        f"list_len {st['list_len']}, bytes per entry {per_entry}, one Q=32 "
+        f"dispatch {ms:.4f} device ms; [{card}]")
+    return dict(entries=how, recall=r_local, global_recall=r_global,
+                build_s=build, list_len=st["list_len"],
+                bytes_per_entry=per_entry, dispatch_device_ms=ms)
+
+
+def phase_sharded_trainer(card):
+    """17b: dp x tp ShardedTrainer on the slice TransformerLM (data 2 x
+    model 2) at phase 7's batch with Adam, against one card's fit from the
+    same weights; K1/K3/K4 launch on 4-head shards."""
+    from deeplearning4j_torch import kernels
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.models.zoo import TransformerLM
+    from deeplearning4j_torch.parallel.mesh import data_model_mesh
+    from deeplearning4j_torch.parallel.model_sharding import (
+        MODEL_AXIS, ShardedTrainer)
+    from deeplearning4j_torch.utils.convert import params_from_jax
+
+    devs, how = mesh_entries(4)
+    mesh = data_model_mesh(2, 2, devices=devs)
+    rs = np.random.RandomState(17)
+    V, T = SLICE["num_labels"], SLICE["max_length"]
+    eye = np.eye(V, dtype=np.float32)
+    data = []
+    for _ in range(SHARDED_STEPS):
+        tok = rs.randint(0, V, (TRAIN_BATCH, T + 1))
+        data.append(DataSet(eye[tok[:, :-1]], eye[tok[:, 1:]]))
+
+    def make():
+        net = TransformerLM(**SLICE).init(device=devs[0])
+        params_from_jax(numpy_params(net, seed=0, gain=1.0), net)
+        net.updater_state = net.conf.updater.init(net.params)
+        return net
+
+    def reference():
+        before = dict(kernels.LAUNCHES)
+        net = make()
+        net.fit(data)
+        torch.cuda.synchronize()
+        return net, {k: kernels.LAUNCHES[k] - before[k] for k in before}
+
+    ref, ref_launches = uncounted(reference)
+    net = make()
+    full = sum(t.numel() * t.element_size() for v in net.params.values()
+               for t in v.values())
+    heads, first = [], []
+    from deeplearning4j_torch.ops import flash_attention as fa
+    orig = fa.flash_attention
+
+    def spy(q, k, v, **kw):
+        heads.append(int(q.shape[1]))
+        if not first:            # one shard's inputs, as K1 receives them
+            first.append(([t.detach().contiguous().clone()
+                           for t in (q, k, v)], kw))
+        return orig(q, k, v, **kw)
+
+    trainer = ShardedTrainer(net, mesh)
+    before = dict(kernels.LAUNCHES)
+    fa.flash_attention = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        fa.flash_attention = orig
+    launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    check(set(heads) == {SLICE["n_heads"] // 2},
+          f"17b: the attention core saw {sorted(set(heads))} heads, "
+          f"expected {SLICE['n_heads'] // 2}")
+    shard = uncounted(hold_shard, fa, *first[0])
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[k] > 0 and launches[k] == 4 * ref_launches[k],
+              f"17b: {k} launched {launches[k]} times sharded, "
+              f"{ref_launches[k]} on one card (expected 4x)")
+    excess = worst_rule({k: {n: st.gather(devs[0]) for n, st in v.items()}
+                         for k, v in net.params.items()}, ref.params,
+                        *SHARDED_TOL)
+    check(excess <= 0, f"17b: dp x tp params after {SHARDED_STEPS} Adam "
+                       f"steps exceed rtol/atol {SHARDED_TOL} by {excess:.3g}")
+    per_entry = trainer.entry_bytes()
+    sharded = sum(st.pieces[0].numel() * st.pieces[0].element_size()
+                  for v in net.params.values() for st in v.values()
+                  if MODEL_AXIS in st.spec)
+    ms, _ = device_ms(lambda: trainer.fit(data[0]), iters=3)
+    log(f"  17b ShardedTrainer dp 2 x tp 2 ({how}): {SHARDED_STEPS} Adam "
+        f"steps within rtol/atol {SHARDED_TOL} of one card (worst excess "
+        f"{excess:.3g}); wall {wall * 1e3 / SHARDED_STEPS:.1f} ms a step "
+        f"(first steps, warm-up included), {ms:.3f} device ms a step; "
+        f"K1/K3/K4 on {SLICE['n_heads'] // 2}-head shards "
+        f"{list(shard['shape'])}, the first shard's forward and backward "
+        f"against the plain versions: |O err| {shard['o_err']:.3g}, |lse "
+        f"err| {shard['lse_err']:.3g}, dq/dk/dv rel "
+        f"{shard['grad_rel_err']:.3g}; launches "
+        f"{ {k: launches[k] for k in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')} } "
+        f"= 4 x one card's; params+Adam bytes per entry {per_entry} "
+        f"(one card params {full} B, of it sharded leaves {2 * sharded} B); "
+        f"[{card}]")
+    return dict(entries=how, worst_excess=excess, step_wall_ms=wall * 1e3
+                / SHARDED_STEPS, step_device_ms=ms, launches=launches,
+                one_card_launches=ref_launches, heads=SLICE["n_heads"] // 2,
+                bytes_per_entry=per_entry, one_card_param_bytes=full,
+                shard_check=shard)
+
+
+def hold_shard(fa, qkv, kw):
+    """17b: K1's, K3's and K4's wrappers on one head shard's q/k/v as the
+    sharded step gave them, against the plain forward and backward (phase
+    2's and 6's f32 tolerances) with a seeded dO."""
+    q, k, v = qkv
+    causal, mask = kw.get("causal", False), kw.get("mask")
+    o, lse = fa.flash_attention_forward(q, k, v, causal=causal, mask=mask)
+    po, plse = fa.flash_attention_plain(q, k, v, causal=causal, mask=mask)
+    g = torch.Generator(device="cpu").manual_seed(17)
+    do = torch.randn(q.shape, generator=g).to(q.device, q.dtype)
+    grads = fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal,
+                                        mask=mask)
+    plain = fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                              causal=causal, mask=mask)
+    o_err = float((o - po).abs().max())
+    lse_err = float((lse - plse).abs().max())
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(grads, plain))
+    check(o_err <= 1e-4 and lse_err <= 1e-4,
+          f"17b: K1 on a {list(q.shape)} shard: |O err| {o_err:.3g}, |lse "
+          f"err| {lse_err:.3g} > 1e-4")
+    check(rel <= BWD_TOL[torch.float32],
+          f"17b: K3/K4 on a {list(q.shape)} shard: max|err|/max|g| {rel:.3g}"
+          f" > {BWD_TOL[torch.float32]}")
+    return dict(shape=list(q.shape), o_err=o_err, lse_err=lse_err,
+                grad_rel_err=rel)
+
+
+def phase_model_parallel(card):
+    """17c: the tensor-parallel MLP step, ring and Ulysses attention on
+    the slice's attention layer at T = SEQ_T, and the pipeline over LeNet,
+    each against one card."""
+    from deeplearning4j_torch.models.zoo import LeNet
+    from deeplearning4j_torch.nn.conf.layers.attention import (
+        SelfAttentionLayer)
+    from deeplearning4j_torch.parallel.mesh import Mesh
+    from deeplearning4j_torch.parallel.pipeline import PipelineTrainer
+    from deeplearning4j_torch.parallel.sequence import (
+        sequence_parallel_self_attention)
+    from deeplearning4j_torch.parallel.tensor import (dp_tp_mesh,
+                                                      tp_mlp_train_step)
+
+    out = {}
+    devs, how = mesh_entries(4)
+    # the tensor-parallel MLP at JAX's test shapes
+    rs = np.random.RandomState(5)
+    x = rs.randn(8, 6).astype(np.float32)
+    y = rs.randn(8, 4).astype(np.float32)
+    p = {"w1": rs.randn(6, 12).astype(np.float32) * 0.3,
+         "b1": np.zeros(12, np.float32),
+         "w2": rs.randn(12, 4).astype(np.float32) * 0.3,
+         "b2": np.zeros(4, np.float32)}
+    step = tp_mlp_train_step(dp_tp_mesh(2, 2, devices=devs), torch.tanh,
+                             lambda o, t: (o - t) ** 2, lr=0.1)
+    new, loss = step({k: torch.tensor(v, device=devs[0])
+                      for k, v in p.items()}, x, y)
+    tp = {k: torch.tensor(v, device=devs[0], requires_grad=True)
+          for k, v in p.items()}
+    xt, yt = (torch.tensor(a, device=devs[0]) for a in (x, y))
+    ref = torch.mean((torch.tanh(xt @ tp["w1"] + tp["b1"]) @ tp["w2"]
+                      + tp["b2"] - yt) ** 2)
+    grads = torch.autograd.grad(ref, list(tp.values()))
+    mlp_err = max(float(np.abs(np.asarray(new[k])
+                               - (tp[k] - 0.1 * g).detach().cpu().numpy()
+                               ).max()) for k, g in zip(tp, grads))
+    check(mlp_err <= 1e-5 and abs(float(loss) - float(ref.detach())) <= 1e-5,
+          f"17c: tp MLP step vs one card {mlp_err:.3g}")
+    out["tp_mlp"] = dict(max_err=mlp_err)
+    # ring and Ulysses on the slice's attention layer
+    D, H = SLICE["d_model"], SLICE["n_heads"]
+    layer = SelfAttentionLayer(n_in=D, n_out=D, n_heads=H, causal=True)
+    layer.finalize(None)
+    rs = np.random.RandomState(9)
+    params = {k: torch.tensor((rs.randn(*s) / np.sqrt(s[0])).astype(
+                              np.float32), device=devs[0],
+                              requires_grad=True)
+              for k, s in (("Wq", (D, D)), ("Wk", (D, D)), ("Wv", (D, D)),
+                           ("Wo", (D, D)))}
+    params["b"] = torch.zeros(D, device=devs[0], requires_grad=True)
+    xs = torch.tensor(rs.randn(1, SEQ_T, D).astype(np.float32),
+                      device=devs[0], requires_grad=True)
+    seq_mesh = Mesh(devs, ("seq",))
+
+    def grads_of(fn):
+        o = fn()
+        g = torch.autograd.grad((o ** 2).sum(), [xs] + list(params.values()))
+        return o.detach(), g
+
+    dense_o, dense_g = uncounted(grads_of, lambda: layer.forward(
+        params, {}, xs)[0])
+    for impl in ("ring", "ulysses"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o, g = grads_of(lambda: sequence_parallel_self_attention(
+            layer, params, xs, mesh=seq_mesh, impl=impl))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        f_err = allclose_excess(o.double().cpu().numpy(),
+                                dense_o.double().cpu().numpy(),
+                                SEQ_TOL[0], SEQ_TOL[0])
+        g_err = max(allclose_excess(a.double().cpu().numpy() / float(
+            b.abs().max()), b.double().cpu().numpy() / float(b.abs().max()),
+            SEQ_TOL[1], SEQ_TOL[1]) for a, b in zip(g, dense_g))
+        check(f_err <= 0 and g_err <= 0,
+              f"17c {impl}: forward excess {f_err:.3g}, gradient excess "
+              f"{g_err:.3g} over JAX's tolerances")
+        out[impl] = dict(forward_excess=f_err, grad_excess=g_err,
+                         wall_ms=wall * 1e3)
+    # the pipeline over LeNet
+    pdevs, phow = mesh_entries(PIPE17["stages"])
+    data = mnist_nhwc(True, PIPE17["batch"] * PIPE17["steps"],
+                      PIPE17["batch"])
+    one = LeNet(dtype="float64").init(device=pdevs[0])
+    start = {k: {n: t.clone() for n, t in v.items()}
+             for k, v in one.params.items()}
+    pnet = one.clone()
+    pt = PipelineTrainer(pnet, n_stages=PIPE17["stages"],
+                         n_micro=PIPE17["micro"], devices=pdevs)
+    for ds in data:
+        uncounted(one.do_step, ds.features, ds.labels)
+        pt.do_step(ds.features, ds.labels)
+    pt._sync_back()
+    pipe_err = max(float((pnet.params[k][n] - one.params[k][n]).abs().max()
+                         / (one.params[k][n] - start[k][n]).abs().max()
+                         .clamp_min(1e-30))
+                   for k in start for n in start[k])
+    check(pipe_err <= PIPE_REL, f"17c: pipeline LeNet vs one card: worst "
+                                f"leaf {pipe_err:.3g} of its largest change")
+    out["pipeline"] = dict(rel_err=pipe_err, stages=pt.stages, entries=phow)
+    log(f"  17c ({how}): tp MLP step max |err| {mlp_err:.3g}; ring and "
+        f"Ulysses on the slice layer at T = {SEQ_T} over 4 seq entries, "
+        f"excess over (2e-5, 3e-5): ring {out['ring']['forward_excess']:.3g}"
+        f"/{out['ring']['grad_excess']:.3g}, ulysses "
+        f"{out['ulysses']['forward_excess']:.3g}/"
+        f"{out['ulysses']['grad_excess']:.3g}, forward+backward "
+        f"{out['ring']['wall_ms']:.1f} / {out['ulysses']['wall_ms']:.1f} ms "
+        f"wall; LeNet pipeline {PIPE17['stages']} x {PIPE17['micro']} "
+        f"({phow}, f64) worst leaf |err| {pipe_err:.3g} of its largest "
+        f"change after {PIPE17['steps']} AdaDelta steps; [{card}]")
+    return out
+
+
+def phase_scaleout(card):
+    """17d: parameter averaging through ``SparkComputationGraph`` on the
+    phase-7 model against one machine, Word2Vec at 14a's corpus and width
+    over tables sharded on 2 entries against unsharded, and the parameter
+    server's wrapper on the phase-7 model."""
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.nlp import CollectionSentenceIterator, Word2Vec
+    from deeplearning4j_torch.nlp.distributed import shard_embedding_tables
+    from deeplearning4j_torch.parallel.mesh import DATA_AXIS, Mesh
+    from deeplearning4j_torch.parallel.parameter_server import (
+        ParameterServerParallelWrapper)
+    from deeplearning4j_torch.parallel.spark import (
+        ParameterAveragingTrainingMaster, SparkComputationGraph)
+
+    W = MESH_WORKERS
+    mesh, how = mesh_of(W, DATA_AXIS)
+    rounds, split = mesh_rounds()
+    params = numpy_params(fabric_net(), seed=0)
+    # Spark averaging every round against one machine on each round's
+    # concatenated batch (16e's Sgd and JAX's averaging tolerance)
+    spark = mesh_slice_net(params, "cuda", "averaging")
+    t0 = time.perf_counter()
+    SparkComputationGraph(spark, ParameterAveragingTrainingMaster(
+        batch_size_per_worker=TRAIN_BATCH // W, averaging_frequency=1,
+        mesh=mesh)).fit([ds for x, y in rounds for ds in split(x, y)])
+    torch.cuda.synchronize()
+    spark_s = time.perf_counter() - t0
+    single = mesh_slice_net(params, "cuda", "averaging")
+    for x, y in rounds:
+        uncounted(single.do_step, x, y)
+    rtol, atol = MESH_TOL["averaging"]
+    spark_err = worst_rule(spark.params, single.params, rtol, atol)
+    check(spark_err <= 0, f"17d: Spark averaging vs one machine exceeds "
+                          f"{MESH_TOL['averaging']} by {spark_err:.3g}")
+    del spark, single
+    # Word2Vec at 14a's corpus and width over tables sharded on 2 entries
+    mdevs, mhow = mesh_entries(2)
+    sents = zipf_text(W2V["sentences"], W2V["words"], W2V["vocab"],
+                      W2V["seed"])
+
+    def w2v():
+        w = Word2Vec(layer_size=W2V["layer"], window=W2V["window"],
+                     min_word_frequency=W2V["min_freq"],
+                     negative=W2V["negative"], use_hierarchic_softmax=False,
+                     epochs=1, batch_size=W2V["batch"], seed=3,
+                     backend="device", device=mdevs[0])
+        w.build_vocab(sents)
+        w.reset_weights()
+        return w
+
+    def timed_fit(w):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        w.fit(CollectionSentenceIterator(sents))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    plain, sharded = w2v(), w2v()
+    plain_s = timed_fit(plain)
+    shard_embedding_tables(sharded, Mesh(mdevs, ("model",)))
+    sharded_s = timed_fit(sharded)
+    V = plain.syn0.shape[0]
+    w_err, scale = 0.0, 0.0
+    for t in ("syn0", "syn1neg"):
+        ref = getattr(plain, t)
+        w_err = max(w_err, float((getattr(sharded, t).gather(ref.device)[:V]
+                                  - ref).abs().max()))
+        scale = max(scale, float(ref.abs().max()))
+    check(w_err <= W2V_SHARDED_ATOL,
+          f"17d: sharded Word2Vec tables differ by {w_err:.3g} > "
+          f"{W2V_SHARDED_ATOL} (max|table| {scale:.3g})")
+    words = len(sents) * W2V["words"]
+    del plain, sharded
+    # the parameter server's wrapper on the phase-7 model with its Adam
+    ps_net = mesh_slice_net(params, "cuda", "shared_gradients")
+    batches = [ds for x, y in rounds for ds in split(x, y)]
+    merged = DataSet(*train_batch())
+    s0 = float(ps_net.score(merged))
+    wrapper = ParameterServerParallelWrapper(ps_net, workers=2, alpha=0.5)
+    t0 = time.perf_counter()
+    wrapper.fit(batches, epochs=2)
+    torch.cuda.synchronize()
+    ps_s = time.perf_counter() - t0
+    pulled = wrapper.server.pull()
+    s1 = float(ps_net.score(merged))
+    check(wrapper.server.pushes == 2 * len(batches)
+          and np.array_equal(ps_net.params_flat().astype(np.float32), pulled)
+          and s1 < s0 and all(r.device == ps_net.device
+                              for r in wrapper.replicas),
+          f"17d: parameter server pushes {wrapper.server.pushes}, score "
+          f"{s0:.4f} -> {s1:.4f}")
+    log(f"  17d: Spark averaging of the phase-7 model over {W} workers "
+        f"({how}), 2 rounds in {spark_s:.2f} s, vs one machine excess "
+        f"{spark_err:.3g} over {MESH_TOL['averaging']}; Word2Vec "
+        f"({len(sents)} x {W2V['words']} words, vocab {V}, layer "
+        f"{W2V['layer']}) over tables sharded on 2 entries ({mhow}): "
+        f"{words / sharded_s:.0f} words/s against {words / plain_s:.0f} "
+        f"unsharded, max |table diff| {w_err:.3g} (max|table| "
+        f"{scale:.3g}); parameter server on the phase-7 model, 2 workers: "
+        f"{wrapper.server.pushes} pushes in {ps_s:.2f} s, score "
+        f"{s0:.4f} -> {s1:.4f}, pulled params in the net; [{card}]")
+    return dict(spark_excess=spark_err, spark_s=spark_s, w2v_max_diff=w_err,
+                w2v_max_table=scale, w2v_words_s=words / sharded_s,
+                w2v_plain_words_s=words / plain_s,
+                ps_pushes=wrapper.server.pushes, ps_s=ps_s,
+                ps_score=(s0, s1))
+
+
+def phase_model_parallelism(card):
+    """Phase 17: sharded stores and one-process model parallelism
+    (17a-17d); mesh entries are distinct cards where the machine has
+    enough, else ``cuda:0`` repeated, and every line says which."""
+    from deeplearning4j_torch import kernels
+
+    kernels.load()
+    t0 = time.perf_counter()
+    log(f"phase 17a: sharded retrieval stores over {SHARD_ENTRIES} data "
+        f"entries ({mesh_entries(SHARD_ENTRIES)[1]})")
+    walls = {}
+    t = time.perf_counter()
+    pts, qs = knn_store()
+    out = dict(stores=shard_store_checks(pts, qs, card))
+    del pts
+    walls["17a_flat"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["ivf"] = shard_ivf_checks(card)
+    walls["17a_ivf"] = time.perf_counter() - t
+    log("phase 17b: dp x tp ShardedTrainer on the slice TransformerLM")
+    t = time.perf_counter()
+    out["sharded_trainer"] = phase_sharded_trainer(card)
+    walls["17b"] = time.perf_counter() - t
+    log("phase 17c: tensor-parallel MLP, ring and Ulysses attention, the "
+        "LeNet pipeline")
+    t = time.perf_counter()
+    out["model_parallel"] = phase_model_parallel(card)
+    walls["17c"] = time.perf_counter() - t
+    log("phase 17d: Spark averaging, sharded Word2Vec tables, the "
+        "parameter server")
+    t = time.perf_counter()
+    out["scaleout"] = phase_scaleout(card)
+    walls["17d"] = time.perf_counter() - t
+    out["wall_s"] = time.perf_counter() - t0
+    out["part_wall_s"] = walls
+    log(f"  phase 17: {out['wall_s']:.1f} s "
+        f"{json.dumps({k: round(v, 1) for k, v in walls.items()})}; "
+        f"[{card}]")
+    return out
+
+
 def kernel_line(flash, paged, bwd, launches, launches_d96,
                 launches_recurrent, launches_graphs, launches_pretrain,
-                launches_nlp, launches_ingest, launches_mesh):
+                launches_nlp, launches_ingest, launches_mesh,
+                launches_sharding):
     k1 = flash["slice_f32_causal"]
     k2 = paged["f32_T1_Tmax512"]
     k2c = paged["f32_T256_Tmax512"]          # the serve's first prefill round
@@ -8439,6 +9049,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "launches_nlp": launches_nlp["flash_fwd"],
          "launches_ingest": launches_ingest["flash_fwd"],
          "launches_mesh": launches_mesh["flash_fwd"],
+         "launches_sharding": launches_sharding["flash_fwd"],
          "max_abs_err": max(r["max_abs_err"] for n, r in flash.items()
                             if n.startswith("slice_f32")),
          "ms": k1["ms"], "device_ms": k1["device_ms"],
@@ -8464,6 +9075,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "launches_nlp": launches_nlp["paged_attn"],
          "launches_ingest": launches_ingest["paged_attn"],
          "launches_mesh": launches_mesh["paged_attn"],
+         "launches_sharding": launches_sharding["paged_attn"],
          "max_abs_err": max(r["max_abs_err"] for n, r in paged.items()
                             if n.startswith("f32_") and "Tmax512" in n),
          "ms": k2["ms"], "device_ms": k2["device_ms"],
@@ -8530,6 +9142,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
              "launches_nlp": launches_nlp[name],
              "launches_ingest": launches_ingest[name],
              "launches_mesh": launches_mesh[name],
+             "launches_sharding": launches_sharding[name],
              "max_abs_err": max(r["max_abs_err"][g] for r in slice_bwd
                                 for g in grads),
              "ms": kb[part]["ms"], "device_ms": kb[part]["device_ms"],
@@ -8845,12 +9458,25 @@ def main() -> int:
                                     "flash_bwd_dkv", "paged_attn",
                                     "paged_attn_chunk")),
           f"a kernel of the mesh path never launched: {mesh}")
+    kernels.reset_launch_counts()         # the model-parallel path starts
+    log("phase 17: sharded stores and one-process model parallelism "
+        "(sharded retrieval, dp x tp ShardedTrainer, tensor/sequence/"
+        "pipeline parallelism, Spark averaging, sharded embeddings, the "
+        "parameter server)")
+    REPORT["model_parallel"] = phase_model_parallelism(card)
+    sharding = dict(kernels.LAUNCHES)     # ... and ends here
+    window_s["sharding"] = lap()
+    check(all(sharding[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv")),
+          f"a kernel of the model-parallel path never launched (K1, K3 and "
+          f"K4 must): {sharding}")
     windows = dict(serving=serving, loading=loading, fixture=fixture,
                    prefix=prefix, spec=spec, d96_serving=d96_serving,
                    training=training, d96_training=d96_training,
                    fitting=fitting, multilayer=multilayer, fabric=fabric,
                    retrieval=retrieval, recurrent=recurrent, graphs=graphs,
-                   pretrain=pretrain, nlp=nlp, ingest=ingest, mesh=mesh)
+                   pretrain=pretrain, nlp=nlp, ingest=ingest, mesh=mesh,
+                   sharding=sharding)
     launches = {k: sum(w[k] for w in windows.values()) for k in serving}
     REPORT["main_path_launches"] = dict(windows, total=launches)
     check(all(n > 0 for n in launches.values()),
@@ -8876,7 +9502,7 @@ def main() -> int:
     line = kernel_line(flash, paged, bwd, launches,
                        {k: d96_serving[k] + d96_training[k]
                         for k in d96_serving}, recurrent, graphs, pretrain,
-                       nlp, ingest, mesh)
+                       nlp, ingest, mesh, sharding)
     REPORT["total_s"] = time.perf_counter() - t_start
     REPORT["window_s"] = window_s
     log(f"build {REPORT['build_s']:.1f} s, total {REPORT['total_s']:.1f} s; "

@@ -40,9 +40,16 @@ are built by deterministic host arithmetic (the JAX package's, so the codes
 and scales are bitwise its), so a drained/restarted index rebuilt from the
 same points answers bitwise as before on the same card.
 
-Mesh-sharded stores (``mesh=``, ``kmeans="sharded"``, JAX's
-``_knn_aux``/``_kmeans_step``/probe-local search) span several cards and
-raise ``NotImplementedError`` naming ROADMAP A9.
+Mesh-sharded stores (``mesh=``, a ``parallel.mesh.Mesh`` with a ``data``
+axis) split the rows over the data entries, each entry's arrays on its own
+device (JAX's ``_knn_aux``/``_knn_int8`` under a points-axis sharding and
+its probe-local IVF). Every entry scores its own ``[Q, N/m]`` block (or
+probes its own C/m cells) and keeps a local top-kb with squared distances;
+ONE merge of the ``[Q, m*kb]`` candidates runs on the consumer's device
+(the first data entry), breaking distance ties by the lower global row id
+as ``lax.top_k`` does on the unsharded store, then applies the sqrt.
+``kmeans="sharded"`` trains the IVF centroids with per-entry assignment,
+partial sums and counts, and the written-out ``parallel.mesh.psum``.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from deeplearning4j_torch.nearestneighbors.brute import (_check_k, _knn,
                                                           _pad_queries, _pow2,
                                                           _upload)
 from deeplearning4j_torch.optimize.bucketing import BoundedCache
+from deeplearning4j_torch.parallel.mesh import data_devices, psum
 from deeplearning4j_torch.parallel.resilience import (AdmissionController,
                                                       ChaosPolicy,
                                                       CircuitBreaker,
@@ -81,62 +89,40 @@ from deeplearning4j_torch.parallel.runtime import (LoopClosed, LoopCrashed,
 # for cosine, added after the 1 - q.p term.
 
 def _knn_int8(qpoints, scales, aux, queries, *, k: int, metric: str):
-    """int8 store: absmax per-row quantized points, ``(q @ P_q.T) * scale``.
-    For euclidean ``aux`` carries the DEQUANTIZED rows' ||p||^2, so the
-    distances are exact distances to the reconstructed vectors."""
-    wide = qpoints.to(queries.dtype)          # the [N, D] f32 transient
-    if metric == "cosine":
-        q = queries / torch.clamp(torch.linalg.norm(queries, dim=1,
-                                                    keepdim=True), min=1e-12)
-        dots = (q @ wide.T).mul_(scales[None, :])
-        dists = dots.neg_().add_(1.0).clamp_(min=0.0).add_(aux[None, :])
-    else:
-        qn = torch.sum(queries * queries, dim=1, keepdim=True)
-        dots = (queries @ wide.T).mul_(scales[None, :])
-        dists = dots.mul_(-2.0).add_(qn).add_(aux[None, :]).clamp_(min=0.0)
-    del wide
-    d, idx = torch.topk(dists, k, dim=1, largest=False, sorted=True)
+    """int8 store: absmax per-row quantized points, ``(q @ P_q.T) * scale``
+    (``_knn_int8_local`` on the whole store, then the sqrt)."""
+    d, idx = _knn_int8_local(qpoints, scales, aux, queries, k=k,
+                             metric=metric)
     if metric != "cosine":
         d = torch.sqrt(d)
     return d, idx.to(torch.int32)
+
+
+def _ivf_query(queries, metric: str):
+    """(q, ||q||^2) as the IVF probe reads them: cosine queries normalized
+    with unit norms."""
+    if metric == "cosine":
+        q = queries / torch.clamp(torch.linalg.norm(queries, dim=1,
+                                                    keepdim=True), min=1e-12)
+        return q, torch.ones((q.shape[0], 1), dtype=q.dtype,
+                             device=q.device)
+    return queries, torch.sum(queries * queries, dim=1, keepdim=True)
 
 
 def _knn_ivf(centroids, cbias, vecs, scales, laux, ids, queries, *,
              k: int, nprobe: int, metric: str):
     """IVF query: score the [Q, C] centroid distances, gather the
     ``nprobe`` nearest lists' vectors, exact re-rank the gathered
-    candidates, and map the local top-k back to global ids. ``scales=None``
+    candidates, and map the local top-k back to global ids
+    (``_probe_local_rank`` over every cell, then the sqrt). ``scales=None``
     is the f32-list store; an int8 store passes the [C, M] per-row scales
     and the dequant scales the candidate products as in ``_knn_int8``.
 
     Probe selection is always euclidean-on-the-stored-rows: cosine stores
     arrive pre-normalized, where euclidean order == cosine order."""
-    Qn = queries.shape[0]
-    if metric == "cosine":
-        q = queries / torch.clamp(torch.linalg.norm(queries, dim=1,
-                                                    keepdim=True), min=1e-12)
-        qn = torch.ones((Qn, 1), dtype=queries.dtype, device=queries.device)
-    else:
-        q = queries
-        qn = torch.sum(q * q, dim=1, keepdim=True)
-    c2 = torch.sum(centroids * centroids, dim=1)
-    cd = qn - 2.0 * (q @ centroids.T) + c2[None, :] + cbias[None, :]
-    probes = torch.topk(cd, nprobe, dim=1, largest=False,
-                        sorted=True).indices                     # [Q, P]
-    aux = laux[probes].reshape(Qn, -1)                           # [Q, P*M]
-    gids = ids[probes].reshape(Qn, -1)
-    M = aux.shape[1]
-    flat = vecs[probes].reshape(Qn, M, -1).to(queries.dtype)     # [Q, PM, D]
-    dots = torch.bmm(flat, q[:, :, None])[:, :, 0]
-    del flat
-    if scales is not None:
-        dots = dots.mul_(scales[probes].reshape(Qn, M))
-    if metric == "cosine":
-        dists = dots.neg_().add_(1.0).clamp_(min=0.0).add_(aux)
-    else:
-        dists = dots.mul_(-2.0).add_(qn).add_(aux).clamp_(min=0.0)
-    d, loc = torch.topk(dists, k, dim=1, largest=False, sorted=True)
-    idx = torch.gather(gids, 1, loc)
+    q, qn = _ivf_query(queries, metric)
+    d, idx = _probe_local_rank(centroids, cbias, vecs, scales, laux, ids, q,
+                               qn, k=k, nprobe=nprobe, metric=metric)
     if metric != "cosine":
         d = torch.sqrt(d)
     return d, idx
@@ -151,10 +137,116 @@ def _assign_chunk(x, centroids):
     return torch.argmin(d2, dim=1)
 
 
-def _mesh_refusal(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A9: mesh-sharded retrieval "
-        "stores over several cards)")
+def _knn_aux(points, aux, queries, *, k: int, metric: str):
+    """One entry's block of a sharded f32 store: (squared-for-euclidean
+    distances [Q, k], local row indices [Q, k]). ``aux`` is ||p||^2 for
+    euclidean and 0 for cosine, +inf on the pad rows, so a pad row is
+    never chosen while a real one is left."""
+    if metric == "cosine":
+        q = queries / torch.clamp(torch.linalg.norm(queries, dim=1,
+                                                    keepdim=True), min=1e-12)
+        dists = (q @ points.T).neg_().add_(1.0).clamp_(min=0.0)
+        dists = dists.add_(aux[None, :])
+    else:
+        qn = torch.sum(queries * queries, dim=1, keepdim=True)
+        dists = (queries @ points.T).mul_(-2.0).add_(qn)
+        dists = dists.add_(aux[None, :]).clamp_(min=0.0)
+    return torch.topk(dists, k, dim=1, largest=False, sorted=True)
+
+
+def _knn_int8_local(qpoints, scales, aux, queries, *, k: int, metric: str):
+    """(squared-for-euclidean distances, indices) of the top k over int8
+    rows: ``(q @ P_q.T) * scale``, dequantized on the fly. For euclidean
+    ``aux`` carries the DEQUANTIZED rows' ||p||^2, so the distances are
+    exact distances to the reconstructed vectors. The whole store's
+    search (``_knn_int8``) and one entry's block of a sharded store."""
+    wide = qpoints.to(queries.dtype)
+    if metric == "cosine":
+        q = queries / torch.clamp(torch.linalg.norm(queries, dim=1,
+                                                    keepdim=True), min=1e-12)
+        dots = (q @ wide.T).mul_(scales[None, :])
+        dists = dots.neg_().add_(1.0).clamp_(min=0.0).add_(aux[None, :])
+    else:
+        qn = torch.sum(queries * queries, dim=1, keepdim=True)
+        dots = (queries @ wide.T).mul_(scales[None, :])
+        dists = dots.mul_(-2.0).add_(qn).add_(aux[None, :]).clamp_(min=0.0)
+    del wide
+    return torch.topk(dists, k, dim=1, largest=False, sorted=True)
+
+
+def _probe_local_rank(centroids, cbias, vecs, scales, laux, ids, q, qn, *,
+                      k: int, nprobe: int, metric: str):
+    """One entry's probe-local IVF search (JAX's shard_map body): probe
+    the ``min(nprobe, local cells)`` nearest LOCAL cells, gather their
+    vectors locally, re-rank to the local top-k, and pad to k with
+    +inf/-1 so the one merge over the [Q, entries*k] concatenation is
+    exact. Distances stay squared for euclidean (the merge applies the
+    sqrt). Any cell in the global top-``nprobe`` is in its home entry's
+    local top-``nprobe``, so the union pool is a superset of the global
+    probe's."""
+    Qn = q.shape[0]
+    p = min(nprobe, centroids.shape[0])
+    c2 = torch.sum(centroids * centroids, dim=1)
+    cd = qn - 2.0 * (q @ centroids.T) + c2[None, :] + cbias[None, :]
+    probes = torch.topk(cd, p, dim=1, largest=False, sorted=True).indices
+    aux = laux[probes].reshape(Qn, -1)
+    gids = ids[probes].reshape(Qn, -1)
+    M = aux.shape[1]
+    flat = vecs[probes].reshape(Qn, M, -1).to(q.dtype)
+    dots = torch.bmm(flat, q[:, :, None])[:, :, 0]
+    del flat
+    if scales is not None:
+        dots = dots.mul_(scales[probes].reshape(Qn, M))
+    if metric == "cosine":
+        dists = dots.neg_().add_(1.0).clamp_(min=0.0).add_(aux)
+    else:
+        dists = dots.mul_(-2.0).add_(qn).add_(aux).clamp_(min=0.0)
+    kk = min(k, M)
+    d, loc = torch.topk(dists, kk, dim=1, largest=False, sorted=True)
+    lids = torch.gather(gids, 1, loc)
+    if kk < k:
+        d = torch.cat([d, d.new_full((Qn, k - kk), float("inf"))], dim=1)
+        lids = torch.cat([lids, lids.new_full((Qn, k - kk), -1)], dim=1)
+    return d, lids
+
+
+def _merge_candidates(dists, ids, device, *, k: int, metric: str):
+    """The one merge of the entries' candidates on ``device``: the [Q,
+    entries*kb] concatenation in mesh order, ordered by (distance, global
+    id) with two stable sorts, so ties go to the lower row id whatever
+    order each entry's top-k left them in. Returns (distances, int32
+    ids), the sqrt applied for euclidean."""
+    d = torch.cat([t.to(device) for t in dists], dim=1)
+    i = torch.cat([t.to(device, torch.int64) for t in ids], dim=1)
+    i, by_id = torch.sort(i, dim=1, stable=True)
+    d = torch.gather(d, 1, by_id)
+    d, by_d = torch.sort(d, dim=1, stable=True)
+    d = d[:, :k]
+    i = torch.gather(i, 1, by_d[:, :k])
+    if metric != "cosine":
+        d = torch.sqrt(d)
+    return d, i.to(torch.int32)
+
+
+def _kmeans_step(xs, cs):
+    """One sharded Lloyd iteration over the data entries: per-entry
+    nearest-centroid assignment and per-entry partial sums and counts
+    (a one-hot product, as JAX's ``_kmeans_step``), summed over the
+    entries in mesh order by ``psum``. Empty clusters keep their
+    centroid. Returns (new centroids per entry, max shift as a tensor)."""
+    sums, cnts = [], []
+    for x, c in zip(xs, cs):
+        xn = torch.sum(x * x, dim=1, keepdim=True)
+        c2 = torch.sum(c * c, dim=1)
+        d2 = xn - 2.0 * (x @ c.T) + c2[None, :]
+        oh = torch.nn.functional.one_hot(torch.argmin(d2, dim=1),
+                                         c.shape[0]).to(x.dtype)
+        sums.append(oh.T @ x)
+        cnts.append(torch.sum(oh, dim=0))
+    sums, cnts = psum(sums), psum(cnts)
+    new = [torch.where(n[:, None] > 0.5, s / torch.clamp(n, min=1.0)[:, None],
+                       c) for s, n, c in zip(sums, cnts, cs)]
+    return new, torch.max(torch.abs(new[0] - cs[0]))
 
 
 # --------------------------------------------------------------------------
@@ -184,11 +276,13 @@ class _Store:
     read a coherent store lock-free (EmbeddingIndex._LOOP_OWNED)."""
 
     __slots__ = ("variant", "n", "dim", "arrays", "nprobe", "n_lists",
-                 "list_len", "spilled", "resident_bytes", "graph")
+                 "list_len", "spilled", "resident_bytes", "graph",
+                 "shards", "offsets")
 
     def __init__(self, variant, n, dim, arrays, nprobe=0, n_lists=0,
-                 list_len=0, spilled=0, graph=None):
-        self.variant = variant      # exact | int8 | ivf | hnsw
+                 list_len=0, spilled=0, graph=None, shards=None,
+                 offsets=None):
+        self.variant = variant      # exact | aux | int8 | ivf | hnsw
         self.n = n
         self.dim = dim
         self.arrays = arrays
@@ -197,6 +291,12 @@ class _Store:
         self.list_len = list_len
         self.spilled = spilled
         self.graph = graph          # HNSWGraph (store="hnsw")
+        # a mesh store: one tuple of arrays per data entry, and each
+        # flat entry's first global row (IVF lists carry global ids)
+        self.shards = shards
+        self.offsets = offsets
+        if shards is not None:
+            arrays = tuple(a for sh in shards for a in sh)
         self.resident_bytes = sum(_nbytes(a) for a in arrays
                                   if a is not None)
         if graph is not None:
@@ -223,6 +323,12 @@ class _QueryRequest:
         return (self.q.shape[1], self.kb)
 
 
+def _shard_bytes(st: "_Store") -> list:
+    """Device bytes of each entry of a mesh store."""
+    return [sum(_nbytes(a) for a in sh if a is not None)
+            for sh in st.shards]
+
+
 class EmbeddingIndex:
     """Device-resident vector store with a coalescing query server.
 
@@ -238,8 +344,10 @@ class EmbeddingIndex:
     anything with ``output(x)`` — a ``ParallelInference`` over a net — or
     a plain callable; documents added via ``add_documents`` are
     batch-encoded through it. ``device``: the card the store lives on
-    (CUDA unless the caller passes another device). ``mesh`` and
-    ``kmeans="sharded"`` raise ``NotImplementedError`` (ROADMAP A9)."""
+    (CUDA unless the caller passes another device). ``mesh`` (a
+    ``parallel.mesh.Mesh`` with a ``data`` axis) shards the flat store
+    and the IVF lists over its data entries; the merge and the host
+    copies run on the first entry's device."""
 
     # The store snapshot is read lock-free by the coalescer/completer
     # loops (and sync searchers); every off-loop write swaps it under
@@ -268,18 +376,18 @@ class EmbeddingIndex:
         if kmeans not in ("auto", "host", "sharded"):
             raise ValueError(
                 f"kmeans must be auto|host|sharded, got {kmeans}")
-        if mesh is not None:
-            raise _mesh_refusal("EmbeddingIndex(mesh=...)")
-        if kmeans == "sharded":
-            raise _mesh_refusal("EmbeddingIndex(kmeans='sharded') (it "
-                                "trains over a mesh)")
-        if store == "hnsw" and partitions is not None:
+        if kmeans == "sharded" and mesh is None:
+            raise ValueError("kmeans='sharded' requires a mesh")
+        if store == "hnsw" and (mesh is not None or partitions is not None):
             raise ValueError("store='hnsw' is host-resident: it composes "
                              "with neither mesh= nor partitions=")
         nprobe = int(nprobe)
         if nprobe < 1:
             raise ValueError(f"nprobe must be >= 1, got {nprobe}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._entries = None if mesh is None else data_devices(mesh)
+        self.device = (resolve_device(device) if mesh is None
+                       else self._entries[0])
         self.metric = metric
         self.store_kind = store
         self.encoder = encoder
@@ -291,6 +399,7 @@ class EmbeddingIndex:
         self.list_cap = list_cap
         self.train_sample = int(train_sample)
         self.kmeans_iters = int(kmeans_iters)
+        self.kmeans = kmeans
         self.hnsw_m = int(hnsw_m)
         self.ef_construction = int(ef_construction)
         self.ef_search = int(ef_search)
@@ -449,7 +558,8 @@ class EmbeddingIndex:
     # ------------------------------------------------------- store builder
     def _build_store(self, host: np.ndarray) -> _Store:
         n, d = host.shape
-        if self.store_kind == "f32" and self.partitions is None:
+        if (self.store_kind == "f32" and self.partitions is None
+                and self.mesh is None):
             # bitwise path: brute.py's upload arithmetic, and the search
             # side calls brute._knn with the same pad/bucket code
             return _Store("exact", n, d, _upload(host, self.metric,
@@ -480,7 +590,81 @@ class EmbeddingIndex:
         """Upload one store array to the index's device."""
         return torch.as_tensor(a, device=self.device)
 
+    def _padded(self, pts: np.ndarray):
+        """Rows padded to the mesh multiple (JAX's ``_padded``): the
+        padded points and the aux vector, ||p||^2 for euclidean and 0 for
+        cosine, +inf on the pad rows."""
+        n, d = pts.shape
+        m = self.mesh.size
+        npad = -(-n // m) * m
+        if npad != n:
+            pts = np.concatenate([pts, np.zeros((npad - n, d), np.float32)])
+        if self.metric == "cosine":
+            aux = np.zeros(npad, np.float32)
+        else:
+            aux = np.sum(pts * pts, axis=1).astype(np.float32)
+        aux[n:] = np.inf
+        return pts, aux
+
+    def _split(self, *arrays):
+        """Axis 0 of each array cut into one contiguous block per data
+        entry, each block uploaded to its entry's device: a list of
+        per-entry tuples, and the first row of each block."""
+        m = len(self._entries)
+        rows = arrays[0].shape[0] // m
+        shards = [tuple(torch.as_tensor(
+            np.ascontiguousarray(a[e * rows:(e + 1) * rows]), device=dev)
+            for a in arrays) for e, dev in enumerate(self._entries)]
+        return shards, [e * rows for e in range(m)]
+
+    def _build_sharded_flat(self, pts: np.ndarray) -> _Store:
+        n, d = pts.shape
+        padded, aux = self._padded(pts)
+        if self.store_kind == "int8":
+            q, scale = _quantize_rows(padded)
+            if self.metric == "euclidean":
+                deq = q.astype(np.float32) * scale[:, None]
+                aux = np.where(np.isinf(aux), np.inf,
+                               np.sum(deq * deq, axis=1)).astype(np.float32)
+            shards, offsets = self._split(q, scale, aux)
+            return _Store("int8", n, d, (), shards=shards, offsets=offsets)
+        shards, offsets = self._split(padded, aux)
+        if self.metric == "euclidean":
+            # ||p||^2 summed on the device, as the unsharded store's upload
+            # sums it (the pad rows keep their +inf)
+            shards = [(p, torch.where(torch.isinf(a), a,
+                                      torch.sum(p * p, dim=1)))
+                      for p, a in shards]
+        return _Store("aux", n, d, (), shards=shards, offsets=offsets)
+
+    def _kmeans_sharded(self, sample: np.ndarray, C: int) -> np.ndarray:
+        """Mesh-sharded centroid training (JAX's ``_kmeans_sharded``): the
+        training rows split over the data entries, each Lloyd iteration
+        one ``_kmeans_step``; deterministic init from ``seed`` (real
+        rows), a host shift test per iteration (build path). Row padding
+        repeats real rows, so the pad never mints a phantom centroid."""
+        n, d = sample.shape
+        m = self.mesh.size
+        npad = -(-n // m) * m
+        if npad != n:
+            sample = np.concatenate(
+                [sample, sample[np.resize(np.arange(n), npad - n)]])
+        rng = np.random.RandomState(self.seed)
+        centroids = np.ascontiguousarray(
+            sample[rng.choice(n, C, replace=n < C)], np.float32)
+        xs = [sh[0] for sh in self._split(sample)[0]]
+        cs = [torch.as_tensor(centroids, device=dev)
+              for dev in self._entries]
+        with torch.inference_mode():
+            for _ in range(self.kmeans_iters):
+                cs, shift = _kmeans_step(xs, cs)
+                if float(shift) <= 1e-6:
+                    break
+            return cs[0].cpu().numpy().astype(np.float32)
+
     def _build_flat(self, pts: np.ndarray) -> _Store:
+        if self.mesh is not None:
+            return self._build_sharded_flat(pts)
         n, d = pts.shape
         q, scale = _quantize_rows(pts)
         if self.metric == "euclidean":
@@ -501,10 +685,13 @@ class EmbeddingIndex:
         rng = np.random.RandomState(self.seed)
         t = min(self.train_sample, n)
         sample = pts if t == n else pts[rng.choice(n, t, replace=False)]
-        km = KMeansClustering(C, max_iterations=self.kmeans_iters,
-                              seed=self.seed, device=self.device)
-        km.apply_to(sample)
-        centroids = np.asarray(km.centers, np.float32)
+        if self.mesh is not None and self.kmeans in ("auto", "sharded"):
+            centroids = self._kmeans_sharded(sample, C)
+        else:
+            km = KMeansClustering(C, max_iterations=self.kmeans_iters,
+                                  seed=self.seed, device=self.device)
+            km.apply_to(sample)
+            centroids = np.asarray(km.centers, np.float32)
         # chunked assignment on the card
         CH = min(65536, _pow2(n))
         assign = np.empty(n, np.int64)
@@ -555,12 +742,62 @@ class EmbeddingIndex:
         else:
             laux = lsq.astype(np.float32)
         laux[ids < 0] = np.inf   # empty slots never win
+        if self.mesh is not None:
+            return self._shard_ivf(n, d, centroids, cbias, vecs,
+                                   scl if quant else None, laux, ids,
+                                   nprobe=min(self.nprobe, C), n_lists=C,
+                                   list_len=M, spilled=spilled)
         return _Store("ivf", n, d,
                       (self._put(centroids), self._put(cbias),
                        self._put(vecs), self._put(scl) if quant else None,
                        self._put(laux), self._put(ids)),
                       nprobe=min(self.nprobe, C), n_lists=C, list_len=M,
                       spilled=spilled)
+
+    def _shard_ivf(self, n, d, centroids, cbias, vecs, scl, laux, ids,
+                   **meta) -> _Store:
+        """The IVF lists split over the data entries, C/m cells each: C
+        padded to the mesh multiple with empty, +inf-biased lists."""
+        C = centroids.shape[0]
+        Cpad = -(-C // self.mesh.size) * self.mesh.size
+        if Cpad != C:
+            extra = Cpad - C
+
+            def pad(a, value):
+                return np.concatenate(
+                    [a, np.full((extra,) + a.shape[1:], value, a.dtype)])
+
+            centroids, cbias = pad(centroids, 0), pad(cbias, np.inf)
+            vecs, laux, ids = pad(vecs, 0), pad(laux, np.inf), pad(ids, -1)
+            scl = None if scl is None else pad(scl, 0)
+        arrays = (centroids, cbias, vecs, laux, ids) if scl is None \
+            else (centroids, cbias, vecs, scl, laux, ids)
+        shards, offsets = self._split(*arrays)
+        if scl is None:   # one layout for the search: scales in slot 3
+            shards = [sh[:3] + (None,) + sh[3:] for sh in shards]
+        return _Store("ivf", n, d, (), shards=shards, offsets=offsets,
+                      **meta)
+
+    def _sharded_search(self, st: _Store, x: np.ndarray, kb: int,
+                        nprobe: int):
+        """Each entry's local top-kb (launched entry by entry, no host
+        sync), then the one merge on the consumer's device."""
+        ds, ids = [], []
+        for dev, arrays, off in zip(self._entries, st.shards, st.offsets):
+            qd = torch.as_tensor(x, device=dev)
+            if st.variant == "ivf":
+                q, qn = _ivf_query(qd, self.metric)
+                d, i = _probe_local_rank(*arrays, q, qn, k=kb,
+                                         nprobe=nprobe, metric=self.metric)
+            else:
+                local = _knn_aux if st.variant == "aux" else _knn_int8_local
+                kk = min(kb, arrays[0].shape[0])
+                d, i = local(*arrays, qd, k=kk, metric=self.metric)
+                i = i + off
+            ds.append(d)
+            ids.append(i)
+        return _merge_candidates(ds, ids, self.device, k=kb,
+                                 metric=self.metric)
 
     # ------------------------------------------------------------ dispatch
     def _bucket_kb(self, k: int, st: _Store) -> int:
@@ -605,17 +842,27 @@ class EmbeddingIndex:
             self._m_dispatches.inc()
             return d, idx, None
         with torch.inference_mode():
-            qd = self._put(x)
-            if st.variant == "exact":
+            if st.shards is not None:
+                nprobe = 0
+                if st.variant == "ivf":
+                    nprobe = min(max(st.nprobe, -(-kb // st.list_len)),
+                                 st.n_lists)
+                self._record_program(
+                    (st.variant if nprobe == 0 else "ivf_local", bucket,
+                     kb) + ((nprobe,) if nprobe else ()))
+                d, idx = self._sharded_search(st, x, kb, nprobe)
+            elif st.variant == "exact":
+                qd = self._put(x)
                 points, sq = st.arrays
                 self._record_program(("exact", bucket, kb))
                 d, idx = _knn(points, sq, qd, k=kb, metric=self.metric)
             elif st.variant == "int8":
                 qpts, scales, aux = st.arrays
                 self._record_program(("int8", bucket, kb))
-                d, idx = _knn_int8(qpts, scales, aux, qd, k=kb,
+                d, idx = _knn_int8(qpts, scales, aux, self._put(x), k=kb,
                                    metric=self.metric)
             else:
+                qd = self._put(x)
                 nprobe = min(max(st.nprobe, -(-kb // st.list_len)),
                              st.n_lists)
                 self._record_program(("ivf", bucket, kb, nprobe))
@@ -947,7 +1194,7 @@ class EmbeddingIndex:
         if st is not None and st.variant == "ivf":
             out.update(partitions=st.n_lists, list_len=st.list_len,
                        nprobe=st.nprobe, spilled=st.spilled,
-                       probe_local=False)
+                       probe_local=st.shards is not None)
         if st is not None and st.variant == "hnsw":
             out.update(hnsw_m=st.graph.m, ef_search=self.ef_search,
                        levels=st.graph.levels)

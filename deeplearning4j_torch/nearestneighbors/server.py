@@ -18,8 +18,8 @@ Three backends share the surface: ``vptree`` (host, reference-style
 pruning tree; its batched queries run brute force on the card),
 ``device`` (exact brute force, brute.py), and ``index`` (EmbeddingIndex,
 index.py — coalesced submits, int8/IVF/HNSW stores). Every backend runs
-on the card unless the caller passes ``device="cpu"``; ``mesh=`` raises
-``NotImplementedError`` naming ROADMAP A9.
+on the card unless the caller passes ``device="cpu"``; ``mesh=`` (with
+``backend="index"``) serves a store sharded over the mesh's data entries.
 All of them get the hardened HTTP layer (KerasBackendServer's posture):
 malformed/ragged payloads, non-numeric or non-positive k, and dims
 mismatches return structured 400s; bodies over ``max_body_bytes`` are
@@ -94,14 +94,15 @@ class NearestNeighborsServer:
                  default_deadline_s: Optional[float] = None,
                  registry: Optional[MetricsRegistry] = None,
                  device=None, **index_kwargs):
-        if mesh is not None:
-            raise NotImplementedError(
-                "NearestNeighborsServer(mesh=...) is not ported yet "
-                "(ROADMAP A9: mesh-sharded retrieval stores over several "
-                "cards)")
         if index is not None:
             backend = "index"
             device = index.device
+        if mesh is not None and backend == "index" and index is None:
+            # the sharded store lives on the mesh's data entries; the
+            # host copies and the merge run on the first of them
+            from deeplearning4j_torch.parallel.mesh import data_devices
+
+            device = data_devices(mesh)[0]
         self.device = resolve_device(device)
         if backend == "vptree":
             from deeplearning4j_torch.clustering.vptree import VPTree
@@ -130,7 +131,7 @@ class NearestNeighborsServer:
                 )
 
                 index = EmbeddingIndex(points, metric, store=store,
-                                       encoder=encoder,
+                                       encoder=encoder, mesh=mesh,
                                        partitions=partitions, nprobe=nprobe,
                                        device=self.device, **index_kwargs)
             self.index = index

@@ -1,6 +1,6 @@
 """NLP embedding stack (the port of ``deeplearning4j_tpu/nlp``; reference:
-deeplearning4j-nlp-parent). Its ``distributed.py`` (embedding tables
-sharded over a mesh) waits for ROADMAP A11c.
+deeplearning4j-nlp-parent). ``distributed.py`` shards the embedding
+tables by vocabulary row over a mesh's ``model`` axis.
 
 - ``tokenization`` — tokenizer factories, sentence iterators, preprocessors
   (reference: text/tokenization/, text/sentenceiterator/)

@@ -68,15 +68,14 @@ def _row_mean_scale(num_rows, idx, weights, cap):
     return torch.clamp(cap / torch.clamp(cnt[idx], min=1.0), max=1.0)
 
 
-def _segment_row_add(row_idx, updates, weights, cap, stacked):
-    """Add ``updates`` into ``stacked`` rows without a duplicate-index
-    scatter into the tables: sort by destination row, per-row-count
-    dup_cap scale, segment sums, then one scatter whose indices are sorted
-    and unique (segments that do not exist land on distinct dummy rows
-    past R). Numerically the ``_row_mean_scale`` path up to summation
-    order; returns a new ``stacked``."""
-    M, D = updates.shape
-    R = stacked.shape[0]
+def _segment_sums(row_idx, updates, weights, cap):
+    """Sum ``updates`` by destination row: sort by row, per-row-count
+    dup_cap scale, segment sums. Returns (rows, summed, live), M entries
+    each: entry j below the number of distinct rows holds the j-th of
+    them (ascending) and its summed update; the others are no segment
+    (``live`` False). Numerically the ``_row_mean_scale`` path up to
+    summation order."""
+    M = updates.shape[0]
     order = torch.sort(row_idx, stable=True).indices
     si = row_idx[order]
     su = updates[order]
@@ -90,17 +89,36 @@ def _segment_row_add(row_idx, updates, weights, cap, stacked):
     cnt = _scatter_add(torch.zeros(M, dtype=sw.dtype, device=sw.device),
                        seg, sw)
     scale = torch.clamp(sc / torch.clamp(cnt[seg], min=1.0), max=1.0)
-    summed = _scatter_add(torch.zeros(M, D, dtype=su.dtype,
-                                      device=su.device),
-                          seg, su * scale[:, None])
-    nseg = start.long().sum()
-    rep = torch.full((M,), -1, dtype=si.dtype, device=si.device)
-    rep[seg] = si                           # every member writes its row
-    j = torch.arange(M, device=si.device)
-    rep = torch.where(j < nseg, rep, R + j)
-    padded = torch.cat([stacked, torch.zeros(M, D, dtype=stacked.dtype,
-                                             device=stacked.device)])
-    return _scatter_add(padded, rep, summed)[:R]
+    summed = _scatter_add(torch.zeros_like(su), seg, su * scale[:, None])
+    rows = torch.zeros(M, dtype=si.dtype, device=si.device)
+    rows[seg] = si                          # every member writes its row
+    live = torch.arange(M, device=si.device) < start.long().sum()
+    return rows, summed, live
+
+
+def _add_rows(table, lo, rows, summed, live):
+    """``table[rows - lo] += summed`` for the live entries whose row lies in
+    the table's range [lo, lo + len(table)), in place and without a host
+    sync: one ``index_add_`` of the M entries, whose rows are distinct, so
+    a row takes one add of its own sum. The other entries add 0.0 to rows
+    spread over the table (x + 0.0 is x, and no row takes them all). A
+    row-sharded table (``nlp/distributed.py``) adds each on its owner."""
+    n = table.shape[0]
+    local = rows - lo
+    own = live & (local >= 0) & (local < n)
+    spread = torch.arange(rows.shape[0], device=rows.device) % n
+    table.index_add_(0, torch.where(own, local, spread),
+                     torch.where(own[:, None], summed,
+                                 summed.new_zeros(())))
+    return table
+
+
+def _segment_row_add(row_idx, updates, weights, cap, stacked):
+    """Add ``updates`` into ``stacked`` rows without a duplicate-index
+    scatter (``_segment_sums``, then one add whose rows are distinct);
+    returns a new ``stacked``."""
+    return _add_rows(stacked.clone(), 0,
+                     *_segment_sums(row_idx, updates, weights, cap))
 
 
 def skipgram_step(syn0, syn1, syn1neg, centers, points, codes, code_mask,
@@ -236,15 +254,13 @@ def skipgram_corpus_epoch(syn0, syn1, syn1neg, tokens, key, lr_start,
 
 
 def _apply_segments(syn0, syn1, syn1neg, parts):
-    """Apply collected (row, update, weight, cap) parts to the stacked
-    [syn0; syn1; syn1neg] rows with ``_segment_row_add``, in place."""
+    """Apply collected (row, update, weight, cap) parts, whose rows index
+    the stacked [syn0; syn1; syn1neg], to the three tables in place: the
+    segment sums added at the rows a batch updates, nothing else."""
     V, V1 = syn0.shape[0], syn1.shape[0]
-    idx, upd, w, cap = (torch.cat(p) for p in zip(*parts))
-    stacked = _segment_row_add(idx, upd, w, cap,
-                               torch.cat([syn0, syn1, syn1neg], 0))
-    syn0.copy_(stacked[:V])
-    syn1.copy_(stacked[V:V + V1])
-    syn1neg.copy_(stacked[V + V1:])
+    sums = _segment_sums(*(torch.cat(p) for p in zip(*parts)))
+    for table, lo in ((syn0, 0), (syn1, V), (syn1neg, V + V1)):
+        _add_rows(table, lo, *sums)
 
 
 def _pair_scan(syn0, syn1, syn1neg, rows, pred, pm, lrs, kn, points_tab,

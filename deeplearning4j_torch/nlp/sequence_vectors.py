@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_torch import resolve_device
+from deeplearning4j_torch.nlp.distributed import RowShardedTable
 from deeplearning4j_torch.nlp.learning import (
     DUP_CAP,
     BatchBuilder,
@@ -48,7 +49,8 @@ def host(a) -> np.ndarray:
 def on_device(a, dev: torch.device) -> torch.Tensor:
     """A table as a tensor on ``dev`` (a host array or a tensor elsewhere
     is copied there)."""
-    if torch.is_tensor(a) and a.device == dev:
+    if (torch.is_tensor(a) and a.device == dev) or isinstance(
+            a, RowShardedTable):
         return a
     return torch.as_tensor(host(a)).to(dev)
 
@@ -154,6 +156,8 @@ class SequenceVectors:
         hierarchic softmax and subsampling) under ``backend="native"``, or
         under ``"auto"`` with the tables on the host (the JAX package's
         rule there). On a card ``"auto"`` keeps the tables on it."""
+        if isinstance(self.syn0, RowShardedTable):
+            return False            # sharded tables train on the device
         return self._native_eligible_config() and (
             self.backend == "native" or self._dev().type == "cpu")
 

@@ -25,6 +25,7 @@ import torch
 
 from deeplearning4j_torch.nn.conf.inputs import InputType
 from deeplearning4j_torch.nn.conf.layers.base import Layer
+from deeplearning4j_torch.nn.network import layer_forward
 from deeplearning4j_torch.nn.conf.preprocessors import (default_preprocessor,
                                                         preprocessor_key)
 from deeplearning4j_torch.nn.updater import Sgd, Updater
@@ -131,15 +132,15 @@ class LayerVertex(GraphVertex):
             from torch.utils.checkpoint import checkpoint
 
             def run(p, xx, st, mk, k):
-                return self.layer.forward(p, st, xx, mask=mk, train=True,
-                                          rng=k)
+                return layer_forward(self.layer, p, st, xx, mask=mk,
+                                     train=True, rng=k)
 
             # the port draws no number from torch's RNG, so there is no RNG
             # state to stash for the recompute
             return checkpoint(run, params, x, state, mask, rng,
                               use_reentrant=False, preserve_rng_state=False)
-        return self.layer.forward(params, state, x, mask=mask, train=train,
-                                  rng=rng)
+        return layer_forward(self.layer, params, state, x, mask=mask,
+                             train=train, rng=rng)
 
 
 @register_serializable

@@ -7,8 +7,9 @@ gates combine them (no capacity factor, no dropped tokens), so the result
 is that of ideal sparse routing; the einsums are plain ``torch.einsum``, as
 the JAX layer's are XLA einsums. ``load_balance_coef`` is an L2 pull on the
 gate weights toward uniform routing (``coef · sum Wg²``, its gradient
-``2 · coef · Wg`` in closed form), not the Switch auxiliary. Sharding the
-experts across cards is ROADMAP A11c.
+``2 · coef · Wg`` in closed form), not the Switch auxiliary. Under
+``parallel/model_sharding.py`` each model entry of a mesh computes its own
+E/m experts, their gated outputs summed over ``model``.
 """
 
 from __future__ import annotations

@@ -27,7 +27,8 @@ import torch
 from deeplearning4j_torch.nn.conf.builders import MultiLayerConfiguration
 from deeplearning4j_torch.nn.conf.layers.misc import CenterLossOutputLayer
 from deeplearning4j_torch.nn.conf.preprocessors import preprocessor_key
-from deeplearning4j_torch.nn.network import CARRY_KEYS, Network
+from deeplearning4j_torch.nn.network import (CARRY_KEYS, Network,
+                                              layer_forward)
 from deeplearning4j_torch.nn.regularization import (add_regularization_grads,
                                                    penalty_value)
 from deeplearning4j_torch.optimize.bucketing import bucket_rows, pad_rows
@@ -68,8 +69,8 @@ class MultiLayerNetwork(Network):
             layer_state = dict(state.get(key, {}))
             if carry is not None and key in carry:
                 layer_state.update(carry[key])
-            x, ns = layer.forward(params[key], layer_state, x, mask=mask,
-                                  train=train, rng=k)
+            x, ns = layer_forward(layer, params[key], layer_state, x,
+                                  mask=mask, train=train, rng=k)
             c = {n_: t for n_, t in ns.items() if n_ in CARRY_KEYS}
             if c:
                 new_carry[key] = c
@@ -88,7 +89,7 @@ class MultiLayerNetwork(Network):
             for i, layer in enumerate(self.layers):
                 if i in self.conf.preprocessors:
                     cur = self.conf.preprocessors[i].forward(cur)
-                cur, _ = layer.forward(self.params[str(i)],
+                cur, _ = layer_forward(layer, self.params[str(i)],
                                        self.state.get(str(i), {}), cur,
                                        train=train)
                 acts.append(cur)

@@ -44,6 +44,15 @@ CARRY_KEYS = ("h", "c", "cache_pos", "kcache", "vcache", "kscale", "vscale",
               "kpages", "vpages", "block_table", "kscales", "vscales")
 
 
+def layer_forward(layer, params, state, x, **kw):
+    """``layer.forward``, or the partitioned forward a sharded program
+    attached to the layer's params (``parallel/model_sharding.py``)."""
+    tp = getattr(params, "tp_forward", None)
+    if tp is not None:
+        return tp(layer, state, x, **kw)
+    return layer.forward(params, state, x, **kw)
+
+
 class Network:
     def __init__(self, conf):
         self.conf = conf

@@ -8,7 +8,9 @@ as the new residual (error feedback, so the quantised sum converges).
 (int32 indices and sign bits) and back, on the host as the JAX package
 does. ``EncodingHandler`` carries one worker's residual;
 ``BasicGradientsAccumulator`` averages the workers' messages of a round.
-The exchange of messages between cards is ROADMAP A11c.
+``parallel/parameter_server.py`` sends the messages to a parameter server
+in the JAX package's wire form; exchanging them between processes over a
+process group is ROADMAP A11c part 4.
 """
 
 from __future__ import annotations

@@ -178,14 +178,17 @@ def build_step_core(net, *, grad_transform=None, guarded=False):
     return core
 
 
-def build_fused_step(net, guarded=False):
+def build_fused_step(net, guarded=False, core=None):
     """``fused(params, opt_state, state, base_key, it0, xs, ys, ims, lms) ->
     (params, opt_state, state, losses[K])`` (with ``guarded``, also
     ``skips[K]``): K steps of ``build_step_core`` over ``[K, B, ...]``
     stacks (``ims``/``lms`` may be None), slot k keyed by ``fold_in(
     base_key, it0 + k)`` as the unfused step keys iteration ``it0 + k``;
-    no key where no vertex draws (``net._step_rng``)."""
-    core = build_step_core(net, guarded=guarded)
+    no key where no vertex draws (``net._step_rng``). ``core`` replaces
+    the net's own step core (the sharded program of
+    ``parallel/model_sharding.py`` passes its own)."""
+    if core is None:
+        core = build_step_core(net, guarded=guarded)
 
     def fused(params, opt_state, state, base_key, it0, xs, ys, ims, lms):
         losses, skips = [], []

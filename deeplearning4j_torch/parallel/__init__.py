@@ -1,10 +1,12 @@
 """Parallelism on the devices of one process (port of the
 ``deeplearning4j_tpu.parallel`` package): data-parallel training
 (``ParallelWrapper``), data-parallel inference and evaluation,
-tensor-parallel serving, replica fleets, and the resilience layer. The
-mesh-spanning parts that need several processes or hosts (process groups,
-federation, parameter servers, pipeline and model sharding) are ROADMAP
-A11c and are not exported.
+tensor-parallel serving, replica fleets, the resilience layer, and the
+one-process model parallelism: dp x tp ``ShardedTrainer``, tensor-parallel
+MLP blocks, ring and Ulysses attention, the GPipe ``PipelineTrainer``, the
+Spark facade and the parameter server. The parts that need several
+processes or hosts (the rest of ``elastic.py``, federation, process groups)
+are ROADMAP A11c parts 3-4 and are not exported.
 
 The names resolve on first use (PEP 562): modules outside this package
 import ``parallel.runtime`` and ``parallel.resilience``, which the
@@ -24,6 +26,16 @@ _EXPORTS = {
     "EarlyStoppingParallelTrainer": "early_stopping",
     "CheckpointListener": "elastic",
     "CheckpointStore": "elastic",
+    "ShardedTrainer": "model_sharding",
+    "PipelineTrainer": "pipeline",
+    "ParameterServer": "parameter_server",
+    "ParameterServerClient": "parameter_server",
+    "ParameterServerParallelWrapper": "parameter_server",
+    "ParameterAveragingTrainingMaster": "spark",
+    "SparkDl4jMultiLayer": "spark",
+    "SparkComputationGraph": "spark",
+    "ring_attention": "sequence",
+    "ulysses_attention": "sequence",
     **{name: "resilience" for name in (
         "AdmissionController", "ChaosPolicy", "CircuitBreaker",
         "CircuitOpen", "Deadline", "DeadlineExceeded", "ReplicaKilled",

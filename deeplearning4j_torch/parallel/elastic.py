@@ -4,7 +4,7 @@ the store the health guard's rollback rung restores from.
 
 Checkpoints are the model zip (``utils/model_serializer.py``), so either
 package loads them. ``FaultTolerantTrainer``, the heartbeats and the fault
-injection of the JAX module are ROADMAP A11c.
+injection of the JAX module are ROADMAP A11c part 3.
 """
 
 from __future__ import annotations

@@ -207,6 +207,18 @@ class _FleetRequest:
         self.snapshot = None
 
 
+def _join_loop_threads(server, timeout: float = 5.0) -> None:
+    """Wait (bounded) for a closed server's loop threads to end: a tick
+    thread that outlived the zero-budget close would keep the server
+    alive through its bound ``tick`` after the respawn is READY."""
+    runtime = getattr(server, "_runtime", None)
+    threads = getattr(runtime, "threads", None) or []
+    deadline = time.monotonic() + timeout
+    for t in threads:
+        if t is not threading.current_thread():
+            t.join(max(0.0, deadline - time.monotonic()))
+
+
 class ReplicaFleet:
     """Route ``submit()`` traffic over ``replicas`` independent servers
     built by ``factory(rid)`` — anything with the serving contract
@@ -1258,6 +1270,10 @@ class ReplicaFleet:
             old_server.close(timeout=0.0)
         except Exception:
             pass
+        _join_loop_threads(old_server)
+        # nothing of this frame may keep the corpse (and its KV pool)
+        # alive once the swap below makes the fresh replica visible
+        del old_server
         try:
             server = self._factory(rid)
             if self._warmup is not None:
@@ -1286,5 +1302,6 @@ class ReplicaFleet:
             fresh.failed = old.failed
             fresh.rejected = old.rejected
             self._replicas[rid] = fresh
+            del rep, old
             self._cond.notify_all()
         self._m_restarts.inc()

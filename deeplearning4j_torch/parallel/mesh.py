@@ -11,7 +11,11 @@ over the devices of one JVM). The collectives are written out here:
   consumer's device (exact: no arithmetic);
 - :func:`pmean` sums the replicas of a tree in mesh order on the first
   replica's device, divides by W and writes the same result back to every
-  replica's device.
+  replica's device;
+- :func:`psum` sums per-entry tensors in mesh order and hands the sum to
+  every entry, :func:`all_to_all` splits one dim and concatenates
+  another, :func:`ppermute` shifts tensors around a ring. Each is copies
+  and concatenations plus the sum, so autograd flows through them.
 
 A mesh may name one device more than once: each entry is still a shard
 with tensors of its own (the CPU tests build ``Mesh([cpu] * n, ...)``, the
@@ -20,7 +24,8 @@ counterpart of the JAX tests' eight XLA CPU devices). With
 count the distinct CUDA devices and raise ``MeshGeometryError`` where
 JAX's raise; they never reuse one card quietly.
 ``shard_map_compat`` has no counterpart: each sharded body is written out
-where it runs. Process groups (``torch.distributed``) are ROADMAP A11c.
+where it runs. Process groups (``torch.distributed``: the rest of
+``elastic.py``, then ``federation.py``) are ROADMAP A11c parts 3-4.
 """
 
 from __future__ import annotations
@@ -208,6 +213,47 @@ def pmean(trees: list, devices: list) -> list:
     return [replicate(avg, d) for d in devices]
 
 
+def psum(shards: list, devices=None) -> list:
+    """The sum over one axis of per-entry tensors, the same result on
+    every entry: summed in mesh order on the first entry's device, then
+    copied back to each entry's device (``devices``, default each
+    shard's own). Autograd flows through it: the backward of the sum
+    hands every entry the sum of the cotangents, as JAX's psum
+    transpose."""
+    devices = [s.device for s in shards] if devices is None else devices
+    home = shards[0].device
+    acc = shards[0]
+    for t in shards[1:]:
+        acc = acc + t.to(home)
+    return [acc if torch.device(d) == home else acc.to(d) for d in devices]
+
+
+def all_to_all(shards: list, split_dim: int, concat_dim: int) -> list:
+    """JAX's tiled ``all_to_all`` over one axis of n entries: entry j
+    splits its tensor into n pieces along ``split_dim`` and sends piece i
+    to entry i, which concatenates the pieces it receives along
+    ``concat_dim`` in sender order. A copy between devices and a
+    concatenation, so autograd flows through it (the backward is the
+    inverse all-to-all)."""
+    n = len(shards)
+    pieces = [torch.chunk(s, n, dim=split_dim) for s in shards]
+    for p, s in zip(pieces, shards):
+        if len(p) != n or s.shape[split_dim] % n:
+            raise ValueError(
+                f"dim {split_dim} of shape {tuple(s.shape)} does not split "
+                f"into {n} equal pieces")
+    return [torch.cat([pieces[j][i].to(shards[i].device) for j in range(n)],
+                      dim=concat_dim) for i in range(n)]
+
+
+def ppermute(shards: list, shift: int = 1) -> list:
+    """A ring shift over one axis: entry i's tensor moves to entry
+    (i + shift) % n (JAX's ``ppermute`` with the ring permutation);
+    autograd flows back around the ring."""
+    n = len(shards)
+    return [shards[(i - shift) % n].to(shards[i].device) for i in range(n)]
+
+
 def data_devices(mesh: Mesh) -> list:
     """The devices a batch is split over: one per entry of the ``data``
     axis, in order (the first entry of any other axis; ``NamedSharding(
@@ -292,24 +338,70 @@ class DataSharding:
         return f"DataSharding({[str(d) for d in self.devices]})"
 
 
-class ShardedArray:
-    """An array placed by a :class:`DataSharding`: its pieces, one per
-    device in mesh order. ``np.asarray`` gathers it to the host and
-    :meth:`gather` onto one device."""
+class ShardedTensor:
+    """One logical tensor held as pieces on mesh devices: the distinct
+    pieces (:meth:`parts`, in mesh order) concatenate along ``dim`` to the
+    whole; with ``dim`` None each piece is the whole (replicated).
+    :meth:`gather` assembles it on one device (the written-out
+    all-gather), ``np.asarray`` on the host. Data-parallel batches
+    (:class:`ShardedArray`), the dp x tp trainer's leaves
+    (``model_sharding.py::SpecTensor``) and row-sharded embedding tables
+    (``nlp/distributed.py::RowShardedTable``) are kinds of it."""
 
-    def __init__(self, pieces: list, sharding: DataSharding):
+    def __init__(self, pieces: list, dim: Optional[int] = 0):
         self.pieces = list(pieces)
-        self.sharding = sharding
+        self.dim = dim
+
+    def parts(self) -> list:
+        """The distinct pieces, in order along ``dim``."""
+        return self.pieces
 
     @property
-    def shape(self) -> tuple:
-        first = self.pieces[0]
-        return (sum(p.shape[0] for p in self.pieces),) + tuple(
-            first.shape[1:])
+    def dtype(self) -> torch.dtype:
+        return self.pieces[0].dtype
 
-    def gather(self, device) -> torch.Tensor:
-        return all_gather(self.pieces, device)
+    @property
+    def device(self) -> torch.device:
+        return self.pieces[0].device
+
+    @property
+    def shape(self) -> torch.Size:
+        parts = self.parts()
+        shape = list(parts[0].shape)
+        if self.dim is not None:
+            shape[self.dim] = sum(int(p.shape[self.dim]) for p in parts)
+        return torch.Size(shape)
+
+    def numel(self) -> int:
+        return int(np.prod(self.shape))
+
+    def piece_bytes(self) -> list:
+        """The bytes of each piece, in mesh order."""
+        return [p.numel() * p.element_size() for p in self.pieces]
+
+    def gather(self, device=None) -> torch.Tensor:
+        device = self.device if device is None else device
+        parts = self.parts()
+        if self.dim is None:
+            return parts[0].to(device)
+        return all_gather(parts, device, dim=self.dim)
 
     def __array__(self, dtype=None, copy=None):
-        host = self.gather("cpu").numpy()
+        host = self.gather("cpu").detach()
+        if host.dtype in (torch.bfloat16, torch.float16):
+            host = host.float()
+        host = host.numpy()
         return host if dtype is None else host.astype(dtype)
+
+    def __repr__(self):
+        return (f"{type(self).__name__}(shape={tuple(self.shape)}, "
+                f"pieces={len(self.pieces)})")
+
+
+class ShardedArray(ShardedTensor):
+    """An array placed by a :class:`DataSharding`: one piece per device of
+    its ``data`` axis, in order along axis 0."""
+
+    def __init__(self, pieces: list, sharding: DataSharding):
+        super().__init__(pieces, 0)
+        self.sharding = sharding

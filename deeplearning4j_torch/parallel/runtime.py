@@ -592,12 +592,21 @@ class LoopSupervisor:
         while True:
             self._ping.wait(self._poll_s)
             self._ping.clear()
-            with self._lock:
-                if self._stop:
-                    return
-                entries = list(self._watched.items())
-            for loop, entry in entries:
-                self._scan_one(loop, entry)
+            if not self._scan_all():
+                return
+
+    def _scan_all(self) -> bool:
+        """One scan of the watch table; False once shut down. The copy of
+        the table lives in this frame only: held across the wait it would
+        keep every loop it saw (and, through ``on_death``, its owner and
+        the owner's KV pool) alive after the owner was closed."""
+        with self._lock:
+            if self._stop:
+                return False
+            entries = list(self._watched.items())
+        for loop, entry in entries:
+            self._scan_one(loop, entry)
+        return True
 
     def _scan_one(self, loop: ServingLoop, entry: dict) -> None:
         exc = loop.crashed

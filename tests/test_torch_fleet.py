@@ -281,6 +281,81 @@ def test_killed_replica_is_released_after_respawn(lm):
         assert old() is None
 
 
+class _HeldWait:
+    """Stands in for the loop supervisor's ``_ping`` event: once armed,
+    the next ``wait`` parks the supervisor thread (right after a scan)
+    until released."""
+
+    def __init__(self, inner):
+        import threading
+        self.inner = inner
+        self.armed = False
+        self.parked = threading.Event()
+        self.release = threading.Event()
+
+    def wait(self, timeout=None):
+        if self.armed:
+            self.armed = False
+            self.parked.set()
+            self.release.wait(60)
+        return self.inner.wait(timeout)
+
+    def set(self):
+        self.inner.set()
+
+    def clear(self):
+        self.inner.clear()
+
+
+@pytest.mark.parametrize("held", ["supervisor", "respawn"])
+def test_killed_replica_is_released_while_monitors_are_held(lm, held):
+    """The released-after-respawn case made certain: the loop supervisor
+    is parked in its wait right after a scan that saw the doomed replica's
+    loop, or the fleet monitor is parked just after ``_respawn`` swapped
+    the fresh replica in. Neither thread's frames may keep the killed
+    server alive once READY is reported."""
+    import gc
+    import threading
+    import weakref
+
+    from deeplearning4j_torch.parallel import runtime as trt
+
+    sup = trt.supervisor()
+    with fleet_of(_gen_factory(lm[1]), restart_backoff_s=0.02) as fl:
+        fl.submit(np.array([1, 2, 3], np.int64), 3).result(timeout=60)
+        old = weakref.ref(fl._replicas[0].server)
+        held_wait = gate = None
+        if held == "supervisor":
+            held_wait = _HeldWait(sup._ping)
+            sup._ping = held_wait
+            held_wait.armed = True
+            assert held_wait.parked.wait(30)
+        else:
+            gate = threading.Event()
+            inc = fl._m_restarts.inc
+
+            def held_inc(*a, **k):
+                gate.wait(60)
+                return inc(*a, **k)
+
+            fl._m_restarts.inc = held_inc
+        try:
+            assert fl.kill_replica(0)
+            assert _wait_until(
+                lambda: fl.stats()["replicas"][0]["state"] == READY
+                and fl.stats()["replicas"][0]["restarts"] >= 1)
+            gc.collect()
+            assert old() is None
+        finally:
+            if held_wait is not None:
+                held_wait.release.set()
+                sup._ping = held_wait.inner
+            if gate is not None:
+                gate.set()
+        assert fl.submit(np.array([4, 5], np.int64), 2).result(
+            timeout=60) is not None
+
+
 def test_retire_drains_for_good(lm):
     with fleet_of(_gen_factory(lm[1])) as fl:
         assert fl.retire_replica(0)

@@ -1,8 +1,8 @@
 """Port parity: the retrieval stores (the port's ``nearestneighbors/
 {brute,index,hnsw}.py``) against the JAX package's, on the CPU — the
 counterpart of ``tests/test_knn_serve.py`` without its mesh classes
-(``TestMeshSharded``, ``TestShardedIVF``: the port refuses ``mesh=`` and
-``kmeans="sharded"`` naming ROADMAP A9, checked here).
+(``TestMeshSharded``, ``TestShardedIVF``: ``tests/test_torch_sharded_knn.py``
+holds those).
 
 Tolerances and the tie rule:
 
@@ -172,10 +172,21 @@ def test_ctor_validation_and_a9_refusals():
     for bad in (0, -3):
         with pytest.raises(ValueError, match="nprobe must be >= 1"):
             EmbeddingIndex(pts, partitions=8, nprobe=bad, **idx_kw())
-    for kw in (dict(mesh=object()), dict(partitions=8, kmeans="sharded"),
-               dict(mesh=object(), kmeans="sharded")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    # the mesh paths are ported (they named ROADMAP A9 before): a mesh
+    # of another type is refused, sharded k-means needs a mesh (JAX's
+    # ValueError), and a host mesh builds each store
+    from deeplearning4j_torch.parallel.mesh import Mesh
+
+    for kw in (dict(mesh=object()), dict(mesh=object(), kmeans="sharded")):
+        with pytest.raises(TypeError, match="Mesh"):
             EmbeddingIndex(pts, **idx_kw(**kw))
+    with pytest.raises(ValueError, match="sharded"):
+        EmbeddingIndex(pts, **idx_kw(partitions=8, kmeans="sharded"))
+    mesh = Mesh([torch.device("cpu")] * 2, ("data",))
+    for kw, variant in ((dict(), "aux"), (dict(store="int8"), "int8"),
+                        (dict(partitions=4, kmeans="sharded"), "ivf")):
+        with EmbeddingIndex(pts, mesh=mesh, **kw) as index:
+            assert index.stats()["variant"] == variant
 
 
 def test_entry_points_run_on_cuda_by_default(monkeypatch):

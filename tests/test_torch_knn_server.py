@@ -14,7 +14,7 @@
   does, bit for bit.
 - ``/encode`` with ``"add": true`` grows the store; ``/status``,
   ``/stats`` (keys) and the ``/metrics`` families are JAX's.
-- ``mesh=`` raises naming ROADMAP A9; every backend resolves CUDA by
+- ``mesh=`` serves a store sharded over a host mesh; every backend resolves CUDA by
   default.
 
 Every server is stopped by its ``with``; every HTTP call has a timeout.
@@ -205,10 +205,29 @@ def test_expired_deadline_maps_to_504_as_jax():
 
 
 def test_mesh_refused_and_cuda_by_default(monkeypatch):
+    """A mesh of another type is refused (``mesh=`` named ROADMAP A9
+    before it was ported); a host mesh serves a sharded store whose
+    answers equal the unsharded server's."""
+    from deeplearning4j_torch.parallel.mesh import Mesh
+
     pts = corpus(10, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(TypeError, match="Mesh"):
         NearestNeighborsServer(pts, backend="index", mesh=object(),
                                device="cpu")
+    mesh = Mesh([torch.device("cpu")] * 2, ("data",))
+    q = {"k": 3, "points": (pts[[1, 4]] + 0.01).tolist()}
+    with NearestNeighborsServer(pts, port=0, backend="index",
+                                mesh=mesh) as sharded, \
+            NearestNeighborsServer(pts, port=0, backend="index",
+                                   device="cpu") as plain:
+        got = post(f"http://127.0.0.1:{sharded.port}", "/knn", q)
+        want = post(f"http://127.0.0.1:{plain.port}", "/knn", q)
+        assert sharded.index.stats()["variant"] == "aux"
+    assert got[0] == want[0] == 200
+    dg, ig = answer(got[1])
+    dw, iw = answer(want[1])
+    assert np.array_equal(ig, iw)
+    np.testing.assert_allclose(dg, dw, rtol=1e-5, atol=1e-5)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for backend in BACKENDS:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -789,9 +789,9 @@ def test_fabric_entry_points_run_on_cuda_by_default(no_cuda):
 
 def test_fabric_parts_not_ported_raise_naming_their_item(tmp_path):
     """The mesh-sharded retrieval stores (``EmbeddingIndex(mesh=)``,
-    ``kmeans="sharded"``, ``NearestNeighborsServer(mesh=)``) name A9;
-    ``mesh=``, ``workers > 1`` and ``tp > 1`` are ported (they named A9
-    before): a mesh of another type is refused, ``workers`` and ``tp``
+    ``kmeans="sharded"``, ``NearestNeighborsServer(mesh=)``), ``mesh=``,
+    ``workers > 1`` and ``tp > 1`` are ported (they named A9 before): a
+    mesh of another type is refused, ``workers`` and ``tp``
     count the CUDA devices and never reuse the host or one card, and a
     host mesh serves; ``/import`` is ported and returns a model id."""
     from deeplearning4j_torch.nearestneighbors import NearestNeighborsServer
@@ -815,15 +815,22 @@ def test_fabric_parts_not_ported_raise_naming_their_item(tmp_path):
     with pytest.raises(MeshGeometryError, match="exceeds"):
         GenerationServer(TransformerLM(**TINY).init(device="cpu"), 11,
                          tp=ndev + 2, device="cpu")
-    pts = np.zeros((4, 2), np.float32)
+    pts = np.arange(8, dtype=np.float32).reshape(4, 2)
     for make in (lambda: EmbeddingIndex(pts, mesh=object(), device="cpu"),
-                 lambda: EmbeddingIndex(pts, partitions=2, kmeans="sharded",
-                                        device="cpu"),
                  lambda: NearestNeighborsServer(pts, backend="index",
                                                 mesh=object(),
                                                 device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        with pytest.raises(TypeError, match="Mesh"):
             make()
+    with pytest.raises(ValueError, match="requires a mesh"):
+        EmbeddingIndex(pts, partitions=2, kmeans="sharded", device="cpu")
+    host2 = Mesh([cpu] * 2, ("data",))
+    with EmbeddingIndex(pts, partitions=2, kmeans="sharded",
+                        mesh=host2) as index:
+        assert index.stats()["probe_local"] is True
+        assert index.search_batch_arrays(pts[:1], 1)[1].tolist() == [[0]]
+    with NearestNeighborsServer(pts, backend="index", mesh=host2) as srv:
+        assert srv.index.stats()["variant"] == "aux"
     # /import is ported (it named ROADMAP A12 before): on the CPU it
     # returns a model id whose net lives there
     pytest.importorskip("h5py")
