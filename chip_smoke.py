@@ -231,7 +231,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    under a mask): a GravesBidirectionalLSTM -> LastTimeStep -> OutputLayer
    MultiLayerNetwork and an LSTM -> LastTimeStepVertex ->
    DuplicateToTimeSeriesVertex -> RnnOutputLayer graph, each trained by
-   ``EarlyStoppingTrainer`` (MaxEpochs 5, ScoreImprovement 2) on the card
+   ``EarlyStoppingTrainer`` (MaxEpochs 3, ScoreImprovement 2) on the card
    and the CPU (the same termination and best epoch, scores within rtol
    1e-4), their best models' ``Evaluation``, ``EvaluationBinary``,
    ``ROCMultiClass`` and ``RegressionEvaluation`` card against CPU except
@@ -302,7 +302,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``infer_vector`` card against CPU from the same state; a DM run card
    against CPU. 14c: GloVe on 14a's first 5,000 sentences: ``fit``, then
    one epoch card against CPU (the permutation bitwise). 14d: DeepWalk
-   (vector 128, window 10, 5 walks of 40 a vertex) on a 2,000-vertex
+   (vector 128, window 10, 2 walks of 40 a vertex) on a 2,000-vertex
    two-community graph: same-community similarity above cross. 14e: a
    Keras-1 MNIST CNN at LeNet's widths and a residual / concat functional
    model imported onto the card (card against CPU and a numpy forward),
@@ -384,6 +384,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    entries against the unsharded fit (words/s of both),
    ``ParameterServerParallelWrapper`` on the phase-7 model: 16 pushes from
    2 workers, the score falls, the pulled params are the net's.
+18. processes on one host. 18a: phase 7's model (phase 5's weights, six
+   seeded [16, 128] batches an epoch, two epochs) trained by a
+   ``FaultTolerantTrainer`` (a checkpoint every 4 iterations) in a child
+   process that ``os._exit(137)``s after iteration 5; the same command
+   resumes mid-epoch from its checkpoint; an
+   uninterrupted run in a fresh directory runs beside the first: equal
+   iteration counts, each batch trained once, weights within phase 7's
+   1e-4 (bitwise said), K1/K3/K4 launched in every child; a
+   ``FailureDetector`` sees the first child's ``Heartbeat`` advance while
+   it trains and age out after the kill. 18b: two ``spawn_host``
+   processes, each serving phase 9's fleet (``fed_fleet``: phase 1's
+   kernel build loaded, never rebuilt) on the card, behind one
+   ``FleetFederation``: phase 9's traffic, every stream equal to phase
+   5's/5b's, both hosts dispatched, tokens/s beside 9a's in-process
+   fleet and beside the same traffic through one host. 18c: two more hosts with a snapshot every step, one host
+   SIGKILLed once the router holds its published snapshots: every stream
+   equal, handoff resumes, a death, degraded mode, a balanced ledger, none
+   lost, one scrape with both hosts' families. Each child process counts
+   its own launches (a host's reach the router in its stats RPC), and
+   each host must launch K2 on both routes.
 
 Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
 calls (``ms``: the wrapper's host work included, which sets the pace once
@@ -411,8 +431,10 @@ K2 nowhere; the counters are also read between its parts), phase 16
 (several devices: K2 on head shards, both routes; K1, K3 and K4 in the
 data-parallel forwards and training) and phase 17 (sharded stores and
 model parallelism: K1, K3 and K4 on the dp x tp trainer's head shards,
-K2 nowhere). The launch
-counters are zeroed just before each of the nineteen and read just
+K2 nowhere) and phase 18 (processes on one host: K1, K3 and K4 in 18a's
+trainer processes, both routes of K2 in every host process of 18b and
+18c, each child counting its own). The launch
+counters are zeroed just before each of the twenty and read just
 after (phase 6's and the reference servers' and forwards' launches are
 not counted); every kernel must have run on the main path, K2's chunk
 route and its merge pass included, and each path but phases 8, 11, 12,
@@ -438,11 +460,13 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -1360,7 +1384,6 @@ def phase_zip(net, greedy, card):
     its greedy serve of the phase-5 requests token for token phase 5's
     (``greedy``). Returns (the loaded net, measurements)."""
     import tempfile
-    import zipfile
 
     from deeplearning4j_torch.utils.model_serializer import (load_model,
                                                              save_model)
@@ -4678,8 +4701,9 @@ LSTM_CHAR = dict(batch=32, seq=1000)
 LSTM_NAN_SEGMENT = 7
 #: steady tokens/s: the median of LSTM_WINDOWS marginal windows, each the
 #: time of 2n steps less that of n (bench.py's MarginalTimer), n steps
-#: (bench.py takes five windows; three keep the script within its limit)
-LSTM_WINDOWS = 3
+#: (bench.py takes five windows; two keep the script within its limit
+#: once phase 18 runs, three before)
+LSTM_WINDOWS = 2
 LSTM_WINDOW_STEPS = 10
 #: phase 11b: streaming and generation at batch 8 from the char-trained net
 LSTM_STREAM = dict(batch=8, prompt=50, tokens=200, chunk=7)
@@ -4690,6 +4714,9 @@ LSTM_SAMPLED = dict(temperature=0.8, top_k=40, seed=7)
 #: a mask; a bidirectional LSTM of 10 units each way, batches of 30
 UCI = dict(classes=6, steps=60, train=450, test=150, batch=30, hidden=10,
            min_len=30)
+#: 11c's early stopping ends after this many epochs at most (5 before
+#: phase 18 needed the time)
+UCI_MAX_EPOCHS = 3
 #: 11c fails when the card's and the CPU's best models' class
 #: probabilities differ by more than this anywhere
 UCI_SPREAD_CAP = 1e-3
@@ -5247,7 +5274,7 @@ def uci_compare(tag, card_p, cpu_p, y, m):
 
 def phase_uci(card):
     """Phase 11c: the masked sequence classifier in both forms, trained by
-    ``EarlyStoppingTrainer`` (MaxEpochs 5, ScoreImprovement 2, the test
+    ``EarlyStoppingTrainer`` (MaxEpochs 3, ScoreImprovement 2, the test
     loss by ``DataSetLossCalculator``, ``InMemoryModelSaver``) on the card
     and on the CPU from the same numpy-seeded weights: the termination
     reason and details and the best epoch equal, every epoch's score
@@ -5275,7 +5302,7 @@ def phase_uci(card):
             params_from_jax(params, net)
             cfg = EarlyStoppingConfiguration(
                 epoch_termination_conditions=[
-                    MaxEpochsTerminationCondition(5),
+                    MaxEpochsTerminationCondition(UCI_MAX_EPOCHS),
                     ScoreImprovementEpochTerminationCondition(2)],
                 score_calculator=DataSetLossCalculator(
                     uci_sets(form, test)),
@@ -5350,10 +5377,10 @@ RESNET_TRAIN_FLOP_PER_IMG = 6.6e9
 RESNET_FIT_BATCHES = 8            # two fused blocks at K = 4
 RESNET_FALL_STEPS = 20
 #: marginal windows of ``do_step`` (bench.py's ``MarginalTimer``): each the
-#: time of 2n steps less that of n (bench.py takes five; three keep the
-#: script within its limit)
-GRAPH_WINDOWS = 3
-GRAPH_WINDOW_STEPS = 4
+#: time of 2n steps less that of n (bench.py takes five; two keep the
+#: script within its limit once phase 18 runs), n = 2 steps (4 before)
+GRAPH_WINDOWS = 2
+GRAPH_WINDOW_STEPS = 2
 #: 12b: the other graph models at their zoo input shapes; timed batch
 GRAPH_ZOO = [("GoogLeNet", (224, 224, 3)), ("FaceNetNN4Small2", (96, 96, 3)),
              ("InceptionResNetV1", (160, 160, 3))]
@@ -6462,19 +6489,21 @@ def phase_pretrain(card, out_dir=None):
 
 # ---------------------------------------------------------------- phase 14
 #: 14a: ``bench.py::bench_word2vec``'s corpus and model (not cut); repeats
-#: of the timed fits (the bench takes three; fewer keep the phase short)
+#: of the timed fits (the bench takes three; fewer keep the phase short:
+#: one of the native loop's since phase 18 runs, two before)
 W2V = dict(sentences=50_000, words=20, vocab=30_000, zipf=1.3, seed=3,
            layer=128, window=5, negative=5, batch=8192, min_freq=2,
-           repeats=2, block_batches=80, defaults_sentences=5_000)
+           repeats=2, native_repeats=1, block_batches=80,
+           defaults_sentences=5_000)
 #: 14b: ``bench.py::bench_doc2vec``'s documents and DBOW model
 D2V = dict(docs=4_000, words=40, vocab=5_000, seed=5, layer=100, window=5,
            negative=5, min_freq=2, model_seed=11, dm_docs=500)
 GLOVE = dict(sentences=5_000, epochs=3)
 #: 14d: DeepWalk at the paper's vector size and window and the class's
-#: walk length, 5 walks a vertex (the class takes 10, the paper 80: cut to
-#: keep the script within its limit)
+#: walk length, 2 walks a vertex (the class takes 10, the paper 80: cut to
+#: keep the script within its limit, to 5 before phase 18, then to 2)
 DEEPWALK = dict(vertices=2_000, vector=128, window=10, walk_length=40,
-                walks=5, within=5, bridges=100, seed=3)
+                walks=2, within=5, bridges=100, seed=3)
 #: 14e: a Keras-1 MNIST CNN at LeNet's widths
 KERAS_LENET = dict(conv=(20, 50), kernel=5, dense=500, labels=10, batch=256)
 #: tables after a block or an epoch from the same state, card against CPU
@@ -6626,10 +6655,10 @@ def phase_word2vec(card, dev):
     check(native.skipgram_native_available() and wn._use_native_backend(),
           "14a: the native library did not build, or 'native' did not "
           "take it")
-    native_s = [fresh_fit(wn) for _ in range(W2V["repeats"])]
+    native_s = [fresh_fit(wn) for _ in range(W2V["native_repeats"])]
     check(isinstance(wn.syn0, np.ndarray) and np.isfinite(wn.syn0).all(),
           "14a: 'native' did not train in the native loop")
-    lap(f"{W2V['repeats']} native fits")
+    lap(f"{W2V['native_repeats']} native fit(s)")
     sub = sents[:W2V["defaults_sentences"]]
     auto = Word2Vec(device=dev, **kw).fit(sub)
     check(auto.backend == "auto" and not auto._use_native_backend()
@@ -9026,10 +9055,570 @@ def phase_model_parallelism(card):
     return out
 
 
+# ---------------------------------------------------------------- phase 18
+#: 18a: phase 7's model and batch size in a ``FaultTolerantTrainer`` child
+#: process: ``batches`` seeded batches an epoch, ``epochs`` epochs, a
+#: checkpoint every ``frequency`` iterations (a checkpoint of the model and
+#: its Adam state takes ~1 s to write, so every 4th, not JAX's test's 2nd),
+#: run 1 killed with ``os._exit(137)`` once iteration ``crash_at`` is done
+#: (so run 2 resumes mid-epoch); heartbeats every ``beat_s``, aged out by a
+#: detector of ``stale_s``
+ELASTIC18 = dict(batches=6, epochs=2, frequency=4, crash_at=5, beat_s=0.05,
+                 stale_s=0.5)
+#: 18c: the crash drill's hosts publish a snapshot every step, one step a
+#: dispatch, each dispatch stalled ``stall_s`` by a seeded ChaosPolicy so
+#: the kill lands mid-stream
+DRILL18 = dict(snapshot_every=1, steps_per_dispatch=1, stall_s=0.005)
+#: 18b and 18c: host processes behind one router, each serving phase 9's
+#: fleet (``FLEET_REPLICAS`` replicas)
+FED_HOSTS = 2
+#: phase 18's device and the module its child processes import: the card
+#: and this script (a CPU rehearsal names the CPU and a wrapper module)
+DEVICE18 = "cuda"
+MODULE18 = "chip_smoke"
+#: the K1/K3/K4 and K2 counters a child reports
+PATH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_attn",
+                "paged_attn_chunk", "paged_attn_merge")
+
+
+def load_built_kernels():
+    """Load the extension phase 1 built into ``kernels/build/`` in a child
+    process, and raise if loading rebuilt any object of it. Returns the
+    seconds the load took."""
+    from deeplearning4j_torch import kernels
+
+    def objects():
+        if not os.path.isdir(kernels.BUILD_DIR):
+            return {}
+        return {f: os.stat(os.path.join(kernels.BUILD_DIR, f)).st_mtime_ns
+                for f in os.listdir(kernels.BUILD_DIR)
+                if f.endswith((".so", ".o"))}
+
+    before = objects()
+    t0 = time.perf_counter()
+    kernels.load()
+    load_s = time.perf_counter() - t0
+    after = objects()
+    if not before or after != before:
+        raise RuntimeError(
+            f"a child process rebuilt the kernels instead of loading phase "
+            f"1's build (objects before {sorted(before)}, after "
+            f"{sorted(after)})")
+    return load_s
+
+
+def elastic_batches():
+    """18a's stream: ``ELASTIC18["batches"]`` phase-7-sized batches (one-hot
+    tokens and next-token labels, [16, 128, 256]) from RandomState(17)."""
+    from deeplearning4j_torch.datasets.dataset import DataSet
+
+    rs = np.random.RandomState(17)
+    V, T = SLICE["num_labels"], SLICE["max_length"]
+    eye = np.eye(V, dtype=np.float32)
+    out = []
+    for _ in range(ELASTIC18["batches"]):
+        tok = rs.randint(0, V, (TRAIN_BATCH, T + 1))
+        out.append(DataSet(eye[tok[:, :-1]], eye[tok[:, 1:]]))
+    return out
+
+
+def elastic_child(directory, crash_at, name, gate="now"):
+    """One 18a run, in its own process: phase 7's model (phase 5's
+    weights) trained by a ``FaultTolerantTrainer`` over ``elastic_batches``
+    with checkpoints in ``directory/ckpt``, beating into
+    ``directory/../hb/<name>.heartbeat``. ``crash_at > 0`` ends the process
+    with ``os._exit(137)`` after that iteration. ``gate="wait"`` sets up
+    (imports, the card, the kernels, the net) and then waits for a line on
+    stdin before it looks at the checkpoints. Prints one ``ELASTIC`` JSON
+    line (the process's own kernel launches included) and saves the final
+    weights to ``directory/final.npy``."""
+    from deeplearning4j_torch import kernels
+    from deeplearning4j_torch.datasets.iterators import ListDataSetIterator
+    from deeplearning4j_torch.models.zoo import TransformerLM
+    from deeplearning4j_torch.optimize.listeners import TrainingListener
+    from deeplearning4j_torch.parallel.elastic import (
+        CheckpointStore, FaultTolerantTrainer, Heartbeat)
+    from deeplearning4j_torch.utils.convert import params_from_jax
+
+    crash_at = int(crash_at)
+    t_start = time.perf_counter()
+    load_s = load_built_kernels()
+    net = TransformerLM(**SLICE).init(device=DEVICE18)
+    params_from_jax(numpy_params(net, seed=0), net)
+    batches = elastic_batches()
+    if gate == "wait":
+        sys.stdin.readline()
+    hb_dir = os.path.join(os.path.dirname(directory), "hb")
+    os.makedirs(hb_dir, exist_ok=True)
+    beat = Heartbeat(os.path.join(hb_dir, f"{name}.heartbeat"),
+                     interval=ELASTIC18["beat_s"]).start()
+    store = CheckpointStore(os.path.join(directory, "ckpt"), keep=3)
+    latest = store.latest()
+    resumed_from = None
+    if latest is not None:
+        with zipfile.ZipFile(latest) as zf:
+            resumed_from = dict(json.loads(zf.read("elastic.json")),
+                                iteration=int(os.path.basename(latest)[5:15]))
+    report = dict(run=name, crash_at=crash_at, load_s=load_s,
+                  resumed_from=resumed_from, trained=0)
+
+    def emit(**kw):
+        torch.cuda.synchronize()
+        report.update(kw, launches={k: kernels.LAUNCHES[k]
+                                    for k in PATH_KERNELS},
+                      wall_s=time.perf_counter() - t_start)
+        print("ELASTIC " + json.dumps(report), flush=True)
+
+    class Steps(TrainingListener):
+        def iteration_done(self, model, iteration):
+            report["trained"] += 1
+            if iteration == crash_at:
+                emit(killed_at=iteration)
+                os._exit(137)   # a simulated SIGKILL: no cleanup
+
+    net.set_listeners(Steps())
+    trainer = FaultTolerantTrainer(net, store,
+                                   frequency=ELASTIC18["frequency"])
+    t0 = time.perf_counter()
+    final = trainer.run(lambda: ListDataSetIterator(list(batches),
+                                                    batch_size=TRAIN_BATCH),
+                        epochs=ELASTIC18["epochs"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    flat = np.asarray(final.params_flat(), np.float32)
+    np.save(os.path.join(directory, "final.npy"), flat)
+    beat.stop()
+    emit(iteration=final.iteration, train_s=train_s,
+         finite=bool(np.isfinite(flat).all()))
+    return 0
+
+
+def start_elastic(tmp, run, crash_at, gate="now"):
+    """Start one 18a run as ``python3 -c`` in its own process (no fork of
+    this CUDA process); ``gate="wait"`` holds it, set up, until a line
+    reaches its stdin."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    directory = os.path.join(tmp, "elastic", "run3" if run == 3 else "run")
+    os.makedirs(directory, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root] + sys.path))
+    code = (f"import sys, {MODULE18} as c; "
+            "sys.exit(c.elastic_child(*sys.argv[1:]))")
+    return subprocess.Popen(
+        [sys.executable, "-c", code, directory, str(crash_at), f"run{run}",
+         gate], cwd=root, env=env, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def elastic_report(proc, what, rc):
+    out, err = proc.communicate(timeout=300)
+    check(proc.returncode == rc,
+          f"{what}: exit code {proc.returncode}, expected {rc}; stderr "
+          f"tail: {err[-2000:]}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("ELASTIC ")]
+    check(len(lines) == 1, f"{what}: no ELASTIC line; stdout tail "
+                           f"{out[-2000:]} stderr tail {err[-2000:]}")
+    return json.loads(lines[0][len("ELASTIC "):])
+
+
+def elastic_runs(tmp, procs):
+    """Watch run 1 (``procs[0]``) beat and die, then let run 2
+    (``procs[1]``, waiting at its gate) go, and collect all three reports,
+    with how often run 1's heartbeat was seen advancing and how long after
+    its exit it aged out."""
+    from deeplearning4j_torch.parallel.elastic import FailureDetector
+
+    p1, p2, p3 = procs
+    det = FailureDetector(os.path.join(tmp, "elastic", "hb"),
+                          timeout=ELASTIC18["stale_s"])
+    fresh_scans = 0
+    last_ts = None
+    while p1.poll() is None:
+        info = det.workers().get("run1")
+        dead = det.dead_workers()
+        if info and "run1" not in dead and info["ts"] != last_ts:
+            fresh_scans += 1
+            last_ts = info["ts"]
+        time.sleep(0.02)
+    r1 = elastic_report(p1, "18a run 1", 137)
+    t_dead = time.perf_counter()
+    wait_for(lambda: "run1" in det.dead_workers(), 10,
+             "run 1's heartbeat to age out after the kill")
+    aged_s = time.perf_counter() - t_dead
+    check(fresh_scans >= 2, f"18a: run 1's heartbeat was seen advancing "
+                            f"{fresh_scans} times while it trained")
+    p2.stdin.write("go\n")
+    p2.stdin.flush()
+    r2 = elastic_report(p2, "18a run 2", 0)
+    r3 = elastic_report(p3, "18a run 3", 0)
+    return r1, r2, r3, fresh_scans, aged_s
+
+
+def phase_elastic(tmp, card):
+    """18a: run 1 dies with ``os._exit(137)`` after iteration
+    ``crash_at``; run 2, the same command (started beside it and held at
+    its gate until then), resumes from its checkpoint;
+    run 3 trains uninterrupted in a fresh directory (beside run 1). Runs 2
+    and 3 end at the same iteration, run 2 trains only the batches after
+    its checkpoint, and their weights agree at phase 7's tolerance
+    (bitwise or not, said). A ``FailureDetector`` sees run 1's heartbeat
+    alive while it trains and aged out after the kill."""
+    t0 = time.perf_counter()
+    # run 2 starts with the others and waits, set up, for run 1's death:
+    # a process takes ~10 s to reach the card beside the others
+    procs = [start_elastic(tmp, 1, ELASTIC18["crash_at"]),
+             start_elastic(tmp, 2, 0, gate="wait"),
+             start_elastic(tmp, 3, 0)]
+    try:
+        r1, r2, r3, fresh_scans, aged_s = elastic_runs(tmp, procs)
+    finally:
+        for proc in procs:     # none outlives a failed check
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    total = ELASTIC18["batches"] * ELASTIC18["epochs"]
+    # the newest periodic checkpoint before the kill
+    resume_at = (ELASTIC18["crash_at"] // ELASTIC18["frequency"]
+                 * ELASTIC18["frequency"])
+    resumed = r2["resumed_from"] or {}
+    check(r1["trained"] == ELASTIC18["crash_at"]
+          and r3["trained"] == total and r3["iteration"] == total
+          and r2["iteration"] == total
+          and resumed.get("iteration", -1) + r2["trained"] == total
+          and resumed.get("iteration") == resume_at,
+          f"18a: iterations: run 1 trained {r1['trained']}, run 2 resumed "
+          f"from {resumed} and trained {r2['trained']} to "
+          f"{r2['iteration']}, run 3 trained {r3['trained']} to "
+          f"{r3['iteration']} (expected {total}, each batch once)")
+    w2 = np.load(os.path.join(tmp, "elastic", "run", "final.npy"))
+    w3 = np.load(os.path.join(tmp, "elastic", "run3", "final.npy"))
+    bitwise = bool(np.array_equal(w2, w3))
+    rel = float(np.abs(w2 - w3).max() / np.abs(w3).max())
+    check(r2["finite"] and r3["finite"] and rel <= 1e-4,
+          f"18a: resumed weights vs uninterrupted max|err|/max|w| "
+          f"{rel:.3g} > 1e-4")
+    for r in (r1, r2, r3):
+        check(all(r["launches"][k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                                 "flash_bwd_dkv")),
+              f"18a {r['run']}: K1/K3/K4 did not all launch in the child: "
+              f"{r['launches']}")
+    wall = time.perf_counter() - t0
+    log(f"  18a: run 1 killed after iteration {r1['killed_at']} "
+        f"(heartbeat seen advancing {fresh_scans} times, aged out "
+        f"{aged_s:.2f} s after the exit); run 2 resumed at iteration "
+        f"{resumed.get('iteration')} (epoch {resumed.get('epoch')}, batch "
+        f"{resumed.get('batch_in_epoch')}) and trained {r2['trained']} "
+        f"steps to {r2['iteration']}; run 3 {r3['iteration']}; weights "
+        f"bitwise {bitwise}, max rel {rel:.3g}; child K1/K3/K4 launches "
+        f"{[r['launches']['flash_fwd'] for r in (r1, r2, r3)]}/"
+        f"{[r['launches']['flash_bwd_dq'] for r in (r1, r2, r3)]}/"
+        f"{[r['launches']['flash_bwd_dkv'] for r in (r1, r2, r3)]}; "
+        f"kernel load {[round(r['load_s'], 2) for r in (r1, r2, r3)]} s; "
+        f"{wall:.1f} s; [{card}]")
+    return dict(runs=dict(run1=r1, run2=r2, run3=r3), bitwise=bitwise,
+                max_rel_err=rel, heartbeat_fresh_scans=fresh_scans,
+                heartbeat_aged_out_s=aged_s, wall_s=wall)
+
+
+def fed_fleet(*, device, snapshot_every=0,
+              steps_per_dispatch=SERVER["steps_per_dispatch"], stall_s=0.0):
+    """Phase 18's host builder (``chip_smoke:fed_fleet`` in a
+    ``spawn_host`` spec): phase 9's fleet, ``FLEET_REPLICAS`` phase-5
+    servers of the slice model on phase 5's weights, on the card; it
+    loads phase 1's kernel build and never rebuilds it. The fleet's
+    ``stats()`` (which the router's stats RPC returns) carries this
+    process's kernel launches and its extension's load time."""
+    from deeplearning4j_torch import kernels
+    from deeplearning4j_torch.models.zoo import TransformerLM
+    from deeplearning4j_torch.parallel.fleet import ReplicaFleet
+    from deeplearning4j_torch.parallel.generation import GenerationServer
+    from deeplearning4j_torch.parallel.resilience import ChaosPolicy
+    from deeplearning4j_torch.utils.convert import params_from_jax
+
+    if torch.device(device).type != torch.device(DEVICE18).type:
+        raise RuntimeError(f"phase 18's hosts serve on {DEVICE18}, not "
+                           f"{device}")
+    load_s = load_built_kernels()
+    net = TransformerLM(**SLICE).init(device=device)
+    params_from_jax(numpy_params(net, seed=0), net)
+
+    class CountedFleet(ReplicaFleet):
+        def stats(self):
+            st = super().stats()
+            st["kernel_launches"] = {k: kernels.LAUNCHES[k]
+                                     for k in PATH_KERNELS}
+            st["kernel_load_s"] = load_s
+            return st
+
+    def factory(rid):
+        chaos = (ChaosPolicy(seed=1000 + rid, stall_rate=1.0,
+                             stall_s=stall_s) if stall_s else None)
+        return GenerationServer(
+            net, SLICE["num_labels"], device=device, chaos=chaos,
+            snapshot_every=snapshot_every,
+            **dict(SERVER, steps_per_dispatch=steps_per_dispatch))
+
+    return CountedFleet(factory, replicas=FLEET_REPLICAS)
+
+
+def spawn_hosts(tmp, prefix, **builder_kwargs):
+    """Start ``FED_HOSTS`` host processes (``spawn_host`` on the card, the
+    builder ``fed_fleet``) without waiting: one future a host."""
+    from concurrent.futures import ThreadPoolExecutor
+    from deeplearning4j_torch.parallel.federation import spawn_host
+
+    hb = os.path.join(tmp, f"hb_{prefix}")
+    spec = {"heartbeat_dir": hb, "heartbeat_interval": 0.05,
+            "builder": f"{MODULE18}:fed_fleet",
+            "builder_kwargs": builder_kwargs}
+    pool = ThreadPoolExecutor(max_workers=FED_HOSTS)
+    t0 = time.perf_counter()
+
+    def one(i):
+        hh = spawn_host(dict(spec, hid=f"{prefix}{i}"), timeout=240,
+                        device=DEVICE18)
+        return hh, time.perf_counter() - t0
+
+    futs = [pool.submit(one, i) for i in range(FED_HOSTS)]
+    pool.shutdown(wait=False)
+    return hb, futs
+
+
+def host_k2(launches):
+    """A host's K2 launches by route (decode: every K2 call but the chunk
+    route's)."""
+    return dict(decode=launches["paged_attn"] - launches["paged_attn_chunk"],
+                chunk=launches["paged_attn_chunk"])
+
+
+def check_routes(tag, per_host):
+    check(all(v["decode"] > 0 and v["chunk"] > 0
+              for v in per_host.values()),
+          f"{tag}: K2 did not launch on both routes in every host process: "
+          f"{per_host}")
+
+
+def ledger_of(fed, tag, n):
+    st = fed.stats()["federation"]
+    check(st["submitted"] == st["completed"] + st["failed"] + st["expired"]
+          + st["rejected_submits"] and st["inflight"] == 0
+          and st["parked"] == 0 and st["completed"] == n
+          and st["failed"] == 0 and st["expired"] == 0,
+          f"{tag}: federated ledger {st}")
+    return st
+
+
+def phase_routing(handles, hb, reqs, want, fabric_tps, card):
+    """18b: one ``FleetFederation`` routes phase 9's traffic over the two
+    hosts: every stream equal to phase 5's/5b's, both hosts dispatched,
+    the ledger balanced; tokens/s beside phase 9a's in-process fleet and
+    beside the same traffic through a router over one host. The K2 counts
+    are read before the one-host run."""
+    from deeplearning4j_torch.parallel.federation import FleetFederation
+
+    ntok = sum(len(w) for w in want)
+    fed = FleetFederation(handles, heartbeat_dir=hb, dead_after_s=600.0)
+    try:
+        wait_for(lambda: fed.stats()["federation"]["ready"] == FED_HOSTS,
+                 30, "18b's hosts READY")
+        t0 = time.perf_counter()
+        futs = [fed.submit(p, n, deadline_s=300.0, **o) for p, n, o in reqs]
+        outs = [f.result(timeout=300).tolist() for f in futs]
+        wall = time.perf_counter() - t0
+        check(outs == want, "18b: a federated stream differs from phase "
+                            "5's/5b's")
+        st = ledger_of(fed, "18b", len(reqs))
+        per = {b["hid"]: b for b in fed.stats()["hosts"]}
+        check(all(b["dispatched"] > 0 for b in per.values()),
+              f"18b: a host took no request: "
+              f"{ {h: b['dispatched'] for h, b in per.items()} }")
+        host = {h.hid: fed.host_stats(h.hid, timeout=10) for h in handles}
+    finally:
+        fed.close()
+    # the same traffic through a router over the first host alone: the
+    # router's and the wire's cost without a second process on the card
+    with FleetFederation(handles[:1], dead_after_s=600.0) as one:
+        wait_for(lambda: one.stats()["federation"]["ready"] == 1, 30,
+                 "18b's first host READY again")
+        t0 = time.perf_counter()
+        futs = [one.submit(p, n, deadline_s=300.0, **o) for p, n, o in reqs]
+        outs = [f.result(timeout=300).tolist() for f in futs]
+        one_wall = time.perf_counter() - t0
+        check(outs == want, "18b: a stream through one host differs from "
+                            "phase 5's/5b's")
+        ledger_of(one, "18b one host", len(reqs))
+    launches = {h: s["kernel_launches"] for h, s in host.items()}
+    k2 = {h: host_k2(v) for h, v in launches.items()}
+    check_routes("18b", k2)
+    tps = ntok / wall
+    in_process = ("not measured in this run" if fabric_tps is None
+                  else f"{fabric_tps:.1f} tok/s")
+    log(f"  18b: {len(reqs)} requests ({ntok} tokens) over {FED_HOSTS} host "
+        f"processes x {FLEET_REPLICAS} replicas: {tps:.1f} tok/s, over one "
+        f"of them {ntok / one_wall:.1f} tok/s (phase 9a's in-process fleet: "
+        f"{in_process}); dispatched "
+        f"{[per[h]['dispatched'] for h in sorted(per)]}; "
+        f"every stream equal to phase 5's/5b's; K2 by host {k2}; kernel "
+        f"load {[round(host[h]['kernel_load_s'], 2) for h in sorted(host)]} "
+        f"s; [{card}]")
+    return dict(requests=len(reqs), tokens=ntok, wall_s=wall,
+                tokens_per_s=tps, one_host_wall_s=one_wall,
+                one_host_tokens_per_s=ntok / one_wall,
+                fabric_tokens_per_s=fabric_tps,
+                dispatched={h: per[h]["dispatched"] for h in per},
+                launches=launches, k2=k2,
+                load_s={h: host[h]["kernel_load_s"] for h in host},
+                federation=st)
+
+
+def phase_crash(handles, hb, reqs, want, card):
+    """18c: the crash drill at full width (JAX's
+    ``test_sigkill_whole_process_bit_exact``): snapshots every step, the
+    victim SIGKILLed once the router holds published snapshots of at
+    least 2 requests in flight on it; every stream equal to phase
+    5's/5b's, handoff resumes, a death, degraded mode, a balanced ledger
+    and no lost future; one scrape shows both hosts' families."""
+    from deeplearning4j_torch.metrics.exposition import render_text
+    from deeplearning4j_torch.parallel.federation import FleetFederation
+
+    survivor, victim = handles
+    fed = FleetFederation(handles, heartbeat_dir=hb, suspect_after_s=0.5,
+                          dead_after_s=600.0)
+    try:
+        wait_for(lambda: fed.stats()["federation"]["ready"] == FED_HOSTS
+                 and len(fed.metrics_sources()) == FED_HOSTS + 1, 30,
+                 "18c's hosts READY and gossiping")
+
+        def victim_snapshots():
+            with fed._cond:
+                return sum(fq.hid == victim.hid
+                           and fq.snapshot_blob is not None
+                           for fq in fed._rpc.values())
+
+        t0 = time.perf_counter()
+        futs = [fed.submit(p, n, deadline_s=300.0, **o) for p, n, o in reqs]
+        wait_for(lambda: victim_snapshots() >= 2, 120,
+                 "the router to hold snapshots of 2 requests in flight on "
+                 "the victim")
+        at_kill = fed.host_stats(victim.hid, timeout=10)
+        t_kill = time.perf_counter() - t0
+        victim.kill()
+        outs = [f.result(timeout=300).tolist() for f in futs]
+        wall = time.perf_counter() - t0
+        check(not victim.alive, "18c: the victim outlived its SIGKILL")
+        check(outs == want, "18c: a stream differs from phase 5's/5b's "
+                            "after the SIGKILL")
+        st = ledger_of(fed, "18c", len(reqs))
+        check(st["deaths"] >= 1 and st["handoff_resumes"] >= 1
+              and st["degraded_mode"] is True,
+              f"18c: deaths {st['deaths']}, handoff resumes "
+              f"{st['handoff_resumes']}, degraded {st['degraded_mode']}")
+        text = render_text(fed.metrics_sources())
+        fams = {h.hid: f'fleet_submitted_total{{host="{h.hid}"}}' in text
+                for h in handles}
+        check(all(fams.values()) and "fed_handoff_resumes_total" in text,
+              f"18c: one scrape lacks a host's families: {fams}")
+        after = fed.host_stats(survivor.hid, timeout=10)
+    finally:
+        fed.close()
+    launches = {victim.hid: at_kill["kernel_launches"],
+                survivor.hid: after["kernel_launches"]}
+    k2 = {h: host_k2(v) for h, v in launches.items()}
+    check_routes("18c", k2)
+    ntok = sum(len(w) for w in want)
+    log(f"  18c: {victim.hid} SIGKILLed {t_kill:.2f} s in with "
+        f"{st['snapshots']} snapshots at the router; {len(reqs)} streams "
+        f"equal to phase 5's/5b's; deaths {st['deaths']}, handoff resumes "
+        f"{st['handoff_resumes']}, fallbacks {st['handoff_fallbacks']}, "
+        f"redispatched {st['redispatched']}, degraded "
+        f"{st['degraded_mode']}, ledger balanced, none lost; one scrape "
+        f"shows {sorted(fams)}; K2 by host {k2} ({victim.hid}'s at the "
+        f"kill); {ntok / wall:.1f} tok/s through the kill; kernel load "
+        f"{round(at_kill['kernel_load_s'], 2)}, "
+        f"{round(after['kernel_load_s'], 2)} s; [{card}]")
+    return dict(wall_s=wall, kill_after_s=t_kill, tokens_per_s=ntok / wall,
+                launches=launches, k2=k2,
+                load_s={victim.hid: at_kill["kernel_load_s"],
+                        survivor.hid: after["kernel_load_s"]},
+                federation=st)
+
+
+def phase_federation(card, greedy=None, sampled=None, fabric_tps=None):
+    """Phase 18: processes on one host (18a-18c). The four host processes
+    and 18a's first two runs start together; 18b runs once 18a is done and
+    18c after 18b's hosts are gone. Returns (report, launches summed over
+    every child process of the phase)."""
+    from deeplearning4j_torch import kernels
+
+    kernels.load()
+    t0 = time.perf_counter()
+    reqs, want = fabric_requests(
+        fabric_net() if greedy is None or sampled is None else None,
+        greedy, sampled)
+    tmp = tempfile.mkdtemp(prefix="chip18_")
+    hb_b, fut_b = spawn_hosts(tmp, "b")
+    hb_c, fut_c = spawn_hosts(tmp, "c", stall_s=DRILL18["stall_s"],
+                              snapshot_every=DRILL18["snapshot_every"],
+                              steps_per_dispatch=DRILL18[
+                                  "steps_per_dispatch"])
+    out = {}
+    walls = {}
+    try:
+        log("phase 18a: a FaultTolerantTrainer child killed and resumed "
+            "(phase 7's model)")
+        t = time.perf_counter()
+        out["elastic"] = phase_elastic(tmp, card)
+        walls["18a"] = time.perf_counter() - t
+        b = [f.result(timeout=240) for f in fut_b]
+        c = [f.result(timeout=240) for f in fut_c]
+        spawn_s = {h.hid: s for h, s in b + c}
+        log(f"  host processes READY after "
+            f"{json.dumps({k: round(v, 1) for k, v in spawn_s.items()})} s")
+        log("phase 18b: one router over two host processes, phase 9's "
+            "traffic")
+        t = time.perf_counter()
+        out["routing"] = phase_routing([h for h, _ in b], hb_b, reqs, want,
+                                       fabric_tps, card)
+        walls["18b"] = time.perf_counter() - t
+        for h, _ in b:
+            h.terminate()
+        log("phase 18c: the crash drill, a host process SIGKILLed "
+            "mid-stream")
+        t = time.perf_counter()
+        out["crash"] = phase_crash([h for h, _ in c], hb_c, reqs, want,
+                                   card)
+        walls["18c"] = time.perf_counter() - t
+    finally:
+        # every host spawned, whether or not a phase got to use it
+        for f in fut_b + fut_c:
+            try:
+                h = f.result(timeout=240)[0]
+            except Exception:
+                continue
+            if h.alive:
+                h.terminate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    children = dict(out["elastic"]["runs"])
+    children.update({f"18b_{h}": v for h, v in
+                     out["routing"]["launches"].items()})
+    children.update({f"18c_{h}": v for h, v in
+                     out["crash"]["launches"].items()})
+    out["children_launches"] = {k: v.get("launches", v)
+                                for k, v in children.items()}
+    total = {k: sum(v[k] for v in out["children_launches"].values())
+             for k in PATH_KERNELS}
+    out["spawn_s"] = spawn_s
+    out["wall_s"] = time.perf_counter() - t0
+    out["part_wall_s"] = walls
+    log(f"  phase 18: {out['wall_s']:.1f} s "
+        f"{json.dumps({k: round(v, 1) for k, v in walls.items()})}; "
+        f"child launches {total}; [{card}]")
+    return out, total
+
+
 def kernel_line(flash, paged, bwd, launches, launches_d96,
                 launches_recurrent, launches_graphs, launches_pretrain,
                 launches_nlp, launches_ingest, launches_mesh,
-                launches_sharding):
+                launches_sharding, federation):
     k1 = flash["slice_f32_causal"]
     k2 = paged["f32_T1_Tmax512"]
     k2c = paged["f32_T256_Tmax512"]          # the serve's first prefill round
@@ -9050,6 +9639,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "launches_ingest": launches_ingest["flash_fwd"],
          "launches_mesh": launches_mesh["flash_fwd"],
          "launches_sharding": launches_sharding["flash_fwd"],
+         **federation_fields(federation, "flash_fwd"),
          "max_abs_err": max(r["max_abs_err"] for n, r in flash.items()
                             if n.startswith("slice_f32")),
          "ms": k1["ms"], "device_ms": k1["device_ms"],
@@ -9076,6 +9666,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "launches_ingest": launches_ingest["paged_attn"],
          "launches_mesh": launches_mesh["paged_attn"],
          "launches_sharding": launches_sharding["paged_attn"],
+         **federation_fields(federation, "paged_attn"),
          "max_abs_err": max(r["max_abs_err"] for n, r in paged.items()
                             if n.startswith("f32_") and "Tmax512" in n),
          "ms": k2["ms"], "device_ms": k2["device_ms"],
@@ -9086,6 +9677,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          # the chunk route (T > 4), at the serve's T=256 and T=48 rounds
          "chunk_launches": launches["paged_attn_chunk"],
          "chunk_launches_mesh": launches_mesh["paged_attn_chunk"],
+         "chunk_launches_federation": federation["total"]["paged_attn_chunk"],
          "chunk_merge_launches": launches["paged_attn_merge"],
          "chunk_max_abs_err": max(r["max_abs_err"] for r in paged.values()
                                   if r["route"] == "chunk"
@@ -9143,6 +9735,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
              "launches_ingest": launches_ingest[name],
              "launches_mesh": launches_mesh[name],
              "launches_sharding": launches_sharding[name],
+             **federation_fields(federation, name),
              "max_abs_err": max(r["max_abs_err"][g] for r in slice_bwd
                                 for g in grads),
              "ms": kb[part]["ms"], "device_ms": kb[part]["device_ms"],
@@ -9163,6 +9756,20 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
              **bench_fields(bwd["bench_bf16_causal"], part, grads),
              "head_dims": pad_fields(bwd, PAD_DIMS, "d{}_f32_causal", part)})
     return {"kernels": line}
+
+
+def federation_fields(federation, name):
+    """Kernels-line fields of phase 18, whose launches happen in child
+    processes: the window's total (this process's and every child's) and
+    each child's own count (18a's runs; 18b's and 18c's hosts, K2 by
+    route)."""
+    by = federation["children"]
+    if name == "paged_attn":
+        per = {k: host_k2(v) for k, v in by.items() if k.startswith("18")}
+    else:
+        per = {k: v[name] for k, v in by.items() if v[name]}
+    return {"launches_federation": federation["total"][name],
+            "launches_federation_by_process": per}
 
 
 def bench_fields(r, part=None, grads=None):
@@ -9470,13 +10077,27 @@ def main() -> int:
                                         "flash_bwd_dkv")),
           f"a kernel of the model-parallel path never launched (K1, K3 and "
           f"K4 must): {sharding}")
+    kernels.reset_launch_counts()         # the federation path starts here
+    log("phase 18: processes on one host (a FaultTolerantTrainer child "
+        "killed and resumed, host processes behind a FleetFederation "
+        "router, a host SIGKILLed mid-stream)")
+    REPORT["federation"], children = phase_federation(
+        card, greedy, REPORT["sampled"]["streams"],
+        REPORT["fabric"]["fleet"]["tokens_per_s"])
+    # its kernels run in the child processes, which count their own
+    federation = {k: kernels.LAUNCHES[k] + children[k] for k in serving}
+    window_s["federation"] = lap()
+    check(all(federation[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                          "flash_bwd_dkv", "paged_attn",
+                                          "paged_attn_chunk")),
+          f"a kernel of the federation path never launched: {federation}")
     windows = dict(serving=serving, loading=loading, fixture=fixture,
                    prefix=prefix, spec=spec, d96_serving=d96_serving,
                    training=training, d96_training=d96_training,
                    fitting=fitting, multilayer=multilayer, fabric=fabric,
                    retrieval=retrieval, recurrent=recurrent, graphs=graphs,
                    pretrain=pretrain, nlp=nlp, ingest=ingest, mesh=mesh,
-                   sharding=sharding)
+                   sharding=sharding, federation=federation)
     launches = {k: sum(w[k] for w in windows.values()) for k in serving}
     REPORT["main_path_launches"] = dict(windows, total=launches)
     check(all(n > 0 for n in launches.values()),
@@ -9502,7 +10123,10 @@ def main() -> int:
     line = kernel_line(flash, paged, bwd, launches,
                        {k: d96_serving[k] + d96_training[k]
                         for k in d96_serving}, recurrent, graphs, pretrain,
-                       nlp, ingest, mesh, sharding)
+                       nlp, ingest, mesh, sharding,
+                       dict(total=federation,
+                            children=REPORT["federation"][
+                                "children_launches"]))
     REPORT["total_s"] = time.perf_counter() - t_start
     REPORT["window_s"] = window_s
     log(f"build {REPORT['build_s']:.1f} s, total {REPORT['total_s']:.1f} s; "

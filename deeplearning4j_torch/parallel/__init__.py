@@ -4,9 +4,11 @@
 tensor-parallel serving, replica fleets, the resilience layer, and the
 one-process model parallelism: dp x tp ``ShardedTrainer``, tensor-parallel
 MLP blocks, ring and Ulysses attention, the GPipe ``PipelineTrainer``, the
-Spark facade and the parameter server. The parts that need several
-processes or hosts (the rest of ``elastic.py``, federation, process groups)
-are ROADMAP A11c parts 3-4 and are not exported.
+Spark facade and the parameter server; and the processes of one host:
+elastic training (``FaultTolerantTrainer``, heartbeats, fault injection)
+and the fleet federation (``FleetHost`` processes behind a
+``FleetFederation`` router). Process groups (``distributed.py``) are
+ROADMAP A11c part 4 and are not exported.
 
 The names resolve on first use (PEP 562): modules outside this package
 import ``parallel.runtime`` and ``parallel.resilience``, which the
@@ -26,6 +28,15 @@ _EXPORTS = {
     "EarlyStoppingParallelTrainer": "early_stopping",
     "CheckpointListener": "elastic",
     "CheckpointStore": "elastic",
+    "FailureDetector": "elastic",
+    "FaultInjectionListener": "elastic",
+    "FaultTolerantTrainer": "elastic",
+    "Heartbeat": "elastic",
+    "FleetFederation": "federation",
+    "FleetHost": "federation",
+    "HostHandle": "federation",
+    "HostUnavailable": "federation",
+    "spawn_host": "federation",
     "ShardedTrainer": "model_sharding",
     "PipelineTrainer": "pipeline",
     "ParameterServer": "parameter_server",

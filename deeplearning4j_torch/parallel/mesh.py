@@ -24,8 +24,8 @@ counterpart of the JAX tests' eight XLA CPU devices). With
 count the distinct CUDA devices and raise ``MeshGeometryError`` where
 JAX's raise; they never reuse one card quietly.
 ``shard_map_compat`` has no counterpart: each sharded body is written out
-where it runs. Process groups (``torch.distributed``: the rest of
-``elastic.py``, then ``federation.py``) are ROADMAP A11c parts 3-4.
+where it runs. Process groups (``torch.distributed``,
+``parallel/distributed.py``) are ROADMAP A11c part 4.
 """
 
 from __future__ import annotations

@@ -34,7 +34,7 @@ mask's propagation stay those of the global batch. The
 updater then steps each model column's pieces (every updater of the port
 is elementwise); a layer with gradient normalization normalizes over its
 gathered gradients. Process groups (``torch.distributed``) are ROADMAP
-A11c parts 3-4.
+A11c part 4.
 """
 
 from __future__ import annotations

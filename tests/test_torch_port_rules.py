@@ -140,7 +140,7 @@ def test_port_imports_no_jax():
             "ui/server.py", "ui/legacy.py", "parallel/__init__.py",
             "parallel/trainer.py", "parallel/evaluation.py",
             "parallel/early_stopping.py",
-            "parallel/model_sharding.py"} <= names
+            "parallel/model_sharding.py", "parallel/federation.py"} <= names
     bad = [(str(p.relative_to(ROOT)), mod) for p in files
            for mod in _imported_roots(p) if mod in FORBIDDEN]
     assert bad == []
