@@ -404,6 +404,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    lost, one scrape with both hosts' families. Each child process counts
    its own launches (a host's reach the router in its stats RPC), and
    each host must launch K2 on both routes.
+19. process groups. 19a: two rank processes join a ``torch.distributed``
+   group through ``parallel/distributed.py::initialize`` (gloo, both on
+   the first card: NCCL refuses two ranks on one device), shard phase 7's
+   model (phase 5's weights) over the global ``data_mesh()`` and train it
+   five Adam steps through ``do_step`` on their rows of phase 7's batch
+   (``make_array_from_process_local_data``): the ranks bitwise equal,
+   both within rtol 1e-4 / atol 1e-5 of one process's steps on the whole
+   batch, K1/K3/K4 launched in each rank, ms a step beside the one
+   process's and phase 17b's one-process dp 2 x tp 2 step. 19b: the ranks
+   ``save_checkpoint`` after step 4; a fresh pair (started beside them,
+   held at a gate) ``load_checkpoint``s into its sharded net, bitwise the
+   saved params, and takes step 5, bitwise the uninterrupted ranks' (where
+   a rank drives two cards, within ``GROUP_RESUME_ATOL``); this process
+   restores the checkpoint whole (``net=None``) on the card, bitwise the
+   ranks' params at step 4; save and restore seconds. On a machine of two
+   cards a leg runs a card a rank over NCCL, on four another runs two
+   ranks of two cards each under ``data_model_mesh(2, 2)``. Each rank
+   counts its own launches.
 
 Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
 calls (``ms``: the wrapper's host work included, which sets the pace once
@@ -433,8 +451,9 @@ data-parallel forwards and training) and phase 17 (sharded stores and
 model parallelism: K1, K3 and K4 on the dp x tp trainer's head shards,
 K2 nowhere) and phase 18 (processes on one host: K1, K3 and K4 in 18a's
 trainer processes, both routes of K2 in every host process of 18b and
-18c, each child counting its own). The launch
-counters are zeroed just before each of the twenty and read just
+18c, each child counting its own) and phase 19 (process groups: K1, K3
+and K4 in every rank process, each counting its own). The launch
+counters are zeroed just before each of the twenty-one and read just
 after (phase 6's and the reference servers' and forwards' launches are
 not counted); every kernel must have run on the main path, K2's chunk
 route and its merge pass included, and each path but phases 8, 11, 12,
@@ -9615,10 +9634,375 @@ def phase_federation(card, greedy=None, sampled=None, fabric_tps=None):
     return out, total
 
 
+# ---------------------------------------------------------------- phase 19
+#: 19: process groups. Two ranks train phase 7's model (phase 5's
+#: weights) on phase 7's batch split by rows, with the conf's Adam, for
+#: ``steps`` steps and save a checkpoint after step ``save_at``; a fresh
+#: pair of ranks restores it into its sharded net and takes the last step
+#: again. Children are joined within ``timeout_s``; the group's
+#: collectives time out after ``group_timeout_s``. Both ranks against one
+#: process on the whole batch: JAX's Adam tolerance for data parallelism
+#: (ROADMAP C5)
+GROUP19 = dict(steps=5, save_at=4, timeout_s=240, group_timeout_s=120)
+GROUP_TOL = (1e-4, 1e-5)
+#: 19b: a resumed step against the uninterrupted one where a rank drives
+#: two cards (the dp x tp leg): there two runs of one step part by an ulp
+#: or so (2.98e-08 and 5.96e-08 on four H100s), as a tensor takes
+#: gradients from both cards' autograd threads; a rank of one device is
+#: held bitwise
+GROUP_RESUME_ATOL = 1e-6
+#: phase 19's device and the module its child processes import (a CPU
+#: rehearsal names the CPU and a wrapper module)
+DEVICE19 = "cuda"
+MODULE19 = "chip_smoke"
+
+
+def group_legs():
+    """Phase 19's legs on this machine: two gloo ranks sharing the first
+    card (NCCL refuses two ranks on one device) always; with two cards one
+    card a rank over NCCL; with four, two ranks of two cards each under
+    ``data_model_mesh(2, 2)`` (the data rows are the processes)."""
+    if DEVICE19 != "cuda":
+        return [dict(name="gloo_host", backend="gloo",
+                     devices=[[DEVICE19], [DEVICE19]], mesh="data")]
+    n = torch.cuda.device_count()
+    legs = [dict(name="gloo_one_card", backend="gloo",
+                 devices=[["cuda:0"], ["cuda:0"]], mesh="data")]
+    if n >= 2:
+        legs.append(dict(name="nccl_card_a_rank", backend="nccl",
+                         devices=[["cuda:0"], ["cuda:1"]], mesh="data"))
+    if n >= 4:
+        legs.append(dict(name="nccl_dp2_tp2", backend="nccl",
+                         devices=[["cuda:0", "cuda:1"],
+                                  ["cuda:2", "cuda:3"]],
+                         mesh="data_model"))
+    return legs
+
+
+def group_child(leg, role, rank, port, directory):
+    """One rank of a phase-19 pair, in its own process: phase 1's kernel
+    build loaded, the group joined through ``distributed.initialize`` (the
+    parent's ``TCPStore`` under a prefix of the leg and role, so no two
+    groups race for a port), phase 7's model on phase 5's weights sharded
+    over ``data_mesh()`` (or ``data_model_mesh(2, 2)``), steps through
+    ``do_step`` on ``make_array_from_process_local_data`` arrays of this
+    rank's rows. ``role="train"`` takes ``GROUP19["steps"]`` steps and
+    saves the checkpoint after ``save_at``; ``role="resume"`` sets up,
+    waits for a line on stdin, restores the checkpoint into its sharded
+    net and takes the last step. Prints one ``GROUP`` JSON line (its own
+    kernel launches included) and saves its params to ``directory``."""
+    import datetime
+
+    import torch.distributed as tdist
+
+    from deeplearning4j_torch import kernels
+    from deeplearning4j_torch.models.zoo import TransformerLM
+    from deeplearning4j_torch.parallel import distributed
+    from deeplearning4j_torch.parallel import mesh as M
+    from deeplearning4j_torch.parallel.model_sharding import shard_network
+    from deeplearning4j_torch.utils.convert import params_from_jax
+    from deeplearning4j_torch.utils.orbax_checkpoint import (
+        load_checkpoint, save_checkpoint)
+
+    leg, rank = json.loads(leg), int(rank)
+    torch.set_num_threads(1)
+    t_start = time.perf_counter()
+    load_s = load_built_kernels()
+    t0 = time.perf_counter()
+    import torch.distributed.checkpoint as dcp  # noqa: F401 (timed apart)
+    dcp_import_s = time.perf_counter() - t0
+    devs = leg["devices"][rank]
+    timeout = GROUP19["group_timeout_s"]
+    store = tdist.PrefixStore(
+        f"{leg['name']}/{role}",
+        tdist.TCPStore("127.0.0.1", int(port), is_master=False,
+                       timeout=datetime.timedelta(seconds=timeout)))
+    distributed.initialize(num_processes=2, process_id=rank, device=devs,
+                           backend=leg["backend"], store=store,
+                           timeout=timeout)
+    try:
+        net = TransformerLM(**SLICE).init(device=devs[0])
+        params_from_jax(numpy_params(net, seed=0), net)
+        mesh = (M.data_model_mesh(2, 2) if leg["mesh"] == "data_model"
+                else M.data_mesh())
+        shard_network(net, mesh)
+        sh = M.DataSharding(mesh)
+        x, y = train_batch()
+        rows = slice(rank * TRAIN_BATCH // 2, (rank + 1) * TRAIN_BATCH // 2)
+
+        def step():
+            net.do_step(
+                M.make_array_from_process_local_data(sh, x[rows], x.shape),
+                M.make_array_from_process_local_data(sh, y[rows], y.shape))
+
+        ckpt = os.path.join(directory, "ckpt")
+        report = dict(leg=leg["name"], role=role, rank=rank, load_s=load_s,
+                      dcp_import_s=dcp_import_s,
+                      backend=distributed.group_backend(),
+                      devices=devs,
+                      global_devices=distributed.global_device_count(),
+                      mesh=repr(mesh))
+        step_ms = []
+        if role == "train":
+            for _ in range(GROUP19["steps"]):
+                sync(devs[0])
+                t0 = time.perf_counter()
+                step()
+                sync(devs[0])
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                if net.iteration == GROUP19["save_at"]:
+                    np.save(os.path.join(directory, f"saved_{rank}.npy"),
+                            net.params_flat())
+                    t0 = time.perf_counter()
+                    save_checkpoint(net, ckpt)
+                    report["save_s"] = time.perf_counter() - t0
+        else:
+            sys.stdin.readline()        # the checkpoint is written
+            t0 = time.perf_counter()
+            load_checkpoint(ckpt, net=net)
+            sync(devs[0])
+            report["restore_s"] = time.perf_counter() - t0
+            np.save(os.path.join(directory, f"restored_{rank}.npy"),
+                    net.params_flat())
+            report["restored_iteration"] = net.iteration
+            report["sharded_leaf"] = type(
+                net.params["ff0a"]["W"]).__name__
+            step()
+            sync(devs[0])
+        np.save(os.path.join(directory, f"{role}_{rank}.npy"),
+                net.params_flat())
+        report.update(iteration=net.iteration, step_ms=step_ms,
+                      launches={k: kernels.LAUNCHES[k] for k in PATH_KERNELS},
+                      wall_s=time.perf_counter() - t_start)
+        print("GROUP " + json.dumps(report), flush=True)
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def start_group_child(leg, role, rank, port, directory):
+    """Start one rank as ``python3 -c`` in its own process, its output in
+    files under ``directory`` (a rank held at its gate writes on)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root] + sys.path))
+    code = (f"import sys, {MODULE19} as c; "
+            "sys.exit(c.group_child(*sys.argv[1:]))")
+    logs = [open(os.path.join(directory, f"{role}_{rank}.{s}"), "w")
+            for s in ("out", "err")]
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, json.dumps(leg), role, str(rank),
+         str(port), directory], cwd=root, env=env, stdin=subprocess.PIPE,
+        stdout=logs[0], stderr=logs[1], text=True)
+    for f in logs:
+        f.close()
+    proc.tag = (role, rank)
+    return proc
+
+
+def group_report(proc, directory, what, deadline):
+    """The child's ``GROUP`` report once it exits with 0 before
+    ``deadline``; a failed check otherwise (the caller kills it)."""
+    role, rank = proc.tag
+    try:
+        rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        rc = None
+    with open(os.path.join(directory, f"{role}_{rank}.out")) as f:
+        out = f.read()
+    with open(os.path.join(directory, f"{role}_{rank}.err")) as f:
+        err = f.read()
+    check(rc == 0, f"{what}: exit code {rc} (None: still running after the "
+                   f"{GROUP19['timeout_s']} s limit); stderr tail "
+                   f"{err[-2000:]}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("GROUP ")]
+    check(len(lines) == 1, f"{what}: no GROUP line; stdout tail "
+                           f"{out[-2000:]} stderr tail {err[-2000:]}")
+    return json.loads(lines[0][len("GROUP "):])
+
+
+def group_reference():
+    """One process's ``GROUP19["steps"]`` Adam steps of phase 7's model on
+    phase 7's whole batch (the comparison run, on the first card): the
+    params after each of the last two steps and the ms a step."""
+    from deeplearning4j_torch.models.zoo import TransformerLM
+    from deeplearning4j_torch.utils.convert import params_from_jax
+
+    net = TransformerLM(**SLICE).init(device=DEVICE19)
+    params_from_jax(numpy_params(net, seed=0), net)
+    x, y = train_batch(net.device)
+    step_ms = []
+    for _ in range(GROUP19["steps"]):
+        sync(net.device)
+        t0 = time.perf_counter()
+        net.do_step(x, y)
+        sync(net.device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return np.asarray(net.params_flat()), step_ms
+
+
+def run_group_leg(leg, port, tmp, ref, card):
+    """19a and 19b on one leg: the training pair and the resuming pair
+    start together (the resuming pair set up and held at its gate until
+    the checkpoint is written); every child is joined or killed."""
+    from deeplearning4j_torch.utils.orbax_checkpoint import load_checkpoint
+
+    d = os.path.join(tmp, leg["name"])
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    deadline = t0 + GROUP19["timeout_s"]
+    procs = [start_group_child(leg, role, r, port, d)
+             for role in ("train", "resume") for r in (0, 1)]
+    try:
+        train = [group_report(p, d, f"19a {leg['name']} training rank "
+                              f"{p.tag[1]}", deadline) for p in procs[:2]]
+        for p in procs[2:]:
+            p.stdin.write("go\n")
+            p.stdin.flush()
+        resume = [group_report(p, d, f"19b {leg['name']} resuming rank "
+                               f"{p.tag[1]}", deadline) for p in procs[2:]]
+    finally:
+        for p in procs:            # none outlives a failed check
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    final = [np.load(os.path.join(d, f"train_{r}.npy")) for r in (0, 1)]
+    saved = [np.load(os.path.join(d, f"saved_{r}.npy")) for r in (0, 1)]
+    again = [np.load(os.path.join(d, f"resume_{r}.npy")) for r in (0, 1)]
+    restored = [np.load(os.path.join(d, f"restored_{r}.npy"))
+                for r in (0, 1)]
+    name = leg["name"]
+    check(np.array_equal(final[0], final[1])
+          and np.array_equal(saved[0], saved[1]),
+          f"19a {name}: the ranks' params differ (max |diff| "
+          f"{float(np.abs(final[0] - final[1]).max()):.3g})")
+    excess = float(np.max(np.abs(final[0] - ref) - (
+        GROUP_TOL[1] + GROUP_TOL[0] * np.abs(ref))))
+    rel = float(np.abs(final[0] - ref).max() / np.abs(ref).max())
+    check(excess <= 0, f"19a {name}: two ranks vs one process after "
+                       f"{GROUP19['steps']} Adam steps exceed rtol/atol "
+                       f"{GROUP_TOL} by {excess:.3g}")
+    for r in train + resume:
+        check(all(r["launches"][k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                                 "flash_bwd_dkv")),
+              f"19 {name} {r['role']} rank {r['rank']}: K1/K3/K4 did not "
+              f"all launch in the child: {r['launches']}")
+    check(all(r["restored_iteration"] == GROUP19["save_at"]
+              and r["sharded_leaf"] == "SpecTensor" for r in resume)
+          and all(np.array_equal(a, saved[0]) for a in restored),
+          f"19b {name}: the ranks' sharded restore is not the saved params "
+          f"bitwise (max |diff| "
+          f"{float(np.abs(restored[0] - saved[0]).max()):.3g}; restored at "
+          f"{[r['restored_iteration'] for r in resume]})")
+    one_device = all(len(devs) == 1 for devs in leg["devices"])
+    resumed_diff = max(float(np.abs(a - final[0]).max()) for a in again)
+    resumed_bitwise = all(np.array_equal(a, final[0]) for a in again)
+    check(resumed_bitwise if one_device
+          else resumed_diff <= GROUP_RESUME_ATOL,
+          f"19b {name}: the restored ranks' step {GROUP19['steps']} against "
+          f"the uninterrupted ranks': max |diff| {resumed_diff:.3g} "
+          f"({'bitwise required: one device a rank' if one_device else f'limit {GROUP_RESUME_ATOL}: two cards a rank'})")
+    t = time.perf_counter()
+    whole = load_checkpoint(os.path.join(d, "ckpt"), device=DEVICE19)
+    sync(DEVICE19)
+    parent_restore_s = time.perf_counter() - t
+    check(whole.iteration == GROUP19["save_at"]
+          and np.array_equal(np.asarray(whole.params_flat()), saved[0]),
+          f"19b {name}: the checkpoint restored whole in this process is "
+          f"not the ranks' params bitwise")
+    del whole
+    step_ms = [float(np.median(r["step_ms"][1:])) for r in train]
+    out = dict(leg=leg, wall_s=wall, ranks_bitwise=True, worst_excess=excess,
+               resumed_bitwise=resumed_bitwise, resumed_max_diff=resumed_diff,
+               max_rel_err=rel, step_ms=step_ms,
+               first_step_ms=[r["step_ms"][0] for r in train],
+               save_s=[r["save_s"] for r in train],
+               dcp_import_s=[r["dcp_import_s"] for r in train + resume],
+               restore_s=[r["restore_s"] for r in resume],
+               parent_restore_s=parent_restore_s,
+               kernel_load_s=[r["load_s"] for r in train + resume],
+               child_wall_s=[r["wall_s"] for r in train + resume],
+               launches={f"19_{name}_{r['role']}{r['rank']}": r["launches"]
+                         for r in train + resume},
+               backend=train[0]["backend"], devices=[r["devices"]
+                                                     for r in train])
+    log(f"  19a {name} ({train[0]['backend']}, ranks on "
+        f"{[r['devices'] for r in train]}, {train[0]['mesh']}): ranks "
+        f"bitwise equal, vs one process max rel {rel:.3g} (worst excess "
+        f"over rtol/atol {GROUP_TOL} {excess:.3g}); "
+        f"{np.median(step_ms):.1f} ms a step (median of steps 2-"
+        f"{GROUP19['steps']}, each rank; first step "
+        f"{[round(r['step_ms'][0], 1) for r in train]} ms); K1/K3/K4 "
+        f"launches per child "
+        f"{[r['launches']['flash_fwd'] for r in train + resume]}/"
+        f"{[r['launches']['flash_bwd_dq'] for r in train + resume]}/"
+        f"{[r['launches']['flash_bwd_dkv'] for r in train + resume]}; "
+        f"[{card}]")
+    log(f"  19b {name}: saved after step {GROUP19['save_at']} in "
+        f"{[round(s, 3) for s in out['save_s']]} s, restored sharded by a "
+        f"fresh pair in {[round(s, 3) for s in out['restore_s']]} s and "
+        f"whole in this process in {parent_restore_s:.3f} s (the "
+        f"checkpoint module's import apart: "
+        f"{[round(s, 2) for s in out['dcp_import_s']]} s), bitwise the "
+        f"saved params; step {GROUP19['steps']} against the uninterrupted "
+        f"ranks': bitwise {resumed_bitwise} (max |diff| "
+        f"{resumed_diff:.3g}); leg {wall:.1f} s; [{card}]")
+    return out
+
+
+def phase_process_groups(card):
+    """Phase 19: process groups (19a training, 19b checkpoints) on every
+    leg this machine has. Returns (report, launches summed over every
+    child process of the phase)."""
+    import datetime
+
+    import torch.distributed as tdist
+
+    import torch.distributed.checkpoint as dcp  # noqa: F401 (19b times
+    #                                               the calls, not this)
+
+    from deeplearning4j_torch import kernels
+
+    kernels.load()
+    t0 = time.perf_counter()
+    store = tdist.TCPStore("127.0.0.1", 0, is_master=True,
+                           wait_for_workers=False,
+                           timeout=datetime.timedelta(
+                               seconds=GROUP19["group_timeout_s"]))
+    ref, ref_ms = uncounted(group_reference)
+    tmp = tempfile.mkdtemp(prefix="chip19_")
+    out = dict(one_process_step_ms=float(np.median(ref_ms[1:])), legs={})
+    try:
+        for leg in group_legs():
+            log(f"phase 19 leg {leg['name']}: two ranks over "
+                f"{leg['backend']} on {leg['devices']}")
+            out["legs"][leg["name"]] = run_group_leg(leg, store.port, tmp,
+                                                     ref, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    children = {k: v for leg in out["legs"].values()
+                for k, v in leg["launches"].items()}
+    out["children_launches"] = children
+    total = {k: sum(v[k] for v in children.values()) for k in PATH_KERNELS}
+    sharded = REPORT.get("model_parallel", {}).get("sharded_trainer", {})
+    out["dp2_tp2_one_process_step_wall_ms"] = sharded.get("step_wall_ms")
+    out["dp2_tp2_one_process_step_device_ms"] = sharded.get(
+        "step_device_ms")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 19: {out['wall_s']:.1f} s; ms a step: one process on the "
+        f"whole batch {out['one_process_step_ms']:.1f}, "
+        f"{ {k: round(float(np.median(v['step_ms'])), 1) for k, v in out['legs'].items()} } "
+        f"by leg, phase 17b's one-process dp 2 x tp 2 "
+        f"{sharded.get('step_wall_ms')} wall / "
+        f"{sharded.get('step_device_ms')} device; child launches {total}; "
+        f"[{card}]")
+    return out, total
+
+
 def kernel_line(flash, paged, bwd, launches, launches_d96,
                 launches_recurrent, launches_graphs, launches_pretrain,
                 launches_nlp, launches_ingest, launches_mesh,
-                launches_sharding, federation):
+                launches_sharding, federation, groups):
     k1 = flash["slice_f32_causal"]
     k2 = paged["f32_T1_Tmax512"]
     k2c = paged["f32_T256_Tmax512"]          # the serve's first prefill round
@@ -9640,6 +10024,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "launches_mesh": launches_mesh["flash_fwd"],
          "launches_sharding": launches_sharding["flash_fwd"],
          **federation_fields(federation, "flash_fwd"),
+         **group_fields(groups, "flash_fwd"),
          "max_abs_err": max(r["max_abs_err"] for n, r in flash.items()
                             if n.startswith("slice_f32")),
          "ms": k1["ms"], "device_ms": k1["device_ms"],
@@ -9667,6 +10052,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "launches_mesh": launches_mesh["paged_attn"],
          "launches_sharding": launches_sharding["paged_attn"],
          **federation_fields(federation, "paged_attn"),
+         **group_fields(groups, "paged_attn"),
          "max_abs_err": max(r["max_abs_err"] for n, r in paged.items()
                             if n.startswith("f32_") and "Tmax512" in n),
          "ms": k2["ms"], "device_ms": k2["device_ms"],
@@ -9736,6 +10122,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
              "launches_mesh": launches_mesh[name],
              "launches_sharding": launches_sharding[name],
              **federation_fields(federation, name),
+             **group_fields(groups, name),
              "max_abs_err": max(r["max_abs_err"][g] for r in slice_bwd
                                 for g in grads),
              "ms": kb[part]["ms"], "device_ms": kb[part]["device_ms"],
@@ -9770,6 +10157,15 @@ def federation_fields(federation, name):
         per = {k: v[name] for k, v in by.items() if v[name]}
     return {"launches_federation": federation["total"][name],
             "launches_federation_by_process": per}
+
+
+def group_fields(groups, name):
+    """Kernels-line fields of phase 19, whose launches happen in its rank
+    processes: the window's total (this process's and every rank's) and
+    each rank's own count, by leg and role."""
+    return {"launches_process_groups": groups["total"][name],
+            "launches_process_groups_by_process": {
+                k: v[name] for k, v in groups["children"].items()}}
 
 
 def bench_fields(r, part=None, grads=None):
@@ -10091,13 +10487,26 @@ def main() -> int:
                                           "flash_bwd_dkv", "paged_attn",
                                           "paged_attn_chunk")),
           f"a kernel of the federation path never launched: {federation}")
+    kernels.reset_launch_counts()         # the process-group path starts
+    log("phase 19: process groups (two ranks train the slice model on "
+        "their rows of one batch, save a sharded checkpoint, and a fresh "
+        "pair resumes from it)")
+    REPORT["process_groups"], group_children = phase_process_groups(card)
+    # its kernels run in the rank processes, which count their own
+    groups = {k: kernels.LAUNCHES[k] + group_children[k] for k in serving}
+    window_s["process_groups"] = lap()
+    check(all(groups[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv")),
+          f"a kernel of the process-group path never launched (K1, K3 and "
+          f"K4 must): {groups}")
     windows = dict(serving=serving, loading=loading, fixture=fixture,
                    prefix=prefix, spec=spec, d96_serving=d96_serving,
                    training=training, d96_training=d96_training,
                    fitting=fitting, multilayer=multilayer, fabric=fabric,
                    retrieval=retrieval, recurrent=recurrent, graphs=graphs,
                    pretrain=pretrain, nlp=nlp, ingest=ingest, mesh=mesh,
-                   sharding=sharding, federation=federation)
+                   sharding=sharding, federation=federation,
+                   process_groups=groups)
     launches = {k: sum(w[k] for w in windows.values()) for k in serving}
     REPORT["main_path_launches"] = dict(windows, total=launches)
     check(all(n > 0 for n in launches.values()),
@@ -10126,6 +10535,9 @@ def main() -> int:
                        nlp, ingest, mesh, sharding,
                        dict(total=federation,
                             children=REPORT["federation"][
+                                "children_launches"]),
+                       dict(total=groups,
+                            children=REPORT["process_groups"][
                                 "children_launches"]))
     REPORT["total_s"] = time.perf_counter() - t_start
     REPORT["window_s"] = window_s

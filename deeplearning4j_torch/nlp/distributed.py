@@ -33,6 +33,7 @@ def _model_devices(mesh: Mesh) -> list:
     if MODEL_AXIS not in mesh.axis_names:
         raise ValueError(f"mesh has no {MODEL_AXIS!r} axis, got axes "
                          f"{mesh.axis_names}")
+    mesh.require_one_process("a row-sharded table")
     ax = mesh.axis_names.index(MODEL_AXIS)
     return list(np.moveaxis(mesh.devices, ax, 0).reshape(
         mesh.shape[MODEL_AXIS], -1)[:, 0])

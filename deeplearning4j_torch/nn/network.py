@@ -173,7 +173,17 @@ class Network:
     def do_step(self, x, y, input_mask=None, label_mask=None, carry=None):
         """One training iteration; returns ``(loss, new_carry)``, the loss a
         device tensor (no host sync unless the health guard is on, which
-        fetches the loss and the skip flag to observe them)."""
+        fetches the loss and the skip flag to observe them). A
+        process-local ``ShardedArray`` (``parallel/mesh.py::
+        make_array_from_process_local_data``) first shards an unsharded net
+        over its mesh, as JAX's step returns params placed on the inputs'
+        global mesh (``parallel/model_sharding.py``)."""
+        if getattr(self, "_sharded", None) is None and getattr(
+                x, "process_local", False):
+            from deeplearning4j_torch.parallel.model_sharding import (
+                shard_network)
+
+            shard_network(self, x.sharding.mesh)
         x, y, im, lm = self._batch(x, y, input_mask, label_mask)
         health = self._health
         guarded = health is not None

@@ -9,8 +9,10 @@ as the new residual (error feedback, so the quantised sum converges).
 does. ``EncodingHandler`` carries one worker's residual;
 ``BasicGradientsAccumulator`` averages the workers' messages of a round.
 ``parallel/parameter_server.py`` sends the messages to a parameter server
-in the JAX package's wire form; exchanging them between processes over a
-process group is ROADMAP A11c part 4.
+in the JAX package's wire form. The JAX package exchanges no message
+between processes (its only user is the parameter server's in-process
+push), and neither does the port: across processes the data axis of
+``parallel/model_sharding.py`` all-reduces the gradients themselves.
 """
 
 from __future__ import annotations

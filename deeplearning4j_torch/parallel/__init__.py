@@ -1,4 +1,4 @@
-"""Parallelism on the devices of one process (port of the
+"""Parallelism on the devices of one process and across processes (port of the
 ``deeplearning4j_tpu.parallel`` package): data-parallel training
 (``ParallelWrapper``), data-parallel inference and evaluation,
 tensor-parallel serving, replica fleets, the resilience layer, and the
@@ -7,8 +7,12 @@ MLP blocks, ring and Ulysses attention, the GPipe ``PipelineTrainer``, the
 Spark facade and the parameter server; and the processes of one host:
 elastic training (``FaultTolerantTrainer``, heartbeats, fault injection)
 and the fleet federation (``FleetHost`` processes behind a
-``FleetFederation`` router). Process groups (``distributed.py``) are
-ROADMAP A11c part 4 and are not exported.
+``FleetFederation`` router); and process groups: ``distributed.py``'s
+``initialize`` (a ``torch.distributed`` group, as the JAX module's
+``jax.distributed``), after which the meshes span every rank's devices
+and the data axis of ``ShardedTrainer``/``shard_network`` sums its
+gradients over the ranks. As in the JAX package, ``distributed`` is a
+module of its own, not exported here.
 
 The names resolve on first use (PEP 562): modules outside this package
 import ``parallel.runtime`` and ``parallel.resilience``, which the

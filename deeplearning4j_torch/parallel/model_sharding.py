@@ -33,8 +33,21 @@ batch on the first data row, so batch statistics, dropout masks and the
 mask's propagation stay those of the global batch. The
 updater then steps each model column's pieces (every updater of the port
 is elementwise); a layer with gradient normalization normalizes over its
-gathered gradients. Process groups (``torch.distributed``) are ROADMAP
-A11c part 4.
+gathered gradients.
+
+A mesh whose ``data`` axis spans processes (built after
+``parallel/distributed.py::initialize``; a data-only mesh shards nothing
+and replicates every leaf) runs the same program on each process's own
+data rows: only its entries hold pieces, its rows' gradients are summed in
+mesh order and then over the ranks through the group (``all_reduce``: the
+same bits on every rank, so the ranks' params stay bitwise equal), and so
+are the loss and the label-mask weights. The batch is either the global
+one (each process keeps its rows) or a process-local ``ShardedArray``
+(``parallel/mesh.py::make_array_from_process_local_data``): ``do_step`` on
+such an array shards an unsharded net over its mesh first, as JAX's step
+returns params placed on the inputs' global mesh. What needs the global
+batch in one place (batch statistics, dropout masks, an input mask, several
+label masks) raises there (ROADMAP A11d).
 """
 
 from __future__ import annotations
@@ -48,8 +61,9 @@ import torch
 from deeplearning4j_torch.nn.regularization import penalty_value
 from deeplearning4j_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
                                                 DataSharding, Mesh,
-                                                ShardedTensor, all_gather,
-                                                psum, replicate)
+                                                MeshGeometryError,
+                                                ShardedArray, ShardedTensor,
+                                                all_gather, psum, replicate)
 
 __all__ = ["network_param_specs", "shard_network", "ShardedTrainer",
            "data_batch_sharding", "PartitionSpec", "ShardedTensor",
@@ -128,6 +142,19 @@ class _Sharding:
         self.mesh = mesh
         self.spec = spec
 
+    def __eq__(self, other):
+        if not isinstance(other, _Sharding) or self.spec != other.spec:
+            return False
+        a, b = self.mesh, other.mesh
+        return a is b or (
+            a.axis_names == b.axis_names and a.shape == b.shape
+            and a.entries == b.entries
+            and (a.ranks is None) == (b.ranks is None)
+            and (a.ranks is None or bool((a.ranks == b.ranks).all())))
+
+    def __hash__(self):
+        return hash(tuple(self.spec))
+
 
 class SpecTensor(ShardedTensor):
     """A leaf placed by its spec: one piece per mesh entry (flat mesh
@@ -140,17 +167,24 @@ class SpecTensor(ShardedTensor):
         self.spec = P(*spec)
         self.mesh = mesh
         self._grid = grid            # [D, M] flat entry indices
+        # the first data row this process holds (0 within one process)
+        self._row0 = next(d for d in range(grid.shape[0])
+                          if pieces[int(grid[d, 0])] is not None)
 
     @classmethod
     def place(cls, t: torch.Tensor, spec: P, mesh: Mesh, grid,
               copy: bool = False) -> "SpecTensor":
-        flat = mesh.flat
+        """``t`` placed by ``spec``: a piece on each of this process's
+        entries (other processes' entries hold None)."""
+        flat = mesh.entries
         dim = _model_dim(spec)
         M = grid.shape[1]
         pieces = [None] * mesh.size
         for d in range(grid.shape[0]):
             for e in range(M):
                 i = int(grid[d, e])
+                if not mesh.is_local(i):
+                    continue
                 part = t if dim is None else torch.chunk(t, M, dim=dim)[e]
                 pieces[i] = part.to(flat[i], copy=copy).contiguous()
         return cls(pieces, spec, mesh, grid)
@@ -160,26 +194,33 @@ class SpecTensor(ShardedTensor):
         return _Sharding(self.mesh, self.spec)
 
     def parts(self) -> list:
-        """Data row 0's pieces along the model-sharded dim."""
+        """This process's first data row's pieces along the model-sharded
+        dim."""
         if self.dim is None:
-            return [self.pieces[0]]
+            return [self.column(0)]
         return [self.column(e) for e in range(self._grid.shape[1])]
 
-    def column(self, e: int, d: int = 0) -> torch.Tensor:
-        """The piece model entry ``e`` of data row ``d`` holds."""
-        return self.pieces[int(self._grid[d, e])]
+    def column(self, e: int, d: Optional[int] = None) -> torch.Tensor:
+        """The piece model entry ``e`` of data row ``d`` (default this
+        process's first) holds."""
+        return self.pieces[int(self._grid[self._row0 if d is None else d,
+                                          e])]
 
     def __repr__(self):
         return f"SpecTensor(shape={tuple(self.shape)}, spec={self.spec})"
 
 
 def _entry_grid(mesh: Mesh):
-    """The [D, M] grid of flat entry indices: row d's model entries."""
-    if DATA_AXIS not in mesh.shape or MODEL_AXIS not in mesh.shape:
+    """The [D, M] grid of flat entry indices: row d's model entries (M = 1
+    on a data-only mesh)."""
+    if DATA_AXIS not in mesh.shape or (MODEL_AXIS not in mesh.shape
+                                       and len(mesh.axis_names) != 1):
         raise ValueError(
             f"mesh must have ({DATA_AXIS}, {MODEL_AXIS}) axes, got "
             f"{dict(mesh.shape)}")
     idx = np.arange(mesh.size).reshape(mesh.devices.shape)
+    if MODEL_AXIS not in mesh.shape:
+        return idx.reshape(-1, 1)
     names = mesh.axis_names
     idx = np.moveaxis(idx, [names.index(DATA_AXIS),
                             names.index(MODEL_AXIS)], [0, 1])
@@ -205,7 +246,9 @@ def shard_network(net, mesh: Mesh) -> dict:
     """Place ``net.params``/``updater_state`` on the mesh (params and
     updater state per-layer sharded, layer state replicated) and route the
     net's step (``do_step``, ``fit``) and ``output`` through the sharded
-    program. Returns the param spec tree."""
+    program. Returns the param spec tree. A data-only mesh (``data_mesh``)
+    replicates every leaf: data parallelism, across processes where the
+    mesh spans them."""
     return _Program(net, mesh).specs
 
 
@@ -349,6 +392,22 @@ def _rule_for(layer, specs: dict, M: int):
     return None
 
 
+def _process_local(a) -> bool:
+    return isinstance(a, ShardedArray) and a.process_local
+
+
+def _row_pieces(t, D: int):
+    """A ``ShardedArray``'s pieces as the D rows' batch pieces (None for
+    the rows of other processes)."""
+    if t is None:
+        return [None] * D
+    if isinstance(t, (list, tuple)):
+        cols = [_row_pieces(a, D) for a in t]
+        return [None if cols[0][d] is None else [c[d] for c in cols]
+                for d in range(D)]
+    return list(t.pieces)
+
+
 def _split_rows(t, D: int):
     if t is None:
         return [None] * D
@@ -380,9 +439,22 @@ class _Program:
         self.mesh = mesh
         self.grid = _entry_grid(mesh)
         self.D, self.M = self.grid.shape
-        flat = mesh.flat
+        flat = mesh.entries
         self.row_devices = [[flat[int(i)] for i in row] for row in self.grid]
-        self.specs = network_param_specs(net, self.M)
+        # the data rows this process runs (every row within one process)
+        # and each row's rank
+        self.cross = mesh.spans_processes
+        self.rows = [d for d in range(self.D)
+                     if mesh.is_local(int(self.grid[d, 0]))]
+        self.row_ranks = [mesh.rank_of(int(self.grid[d, 0]))
+                          for d in range(self.D)]
+        if not self.rows:
+            raise MeshGeometryError("this process holds no entry of the "
+                                    "mesh")
+        self.specs = (network_param_specs(net, self.M)
+                      if MODEL_AXIS in mesh.shape else
+                      {k: {n: P() for n in sub}
+                       for k, sub in net.params.items()})
         self.owners = net._param_owners()
         self.rules = {k: _rule_for(_layer_of(net, k), self.specs[k], self.M)
                       for k in self.specs}
@@ -393,9 +465,16 @@ class _Program:
                 if _same_structure(sub, params) else sub)
             for k, sub in net.updater_state.items()}
         self._collapse = self._needs_one_row()
+        if self.cross and self._collapse:
+            raise MeshGeometryError(
+                "a net with batch statistics or a stochastic layer needs "
+                "its global batch on one data row, which a data axis across "
+                "processes does not hold (ROADMAP A11d)")
         self._state_cache: dict = {}
+        self._net_batch = net._batch
         net._sharded = self
         net._get_step = self._get_step
+        net._batch = self._batch
         net.output = self.output
         net.params_flat = self.params_flat
 
@@ -453,12 +532,49 @@ class _Program:
             return 1
         return self.D
 
+    def _batch(self, x, y, im, lm):
+        """The net's ``_batch``, except that process-local
+        ``ShardedArray``s keep their pieces (in the param dtype, masks in
+        f32) for the rows they belong to."""
+        if not _process_local(x):
+            return self._net_batch(x, y, im, lm)
+        dtype = getattr(torch, self.net.conf.dtype)
+
+        def keep(a, dt):
+            if a is None:
+                return None
+            if isinstance(a, (list, tuple)):
+                return [keep(b, dt) for b in a]
+            if not _process_local(a):
+                raise ValueError("process-local features need process-local "
+                                 "labels and masks (make_array_from_process_"
+                                 "local_data)")
+            if a.sharding != DataSharding(self.mesh):
+                raise ValueError(f"a batch placed by {a.sharding} does not "
+                                 f"split over this net's mesh {self.mesh}")
+            return ShardedArray([None if p is None else p.to(dtype=dt)
+                                 for p in a.pieces], a.sharding, a.shape)
+
+        return (keep(x, dtype), keep(y, dtype), keep(im, torch.float32),
+                keep(lm, torch.float32))
+
     def _split_batch(self, x, y, im, lm):
+        """``(R, xs, ys, ims, lms)``: the batch in R row pieces (None for
+        the rows of other processes)."""
         R = self._rows(im, lm)
-        B = (x[0] if isinstance(x, (list, tuple)) else x).shape[0]
+        if self.cross and R != self.D:
+            raise MeshGeometryError(
+                "an input mask or several label masks need the global batch "
+                "on one data row, which a data axis across processes does "
+                "not hold (ROADMAP A11d)")
+        first = x[0] if isinstance(x, (list, tuple)) else x
+        B = first.shape[0]
         if B % R:
             raise ValueError(f"batch size {B} not divisible by data-axis "
                              f"size {R}")
+        if isinstance(first, ShardedArray):
+            return R, _row_pieces(x, R), _row_pieces(y, R), \
+                _row_pieces(im, R), _row_pieces(lm, R)
         return R, _split_rows(x, R), _split_rows(y, R), \
             _split_rows(im, R), _split_rows(lm, R)
 
@@ -498,35 +614,38 @@ class _Program:
             if carry is not None:
                 raise ValueError("the sharded step takes no carry")
             R, xs, ys, ims, lms = self._split_batch(x, y, im, lm)
+            rows = self.rows if self.cross else list(range(R))
             leaves: list = []
             losses = []
             new_states = None
-            home0 = self.row_devices[0][0]
+            home0 = self.row_devices[rows[0]][0]
             with torch.enable_grad():
-                for d in range(R):
+                for d in rows:
                     home = self.row_devices[d][0]
                     rp = self._row_params(params, d, leaves)
-                    if d == 0:
+                    if d == rows[0]:
                         rp0 = rp
                     loss, (ns, _, _) = net._loss(
                         rp, self._state_on(state, home), _to(xs[d], home),
                         _to(ys[d], home), _to(ims[d], home),
                         _to(lms[d], home), train=True, rng=rng, carry=None)
                     losses.append(loss.to(home0))
-                    if d == 0:
+                    if d == rows[0]:
                         new_states = ns
-                w = self._row_weights(lms, R, home0)
+                w = self._row_weights(lms, R, home0, rows)
                 gs = torch.autograd.grad(
                     sum(l_ * w_ for l_, w_ in zip(losses, w)),
                     [t for *_, t in leaves], allow_unused=True)
             with torch.no_grad():
                 losses = [l_.detach() for l_ in losses]
-                if lms[0] is None:     # rows of equal size: a plain mean
-                    loss = psum(losses, [home0] * R)[0] / R
+                if lms[rows[0]] is None:   # rows of equal size: a plain mean
+                    loss = self._over_ranks(
+                        psum(losses, [home0] * len(rows))[0]) / R
                 else:   # the label-mask-weighted mean; the penalty once
                     pen = penalty_value(net, rp0)
-                    loss = psum([(l_ - pen) * w_ for l_, w_ in
-                                 zip(losses, w)], [home0] * R)[0] + pen
+                    loss = self._over_ranks(
+                        psum([(l_ - pen) * w_ for l_, w_ in
+                              zip(losses, w)], [home0] * len(rows))[0]) + pen
                 cols = self._column_grads(leaves, gs)
                 p_cols = [self._column_tree(params, e)
                           for e in range(self.M)]
@@ -564,21 +683,30 @@ class _Program:
 
         return core
 
-    @staticmethod
-    def _row_weights(lms, R: int, device) -> list:
-        """Each row's share of the global loss: 1/R for rows of equal size,
-        else its label-mask total over the batch's (each clamped at 1 as
-        the loss's mean clamps it), so the rows' masked means sum to the
+    def _over_ranks(self, t):
+        """``t`` summed over the ranks where the data axis spans
+        processes, else ``t``."""
+        if not self.cross:
+            return t
+        from deeplearning4j_torch.parallel import distributed
+
+        return distributed.all_reduce_sum([t])[0]
+
+    def _row_weights(self, lms, R: int, device, rows) -> list:
+        """Each of ``rows``' share of the global loss: 1/R for rows of
+        equal size, else its label-mask total over the batch's (each
+        clamped at 1 as the loss's mean clamps it; the batch's summed over
+        the ranks across processes), so the rows' masked means sum to the
         global masked mean. No host sync."""
-        if R == 1 or lms[0] is None:
-            return [1.0 / R] * R
+        if R == 1 or lms[rows[0]] is None:
+            return [1.0 / R] * len(rows)
 
         def total(m):
             m = m[0] if isinstance(m, (list, tuple)) else m
             return m.to(device, torch.float32).sum().clamp_min(1.0)
 
-        whole = sum(total(m) for m in lms)
-        return [total(m) / whole for m in lms]
+        whole = self._over_ranks(sum(total(lms[d]) for d in rows))
+        return [total(lms[d]) / whole for d in rows]
 
     def _column_grads(self, leaves, gs) -> list:
         """Per model column, the gradient tree summed over the data rows
@@ -599,7 +727,32 @@ class _Program:
                     dev = st.column(e).device
                     g = psum(parts, [dev] * len(parts))[0]
                     cols[e].setdefault(key, {})[name] = g
+        if self.cross:
+            self._sum_over_ranks(cols)
         return cols
+
+    def _sum_over_ranks(self, cols: list) -> None:
+        """The columns' gradients summed over the ranks (one all-reduce of
+        every distinct piece; a replicated leaf's sum copied to the other
+        columns' devices)."""
+        from deeplearning4j_torch.parallel import distributed
+
+        where, flat = [], []
+        for key, sub in self.net.params.items():
+            for name, st in sub.items():
+                sharded = _model_dim(st.spec) is not None
+                for e in range(self.M if sharded else 1):
+                    where.append((e, key, name))
+                    flat.append(cols[e][key][name])
+        for (e, key, name), g in zip(where,
+                                     distributed.all_reduce_sum(flat)):
+            cols[e][key][name] = g
+        for key, sub in self.net.params.items():
+            for name, st in sub.items():
+                if _model_dim(st.spec) is None:
+                    for e in range(1, self.M):
+                        cols[e][key][name] = cols[0][key][name].to(
+                            st.column(e).device)
 
     def _column_tree(self, params, e: int) -> dict:
         return {k: {n: st.column(e) for n, st in sub.items()}
@@ -613,18 +766,19 @@ class _Program:
 
     def _assemble(self, cols: list, like) -> dict:
         """SpecTensors from the columns' new pieces: column e's piece
-        on (0, e), a copy on every other data row's entry."""
+        on this process's first row's entry e, a copy on every other data
+        row's entry of this process."""
         out = {}
-        flat = self.mesh.flat
+        flat = self.mesh.entries
         for k, sub in like.items():
             out[k] = {}
             for n, st in sub.items():
                 pieces = [None] * self.mesh.size
-                for d in range(self.D):
+                for d in self.rows:
                     for e in range(self.M):
                         i = int(self.grid[d, e])
                         t = cols[e][k][n]
-                        pieces[i] = t if d == 0 else t.to(flat[i])
+                        pieces[i] = t if d == self.rows[0] else t.to(flat[i])
                 out[k][n] = SpecTensor(pieces, st.spec, self.mesh,
                                        self.grid)
         return out
@@ -668,14 +822,23 @@ class _Program:
             torch.as_tensor(np.asarray(mask), dtype=torch.float32),
             net.device)
         R = self._rows(mask, None)
+        if self.cross and R != self.D:
+            raise MeshGeometryError(
+                "an input mask needs the global batch on one data row, "
+                "which a data axis across processes does not hold (ROADMAP "
+                "A11d)")
         B = (x[0] if isinstance(x, (list, tuple)) else x).shape[0]
         if B % R:
             raise ValueError(f"batch size {B} not divisible by data-axis "
                              f"size {R}")
         outs = []
+        xs, ms = _split_rows(x, R), _split_rows(mask, R)
         with torch.no_grad():
-            for d, (xd, md) in enumerate(zip(_split_rows(x, R),
-                                             _split_rows(mask, R))):
+            for d in range(R):
+                if self.cross and d not in self.rows:
+                    outs.append(None)
+                    continue
+                xd, md = xs[d], ms[d]
                 home = self.row_devices[d][0]
                 rp = self._row_params(net.params, d)
                 xin = _to(xd, home)
@@ -687,10 +850,13 @@ class _Program:
                     outs.append(net._forward(
                         rp, self._state_on(net.state, home), xin,
                         _to(md, home), train=train)[0])
-        if isinstance(outs[0], list):
-            return [all_gather([o[j] for o in outs], net.device)
-                    for j in range(len(outs[0]))]
-        return all_gather(outs, net.device)
+        ranks = self.row_ranks if self.cross else None
+        mine = outs[self.rows[0]]
+        if isinstance(mine, list):
+            return [all_gather([None if o is None else o[j] for o in outs],
+                               net.device, ranks=ranks)
+                    for j in range(len(mine))]
+        return all_gather(outs, net.device, ranks=ranks)
 
     def params_flat(self) -> np.ndarray:
         from deeplearning4j_torch.utils.pytree import flatten_params

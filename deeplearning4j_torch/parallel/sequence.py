@@ -58,6 +58,7 @@ def _axis_devices(mesh: Mesh, axis: str) -> list:
     if axis not in mesh.axis_names:
         raise ValueError(f"mesh has no {axis!r} axis, got axes "
                          f"{mesh.axis_names}")
+    mesh.require_one_process("sequence parallelism")
     ax = mesh.axis_names.index(axis)
     return list(np.moveaxis(mesh.devices, ax, 0).reshape(
         mesh.shape[axis], -1)[:, 0])

@@ -1,7 +1,7 @@
 """Rules the PyTorch port keeps:
 
 - no file of ``deeplearning4j_torch/``, and not ``chip_smoke.py``, imports
-  ``jax`` or ``deeplearning4j_tpu``;
+  ``jax``, ``orbax`` or ``deeplearning4j_tpu``;
 - entry points called with ``device=None`` raise on a host without CUDA
   instead of quietly running on the CPU;
 - a kernel wrapper handed CUDA tensors on a host without CUDA raises, and
@@ -53,7 +53,7 @@ from deeplearning4j_torch.parallel.generation import (  # noqa: E402
 pytestmark = pytest.mark.torch_port
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
+FORBIDDEN = ("jax", "jaxlib", "orbax", "deeplearning4j_tpu")
 TINY = dict(num_labels=11, max_length=8, d_model=32, n_heads=1, n_blocks=1,
             max_cache=32)
 
