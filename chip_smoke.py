@@ -422,6 +422,31 @@ Phases (any failure exits non-zero, and no result line is printed):
    cards a leg runs a card a rank over NCCL, on four another runs two
    ranks of two cards each under ``data_model_mesh(2, 2)``. Each rank
    counts its own launches.
+20. graftcheck. 20a: a child runs ``python3 -m
+   deeplearning4j_torch.analysis --check`` on this tree: exit 0 (no
+   unbaselined finding, no stale baseline entry) with no ``jax`` and
+   nothing of ``deeplearning4j_tpu`` in its ``sys.modules``; files scanned,
+   findings, baselined entries and seconds. 20b:
+   ``analysis.instrument.install()``, then phase 9's two-replica fleet of
+   the slice model (explicit ``RetryPolicy`` and ``CircuitBreaker`` a
+   replica), phase 10's /rag route over the first 65,536 documents of its
+   store (``KerasBackendServer.attach_rag``, an int8 ``EmbeddingIndex``), a
+   ``NearestNeighborsServer`` (an f32 index) over the same documents, a
+   ``ParallelInference`` coalescer over the slice model and a
+   ``StreamingBroker`` fed by the 15b producer process; eight client
+   threads serve phase 9's 24 fleet requests (streams bitwise phase 9's;
+   tokens/s beside phase 9a's and beside the same serve on a plain fleet
+   after ``uninstall()``), then all of it at once: the
+   fleet requests again, RAG turns (half over /rag, each phase 10's route
+   answer), k-NN queries (half over /knnVector, held to the serial answers
+   by phase 10a's tie rule), coalesced rows (within 1e-5 of max|y| of
+   ``output()`` alone) and the producer's 400 batches (bitwise). Every
+   ranked lock of every instance built is rank-checked, no violation was
+   raised on any thread, no serving loop crashed or restarted; K1 and both
+   routes of K2 launch. 20c: still installed, a loop's tick holds a rank-70
+   ``CircuitBreaker._lock`` and takes its rank-25 ``_cond``: the loop's
+   ``crashed`` is a ``LockOrderViolation`` naming both. ``uninstall()``
+   runs in a ``finally``.
 
 Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
 calls (``ms``: the wrapper's host work included, which sets the pace once
@@ -452,8 +477,9 @@ model parallelism: K1, K3 and K4 on the dp x tp trainer's head shards,
 K2 nowhere) and phase 18 (processes on one host: K1, K3 and K4 in 18a's
 trainer processes, both routes of K2 in every host process of 18b and
 18c, each child counting its own) and phase 19 (process groups: K1, K3
-and K4 in every rank process, each counting its own). The launch
-counters are zeroed just before each of the twenty-one and read just
+and K4 in every rank process, each counting its own) and phase 20
+(graftcheck: K1 and both routes of K2 in the lock-checked serve). The
+launch counters are zeroed just before each of the twenty-two and read just
 after (phase 6's and the reference servers' and forwards' launches are
 not counted); every kernel must have run on the main path, K2's chunk
 route and its merge pass included, and each path but phases 8, 11, 12,
@@ -9999,10 +10025,447 @@ def phase_process_groups(card):
     return out, total
 
 
+# --------------------------------------------------------------------------
+# phase 20: graftcheck (the static gate, a lock-checked serve, the bite)
+# --------------------------------------------------------------------------
+#: 20b's traffic beside phase 9's 24 fleet requests, spread round-robin
+#: over eight client threads: RAG turns on phase 10's /rag query, one-row
+#: k-NN queries, one-row ParallelInference submits and one broker consumer
+#: of the 15b producer's 400 spiral batches
+ANALYSIS = dict(clients=8, rag=8, knn=32, pi_rows=16, knn_k=10)
+
+#: 20a's child: ``python3 -m deeplearning4j_torch.analysis --check`` (run as
+#: ``-m`` runs it), then one line saying what it imported
+_STATIC_GATE = r"""
+import json, runpy, sys, time
+t0 = time.perf_counter()
+sys.argv = ["deeplearning4j_torch.analysis", "--check"]
+try:
+    runpy.run_module("deeplearning4j_torch.analysis", run_name="__main__",
+                     alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code if isinstance(e.code, int) else 1
+mods = list(sys.modules)
+print("static-gate:", json.dumps({
+    "rc": rc, "seconds": time.perf_counter() - t0,
+    "jax": sorted(m for m in mods if m == "jax" or m.startswith("jax.")),
+    "tpu": sorted(m for m in mods if m.startswith("deeplearning4j_tpu"))}),
+    flush=True)
+sys.exit(rc)
+"""
+
+
+def start_static_gate():
+    """20a's child process, started at the phase's start (torch's import
+    and the scan take seconds) and read at its end."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root] + sys.path))
+    return subprocess.Popen([sys.executable, "-c", _STATIC_GATE], cwd=root,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish_static_gate(child, card):
+    """20a: rc 0, no JAX in the child; files scanned, findings, baselined
+    entries and seconds from its summary line."""
+    import re
+
+    out, err = child.communicate(timeout=300)
+    status = [ln for ln in out.splitlines() if ln.startswith("static-gate:")]
+    check(status, f"20a: the static gate's child printed no status (rc "
+                  f"{child.returncode}): {out[-2000:]} {err[-2000:]}")
+    st = json.loads(status[-1].split(":", 1)[1])
+    check(child.returncode == 0 and st["rc"] == 0,
+          f"20a: graftcheck --check exited {st['rc']}: {out[-3000:]}")
+    check(not st["jax"] and not st["tpu"],
+          f"20a: the static gate imported {st['jax'] + st['tpu']}")
+    m = re.search(r"graftcheck: (\d+) files, (\d+) findings \((\d+) "
+                  r"unbaselined, (\d+) baselined, (\d+) stale", out)
+    check(m is not None, f"20a: no graftcheck summary line: {out[-2000:]}")
+    files, found, unbased, based, stale = (int(g) for g in m.groups())
+    check(unbased == 0 and stale == 0,
+          f"20a: {unbased} unbaselined findings, {stale} stale entries")
+    log(f"  20a graftcheck --check: {files} files, {found} findings "
+        f"({based} baselined, {unbased} unbaselined), {st['seconds']:.2f} s "
+        f"in the child (its torch import included), no JAX imported; "
+        f"[{card}]")
+    return dict(files=files, findings=found, baselined=based,
+                unbaselined=unbased, stale=stale, seconds=st["seconds"])
+
+
+def rag_docs():
+    """The first ``COS_ROWS`` documents of ``rag_store()`` (phase 10's
+    /rag corpus), bitwise: only its first draw chunk is drawn."""
+    d, c = RAG["d"], RAG["partitions"]
+    rs = np.random.RandomState(0)
+    centers = rs.randn(c, d).astype(np.float32) * 2.0
+    m = min(1 << 20, RAG["n"])
+    pts = (centers[rs.randint(0, c, m)]
+           + rs.randn(m, d).astype(np.float32) * 0.6)
+    return np.ascontiguousarray(pts[:COS_ROWS])
+
+
+def post_json(url, body):
+    import urllib.request
+
+    req = urllib.request.Request(url, json.dumps(body).encode(),
+                                 {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return json.loads(resp.read())
+
+
+def run_clients(items, work, clients):
+    """``work(item)`` for every item, the items dealt round-robin over
+    ``clients`` threads that start together; a client resolves the futures
+    its work returned (fleet submits) after its last item: (results in
+    item order, wall seconds). The first failure is raised."""
+    from concurrent.futures import Future
+
+    results, errors = [None] * len(items), []
+    start = threading.Barrier(clients + 1)
+
+    def client(c):
+        start.wait()
+        mine = range(c, len(items), clients)
+        try:
+            for i in mine:
+                results[i] = work(items[i])
+            for i in mine:
+                if isinstance(results[i], Future):
+                    results[i] = results[i].result(timeout=300).tolist()
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads),
+          "20b: a client thread did not finish")
+    if errors:
+        raise errors[0]
+    return results, wall
+
+
+def fleet_clients(fleet, reqs, clients):
+    """Phase 9's fleet requests from ``clients`` threads, each submitting
+    its share at once and then waiting: (streams, wall seconds)."""
+    def submit(j):
+        p, n, o = reqs[j]
+        return fleet.submit(p, n, **o)
+    return run_clients(list(range(len(reqs))), submit, clients)
+
+
+def plain_fleet_tps(net, reqs, want):
+    """20b's control, after ``uninstall()``: the same fleet and the same
+    eight-client serve with plain locks (tokens/s)."""
+    fleet = fleet_of(net, restart_backoff_s=0.05)
+    try:
+        outs, wall = fleet_clients(fleet, reqs, ANALYSIS["clients"])
+    finally:
+        fleet.close()
+    check(outs == want, "20b: a stream of the plain control differs from "
+                        "phase 9's")
+    return sum(len(w) for w in want) / wall
+
+
+def lock_checked_serve(card, greedy, sampled, fleet_tps, rag_want, child):
+    """20b, with the instrument installed: phase 9's fleet, phase 10's /rag
+    route, a ``NearestNeighborsServer`` over the same documents, a
+    ``ParallelInference`` coalescer over the slice model and a broker fed
+    by the 15b producer, all built after ``install()``; eight clients.
+    20a's ``child`` is read before the timed serve, so its scan does not
+    share the host with it. Returns (measurements, 20a's, the net, the
+    fleet requests and their streams)."""
+    from deeplearning4j_torch.analysis import instrument
+    from deeplearning4j_torch.modelimport.server import KerasBackendServer
+    from deeplearning4j_torch.nearestneighbors.server import (
+        NearestNeighborsServer)
+    from deeplearning4j_torch.parallel.fleet import ReplicaFleet
+    from deeplearning4j_torch.parallel.generation import GenerationServer
+    from deeplearning4j_torch.parallel.inference import ParallelInference
+    from deeplearning4j_torch.parallel.resilience import (CircuitBreaker,
+                                                          RetryPolicy)
+    from deeplearning4j_torch.parallel.runtime import supervisor
+    from deeplearning4j_torch.streaming import (NDArrayConsumer,
+                                                StreamingBroker)
+
+    V, C = SLICE["num_labels"], ANALYSIS["clients"]
+    recoveries0 = supervisor().recoveries
+    # block-forever backpressure: the consumer shares a busy process, so
+    # every frame must arrive rather than be dropped after 0.5 s
+    broker = StreamingBroker(port=0, publish_patience_s=None).start()
+    producer = start_producer(broker)
+    closers = [broker.close]
+    try:
+        net = fabric_net()
+        reqs, want = fabric_requests(net, greedy, sampled)
+        ntok = sum(len(w) for w in want)
+
+        def factory(rid):
+            return GenerationServer(net, V, device="cuda",
+                                    retry=RetryPolicy(),
+                                    breaker=CircuitBreaker(), **SERVER)
+        fleet = ReplicaFleet(factory, replicas=FLEET_REPLICAS,
+                             restart_backoff_s=0.05)
+        closers.append(fleet.close)
+        docs = rag_docs()
+        knn = NearestNeighborsServer(docs, backend="index", device="cuda")
+        closers.append(knn.stop)
+        knn_url = f"http://127.0.0.1:{knn.start()}/knnVector"
+        keras = KerasBackendServer()
+        closers.append(keras.stop)
+        passages = VirtualPassages(V, RAG["passage_len"])
+        mid = keras.attach_rag(net, vocab=V, passages=passages,
+                               doc_vectors=docs, k=RAG["k"],
+                               slots=RAG["slots"], page_size=RAG["page_size"],
+                               mid="rag", index_kw={"store": "int8"},
+                               device="cuda")
+        rag = keras._rags[mid]
+        rag_url = f"http://127.0.0.1:{keras.start()}/rag"
+        inf = ParallelInference(net, max_batch=PI_BATCH, max_wait_ms=5.0,
+                                device="cuda")
+        closers.append(inf.close)
+        prompt = np.arange(1, 9, dtype=np.int64)
+        q_rag = docs[123] + 0.01
+        rs = np.random.RandomState(20)
+        knn_ids = rs.choice(COS_ROWS, ANALYSIS["knn"], replace=False)
+        qs = docs[knn_ids] + 0.01
+        x_lm = np.eye(V, dtype=np.float32)[
+            rs.randint(0, V, (ANALYSIS["pi_rows"], SLICE["max_length"]))]
+        # references (off the counters): each PI row's unpadded forward,
+        # and, where phase 10 did not run, one serial /rag answer
+        alone = uncounted(lambda: np.concatenate(
+            [host_rows(net.output(x_lm[i:i + 1]))
+             for i in range(len(x_lm))]))
+        scale = float(np.abs(alone).max())
+
+        def rag_answer(http=False):
+            if http:
+                return post_json(rag_url, {
+                    "model": mid, "prompt_ids": prompt.tolist(),
+                    "max_tokens": RAG["tokens"],
+                    "query_vec": q_rag.tolist()})
+            f = rag.submit(prompt, RAG["tokens"], query_vec=q_rag)
+            return dict(tokens=f.result(timeout=300).tolist(),
+                        docs=list(f._rag_docs), prefix_len=f._rag_prefix_len)
+
+        def knn_answer(j, http=False):
+            if not http:
+                return knn.knn(qs[j][None], ANALYSIS["knn_k"])
+            got = post_json(knn_url, {"points": qs[j][None].tolist(),
+                                      "k": ANALYSIS["knn_k"]})["results"]
+            return (np.asarray([[r["distance"] for r in got[0]]], np.float32),
+                    np.asarray([[r["index"] for r in got[0]]]))
+        if rag_want is None:
+            rag_want = uncounted(rag_answer)
+        knn_want = [knn_answer(j) for j in range(len(qs))]
+
+        static = finish_static_gate(child, card)
+        ready = producer.stdout.readline()
+        check(ready.startswith("producer: ready"),
+              f"20b: the producer did not start: {ready!r}")
+
+        # (i) the fleet alone: phase 9a's clean serve from eight clients
+        outs, wall = fleet_clients(fleet, reqs, C)
+        check(outs == want, f"20b: {sum(a != b for a, b in zip(outs, want))}"
+                            f" fleet streams differ from phase 9's")
+        tps = ntok / wall
+
+        # (ii) everything at once
+
+        def consume():
+            got = 0
+            with NDArrayConsumer("127.0.0.1", broker.port, "spiral",
+                                 idle_timeout_s=120.0) as cons:
+                producer.stdin.write("go\n")
+                producer.stdin.flush()
+                for ds, (x, y) in zip(cons, spiral_batches(
+                        STREAM["batches"], STREAM["batch"])):
+                    check(np.array_equal(ds.features, x)
+                          and np.array_equal(ds.labels, y),
+                          f"20b: broker frame {got} differs from the "
+                          f"producer's")
+                    got += 1
+            return got
+
+        def work(item):
+            kind, j = item
+            if kind == "stream":
+                return consume()
+            if kind == "gen":
+                p, n, o = reqs[j]
+                return fleet.submit(p, n, **o)
+            # odd rag and knn items go over HTTP (/rag, /knnVector)
+            if kind == "rag":
+                return rag_answer(http=j % 2 == 1)
+            if kind == "knn":
+                return knn_answer(j, http=j % 2 == 1)
+            return inf.submit(x_lm[j:j + 1]).result(timeout=300)
+
+        items = ([("stream", 0)] + [("gen", j) for j in range(len(reqs))]
+                 + [("rag", j) for j in range(ANALYSIS["rag"])]
+                 + [("knn", j) for j in range(ANALYSIS["knn"])]
+                 + [("pi", j) for j in range(ANALYSIS["pi_rows"])])
+        res, mixed_wall = run_clients(items, work, C)
+        by = {}
+        for (kind, j), r in zip(items, res):
+            by.setdefault(kind, []).append((j, r))
+        out, _err = producer.communicate(timeout=120)
+        check(producer.returncode == 0
+              and f"published {STREAM['batches']}" in out,
+              f"20b: the producer failed: {_err[-2000:]}")
+        check(by["stream"][0][1] == STREAM["batches"],
+              f"20b: {by['stream'][0][1]} of {STREAM['batches']} broker "
+              f"frames arrived")
+        check([r for _j, r in by["gen"]] == want,
+              "20b: a fleet stream of the mixed serve differs from phase 9's")
+        check(all(r == rag_want for _j, r in by["rag"])
+              and 123 in rag_want["docs"],
+              f"20b: a /rag answer differs from phase 10's route "
+              f"{rag_want}: {[r for _j, r in by['rag']][:2]}")
+        # coalesced batches round differently from one-row searches:
+        # held to the serial answers by phase 10a's tie rule
+        knn_got = sorted(by["knn"], key=lambda t: t[0])
+        knn_rule = tie_rule(
+            "20b concurrent k-NN vs serial",
+            tuple(np.concatenate([r[n] for _j, r in knn_got])
+                  for n in (0, 1)),
+            tuple(np.concatenate([w[n] for w in knn_want]) for n in (0, 1)),
+            docs, qs)
+        top1 = float(np.mean([knn_want[j][1][0, 0] == knn_ids[j]
+                              for j in range(len(qs))]))
+        rows = np.concatenate([r for _j, r in by["pi"]])
+        pi_err = float(np.abs(rows - alone).max())
+        check(pi_err <= 1e-5 * scale,
+              f"20b: coalesced rows vs unpadded output() {pi_err:.3g} > "
+              f"1e-5 x {scale:.3g}")
+
+        built = instrument.built()
+        loops = [o for o in built if type(o).__name__ == "ServingLoop"]
+        kinds = sorted({type(o).__name__ for o in built})
+        unwrapped = instrument.unwrapped()
+        check(not unwrapped, f"20b: ranked locks not rank-checked: "
+                             f"{unwrapped}")
+        check(not instrument.violations,
+              f"20b: lock-order violations: {instrument.violations}")
+        crashed = [lp.name for lp in loops
+                   if lp.crashed is not None or lp.restarts]
+        check(not crashed and supervisor().recoveries == recoveries0,
+              f"20b: serving loops crashed or restarted: {crashed} "
+              f"(supervisor recoveries {recoveries0} -> "
+              f"{supervisor().recoveries})")
+        fst = fleet.stats()
+        check(fst["deaths"] == 0 and fst["failed"] == 0,
+              f"20b: fleet deaths {fst['deaths']}, failed {fst['failed']}")
+    finally:
+        for close in reversed(closers):
+            close()
+        if producer.poll() is None:
+            producer.kill()
+            producer.wait()
+    log(f"  20b lock-checked serve: {len(built)} instances of "
+        f"{len(kinds)} ranked classes (every ranked lock rank-checked, "
+        f"{len(loops)} serving loops, none crashed or restarted), no "
+        f"violation; the fleet alone {ntok} tokens from {C} "
+        f"clients {tps:.1f} tok/s instrumented (phase 9a's, one thread, "
+        f"{fleet_tps if fleet_tps is None else round(fleet_tps, 1)}), "
+        f"streams bitwise phase 9's; then {len(items)} "
+        f"mixed requests in {mixed_wall:.2f} s: {len(reqs)} fleet streams "
+        f"bitwise, {ANALYSIS['rag']} RAG turns (half over /rag) equal "
+        f"phase 10's route, {ANALYSIS['knn']} k-NN answers (half over "
+        f"/knnVector) the serial ones by the tie rule (bitwise "
+        f"{knn_rule['bitwise']}, top-1 "
+        f"{top1:.3f}), {ANALYSIS['pi_rows']} coalesced rows within "
+        f"{pi_err:.2e} (max|y| {scale:.3g}), {STREAM['batches']} broker "
+        f"frames bitwise; [{card}]")
+    return dict(instances=len(built), classes=kinds,
+                serving_loops=len(loops), fleet_tokens=ntok,
+                fleet_wall_s=wall, tokens_per_s=tps,
+                phase9_tokens_per_s=fleet_tps, mixed_items=len(items),
+                mixed_wall_s=mixed_wall, knn_top1=top1, knn=knn_rule,
+                pi_max_abs_err=pi_err,
+                broker_frames=STREAM["batches"]), static, (net, reqs, want)
+
+
+def bite(card):
+    """20c, still installed: a serving loop's tick holds a rank-70
+    ``CircuitBreaker._lock`` and takes its own rank-25 ``_cond``; the
+    violation must surface on the loop's ``crashed``, naming both."""
+    from deeplearning4j_torch.analysis import instrument
+    from deeplearning4j_torch.analysis.instrument import LockOrderViolation
+    from deeplearning4j_torch.parallel.resilience import CircuitBreaker
+    from deeplearning4j_torch.parallel.runtime import ServingLoop
+
+    del instrument.violations[:]
+    cb = CircuitBreaker()
+    box = []
+
+    def tick():
+        with cb._lock:
+            with box[0]._cond:
+                pass
+        return False
+
+    box.append(ServingLoop("graftcheck-bite", tick=tick))
+    box[0].start()
+    box[0].close(timeout=10.0)
+    crash = box[0].crashed
+    check(isinstance(crash, LockOrderViolation)
+          and "CircuitBreaker._lock" in str(crash)
+          and "ServingLoop._cond" in str(crash),
+          f"20c: the seeded inversion was not caught: {crash!r}")
+    check(len(instrument.violations) == 1,
+          f"20c: {len(instrument.violations)} violations recorded")
+    del instrument.violations[:]
+    log(f"  20c the seeded inversion (rank 70 held, rank 25 taken on a "
+        f"loop thread) crashed the loop with: {crash}; [{card}]")
+    return str(crash)
+
+
+def phase_analysis(card, greedy=None, sampled=None, fleet_tps=None,
+                   rag_want=None):
+    """Phase 20: graftcheck on the card machine (20a-20c). ``greedy``/
+    ``sampled`` are phase 5's and 5b's streams (phase 9's fleet
+    references), ``fleet_tps`` phase 9a's clean tokens/s, ``rag_want``
+    phase 10's /rag answer."""
+    from deeplearning4j_torch.analysis import instrument
+
+    t0 = time.perf_counter()
+    child = start_static_gate()
+    try:
+        instrument.install()
+        try:
+            serve_r, static, (net, reqs, want) = lock_checked_serve(
+                card, greedy, sampled, fleet_tps, rag_want, child)
+            bite_r = bite(card)
+        finally:
+            instrument.uninstall()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    plain = plain_fleet_tps(net, reqs, want)
+    serve_r["plain_tokens_per_s"] = plain
+    wall = time.perf_counter() - t0
+    log(f"  20b control: the same eight-client fleet serve uninstrumented "
+        f"{plain:.1f} tok/s, instrumented {serve_r['tokens_per_s']:.1f} "
+        f"({serve_r['tokens_per_s'] / plain:.3f}x); [{card}]")
+    log(f"  phase 20: {wall:.1f} s; [{card}]")
+    return dict(static=static, serve=serve_r, bite=bite_r, wall_s=wall)
+
+
 def kernel_line(flash, paged, bwd, launches, launches_d96,
                 launches_recurrent, launches_graphs, launches_pretrain,
                 launches_nlp, launches_ingest, launches_mesh,
-                launches_sharding, federation, groups):
+                launches_sharding, federation, groups, launches_analysis):
     k1 = flash["slice_f32_causal"]
     k2 = paged["f32_T1_Tmax512"]
     k2c = paged["f32_T256_Tmax512"]          # the serve's first prefill round
@@ -10023,6 +10486,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "launches_ingest": launches_ingest["flash_fwd"],
          "launches_mesh": launches_mesh["flash_fwd"],
          "launches_sharding": launches_sharding["flash_fwd"],
+         "launches_analysis": launches_analysis["flash_fwd"],
          **federation_fields(federation, "flash_fwd"),
          **group_fields(groups, "flash_fwd"),
          "max_abs_err": max(r["max_abs_err"] for n, r in flash.items()
@@ -10051,6 +10515,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "launches_ingest": launches_ingest["paged_attn"],
          "launches_mesh": launches_mesh["paged_attn"],
          "launches_sharding": launches_sharding["paged_attn"],
+         "launches_analysis": launches_analysis["paged_attn"],
          **federation_fields(federation, "paged_attn"),
          **group_fields(groups, "paged_attn"),
          "max_abs_err": max(r["max_abs_err"] for n, r in paged.items()
@@ -10064,6 +10529,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "chunk_launches": launches["paged_attn_chunk"],
          "chunk_launches_mesh": launches_mesh["paged_attn_chunk"],
          "chunk_launches_federation": federation["total"]["paged_attn_chunk"],
+         "chunk_launches_analysis": launches_analysis["paged_attn_chunk"],
          "chunk_merge_launches": launches["paged_attn_merge"],
          "chunk_max_abs_err": max(r["max_abs_err"] for r in paged.values()
                                   if r["route"] == "chunk"
@@ -10121,6 +10587,7 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
              "launches_ingest": launches_ingest[name],
              "launches_mesh": launches_mesh[name],
              "launches_sharding": launches_sharding[name],
+             "launches_analysis": launches_analysis[name],
              **federation_fields(federation, name),
              **group_fields(groups, name),
              "max_abs_err": max(r["max_abs_err"][g] for r in slice_bwd
@@ -10499,6 +10966,20 @@ def main() -> int:
                                       "flash_bwd_dkv")),
           f"a kernel of the process-group path never launched (K1, K3 and "
           f"K4 must): {groups}")
+    kernels.reset_launch_counts()         # the analysis path starts here
+    log("phase 20: graftcheck (the static gate without JAX, phase 9's "
+        "fleet with phase 10's RAG route, a k-NN server, a coalescer and "
+        "a broker under the lock-order instrument, the seeded inversion)")
+    REPORT["analysis"] = phase_analysis(
+        card, greedy, REPORT["sampled"]["streams"],
+        REPORT["fabric"]["fleet"]["tokens_per_s"],
+        REPORT["retrieval"]["rag"]["route"])
+    analysis = dict(kernels.LAUNCHES)     # ... and ends here
+    window_s["analysis"] = lap()
+    check(all(analysis[k] > 0 for k in ("flash_fwd", "paged_attn",
+                                        "paged_attn_chunk")),
+          f"a kernel of the lock-checked serve never launched (K1 and both "
+          f"routes of K2 must): {analysis}")
     windows = dict(serving=serving, loading=loading, fixture=fixture,
                    prefix=prefix, spec=spec, d96_serving=d96_serving,
                    training=training, d96_training=d96_training,
@@ -10506,7 +10987,7 @@ def main() -> int:
                    retrieval=retrieval, recurrent=recurrent, graphs=graphs,
                    pretrain=pretrain, nlp=nlp, ingest=ingest, mesh=mesh,
                    sharding=sharding, federation=federation,
-                   process_groups=groups)
+                   process_groups=groups, analysis=analysis)
     launches = {k: sum(w[k] for w in windows.values()) for k in serving}
     REPORT["main_path_launches"] = dict(windows, total=launches)
     check(all(n > 0 for n in launches.values()),
@@ -10538,7 +11019,7 @@ def main() -> int:
                                 "children_launches"]),
                        dict(total=groups,
                             children=REPORT["process_groups"][
-                                "children_launches"]))
+                                "children_launches"]), analysis)
     REPORT["total_s"] = time.perf_counter() - t_start
     REPORT["window_s"] = window_s
     log(f"build {REPORT['build_s']:.1f} s, total {REPORT['total_s']:.1f} s; "

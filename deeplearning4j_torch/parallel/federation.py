@@ -309,7 +309,9 @@ class FleetHost:
             sock, _ = self._srv.accept()
         except OSError:
             return False  # listening socket closed: clean exit
-        if self._closing:
+        with self._lock:
+            closing = self._closing
+        if closing:
             # close() shut the listening socket out from under a blocked
             # accept; a connection that raced through the wakeup is
             # refused, not served
@@ -378,9 +380,9 @@ class FleetHost:
         return True
 
     def _publish_tick(self) -> bool:
-        if self._closing:
-            return False
         with self._lock:
+            if self._closing:
+                return False
             todo = [(rid, lr, getattr(lr.fut, "_kv_snapshot", None))
                     for rid, lr in self._live.items()]
         for rid, lr, snap in todo:
@@ -560,7 +562,8 @@ class FleetHost:
     def close(self) -> None:
         """Graceful: stop serving, drop links. Does NOT close the fleet
         (the caller built it and may still drain it)."""
-        self._closing = True
+        with self._lock:
+            self._closing = True
         if self.heartbeat is not None:
             self.heartbeat.stop()
         try:
@@ -588,7 +591,8 @@ class FleetHost:
         dies, no goodbye frames — the closest a same-process test can
         get to SIGKILL. The fleet is closed too (its futures die with
         the 'process')."""
-        self._closing = True
+        with self._lock:
+            self._closing = True
         if self.heartbeat is not None:
             self.heartbeat.stop()
         try:

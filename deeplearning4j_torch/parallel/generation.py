@@ -357,6 +357,12 @@ class GenerationServer:
     replica groups of a fleet may share one net.
     """
 
+    # Decode-loop-owned state (conc-loop-ownership, see
+    # analysis/concurrency_rules.py): every write happens under ``_cond``
+    # but the tick thread reads it lock-free between dispatches.
+    _LOOP_OWNED = ("_slot_req",)
+    _LOOP_LOCK = "_cond"
+
     def __init__(self, net, vocab: int, *, slots: int = 8,
                  eos_id: Optional[int] = None,
                  max_pending: int = 64,
@@ -508,6 +514,53 @@ class GenerationServer:
         # none; chip_smoke.py holds K2's launch count to it)
         self._prefill_rounds = 0
         self._register_metrics(registry)
+        # the gauges read loop state lock-free at scrape time; they are
+        # registered here, as in the JAX server, so those reads count as
+        # construction (a scrape never takes ``_cond``)
+        m = self.metrics
+        m.gauge("generation_slots", "decode slot pool size",
+                fn=lambda: self.slots)
+        m.gauge("generation_active_slots", "slots currently decoding",
+                fn=lambda: self._n_active)
+        m.gauge("generation_active_slot_cap",
+                "autoscaler admission cap on concurrently active slots",
+                fn=lambda: self._active_cap)
+        m.gauge("generation_queue_depth", "requests waiting for a slot",
+                fn=lambda: len(self._queue))
+        m.gauge("generation_pending", "admitted-but-unresolved requests",
+                fn=lambda: self.admission.pending)
+        m.gauge("generation_accepted", "requests accepted by admission",
+                fn=lambda: self.admission.accepted)
+        m.gauge("generation_rejected", "requests rejected by admission",
+                fn=lambda: self.admission.rejected)
+        m.gauge("generation_breaker_open",
+                "circuit state (0 closed, 0.5 half-open, 1 open)",
+                fn=lambda: {"half_open": 0.5, "open": 1.0}.get(
+                    self.breaker.state, 0.0))
+        m.gauge("generation_pages_free", "unallocated KV pages",
+                fn=lambda: len(self._page_pool.free))
+        m.gauge("generation_pages_cached", "prefix-cache-pinned KV pages",
+                fn=lambda: len(self._page_pool.cache))
+        m.gauge("generation_resident_kv_bytes", "bytes of resident KV",
+                fn=lambda: self._page_pool.in_use() * self._page_bytes)
+        m.gauge("generation_pages_total", "KV page-pool size "
+                "(incl. the reserved garbage page)",
+                fn=lambda: self.pages_total)
+        m.gauge("generation_pages_in_use",
+                "pages holding live data (refcounted or prefix-cached)",
+                fn=lambda: self._page_pool.in_use())
+        m.gauge("generation_pages_shared",
+                "pages refcounted by more than one slot",
+                fn=lambda: self._page_pool.shared_count())
+        m.gauge("generation_peak_resident_kv_bytes",
+                "high-water resident KV bytes",
+                fn=lambda: self._page_pool.peak * self._page_bytes)
+        m.gauge("generation_kv_bytes_per_token",
+                "bytes per resident KV token (values + dequant scales)",
+                fn=lambda: self._page_token_bytes)
+        m.gauge("generation_kv_cache_int8",
+                "1 when pages store int8 (+f32 scales), 0 for conf dtype",
+                fn=lambda: 1.0 if self.kv_dtype == "int8" else 0.0)
 
         self._fwd = lm_stream_forward(net)
         self._pool = self._fresh_pool()
@@ -554,7 +607,7 @@ class GenerationServer:
         return self._replicas.weights(self.device)
 
     def _register_metrics(self, registry):
-        """The serving counters and gauges, under the JAX server's metric
+        """The serving counters, under the JAX server's metric
         names and help strings. Counters live in the (leaf-locked)
         registry, so the loop publishes without touching ``_cond`` and a
         scrape never blocks admission."""
@@ -627,49 +680,6 @@ class GenerationServer:
             "generation_prefill_exports_total",
             "requests exported as KVSnapshots after prefill "
             "(disaggregated prefill tier)")
-        m.gauge("generation_slots", "decode slot pool size",
-                fn=lambda: self.slots)
-        m.gauge("generation_active_slots", "slots currently decoding",
-                fn=lambda: self._n_active)
-        m.gauge("generation_active_slot_cap",
-                "autoscaler admission cap on concurrently active slots",
-                fn=lambda: self._active_cap)
-        m.gauge("generation_queue_depth", "requests waiting for a slot",
-                fn=lambda: len(self._queue))
-        m.gauge("generation_pending", "admitted-but-unresolved requests",
-                fn=lambda: self.admission.pending)
-        m.gauge("generation_accepted", "requests accepted by admission",
-                fn=lambda: self.admission.accepted)
-        m.gauge("generation_rejected", "requests rejected by admission",
-                fn=lambda: self.admission.rejected)
-        m.gauge("generation_breaker_open",
-                "circuit state (0 closed, 0.5 half-open, 1 open)",
-                fn=lambda: {"half_open": 0.5, "open": 1.0}.get(
-                    self.breaker.state, 0.0))
-        m.gauge("generation_pages_free", "unallocated KV pages",
-                fn=lambda: len(self._page_pool.free))
-        m.gauge("generation_pages_cached", "prefix-cache-pinned KV pages",
-                fn=lambda: len(self._page_pool.cache))
-        m.gauge("generation_resident_kv_bytes", "bytes of resident KV",
-                fn=lambda: self._page_pool.in_use() * self._page_bytes)
-        m.gauge("generation_pages_total", "KV page-pool size "
-                "(incl. the reserved garbage page)",
-                fn=lambda: self.pages_total)
-        m.gauge("generation_pages_in_use",
-                "pages holding live data (refcounted or prefix-cached)",
-                fn=lambda: self._page_pool.in_use())
-        m.gauge("generation_pages_shared",
-                "pages refcounted by more than one slot",
-                fn=lambda: self._page_pool.shared_count())
-        m.gauge("generation_peak_resident_kv_bytes",
-                "high-water resident KV bytes",
-                fn=lambda: self._page_pool.peak * self._page_bytes)
-        m.gauge("generation_kv_bytes_per_token",
-                "bytes per resident KV token (values + dequant scales)",
-                fn=lambda: self._page_token_bytes)
-        m.gauge("generation_kv_cache_int8",
-                "1 when pages store int8 (+f32 scales), 0 for conf dtype",
-                fn=lambda: 1.0 if self.kv_dtype == "int8" else 0.0)
 
     # ------------------------------------------------- lifecycle state
     @property
@@ -1629,7 +1639,7 @@ class GenerationServer:
             req = self._slot_req[s]
             if req is None:
                 continue
-            n = min(int(acc[s]) + 1, k_spec)
+            n = min(acc[s] + 1, k_spec)
             proposed += k_spec - 1
             accepted += n - 1
             for tok in true[s, :n].tolist():
@@ -1726,9 +1736,11 @@ class GenerationServer:
         positions [0, pos) in ONE gather per pool leaf and one copy to the
         host, the prefix-cache digests of still-pristine pages, and the
         resume header from the host mirrors. Pages beyond the stream
-        position hold look-ahead garbage and are skipped."""
+        position hold look-ahead garbage and are skipped. The mirrors'
+        numpy scalars go to ``pack_snapshot`` as they are: the host casts
+        happen there, outside the loop's hot-named functions."""
         req = self._slot_req[slot]
-        pos = int(self._pos[slot])
+        pos = self._pos[slot]
         n = -(-pos // self._ps)            # pages holding [0, pos)
         sp = self._slot_pages[slot]
         digests = [self._page_pool.tag.get(p) for p in sp[:n]]
@@ -1744,8 +1756,8 @@ class GenerationServer:
                         for k, leaf in self._pool[vn].items()}
                    for vn in self._paged_names}
         return pack_snapshot(
-            req=req, pos=pos, count=int(self._counts[slot]),
-            last=int(self._last[slot]), key=self._keys[slot].copy(),
+            req=req, pos=pos, count=self._counts[slot],
+            last=self._last[slot], key=self._keys[slot].copy(),
             kv_dtype=self.kv_dtype, page_size=self._ps,
             page_token_bytes=self._page_token_bytes, page_digests=digests,
             fetched=fetched, n_pages=n, shards=self._tp)

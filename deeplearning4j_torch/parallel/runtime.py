@@ -134,9 +134,11 @@ class ServingLoop:
     cleanly; ``wake()`` is invoked when the state machine advances.
     """
 
-    # Runtime-owned state (``_state``, ``_closed_evt``, ``_inbox``,
-    # ``_supervisor``) is written only under ``_cond`` by lifecycle
-    # methods and read lock-free on loop threads' hot paths.
+    # Runtime-owned state: written only under ``_cond`` by lifecycle
+    # methods, read lock-free on loop threads' hot paths (declared for
+    # the conc-loop-ownership analyzer rule).
+    _LOOP_OWNED = ("_state", "_closed_evt", "_inbox", "_supervisor")
+    _LOOP_LOCK = "_cond"
 
     def __init__(self, name: str, *,
                  handler: Optional[Callable[[Any], Any]] = None,
