@@ -296,13 +296,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    80-batch block card against CPU from the same tables and key (window
    and negative draws bitwise, tables within ``NLP_TABLE_ATOL``), run
    twice on the card (bitwise reported); the class defaults (HS) on the
-   first 5,000 sentences card against CPU, ``words_nearest`` equal. 14b:
+   first 2,500 sentences card against CPU, ``words_nearest`` equal. 14b:
    ParagraphVectors DBOW at ``bench_doc2vec``'s shape (4,000 documents of
    40 words over 5,000, layer 100, negative 5) on the card, words/s;
    ``infer_vector`` card against CPU from the same state; a DM run card
    against CPU. 14c: GloVe on 14a's first 5,000 sentences: ``fit``, then
    one epoch card against CPU (the permutation bitwise). 14d: DeepWalk
-   (vector 128, window 10, 2 walks of 40 a vertex) on a 2,000-vertex
+   (vector 128, window 10, 1 walk of 40 a vertex) on a 2,000-vertex
    two-community graph: same-community similarity above cross. 14e: a
    Keras-1 MNIST CNN at LeNet's widths and a residual / concat functional
    model imported onto the card (card against CPU and a numpy forward),
@@ -447,9 +447,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``CircuitBreaker._lock`` and takes its rank-25 ``_cond``: the loop's
    ``crashed`` is a ``LockOrderViolation`` naming both. ``uninstall()``
    runs in a ``finally``.
+21. GPT-J-6B's attention width (``GPTJ``: the zoo ``TransformerLM`` at
+   d_model 4,096 in 16 heads of d = 256, FFN 16,384, from EleutherAI's
+   config.json; cut to 2 blocks and the zoo's vocab 256, sinusoidal
+   positions and sequential block, ``GPTJ_REDUCED``), numpy-seeded. 21a:
+   ``output()`` of 2 rows x 128 tokens within 1e-4 of a CPU run of the
+   port's plain path; the model through a zip, reloaded bitwise. 21b:
+   phase 5's 16 requests served greedy, f32 KV token for token the
+   plain-read server's, int8 KV and a bf16 model within phase 5c's
+   near-tie rule; tokens/s. 21c: three Adam steps of ``fit`` at 4 x 512,
+   the first step's loss and gradients at [1, 128] within phase 7's 1e-4
+   of each leaf's max|g| of the CPU in f64 (stock f64 attention); ms a
+   step. K1, K3, K4 and both routes of K2 launch at d = 256
+   (``LAUNCHES_BY_D``), and no plain attention function runs on the card
+   outside the comparisons (``plain_guard``).
 
-Phases 2, 3 and 6 time each case twice: CUDA events around 50 wrapper
-calls (``ms``: the wrapper's host work included, which sets the pace once
+Phases 2, 3 and 6 also hold every kernel at the head dims of
+``WIDE_DIMS`` (1, 2, 3, 5, 6, 50, 130, 132, 160, 192, 200, 224, 256; f32,
+bf16 and f16 causal under a key mask, K2 over its own and int8 pages at
+T = 1, 4 and 48), the f32 case of each timed, and at phase 21's shapes.
+
+Phases 2, 3 and 6 check every case and time the ones the kernels line
+and PERF.md read (``TIMED_CASES``), each twice:
+CUDA events around 50 wrapper calls (``ms``: the wrapper's host work included, which sets the pace once
 a kernel takes a few µs) and the kernel's own device time per launch from
 one short ``torch.profiler`` window (``device_ms``; for K2 per wrapper
 call, the split chunk walk's merge pass included), with the plain
@@ -478,8 +498,9 @@ K2 nowhere) and phase 18 (processes on one host: K1, K3 and K4 in 18a's
 trainer processes, both routes of K2 in every host process of 18b and
 18c, each child counting its own) and phase 19 (process groups: K1, K3
 and K4 in every rank process, each counting its own) and phase 20
-(graftcheck: K1 and both routes of K2 in the lock-checked serve). The
-launch counters are zeroed just before each of the twenty-two and read just
+(graftcheck: K1 and both routes of K2 in the lock-checked serve) and
+phase 21 (GPT-J-6B's width: all four at d = 256, both routes of K2). The
+launch counters are zeroed just before each of the twenty-three and read just
 after (phase 6's and the reference servers' and forwards' launches are
 not counted); every kernel must have run on the main path, K2's chunk
 route and its merge pass included, and each path but phases 8, 11, 12,
@@ -503,6 +524,7 @@ is given.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -553,8 +575,20 @@ PAD_F16_DIMS = (48, 96)
 #: route to 8, 48, 80, 96), f32 and bf16 queries over their own and int8
 #: pages
 PAGED_PAD_DIMS = (4, 48, 80, 96)
-# phase-6 cases: (name, B, H, T, d, dtype, causal, masked); the first three
-# are the training shape
+#: phases 2, 3 and 6: the head dims of ROADMAP B3 (a) and (b), which the
+#: kernels take since the wide widths and the element staging were added:
+#: they run at 8 (d = 1..6; 16-bit rows of odd d and int8 rows of
+#: d % 4 != 0 staged by element loads), 64 (50), 160 (130, 132, 160), 192,
+#: 224 (200, 224) and 256 (exact; K2's decode route at 256 from 130 on);
+#: f32, bf16 and f16, causal under a key mask, K2 also over int8 pages on
+#: both routes
+WIDE_DIMS = (1, 2, 3, 5, 6, 50, 130, 132, 160, 192, 200, 224, 256)
+#: ... and the f32 case timed at one head dim a width (8, 64, 160, 192,
+#: 224, 256)
+WIDE_TIMED_DIMS = (2, 50, 130, 192, 200, 256)
+# phase-6 cases: (name, B, H, T, d, dtype, causal, masked); the first
+# three are the training shape. Every case is checked, and timed where
+# TIMED_CASES names it.
 BWD_CASES = [
     ("slice_f32_causal", 16, 8, 128, 32, torch.float32, True, False),
     ("slice_f32_causal_mask", 16, 8, 128, 32, torch.float32, True, True),
@@ -587,7 +621,13 @@ BWD_CASES = [
                                     (torch.bfloat16, False),
                                     (torch.bfloat16, True))
 ] + [(f"d{d}_f16_causal", 16, 8, 128, d, torch.float16, True, False)
-     for d in PAD_F16_DIMS]
+     for d in PAD_F16_DIMS] + [
+    # the head dims of WIDE_DIMS, then phase 21's training shape at
+    # GPT-J-6B's 16 heads of d = 256
+    (f"d{d}_{DTYPE_TAG[dt]}_causal_mask", 4, 8, 128, d, dt, True, True)
+    for d in WIDE_DIMS for dt in (torch.float32, torch.bfloat16,
+                                  torch.float16)
+] + [("gptj_train_f32_causal", 4, 16, 512, 256, torch.float32, True, False)]
 # phase-6 tolerances on max|err| / max|g|. Against the plain backward: f32
 # runs each product on the tensor cores as three TF32 products (about 2^-21
 # relative per product; one TF32 product would read ~1e-3) and sums each
@@ -730,8 +770,9 @@ def mask_for(g, B, T, dev):
 
 
 # ----------------------------------------------------------------- phase 2
-# phase-2 cases: (name, B, H, T, d, dtype, causal, masked, atol); atol None
-# is F16_REL of max|o|
+# phase-2 cases: (name, B, H, T, d, dtype, causal, masked, atol); atol
+# None is F16_REL of max|o|. Every case is checked, and timed where
+# TIMED_CASES names it.
 FLASH_CASES = [
     ("slice_f32_causal", 8, 8, 128, 32, torch.float32, True, False, 1e-4),
     ("slice_f32_causal_mask", 8, 8, 128, 32, torch.float32, True, True, 1e-4),
@@ -767,7 +808,16 @@ FLASH_CASES = [
         (torch.float32, False, 1e-4), (torch.float32, True, 1e-4),
         (torch.bfloat16, False, 2e-2), (torch.bfloat16, True, 2e-2))
 ] + [(f"d{d}_f16_causal", 8, 8, 128, d, torch.float16, True, False, None)
-     for d in PAD_F16_DIMS]
+     for d in PAD_F16_DIMS] + [
+    # the head dims of WIDE_DIMS, causal under a key mask, then phase 21's
+    # output() and training shapes at GPT-J-6B's 16 heads of d = 256
+    (f"d{d}_{DTYPE_TAG[dt]}_causal_mask", 4, 8, 128, d, dt, True, True, tol)
+    for d in WIDE_DIMS for dt, tol in ((torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, None))
+] + [("gptj_f32_causal", 2, 16, 128, 256, torch.float32, True, False, 1e-4),
+     ("gptj_train_f32_causal", 4, 16, 512, 256, torch.float32, True, False,
+      1e-4)]
 
 
 def phase_flash(dev):
@@ -783,6 +833,7 @@ def phase_flash(dev):
                 for _ in range(3)]
 
     for name, B, H, T, d, dtype, causal, masked, atol in FLASH_CASES:
+        timed = name in TIMED_CASES
         q, k, v = qkv(B, H, T, d, dtype)
         m = mask_for(g, B, T, dev) if masked else None
         o, lse = fa.flash_attention_forward(q, k, v, causal=causal, mask=m)
@@ -800,6 +851,21 @@ def phase_flash(dev):
         check(err <= atol and lerr <= max(atol, 1e-4),
               f"K1 {name}: max |O err| {err:.3g}, |lse err| {lerr:.3g} > "
               f"{atol}")
+        width = kernels.kernel_width(d)
+        common = dict(shape=[B, H, T, d], dtype=str(dtype), width=width,
+                      pad_ratio=width / d,
+                      smem_bytes=kernels.load().flash_fwd_smem(
+                          d, FLASH_DTYPE_CODE[dtype]),
+                      causal=causal, masked=masked, max_abs_err=err,
+                      lse_err=lerr, deterministic=True)
+        if not timed:
+            results[name] = dict(common, ms=None, device_ms=None,
+                                 plain_ms=None, plain_device_ms=None,
+                                 library_ms=None, library_device_ms=None,
+                                 bound_ms=None, bound_by=None)
+            log(f"  K1 {name:22s} err {err:.2e} lse {lerr:.2e} (atol "
+                f"{atol:.3g}), bitwise repeatable; width {width}")
+            continue
         kernel = lambda: fa.flash_attention_forward(  # noqa: E731
             q, k, v, causal=causal, mask=m)
         plain = lambda: fa.flash_attention_plain(  # noqa: E731
@@ -825,13 +891,7 @@ def phase_flash(dev):
             + (B * T * 4 if masked else 0)
         flops = 4 * d * visible_pairs(B, H, T, causal, m)
         bms, by = bound_ms(nbytes, flops, peak_kind(dtype))
-        results[name] = dict(shape=[B, H, T, d], dtype=str(dtype),
-                             width=kernels.kernel_width(d),
-                             pad_ratio=kernels.kernel_width(d) / d,
-                             smem_bytes=kernels.load().flash_fwd_smem(
-                                 d, FLASH_DTYPE_CODE[dtype]),
-                             causal=causal, masked=masked, max_abs_err=err,
-                             lse_err=lerr, deterministic=True, ms=ms,
+        results[name] = dict(common, ms=ms,
                              device_ms=kdev, plain_ms=plain_ms,
                              plain_device_ms=plain_dev, library_ms=sdpa_ms,
                              library_device_ms=sdpa_dev, bound_ms=bms,
@@ -866,6 +926,7 @@ def phase_flash_bwd(dev):
                 for n, a, b in zip(("dq", "dk", "dv"), got, refs)}
 
     for name, B, H, T, d, dtype, causal, masked in BWD_CASES:
+        timed = name in TIMED_CASES
         tol, sdpa_tol = BWD_TOL[dtype], SDPA_TOL[dtype]
         q, k, v, do = [torch.randn(B, H, T, d, generator=g).to(dev, dtype)
                        for _ in range(4)]
@@ -902,6 +963,23 @@ def phase_flash_bwd(dev):
               f"{sdpa_tol}")
         check(all(torch.equal(a, b) for a, b in zip(grads, again)),
               f"flash bwd {name}: two calls differ (not deterministic)")
+        width = kernels.kernel_width(d)
+        common = dict(
+            shape=[B, H, T, d], dtype=str(dtype), causal=causal, width=width,
+            pad_ratio=width / d,
+            smem_bytes=ext.flash_bwd_smem(d, FLASH_DTYPE_CODE[dtype]),
+            masked=masked, rel_err=errs, max_abs_err=abs_errs,
+            tolerance=tol, sdpa_rel_err=sdpa_errs, sdpa_tolerance=sdpa_tol,
+            deterministic=True, library_backend=sdpa_backend)
+        if not timed:
+            results[name] = dict(common, dq=None, dkv=None, plain_ms=None,
+                                 plain_device_ms=None, library_ms=None,
+                                 library_device_ms=None)
+            log(f"  K3/K4 {name:22s} rel err vs plain "
+                f"{max(errs.values()):.2e} (tol {tol}), vs SDPA "
+                f"{max(sdpa_errs.values()):.2e} (tol {sdpa_tol}), bitwise "
+                f"repeatable; width {width}")
+            continue
         args = (q, k, v, do, lse, fa.attention_delta(o, do), m, causal)
         dq_ms = time_ms(lambda: ext.flash_bwd_dq(*args))
         dkv_ms = time_ms(lambda: ext.flash_bwd_dkv(*args))
@@ -927,20 +1005,13 @@ def phase_flash_bwd(dev):
         dq_bound, dq_by = bound_ms(5 * tensor + rows, 6 * d * pairs, kind)
         dkv_bound, dkv_by = bound_ms(6 * tensor + rows, 8 * d * pairs, kind)
         results[name] = dict(
-            shape=[B, H, T, d], dtype=str(dtype), causal=causal,
-            width=kernels.kernel_width(d),
-            pad_ratio=kernels.kernel_width(d) / d,
-            smem_bytes=ext.flash_bwd_smem(d, FLASH_DTYPE_CODE[dtype]),
-            masked=masked, rel_err=errs, max_abs_err=abs_errs,
-            tolerance=tol, sdpa_rel_err=sdpa_errs, sdpa_tolerance=sdpa_tol,
-            deterministic=True, pairs=pairs,
+            common, pairs=pairs,
             dq=dict(ms=dq_ms, device_ms=dq_dev, bound_ms=dq_bound,
                     bound_by=dq_by),
             dkv=dict(ms=dkv_ms, device_ms=dkv_dev, bound_ms=dkv_bound,
                      bound_by=dkv_by),
             plain_ms=plain_ms, plain_device_ms=plain_dev,
-            library_ms=sdpa_ms, library_device_ms=sdpa_dev,
-            library_backend=sdpa_backend)
+            library_ms=sdpa_ms, library_device_ms=sdpa_dev)
         r = results[name]
         log(f"  K3/K4 {name:22s} rel err vs plain {max(errs.values()):.2e} "
             f"(tol {tol}), vs SDPA {max(sdpa_errs.values()):.2e} (tol "
@@ -1012,6 +1083,10 @@ PAGED16_TOL = {torch.bfloat16: (2.0 ** -7, 2.0 ** -4),
 #: PAGED_SMALL_CASES (int8 pages, T=48, page size 8; each case reports it as
 #: ``plain_stray``), so its native f16 bound is 2^-6, about three times
 #: that (bf16 keeps 2^-4: its stray is at most 0.040 there)
+#: The same bound holds past a width of 128 (``WIDE_DIMS`` from 130 on),
+#: where the plain f16 version's stray grows with the terms it sums in f16:
+#: 4.38e-3 of max|o| at d = 192 over int8 pages, T = 48, on an H100 (over
+#: 2^-8 = 3.9e-3, the bound at 32 <= d <= 128).
 PAGED16_NATIVE_SMALL_D = {torch.bfloat16: 2.0 ** -4, torch.float16: 2.0 ** -6}
 def paged_pool(g, B, H, ps, d, Tmax, quant, dev, dtype=torch.float32):
     """A seeded pool of B·NP + 1 pages (of ``dtype``, or int8 codes with
@@ -1042,7 +1117,8 @@ def paged_case(g, T, pool, dev, lean=False, qdtype=torch.float32):
     query against the plain version on f32-widened inputs and at its own
     dtype), two calls bitwise equal, on the chunk route also the other walk
     (unsplit where the rule splits, four ranges where it does not), then
-    timed (``lean``: fewer calls). Returns (name, measurements)."""
+    timed where ``TIMED_CASES`` names it (``lean``: fewer calls). Returns
+    (name, measurements)."""
     from deeplearning4j_torch import kernels
     from deeplearning4j_torch.nn.conf.layers import paged_attention as ppa
 
@@ -1097,12 +1173,13 @@ def paged_case(g, T, pool, dev, lean=False, qdtype=torch.float32):
     kvtag = "int8" if quant else DTYPE_TAG[kp.dtype]
     name = (f"{kvtag}{qtag if quant else ''}_T{T}_Tmax{Tmax}"
             + (f"_d{d}" if d != 32 else "") + (f"_ps{ps}" if ps != 16 else ""))
+    timed = name in TIMED_CASES
     check(o.dtype == qdtype and torch.isfinite(o.float()).all().item(),
           f"K2 {name}: dtype or non-finite output (garbage page or masked "
           f"row)")
     if wide:
         rtol_w, rtol_n = PAGED16_TOL[qdtype]
-        if d < 32:
+        if d < 32 or d > 128:
             rtol_n = PAGED16_NATIVE_SMALL_D[qdtype]
         ref = pw
         atol = rtol_w * top(pw)
@@ -1136,6 +1213,30 @@ def paged_case(g, T, pool, dev, lean=False, qdtype=torch.float32):
               and other["max_abs_err"] <= atol,
               f"K2 {name} with {forced} split(s): max |err| "
               f"{other['max_abs_err']:.3g} > {atol:.3g} or non-finite")
+    width = (kernels.decode_width(d) if route == "decode"
+             else kernels.kernel_width(d))
+    if not timed:
+        log(f"  K2 {name:24s} {route:6s} width {width} err {err:.2e} (atol "
+            f"{atol:.2e})"
+            + ("" if native_err is None else
+               f", at {DTYPE_TAG[qdtype]} {native_err:.2e} (atol "
+               f"{native_atol:.2e})")
+            + ("" if plain_stray is None else
+               f" (plain stray {plain_stray:.2e} of max|o|)")
+            + ", bitwise repeatable"
+            + ("" if other is None else
+               f" ({splits} split(s); {other['splits']}: err "
+               f"{other['max_abs_err']:.2e})"))
+        return name, dict(
+            B=B, H=H, T=T, d=d, width=width, pad_ratio=width / d, ps=ps,
+            Tmax=Tmax, quant=quant, dtype=DTYPE_TAG[qdtype],
+            pool_dtype=kvtag, route=route, splits=splits, smem_bytes=smem,
+            max_abs_err=err, max_rel_err=err / max(top(ref), 1e-30),
+            tolerance=atol, native_max_abs_err=native_err,
+            native_tolerance=native_atol, plain_stray=plain_stray,
+            deterministic=True, other_walk=other, ms=None, device_ms=None,
+            plain_ms=None, plain_device_ms=None, bound_ms=None,
+            bound_by=None, library_ms=None)
     kernel = lambda: ppa.paged_attention(*args, **kw)  # noqa: E731
     plain = lambda: ppa.paged_attention_plain(*args, **kw)  # noqa: E731
     ms = time_ms(kernel, iters=20 if lean else 50)
@@ -1162,8 +1263,6 @@ def paged_case(g, T, pool, dev, lean=False, qdtype=torch.float32):
                             for p in pos.tolist())
     bms, by = bound_ms(nbytes, flops,
                        "bf16" if kp.element_size() == 2 else "f32")
-    width = (kernels.decode_width(d) if route == "decode"
-             else kernels.kernel_width(d))
     res = dict(B=B, H=H, T=T, d=d, width=width, pad_ratio=width / d,
                ps=ps, Tmax=Tmax, quant=quant,
                dtype=DTYPE_TAG[qdtype], pool_dtype=kvtag, route=route,
@@ -1235,6 +1334,46 @@ PAGED_PAD_CASES = [
     for quant in (False, True) for T in (1, 48)]
 
 
+# phase-3 cases at the head dims of WIDE_DIMS: (q dtype, int8 pools, T, d)
+# at B = 4, H = 4, Tmax 256, page size 16: every query dtype over its own
+# and int8 pages at T = 1, 4 (decode route) and 48 (chunk route), and at
+# WIDE_TIMED_DIMS the f32 chunk route at T = 256
+WIDE_PAGED_CASES = [
+    (dt, quant, T, d) for d in WIDE_DIMS
+    for dt in (torch.float32, torch.bfloat16, torch.float16)
+    for quant in (False, True) for T in (1, 4, 48)] + [
+    (torch.float32, False, 256, d) for d in WIDE_TIMED_DIMS]
+# phase-3 cases at phase 21's serve (GPT-J-6B's 16 heads of d = 256, 8
+# slots, Tmax 512): (q dtype, int8 pools, T)
+GPTJ_PAGED_CASES = [(torch.float32, False, 1), (torch.float32, False, 256),
+                    (torch.float32, True, 1), (torch.bfloat16, False, 1)]
+
+
+#: the cases of phases 2, 3 and 6 that are timed, by name (a phase times
+#: its own case of a name here): the ones the kernels line and PERF.md
+#: read. Every other case is checked and not timed.
+TIMED_CASES = frozenset(
+    # phases 2 and 6: the slice's f32 case, the bench shape, f16 at the
+    # slice's shape, each head dim's f32 case (causal; under a key mask at
+    # WIDE_TIMED_DIMS), phase 21's shapes
+    {"slice_f32_causal", "bench_bf16_causal", "slice_f16_causal",
+     "gptj_f32_causal", "gptj_train_f32_causal"}
+    | {f"d{d}_f32_causal" for d in (8, 16) + PAD_DIMS}
+    | {f"d{d}_f32_causal_mask" for d in WIDE_TIMED_DIMS}
+    # phase 3: d = 32 at both Tmax over f32 and int8 pages, 16-bit queries,
+    # the padded head dims' f32 decode and chunk steps, WIDE_TIMED_DIMS'
+    # f32 decode and chunk steps, phase 21's serve shapes
+    | {f"{kv}_T{T}_Tmax{Tmax}" for kv in ("f32", "int8")
+       for T in (1, 4, 5, 256) for Tmax in (512, 2048)}
+    | {"f32_T48_Tmax512", "bf16_T1_Tmax512", "bf16_T256_Tmax512",
+       "f16_T1_Tmax512", "f16_T256_Tmax512"}
+    | {f"f32_T{T}_Tmax512_d{d}" for T in (1, 256)
+       for d in (8, 16) + PAGED_PAD_DIMS}
+    | {f"f32_T{T}_Tmax256_d{d}" for T in (1, 256) for d in WIDE_TIMED_DIMS}
+    | {f"{kv}_T{T}_Tmax512_d256" for kv, T in (
+        ("f32", 1), ("f32", 256), ("int8", 1), ("bf16", 1))})
+
+
 def phase_paged(dev):
     g = torch.Generator(device="cpu").manual_seed(2)
     results = {}
@@ -1265,6 +1404,29 @@ def phase_paged(dev):
         pool = paged_pool(g, B, H, ps, d, 512, quant, dev, dtype=qdtype)
         name, res = paged_case(g, T, pool, dev, lean=True, qdtype=qdtype)
         results[name] = res
+    results.update(paged_wide_cases(dev))
+    return results
+
+
+def paged_wide_cases(dev):
+    """Phase 3 at the head dims of ``WIDE_DIMS`` (``WIDE_PAGED_CASES``, one
+    pool per head dim, query dtype and pool kind) and at phase 21's serve
+    shape (``GPTJ_PAGED_CASES``, names prefixed ``gptj_``)."""
+    g = torch.Generator(device="cpu").manual_seed(21)
+    results, pools = {}, {}
+    for qdtype, quant, T, d in WIDE_PAGED_CASES:
+        key = (qdtype, quant, d)
+        if key not in pools:
+            pools[key] = paged_pool(g, 4, 4, 16, d, 256, quant, dev,
+                                    dtype=qdtype)
+        name, res = paged_case(g, T, pools[key], dev, lean=True,
+                               qdtype=qdtype)
+        results[name] = res
+    pools.clear()
+    for qdtype, quant, T in GPTJ_PAGED_CASES:
+        pool = paged_pool(g, 8, 16, 16, 256, 512, quant, dev, dtype=qdtype)
+        name, res = paged_case(g, T, pool, dev, lean=True, qdtype=qdtype)
+        results["gptj_" + name] = res
     return results
 
 
@@ -1563,6 +1725,11 @@ def top2_gap(net, prompt, tokens):
     return (top[0] - top[1]).item()
 
 
+#: > 0 while a comparison run (``uncounted``) is in progress: the plain
+#: attention functions may run on the card then (``plain_guard``)
+COMPARING = [0]
+
+
 def uncounted(fn, *args, **kw):
     """``fn(*args, **kw)`` with the kernels' launch counters left as they
     were: the comparison runs of a check are not the main path's
@@ -1571,9 +1738,11 @@ def uncounted(fn, *args, **kw):
 
     before = dict(kernels.LAUNCHES)
     before_d = dict(kernels.LAUNCHES_BY_D)
+    COMPARING[0] += 1
     try:
         return fn(*args, **kw)
     finally:
+        COMPARING[0] -= 1
         kernels.LAUNCHES.update(before)
         kernels.LAUNCHES_BY_D.clear()
         kernels.LAUNCHES_BY_D.update(before_d)
@@ -4760,8 +4929,8 @@ LSTM_SAMPLED = dict(temperature=0.8, top_k=40, seed=7)
 UCI = dict(classes=6, steps=60, train=450, test=150, batch=30, hidden=10,
            min_len=30)
 #: 11c's early stopping ends after this many epochs at most (5 before
-#: phase 18 needed the time)
-UCI_MAX_EPOCHS = 3
+#: phase 18 needed the time, 3 before phase 21 did)
+UCI_MAX_EPOCHS = 2
 #: 11c fails when the card's and the CPU's best models' class
 #: probabilities differ by more than this anywhere
 UCI_SPREAD_CAP = 1e-3
@@ -6539,16 +6708,17 @@ def phase_pretrain(card, out_dir=None):
 W2V = dict(sentences=50_000, words=20, vocab=30_000, zipf=1.3, seed=3,
            layer=128, window=5, negative=5, batch=8192, min_freq=2,
            repeats=2, native_repeats=1, block_batches=80,
-           defaults_sentences=5_000)
+           defaults_sentences=2_500)
 #: 14b: ``bench.py::bench_doc2vec``'s documents and DBOW model
 D2V = dict(docs=4_000, words=40, vocab=5_000, seed=5, layer=100, window=5,
            negative=5, min_freq=2, model_seed=11, dm_docs=500)
 GLOVE = dict(sentences=5_000, epochs=3)
 #: 14d: DeepWalk at the paper's vector size and window and the class's
-#: walk length, 2 walks a vertex (the class takes 10, the paper 80: cut to
-#: keep the script within its limit, to 5 before phase 18, then to 2)
+#: walk length, 1 walk a vertex (the class takes 10, the paper 80: cut to
+#: keep the script within its limit, to 5 before phase 18, then to 2, and
+#: to 1 for phase 21)
 DEEPWALK = dict(vertices=2_000, vector=128, window=10, walk_length=40,
-                walks=2, within=5, bridges=100, seed=3)
+                walks=1, within=5, bridges=100, seed=3)
 #: 14e: a Keras-1 MNIST CNN at LeNet's widths
 KERAS_LENET = dict(conv=(20, 50), kernel=5, dense=500, labels=10, batch=256)
 #: tables after a block or an epoch from the same state, card against CPU
@@ -6624,7 +6794,7 @@ def w2v_block(w, init, stream, dev):
 
 def phase_word2vec(card, dev):
     """14a: Word2Vec at the JAX bench leg, device and native, a block card
-    against CPU, then the class defaults on 5,000 sentences."""
+    against CPU, then the class defaults on 2,500 sentences."""
     from deeplearning4j_torch import native
     from deeplearning4j_torch.nlp import CollectionSentenceIterator, Word2Vec
 
@@ -10462,10 +10632,380 @@ def phase_analysis(card, greedy=None, sampled=None, fleet_tps=None,
     return dict(static=static, serve=serve_r, bite=bite_r, wall_s=wall)
 
 
+# ---------------------------------------------------------------- phase 21
+#: phase 21: the zoo TransformerLM at GPT-J-6B's attention and FFN widths,
+#: from EleutherAI's published config.json for GPT-J-6B (n_embd 4096,
+#: n_head 16, n_inner null, so 4·n_embd): d_model 4,096 in 16 heads of
+#: d = 256, FFN 16,384; numpy-seeded weights, nothing downloaded
+GPTJ = dict(num_labels=256, max_length=512, d_model=4096, n_heads=16,
+            n_blocks=2, max_cache=512)
+GPTJ_D = GPTJ["d_model"] // GPTJ["n_heads"]
+#: what phase 21 cuts from GPT-J-6B (its report lists them)
+GPTJ_REDUCED = ["depth 28 -> 2 blocks", "vocab 50,400 -> the zoo's 256",
+                "rotary positions -> the zoo's sinusoidal positions",
+                "parallel attention/FFN block -> the zoo's sequential block",
+                "weights numpy-seeded (gain 2, as numpy_params)"]
+#: 21c: fit's batch (rows, tokens) and steps, and the cut batch of the
+#: first step's comparison with the CPU in f64
+GPTJ_TRAIN = dict(batch=4, T=512, steps=3, cut_batch=1, cut_T=128)
+
+
+def gptj_params(seed, gain=2.0):
+    """``GPTJ``'s parameters drawn as numpy_params draws them (W ~
+    N(0, 1)·gain/√fan_in, gamma 1 + 0.1·N, the rest 0.1·N) from a numpy
+    Generator in f32 (the legacy RandomState draws f64 at a third of the
+    rate: 400M values at this width), their shapes from each owner's draw
+    on the meta device (a net's own draw of 400M values on the host would
+    be thrown away)."""
+    from deeplearning4j_torch.models.zoo import TransformerLM
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+
+    owners = ComputationGraph(TransformerLM(**GPTJ).conf())._param_owners()
+    gen = torch.Generator(device="cpu")
+    rng = np.random.default_rng(seed)
+    out = {}
+    for v, o in owners.items():
+        out[v] = {}
+        for k, t in o.init_params(gen, torch.float32, "meta").items():
+            shp = tuple(t.shape)
+            a = rng.standard_normal(shp, dtype=np.float32)
+            if k.startswith("W"):
+                a *= np.float32(gain / np.sqrt(shp[0]))
+            elif k == "gamma":
+                a = np.float32(1.0) + np.float32(0.1) * a
+            else:
+                a *= np.float32(0.1)
+            out[v][k] = a
+    return out
+
+
+def tensors_of(params, dtype):
+    return {v: {k: torch.from_numpy(a).to(dtype) for k, a in p.items()}
+            for v, p in params.items()}
+
+
+@contextlib.contextmanager
+def plain_guard():
+    """Counts, in ``PLAIN_ON_CARD``, the calls of the plain attention
+    functions (K1's, K3/K4's and K2's plain versions, the stock dense
+    attention) on CUDA tensors outside a comparison run (``uncounted``):
+    the main path must make none."""
+    from deeplearning4j_torch.nn.conf.layers import attention as patt
+    from deeplearning4j_torch.nn.conf.layers import paged_attention as ppa
+    from deeplearning4j_torch.ops import flash_attention as fa
+
+    targets = [(fa, "flash_attention_plain"),
+               (fa, "flash_attention_backward_plain"),
+               (ppa, "paged_attention_plain"),
+               (patt, "scaled_dot_attention")]
+    saved = [(m, n, getattr(m, n)) for m, n in targets]
+    PLAIN_ON_CARD.clear()
+
+    def counted(name, fn):
+        def run(*a, **k):
+            if not COMPARING[0] and a and torch.is_tensor(a[0]) \
+                    and a[0].is_cuda:
+                PLAIN_ON_CARD[name] = PLAIN_ON_CARD.get(name, 0) + 1
+            return fn(*a, **k)
+        return run
+
+    for m, n, fn in saved:
+        setattr(m, n, counted(n, fn))
+    try:
+        yield PLAIN_ON_CARD
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+#: plain attention calls on the card outside comparisons (``plain_guard``)
+PLAIN_ON_CARD: dict = {}
+
+
+def near_tie_rule(tag, model, reqs, outs, ref, spread=None):
+    """Phase 5c's rule: each stream equals the reference's or leaves it at
+    a position whose top-2 logit gap is within ``spread`` (default: the gap
+    spread of two right reads of the model, ``gap_spread``, at most
+    ``NEAR_TIE_CAP``). Returns (divergences, spread)."""
+    near = []
+    for i, (got, want) in enumerate(zip(outs, ref)):
+        k = first_divergence(got, want)
+        if k is None:
+            continue
+        gap = uncounted(top2_gap, model, reqs[i][0], want[:k])
+        near.append(dict(request=i, position=k, gap=gap,
+                         tokens=[got[k], want[k]]))
+    if near and spread is None:
+        spread = uncounted(gap_spread, model, [
+            np.concatenate([p, w]) for (p, _), w in zip(reqs, ref)])
+        check(spread <= NEAR_TIE_CAP, f"{tag}: two reads of the model move "
+                                      f"the top-2 gap by {spread:.4f} > "
+                                      f"{NEAR_TIE_CAP}")
+    for d in near:
+        check(d["gap"] <= spread,
+              f"{tag}: request {d['request']} leaves the plain-read stream "
+              f"at token {d['position']} at a top-2 logit gap of "
+              f"{d['gap']:.6f}, over the spread {spread:.6f}")
+    return near, spread
+
+
+def gptj_serve(tag, model, reqs, kv, ref_backend, exact, card):
+    """21b: ``reqs`` served greedy by ``model`` through K2 (``kv`` KV),
+    against the plain-read server (``paged_attention=ref_backend``) on the
+    same weights: token for token (``exact``) or within the near-tie rule.
+    Returns measurements."""
+    from deeplearning4j_torch import kernels
+
+    nb = GPTJ["n_blocks"]
+    before = dict(kernels.LAUNCHES)
+    outs, wall, st = serve(model, reqs, kv_dtype=kv)
+    k2 = kernels.LAUNCHES["paged_attn"] - before["paged_attn"]
+    chunk = kernels.LAUNCHES["paged_attn_chunk"] - before["paged_attn_chunk"]
+    check(k2 == nb * (st["prefill_rounds"] + SERVER["steps_per_dispatch"]
+                      * st["decode_steps"])
+          and chunk == nb * st["prefill_rounds"] and chunk > 0,
+          f"21b {tag}: K2 launched {k2} times ({chunk} chunk route) for "
+          f"{st['prefill_rounds']} prefill rounds and {st['decode_steps']} "
+          f"decode dispatches")
+    ref, ref_wall, _ = uncounted(serve, model, reqs, kv_dtype=kv,
+                                 paged_attention=ref_backend)
+    check(all(len(o) == 32 for o in outs), f"21b {tag}: short output")
+    check(len({t for o in outs for t in o}) > 4,
+          f"21b {tag}: degenerate greedy streams")
+    if exact:
+        check(outs == ref, f"21b {tag}: streams leave the plain-read "
+                           f"server's: {[first_divergence(a, b) for a, b in zip(outs, ref)]}")
+        near, spread = [], None
+    else:
+        near, spread = near_tie_rule(f"21b {tag}", model, reqs, outs, ref)
+    ntok = sum(len(o) for o in outs)
+    log(f"  21b {tag}: {len(reqs)} greedy requests, {ntok / wall:.1f} tok/s "
+        f"(plain read {ntok / ref_wall:.1f}); K2 {k2} launches ({chunk} "
+        f"chunk route); {len(reqs) - len(near)}/{len(reqs)} identical to the "
+        f"plain-read server; divergences (request, token, top-2 gap): "
+        f"{[(d['request'], d['position'], round(d['gap'], 6)) for d in near]}"
+        f"; [{card}]")
+    return dict(tokens=ntok, wall_s=wall, tokens_per_s=ntok / wall,
+                plain_tokens_per_s=ntok / ref_wall, k2_launches=k2,
+                k2_chunk_launches=chunk, prefill_rounds=st["prefill_rounds"],
+                decode_steps=st["decode_steps"],
+                identical_requests=len(reqs) - len(near), divergences=near,
+                gap_spread=spread, streams=outs)
+
+
+def gptj_batch(rows, T, seed=8):
+    """One-hot tokens and next-token labels [rows, T, V] (numpy)."""
+    rs = np.random.RandomState(seed)
+    V = GPTJ["num_labels"]
+    tok = rs.randint(0, V, (rows, T + 1))
+    eye = np.eye(V, dtype=np.float32)
+    return eye[tok[:, :-1]], eye[tok[:, 1:]]
+
+
+def phase_wide_heads(card):
+    """Phase 21: the zoo ``TransformerLM`` at GPT-J-6B's attention and FFN
+    widths (``GPTJ``; cuts in ``GPTJ_REDUCED``), every attention on the
+    card through the kernels at d = 256, no plain attention function on
+    the card outside the comparisons (``plain_guard``).
+
+    21a: ``output()`` of 2 rows x 128 tokens against a CPU run of the
+    port's plain path (phase 5f's 1e-4), and the model through a zip,
+    reloaded bitwise. 21b: phase 5's 16 requests served greedy with f32 KV
+    (token for token the plain-read server's), int8 KV and a bf16 model
+    (near-tie rule), tokens/s. 21c: ``GPTJ_TRAIN["steps"]`` Adam steps of
+    ``fit`` at 4 x 512, the first step's loss and gradients at a cut batch
+    against the CPU in f64 (phase 7's 1e-4 of each leaf's max|g|), ms a
+    step."""
+    from deeplearning4j_torch import kernels
+    from deeplearning4j_torch.datasets.dataset import DataSet
+    from deeplearning4j_torch.models.zoo import TransformerLM
+    from deeplearning4j_torch.utils.model_serializer import (load_model,
+                                                             save_model)
+
+    t_phase = time.perf_counter()
+    parts = {}
+    t0 = time.perf_counter()
+    params = gptj_params(seed=25)
+    net = TransformerLM(**GPTJ).init(tensors_of(params, torch.float32),
+                                     device="cuda")
+    cpu = TransformerLM(**GPTJ).init(tensors_of(params, torch.float32),
+                                     device="cpu")
+    nb, V = GPTJ["n_blocks"], GPTJ["num_labels"]
+    results = dict(config=dict(GPTJ, head_dim=GPTJ_D, ffn=4 * GPTJ["d_model"],
+                               source="EleutherAI GPT-J-6B config.json: "
+                                      "n_embd 4096, n_head 16, n_inner "
+                                      "null (4 x n_embd)"),
+                   reduced=GPTJ_REDUCED, param_bytes=param_bytes(net))
+    parts["build"] = time.perf_counter() - t0
+    with plain_guard() as plain_on_card:
+        # 21a: output() and the zip
+        t0 = time.perf_counter()
+        rs = np.random.RandomState(3)
+        x = np.eye(V, dtype=np.float32)[rs.randint(0, V, (2, 128))]
+        before = kernels.LAUNCHES_BY_D.get(("flash_fwd", GPTJ_D), 0)
+        out = net.output(x)
+        torch.cuda.synchronize()
+        k1 = kernels.LAUNCHES_BY_D.get(("flash_fwd", GPTJ_D), 0) - before
+        err = (out.cpu() - cpu.output(x)).abs().max().item()
+        check(out.shape == (2, 128, V) and torch.isfinite(out).all().item(),
+              "21a: output shape or non-finite values")
+        check(err <= 1e-4, f"21a: output() vs CPU plain path max |err| "
+                           f"{err:.3g} > 1e-4")
+        check(k1 == nb, f"21a: K1 launched {k1} times at d={GPTJ_D} in one "
+                        f"output(), expected {nb}")
+        del cpu
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "gptj_width.zip")
+            ts = time.perf_counter()
+            save_model(net, path, save_updater=False)
+            save_s = time.perf_counter() - ts
+            zip_bytes = os.path.getsize(path)
+            ts = time.perf_counter()
+            loaded = load_model(path, device="cuda")
+            load_s = time.perf_counter() - ts
+        again = loaded.output(x)
+        same = torch.equal(again, out)
+        flat_same = np.array_equal(loaded.params_flat(), net.params_flat())
+        del loaded, again
+        torch.cuda.empty_cache()
+        check(same and flat_same, "21a: the reloaded zip's output() or "
+                                  "parameters differ from the net's")
+        results["21a"] = dict(output_max_abs_err=err, k1_launches=k1,
+                              zip_bytes=zip_bytes, save_s=save_s,
+                              load_s=load_s, reload_bitwise=True)
+        log(f"  21a output() [2, 128, {V}] at d_model {GPTJ['d_model']}, "
+            f"{GPTJ['n_heads']} heads of d={GPTJ_D}: max |err| vs CPU "
+            f"{err:.2e} (atol 1e-4), K1 launches {k1}; zip {zip_bytes} "
+            f"bytes saved in {save_s:.1f} s, loaded on the card in "
+            f"{load_s:.1f} s, output() and parameters bitwise; "
+            f"{param_bytes(net)} parameter bytes; [{card}]")
+        parts["21a"] = time.perf_counter() - t0
+
+        # 21b: the phase-5 requests served greedy
+        t0 = time.perf_counter()
+        reqs = serve_requests()
+        uncounted(serve, net, reqs[:2])                   # warm-up
+        results["21b"] = {
+            "f32kv": gptj_serve("f32 KV", net, reqs, None, "stock", True,
+                                card),
+            "int8kv": gptj_serve("int8 KV", net, reqs, "int8", "stock",
+                                 False, card)}
+        bf = TransformerLM(dtype="bfloat16", **GPTJ).init(
+            tensors_of(params, torch.bfloat16), device="cuda")
+        uncounted(serve, bf, reqs[:2])                    # warm-up
+        results["21b"]["bf16"] = gptj_serve("bf16 model, bf16 KV", bf, reqs,
+                                            None, "xla", False, card)
+        del bf
+        torch.cuda.empty_cache()
+        parts["21b"] = time.perf_counter() - t0
+
+        # 21c: fit, and its first step against the CPU in f64
+        t0 = time.perf_counter()
+        tr = GPTJ_TRAIN
+        xb, yb = gptj_batch(tr["batch"], tr["T"])
+        xc, yc = xb[:tr["cut_batch"], :tr["cut_T"]], \
+            yb[:tr["cut_batch"], :tr["cut_T"]]
+        ld, gd = step_grads(net, xc, yc)
+        ref = TransformerLM(dtype="float64", **GPTJ).init(
+            tensors_of(params, torch.float64), device="cpu")
+        for v in ref.conf.vertices.values():      # f64 attention throughout
+            if getattr(getattr(v, "layer", None), "helper", None):
+                v.layer.helper = "stock"
+        lc, gc = step_grads(ref, xc, yc)
+        rule, leaf = worst_leaf(gd, gc, rule_1e4(ref, gc))
+        loss_rel = abs(ld - lc) / abs(lc)
+        del ref, gc
+        check(rule <= 1.0 and loss_rel <= 1e-4,
+              f"21c: first-step gradients vs the CPU in f64, worst leaf "
+              f"{leaf} at {rule:.3g} of phase 7's 1e-4 of its max|g|; loss "
+              f"rel {loss_rel:.3g}")
+        names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        before = {k: kernels.LAUNCHES_BY_D.get((k, GPTJ_D), 0) for k in names}
+        batches = [DataSet(xb, yb) for _ in range(tr["steps"])]
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        net.fit(batches)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - ts) / tr["steps"] * 1e3
+        per_step = {k: (kernels.LAUNCHES_BY_D.get((k, GPTJ_D), 0)
+                        - before[k]) / tr["steps"] for k in names}
+        loss = net.score()
+        check(np.isfinite(loss), f"21c: non-finite loss after fit: {loss}")
+        check(all(n == nb for n in per_step.values()),
+              f"21c: launches per step at d={GPTJ_D} {per_step}, expected "
+              f"{nb} each")
+        tokens = tr["batch"] * tr["T"]
+        results["21c"] = dict(grad_rule=rule, worst_leaf=leaf,
+                              loss_rel_err=loss_rel, first_loss=ld,
+                              cpu_f64_loss=lc, last_loss=loss,
+                              launches_per_step=per_step, step_ms=step_ms,
+                              tokens_per_s=tokens / step_ms * 1e3,
+                              peak_bytes=torch.cuda.max_memory_allocated())
+        log(f"  21c fit [{tr['batch']}, {tr['T']}] Adam, {tr['steps']} "
+            f"steps: first step at [{tr['cut_batch']}, {tr['cut_T']}] vs the "
+            f"CPU in f64: worst leaf {leaf} at {rule:.3g} of 1e-4·max|g|, "
+            f"loss rel {loss_rel:.2e} ({ld:.4f}); launches per step at "
+            f"d={GPTJ_D} {per_step}; {step_ms:.1f} ms a step (first "
+            f"included) = {tokens / step_ms * 1e3:.0f} tokens/s; loss after "
+            f"{loss:.4f}; [{card}]")
+        parts["21c"] = time.perf_counter() - t0
+    check(not plain_on_card, f"phase 21: plain attention ran on the card "
+                             f"outside the comparisons: {plain_on_card}")
+    del net
+    torch.cuda.empty_cache()
+    results["plain_on_card"] = dict(plain_on_card)
+    results["seconds"] = dict(parts, total=time.perf_counter() - t_phase)
+    log(f"  phase 21: {results['seconds']['total']:.1f} s "
+        f"{json.dumps({k: round(v, 1) for k, v in parts.items()})}; cuts "
+        f"{GPTJ_REDUCED}; [{card}]")
+    return results
+
+
+def wide_fields(cases, d256, part=None, grads=None, at256=0,
+                launches_wide=0, pattern="d{}_f32_causal_mask",
+                prefix=""):
+    """Kernels-line fields of the head dims of ``WIDE_DIMS`` (the timed f32
+    case ``pattern.format(d)`` of each of ``WIDE_TIMED_DIMS``, as
+    ``pad_fields``, and the worst error over every case at each head dim)
+    and of phase 21's d = 256 shape (case ``d256``: times beside the bound, the plain
+    version's and the library's; ``part``: the backward's dq or dkv), with
+    the phase-21 window's launches (``launches_wide``; ``at256``: those at
+    d = 256)."""
+    r = cases[d256]
+    t = r[part] if part else r
+    err = r["max_abs_err"]
+    def worst(c):
+        e = c["max_abs_err"]
+        return max(e.values()) if isinstance(e, dict) else e
+
+    def d_of(c):
+        return c.get("d", (c.get("shape") or [0] * 4)[3])
+
+    return {f"{prefix}wide_dims": pad_fields(cases, WIDE_TIMED_DIMS,
+                                             pattern, part),
+            f"{prefix}wide_dims_max_abs_err": {
+                str(d): max(worst(c) for c in cases.values() if d_of(c) == d)
+                for d in WIDE_DIMS},
+            f"{prefix}d256_shape": r.get("shape") or [r.get("B"), r.get("H"),
+                                                      r.get("T"), r.get("d")],
+            f"{prefix}d256_ms": t["ms"],
+            f"{prefix}d256_device_ms": t["device_ms"],
+            f"{prefix}d256_bound_ms": t["bound_ms"],
+            f"{prefix}d256_bound_by": t["bound_by"],
+            f"{prefix}d256_plain_device_ms": r["plain_device_ms"],
+            f"{prefix}d256_library_device_ms": r.get("library_device_ms"),
+            f"{prefix}d256_smem_bytes": r.get("smem_bytes"),
+            f"{prefix}d256_max_abs_err": (max(err[g] for g in grads)
+                                          if grads else err),
+            f"{prefix}launches_wide_heads": launches_wide,
+            f"{prefix}launches_wide_heads_at_d256": at256}
+
+
 def kernel_line(flash, paged, bwd, launches, launches_d96,
                 launches_recurrent, launches_graphs, launches_pretrain,
                 launches_nlp, launches_ingest, launches_mesh,
-                launches_sharding, federation, groups, launches_analysis):
+                launches_sharding, federation, groups, launches_analysis,
+                launches_wide, at256):
     k1 = flash["slice_f32_causal"]
     k2 = paged["f32_T1_Tmax512"]
     k2c = paged["f32_T256_Tmax512"]          # the serve's first prefill round
@@ -10502,7 +11042,10 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
                           "slice_f16_causal"),
          "launches_d96": launches_d96["flash_fwd"],
          **bench_fields(flash["bench_bf16_causal"]),
-         "head_dims": pad_fields(flash, PAD_DIMS, "d{}_f32_causal")},
+         "head_dims": pad_fields(flash, PAD_DIMS, "d{}_f32_causal"),
+         **wide_fields(flash, "gptj_f32_causal",
+                       at256=at256["flash_fwd"],
+                       launches_wide=launches_wide["flash_fwd"])},
         {"name": "paged_attn", "route": "cuda",
          "source": "deeplearning4j_torch/kernels/paged_attn.cuh",
          "replaces": ("deeplearning4j_tpu/nn/conf/layers/"
@@ -10568,7 +11111,16 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
          "chunk_launches_d96": launches_d96["paged_attn_chunk"],
          "head_dims": pad_fields(paged, PAGED_PAD_DIMS, "f32_T1_Tmax512_d{}"),
          "chunk_head_dims": pad_fields(paged, PAGED_PAD_DIMS,
-                                       "f32_T256_Tmax512_d{}")}]
+                                       "f32_T256_Tmax512_d{}"),
+         **wide_fields(paged, "gptj_f32_T1_Tmax512_d256",
+                       at256=at256["paged_attn"] - at256["paged_attn_chunk"],
+                       launches_wide=launches_wide["paged_attn"]
+                       - launches_wide["paged_attn_chunk"],
+                       pattern="f32_T1_Tmax256_d{}"),
+         **wide_fields(paged, "gptj_f32_T256_Tmax512_d256",
+                       at256=at256["paged_attn_chunk"],
+                       launches_wide=launches_wide["paged_attn_chunk"],
+                       pattern="f32_T256_Tmax256_d{}", prefix="chunk_")}]
     # the plain time is the whole plain backward, the library time the
     # whole SDPA backward (dq, dk and dv together), for both kernels
     for name, part, grads, line_no in (("flash_bwd_dq", "dq", ("dq",), 289),
@@ -10608,7 +11160,10 @@ def kernel_line(flash, paged, bwd, launches, launches_d96,
                 for k in ("device_ms", "bound_ms", "max_abs_err")},
              "launches_d96": launches_d96[name],
              **bench_fields(bwd["bench_bf16_causal"], part, grads),
-             "head_dims": pad_fields(bwd, PAD_DIMS, "d{}_f32_causal", part)})
+             "head_dims": pad_fields(bwd, PAD_DIMS, "d{}_f32_causal", part),
+             **wide_fields(bwd, "gptj_train_f32_causal", part, grads,
+                           at256=at256[name],
+                           launches_wide=launches_wide[name])})
     return {"kernels": line}
 
 
@@ -10980,6 +11535,22 @@ def main() -> int:
                                         "paged_attn_chunk")),
           f"a kernel of the lock-checked serve never launched (K1 and both "
           f"routes of K2 must): {analysis}")
+    kernels.reset_launch_counts()         # the wide-head path starts here
+    log(f"phase 21: GPT-J-6B's attention width ({GPTJ['n_heads']} heads of "
+        f"d = {GPTJ_D}, d_model {GPTJ['d_model']}, FFN "
+        f"{4 * GPTJ['d_model']}, {GPTJ['n_blocks']} blocks): output() and "
+        f"the zip, f32/int8-KV and bf16 serves, fit")
+    REPORT["wide_heads"] = phase_wide_heads(card)
+    wide = dict(kernels.LAUNCHES)         # ... and ends here
+    window_s["wide_heads"] = lap()
+    at256 = {k: kernels.LAUNCHES_BY_D.get((k, GPTJ_D), 0) for k in
+             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_attn",
+              "paged_attn_chunk")}
+    check(all(n > 0 for n in at256.values())
+          and at256["paged_attn"] > at256["paged_attn_chunk"],
+          f"a kernel of the wide-head path never launched at d={GPTJ_D} "
+          f"(K1, K3, K4 and both routes of K2 must): {at256}")
+    REPORT["wide_heads"]["launches_at_d256"] = at256
     windows = dict(serving=serving, loading=loading, fixture=fixture,
                    prefix=prefix, spec=spec, d96_serving=d96_serving,
                    training=training, d96_training=d96_training,
@@ -10987,7 +11558,8 @@ def main() -> int:
                    retrieval=retrieval, recurrent=recurrent, graphs=graphs,
                    pretrain=pretrain, nlp=nlp, ingest=ingest, mesh=mesh,
                    sharding=sharding, federation=federation,
-                   process_groups=groups, analysis=analysis)
+                   process_groups=groups, analysis=analysis,
+                   wide_heads=wide)
     launches = {k: sum(w[k] for w in windows.values()) for k in serving}
     REPORT["main_path_launches"] = dict(windows, total=launches)
     check(all(n > 0 for n in launches.values()),
@@ -11019,7 +11591,8 @@ def main() -> int:
                                 "children_launches"]),
                        dict(total=groups,
                             children=REPORT["process_groups"][
-                                "children_launches"]), analysis)
+                                "children_launches"]), analysis, wide,
+                       at256)
     REPORT["total_s"] = time.perf_counter() - t_start
     REPORT["window_s"] = window_s
     log(f"build {REPORT['build_s']:.1f} s, total {REPORT['total_s']:.1f} s; "

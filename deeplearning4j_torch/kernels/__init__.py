@@ -2,16 +2,21 @@
 
 Sources (all in this directory):
 
-- ``flash_fwd.cu``: flash-attention forward, the port of
-  ``deeplearning4j_tpu/ops/pallas_attention.py::_attn_fwd_kernel``;
+- ``flash_fwd.cuh``: flash-attention forward, the port of
+  ``deeplearning4j_tpu/ops/pallas_attention.py::_attn_fwd_kernel``,
+  instantiated at the widths up to 128 by ``flash_fwd.cu`` (with the C
+  entry points) and past 128 by ``flash_fwd_wide.cu``;
 - ``paged_attn.cuh``: paged-KV attention read, the port of
   ``deeplearning4j_tpu/nn/conf/layers/paged_attention.py::_paged_attn_kernel``,
-  instantiated at the exact head dims by ``paged_attn.cu`` (with the C
-  entry points) and at the padded ones by ``paged_attn_pad.cu`` (two
-  translation units that compile in parallel);
-- ``flash_bwd.cu``: flash-attention backward, dQ and dK/dV, the ports of
+  instantiated at the exact head dims up to 128 by ``paged_attn.cu`` (with
+  the C entry points), at the padded ones up to 128 by
+  ``paged_attn_pad.cu`` (decode route) and ``paged_attn_pad_chunk.cu``
+  (chunk route; ``paged_attn_pad_chunk_int8.cu`` over int8 pages) and past
+  128 by ``paged_attn_wide.cu``;
+- ``flash_bwd.cuh``: flash-attention backward, dQ and dK/dV, the ports of
   ``deeplearning4j_tpu/ops/pallas_attention.py::_attn_dq_kernel`` and
-  ``::_attn_dkv_kernel``;
+  ``::_attn_dkv_kernel``, instantiated by ``flash_bwd.cu`` (K3),
+  ``flash_bwd_dkv.cu`` (K4) and ``flash_bwd_wide.cu`` (both past 128);
 - ``bindings.cpp``: the one small file that includes PyTorch's headers. It
   checks each launch with ``C10_CUDA_KERNEL_LAUNCH_CHECK()``;
 - headers: ``common.cuh`` (the masked-score constants and the head-dim
@@ -23,18 +28,22 @@ Sources (all in this directory):
 
 ``load()`` builds all of them in one ``torch.utils.cpp_extension.load`` call
 for ``sm_90a`` into ``kernels/build/`` (listed in ``.gitignore``) at first
-use; nothing is built at import. The wrappers in ``ops/flash_attention.py``
+use, each translation unit in a compiler of its own (ninja runs them in
+parallel); nothing is built at import. The wrappers in ``ops/flash_attention.py``
 and ``nn/conf/layers/paged_attention.py`` add one to ``LAUNCHES`` per launch,
 so a run can show which kernels its main path went through (K2's chunk
 route and its merge pass also count under their own names), and to
 ``LAUNCHES_BY_D`` under ``(name, head dim)``.
 
-Head dims: every kernel is instantiated at 8, 16, 32, 64 and 128 for a head
-dim of exactly that width, and takes any other ``d`` with ``4 <= d <= 128``
-and ``d % 4 == 0`` in a padded instantiation (``kernel_width``; K2's decode
+Head dims: every kernel is instantiated at 8, 16, 32, 64, 128 and 256 for a
+head dim of exactly that width, and takes any other ``d`` with
+``1 <= d <= 256`` in a padded instantiation (``kernel_width``; K2's decode
 route at ``decode_width``): zero columns past ``d`` in its tiles, rows of
-``d`` elements in device memory, the scale ``1/√d``. Any other head dim
-raises before a launch.
+``d`` elements in device memory, the scale ``1/√d``. Rows that are not a
+multiple of 4 bytes (16-bit rows of odd ``d``, int8 rows of ``d % 4 != 0``)
+are staged by element loads. Past a width of 128 each tile's output
+columns are split over two CTAs (``kernels/common.cuh``). A head dim over
+256, or an f64 tensor, raises before a launch.
 """
 
 from __future__ import annotations
@@ -46,8 +55,10 @@ import torch
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "build")
-SOURCES = ("bindings.cpp", "flash_fwd.cu", "paged_attn.cu",
-           "paged_attn_pad.cu", "flash_bwd.cu")
+SOURCES = ("bindings.cpp", "flash_fwd.cu", "flash_fwd_wide.cu",
+           "paged_attn.cu", "paged_attn_pad.cu", "paged_attn_pad_chunk.cu",
+           "paged_attn_pad_chunk_int8.cu", "paged_attn_wide.cu",
+           "flash_bwd.cu", "flash_bwd_dkv.cu", "flash_bwd_wide.cu")
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-lineinfo")
 
@@ -57,12 +68,15 @@ LAUNCHES = {"flash_fwd": 0, "paged_attn": 0, "paged_attn_chunk": 0,
 #: the same by ``(kernel, head dim)``
 LAUNCHES_BY_D: dict = {}
 
-#: the widths the kernels are instantiated at (``common.cuh``)
-KERNEL_WIDTHS = (8, 16, 32, 48, 64, 80, 96, 128)
+#: the widths the kernels are instantiated at (``common.cuh``): a head dim
+#: d runs at the first width >= d, which is below d + 32
+KERNEL_WIDTHS = (8, 16, 32, 48, 64, 80, 96, 128, 160, 192, 224, 256)
 #: head dims with an instantiation of their own width, unpadded
-EXACT_HEAD_DIMS = (8, 16, 32, 64, 128)
+EXACT_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+#: the largest head dim the kernels take
+MAX_HEAD_DIM = 256
 #: what the kernels take, for error messages
-HEAD_DIM_RULE = "head dims 4..128 that are multiples of 4"
+HEAD_DIM_RULE = "head dims 1..256"
 
 _ext = None
 _lock = threading.Lock()
@@ -87,9 +101,9 @@ def count_launch(name: str, d: int) -> None:
 
 def kernel_width(d: int):
     """The width a head dim ``d`` runs at in K1, K3, K4 and K2's chunk
-    route (``d`` itself at 8, 16, 32, 48, 64, 80, 96 and 128, else the next
-    of them), or None where no kernel takes ``d``."""
-    if not 4 <= d <= 128 or d % 4:
+    route (``d`` itself at the widths of ``KERNEL_WIDTHS``, else the next
+    of them; 8 for d = 1..3), or None where no kernel takes ``d``."""
+    if not 1 <= d <= MAX_HEAD_DIM:
         return None
     return next(w for w in KERNEL_WIDTHS if w >= d)
 

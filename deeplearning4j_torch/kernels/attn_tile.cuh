@@ -13,7 +13,7 @@
 // k-steps') 8x8 matrices per ldmatrix. Head dims 8 and 16 in f32 are one
 // and two TF32 k-steps and need nothing of their own.
 // The *_pad helpers at the end serve the padded instantiations of other
-// head dims (common.cuh).
+// head dims (common.cuh), tile_abt_smem the wide ones (past 128).
 // Fragment layouts are listed in mma.cuh; g = lane / 4, t = lane % 4.
 #pragma once
 
@@ -21,6 +21,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -419,12 +421,17 @@ __device__ __forceinline__ void load_a_rows_pad(const T16* __restrict__ q,
                                                 int t, Frag16<D>& qa,
                                                 int dh) {
   static_assert(sizeof(T16) == 2, "16-bit A fragments");
-  // a pair of columns (c even) lies wholly before dh or wholly after it,
-  // dh being even; its 4 bytes are aligned, dh being even too
+  // with dh even a pair of columns (c even) lies wholly before dh or wholly
+  // after it, and its 4 bytes are aligned; with dh odd the pair is read
+  // as two 2-byte elements, the one at dh zero
   auto word = [&](int row, int c) -> uint32_t {
-    return row < Tlen && c < dh ? *reinterpret_cast<const uint32_t*>(
-                                      q + (size_t)row * dh + c)
-                                : 0u;
+    if (row >= Tlen || c >= dh) return 0u;
+    const T16* p = q + (size_t)row * dh + c;
+    if ((dh & 1) == 0) return *reinterpret_cast<const uint32_t*>(p);
+    const uint32_t lo = *reinterpret_cast<const unsigned short*>(p);
+    const uint32_t hi =
+        c + 1 < dh ? *reinterpret_cast<const unsigned short*>(p + 1) : 0u;
+    return lo | (hi << 16);
   };
   if constexpr (D == 8) {  // the m16n8k8 A fragment: a0, a1
     qa[0][0] = word(r0, 2 * t);
@@ -443,7 +450,8 @@ __device__ __forceinline__ void load_a_rows_pad(const T16* __restrict__ q,
 }
 
 // stage_rows2 for rows of dh elements, by cp.async of BYTES: copies of the
-// columns from dh on, and of rows past Tlen, write zeros.
+// columns from dh on, and of rows past Tlen, write zeros. sb == nullptr
+// stages one tensor.
 template <typename T, int D, int ROWS, int STRIDE, int THREADS, int BYTES>
 __device__ __forceinline__ void stage_rows2_pad_n(
     T* __restrict__ da, T* __restrict__ db, const T* __restrict__ sa,
@@ -455,13 +463,40 @@ __device__ __forceinline__ void stage_rows2_pad_n(
     const bool ok = r0 + j < Tlen && c < dh;
     const size_t src = ok ? (size_t)(r0 + j) * dh + c : 0;
     cp_async_n<BYTES>(da + j * STRIDE + c, sa + src, ok);
-    cp_async_n<BYTES>(db + j * STRIDE + c, sb + src, ok);
+    if (sb != nullptr) cp_async_n<BYTES>(db + j * STRIDE + c, sb + src, ok);
+  }
+}
+
+// The unsigned integer of an element's size (its bits, copied as they are)
+template <typename T>
+using bits_t = typename std::conditional<
+    sizeof(T) == 4, uint32_t,
+    typename std::conditional<sizeof(T) == 2, unsigned short,
+                              unsigned char>::type>::type;
+
+// The same for rows that are not a multiple of 4 bytes (16-bit rows of odd
+// dh): element loads and stores into the tile, synchronous (visible to
+// the CTA at its next barrier, as the ring's copies are once waited for).
+template <typename T, int D, int ROWS, int STRIDE, int THREADS>
+__device__ __forceinline__ void stage_rows2_elem(
+    T* __restrict__ da, T* __restrict__ db, const T* __restrict__ sa,
+    const T* __restrict__ sb, int r0, int Tlen, int tid, int dh) {
+  using U = bits_t<T>;
+  const U* ua = reinterpret_cast<const U*>(sa);
+  const U* ub = reinterpret_cast<const U*>(sb);
+  for (int i = tid; i < ROWS * D; i += THREADS) {
+    const int j = i / D, c = i % D;
+    const bool ok = r0 + j < Tlen && c < dh;
+    const size_t src = (size_t)(r0 + j) * dh + c;
+    reinterpret_cast<U*>(da)[j * STRIDE + c] = ok ? ua[src] : U(0);
+    if (sb != nullptr)
+      reinterpret_cast<U*>(db)[j * STRIDE + c] = ok ? ub[src] : U(0);
   }
 }
 
 // the widest copy a row of dh elements keeps aligned (common.cuh::
-// copy_bytes): 16 bytes, or 8 for a 16-bit row of dh % 8 == 4 (f32 rows of
-// dh % 4 == 0 are always 16)
+// copy_bytes): 16, 8 or 4 bytes (f32 rows: 16 where dh % 4 == 0), or
+// element loads below 4
 template <typename T, int D, int ROWS, int STRIDE, int THREADS>
 __device__ __forceinline__ void stage_rows2_pad(T* __restrict__ da,
                                                 T* __restrict__ db,
@@ -469,25 +504,100 @@ __device__ __forceinline__ void stage_rows2_pad(T* __restrict__ da,
                                                 const T* __restrict__ sb,
                                                 int r0, int Tlen, int tid,
                                                 int dh) {
-  if (copy_bytes(dh * (int)sizeof(T)) == 16)
-    stage_rows2_pad_n<T, D, ROWS, STRIDE, THREADS, 16>(da, db, sa, sb, r0,
-                                                       Tlen, tid, dh);
-  else
-    stage_rows2_pad_n<T, D, ROWS, STRIDE, THREADS, 8>(da, db, sa, sb, r0,
-                                                      Tlen, tid, dh);
+  switch (copy_bytes(dh * (int)sizeof(T))) {
+    case 16:
+      stage_rows2_pad_n<T, D, ROWS, STRIDE, THREADS, 16>(da, db, sa, sb, r0,
+                                                         Tlen, tid, dh);
+      break;
+    case 8:
+      stage_rows2_pad_n<T, D, ROWS, STRIDE, THREADS, 8>(da, db, sa, sb, r0,
+                                                        Tlen, tid, dh);
+      break;
+    case 4:
+      stage_rows2_pad_n<T, D, ROWS, STRIDE, THREADS, 4>(da, db, sa, sb, r0,
+                                                        Tlen, tid, dh);
+      break;
+    default:
+      stage_rows2_elem<T, D, ROWS, STRIDE, THREADS>(da, db, sa, sb, r0, Tlen,
+                                                    tid, dh);
+  }
 }
 
-// store_acc_row's columns before dh only (dst: the row's first element).
+// One output in the output type, rounded to nearest even once.
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store1(__half* p, float x) {
+  *p = __float2half_rn(x);
+}
+
+// store2 of columns c and c + 1 of a row of which dl columns exist from p
+// - c on: nothing from dl on; a pair store where dl is even (the pair is
+// then aligned, rows being an even number of elements apart), else two
+// element stores.
+template <typename T>
+__device__ __forceinline__ void store2_pad(T* p, float x0, float x1, int c,
+                                           int dl) {
+  if (c >= dl) return;
+  if ((dl & 1) == 0) {
+    store2(p, x0, x1);
+    return;
+  }
+  store1(p, x0);
+  if (c + 1 < dl) store1(p + 1, x1);
+}
+
+// store_acc_row's columns before dl only (dst: the row's first element).
 template <typename T, int D>
 __device__ __forceinline__ void store_acc_row_pad(T* __restrict__ dst,
                                                   const float (&acc)[D / 8][4],
                                                   int hr, int t, float mul,
-                                                  int dh) {
+                                                  int dl) {
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
-    if (8 * n + 2 * t >= dh) continue;
-    store2(dst + 8 * n + 2 * t, acc[n][2 * hr] * mul,
-           acc[n][2 * hr + 1] * mul);
+    const int c = 8 * n + 2 * t;
+    store2_pad(dst + c, acc[n][2 * hr] * mul, acc[n][2 * hr + 1] * mul, c,
+               dl);
+  }
+}
+
+// ------------------------------------------------------------- wide widths
+// S (16 x BN) += A (16 x D) · Bᵀ with A's 16 rows in a [16][ASTRIDE] tile in
+// shared memory, read one k-step at a time (8 f32 or 16 16-bit columns)
+// rather than held as D-wide fragments, which past a width of 128 would
+// not fit in registers beside the accumulators: the products are
+// tile_abt's. In f32 each k-step's three TF32 products are summed in fresh
+// accumulators and added to S by f32 adds that round to nearest: the
+// tensor core's accumulation truncates, and over the 20 to 32 k-steps of a
+// wide row its bias moves dP − delta, a difference of large terms, by
+// more than phase 6's 1e-5 of max|dK| (an H100, d = 200).
+template <int D, int BN, int ASTRIDE, int STRIDE, typename T>
+__device__ __forceinline__ void tile_abt_smem(const T* __restrict__ a,
+                                              const T* __restrict__ b,
+                                              float (&s)[BN / 8][4],
+                                              int lane) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int K = kF32 ? 8 : 16;  // columns of a k-step
+  using Frag =
+      typename std::conditional<kF32, float[1][4], Frag16<16>>::type;
+  for (int kk = 0; kk < D / K; ++kk) {
+    Frag f;
+    load_a_smem<K, ASTRIDE>(a + K * kk, lane, f);
+    if constexpr (kF32) {
+      float part[BN / 8][4];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+      tile_abt<K, BN, STRIDE>(f, b + K * kk, part, lane);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += part[j][e];
+    } else {
+      tile_abt<K, BN, STRIDE>(f, b + K * kk, s, lane);
+    }
   }
 }
 

@@ -1,8 +1,21 @@
 // K2, the paged-KV attention read: the exact head dims 8, 16, 32, 64 and
 // 128 and the C entry points; the kernels, their design and their
-// launchers are in paged_attn.cuh, the padded head dims in
-// paged_attn_pad.cu.
+// launchers are in paged_attn.cuh, the padded head dims up to 128 in
+// paged_attn_pad.cu, the head dims past 128 in paged_attn_wide.cu.
 #include "paged_attn.cuh"
+
+// paged_attn_wide.cu: K2 at a head dim of 129..256, the arguments and
+// return codes of dl4j_paged_attn; and the chunk route's shared memory
+// there
+extern "C" int dl4j_paged_attn_wide(const void* q, const void* kp,
+                                    const void* vp, const float* kscales,
+                                    const float* vscales, const int* bt,
+                                    const int* pos, const float* key_valid,
+                                    void* o, float* part, int splits, int B,
+                                    int H, int T, int D, int ps, int NP,
+                                    int qtype, int quant,
+                                    cudaStream_t stream);
+extern "C" int dl4j_paged_chunk_wide_smem(int D, int kind, int NP);
 
 // paged_attn_pad.cu: K2 at a head dim D with no exact instantiation, the
 // arguments and return codes of dl4j_paged_attn
@@ -72,34 +85,20 @@ extern "C" int dl4j_paged_attn_splits(int B, int H, int T, int D, int ps,
       return 1;
     return n;
   }();
-  const long long ctas = (long long)B * H *
+  const long long ctas = (long long)B * H * dl4j::halves(dl4j::pad_dim(D)) *
                          ((T + dl4j::kChunkRows - 1) / dl4j::kChunkRows);
   if (ctas >= sms) return 1;
   // ChunkTile::kBlockN of the width D runs at
-  const int bn = (dl4j::pad_dim(D) > 64 && kind != 2) ? 32 : 64;
+  const int bn = dl4j::chunk_block_n(dl4j::pad_dim(D),
+                                     kind == 0 ? 4 : kind == 1 ? 1 : 2);
   const long long most = std::max(1LL, ((long long)NP * ps) / (2 * bn));
   return (int)std::min(most, (2LL * sms + ctas - 1) / ctas);
 }
 
-namespace dl4j {
-template <int D>
-int chunk_smem_kind(int kind, int NP) {
-  switch (kind) {
-    case 0:
-      return chunk_smem_bytes<float, D>(NP);
-    case 1:
-      return chunk_smem_bytes<int8_t, D>(NP);
-    case 2:
-      return chunk_smem_bytes<__nv_bfloat16, D>(NP);
-    default:
-      return -2;
-  }
-}
-}  // namespace dl4j
-
 // Dynamic shared memory of one chunk-route CTA in bytes (for reports), at
 // the width a head dim D runs at; kind as for dl4j_paged_attn_splits.
 extern "C" int dl4j_paged_chunk_smem(int D, int kind, int NP) {
+  if (dl4j::pad_dim(D) > 128) return dl4j_paged_chunk_wide_smem(D, kind, NP);
   switch (dl4j::pad_dim(D)) {
     case 8:
       return dl4j::chunk_smem_kind<8>(kind, NP);
@@ -139,6 +138,10 @@ extern "C" int dl4j_paged_attn(const void* q, const void* kp, const void* vp,
     return -1;
   if (splits < 1 || (splits > 1 && (part == nullptr || T <= dl4j::kDecodeMaxT)))
     return -4;
+  if (dl4j::pad_dim(D) > 128)
+    return dl4j_paged_attn_wide(q, kp, vp, kscales, vscales, bt, pos,
+                                key_valid, o, part, splits, B, H, T, D, ps,
+                                NP, qtype, quant, stream);
   if (!dl4j::exact_dim(D))
     return dl4j_paged_attn_pad(q, kp, vp, kscales, vscales, bt, pos,
                                key_valid, o, part, splits, B, H, T, D, ps, NP,

@@ -34,17 +34,32 @@
 // Each output is written by one thread in a fixed order and no route uses
 // atomics: two calls are bitwise equal.
 //
-// Head dims 8, 16, 32, 64 and 128 run their own instantiations. Any other
-// d with 4 <= d <= 128 and d % 4 == 0 runs a padded instantiation
-// (common.cuh): the chunk route at the next of 8, 16, 32, 48, 64, 80, 96,
-// 128, the decode route at the next power of two (its lane groups split a
-// key row over a power-of-two number of lanes: d = 48 runs at 64, 80 and
-// 96 at 128, so a quarter to three eighths of the lanes of a row load
-// nothing). Pages keep rows of d elements; the padded kernels read them
-// into zero-filled columns past d, by the widest copy a row of d elements
-// keeps aligned (16 bytes; 8 for 16-bit rows of d % 8 == 4 and int8 rows of
-// d % 16 == 8; 4 for int8 rows of d % 8 == 4), the decode route by
-// 4-element vectors (16, 8 or 4 bytes), and scale by 1/√d.
+// Head dims 8, 16, 32, 64, 128 and 256 run their own instantiations. Any
+// other d with 1 <= d <= 256 runs a padded instantiation (common.cuh): the
+// chunk route at the next of 8, 16, 32, 48, 64, 80, 96, 128, 160, 192,
+// 224, 256, the decode route at the next power of two (its lane groups
+// split a key row over a power-of-two number of lanes: d = 48 runs at 64,
+// 80 and 96 at 128, so a quarter to three eighths of the lanes of a row
+// load nothing). Pages keep rows of d elements; the padded kernels read
+// them into zero-filled columns past d, by the widest copy a row of d
+// elements keeps aligned (16 bytes; 8 for 16-bit rows of d % 8 == 4 and
+// int8 rows of d % 16 == 8; 4 for int8 rows of d % 8 == 4 and 16-bit rows
+// of d % 4 == 2), and where a row is not a multiple of 4 bytes (16-bit
+// rows of odd d, int8 rows of d % 4 != 0) by element loads, synchronous;
+// the decode route by 4-element vectors (16, 8 or 4 bytes; 8 elements at
+// 256), or by element loads where d is not a multiple of the vector; and
+// scale by 1/√d. This header holds the kernels and launchers:
+// paged_attn.cu instantiates the exact widths up to 128 (and holds the C
+// entry points), paged_attn_pad.cu the padded ones up to 128 and
+// paged_attn_wide.cu those past 128, three translation units compiled in
+// parallel.
+//
+// Wide widths (160..256): the decode route runs a whole warp a key row
+// (8 elements a lane; f32 as two 16-byte loads); the chunk route runs two
+// CTAs per q tile, one per half of O's columns, each forming the scores
+// over the full width with q staged once in shared memory and read one
+// k-step at a time (as K1 does past 128), 16 keys a tile for f32 pools and
+// 32 for int8 and 16-bit ones.
 //
 // Decode route (T <= 4: decode and speculative verify): one CTA of 8 warps
 // per (b, h). The walked pages are cut into 8 contiguous ranges, one per
@@ -119,6 +134,7 @@
 
 #include <algorithm>
 #include <cmath>
+#include <cstring>
 #include <type_traits>
 
 #include "attn_tile.cuh"
@@ -250,12 +266,61 @@ struct KvVec4<__half> {
   }
 };
 
+// Eight elements a lane, for the decode route at a width of 256 (32 lanes
+// a key row): f32 as two 16-byte loads, int8 and 16-bit values as
+// KvVec<KV>.
+struct alignas(16) F8 {
+  float4 a, b;
+};
+template <typename KV>
+struct KvVec8 : KvVec<KV> {};
+template <>
+struct KvVec8<float> {
+  using type = F8;
+  static constexpr int kN = 8;
+  __device__ static void widen(const F8& x, float (&f)[8]) {
+    f[0] = x.a.x;
+    f[1] = x.a.y;
+    f[2] = x.a.z;
+    f[3] = x.a.w;
+    f[4] = x.b.x;
+    f[5] = x.b.y;
+    f[6] = x.b.z;
+    f[7] = x.b.w;
+  }
+};
+
+// A lane's N elements of a key row as the vector type V, by element loads
+// (a padded row whose lane slices are not aligned for V: d % N != 0); the
+// elements from n on are zero.
+template <typename V, typename KV, int N>
+__device__ __forceinline__ V gather_elems(const KV* __restrict__ p, int n) {
+  static_assert(sizeof(V) == N * sizeof(KV), "vector of N elements");
+  using U = bits_t<KV>;
+  constexpr int kPer = 4 / (int)sizeof(KV);  // elements a 32-bit word
+  const U* u = reinterpret_cast<const U*>(p);
+  uint32_t w[N / kPer];
+#pragma unroll
+  for (int i = 0; i < N / kPer; ++i) {
+    w[i] = 0u;
+#pragma unroll
+    for (int b = 0; b < kPer; ++b)
+      if (i * kPer + b < n)
+        w[i] |= (uint32_t)u[i * kPer + b] << (8 * (int)sizeof(KV) * b);
+  }
+  V out;
+  memcpy(&out, w, sizeof(V));
+  return out;
+}
+
 // Decode route: see the header. R = 1 (T = 1) or kDecodeMaxT (T <= 4; rows
 // past T are computed on zeros and not stored). QT is q's and o's type, KV
 // the pools' (QT itself, or int8 codes). Vec is KvVec<KV> and PAD false
 // for a head dim of exactly D (dh = D); Vec is KvVec4<KV> and PAD true for
 // a head dim dh padded to the power of two D: the lanes of a key row whose
-// columns lie past dh load nothing and hold zeros.
+// columns lie past dh load nothing and hold zeros, and a lane's slice
+// that is not aligned for Vec (dh % kN != 0) is read element by element.
+// At D = 256 Vec is KvVec8<KV> either way.
 template <typename QT, typename KV, int D, int R, typename Vec, bool PAD>
 __device__ __forceinline__ void paged_decode_body(
     const QT* __restrict__ q, const void* __restrict__ kp_,
@@ -267,7 +332,12 @@ __device__ __forceinline__ void paged_decode_body(
   constexpr int kN = Vec::kN;           // elements per lane per key row
   constexpr int kLanes = D / kN;        // lanes per key row (power of 2)
   constexpr int kKeys = 32 / kLanes;    // key rows per warp step
-  constexpr int kU = (64 / kKeys) < 8 ? (64 / kKeys) : 8;  // steps in flight
+  static_assert(kLanes >= 1 && kLanes <= 32, "a key row within a warp");
+  // steps in flight: up to 64 key rows a warp, at most 8 steps, and at
+  // most 32 registers of K (and as many of V) a lane (f32 at 256: 4)
+  constexpr int kVecRegs = (int)sizeof(typename Vec::type) / 4;
+  constexpr int kU0 = (64 / kKeys) < 8 ? (64 / kKeys) : 8;
+  constexpr int kU = kU0 < 32 / kVecRegs ? kU0 : 32 / kVecRegs;
   const KV* kp = static_cast<const KV*>(kp_);
   const KV* vp = static_cast<const KV*>(vp_);
 
@@ -283,6 +353,8 @@ __device__ __forceinline__ void paged_decode_body(
   const int ld = PAD ? dh : D;          // elements per row in memory
   // this lane's columns hold data (PAD: the lanes past dh hold zeros)
   const bool cols = !PAD || sub * kN < dh;
+  // PAD: lane slices not aligned for Vec are read element by element
+  const bool elem = PAD && dh % kN != 0;
   const size_t qbase = ((size_t)b * H + h) * T * ld;
 
   float qr[R][kN];
@@ -290,7 +362,7 @@ __device__ __forceinline__ void paged_decode_body(
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int e = 0; e < kN; ++e)
-      qr[r][e] = r < T && cols
+      qr[r][e] = r < T && cols && (!PAD || sub * kN + e < dh)
                      ? to_f32(q[qbase + (size_t)r * ld + sub * kN + e]) * scale
                      : 0.f;
 
@@ -332,10 +404,22 @@ __device__ __forceinline__ void paged_decode_body(
         const size_t row = ((size_t)page * H + h) * ps + c % ps;
         const size_t off = row * ld + sub * kN;
         const bool ld_ok = ok[u] && cols;
-        kr[u] = ld_ok ? *reinterpret_cast<const typename Vec::type*>(kp + off)
-                      : typename Vec::type{};
-        vr[u] = ld_ok ? *reinterpret_cast<const typename Vec::type*>(vp + off)
-                      : typename Vec::type{};
+        using VT = typename Vec::type;
+        if constexpr (PAD) {
+          if (!ld_ok) {
+            kr[u] = VT{};
+            vr[u] = VT{};
+          } else if (elem) {
+            kr[u] = gather_elems<VT, KV, kN>(kp + off, dh - sub * kN);
+            vr[u] = gather_elems<VT, KV, kN>(vp + off, dh - sub * kN);
+          } else {
+            kr[u] = *reinterpret_cast<const VT*>(kp + off);
+            vr[u] = *reinterpret_cast<const VT*>(vp + off);
+          }
+        } else {
+          kr[u] = ld_ok ? *reinterpret_cast<const VT*>(kp + off) : VT{};
+          vr[u] = ld_ok ? *reinterpret_cast<const VT*>(vp + off) : VT{};
+        }
         if (QUANT) {
           ksc[u] = ok[u] ? kscales[row] : 0.f;
           vsc[u] = ok[u] ? vscales[row] : 0.f;
@@ -449,7 +533,9 @@ __global__ void __launch_bounds__(kDecodeThreads)
                         const float* __restrict__ key_valid,
                         QT* __restrict__ o, int H, int T, int ps, int NP,
                         float scale) {
-  paged_decode_body<QT, KV, D, R, KvVec<KV>, false>(
+  using Vec = typename std::conditional<D == 256, KvVec8<KV>,
+                                        KvVec<KV>>::type;
+  paged_decode_body<QT, KV, D, R, Vec, false>(
       q, kp_, vp_, kscales, vscales, bt, pos, key_valid, o, H, T, ps, NP,
       scale, D);
 }
@@ -466,7 +552,9 @@ __global__ void __launch_bounds__(kDecodeThreads)
                             const float* __restrict__ key_valid,
                             QT* __restrict__ o, int H, int T, int ps, int NP,
                             float scale, int dh) {
-  paged_decode_body<QT, KV, D, R, KvVec4<KV>, true>(
+  using Vec = typename std::conditional<D == 256, KvVec8<KV>,
+                                        KvVec4<KV>>::type;
+  paged_decode_body<QT, KV, D, R, Vec, true>(
       q, kp_, vp_, kscales, vscales, bt, pos, key_valid, o, H, T, ps, NP,
       scale, dh);
 }
@@ -494,15 +582,25 @@ constexpr int kChunkWarps = 4;
 constexpr int kChunkThreads = kChunkWarps * 32;
 constexpr int kChunkRows = kChunkWarps * 16;  // q rows of a CTA
 
+// keys per chunk-route tile at a width, by the pools' element size (4 f32,
+// 1 int8, 2 16-bit): 32 past d=64 (80, 96, 128) keeps S and O in registers
+// for f32 and int8 (their q fragments are f32), as in K1; 16-bit pools
+// keep 64. Past 128 (q in shared memory, half of O's columns a CTA) the
+// tiles shrink so that the ring, the lo planes and q fit the opt-in limit:
+// 16 keys for f32, 32 for int8 and 16-bit pools.
+__host__ __device__ constexpr int chunk_block_n(int width, int elem_bytes) {
+  return width > 128 ? (elem_bytes == 4 ? 16 : 32)
+                     : (width > 64 && elem_bytes != 2) ? 32 : 64;
+}
+
 template <typename KV_, int D>
 struct ChunkTile {
   using KV = KV_;
   static constexpr bool kCodes = std::is_same<KV, int8_t>::value;
   static constexpr bool kF32 = std::is_same<KV, float>::value;
-  // keys per tile: 32 past d=64 (80, 96, 128) keeps S and O in registers
-  // for f32 and int8 (their q fragments are f32), as in K1; 16-bit pools
-  // keep 64
-  static constexpr int kBlockN = (D > 64 && sizeof(KV) != 2) ? 32 : 64;
+  static constexpr bool kWide = D > 128;
+  static constexpr int kOut = D / halves(D);  // O columns of a CTA
+  static constexpr int kBlockN = chunk_block_n(D, (int)sizeof(KV));
   // row stride in elements (attn_tile.cuh::tile_stride), but int8 rows of
   // d = 16, 48 and 80 take 32 bytes of padding: a stride of a multiple of
   // 32 bytes would put rows g and g + 4 (or g + 2) of a fragment read on
@@ -516,14 +614,20 @@ struct ChunkTile {
   static constexpr int kVals = kCodes ? 3 : 1;
   static constexpr int kStageBytes =
       2 * kTileBytes + kVals * kBlockN * (int)sizeof(float);
-  // ring stages: three keep two tiles in flight; f32 at d=128 keeps two,
-  // so that two CTAs fit on an SM
-  static constexpr int kStages = (kF32 && D == 128) ? 2 : 3;
+  // ring stages: three keep two tiles in flight; f32 at d=128 (and past
+  // it) keeps two, so that two CTAs (one, past 128) fit on an SM
+  static constexpr int kStages = (kF32 && D >= 128) ? 2 : 3;
   static constexpr int kRingBytes = kStages * kStageBytes;
   // f32: the TF32 lo planes of the current K and V tiles ([BN][kStride],
   // written once per tile; their hi parts replace the raw values in the
   // ring stage); int8 and 16-bit pools are read from the ring as they are
   static constexpr int kLoBytes = kF32 ? 2 * kTileBytes : 0;
+  // past 128: the CTA's q rows, [64][kQStride] of f32 (f32 and int8 pools,
+  // pre-scaled) or of the pools' 16-bit type
+  using QS = typename std::conditional<sizeof(KV) == 2, KV, float>::type;
+  static constexpr int kQStride = tile_stride<QS, D>();
+  static constexpr int kQBytes =
+      kWide ? kChunkRows * kQStride * (int)sizeof(QS) : 0;
   // bytes of one key-row copy: 16, or the whole row where it is shorter
   // (int8 at d=8: 8 bytes)
   static constexpr int kCopyBytes =
@@ -795,8 +899,32 @@ __device__ __forceinline__ void stage_kv_pad_n(KV* __restrict__ ks,
   }
 }
 
+// The same for rows that are not a multiple of 4 bytes (16-bit rows of odd
+// dh, int8 rows of dh % 4 != 0): element loads and stores into the tile,
+// synchronous (visible to the CTA at the barrier that marks the tile
+// landed).
+template <typename KV, int D, int BN, int STRIDE, typename RowOf>
+__device__ __forceinline__ void stage_kv_elem(KV* __restrict__ ks,
+                                              KV* __restrict__ vs,
+                                              const KV* __restrict__ kp,
+                                              const KV* __restrict__ vp,
+                                              int k0, int kend, int dh,
+                                              int tid, RowOf pool_row) {
+  using U = bits_t<KV>;
+  const U* ku = reinterpret_cast<const U*>(kp);
+  const U* vu = reinterpret_cast<const U*>(vp);
+  for (int i = tid; i < BN * D; i += kChunkThreads) {
+    const int j = i / D, c = i % D;
+    const bool ok = k0 + j < kend && c < dh;
+    const size_t src = ok ? pool_row(k0 + j) * dh + c : 0;
+    reinterpret_cast<U*>(ks)[j * STRIDE + c] = ok ? ku[src] : U(0);
+    reinterpret_cast<U*>(vs)[j * STRIDE + c] = ok ? vu[src] : U(0);
+  }
+}
+
 // ... by the widest copy a row of dh elements keeps aligned
-// (common.cuh::copy_bytes; f32 rows always 16 bytes, 16-bit rows 16 or 8)
+// (common.cuh::copy_bytes; f32 rows 16 bytes where dh % 4 == 0), or by
+// element loads where it is not a multiple of 4 bytes
 template <typename KV, int D, int BN, int STRIDE, typename RowOf>
 __device__ __forceinline__ void stage_kv_pad(KV* __restrict__ ks,
                                              KV* __restrict__ vs,
@@ -804,16 +932,23 @@ __device__ __forceinline__ void stage_kv_pad(KV* __restrict__ ks,
                                              const KV* __restrict__ vp, int k0,
                                              int kend, int dh, int tid,
                                              RowOf pool_row) {
-  const int nb = copy_bytes(dh * (int)sizeof(KV));
-  if (sizeof(KV) == 4 || nb == 16)
-    stage_kv_pad_n<KV, D, BN, STRIDE, 16>(ks, vs, kp, vp, k0, kend, dh, tid,
-                                          pool_row);
-  else if (sizeof(KV) == 2 || nb == 8)
-    stage_kv_pad_n<KV, D, BN, STRIDE, 8>(ks, vs, kp, vp, k0, kend, dh, tid,
-                                         pool_row);
-  else
-    stage_kv_pad_n<KV, D, BN, STRIDE, 4>(ks, vs, kp, vp, k0, kend, dh, tid,
-                                         pool_row);
+  switch (copy_bytes(dh * (int)sizeof(KV))) {
+    case 16:
+      stage_kv_pad_n<KV, D, BN, STRIDE, 16>(ks, vs, kp, vp, k0, kend, dh,
+                                            tid, pool_row);
+      break;
+    case 8:
+      stage_kv_pad_n<KV, D, BN, STRIDE, 8>(ks, vs, kp, vp, k0, kend, dh, tid,
+                                           pool_row);
+      break;
+    case 4:
+      stage_kv_pad_n<KV, D, BN, STRIDE, 4>(ks, vs, kp, vp, k0, kend, dh, tid,
+                                           pool_row);
+      break;
+    default:
+      stage_kv_elem<KV, D, BN, STRIDE>(ks, vs, kp, vp, k0, kend, dh, tid,
+                                       pool_row);
+  }
 }
 
 // Chunk route: see the header. QT is q's and o's type, KV the pools' (f32,
@@ -839,22 +974,30 @@ __device__ __forceinline__ void paged_chunk_body(
                 "copies must split evenly");
   constexpr int BN = C::kBlockN;
   constexpr int STRIDE = C::kStride;
+  constexpr int DO = C::kOut;
+  constexpr int QSTRIDE = C::kQStride;
   constexpr int kPerCopy = C::kCopyBytes / (int)sizeof(KV);
   constexpr int kPerRow = D / kPerCopy;
   const KV* kp = static_cast<const KV*>(kp_);
   const KV* vp = static_cast<const KV*>(vp_);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // after the ring: the lo planes (f32), then the block-table entries of
-  // the walked pages
+  // after the ring: the lo planes (f32), the q rows (wide), then the
+  // block-table entries of the walked pages
   float* klo = reinterpret_cast<float*>(smem_raw + C::kRingBytes);
   float* vlo = klo + C::kTileBytes / (int)sizeof(float);
-  int* bts = reinterpret_cast<int*>(smem_raw + C::kRingBytes + C::kLoBytes);
+  using QS = typename C::QS;
+  QS* qsm = reinterpret_cast<QS*>(smem_raw + C::kRingBytes + C::kLoBytes);
+  int* bts = reinterpret_cast<int*>(smem_raw + C::kRingBytes + C::kLoBytes +
+                                    C::kQBytes);
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const int split = blockIdx.x % splits;
-  const int qtiles = gridDim.x / splits;
-  const int q0 = (qtiles - 1 - blockIdx.x / splits) * kChunkRows;  // longest walks first
+  // x: (q tile, split, half of O's columns), the half fastest
+  const int half = blockIdx.x % halves(D);
+  const int bx = blockIdx.x / halves(D);
+  const int split = bx % splits;
+  const int qtiles = gridDim.x / halves(D) / splits;
+  const int q0 = (qtiles - 1 - bx / splits) * kChunkRows;  // longest walks first
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -943,11 +1086,26 @@ __device__ __forceinline__ void paged_chunk_body(
   // f32 and int8 pools: q widened to f32 and pre-scaled by log2(e)/√d (the
   // softmax runs in base 2); 16-bit pools: q as 16-bit A fragments, the
   // scores scaled after the product (the tensor core forms each product of
-  // two 16-bit values exactly and sums in f32)
-  using QFrag =
-      typename std::conditional<k16, Frag16<D>, float[D / 8][4]>::type;
+  // two 16-bit values exactly and sums in f32). Wide: the same values in
+  // the q tile qsm (synchronous element copies, seen at the loop's first
+  // barrier), read a k-step at a time
+  using QFrag = typename std::conditional<
+      C::kWide, float[1][4],
+      typename std::conditional<k16, Frag16<D>, float[D / 8][4]>::type>::type;
   QFrag qf;
-  if constexpr (k16 && PAD) {
+  if constexpr (C::kWide) {
+    const int dq = PAD ? dh : D;
+    for (int i = tid; i < kChunkRows * D; i += kChunkThreads) {
+      const int r = i / D, c = i % D;
+      const bool ok = q0 + r < T && c < dq;
+      const size_t at = qbase + (size_t)(q0 + r) * ld + c;
+      if constexpr (k16)
+        reinterpret_cast<bits_t<QS>*>(qsm)[r * QSTRIDE + c] =
+            ok ? reinterpret_cast<const bits_t<QS>*>(q)[at] : 0;
+      else
+        qsm[r * QSTRIDE + c] = ok ? to_f32(q[at]) * scale : 0.f;
+    }
+  } else if constexpr (k16 && PAD) {
     load_a_rows_pad<D>(q + qbase, r0, r1, T, t, qf, dh);
   } else if constexpr (k16) {
     load_a_rows<D>(q + qbase, r0, r1, T, t, qf);
@@ -964,12 +1122,13 @@ __device__ __forceinline__ void paged_chunk_body(
 
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[DO / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DO / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   const bool has_rows = wrow < T;  // warp-uniform: a warp past T only stages
+  const QS* qw = qsm + 16 * warp * QSTRIDE;  // the warp's q rows (wide)
 
   for (int it = it0; it < it1; ++it) {
     const int st = (it - it0) % C::kStages;
@@ -1009,18 +1168,36 @@ __device__ __forceinline__ void paged_chunk_body(
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
       if constexpr (QUANT) {
         // int8: the exact code products, then each column's key scale
-        scores_codes<D, BN, STRIDE>(qf, kt, s, g, t);
+        if constexpr (C::kWide) {
+          for (int kk = 0; kk < D / 8; ++kk) {
+            float f[1][4];
+            load_a_smem<8, QSTRIDE>(qw + 8 * kk, lane, f);
+            scores_codes<8, BN, STRIDE>(f, kt + 8 * kk, s, g, t);
+          }
+        } else {
+          scores_codes<D, BN, STRIDE>(qf, kt, s, g, t);
+        }
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             s[j][e] *= vals[BN + 8 * j + 2 * t + (e & 1)];
       } else if constexpr (k16) {
-        scores_16<D, BN, STRIDE>(qf, kt, s, lane);
+        if constexpr (C::kWide)
+          tile_abt_smem<D, BN, QSTRIDE, STRIDE>(qw, kt, s, lane);
+        else
+          scores_16<D, BN, STRIDE>(qf, kt, s, lane);
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+      } else if constexpr (C::kWide) {
+        for (int kk = 0; kk < D / 8; ++kk) {
+          float f[1][4];
+          load_a_smem<8, QSTRIDE>(qw + 8 * kk, lane, f);
+          scores_planes<8, BN, STRIDE>(f, kt + 8 * kk, klo + 8 * kk, s, g,
+                                       t);
+        }
       } else {
         scores_planes<D, BN, STRIDE>(qf, kt, klo, s, g, t);
       }
@@ -1071,18 +1248,20 @@ __device__ __forceinline__ void paged_chunk_body(
         }
         l[hr] = l[hr] * alpha + (sum0 + sum1);
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
+        for (int n = 0; n < DO / 8; ++n) {
           acc[n][2 * hr] *= alpha;
           acc[n][2 * hr + 1] *= alpha;
         }
       }
 
+      // O (this CTA's half of the columns, wide) += P · V
+      const int v0 = half * DO;
       if constexpr (QUANT)
-        pv_codes_rn<D, BN, STRIDE>(s, vals + 2 * BN, vt, acc, g, t);
+        pv_codes_rn<DO, BN, STRIDE>(s, vals + 2 * BN, vt + v0, acc, g, t);
       else if constexpr (k16)
-        pv_16<D, BN, STRIDE>(s, vt, acc, lane);
+        pv_16<DO, BN, STRIDE>(s, vt + v0, acc, lane);
       else
-        pv_planes_rn<D, BN, STRIDE>(s, vt, vlo, acc, g, t);
+        pv_planes_rn<DO, BN, STRIDE>(s, vt + v0, vlo + v0, acc, g, t);
     }
   }
 
@@ -1096,20 +1275,25 @@ __device__ __forceinline__ void paged_chunk_body(
     if (row >= T) continue;
     if (splits == 1) {
       const float lc = fmaxf(lr, 1e-30f);
-      QT* orow = o + qbase + (size_t)row * ld + 2 * t;
+      QT* orow = o + qbase + (size_t)row * ld + half * DO;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        if (PAD && 8 * n + 2 * t >= dh) continue;
-        store2(orow + 8 * n, acc[n][2 * hr] / lc, acc[n][2 * hr + 1] / lc);
+      for (int n = 0; n < DO / 8; ++n) {
+        const int c = 8 * n + 2 * t;
+        const float x0 = acc[n][2 * hr] / lc, x1 = acc[n][2 * hr + 1] / lc;
+        if constexpr (PAD)
+          store2_pad(orow + c, x0, x1, c, dh - half * DO);
+        else
+          store2(orow + c, x0, x1);
       }
     } else {
       // this split's partial of the row, unnormalised
       const size_t pr = (size_t)split * rows + qbase / ld + row;
       if constexpr (PAD)
-        store_acc_row_pad<float, D>(part + pr * dh, acc, hr, t, 1.f, dh);
+        store_acc_row_pad<float, DO>(part + pr * dh + half * DO, acc, hr, t,
+                                     1.f, dh - half * DO);
       else
-        store_acc_row<float, D>(part + pr * D, acc, hr, t, 1.f);
-      if (t == 0) {
+        store_acc_row<float, DO>(part + pr * D + half * DO, acc, hr, t, 1.f);
+      if (t == 0 && half == 0) {
         float* ml = part + (size_t)splits * rows * ld + pr * 2;
         ml[0] = m[hr];
         ml[1] = lr;
@@ -1177,11 +1361,27 @@ __global__ void __launch_bounds__(256)
   o[i] = from_f32<OT>(out / fmaxf(lsum, 1e-30f));
 }
 
-// Dynamic shared memory of a chunk CTA: the ring, the lo planes, and NP
-// block-table entries (the most a walk can stage).
+// Dynamic shared memory of a chunk CTA: the ring, the lo planes, the q
+// rows (wide), and NP block-table entries (the most a walk can stage).
 template <typename KV, int D>
 int chunk_smem_bytes(int NP) {
-  return ChunkTile<KV, D>::kRingBytes + ChunkTile<KV, D>::kLoBytes + 4 * NP;
+  return ChunkTile<KV, D>::kRingBytes + ChunkTile<KV, D>::kLoBytes +
+         ChunkTile<KV, D>::kQBytes + 4 * NP;
+}
+
+// chunk_smem_bytes by the pools' element (0 f32, 1 int8 codes, 2 16-bit)
+template <int D>
+int chunk_smem_kind(int kind, int NP) {
+  switch (kind) {
+    case 0:
+      return chunk_smem_bytes<float, D>(NP);
+    case 1:
+      return chunk_smem_bytes<int8_t, D>(NP);
+    case 2:
+      return chunk_smem_bytes<__nv_bfloat16, D>(NP);
+    default:
+      return -2;
+  }
 }
 
 template <typename QT, typename KV, int D, bool PAD>
@@ -1213,8 +1413,8 @@ int launch_chunk(const QT* q, const void* kp, const void* vp,
   const int smem = chunk_smem_bytes<KV, D>(NP);
   if (smem > limit) return -3;
   const long long qtiles = (T + kChunkRows - 1) / kChunkRows;
-  if (qtiles * splits > 0x7fffffffLL) return -1;
-  const dim3 grid((unsigned)(qtiles * splits), H, B);
+  if (qtiles * splits * halves(D) > 0x7fffffffLL) return -1;
+  const dim3 grid((unsigned)(qtiles * splits * halves(D)), H, B);
   const float scale = (float)(1.4426950408889634 / std::sqrt((double)dh));
   if constexpr (PAD)
     paged_chunk_pad_kernel<QT, KV, D><<<grid, kChunkThreads, smem, stream>>>(

@@ -8,8 +8,8 @@ gather-then-attend version and the hand-written Hopper kernel K2.
 - :class:`CudaPagedAttention` reads the pages in place through the block
   table with K2 (``kernels/paged_attn.cuh``). It never builds the gathered
   view. K2 takes f32, bf16 and f16 queries over pages of the query's
-  dtype or int8, at head dims 4..128 that are multiples of 4
-  (``kernels.kernel_width``, ``decode_width``), and computes in f32 as
+  dtype or int8, at every head dim 1..256 (``kernels.kernel_width``,
+  ``decode_width``), and computes in f32 as
   the Pallas kernel does; the plain version computes in the query's
   dtype, as the JAX gather does.
 

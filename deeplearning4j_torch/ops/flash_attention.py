@@ -87,8 +87,8 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, *,
 def supports(q_shape, *, mask, dtype=torch.float32) -> bool:
     """Whether the CUDA kernels take this case: a 4-D query, no mask or a
     ``[B, T]`` key-validity row, f32, bf16 or f16, and a head dim the
-    kernels take (``kernels.kernel_width``: 4..128, a multiple of 4). Any
-    T works: the kernels mask their ragged edge. A caller may
+    kernels take (``kernels.kernel_width``: 1..256). Any T works: the
+    kernels mask their ragged edge. A caller may
     ask before it hands CUDA tensors to the wrappers, which raise on a case
     the kernels do not take."""
     if len(q_shape) != 4:

@@ -115,13 +115,20 @@ def save_model(net, path: str, save_updater: bool = True) -> None:
         "epoch": int(getattr(net, "epoch", 0)),
         "num_params": int(flat.size),
     }
+    # the f32 weights and updater state are stored, not deflated: they
+    # deflate to ~93 % of their size at ~20 MB/s, which for a model of
+    # GPT-J-6B's width (1.6 GB in two blocks) is over a minute of saving for
+    # a 7 % smaller file; any zip reader takes either
+    stored = zipfile.ZIP_STORED
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
         zf.writestr("configuration.json", net.conf.to_json())
-        zf.writestr("coefficients.bin", flat.astype("<f4").tobytes())
+        zf.writestr("coefficients.bin", flat.astype("<f4").tobytes(),
+                    compress_type=stored)
         zf.writestr("metadata.json", json.dumps(meta))
         zf.writestr("state.npz", _state_to_npz(net.state))
         if save_updater and net.updater_state:
-            zf.writestr("updaterState.bin", _state_to_npz(net.updater_state))
+            zf.writestr("updaterState.bin", _state_to_npz(net.updater_state),
+                        compress_type=stored)
 
 
 def _net_class(conf):

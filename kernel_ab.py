@@ -2,7 +2,7 @@
 K3/K4 (flash backward, dQ and dK/dV) between two checkouts, on one CUDA
 card.
 
-    python3 kernel_ab.py OTHER_DIR [--out DIR] [--sass-only]
+    python3 kernel_ab.py OTHER_DIR [--out DIR] [--sass-only | --no-sass]
 
 OTHER_DIR is a baseline checkout of the repository (for example the parent
 commit unpacked with ``git archive``). The script runs, each in its own
@@ -13,6 +13,9 @@ sources (into that tree's ``kernels/build/``) and reports:
 
 - the device time per launch of K1, K2, K3 and K4 at the shapes the main
   path gives them (and K1, K3 and K4 at [2, 8, 2048, 128], f32 and bf16),
+  at the padded head dims 48, 96 and 120 (f32 and f16; K2 on both
+  routes) and at the wide ones 200 and 256 ([4, 16, 512, d], f32 and
+  bf16; a tree that refuses a case records it as unsupported),
   from one short ``torch.profiler`` window per case, read as
   ``chip_smoke.py`` reads it (its ``device_ms``); K2's per wrapper call,
   which on its split chunk walk is two launches (walk and merge);
@@ -25,9 +28,10 @@ sources (into that tree's ``kernels/build/``) and reports:
   and the attention kernels' device time, K2's chunk route summed
   (``chip_smoke.profile_serve`` and ``profile_train``).
 
-Before the runs it compiles each tree's ``flash_fwd.cu``, ``flash_bwd.cu``
-and ``paged_attn.cu`` (and ``paged_attn_pad.cu`` where the tree has it)
-once more with ``nvcc -Xptxas -v -cubin`` (one
+Before the runs it compiles each tree's kernel sources (every
+``deeplearning4j_torch/kernels/*.cu``: ``flash_fwd.cu``, ``flash_bwd.cu``,
+``paged_attn.cu``, and the other units where the tree has them) once more
+with ``nvcc -Xptxas -v -cubin`` (one
 ``nvcc`` each, all started together, the compile seconds of each kept) and
 reads ``cuobjdump -sass``: registers, spills and static shared memory of
 each kernel, its counts of ``HMMA`` (tensor-core products), ``LDGSTS``
@@ -37,7 +41,7 @@ equal instructions, and a summary of the padded-width kernels
 (``*_pad_kernel``: the head dims other than 8, 16, 32, 64, 128). Each run
 also reports the dynamic shared memory per CTA of K1, K3/K4 and K2's
 chunk route at every kernel width (``smem``). ``--sass-only`` stops after
-the compile report.
+the compile report; ``--no-sass`` skips it.
 
 The last line of its output is one JSON object with every run;
 ``--out DIR`` also writes it to ``DIR/kernel_ab.json``. The measurement
@@ -55,6 +59,17 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
+# padded head dims at the training batch (d = 96 is the main path's
+# head-dim-96 model), f32 and f16, causal: (name, B, H, T, d, dtype)
+PAD_CASES = [(f"pad{d}_{tag}_causal", 16, 8, 128, d, dt)
+             for d in (48, 96, 120)
+             for tag, dt in (("f32", "float32"), ("f16", "float16"))]
+# the wide widths at GPT-J-6B's 16 heads (T = 512, the phase-21 training
+# shape), exact at 256 and padded at 200; a tree whose kernels refuse a
+# head dim records it as unsupported
+WIDE_CASES = [(f"wide{d}_{tag}_causal", 4, 16, 512, d, dt)
+              for d in (200, 256)
+              for tag, dt in (("f32", "float32"), ("bf16", "bfloat16"))]
 # (name, B, H, T, d, dtype, causal): K1 on the serve's output() and the
 # training step, and the long yardstick shape
 K1_CASES = [("slice_f32_causal", 8, 8, 128, 32, "float32"),
@@ -62,13 +77,15 @@ K1_CASES = [("slice_f32_causal", 8, 8, 128, 32, "float32"),
             ("train_f32_causal", 16, 8, 128, 32, "float32"),
             ("mid_f32_causal", 2, 8, 1024, 64, "float32"),
             ("long_f32_causal", 2, 8, 2048, 128, "float32"),
-            ("long_bf16_causal", 2, 8, 2048, 128, "bfloat16")]
-# (name, T, query dtype, int8 pools): K2 at B=8, H=8, d=32, ps=16,
-# Tmax=512, as in phase 3: the decode route (T=1) and the chunk route at the
-# serve's first (256) and second (48) prefill rounds and at the route
-# boundary (5); f32 and int8 pools, then bf16 pools and int8 pools under a
-# bf16 query (a tree whose K2 refuses 16-bit queries records them as
-# unsupported)
+            ("long_bf16_causal", 2, 8, 2048, 128, "bfloat16")
+            ] + PAD_CASES + WIDE_CASES
+# (name, T, query dtype, int8 pools[, d]): K2 at B=8, H=8, d=32 (else d),
+# ps=16, Tmax=512, as in phase 3: the decode route (T=1) and the chunk
+# route at the serve's first (256) and second (48) prefill rounds and at
+# the route boundary (5); f32 and int8 pools, then bf16 pools and int8
+# pools under a bf16 query (a tree whose K2 refuses 16-bit queries records
+# them as unsupported); then both routes at the padded head dims, f32 and
+# f16, over their own pages
 K2_CASES = [("f32_T1_Tmax512", 1, "float32", False),
             ("int8_T1_Tmax512", 1, "float32", True),
             ("f32_T256_Tmax512", 256, "float32", False),
@@ -81,14 +98,25 @@ K2_CASES = [("f32_T1_Tmax512", 1, "float32", False),
             ("f16_T1_Tmax512", 1, "float16", False),
             ("f16_T256_Tmax512", 256, "float16", False),
             ("int8bf16_T1_Tmax512", 1, "bfloat16", True),
-            ("int8bf16_T256_Tmax512", 256, "bfloat16", True)]
+            ("int8bf16_T256_Tmax512", 256, "bfloat16", True)] + [
+    (f"{tag}_T{T}_Tmax512_d{d}", T, dt, False, d) for d in (48, 96, 120)
+    for tag, dt in (("f32", "float32"), ("f16", "float16"))
+    for T in (1, 256)]
 # (name, B, H, T, d, dtype): K3 and K4 on the training step, causal, and
 # the long yardstick shape
 BWD_CASES = [("train_f32_causal", 16, 8, 128, 32, "float32"),
              ("train_bf16_causal", 16, 8, 128, 32, "bfloat16"),
              ("mid_f32_causal", 2, 8, 1024, 64, "float32"),
              ("long_f32_causal", 2, 8, 2048, 128, "float32"),
-             ("long_bf16_causal", 2, 8, 2048, 128, "bfloat16")]
+             ("long_bf16_causal", 2, 8, 2048, 128, "bfloat16")
+             ] + PAD_CASES + WIDE_CASES
+
+
+def refused(exc):
+    """Whether ``exc`` is a tree's refusal of a case (a head dim or dtype
+    its kernels do not take), which is recorded as unsupported."""
+    return isinstance(exc, (TypeError, ValueError)) or (
+        isinstance(exc, RuntimeError) and "unsupported" in str(exc))
 
 
 def measure(tree: str) -> dict:
@@ -118,17 +146,24 @@ def measure(tree: str) -> dict:
         dtype = getattr(torch, dt)
         q, k, v = [torch.randn(B, H, T, d, generator=g).to(dev, dtype)
                    for _ in range(3)]
-        o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+        try:
+            o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+        except Exception as exc:
+            if not refused(exc):
+                raise
+            out["k1"][name] = dict(unsupported=True)
+            continue
         digest = hashlib.sha256(o.float().cpu().numpy().tobytes()
                                 + lse.cpu().numpy().tobytes()).hexdigest()
         ms, n = cs.device_ms(lambda: fa.flash_attention_forward(
             q, k, v, causal=True), "flash_fwd_")
         out["k1"][name] = dict(device_ms=ms, launches_per_call=n,
                                digest=digest[:16])
-    B, H, ps, d, Tmax = 8, 8, 16, 32, 512
+    B, H, ps, Tmax = 8, 8, 16, 512
     NP = Tmax // ps
     P = B * NP + 1
-    for name, T, dt, quant in K2_CASES:
+    for name, T, dt, quant, *dim in K2_CASES:
+        d = dim[0] if dim else 32
         dtype = getattr(torch, dt)
         if quant:
             kp, vp = [torch.randint(-127, 128, (P, H, ps, d), generator=g,
@@ -148,7 +183,9 @@ def measure(tree: str) -> dict:
         try:
             o = ppa.paged_attention(q, kp, vp, bt, pos, kscales=ks,
                                     vscales=vs)
-        except TypeError:
+        except Exception as exc:
+            if not refused(exc):
+                raise
             out["k2"][name] = dict(unsupported=True)
             continue
         digest = hashlib.sha256(o.float().cpu().numpy().tobytes()
@@ -161,7 +198,13 @@ def measure(tree: str) -> dict:
         dtype = getattr(torch, dt)
         q, k, v, do = [torch.randn(B, H, T, d, generator=g).to(dev, dtype)
                        for _ in range(4)]
-        o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+        try:
+            o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+        except Exception as exc:
+            if not refused(exc):
+                raise
+            out["k3"][name] = out["k4"][name] = dict(unsupported=True)
+            continue
         args = (q, k, v, do, lse, fa.attention_delta(o, do), None, True)
         for part, kernel in (("k3", "flash_bwd_dq"), ("k4", "flash_bwd_dkv")):
             fn = getattr(ext, kernel)
@@ -191,9 +234,6 @@ def measure(tree: str) -> dict:
     out["card"] = card
     return out
 
-
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_attn.cu",
-           "paged_attn_pad.cu")
 
 
 def compile_one(tree: str, src: str, tmp: str):
@@ -228,8 +268,10 @@ def sass_report(tree: str) -> dict:
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
-    sources = [s for s in SOURCES if os.path.exists(
-        os.path.join(tree, "deeplearning4j_torch", "kernels", s))]
+    import glob
+
+    sources = sorted(os.path.basename(p) for p in glob.glob(
+        os.path.join(tree, "deeplearning4j_torch", "kernels", "*.cu")))
     with tempfile.TemporaryDirectory() as tmp:
         with ThreadPoolExecutor(len(sources)) as pool:
             outs = list(pool.map(lambda s: compile_one(tree, s, tmp),
@@ -283,6 +325,8 @@ def main() -> int:
                     help="(internal) measure the tree OTHER and print JSON")
     ap.add_argument("--sass-only", action="store_true",
                     help="stop after the compile report")
+    ap.add_argument("--no-sass", action="store_true",
+                    help="skip the compile report (the runs only)")
     args = ap.parse_args()
     if args.measure:
         print(json.dumps(measure(args.other)), flush=True)
@@ -295,13 +339,25 @@ def main() -> int:
         return 2
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(2) as pool:
-        reports = list(pool.map(sass_report, (args.other, HERE)))
-    compile_s = {label: r.pop("_compile_s") for label, r in
-                 zip(("other", "this"), reports)}
-    sass = dict(other=reports[0], this=reports[1])
-    print(f"compile seconds (nvcc -cubin, all at once): {compile_s}",
-          flush=True)
+    if args.no_sass:
+        sass = compile_s = None
+    else:
+        with ThreadPoolExecutor(2) as pool:
+            reports = list(pool.map(sass_report, (args.other, HERE)))
+        compile_s = {label: r.pop("_compile_s") for label, r in
+                     zip(("other", "this"), reports)}
+        sass = dict(other=reports[0], this=reports[1])
+        print(f"compile seconds (nvcc -cubin, all at once): {compile_s}",
+              flush=True)
+        sass_summary(sass, compile_s, args)
+        if args.sass_only:
+            return 0
+    return compare_runs(args, sass, compile_s)
+
+
+def sass_summary(sass, compile_s, args):
+    """Prints each kernel of this tree against the other's, and with
+    ``--sass-only`` writes the report and its summary line."""
     for fn, r in sass["this"].items():
         was = sass["other"].get(fn)
         note = "new" if was is None else (
@@ -325,14 +381,18 @@ def main() -> int:
               f"{max(r['registers'] for r in pads)}, spilling: "
               f"{len(spilled)} {[fn[:60] for fn in spilled]}", flush=True)
     if args.sass_only:
-        line = {"sass": sass, "compile_s": compile_s}
         if args.out:
             os.makedirs(args.out, exist_ok=True)
             with open(os.path.join(args.out, "kernel_ab.json"), "w") as f:
-                json.dump(line, f, indent=1)
+                json.dump({"sass": sass, "compile_s": compile_s}, f,
+                          indent=1)
         print(json.dumps({"kernels_in_both": len(both),
                           "equal_instructions": same}))
-        return 0
+
+
+def compare_runs(args, sass, compile_s) -> int:
+    """The four runs (other, this, this, other), their report and the
+    last line."""
     runs = []
     for label, tree in (("other", args.other), ("this", HERE),
                         ("this", HERE), ("other", args.other)):
@@ -346,17 +406,18 @@ def main() -> int:
         run["label"] = label
         runs.append(run)
         k1 = " ".join(f"{n} {r['device_ms']:.5f}"
-                      for n, r in run["k1"].items())
+                      for n, r in run["k1"].items() if "device_ms" in r)
         print(f"{label}: K1 ms/launch {k1}", flush=True)
         print(f"{label}: K1 digests " + " ".join(
-            f"{n} {r['digest']}" for n, r in run["k1"].items()), flush=True)
+            f"{n} {r.get('digest', 'unsupported')}"
+            for n, r in run["k1"].items()), flush=True)
         print(f"{label}: K2 digests " + " ".join(
             f"{n} {r.get('digest', 'unsupported')}"
             for n, r in run["k2"].items()), flush=True)
         for part in ("k3", "k4"):
             print(f"{label}: {part.upper()} digests " + " ".join(
-                f"{n} {r['digest']}" for n, r in run[part].items()),
-                flush=True)
+                f"{n} {r.get('digest', 'unsupported')}"
+                for n, r in run[part].items()), flush=True)
         for part in ("k2", "k3", "k4"):
             ms = " ".join(f"{n} {r['device_ms']:.5f}"
                           for n, r in run[part].items() if "device_ms" in r)

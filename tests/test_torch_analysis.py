@@ -38,6 +38,7 @@ from deeplearning4j_tpu.analysis import analyze as jax_analyze  # noqa: E402
 from deeplearning4j_tpu.analysis import (  # noqa: E402
     concurrency_rules as jax_concurrency_rules)
 from deeplearning4j_tpu.analysis import instrument as jax_instrument  # noqa
+from tests.test_torch_knn import assert_knn_close  # noqa: E402
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.analysis]
 
@@ -510,9 +511,12 @@ def _clients(work):
 
 def _serve_rounds(net, held):
     """The fleet, k-NN and broker rounds, each under ``CLIENTS`` threads:
-    (streams by request, k-NN ids by query, frames by topic), and the
-    k-NN distances by query apart (coalesced batches round differently
-    from run to run). The servers, closed, are appended to ``held``."""
+    (streams by request, frames by topic), bitwise by design, and the
+    k-NN round apart as ``(points, queries, (distances, ids))``: the
+    euclidean distance is the f32 expansion ``‖q‖² − 2q·p + ‖p‖²``, which
+    a coalesced batch rounds differently from run to run, so its answers
+    are held by the tie rule (``assert_knn_close``). The servers, closed,
+    are appended to ``held``."""
     from deeplearning4j_torch.nearestneighbors.server import (
         NearestNeighborsServer)
     from deeplearning4j_torch.parallel.fleet import ReplicaFleet
@@ -542,15 +546,19 @@ def _serve_rounds(net, held):
         fleet.close()
 
     pts = rs.randn(256, 8).astype(np.float32)
+    qs = pts[:32] + 0.01
     answers, distances = {}, {}
     with NearestNeighborsServer(pts, backend="index", device="cpu") as knn:
         held.append(knn)
         def query(i):
             for j in range(i, 32, CLIENTS):
-                d, idx = knn.knn(pts[j:j + 1] + 0.01, 3)
-                answers[j] = np.asarray(idx).tolist()
-                distances[j] = np.asarray(d, np.float64)
+                d, idx = knn.knn(qs[j:j + 1], 3)
+                answers[j] = np.asarray(idx).reshape(3)
+                distances[j] = np.asarray(d, np.float64).reshape(3)
         _clients(query)
+    assert sorted(answers) == list(range(32))
+    knn_round = (pts, qs, (np.stack([distances[j] for j in range(32)]),
+                           np.stack([answers[j] for j in range(32)])))
 
     frames = {}
     broker = StreamingBroker(port=0).start()
@@ -570,7 +578,16 @@ def _serve_rounds(net, held):
         _clients(round_trip)
     finally:
         broker.close()
-    return (streams, answers, frames), distances
+    return (streams, frames), knn_round
+
+
+def _exact_knn(pts, qs, k):
+    """The exact k nearest points of each query in f64: (euclidean
+    distances, ids), ties to the lower id."""
+    d2 = ((qs.astype(np.float64)[:, None, :]
+           - pts.astype(np.float64)[None, :, :]) ** 2).sum(-1)
+    ids = np.argsort(d2, axis=1, kind="stable")[:, :k]
+    return np.sqrt(np.take_along_axis(d2, ids, axis=1)), ids
 
 
 def test_lock_checked_serve_equals_plain_serve(lm):
@@ -594,11 +611,17 @@ def test_lock_checked_serve_equals_plain_serve(lm):
     assert loops and all(lp.crashed is None and lp.restarts == 0
                          for lp in loops)
     assert checked == plain
-    for j in plain_d:
-        np.testing.assert_allclose(checked_d[j], plain_d[j], rtol=1e-5)
-    streams, answers, frames = checked
-    assert len(streams) == 8 and len(answers) == 32
-    assert all(a[0][0] == j for j, a in answers.items())
+    # k-NN answers by the tie rule: the checked run against the plain one,
+    # and each against the exact f64 neighbours of the 256 points
+    pts, qs, got = checked_d
+    want = plain_d[2]
+    assert_knn_close(got, want, pts, qs, "euclidean")
+    exact = _exact_knn(pts, qs, 3)
+    for answers in (got, want):
+        assert_knn_close(answers, exact, pts, qs, "euclidean")
+    streams, frames = checked
+    assert len(streams) == 8 and got[1].shape == (32, 3)
+    assert (got[1][:, 0] == np.arange(32)).all()
     assert frames == {f"t{i}": [[[float(10 * i + k)] * 3] * 2
                                 for k in range(4)]
                       for i in range(CLIENTS)}

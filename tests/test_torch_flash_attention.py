@@ -130,10 +130,11 @@ def test_supports():
     assert fa.supports((2, 8, 128, 32), mask=None)
     assert fa.supports((2, 8, 100, 64), mask=torch.ones(2, 100),
                        dtype=torch.bfloat16)
-    # head dims: 4..128, multiples of 4 (padded to the next kernel width)
-    for d in (4, 12, 48, 80, 96, 120):
+    # head dims: 1..256 (padded to the next kernel width where d has no
+    # instantiation of its own); over 256 refused (ROADMAP B3 (c))
+    for d in (1, 2, 4, 6, 12, 48, 50, 80, 96, 120, 132, 160, 200, 256):
         assert fa.supports((2, 8, 128, d), mask=None)
-    for d in (2, 6, 50, 132, 256):
+    for d in (0, 257, 320, 512):
         assert not fa.supports((2, 8, 128, d), mask=None)
     for d in (8, 16):
         assert fa.supports((2, 8, 128, d), mask=None)

@@ -303,16 +303,23 @@ def test_flash_backward_on_cuda_tensors_raises_without_cuda(no_cuda,
             fa.flash_attention_backward(q, q, q, q, lse, q, causal=True)
 
 
-@pytest.mark.parametrize("case", ["d132", "d6", "f64"])
-def test_flash_backward_refuses_unsupported_cases(case, monkeypatch):
+@pytest.mark.parametrize("case", ["d132", "d6", "d257", "d512", "f64"])
+def test_flash_backward_refuses_unsupported_cases(case, no_cuda,
+                                                  monkeypatch):
     """The backward wrapper checks the case before any build: a CUDA
-    request the kernels cannot take raises instead of taking the plain
-    version."""
+    request the kernels cannot take (a head dim over 256, f64) raises
+    instead of taking the plain version, and one they take (d = 132 and 6,
+    since ROADMAP B3 (a) and (b)) goes to the kernels' build, which raises
+    on a host without CUDA."""
     monkeypatch.setattr(fa, "flash_attention_backward_plain", _no_plain)
-    d, dtype, err, match = {"d132": (132, torch.float32, ValueError,
-                                     "head dims"),
-                            "d6": (6, torch.float32, ValueError,
-                                   "head dims"),
+    d, dtype, err, match = {"d132": (132, torch.float32, RuntimeError,
+                                     "CUDA device"),
+                            "d6": (6, torch.float32, RuntimeError,
+                                   "CUDA device"),
+                            "d257": (257, torch.float32, ValueError,
+                                     "head dims 1..256"),
+                            "d512": (512, torch.float32, ValueError,
+                                     "head dims 1..256"),
                             "f64": (32, torch.float64, TypeError,
                                     "f32, bf16 or f16")}[case]
     with FakeTensorMode():
@@ -548,8 +555,8 @@ def test_cuda_wrappers_refuse_unsupported_shapes():
     """Shape and type checks come before any build: a CUDA request the
     kernel cannot take raises instead of taking the plain version."""
     with FakeTensorMode():
-        q = torch.empty(1, 2, 16, 132, device="cuda")          # d = 132
-        with pytest.raises(ValueError, match="head dims"):
+        q = torch.empty(1, 2, 16, 257, device="cuda")          # d = 257
+        with pytest.raises(ValueError, match="head dims 1..256"):
             fa.flash_attention_forward(q, q, q)
         q64 = torch.empty(1, 2, 16, 32, device="cuda", dtype=torch.float64)
         with pytest.raises(TypeError, match="f32, bf16 or f16"):
@@ -585,21 +592,22 @@ def test_16bit_paged_query_on_cuda_reaches_the_kernel(dtype, no_cuda,
 
 
 @pytest.mark.parametrize("helper", ["auto", "pallas"])
-@pytest.mark.parametrize("case", ["d48", "d132", "f16", "mask3d"])
+@pytest.mark.parametrize("case", ["d48", "d132", "d257", "f16", "mask3d"])
 def test_attention_layer_on_cuda_never_takes_the_plain_path(
         case, helper, no_cuda, monkeypatch):
     """The layer's kernel-routed helpers hand CUDA tensors to K1's wrapper
-    whatever their shape or type, so a case the kernel cannot take (d=132,
+    whatever their shape or type, so a case the kernel cannot take (d=257,
     a 3-D mask) raises instead of computing ``scaled_dot_attention`` on the
-    card, and one it takes (d=48 padded, f16) goes to the kernel's build,
-    which raises on a host without CUDA."""
+    card, and one it takes (d=48 and d=132 padded, f16) goes to the
+    kernel's build, which raises on a host without CUDA."""
     monkeypatch.setattr(patt, "scaled_dot_attention", _no_plain)
     monkeypatch.setattr(fa, "flash_attention_plain", _no_plain)
     refused = dict(expected_exception=(ValueError, TypeError))
     built = dict(expected_exception=RuntimeError, match="CUDA device")
     d, dtype, mask_shape, raises = {
         "d48": (48, torch.float32, (1, 16), built),
-        "d132": (132, torch.float32, (1, 16), refused),
+        "d132": (132, torch.float32, (1, 16), built),
+        "d257": (257, torch.float32, (1, 16), refused),
         "f16": (32, torch.float16, (1, 16), built),
         "mask3d": (32, torch.float32, (1, 2, 16), refused)}[case]
     layer = patt.SelfAttentionLayer(n_in=2 * d, n_out=2 * d, n_heads=2,
@@ -644,21 +652,31 @@ def test_flash_case_table_takes_small_head_dims_and_f16(d, dtype, no_cuda,
             fa.flash_attention_backward(q, q, q, q, lse, q, causal=True)
 
 
-@pytest.mark.parametrize("d", [2, 6, 132, 256])
-def test_case_tables_refuse_other_head_dims(d):
-    """Head dims under 4, over 128 or not a multiple of 4 raise on CUDA
-    tensors in both case tables before any build (what is left of ROADMAP
-    B3)."""
-    assert not fa.supports((2, 2, 16, d), mask=None)
+@pytest.mark.parametrize("d", [2, 6, 132, 256, 257, 512])
+def test_case_tables_refuse_other_head_dims(d, no_cuda, monkeypatch):
+    """Head dims over 256 (what is left of ROADMAP B3, (c)) raise on CUDA
+    tensors in both case tables before any build, naming the rule; every
+    head dim 1..256 (2, 6, 132, 256: B3 (a) and (b)) passes both and goes
+    to the kernels' build, which raises on a host without CUDA, never to
+    the plain versions."""
+    monkeypatch.setattr(fa, "flash_attention_plain", _no_plain)
+    monkeypatch.setattr(ppa, "paged_attention_plain", _no_plain)
+    taken = d <= 256
+    assert fa.supports((2, 2, 16, d), mask=None) == taken
+    raises = (dict(expected_exception=RuntimeError, match="CUDA device")
+              if taken else dict(expected_exception=ValueError,
+                                 match="head dims 1..256"))
     with FakeTensorMode():
         q = torch.empty(2, 2, 16, d, device="cuda")
-        with pytest.raises(ValueError, match="head dims"):
-            fa._cuda_case(q, q, q, None)
+        if taken:
+            assert fa._cuda_case(q, q, q, None) is None
+        with pytest.raises(**raises):
+            fa.flash_attention_forward(q, q, q, causal=True)
         qp = torch.empty(2, 2, 1, d, device="cuda")
         pool = torch.empty(5, 2, 8, d, device="cuda")
         bt = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
         pos = torch.zeros(2, dtype=torch.int32, device="cuda")
-        with pytest.raises(ValueError, match="head dims"):
+        with pytest.raises(**raises):
             ppa.paged_attention(qp, pool, pool, bt, pos)
 
 
